@@ -1,0 +1,233 @@
+"""Scene geometry and ray intersection (render/geometry.py counterpart).
+
+Two phases as in the reference: ``ray_intersect_preliminary`` finds the
+closest hit (triangle meshes through the tile sweep of ops/intersect.py,
+rectangles by a brute-force test) and ``compute_surface_interaction``
+recomputes the hit from primitive data.
+
+Accel policy of the port: a non-instanced mesh goes through the flat tile
+sweep for every mesh size (the port has no brute-force mesh path). Scenes
+that need the reference's BVH kernels (instances, or more than
+MAX_SWEEP_TILES tiles) raise NotImplementedError until a later slice
+ports those kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.frame import Frame
+from ..core.math import INVALID_T, cross, normalize, sqr
+from ..core.ray import Ray
+from ..core.transform import Transform
+from ..ops.intersect import intersect_tiles
+from .records import PreliminaryIntersection, SurfaceInteraction
+
+FAMILY_MESH = 0
+FAMILY_RECT = 2
+
+# above this tile count the reference switches to its BVH kernels
+MAX_SWEEP_TILES = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Mesh and rectangle pools plus the triangle-tile accelerator."""
+
+    vertices: torch.Tensor      # (V, 3)
+    normals: torch.Tensor       # (V, 3) zero rows -> face normal
+    uvs: torch.Tensor           # (V, 2)
+    faces: torch.Tensor         # (F, 3) i32
+    face_shape: torch.Tensor    # (F,) i32 global shape index
+    rect_to_world: Transform    # (R, 4, 4) canonical [-1,1]^2 in z=0
+    rect_shape: torch.Tensor    # (R,) i32
+    shape_family: torch.Tensor  # (n_shapes,) i32
+    tiles_v0: torch.Tensor      # (T, K, 3)
+    tiles_e1: torch.Tensor      # (T, K, 3)
+    tiles_e2: torch.Tensor      # (T, K, 3)
+    tiles_prim: torch.Tensor    # (T, K) i32 face index (-1 padding)
+    tiles_shape: torch.Tensor   # (T, K) i32
+    tiles_lo: torch.Tensor      # (T, 3)
+    tiles_hi: torch.Tensor      # (T, 3)
+
+    def __post_init__(self):
+        check_sweep_size(self.tiles_v0.shape[0])
+
+    def tiles(self):
+        return {"v0": self.tiles_v0, "e1": self.tiles_e1,
+                "e2": self.tiles_e2, "prim": self.tiles_prim,
+                "shape": self.tiles_shape, "lo": self.tiles_lo,
+                "hi": self.tiles_hi}
+
+
+def check_sweep_size(n_tiles):
+    if n_tiles > MAX_SWEEP_TILES:
+        raise NotImplementedError(
+            f"{n_tiles} triangle tiles: meshes above {MAX_SWEEP_TILES} "
+            "tiles need the tile-BVH kernel, which a later slice of the "
+            "port brings")
+
+
+def moller_trumbore(o, d, v0, v1, v2):
+    """Moller-Trumbore; returns (t, u, v, valid) without t bounds."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = cross(d, e2)
+    det = torch.sum(e1 * pvec, dim=-1)
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    tvec = o - v0
+    u = torch.sum(tvec * pvec, dim=-1) * inv_det
+    qvec = cross(tvec, e1)
+    v = torch.sum(d * qvec, dim=-1) * inv_det
+    t = torch.sum(e2 * qvec, dim=-1) * inv_det
+    valid = (torch.abs(det) >= 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1.0)
+    return t, u, v, valid
+
+
+def _plane_hit_local(to_world: Transform, ray: Ray):
+    """Rays in each rectangle's frame hitting z=0: (t, p_local, ok) of
+    shapes (N, R), (N, R, 3), (N, R)."""
+    inv = to_world.inverse()
+    o = inv.transform_affine_point(ray.o[:, None, :])
+    d = inv.transform_vector(ray.d[:, None, :])
+    dz = torch.where(torch.abs(d[..., 2]) < 1e-12, 1e-12, d[..., 2])
+    t = -o[..., 2] / dz
+    p = o + d * t[..., None]
+    return t, p, torch.abs(d[..., 2]) >= 1e-12
+
+
+def _intersect_rects(geo: Geometry, ray: Ray):
+    t, p, ok = _plane_hit_local(geo.rect_to_world, ray)
+    inside = (torch.abs(p[..., 0]) <= 1.0) & (torch.abs(p[..., 1]) <= 1.0)
+    valid = (ok & inside & (t >= ray.mint[:, None])
+             & (t <= ray.maxt[:, None]))
+    t = torch.where(valid, t, float("inf"))
+    tb, best = torch.min(t, dim=-1)
+    pb = torch.gather(p[..., :2], 1,
+                      best[:, None, None].expand(-1, 1, 2))[:, 0]
+    return (tb, 0.5 * (pb + 1.0), best.to(torch.int32),
+            geo.rect_shape[best])
+
+
+def ray_intersect_preliminary(geo: Geometry, ray: Ray,
+                              active=None) -> PreliminaryIntersection:
+    """Closest hit over meshes and rectangles. ``active`` (optional bool
+    (N,)) marks the lanes whose hits are wanted; the tile sweep sees the
+    others as dead rays (maxt = mint), which it culls at once."""
+    n = ray.o.shape[0]
+    dev = ray.o.device
+    t = torch.full((n,), float("inf"), device=dev)
+    uv = torch.zeros(n, 2, device=dev)
+    prim = torch.zeros(n, dtype=torch.int32, device=dev)
+    shape = torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    def merge(tf, uvf, primf, shapef):
+        nonlocal t, uv, prim, shape
+        closer = tf < t
+        t = torch.where(closer, tf, t)
+        uv = torch.where(closer[:, None], uvf, uv)
+        prim = torch.where(closer, primf, prim)
+        shape = torch.where(closer, shapef, shape)
+
+    if geo.faces.shape[0] > 0:
+        sweep_ray = ray
+        if active is not None:
+            sweep_ray = dataclasses.replace(
+                ray, maxt=torch.where(active, ray.maxt, ray.mint))
+        merge(*intersect_tiles(geo.tiles(), sweep_ray))
+    if geo.rect_shape.shape[0] > 0:
+        merge(*_intersect_rects(geo, ray))
+    shape = torch.where(torch.isfinite(t), shape, -1)
+    return PreliminaryIntersection(t=t, prim_uv=uv, prim_index=prim,
+                                   shape_index=shape)
+
+
+def ray_test(geo: Geometry, ray: Ray, active=None):
+    """Occlusion query: any hit within [mint, maxt)."""
+    return ray_intersect_preliminary(geo, ray, active).is_valid
+
+
+def compute_surface_interaction(geo: Geometry, ray: Ray,
+                                pi: PreliminaryIntersection):
+    """Recompute the hit per family of the hit shape (mesh.cpp and
+    rectangle.cpp formulas)."""
+    n_lanes = ray.o.shape[0]
+    dev = ray.o.device
+    valid = pi.is_valid
+    family = geo.shape_family[torch.clamp(pi.shape_index, min=0)]
+    pit = torch.where(valid, torch.clamp(pi.t, max=INVALID_T), 0.0)
+    t = torch.where(valid, pit, INVALID_T)
+    p = ray.at(pit)
+    axis = lambda i: torch.nn.functional.one_hot(
+        torch.full((n_lanes,), i, device=dev), 3).to(torch.float32)
+    n = axis(2)
+    sh_n = n
+    uv = pi.prim_uv
+    dp_du = axis(0)
+    dp_dv = axis(1)
+
+    def sel(mask, new, old):
+        if new.ndim > mask.ndim:
+            mask = mask[..., None]
+        return torch.where(mask, new, old)
+
+    F = geo.faces.shape[0]
+    if F > 0:
+        m = (family == FAMILY_MESH) & valid
+        f = geo.faces[torch.clamp(pi.prim_index, 0, F - 1)].long()
+        v0, v1, v2 = (geo.vertices[f[:, i]] for i in range(3))
+        tm, u, v, _ok = moller_trumbore(ray.o, ray.d, v0, v1, v2)
+        w = 1.0 - u - v
+        pm = v0 * w[:, None] + v1 * u[:, None] + v2 * v[:, None]
+        ng = normalize(cross(v1 - v0, v2 - v0))
+        vn0, vn1, vn2 = (geo.normals[f[:, i]] for i in range(3))
+        has_vn = torch.sum(sqr(vn0), dim=-1) > 1e-12
+        vn_interp = vn0 * w[:, None] + vn1 * u[:, None] + vn2 * v[:, None]
+        ns = normalize(torch.where(has_vn[:, None], vn_interp, ng))
+        ns = sel(has_vn, ns, ng)
+        uv0, uv1, uv2 = (geo.uvs[f[:, i]] for i in range(3))
+        uvm = uv0 * w[:, None] + uv1 * u[:, None] + uv2 * v[:, None]
+        t = sel(m, tm, t)
+        p = sel(m, pm, p)
+        n = sel(m, ng, n)
+        sh_n = sel(m, ns, sh_n)
+        uv = sel(m, uvm, uv)
+        dp_du = sel(m, v1 - v0, dp_du)
+        dp_dv = sel(m, v2 - v0, dp_dv)
+
+    R = geo.rect_shape.shape[0]
+    if R > 0:
+        m = (family == FAMILY_RECT) & valid
+        r = torch.clamp(pi.prim_index, 0, R - 1).long()
+        tw = Transform(m=geo.rect_to_world.m[r],
+                       inv_t=geo.rect_to_world.inv_t[r])
+        inv = tw.inverse()
+        o_l = inv.transform_affine_point(ray.o)
+        d_l = inv.transform_vector(ray.d)
+        dz = torch.where(torch.abs(d_l[:, 2]) < 1e-12, 1e-12, d_l[:, 2])
+        tr = -o_l[:, 2] / dz
+        p_l = o_l + d_l * tr[:, None]
+        pr = tw.transform_affine_point(
+            torch.cat([p_l[:, :2], torch.zeros_like(p_l[:, :1])], dim=-1))
+        nr = normalize(tw.transform_normal(axis(2)))
+        t = sel(m, tr, t)
+        p = sel(m, pr, p)
+        n = sel(m, nr, n)
+        sh_n = sel(m, nr, sh_n)
+        uv = sel(m, 0.5 * (p_l[:, :2] + 1.0), uv)
+        dp_du = sel(m, tw.transform_vector(2.0 * axis(0)), dp_du)
+        dp_dv = sel(m, tw.transform_vector(2.0 * axis(1)), dp_dv)
+
+    sh_frame = Frame.from_normal(sh_n)
+    return SurfaceInteraction(
+        t=t, p=p, n=n, sh_frame=sh_frame, uv=uv, prim_uv=pi.prim_uv,
+        dp_du=dp_du, dp_dv=dp_dv, wi=sh_frame.to_local(-ray.d),
+        time=ray.time, prim_index=pi.prim_index,
+        shape_index=pi.shape_index)
+
+
+def ray_intersect(geo: Geometry, ray: Ray, active=None):
+    return compute_surface_interaction(
+        geo, ray, ray_intersect_preliminary(geo, ray, active))

@@ -1,0 +1,114 @@
+"""Interaction and sampling records (render/records.py counterpart).
+
+SoA dataclasses over the wavefront. The two-phase hit is kept: the
+accelerator fills a ``PreliminaryIntersection``; ``SurfaceInteraction`` is
+recomputed from primitive data by ``geometry.compute_surface_interaction``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.frame import Frame
+from ..core.math import INVALID_T, RayEpsilon, ShadowEpsilon, dot, normalize
+from ..core.ray import Ray
+
+
+def merge(new, old, mask):
+    """Per lane ``new`` where ``mask`` else ``old``, over every tensor field
+    of two records of the same type (nested dataclasses included)."""
+    if dataclasses.is_dataclass(new):
+        return type(new)(**{
+            f.name: merge(getattr(new, f.name), getattr(old, f.name), mask)
+            for f in dataclasses.fields(new)})
+    m = mask.reshape(mask.shape + (1,) * (new.ndim - mask.ndim))
+    return torch.where(m, new, old)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreliminaryIntersection:
+    t: torch.Tensor            # (N,) inf on a miss
+    prim_uv: torch.Tensor      # (N, 2)
+    prim_index: torch.Tensor   # (N,) i32 index into the family's pool
+    shape_index: torch.Tensor  # (N,) i32, -1 on a miss
+
+    @property
+    def is_valid(self):
+        return torch.isfinite(self.t) & (self.shape_index >= 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfaceInteraction:
+    t: torch.Tensor
+    p: torch.Tensor            # (N, 3)
+    n: torch.Tensor            # (N, 3) geometric normal
+    sh_frame: Frame            # shading frame
+    uv: torch.Tensor           # (N, 2)
+    prim_uv: torch.Tensor      # (N, 2)
+    dp_du: torch.Tensor        # (N, 3)
+    dp_dv: torch.Tensor        # (N, 3)
+    wi: torch.Tensor           # (N, 3) incident direction, local frame
+    time: torch.Tensor         # (N,)
+    prim_index: torch.Tensor   # (N,) i32
+    shape_index: torch.Tensor  # (N,) i32, -1 if invalid
+
+    @property
+    def is_valid(self):
+        return self.shape_index >= 0
+
+    def to_world(self, v):
+        return self.sh_frame.to_world(v)
+
+    def to_local(self, v):
+        return self.sh_frame.to_local(v)
+
+    def _offset_origin(self, d):
+        scale = 1.0 + torch.amax(torch.abs(self.p), dim=-1)
+        sgn = torch.where(dot(self.n, d) >= 0.0, 1.0, -1.0)
+        return self.p + (RayEpsilon * scale * sgn)[..., None] * self.n
+
+    def spawn_ray(self, d):
+        """Ray leaving along d, offset along the geometric normal."""
+        o = self._offset_origin(d)
+        return Ray(o=o, d=d, mint=torch.zeros_like(self.t),
+                   maxt=torch.full_like(self.t, INVALID_T), time=self.time)
+
+    def spawn_ray_to(self, target):
+        """Shadow ray toward ``target`` with an epsilon gap at both ends;
+        the distance is taken from the offset origin."""
+        o = self._offset_origin(normalize(target - self.p))
+        delta = target - o
+        dist = torch.sqrt(torch.clamp(torch.sum(delta * delta, dim=-1),
+                                      min=1e-30))
+        d = delta / dist[..., None]
+        return Ray(o=o, d=d, mint=torch.zeros_like(dist),
+                   maxt=dist * (1.0 - ShadowEpsilon), time=self.time), dist
+
+
+def invalid_si(n, device):
+    z3 = torch.zeros(n, 3, device=device)
+    unit = lambda i: torch.nn.functional.one_hot(
+        torch.full((n,), i, device=device), 3).to(torch.float32)
+    return SurfaceInteraction(
+        t=torch.full((n,), INVALID_T, device=device), p=z3, n=unit(2),
+        sh_frame=Frame(s=unit(0), t=unit(1), n=unit(2)),
+        uv=torch.zeros(n, 2, device=device),
+        prim_uv=torch.zeros(n, 2, device=device), dp_du=z3, dp_dv=z3,
+        wi=unit(2), time=torch.zeros(n, device=device),
+        prim_index=torch.zeros(n, dtype=torch.int32, device=device),
+        shape_index=torch.full((n,), -1, dtype=torch.int32, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectionSample:
+    """A position sample seen from a reference point (solid-angle pdf)."""
+
+    p: torch.Tensor
+    n: torch.Tensor
+    d: torch.Tensor            # (N, 3) reference -> target
+    dist: torch.Tensor
+    pdf: torch.Tensor
+    delta: torch.Tensor        # bool
+    emitter_index: torch.Tensor

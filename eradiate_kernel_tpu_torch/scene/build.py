@@ -1,0 +1,311 @@
+"""Dict-based scene construction: ``load_dict`` (scene/build.py counterpart).
+
+Construction is host-side numpy in the reference's order (so every
+registry index and array equals the reference's); ``finalize`` returns the
+scene's arrays by dotted name plus its config, and ``from_numpy`` moves
+them onto the device in one step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.transform import Transform
+from ..core.types import Variant, resolve_device
+from ..ops.accel import TILE_K, pack_tiles
+from ..render.geometry import FAMILY_MESH, FAMILY_RECT, check_sweep_size
+from .build_emitters import _build_bsdf, _build_scene_emitter
+from .build_sensors import _SENSOR_TYPES, _build_sensor
+from .build_shapes import _SHAPE_TYPES, _build_shape
+from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
+                    from_numpy)
+
+_BSDF_TYPES = ("diffuse", "rpv", "twosided")
+
+
+class SceneBuilder:
+    def __init__(self, variant: Variant):
+        self.variant = variant
+        self.nc = variant.n_channels
+        self.spectra = {}       # kind -> list of row dicts
+        self.textures = {}
+        self.bsdf_rows = {}
+        self.emitter_rows = {}
+        self.spec_table = []    # (kind, slot)
+        self.tex_table = []
+        self.bsdf_table = []
+        self.bsdf_flag_list = []
+        self.emitter_table = []
+        self.named = {}
+        self.vertices = []
+        self.normals = []
+        self.uvs = []
+        self.faces = []
+        self.face_shape = []
+        self.rects = []
+        self.shape_rows = []
+
+    # --- registries ------------------------------------------------------------
+    def _add(self, rows_dict, table, kind, row):
+        rows = rows_dict.setdefault(kind, [])
+        table.append((kind, len(rows)))
+        rows.append(row)
+        return len(table) - 1
+
+    def add_bsdf_row(self, kind, row, flags):
+        self.bsdf_flag_list.append(flags)
+        return self._add(self.bsdf_rows, self.bsdf_table, kind, row)
+
+    def add_emitter_row(self, kind, row):
+        return self._add(self.emitter_rows, self.emitter_table, kind, row)
+
+    def spectrum(self, value):
+        """A python value / plugin dict -> spectrum index; the rgb variant
+        bakes every spectrum into an (3,) constant."""
+        def baked(rgb):
+            return self._add(self.spectra, self.spec_table, "baked",
+                             {"value": np.asarray(rgb, np.float32)})
+
+        if isinstance(value, (int, float)):
+            return baked([value] * 3)
+        if isinstance(value, (list, tuple, np.ndarray)):
+            return baked(np.asarray(value, np.float32))
+        t = value["type"]
+        if t in ("rgb", "srgb"):
+            return self.spectrum(np.asarray(value["value"], np.float32))
+        if t == "uniform":
+            return baked([float(value.get("value", 1.0))] * 3)
+        raise NotImplementedError(
+            f"spectrum {t!r}: this slice of the port carries numbers, rgb "
+            "triples, 'rgb', 'srgb' and 'uniform'")
+
+    def texture(self, value):
+        if isinstance(value, dict) and value.get("type") in (
+                "mesh_attribute", "checkerboard", "bitmap"):
+            raise NotImplementedError(
+                f"texture {value['type']!r}: this slice of the port carries "
+                "constant textures only")
+        spec = self.spectrum(value)
+        return self._add(self.textures, self.tex_table, "constant",
+                         {"spec": np.int32(spec)})
+
+    def twosided_flag(self, props):
+        return np.bool_(props.get("_twosided", False))
+
+    # --- geometry ----------------------------------------------------------------
+    def _new_shape(self, family, prim_slot):
+        self.shape_rows.append(dict(family=family, prim_slot=prim_slot,
+                                    bsdf=-1, emitter=-1))
+        return len(self.shape_rows) - 1
+
+    def add_mesh(self, verts, faces, normals=None, uvs=None):
+        verts = np.asarray(verts, np.float32)
+        faces = np.asarray(faces, np.int32)
+        v_off = sum(len(v) for v in self.vertices)
+        self.vertices.append(verts)
+        self.normals.append(np.zeros_like(verts) if normals is None
+                            else np.asarray(normals, np.float32))
+        self.uvs.append(np.zeros((len(verts), 2), np.float32) if uvs is None
+                        else np.asarray(uvs, np.float32))
+        self.faces.append(faces + v_off)
+        shape_idx = self._new_shape(FAMILY_MESH, 0)
+        self.face_shape.append(np.full(len(faces), shape_idx, np.int32))
+        return shape_idx
+
+    def add_rectangle(self, to_world: Transform):
+        self.rects.append(to_world)
+        return self._new_shape(FAMILY_RECT, len(self.rects) - 1)
+
+    # --- finalize ------------------------------------------------------------------
+    def finalize(self, sensor_kind, sensor_params, film_cfg, integrator_cfg,
+                 spp):
+        """-> (arrays by dotted name, SceneConfig)."""
+        if not self.spec_table:
+            self._add(self.spectra, self.spec_table, "baked",
+                      {"value": np.full(self.nc, 0.5, np.float32)})
+        if not self.tex_table:
+            self._add(self.textures, self.tex_table, "constant",
+                      {"spec": np.int32(0)})
+        if not self.bsdf_rows:
+            self.bsdf_rows["diffuse"] = [{"reflectance": np.int32(0),
+                                          "twosided": np.bool_(False)}]
+            self.bsdf_table.append(("diffuse", 0))
+            self.bsdf_flag_list.append(0)
+        if not self.shape_rows:
+            # pad row so per-shape gathers are well formed; family -1
+            # matches no intersection family
+            self.shape_rows.append(dict(family=-1, prim_slot=0, bsdf=0,
+                                        emitter=-1))
+        arrays = {}
+
+        def registry(name, rows_dict, table, kind_name, slot_name):
+            kinds = list(rows_dict)
+            for kind, rows in rows_dict.items():
+                for key in rows[0]:
+                    arrays[f"{name}.{kind}.{key}"] = np.stack(
+                        [np.asarray(r[key]) for r in rows])
+            arrays[kind_name] = np.asarray([kinds.index(k) for k, _ in table],
+                                           np.int32).reshape(-1)
+            arrays[slot_name] = np.asarray([s for _, s in table],
+                                           np.int32).reshape(-1)
+            return tuple(kinds)
+
+        bsdf_kinds = registry("bsdfs", self.bsdf_rows, self.bsdf_table,
+                              "bsdf_kind", "bsdf_slot")
+        emitter_kinds = registry("emitters", self.emitter_rows,
+                                 self.emitter_table, "emitter_kind",
+                                 "emitter_slot")
+        tex_kinds = registry("textures", self.textures, self.tex_table,
+                             "tex_kind", "tex_slot")
+        spec_kinds = registry("spectra", self.spectra, self.spec_table,
+                              "spec_kind", "spec_slot")
+        arrays["bsdf_flags"] = np.asarray(self.bsdf_flag_list, np.int32)
+        shape_col = lambda key: np.asarray([r[key] for r in self.shape_rows],
+                                           np.int32)
+        arrays["shape_bsdf"] = shape_col("bsdf")
+        arrays["shape_emitter"] = shape_col("emitter")
+
+        cat = lambda parts, shape, dtype: (np.concatenate(parts) if parts
+                                           else np.zeros(shape, dtype))
+        V = cat(self.vertices, (0, 3), np.float32)
+        F = cat(self.faces, (0, 3), np.int32)
+        FS = cat(self.face_shape, (0,), np.int32)
+        geo = {"vertices": V,
+               "normals": cat(self.normals, (0, 3), np.float32),
+               "uvs": cat(self.uvs, (0, 2), np.float32),
+               "faces": F, "face_shape": FS,
+               "rect_shape": np.asarray(
+                   [i for i, r in enumerate(self.shape_rows)
+                    if r["family"] == FAMILY_RECT], np.int32),
+               "shape_family": shape_col("family")}
+        if self.rects:
+            geo["rect_to_world.m"] = np.stack([t.m for t in self.rects])
+            geo["rect_to_world.inv_t"] = np.stack(
+                [t.inv_t for t in self.rects])
+        else:
+            geo["rect_to_world.m"] = np.zeros((0, 4, 4), np.float32)
+            geo["rect_to_world.inv_t"] = np.zeros((0, 4, 4), np.float32)
+        if len(F) > 0:
+            tiles = pack_tiles(V, F, FS)
+            check_sweep_size(len(tiles["lo"]))
+        else:
+            z = lambda *s: np.zeros(s, np.float32)
+            zi = lambda *s: np.zeros(s, np.int32)
+            tiles = {"v0": z(0, TILE_K, 3), "e1": z(0, TILE_K, 3),
+                     "e2": z(0, TILE_K, 3), "prim": zi(0, TILE_K),
+                     "shape": zi(0, TILE_K), "lo": z(0, 3), "hi": z(0, 3)}
+        geo.update({f"tiles_{k}": v for k, v in tiles.items()})
+        arrays.update({f"geo.{k}": v for k, v in geo.items()})
+
+        pts = [V] if len(V) else []
+        for t in self.rects:
+            corners = np.array([[x, y, 0, 1] for x in (-1, 1)
+                                for y in (-1, 1)], np.float32) @ t.m.T
+            pts.append(corners[:, :3])
+        center, radius = bounding_sphere(
+            np.concatenate(pts) if pts else np.zeros((0, 3), np.float32))
+        arrays["bsphere_center"] = np.asarray(center)
+        arrays["bsphere_radius"] = np.float32(max(radius, 1e-3))
+        arrays["sensor.to_world.m"] = sensor_params["to_world"].m
+        arrays["sensor.to_world.inv_t"] = sensor_params["to_world"].inv_t
+        arrays["sensor.tan_half_fov"] = sensor_params["tan_half_fov"]
+
+        cfg = SceneConfig(
+            variant=self.variant,
+            bsdf_kinds=bsdf_kinds, emitter_kinds=emitter_kinds,
+            texture_kinds=tex_kinds, spectrum_kinds=spec_kinds,
+            sensor_kind=sensor_kind,
+            n_emitters=len(self.emitter_table), env_emitter=-1,
+            film_width=film_cfg["width"], film_height=film_cfg["height"],
+            rfilter=film_cfg.get("rfilter", "gaussian"),
+            rfilter_params=tuple(sorted(
+                film_cfg.get("rfilter_params", {}).items())),
+            integrator=integrator_cfg, spp=spp,
+            sampler_kind=getattr(self, "sampler_kind", "independent"),
+            pixel_format=film_cfg.get("pixel_format", "rgb"),
+            crop_offset=tuple(film_cfg.get("crop_offset", (0, 0))),
+            crop_size=tuple(film_cfg.get("crop_size", ())))
+        return arrays, cfg
+
+
+def load_dict(d: dict, variant: Variant | None = None,
+              device=None) -> Scene:
+    """Build a Scene from a Mitsuba-style dict onto ``device`` (cuda by
+    default; pass device='cpu' for the CPU). Types outside this slice of
+    the port raise."""
+    if d.get("type") != "scene":
+        raise ValueError("top-level dict must have type='scene'")
+    device = resolve_device(device)
+    b = SceneBuilder(variant or Variant("rgb"))
+    integrator_cfg = IntegratorConfig()
+    sensor_kind = "perspective"
+    pending_sensor = None
+    film_cfg = {"width": 64, "height": 64, "rfilter": "gaussian"}
+    spp = 16
+
+    # pass 1: named top-level bsdfs (so refs resolve)
+    for key, val in d.items():
+        if isinstance(val, dict) and val.get("type") in _BSDF_TYPES:
+            b.named[key] = ("bsdf", _build_bsdf(b, val))
+
+    for key, val in d.items():
+        if key == "type" or not isinstance(val, dict):
+            continue
+        t = val.get("type")
+        if t in _SHAPE_TYPES:
+            b.named[key] = ("shape", _build_shape(b, val))
+        elif t == "directional":
+            _build_scene_emitter(b, val)
+        elif t in _SENSOR_TYPES:
+            sensor_kind = t
+            pending_sensor = val
+            film = val.get("film", {})
+            if film.get("type", "hdrfilm") != "hdrfilm":
+                raise NotImplementedError(
+                    f"film {film['type']!r}: the port carries 'hdrfilm'")
+            film_cfg["width"] = int(film.get("width", 64))
+            film_cfg["height"] = int(film.get("height", 64))
+            film_cfg["pixel_format"] = str(film.get("pixel_format", "rgb"))
+            film_cfg["crop_offset"] = (int(film.get("crop_offset_x", 0)),
+                                       int(film.get("crop_offset_y", 0)))
+            if "crop_width" in film or "crop_height" in film:
+                film_cfg["crop_size"] = (
+                    int(film.get("crop_width", film_cfg["width"])),
+                    int(film.get("crop_height", film_cfg["height"])))
+            rf = film.get("rfilter", {"type": "gaussian"})
+            film_cfg["rfilter"] = rf.get("type", "gaussian")
+            film_cfg["rfilter_params"] = {k: v for k, v in rf.items()
+                                          if k != "type"}
+            sampler = val.get("sampler", {})
+            spp = int(sampler.get("sample_count", 16))
+            b.sampler_kind = sampler.get("type", "independent")
+        elif t == "path":
+            integrator_cfg = IntegratorConfig(
+                kind=t,
+                max_depth=int(val.get("max_depth", 8)),
+                rr_depth=int(val.get("rr_depth", 5)),
+                hide_emitters=bool(val.get("hide_emitters", False)),
+                extra=tuple(sorted(
+                    (k, v) for k, v in val.items()
+                    if k in ("max_iterations", "nee_steps",
+                             "nee_transmittance", "nee_quad_points",
+                             "ff_majorant"))))
+        elif t in ("instance", "shapegroup"):
+            raise NotImplementedError(
+                f"scene entry {key!r} of type {t!r}: instancing needs the "
+                "tile-BVH kernel, which a later slice of the port brings")
+        elif t not in _BSDF_TYPES:
+            raise NotImplementedError(
+                f"scene entry {key!r} of type {t!r}: not carried by this "
+                "slice of the port")
+
+    if pending_sensor is not None:
+        sensor_params = _build_sensor(b, sensor_kind, pending_sensor,
+                                      film_cfg)
+    else:
+        sensor_params = {
+            "to_world": Transform.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]),
+            "tan_half_fov": np.float32(np.tan(np.deg2rad(34.0) / 2))}
+    arrays, cfg = b.finalize(sensor_kind, sensor_params, film_cfg,
+                             integrator_cfg, spp)
+    return from_numpy(arrays, cfg, device)

@@ -1,0 +1,39 @@
+"""BSDF and emitter construction (scene/build_emitters.py counterpart)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _build_bsdf(builder, d, twosided=False):
+    from .. import bsdfs as bsdf_pkg
+
+    t = d["type"]
+    if t == "ref":
+        kind, idx = builder.named[d["id"]]
+        if kind != "bsdf":
+            raise ValueError(f"ref {d['id']!r} names a {kind}, not a bsdf")
+        return idx
+    if t == "twosided":
+        child = [v for v in d.values() if isinstance(v, dict) and "type" in v]
+        if len(child) != 1:
+            raise ValueError("twosided needs exactly one nested bsdf")
+        return _build_bsdf(builder, child[0], twosided=True)
+    if t not in bsdf_pkg.REGISTRY:
+        raise NotImplementedError(
+            f"bsdf {t!r}: this slice of the port carries "
+            f"{sorted(bsdf_pkg.REGISTRY)}")
+    mod = bsdf_pkg.REGISTRY[t]
+    props = dict(d)
+    props["_twosided"] = twosided
+    return builder.add_bsdf_row(t, mod.build(props, builder), mod.FLAGS)
+
+
+def _build_scene_emitter(builder, d):
+    t = d["type"]
+    if t != "directional":
+        raise NotImplementedError(
+            f"emitter {t!r}: this slice of the port carries 'directional'")
+    return builder.add_emitter_row("directional", {
+        "direction": np.asarray(d.get("direction", [0, 0, -1]), np.float32),
+        "irradiance": np.int32(builder.texture(d.get("irradiance", 1.0)))})

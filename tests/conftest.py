@@ -51,6 +51,10 @@ def pytest_configure(config):
         "distributed, subprocess x64) — `-m 'not slow'` is the <10-min "
         "smoke subset; CI should run the suite in two shards to keep any "
         "single CPU process under the XLA-compile memory ceiling")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's kernels); skips "
+        "without one — run on the card with `pytest -m cuda`")
 
 
 def pytest_collection_modifyitems(config, items):

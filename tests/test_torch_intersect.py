@@ -1,0 +1,170 @@
+"""The port's tile sweep against eradiate_kernel_tpu/ops/pallas_intersect.py.
+
+Host-side pieces (tile packing and the sweep's pre-passes) must be
+bit-equal. The plain sweep must match the Pallas kernel run in interpret
+mode: t within rtol 1e-6 (both evaluate the same float32 expression),
+widened only for ill-conditioned hits by the rounding bound of XLA's fused
+multiply-adds; the same miss set; and the same prim/shape wherever the hit
+t is unique.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bench_mesh import terrain
+from eradiate_kernel_tpu.core.ray import Ray as JRay
+from eradiate_kernel_tpu.ops import accel as jaccel
+from eradiate_kernel_tpu.ops import pallas_intersect as jpi
+from eradiate_kernel_tpu_torch.core.ray import Ray
+from eradiate_kernel_tpu_torch.ops import accel, intersect
+from eradiate_kernel_tpu_torch.render.geometry import moller_trumbore
+
+
+def soup(F=500, seed=0):
+    """Random triangle soup in [-1.15, 1.15]^3 (tests/test_accel.py:14)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1, 1, (F, 3))
+    verts = (centers[:, None, :]
+             + rng.uniform(-0.15, 0.15, (F, 3, 3))).reshape(-1, 3)
+    return verts.astype(np.float32), np.arange(3 * F, dtype=np.int32
+                                               ).reshape(F, 3)
+
+
+MESHES = {"soup": lambda: soup(500), "terrain": lambda: terrain(33)}
+
+
+def _rays(n, seed=2):
+    """Rays aimed at the mesh region, some axis-aligned, some with finite
+    maxt, plus a few dead (maxt <= mint) lanes."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    d = rng.uniform(-1, 1, (n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[:32] = (np.eye(3, dtype=np.float32)[rng.integers(0, 3, 32)]
+              * rng.choice([-1.0, 1.0], 32)[:, None])
+    mint = np.full(n, 1.8e-4, np.float32)
+    maxt = np.full(n, np.inf, np.float32)
+    maxt[n // 2:] = rng.uniform(0.5, 6.0, n - n // 2)
+    maxt[-8:] = 0.0
+    return o, d.astype(np.float32), mint, maxt
+
+
+def _t_condition(V, F, prim, o, d):
+    """Condition number of Moller-Trumbore's t on each ray's hit triangle
+    (float64): relative rounding error of t per unit rounding of its
+    inputs, |e1||e2| (|o - v0| / |e2.q| + 1 / |det|)."""
+    f = F[np.maximum(prim, 0)].astype(np.int64)
+    v0, v1, v2 = (V[f[:, i]].astype(np.float64) for i in range(3))
+    e1, e2 = v1 - v0, v2 - v0
+    tv = o - v0
+    q = np.cross(tv, e1)
+    det = np.sum(e1 * np.cross(d, e2), -1)
+    n1, n2 = np.linalg.norm(e1, axis=-1), np.linalg.norm(e2, axis=-1)
+    return n1 * n2 * (np.linalg.norm(tv, axis=-1)
+                      / np.abs(np.sum(e2 * q, -1)) + 1 / np.abs(det))
+
+
+def _tiles(name):
+    V, F = MESHES[name]()
+    return V, F, accel.pack_tiles(V, F, np.zeros(len(F), np.int32))
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_pack_tiles_bit_equal(name):
+    V, F, tiles = _tiles(name)
+    ref = jaccel.pack_tiles(V, None, F, np.zeros(len(F), np.int32))
+    assert set(tiles) == set(ref)
+    for k in ref:
+        assert tiles[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(tiles[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_prepasses_bit_equal(name):
+    V, F, tiles = _tiles(name)
+    n = 3 * intersect.RAY_BLOCK
+    o, d, mint, maxt = _rays(n)
+    rays = np.concatenate([o, d, mint[:, None], maxt[:, None]], 1)
+    lo, hi = tiles["lo"], tiles["hi"]
+    rlo, rhi = lo.min(0), hi.max(0)
+
+    capped = intersect._cap_maxt_to_root(torch.as_tensor(rays),
+                                         torch.as_tensor(rlo),
+                                         torch.as_tensor(rhi))
+    ref_capped = np.asarray(jpi._cap_maxt_to_root(jnp.asarray(rays),
+                                                  jnp.asarray(rlo),
+                                                  jnp.asarray(rhi)))
+    np.testing.assert_array_equal(capped.numpy(), ref_capped)
+
+    keys = intersect._coherence_keys(capped, torch.as_tensor(rlo),
+                                     torch.as_tensor(rhi))
+    ref_keys = np.asarray(jpi._coherence_keys(jnp.asarray(ref_capped),
+                                              jnp.asarray(rlo),
+                                              jnp.asarray(rhi)))
+    np.testing.assert_array_equal(keys.numpy(), ref_keys.astype(np.int64))
+
+    mask, tnear = intersect._block_tile_mask(capped, torch.as_tensor(lo),
+                                             torch.as_tensor(hi))
+    ref_mask, ref_tnear = jpi._block_tile_mask(
+        jnp.asarray(ref_capped), jnp.asarray(lo), jnp.asarray(hi),
+        return_tnear=True)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(ref_mask) == 1)
+    np.testing.assert_array_equal(tnear.numpy(), np.asarray(ref_tnear))
+    assert mask.any()
+
+
+@pytest.mark.parametrize("n", [600, 1100])   # 1100 >= SORT_MIN_RAYS: sorted
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_plain_sweep_matches_pallas(name, n):
+    V, F, tiles = _tiles(name)
+    o, d, mint, maxt = _rays(n, seed=n)
+    ray = Ray(o=torch.as_tensor(o), d=torch.as_tensor(d),
+              mint=torch.as_tensor(mint), maxt=torch.as_tensor(maxt),
+              time=torch.zeros(n))
+    t, uv, prim, shape, visited = intersect.intersect_tiles(
+        {k: torch.as_tensor(v) for k, v in tiles.items()}, ray,
+        return_visited=True)
+    jray = JRay.make(jnp.asarray(o), jnp.asarray(d), mint=jnp.asarray(mint),
+                     maxt=jnp.asarray(maxt), wavelengths=jnp.zeros((n, 0)))
+    rt, ruv, rprim, rshape = (np.asarray(a) for a in jpi.intersect_tiles(
+        {k: jnp.asarray(v) for k, v in tiles.items()}, jray,
+        interpret=True))
+    t = t.numpy()
+    hit = np.isfinite(rt)
+    np.testing.assert_array_equal(np.isfinite(t), hit)
+    assert hit.sum() > n // 10
+    # rtol 1e-6, widened where the triple products cancel: XLA on the CPU
+    # fuses multiply-adds and eager torch does not, and the two roundings
+    # may differ by a few ulps times the condition number of t = e2.q/det
+    err = np.abs(t[hit] - rt[hit]) / np.abs(rt[hit])
+    bound = 2 * np.finfo(np.float32).eps * _t_condition(V, F, rprim, o, d)
+    assert (err > 1e-6).mean() <= 0.01
+    np.testing.assert_array_less(err, np.maximum(1e-6, bound[hit]) + 1e-12)
+    # u, v are ratios of triple products that cancel (origins up to 4
+    # units away); both sides sit ~1e-5 from a float64 evaluation, and XLA
+    # rounds its fused multiply-adds differently from eager torch
+    np.testing.assert_allclose(uv.numpy()[hit], ruv[hit], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(shape.numpy(), rshape)
+    # prim must agree wherever no other triangle reaches the same t
+    tt, _, _, ok = moller_trumbore(
+        torch.as_tensor(o)[:, None], torch.as_tensor(d)[:, None],
+        *(torch.as_tensor(V[F[:, i]]) for i in range(3)))
+    tt = torch.where(ok, tt, float("inf")).numpy()
+    ties = np.zeros(n, np.int64)
+    ties[hit] = (np.abs(tt[hit] - t[hit, None])
+                 <= 1e-6 * np.abs(t[hit, None])).sum(1)
+    unique = ties == 1
+    assert unique.sum() > 0.9 * hit.sum()
+    np.testing.assert_array_equal(prim.numpy()[unique], rprim[unique])
+    # the early exit leaves the visit count at or below the admitted count
+    assert int(visited.sum()) > 0
+
+
+def test_sweep_size_policy():
+    from eradiate_kernel_tpu_torch.render.geometry import check_sweep_size
+
+    check_sweep_size(2048)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        check_sweep_size(2049)
