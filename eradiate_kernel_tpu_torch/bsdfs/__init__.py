@@ -1,7 +1,8 @@
 """BSDF registry and wavefront dispatch (bsdfs/__init__.py:82-128
 counterpart): a masked sweep over the BSDF kinds present in the scene;
 each kind evaluates the whole wavefront and the results are selected by
-kind mask."""
+kind mask. Lanes of other kinds read slot 0 of each kind's table (the
+reference's gathers clamp their indices; torch's indexing raises)."""
 
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ def bsdf_sample(scene, bsdf_index, si, s1, s2, active):
     bs, weight = zero_bsdf_sample(si.t.shape[0], 3, si.t.device)
     for k, kind in enumerate(scene.config.bsdf_kinds):
         m = active & (kind_id == k)
-        b, w = REGISTRY[kind].sample(scene, scene.bsdfs[kind], slot, si,
+        b, w = REGISTRY[kind].sample(scene, scene.bsdfs[kind],
+                                     torch.where(kind_id == k, slot, 0), si,
                                      s1, s2, m)
         bs = BSDFSample(
             wo=torch.where(m[..., None], b.wo, bs.wo),
@@ -42,8 +44,9 @@ def bsdf_eval_pdf(scene, bsdf_index, si, wo, active):
     pdf = torch.zeros_like(si.t)
     for k, kind in enumerate(scene.config.bsdf_kinds):
         m = active & (kind_id == k)
-        v, p = REGISTRY[kind].eval_pdf(scene, scene.bsdfs[kind], slot, si,
-                                       wo, m)
+        v, p = REGISTRY[kind].eval_pdf(scene, scene.bsdfs[kind],
+                                       torch.where(kind_id == k, slot, 0),
+                                       si, wo, m)
         value = torch.where(m[..., None], v, value)
         pdf = torch.where(m, p, pdf)
     return value, pdf

@@ -87,8 +87,9 @@ class Transform:
         return torch.matmul(self.inv_t[..., :3, :3], n[..., None])[..., 0]
 
     def inverse(self):
-        return Transform(m=self.inv_t.transpose(-1, -2),
-                         inv_t=self.m.transpose(-1, -2))
+        # swapaxes: numpy arrays (scene building) and tensors alike
+        return Transform(m=self.inv_t.swapaxes(-1, -2),
+                         inv_t=self.m.swapaxes(-1, -2))
 
     @property
     def translation(self):

@@ -1,13 +1,18 @@
-"""Closest-hit ray stream over triangle tiles: the flat tile sweep.
+"""Closest-hit ray streams over triangle tiles: the flat tile sweep and the
+binary and 8-wide tile-BVH traversals.
 
 Counterpart of eradiate_kernel_tpu/ops/pallas_intersect.py
-(``intersect_tiles`` with its pre-passes). The Pallas ``_kernel``
-(pallas_intersect.py:94) becomes the hand-written CUDA kernel
-``csrc/tile_sweep.cu``; ``_sweep_plain`` below is its plain PyTorch
-version with the same contract, used for tensors on the CPU and to check
-the kernel on the card.
+(``intersect_tiles``, ``intersect_bvh`` and ``intersect_bvh8`` with their
+pre-passes). Each Pallas kernel becomes a hand-written CUDA kernel under
+``csrc/``; beside each is its plain PyTorch version with the same
+contract, used for tensors on the CPU and to check the kernel on the card:
 
-Pipeline (all on the rays' device):
+  Pallas kernel (pallas_intersect.py)   CUDA kernel      plain version
+  ``_kernel`` :94                       tile_sweep.cu    ``_sweep_plain``
+  ``_bvh_kernel`` :206                  tile_bvh.cu      ``_bvh_plain``
+  ``_bvh8_kernel`` :718                 tile_bvh8.cu     ``_bvh8_plain``
+
+Sweep pipeline (all on the rays' device):
   1. cap each ray's maxt at its exit from the root AABB;
   2. for >= SORT_MIN_RAYS rays, sort by a coherence key (octant, origin
      cell, direction cell) and unsort the results afterwards;
@@ -19,6 +24,11 @@ Pipeline (all on the rays' device):
      once the block's largest best t is <= the next tile's ``tnear``; each
      visit is a dense 256 x 128 Moller-Trumbore pass with a first-index
      tie-break.
+
+The BVH traversals share steps 1 (binary only), 2 and 3, then walk the
+tree per block of 256 rays: one stack per block, a block-wide slab test of
+the children at each inner node, and at each leaf the rays moved into the
+leaf's instance space and the dense tile pass of step 5.
 """
 
 from __future__ import annotations
@@ -29,20 +39,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 import torch
 
 from .accel import TILE_K
 
-RAY_BLOCK = 256              # rays per sweep block (one CUDA thread block)
+RAY_BLOCK = 256              # rays per block (one CUDA thread block)
 SORT_MIN_RAYS = 4 * RAY_BLOCK
+STACK_SIZE = 64              # traversal stack per block (both BVH kernels)
+LEAF_INST_BITS = 12          # BVH8 leaf entries: -((tile << 12) | (inst+1)) - 1
 
-# launches of the CUDA sweep kernel in this process (the wrapper adds one
-# per launch); chip_smoke.py reads it to show the main path ran the kernel
-launches = 0
+# launches of each CUDA kernel in this process (its wrapper adds one per
+# launch); chip_smoke.py reads them to show the main path ran the kernels
+launches = {"tile_sweep": 0, "tile_bvh": 0, "tile_bvh8": 0}
 
-# test hook: run the plain version on CUDA tensors too (phase 4 of
-# chip_smoke.py renders the same scene through both); see use_plain_sweep
+# test hook: run the plain versions on CUDA tensors too (chip_smoke.py
+# renders the same scene through both); see use_plain
 _FORCE_PLAIN = False
 
 # Moller-Trumbore float ops per (ray, triangle) test: 6 mul + 3 sub (pvec),
@@ -50,18 +63,32 @@ _FORCE_PLAIN = False
 # 6 mul + 3 sub (qvec), 3 mul + 2 add + 1 mul (v), 3 mul + 2 add + 1 mul (t),
 # 1 add (u + v)
 FLOPS_PER_TEST = 46
+# slab-test float ops per (ray, box): 6 sub + 6 mul, 3 min + 3 max (slab
+# ends), 3 max (near, with mint), 4 min (far, with maxt and the block
+# bound), 1 compare
+FLOPS_PER_SLAB = 26
 
 
 @contextlib.contextmanager
-def use_plain_sweep():
-    """Route CUDA tensors through the plain version for the duration (for
-    the whole-path kernel-vs-plain check only)."""
+def use_plain():
+    """Route CUDA tensors through the plain versions for the duration (for
+    the whole-path kernel-vs-plain checks only)."""
     global _FORCE_PLAIN
     prev, _FORCE_PLAIN = _FORCE_PLAIN, True
     try:
         yield
     finally:
         _FORCE_PLAIN = prev
+
+
+def _on_plain(t, name):
+    """True if the plain version serves tensor t; raises for a device that
+    is neither the CPU nor CUDA."""
+    if t.device.type == "cpu" or _FORCE_PLAIN:
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
 
 
 # =============================================================================
@@ -200,6 +227,85 @@ def _admitted_tiles(rays, lo, hi):
 
 
 # =============================================================================
+# The leaf: a dense pass of tiles over ray blocks (plain version)
+# =============================================================================
+
+def _leaf_plain(o, d, mint, bt, j, v0, e1, e2, prim):
+    """Tiles j (A,) against their ray blocks: o, d (A, B, 3), mint and the
+    entry best t bt (A, B). Returns (hit (A, B), t_min, u, v, k_best), the
+    first index on ties. Same float32 expressions, in the same order, as
+    the kernels' leaf (csrc/tile_common.cuh)."""
+    ox, oy, oz = o[..., 0:1], o[..., 1:2], o[..., 2:3]
+    dx, dy, dz = d[..., 0:1], d[..., 1:2], d[..., 2:3]
+    tv0, te1, te2 = v0[j][:, None], e1[j][:, None], e2[j][:, None]
+    v0x, v0y, v0z = tv0[..., 0], tv0[..., 1], tv0[..., 2]
+    e1x, e1y, e1z = te1[..., 0], te1[..., 1], te1[..., 2]
+    e2x, e2y, e2z = te2[..., 0], te2[..., 1], te2[..., 2]
+    # pvec = d x e2 -> (A, B, K)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((torch.abs(det) >= 1e-12) & (u >= 0) & (v >= 0)
+          & (u + v <= 1.0) & (prim[j][:, None, :] >= 0)
+          & (t >= mint[..., None]) & (t < bt[..., None]))
+    t = torch.where(ok, t, float("inf"))
+    t_min, k_best = torch.min(t, dim=2)        # first index on ties
+    pick = lambda a: torch.gather(a, 2, k_best[..., None])[..., 0]
+    return t_min < bt, t_min, pick(u), pick(v), k_best
+
+
+class _Best:
+    """Per-ray closest hits of nb blocks, updated block by block."""
+
+    def __init__(self, r):
+        nb = r.shape[0]
+        self.maxt = r[..., 7]
+        self.t = self.maxt.clone()
+        self.u = torch.zeros_like(self.t)
+        self.v = torch.zeros_like(self.t)
+        self.prim = torch.zeros(nb, RAY_BLOCK, dtype=torch.int32,
+                                device=r.device)
+        self.shape = torch.full_like(self.prim, -1)
+
+    def leaf(self, b, o, d, mint, j, v0, e1, e2, prim, shape, shape_off=0):
+        """Fold tiles j (A,) into blocks b (A,) for rays o, d (A, B, 3)."""
+        bt = self.t[b]
+        hit, t_min, u, v, kb = _leaf_plain(o, d, mint, bt, j, v0, e1, e2,
+                                           prim)
+        self.t[b] = torch.where(hit, t_min, bt)
+        self.u[b] = torch.where(hit, u, self.u[b])
+        self.v[b] = torch.where(hit, v, self.v[b])
+        self.prim[b] = torch.where(hit, torch.gather(prim[j], 1, kb),
+                                   self.prim[b])
+        self.shape[b] = torch.where(
+            hit, torch.gather(shape[j], 1, kb) + shape_off, self.shape[b])
+
+    def result(self):
+        n = self.t.numel()
+        no_hit = self.t >= self.maxt
+        return (torch.where(no_hit, float("inf"), self.t).reshape(n),
+                torch.stack([self.u, self.v], dim=-1).reshape(n, 2),
+                self.prim.reshape(n),
+                torch.where(no_hit, -1, self.shape).reshape(n))
+
+
+# cap on the (blocks, RAY_BLOCK, TILE_K) temporaries of the plain versions
+_PLAIN_MAX_ELEMS = 1 << 25
+_PLAIN_CHUNK = max(1, _PLAIN_MAX_ELEMS // (RAY_BLOCK * TILE_K))
+
+
+# =============================================================================
 # The sweep: plain version and CUDA kernel, one contract
 # =============================================================================
 #
@@ -208,25 +314,15 @@ def _admitted_tiles(rays, lo, hi):
 # Out: t (n,) f32 (inf on a miss), uv (n, 2) f32, prim (n,) i32,
 #      shape (n,) i32 (-1 on a miss), visited (nb,) i32 tiles swept per block.
 
-# cap on the (blocks, RAY_BLOCK, TILE_K) temporaries of the plain version
-_PLAIN_MAX_ELEMS = 1 << 25
-
-
 def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape):
-    n = rays.shape[0]
     nb = count.shape[0]
     r = rays.reshape(nb, RAY_BLOCK, 8)
-    best_t = r[..., 7].clone()
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
-    best_prim = torch.zeros(nb, RAY_BLOCK, dtype=torch.int32,
-                            device=rays.device)
-    best_shape = torch.full_like(best_prim, -1)
+    best = _Best(r)
     visited = torch.zeros(nb, dtype=torch.int32, device=rays.device)
-    chunk = max(1, _PLAIN_MAX_ELEMS // (RAY_BLOCK * TILE_K))
-    for c0 in range(0, nb, chunk):
-        blk = torch.arange(c0, min(c0 + chunk, nb), device=rays.device)
-        bt_ub = torch.amax(best_t[blk], dim=1)
+    for c0 in range(0, nb, _PLAIN_CHUNK):
+        blk = torch.arange(c0, min(c0 + _PLAIN_CHUNK, nb),
+                           device=rays.device)
+        bt_ub = torch.amax(best.t[blk], dim=1)
         running = torch.ones_like(blk, dtype=torch.bool)
         k = 0
         while True:
@@ -235,133 +331,52 @@ def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape):
             if not bool(running.any()):
                 break
             b = blk[running]
-            j = ids[b, k].long()
             rb = r[b]
-            ox, oy, oz = rb[..., 0:1], rb[..., 1:2], rb[..., 2:3]
-            dx, dy, dz = rb[..., 3:4], rb[..., 4:5], rb[..., 5:6]
-            mint = rb[..., 6:7]
-            tv0, te1, te2 = v0[j][:, None], e1[j][:, None], e2[j][:, None]
-            v0x, v0y, v0z = tv0[..., 0], tv0[..., 1], tv0[..., 2]
-            e1x, e1y, e1z = te1[..., 0], te1[..., 1], te1[..., 2]
-            e2x, e2y, e2z = te2[..., 0], te2[..., 1], te2[..., 2]
-            # pvec = d x e2 -> (A, B, K)
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
-            tx = ox - v0x
-            ty = oy - v0y
-            tz = oz - v0z
-            u = (tx * px + ty * py + tz * pz) * inv_det
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            v = (dx * qx + dy * qy + dz * qz) * inv_det
-            t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-            bt = best_t[b]
-            ok = ((torch.abs(det) >= 1e-12) & (u >= 0) & (v >= 0)
-                  & (u + v <= 1.0) & (prim[j][:, None, :] >= 0)
-                  & (t >= mint) & (t < bt[..., None]))
-            t = torch.where(ok, t, float("inf"))
-            t_min, k_best = torch.min(t, dim=2)        # first index on ties
-            hit = t_min < bt
-            pick = lambda a: torch.gather(a, 2, k_best[..., None])[..., 0]
-            kb = k_best
-            best_t[b] = torch.where(hit, t_min, bt)
-            best_u[b] = torch.where(hit, pick(u), best_u[b])
-            best_v[b] = torch.where(hit, pick(v), best_v[b])
-            best_prim[b] = torch.where(hit, torch.gather(prim[j], 1, kb),
-                                       best_prim[b])
-            best_shape[b] = torch.where(hit, torch.gather(shape[j], 1, kb),
-                                        best_shape[b])
+            best.leaf(b, rb[..., 0:3], rb[..., 3:6], rb[..., 6],
+                      ids[b, k].long(), v0, e1, e2, prim, shape)
             visited[b] += 1
-            bt_ub[running] = torch.amax(best_t[b], dim=1)
+            bt_ub[running] = torch.amax(best.t[b], dim=1)
             k += 1
-    maxt = r[..., 7]
-    no_hit = best_t >= maxt
-    t_out = torch.where(no_hit, float("inf"), best_t).reshape(n)
-    uv = torch.stack([best_u, best_v], dim=-1).reshape(n, 2)
-    shape_out = torch.where(no_hit, -1, best_shape).reshape(n)
-    return t_out, uv, best_prim.reshape(n), shape_out, visited
+    return best.result() + (visited,)
 
 
-_lib = None
+def _check(name, tensors, dev):
+    for arg, (a, dtype, shp) in tensors.items():
+        if (a.device != dev or a.dtype != dtype or tuple(a.shape) != shp
+                or not a.is_contiguous()):
+            raise ValueError(
+                f"{name}: {arg} must be a contiguous {dtype} tensor of "
+                f"shape {shp} on {dev}, got {a.dtype} {tuple(a.shape)} on "
+                f"{a.device}")
 
 
-def _source_path():
-    return os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "csrc", "tile_sweep.cu")
+def _hit_outputs(n, dev):
+    return (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, 2, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
 
 
-def build_kernel(verbose=False):
-    """Compile csrc/tile_sweep.cu for sm_90a (once per process and source
-    version) into the package's build/ directory and load it. Returns the
-    ctypes library. Raises if nvcc fails."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _source_path()
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    build_dir = os.path.join(os.path.dirname(os.path.dirname(src)), "build")
-    os.makedirs(build_dir, exist_ok=True)
-    so_path = os.path.join(build_dir, f"tile_sweep_{tag}.so")
-    if not os.path.exists(so_path):
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        # -fmad=false: no a*b+c contraction, so the kernel rounds every
-        # product and sum like the plain version's eager torch ops do
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-fmad=false", "-shared",
-               "-Xcompiler", "-fPIC", "-o", tmp, src]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        if verbose:
-            print(res.stdout + res.stderr)
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(so_path)
-    lib.tile_sweep_launch.restype = ctypes.c_int
-    lib.tile_sweep_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 6)
-    _lib = lib
-    return lib
+def _tile_specs(T, v0, e1, e2, prim, shape):
+    return {"v0": (v0, torch.float32, (T, TILE_K, 3)),
+            "e1": (e1, torch.float32, (T, TILE_K, 3)),
+            "e2": (e2, torch.float32, (T, TILE_K, 3)),
+            "prim": (prim, torch.int32, (T, TILE_K)),
+            "shape": (shape, torch.int32, (T, TILE_K))}
 
 
 def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape):
     """Launch csrc/tile_sweep.cu on the current stream (no sync)."""
-    global launches
-    lib = build_kernel()
+    lib = build_kernel("tile_sweep")
     nb, T = ids.shape
     dev = rays.device
-    expect = {
+    _check("tile_sweep", {
         "rays": (rays, torch.float32, (nb * RAY_BLOCK, 8)),
         "ids": (ids, torch.int32, (nb, T)),
         "count": (count, torch.int32, (nb,)),
         "tnear": (tnear, torch.float32, (nb, T)),
-        "v0": (v0, torch.float32, (T, TILE_K, 3)),
-        "e1": (e1, torch.float32, (T, TILE_K, 3)),
-        "e2": (e2, torch.float32, (T, TILE_K, 3)),
-        "prim": (prim, torch.int32, (T, TILE_K)),
-        "shape": (shape, torch.int32, (T, TILE_K)),
-    }
-    for name, (a, dtype, shp) in expect.items():
-        if (a.device != dev or a.dtype != dtype or tuple(a.shape) != shp
-                or not a.is_contiguous()):
-            raise ValueError(
-                f"tile_sweep: {name} must be a contiguous {dtype} tensor of "
-                f"shape {shp} on {dev}, got {a.dtype} {tuple(a.shape)} on "
-                f"{a.device}")
-    n = nb * RAY_BLOCK
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    uv = torch.empty(n, 2, dtype=torch.float32, device=dev)
-    prim_o = torch.empty(n, dtype=torch.int32, device=dev)
-    shape_o = torch.empty(n, dtype=torch.int32, device=dev)
+        **_tile_specs(v0.shape[0], v0, e1, e2, prim, shape)}, dev)
+    t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
     visited = torch.empty(nb, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tile_sweep_launch(
@@ -371,36 +386,49 @@ def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape):
         prim_o.data_ptr(), shape_o.data_ptr(), visited.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tile_sweep launch failed: cudaError {err}")
-    launches += 1
+    launches["tile_sweep"] += 1
     return t, uv, prim_o, shape_o, visited
 
 
 def sweep(rays, ids, count, tnear, v0, e1, e2, prim, shape):
     """The sweep on the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors (or under use_plain_sweep)."""
-    if rays.device.type == "cpu" or _FORCE_PLAIN:
+    the plain version for CPU tensors (or under use_plain)."""
+    if _on_plain(rays, "tile_sweep"):
         return _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape)
-    if rays.device.type != "cuda":
-        raise ValueError(f"tile_sweep: unsupported device {rays.device}")
     return _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape)
+
+
+def _ray_rows(ray):
+    """(N, 8) f32 rows [o, d, mint, maxt] of a Ray."""
+    return torch.cat([ray.o, ray.d, ray.mint[:, None], ray.maxt[:, None]],
+                     dim=-1).to(torch.float32)
+
+
+def _pad_blocks(rays):
+    """Pad to whole blocks with dead filler rays (d = +z, maxt = mint = 0)."""
+    pad = -rays.shape[0] % RAY_BLOCK
+    if pad:
+        filler = torch.zeros(pad, 8, dtype=rays.dtype, device=rays.device)
+        filler[:, 5] = 1.0
+        rays = torch.cat([rays, filler], dim=0)
+    return rays.contiguous()
+
+
+def _unsorted(out, unsort, n):
+    if unsort is not None:
+        return tuple(a[unsort] for a in out)
+    return tuple(a[:n] for a in out)
 
 
 def prepare_sweep(tiles, ray):
     """The pre-passes of intersect_tiles: -> (sweep arguments, unsort index
     or None, number of real rays)."""
     n = ray.o.shape[0]
-    rays = torch.cat([ray.o, ray.d, ray.mint[:, None], ray.maxt[:, None]],
-                     dim=-1).to(torch.float32)
     root_lo = torch.amin(tiles["lo"], dim=0)
     root_hi = torch.amax(tiles["hi"], dim=0)
-    rays = _cap_maxt_to_root(rays, root_lo, root_hi)
+    rays = _cap_maxt_to_root(_ray_rows(ray), root_lo, root_hi)
     rays, unsort = _maybe_sorted(rays, root_lo, root_hi)
-    pad = -n % RAY_BLOCK
-    if pad:
-        filler = torch.zeros(pad, 8, dtype=rays.dtype, device=rays.device)
-        filler[:, 5] = 1.0
-        rays = torch.cat([rays, filler], dim=0)
-    rays = rays.contiguous()
+    rays = _pad_blocks(rays)
     ids, tnear, count = _admitted_tiles(rays, tiles["lo"], tiles["hi"])
     args = (rays, ids, count, tnear, tiles["v0"], tiles["e1"], tiles["e2"],
             tiles["prim"], tiles["shape"])
@@ -417,8 +445,391 @@ def intersect_tiles(tiles, ray, return_visited=False):
     """
     args, unsort, n = prepare_sweep(tiles, ray)
     t, uv, prim, shape, visited = sweep(*args)
-    if unsort is not None:
-        out = (t[unsort], uv[unsort], prim[unsort], shape[unsort])
-    else:
-        out = (t[:n], uv[:n], prim[:n], shape[:n])
+    out = _unsorted((t, uv, prim, shape), unsort, n)
     return out + (visited,) if return_visited else out
+
+
+# =============================================================================
+# Building the CUDA kernels
+# =============================================================================
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_HEADERS = ("tile_common.cuh",)
+# kernel -> its launch function's ctypes argument types
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "tile_sweep": [_PTR] * 9 + [_INT, _INT] + [_PTR] * 6,
+    "tile_bvh": [_PTR] * 10 + [_INT] + [_PTR] * 6,
+    "tile_bvh8": [_PTR] * 10 + [_INT] + [_PTR] * 6,
+}
+KERNELS = tuple(_ARGTYPES)
+_libs = {}
+
+
+def _so_path(name):
+    """build/<name>_<hash of the source and the shared header>.so"""
+    h = hashlib.sha256()
+    for f in (f"{name}.cu",) + _HEADERS:
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    build_dir = os.path.join(os.path.dirname(_CSRC), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    return os.path.join(build_dir, f"{name}_{h.hexdigest()[:16]}.so")
+
+
+def build_kernels(names=KERNELS, verbose=False):
+    """Compile csrc/<name>.cu for sm_90a into the package's build/
+    directory, one nvcc per source, all started together, and load them.
+    Returns {name: seconds its build took} (0 for a library built before).
+    Raises if nvcc fails."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    procs = {}
+    for name in names:
+        if name in _libs:
+            continue
+        so = _so_path(name)
+        if os.path.exists(so):
+            continue
+        tmp = f"{so}.{os.getpid()}.tmp"
+        # -fmad=false: no a*b+c contraction, so the kernels round every
+        # product and sum like the plain versions' eager torch ops do
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-fmad=false", "-shared",
+               "-Xcompiler", "-fPIC", "-o", tmp,
+               os.path.join(_CSRC, f"{name}.cu")]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so, time.perf_counter())
+    seconds = dict.fromkeys(names, 0.0)
+    failed = []
+    for name, (proc, tmp, so, t0) in procs.items():
+        out = proc.communicate()[0]
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}")
+            continue
+        if verbose:
+            print(out)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        build_kernel(name)
+    return seconds
+
+
+def build_kernel(name):
+    """The loaded ctypes library of kernel ``name``, built at first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    so = _so_path(name)
+    if not os.path.exists(so):
+        build_kernels((name,))
+        return _libs[name]
+    lib = ctypes.CDLL(so)
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[name]
+    _libs[name] = lib
+    return lib
+
+
+# =============================================================================
+# Tile-BVH traversals: plain versions and CUDA kernels, one contract
+# =============================================================================
+#
+# In:  rays (nb*RAY_BLOCK, 8) f32; the tree (binary: nbox (N, 1, 8) f32 and
+#      nmeta (N, 4) i32; 8-wide: cbox (N8, 8, 8) f32 and cmeta (N8, 8, 4)
+#      i32, the ops/bvh.py layouts); xf (I+1, 12) f32 world-to-local affine
+#      rows (row 0 the identity) and sbase (I+1,) i32 shape bases, indexed
+#      by inst + 1; v0/e1/e2/prim/shape as for the sweep.
+# Out: t, uv, prim, shape as for the sweep; stats (nb, 3) i32 per block:
+#      [inner nodes visited, leaves visited, deepest stack]. A deepest
+#      stack of STACK_SIZE + 1 marks an overflow, which ends that block's
+#      walk; the wrappers raise on it.
+#
+# Both plain versions walk each block's tree exactly as the kernels do:
+# one (nb, STACK_SIZE) stack, one pop per running block per step, leaf
+# and inner steps in the same order, the same float32 expressions.
+
+def _rcp(d):
+    """Per-ray reciprocal direction, finite for zero components."""
+    return torch.where(d < 0, -1.0, 1.0) / torch.clamp(torch.abs(d),
+                                                      min=1e-30)
+
+
+def _slab_plain(box, o, inv, mint, far_cap):
+    """Slab tests of boxes (..., 8) against rays o, inv (..., B, 3): box
+    dims broadcast against the rays'. Returns (ok, near) of shape (..., B)."""
+    lo, hi = box[..., None, 0:3], box[..., None, 3:6]
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    mn = torch.minimum(t0, t1)
+    mx = torch.maximum(t0, t1)
+    near = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
+                         torch.maximum(mn[..., 2], mint))
+    far = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]),
+                        torch.minimum(mx[..., 2], far_cap))
+    return near <= far, near
+
+
+class _Walk:
+    """Block-uniform traversal state of nb blocks: per-block stacks,
+    stack pointers, culling bounds and stats."""
+
+    def __init__(self, r, best):
+        nb = r.shape[0]
+        dev = r.device
+        self.r = r
+        self.inv = _rcp(r[..., 3:6])
+        self.best = best
+        self.stack = torch.zeros(nb, STACK_SIZE, dtype=torch.int64,
+                                 device=dev)   # slot 0 = root, node 0
+        self.sp = torch.ones(nb, dtype=torch.int64, device=dev)
+        self.bt_ub = torch.amax(r[..., 7], dim=1)
+        self.stats = torch.zeros(nb, 3, dtype=torch.int32, device=dev)
+        self.stats[:, 2] = 1
+
+    def pop(self, blk):
+        """Pop one entry of every running block of blk: (blocks, entries),
+        or None once all have finished."""
+        b = blk[self.sp[blk] > 0]
+        if b.numel() == 0:
+            return None
+        self.sp[b] -= 1
+        return b, self.stack[b, self.sp[b]]
+
+    def leaf(self, b, tile, k, xf, sbase, tris):
+        """Leaves (tile, inst + 1 = k) of blocks b: the rays moved into
+        instance space by xf[k], then the dense tile pass."""
+        rb = self.r[b]
+        m = xf[k][:, :, None]                      # (A, 12, 1)
+        ox, oy, oz = rb[..., 0], rb[..., 1], rb[..., 2]
+        dx, dy, dz = rb[..., 3], rb[..., 4], rb[..., 5]
+        o = torch.stack(
+            [m[:, 0] * ox + m[:, 1] * oy + m[:, 2] * oz + m[:, 3],
+             m[:, 4] * ox + m[:, 5] * oy + m[:, 6] * oz + m[:, 7],
+             m[:, 8] * ox + m[:, 9] * oy + m[:, 10] * oz + m[:, 11]], dim=-1)
+        d = torch.stack([m[:, 0] * dx + m[:, 1] * dy + m[:, 2] * dz,
+                         m[:, 4] * dx + m[:, 5] * dy + m[:, 6] * dz,
+                         m[:, 8] * dx + m[:, 9] * dy + m[:, 10] * dz], dim=-1)
+        self.best.leaf(b, o, d, rb[..., 6], tile, *tris,
+                       shape_off=sbase[k][:, None])
+        self.bt_ub[b] = torch.amax(self.best.t[b], dim=1)
+        self.stats[b, 1] += 1
+
+    def enter(self, b, boxes):
+        """Block-wide slab tests of boxes (A, C, 8) for blocks b (A,):
+        (some ray enters (A, C), block-min entry distance (A, C))."""
+        self.stats[b, 0] += 1
+        rb = self.r[b][:, None]
+        far_cap = torch.minimum(rb[..., 7], self.bt_ub[b][:, None, None])
+        ok, near = _slab_plain(boxes, rb[..., 0:3], self.inv[b][:, None],
+                               rb[..., 6], far_cap)
+        return ok.any(dim=-1), torch.amin(
+            torch.where(ok, near, float("inf")), dim=-1)
+
+    def push(self, b, entries, count):
+        """Push entries (A, C) in column order, the first count (A,) of each
+        row, onto blocks b; a push past STACK_SIZE ends the block's walk
+        with an overflow mark instead."""
+        sp = self.sp[b]
+        top = sp + count
+        over = top > STACK_SIZE
+        cols = torch.arange(entries.shape[1], device=b.device)
+        put = (cols[None] < count[:, None]) & ~over[:, None]
+        rows = b[:, None].expand_as(entries)[put]
+        self.stack[rows, (sp[:, None] + cols[None])[put]] = entries[put]
+        self.sp[b] = torch.where(over, 0, top)
+        self.stats[b, 2] = torch.where(
+            over, STACK_SIZE + 1,
+            torch.maximum(self.stats[b, 2], top.to(torch.int32)))
+
+
+def _bvh_plain(rays, nbox, nmeta, xf, sbase, v0, e1, e2, prim, shape):
+    nb = rays.shape[0] // RAY_BLOCK
+    r = rays.reshape(nb, RAY_BLOCK, 8)
+    best = _Best(r)
+    walk = _Walk(r, best)
+    box = nbox.reshape(-1, 8)
+    meta = nmeta.long()
+    tris = (v0, e1, e2, prim, shape)
+    for c0 in range(0, nb, _PLAIN_CHUNK):
+        blk = torch.arange(c0, min(c0 + _PLAIN_CHUNK, nb), device=rays.device)
+        while (popped := walk.pop(blk)) is not None:
+            b, node = popped
+            m = meta[node]
+            is_leaf = m[:, 2] >= 0
+            if bool(is_leaf.any()):
+                walk.leaf(b[is_leaf], m[is_leaf, 2], m[is_leaf, 3] + 1, xf,
+                          sbase, tris)
+            if bool(is_leaf.all()):
+                continue
+            b, m = b[~is_leaf], m[~is_leaf]
+            hit, near = walk.enter(b, box[m[:, 0:2]])
+            left, right = m[:, 0], m[:, 1]
+            # the near child on top (popped first); both missed: left first
+            l_first = near[:, 0] <= near[:, 1]
+            first = torch.where(l_first, left, right)
+            second = torch.where(l_first, right, left)
+            push_first = torch.where(l_first, hit[:, 0], hit[:, 1])
+            push_second = torch.where(l_first, hit[:, 1], hit[:, 0])
+            # pushed in order: the far child if entered, then the near one
+            entries = torch.stack([torch.where(push_second, second, first),
+                                   torch.where(push_second, first, second)],
+                                  dim=1)
+            walk.push(b, entries, push_first.long() + push_second.long())
+    return best.result() + (walk.stats,)
+
+
+def _bvh8_plain(rays, cbox, cmeta, xf, sbase, v0, e1, e2, prim, shape):
+    nb = rays.shape[0] // RAY_BLOCK
+    r = rays.reshape(nb, RAY_BLOCK, 8)
+    best = _Best(r)
+    walk = _Walk(r, best)
+    meta = cmeta.long()
+    tris = (v0, e1, e2, prim, shape)
+    for c0 in range(0, nb, _PLAIN_CHUNK):
+        blk = torch.arange(c0, min(c0 + _PLAIN_CHUNK, nb), device=rays.device)
+        while (popped := walk.pop(blk)) is not None:
+            b, enc = popped
+            is_leaf = enc < 0
+            if bool(is_leaf.any()):
+                code = -enc[is_leaf] - 1
+                walk.leaf(b[is_leaf], code >> LEAF_INST_BITS,
+                          code & ((1 << LEAF_INST_BITS) - 1), xf, sbase, tris)
+            if bool(is_leaf.all()):
+                continue
+            b, node = b[~is_leaf], enc[~is_leaf]
+            hit, near = walk.enter(b, cbox[node])          # (A, 8)
+            m8 = meta[node]                                 # (A, 8, 4)
+            cid, tile8, inst8 = m8[..., 0], m8[..., 1], m8[..., 2]
+            hit &= (cid >= 0) | (tile8 >= 0)
+            enc8 = torch.where(
+                cid >= 0, cid,
+                -((tile8 << LEAF_INST_BITS) | (inst8 + 1)) - 1)
+            # far to near: the largest entry distance among those left,
+            # ties to the highest slot, so the nearest child pops first
+            # (slots reversed, then a stable sort, keeps ties high slot first)
+            key = torch.where(hit, near, float("-inf")).flip(1)
+            order = 7 - torch.sort(key, dim=1, descending=True,
+                                   stable=True)[1]
+            walk.push(b, torch.gather(enc8, 1, order), hit.sum(dim=1))
+    return best.result() + (walk.stats,)
+
+
+def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2,
+                   prim, shape):
+    """Launch csrc/<name>.cu (tile_bvh or tile_bvh8) on the current stream
+    (no sync)."""
+    lib = build_kernel(name)
+    nb = rays.shape[0] // RAY_BLOCK
+    dev = rays.device
+    N, I1 = tree_box.shape[0], xf.shape[0]
+    box_shape, meta_shape = (((N, 1, 8), (N, 4)) if name == "tile_bvh"
+                             else ((N, 8, 8), (N, 8, 4)))
+    _check(name, {
+        "rays": (rays, torch.float32, (nb * RAY_BLOCK, 8)),
+        "box": (tree_box, torch.float32, box_shape),
+        "meta": (tree_meta, torch.int32, meta_shape),
+        "xf": (xf, torch.float32, (I1, 12)),
+        "sbase": (sbase, torch.int32, (I1,)),
+        **_tile_specs(v0.shape[0], v0, e1, e2, prim, shape)}, dev)
+    t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
+    stats = torch.empty(nb, 3, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, f"{name}_launch")(
+        rays.data_ptr(), tree_box.data_ptr(), tree_meta.data_ptr(),
+        xf.data_ptr(), sbase.data_ptr(), v0.data_ptr(), e1.data_ptr(),
+        e2.data_ptr(), prim.data_ptr(), shape.data_ptr(), nb, t.data_ptr(),
+        uv.data_ptr(), prim_o.data_ptr(), shape_o.data_ptr(),
+        stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
+    return t, uv, prim_o, shape_o, stats
+
+
+_PLAIN_WALKS = {"tile_bvh": _bvh_plain, "tile_bvh8": _bvh8_plain}
+
+
+def traverse(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2, prim,
+             shape):
+    """The BVH traversal ``name`` (tile_bvh: binary tree nbox/nmeta;
+    tile_bvh8: 8-wide tree cbox/cmeta) on the tensors' device: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors (or under
+    use_plain). Raises on a stack overflow."""
+    args = (rays, tree_box, tree_meta, xf, sbase, v0, e1, e2, prim, shape)
+    if _on_plain(rays, name):
+        out = _PLAIN_WALKS[name](*args)
+    else:
+        out = _traverse_cuda(name, *args)
+    stats = out[4]
+    if stats.numel() and int(stats[:, 2].max()) > STACK_SIZE:
+        raise RuntimeError(
+            f"{name}: a block's traversal stack overflowed its "
+            f"{STACK_SIZE} entries")
+    return out
+
+
+def _identity_xf(dev):
+    """The instancing rows of a scene without instances: the identity
+    (pallas_intersect.py:434-438) and shape base 0."""
+    return (torch.tensor([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]],
+                         dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def prepare_bvh(tiles, ray, wide=False):
+    """The pre-passes of intersect_bvh (``wide``: intersect_bvh8) ->
+    (traversal arguments, unsort index or None, number of real rays).
+
+    The binary traversal caps maxt at the root box (nbox[0]); the 8-wide
+    one does not, and takes its sort bounds from the root's 8 slots, where
+    empty slots' inverted boxes drop out of the min/max."""
+    n = ray.o.shape[0]
+    rays = _ray_rows(ray)
+    if wide:
+        root = tiles["cbox"][0]
+        lo = torch.amin(root[:, 0:3], dim=0)
+        hi = torch.amax(root[:, 3:6], dim=0)
+    else:
+        root = tiles["nbox"][0, 0]
+        lo, hi = root[0:3], root[3:6]
+        rays = _cap_maxt_to_root(rays, lo, hi)
+    rays, unsort = _maybe_sorted(rays, lo, hi)
+    rays = _pad_blocks(rays)
+    if tiles.get("xf") is None:
+        xf, sbase = _identity_xf(rays.device)
+    else:
+        xf, sbase = tiles["xf"], tiles["sbase"]
+    tree = ((tiles["cbox"], tiles["cmeta"]) if wide
+            else (tiles["nbox"], tiles["nmeta"]))
+    args = (rays,) + tree + (xf, sbase, tiles["v0"], tiles["e1"],
+                             tiles["e2"], tiles["prim"], tiles["shape"])
+    return args, unsort, n
+
+
+def intersect_bvh(tiles, ray, return_stats=False, wide=False):
+    """Closest-hit query through the binary tile BVH (``wide``: the 8-wide
+    one, 'cbox'/'cmeta' from ops.bvh.collapse_to_bvh8).
+
+    tiles: the pack_tiles tensors plus 'nbox' (N,1,8) / 'nmeta' (N,4);
+    instanced scenes add 'xf' (I+1, 12) world-to-local affine rows (row 0
+    the identity) and 'sbase' (I+1,) shape bases. Same contract as
+    intersect_tiles; ``return_stats`` adds the (nb, 3) per-block
+    [inner nodes, leaves, deepest stack]."""
+    args, unsort, n = prepare_bvh(tiles, ray, wide)
+    t, uv, prim, shape, stats = traverse(
+        "tile_bvh8" if wide else "tile_bvh", *args)
+    out = _unsorted((t, uv, prim, shape), unsort, n)
+    return out + (stats,) if return_stats else out
+
+
+def intersect_bvh8(tiles, ray, return_stats=False):
+    """Closest-hit query through the 8-wide tile BVH; as intersect_bvh."""
+    return intersect_bvh(tiles, ray, return_stats, wide=True)

@@ -1,20 +1,21 @@
 """Scene geometry and ray intersection (render/geometry.py counterpart).
 
 Two phases as in the reference: ``ray_intersect_preliminary`` finds the
-closest hit (triangle meshes through the tile sweep of ops/intersect.py,
-rectangles by a brute-force test) and ``compute_surface_interaction``
-recomputes the hit from primitive data.
+closest hit (triangle meshes and instances through a tile kernel of
+ops/intersect.py, rectangles by a brute-force test) and
+``compute_surface_interaction`` recomputes the hit from primitive data.
 
-Accel policy of the port: a non-instanced mesh goes through the flat tile
-sweep for every mesh size (the port has no brute-force mesh path). Scenes
-that need the reference's BVH kernels (instances, or more than
-MAX_SWEEP_TILES tiles) raise NotImplementedError until a later slice
-ports those kernels.
+Accel policy of the port (``_accel_mode``): the reference's policy on its
+TPU, on every device, since the port has no brute-force mesh path. A
+non-instanced mesh of at most MAX_SWEEP_TILES tiles takes the flat tile
+sweep; instanced scenes and larger meshes take the binary tile BVH, or the
+8-wide one under ERT_BVH_WIDE=1. ERT_ACCEL=tiles|bvh|bvh8 overrides.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -22,19 +23,25 @@ from ..core.frame import Frame
 from ..core.math import INVALID_T, cross, normalize, sqr
 from ..core.ray import Ray
 from ..core.transform import Transform
-from ..ops.intersect import intersect_tiles
+from ..ops.intersect import intersect_bvh, intersect_bvh8, intersect_tiles
 from .records import PreliminaryIntersection, SurfaceInteraction
 
 FAMILY_MESH = 0
 FAMILY_RECT = 2
+FAMILY_IMESH = 6  # instanced mesh (two-level: shared group geometry)
 
-# above this tile count the reference switches to its BVH kernels
+# above this tile count the policy switches from the sweep to the BVH (the
+# reference's crossover, measured on its TPU)
 MAX_SWEEP_TILES = 2048
+
+_QUERIES = {"tiles": intersect_tiles, "bvh": intersect_bvh,
+            "bvh8": intersect_bvh8}
 
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Mesh and rectangle pools plus the triangle-tile accelerator."""
+    """Mesh, rectangle and instancing pools plus the triangle-tile
+    accelerators."""
 
     vertices: torch.Tensor      # (V, 3)
     normals: torch.Tensor       # (V, 3) zero rows -> face normal
@@ -51,23 +58,70 @@ class Geometry:
     tiles_shape: torch.Tensor   # (T, K) i32
     tiles_lo: torch.Tensor      # (T, 3)
     tiles_hi: torch.Tensor      # (T, 3)
+    bvh_box: torch.Tensor       # (2L-1, 1, 8) node AABBs (ops/bvh.py)
+    bvh_meta: torch.Tensor      # (2L-1, 4) i32 [left, right, tile, inst]
+    bvh8_box: torch.Tensor      # (N8, 8, 8) wide nodes (empty: none)
+    bvh8_meta: torch.Tensor     # (N8, 8, 4) i32 [child, tile, inst, 0]
+    tiles_xf: torch.Tensor      # (I+1, 12) w2l affine rows, row 0 identity
+    tiles_sbase: torch.Tensor   # (I+1,) i32 shape bases, 0 in row 0
+    # two-level instancing: group meshes stored once in local space;
+    # instances are (transform, group face range, shape base) records
+    ig_vertices: torch.Tensor   # (Vg, 3) group-local
+    ig_normals: torch.Tensor    # (Vg, 3)
+    ig_uvs: torch.Tensor        # (Vg, 2)
+    ig_faces: torch.Tensor      # (Fg, 3) i32
+    ig_face_sub: torch.Tensor   # (Fg,) i32 sub-shape ordinal in its group
+    inst_l2w: Transform         # (I, 4, 4)
+    inst_w2l: Transform         # (I, 4, 4)
+    inst_f_off: torch.Tensor    # (I,) i32
+    inst_f_count: torch.Tensor  # (I,) i32
+    inst_shape_base: torch.Tensor  # (I,) i32
+    inst_lo: torch.Tensor       # (I, 3) world AABB
+    inst_hi: torch.Tensor       # (I, 3)
+    shape_inst: torch.Tensor    # (n_shapes,) i32 instance of a shape, or -1
 
-    def __post_init__(self):
-        check_sweep_size(self.tiles_v0.shape[0])
+    @property
+    def has_tiles(self):
+        return self.tiles_v0.shape[0] > 0
+
+    @property
+    def n_instances(self):
+        return self.inst_f_off.shape[0]
 
     def tiles(self):
         return {"v0": self.tiles_v0, "e1": self.tiles_e1,
                 "e2": self.tiles_e2, "prim": self.tiles_prim,
                 "shape": self.tiles_shape, "lo": self.tiles_lo,
-                "hi": self.tiles_hi}
+                "hi": self.tiles_hi, "nbox": self.bvh_box,
+                "nmeta": self.bvh_meta, "cbox": self.bvh8_box,
+                "cmeta": self.bvh8_meta, "xf": self.tiles_xf,
+                "sbase": self.tiles_sbase}
 
 
-def check_sweep_size(n_tiles):
-    if n_tiles > MAX_SWEEP_TILES:
-        raise NotImplementedError(
-            f"{n_tiles} triangle tiles: meshes above {MAX_SWEEP_TILES} "
-            "tiles need the tile-BVH kernel, which a later slice of the "
-            "port brings")
+def _accel_mode(geo: Geometry) -> str:
+    """The tile kernel of a scene's mesh queries: 'tiles' | 'bvh' | 'bvh8'
+    (render/geometry.py:465-510 of the reference, its TPU branch).
+
+    ERT_ACCEL=tiles|bvh|bvh8 overrides, except that instanced leaves exist
+    only in the BVHs ('tiles' with instances gives 'bvh') and 'bvh8'
+    without BVH8 arrays gives 'bvh'."""
+    mode = os.environ.get("ERT_ACCEL", "auto")
+    if mode in _QUERIES:
+        if geo.n_instances > 0 and mode == "tiles":
+            return "bvh"
+        if mode == "bvh8" and geo.bvh8_box.shape[0] == 0:
+            return "bvh"
+        return mode
+    if mode != "auto":
+        raise ValueError(
+            f"ERT_ACCEL={mode!r}: the port has {sorted(_QUERIES)} (it has "
+            "no brute-force mesh path)")
+    if geo.n_instances == 0 and geo.tiles_v0.shape[0] <= MAX_SWEEP_TILES:
+        return "tiles"
+    if (geo.bvh8_box.shape[0] > 0
+            and os.environ.get("ERT_BVH_WIDE", "0") == "1"):
+        return "bvh8"
+    return "bvh"
 
 
 def moller_trumbore(o, d, v0, v1, v2):
@@ -113,9 +167,10 @@ def _intersect_rects(geo: Geometry, ray: Ray):
 
 def ray_intersect_preliminary(geo: Geometry, ray: Ray,
                               active=None) -> PreliminaryIntersection:
-    """Closest hit over meshes and rectangles. ``active`` (optional bool
-    (N,)) marks the lanes whose hits are wanted; the tile sweep sees the
-    others as dead rays (maxt = mint), which it culls at once."""
+    """Closest hit over meshes, instances and rectangles. ``active``
+    (optional bool (N,)) marks the lanes whose hits are wanted; the tile
+    kernel sees the others as dead rays (maxt = mint), which cannot hit.
+    One tile kernel serves every mesh leaf, instanced or not."""
     n = ray.o.shape[0]
     dev = ray.o.device
     t = torch.full((n,), float("inf"), device=dev)
@@ -131,12 +186,12 @@ def ray_intersect_preliminary(geo: Geometry, ray: Ray,
         prim = torch.where(closer, primf, prim)
         shape = torch.where(closer, shapef, shape)
 
-    if geo.faces.shape[0] > 0:
-        sweep_ray = ray
+    if geo.has_tiles:
+        tile_ray = ray
         if active is not None:
-            sweep_ray = dataclasses.replace(
+            tile_ray = dataclasses.replace(
                 ray, maxt=torch.where(active, ray.maxt, ray.mint))
-        merge(*intersect_tiles(geo.tiles(), sweep_ray))
+        merge(*_QUERIES[_accel_mode(geo)](geo.tiles(), tile_ray))
     if geo.rect_shape.shape[0] > 0:
         merge(*_intersect_rects(geo, ray))
     shape = torch.where(torch.isfinite(t), shape, -1)
@@ -196,6 +251,42 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
         uv = sel(m, uvm, uv)
         dp_du = sel(m, v1 - v0, dp_du)
         dp_dv = sel(m, v2 - v0, dp_dv)
+
+    if geo.n_instances > 0:
+        m = (family == FAMILY_IMESH) & valid
+        inst = torch.clamp(geo.shape_inst[torch.clamp(pi.shape_index, min=0)],
+                           min=0).long()
+        w2l = Transform(m=geo.inst_w2l.m[inst], inv_t=geo.inst_w2l.inv_t[inst])
+        l2w = Transform(m=geo.inst_l2w.m[inst], inv_t=geo.inst_l2w.inv_t[inst])
+        f = geo.ig_faces[torch.clamp(pi.prim_index, 0,
+                                     geo.ig_faces.shape[0] - 1)].long()
+        v0, v1, v2 = (geo.ig_vertices[f[:, i]] for i in range(3))
+        # re-intersection in instance space (an affine map keeps t)
+        o_l = w2l.transform_affine_point(ray.o)
+        d_l = w2l.transform_vector(ray.d)
+        tm, u, v, _ok = moller_trumbore(o_l, d_l, v0, v1, v2)
+        w = 1.0 - u - v
+        pm = l2w.transform_affine_point(
+            v0 * w[:, None] + v1 * u[:, None] + v2 * v[:, None])
+        ng = normalize(l2w.transform_normal(cross(v1 - v0, v2 - v0)))
+        vn0, vn1, vn2 = (geo.ig_normals[f[:, i]] for i in range(3))
+        has_vn = torch.sum(sqr(vn0), dim=-1) > 1e-12
+        vn_interp = vn0 * w[:, None] + vn1 * u[:, None] + vn2 * v[:, None]
+        ns_l = torch.where(has_vn[:, None], vn_interp,
+                           cross(v1 - v0, v2 - v0))
+        ns = normalize(l2w.transform_normal(torch.where(
+            torch.sum(sqr(ns_l), dim=-1, keepdim=True) > 1e-20, ns_l,
+            torch.ones_like(ns_l))))
+        ns = sel(has_vn, ns, ng)
+        uv0, uv1, uv2 = (geo.ig_uvs[f[:, i]] for i in range(3))
+        uvm = uv0 * w[:, None] + uv1 * u[:, None] + uv2 * v[:, None]
+        t = sel(m, tm, t)
+        p = sel(m, pm, p)
+        n = sel(m, ng, n)
+        sh_n = sel(m, ns, sh_n)
+        uv = sel(m, uvm, uv)
+        dp_du = sel(m, l2w.transform_vector(v1 - v0), dp_du)
+        dp_dv = sel(m, l2w.transform_vector(v2 - v0), dp_dv)
 
     R = geo.rect_shape.shape[0]
     if R > 0:

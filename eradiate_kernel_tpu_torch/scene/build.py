@@ -13,10 +13,11 @@ import numpy as np
 from ..core.transform import Transform
 from ..core.types import Variant, resolve_device
 from ..ops.accel import TILE_K, pack_tiles
-from ..render.geometry import FAMILY_MESH, FAMILY_RECT, check_sweep_size
+from ..ops.bvh import build_tile_bvh, collapse_to_bvh8
+from ..render.geometry import FAMILY_IMESH, FAMILY_MESH, FAMILY_RECT
 from .build_emitters import _build_bsdf, _build_scene_emitter
 from .build_sensors import _SENSOR_TYPES, _build_sensor
-from .build_shapes import _SHAPE_TYPES, _build_shape
+from .build_shapes import _SHAPE_TYPES, _build_shape, shape_children
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
 
@@ -44,6 +45,15 @@ class SceneBuilder:
         self.face_shape = []
         self.rects = []
         self.shape_rows = []
+        # two-level instancing: shared group-local mesh pools + instances
+        self.ig_vertices = []
+        self.ig_normals = []
+        self.ig_uvs = []
+        self.ig_faces = []
+        self.ig_face_sub = []
+        self.group_records = {}   # key -> dict(f_off, f_count, subs, lo, hi)
+        self.instances = []       # dicts(l2w, w2l, f_off, f_count,
+        #                           shape_base, lo, hi)
 
     # --- registries ------------------------------------------------------------
     def _add(self, rows_dict, table, kind, row):
@@ -116,6 +126,115 @@ class SceneBuilder:
         self.rects.append(to_world)
         return self._new_shape(FAMILY_RECT, len(self.rects) - 1)
 
+    def _instancing_arrays(self):
+        """The geometry's instancing pools; empty without instances."""
+        f32, i32 = np.float32, np.int32
+        if not self.instances:
+            z = lambda *s: np.zeros(s, f32)
+            zi = lambda *s: np.zeros(s, i32)
+            return {"ig_vertices": z(0, 3), "ig_normals": z(0, 3),
+                    "ig_uvs": z(0, 2), "ig_faces": zi(0, 3),
+                    "ig_face_sub": zi(0), "inst_l2w.m": z(0, 4, 4),
+                    "inst_l2w.inv_t": z(0, 4, 4), "inst_w2l.m": z(0, 4, 4),
+                    "inst_w2l.inv_t": z(0, 4, 4), "inst_f_off": zi(0),
+                    "inst_f_count": zi(0), "inst_shape_base": zi(0),
+                    "inst_lo": z(0, 3), "inst_hi": z(0, 3),
+                    "shape_inst": zi(0)}
+        inst = lambda key: [i[key] for i in self.instances]
+        return {
+            "ig_vertices": np.concatenate(self.ig_vertices),
+            "ig_normals": np.concatenate(self.ig_normals),
+            "ig_uvs": np.concatenate(self.ig_uvs),
+            "ig_faces": np.concatenate(self.ig_faces),
+            "ig_face_sub": np.concatenate(self.ig_face_sub),
+            "inst_l2w.m": np.stack([t.m for t in inst("l2w")]),
+            "inst_l2w.inv_t": np.stack([t.inv_t for t in inst("l2w")]),
+            "inst_w2l.m": np.stack([t.m for t in inst("w2l")]),
+            "inst_w2l.inv_t": np.stack([t.inv_t for t in inst("w2l")]),
+            "inst_f_off": np.asarray(inst("f_off"), i32),
+            "inst_f_count": np.asarray(inst("f_count"), i32),
+            "inst_shape_base": np.asarray(inst("shape_base"), i32),
+            "inst_lo": np.stack(inst("lo")),
+            "inst_hi": np.stack(inst("hi")),
+            "shape_inst": np.asarray(
+                [r["prim_slot"] if r["family"] == FAMILY_IMESH else -1
+                 for r in self.shape_rows], i32)}
+
+    def _accel_arrays(self, V, F, FS):
+        """The tile and BVH arrays. Instanced groups pack their tiles once
+        in local space; the BVH gets one leaf per (group tile, instance)
+        with a world-space AABB and the instance id in nmeta[:, 3]."""
+        f32, i32 = np.float32, np.int32
+        z = lambda *s: np.zeros(s, f32)
+        zi = lambda *s: np.zeros(s, i32)
+        out = {"bvh8_box": z(0, 8, 8), "bvh8_meta": zi(0, 8, 4),
+               "tiles_xf": np.asarray([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]],
+                                      f32),
+               "tiles_sbase": zi(1)}
+        if len(F) == 0 and not self.instances:
+            out.update(tiles_v0=z(0, TILE_K, 3), tiles_e1=z(0, TILE_K, 3),
+                       tiles_e2=z(0, TILE_K, 3), tiles_prim=zi(0, TILE_K),
+                       tiles_shape=zi(0, TILE_K), tiles_lo=z(0, 3),
+                       tiles_hi=z(0, 3), bvh_box=z(0, 1, 8),
+                       bvh_meta=zi(0, 4))
+            return out
+        parts = []
+        leaf_lo, leaf_hi, leaf_tile, leaf_inst = [], [], [], []
+        t_off = 0
+        if len(F) > 0:
+            t0 = pack_tiles(V, F, FS)
+            T0 = len(t0["lo"])
+            parts.append(t0)
+            leaf_lo.append(t0["lo"])
+            leaf_hi.append(t0["hi"])
+            leaf_tile.append(np.arange(T0, dtype=i32))
+            leaf_inst.append(np.full(T0, -1, i32))
+            t_off = T0
+        if self.instances:
+            IGV = np.concatenate(self.ig_vertices)
+            IGF = np.concatenate(self.ig_faces)
+            IGS = np.concatenate(self.ig_face_sub)
+            group_tiles = {}  # f_off -> (first tile, count, lo, hi)
+            for rec in self.group_records.values():
+                if rec["f_count"] == 0:
+                    continue
+                fsl = slice(rec["f_off"], rec["f_off"] + rec["f_count"])
+                tg = pack_tiles(IGV, IGF[fsl], IGS[fsl])
+                tg["prim"] = np.where(tg["prim"] >= 0,
+                                      tg["prim"] + rec["f_off"], tg["prim"])
+                group_tiles[rec["f_off"]] = (t_off, len(tg["lo"]),
+                                             tg["lo"], tg["hi"])
+                parts.append(tg)
+                t_off += len(tg["lo"])
+            for i, inst in enumerate(self.instances):
+                t_start, t_cnt, glo, ghi = group_tiles[inst["f_off"]]
+                m = np.asarray(inst["l2w"].m)
+                A, bvec = m[:3, :3], m[:3, 3]
+                wc = 0.5 * (glo + ghi) @ A.T + bvec
+                we = 0.5 * (ghi - glo) @ np.abs(A).T
+                leaf_lo.append((wc - we).astype(f32))
+                leaf_hi.append((wc + we).astype(f32))
+                leaf_tile.append(np.arange(t_start, t_start + t_cnt,
+                                           dtype=i32))
+                leaf_inst.append(np.full(t_cnt, i, i32))
+        for k in parts[0]:
+            out[f"tiles_{k}"] = np.concatenate([p[k] for p in parts])
+        nbox, nmeta, _depth = build_tile_bvh(
+            np.concatenate(leaf_lo), np.concatenate(leaf_hi),
+            np.concatenate(leaf_tile), np.concatenate(leaf_inst))
+        out["bvh_box"], out["bvh_meta"] = nbox, nmeta
+        # a BVH8 leaf entry packs (tile << 12) | (inst + 1) into one i32
+        # (ops/intersect.py): beyond these ranges only the binary BVH exists
+        n_leaves = sum(len(t) for t in leaf_tile)
+        if n_leaves < (1 << 18) and len(self.instances) < 4095:
+            out["bvh8_box"], out["bvh8_meta"] = collapse_to_bvh8(nbox, nmeta)
+        out["tiles_xf"] = np.stack([out["tiles_xf"][0]] + [
+            np.asarray(i["w2l"].m, f32)[:3, :4].reshape(12)
+            for i in self.instances])
+        out["tiles_sbase"] = np.asarray(
+            [0] + [i["shape_base"] for i in self.instances], i32)
+        return out
+
     # --- finalize ------------------------------------------------------------------
     def finalize(self, sensor_kind, sensor_params, film_cfg, integrator_cfg,
                  spp):
@@ -185,19 +304,13 @@ class SceneBuilder:
         else:
             geo["rect_to_world.m"] = np.zeros((0, 4, 4), np.float32)
             geo["rect_to_world.inv_t"] = np.zeros((0, 4, 4), np.float32)
-        if len(F) > 0:
-            tiles = pack_tiles(V, F, FS)
-            check_sweep_size(len(tiles["lo"]))
-        else:
-            z = lambda *s: np.zeros(s, np.float32)
-            zi = lambda *s: np.zeros(s, np.int32)
-            tiles = {"v0": z(0, TILE_K, 3), "e1": z(0, TILE_K, 3),
-                     "e2": z(0, TILE_K, 3), "prim": zi(0, TILE_K),
-                     "shape": zi(0, TILE_K), "lo": z(0, 3), "hi": z(0, 3)}
-        geo.update({f"tiles_{k}": v for k, v in tiles.items()})
+        geo.update(self._accel_arrays(V, F, FS))
+        geo.update(self._instancing_arrays())
         arrays.update({f"geo.{k}": v for k, v in geo.items()})
 
         pts = [V] if len(V) else []
+        for inst in self.instances:
+            pts.append(np.stack([inst["lo"], inst["hi"]]))
         for t in self.rects:
             corners = np.array([[x, y, 0, 1] for x in (-1, 1)
                                 for y in (-1, 1)], np.float32) @ t.m.T
@@ -252,7 +365,10 @@ def load_dict(d: dict, variant: Variant | None = None,
         if key == "type" or not isinstance(val, dict):
             continue
         t = val.get("type")
-        if t in _SHAPE_TYPES:
+        if t == "shapegroup":
+            # registered before use: its instances must follow it in d
+            b.named[key] = ("shapegroup", shape_children(val))
+        elif t in _SHAPE_TYPES:
             b.named[key] = ("shape", _build_shape(b, val))
         elif t == "directional":
             _build_scene_emitter(b, val)
@@ -290,10 +406,6 @@ def load_dict(d: dict, variant: Variant | None = None,
                     if k in ("max_iterations", "nee_steps",
                              "nee_transmittance", "nee_quad_points",
                              "ff_majorant"))))
-        elif t in ("instance", "shapegroup"):
-            raise NotImplementedError(
-                f"scene entry {key!r} of type {t!r}: instancing needs the "
-                "tile-BVH kernel, which a later slice of the port brings")
         elif t not in _BSDF_TYPES:
             raise NotImplementedError(
                 f"scene entry {key!r} of type {t!r}: not carried by this "

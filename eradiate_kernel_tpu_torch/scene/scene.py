@@ -157,7 +157,7 @@ def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
 
     g = tree["geo"]
     geo = Geometry(**{
-        f.name: (transform(g[f.name]) if f.name == "rect_to_world"
+        f.name: (transform(g[f.name]) if isinstance(g[f.name], dict)
                  else _tensor(g[f.name], device))
         for f in dataclasses.fields(Geometry)})
     registry = lambda name, kinds: {k: tensors(tree[name][k]) for k in kinds}

@@ -162,9 +162,52 @@ def test_plain_sweep_matches_pallas(name, n):
     assert int(visited.sum()) > 0
 
 
-def test_sweep_size_policy():
-    from eradiate_kernel_tpu_torch.render.geometry import check_sweep_size
+def _geo(n_tiles, n_instances=0, n_bvh8=1):
+    """The fields _accel_mode reads, at the given sizes."""
+    import types
 
-    check_sweep_size(2048)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        check_sweep_size(2049)
+    return types.SimpleNamespace(
+        tiles_v0=torch.empty(n_tiles, 0, 3), n_instances=n_instances,
+        bvh8_box=torch.empty(n_bvh8, 8, 8))
+
+
+def test_sweep_size_policy(monkeypatch):
+    """The sweep up to MAX_SWEEP_TILES tiles, the binary BVH above and for
+    every instanced scene (the reference's policy on its TPU)."""
+    from eradiate_kernel_tpu_torch.render.geometry import (MAX_SWEEP_TILES,
+                                                           _accel_mode)
+
+    monkeypatch.delenv("ERT_ACCEL", raising=False)
+    monkeypatch.delenv("ERT_BVH_WIDE", raising=False)
+    assert MAX_SWEEP_TILES == 2048
+    assert _accel_mode(_geo(2048)) == "tiles"
+    assert _accel_mode(_geo(2049)) == "bvh"
+    assert _accel_mode(_geo(3, n_instances=2)) == "bvh"
+
+
+@pytest.mark.parametrize("env, geo, mode", [
+    ({"ERT_BVH_WIDE": "1"}, _geo(2049), "bvh8"),
+    ({"ERT_BVH_WIDE": "1"}, _geo(2049, n_bvh8=0), "bvh"),
+    ({"ERT_BVH_WIDE": "1"}, _geo(12), "tiles"),
+    ({"ERT_ACCEL": "tiles"}, _geo(5000), "tiles"),
+    ({"ERT_ACCEL": "tiles"}, _geo(12, n_instances=1), "bvh"),
+    ({"ERT_ACCEL": "bvh"}, _geo(12), "bvh"),
+    ({"ERT_ACCEL": "bvh8"}, _geo(12), "bvh8"),
+    ({"ERT_ACCEL": "bvh8"}, _geo(12, n_bvh8=0), "bvh"),
+])
+def test_accel_mode_overrides(monkeypatch, env, geo, mode):
+    from eradiate_kernel_tpu_torch.render.geometry import _accel_mode
+
+    monkeypatch.delenv("ERT_ACCEL", raising=False)
+    monkeypatch.delenv("ERT_BVH_WIDE", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert _accel_mode(geo) == mode
+
+
+def test_accel_mode_refuses_naive(monkeypatch):
+    from eradiate_kernel_tpu_torch.render.geometry import _accel_mode
+
+    monkeypatch.setenv("ERT_ACCEL", "naive")
+    with pytest.raises(ValueError, match="brute-force"):
+        _accel_mode(_geo(12))

@@ -106,7 +106,7 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     ("shape", {"type": "sphere"}),
-    ("shape", {"type": "instance"}),
+    ("shape", {"type": "cylinder"}),
     ("emitter", {"type": "constant"}),
     ("integrator", {"type": "volpath"}),
     ("bsdf", {"type": "conductor"}),
@@ -124,9 +124,7 @@ def test_types_outside_the_slice_raise(entry):
         d["camera"]["film"]["rfilter"] = val
     else:
         d["extra"] = val
-    # a scene that needs the BVH kernels names the slice that brings them
-    match = "later slice" if val["type"] == "instance" else None
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError):
         load_dict(d, device="cpu")
 
 
