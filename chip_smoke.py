@@ -5,8 +5,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
-  1. build every CUDA kernel of the port (tile_sweep, tile_bvh, tile_bvh8)
-     from the repository's sources, one nvcc per source, in parallel;
+  1. build every CUDA kernel of the port (tile_sweep, tile_bvh, tile_bvh8,
+     grid_gather) from the repository's sources, one nvcc per source, in
+     parallel;
   2. hold the tile-sweep kernel against its plain PyTorch version on the
      bench terrain (terrain(256): 130,050 triangles, 1,017 tiles) with
      2^20 coherent primary rays and 2^20 incoherent rays;
@@ -25,13 +26,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and through the 8-wide BVH (ERT_BVH_WIDE=1), counting launches;
   7. render a 64x64, 4 spp forest through each BVH kernel and its plain
      version and compare the films;
-  8. print the kernels line, the card's name and power limit, and the
+  8. hold the row-gather kernel against its plain version, bit for bit: on
+     the gather probe's shape (4,096 rows of 1 float, 1,024 lanes) and on
+     the packed 8-corner table of a 64^3 grid with 32,768 lanes of corner
+     indices of random points;
+  9. render the atmosphere (utils/scenes.atmosphere, bench.py's flagship
+     load: 256x256 film, 64 spp, volpath max_depth 12, a 64 x 4 x 4
+     plane-parallel grid, residual NEE transmittance) on the regenerating
+     lane pool of 32,768 lanes, counting kernel launches (tile_sweep ==
+     closest-hit queries: the atmosphere cube is one tile), loop
+     iterations and host syncs;
+ 10. render the atmosphere with a 64^3 grid (bench.py's large3d) at 16 spp
+     the same way; grid_gather launches == gridvolume lookups > 0;
+ 11. render a 64x64, 4 spp 64^3 atmosphere through the kernels, through
+     the plain gather and through the plain sweep, and compare the films;
+ 12. print the kernels line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
-the full-width terrain and forest renders: host time per stage (each stage
-synchronised before and after) and a torch.profiler pass whose kernel
-tables go to smoke_out/profile_<scene>.txt.
+the full-width terrain, forest and flagship atmosphere renders: host time
+per stage (each stage synchronised before and after) and a torch.profiler
+pass whose kernel tables go to smoke_out/profile_<scene>.txt.
 """
 
 import contextlib
@@ -289,12 +304,16 @@ def env(**values):
                 os.environ[k] = v
 
 
-def profile_render(scene, render_s, label):
-    """Where a full-width render's time goes; prints '#' lines and writes
-    the profiler's kernel table to smoke_out/profile_<label>.txt."""
-    from eradiate_kernel_tpu_torch import bsdfs, integrators
+def profile_render(render, render_s, label, window=None):
+    """Where a full-width render's time goes (``render()`` runs it); prints
+    '#' lines and writes the profiler's kernel table to
+    smoke_out/profile_<label>.txt. The profiler traces ``window()`` (a
+    shorter steady run of the same loop) when given, else the render; a
+    window is also timed without the profiler for its busy share."""
+    from eradiate_kernel_tpu_torch import bsdfs, media, phase
     from eradiate_kernel_tpu_torch.core import rng
-    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.integrators import common
+    from eradiate_kernel_tpu_torch.ops import gather, intersect
     from eradiate_kernel_tpu_torch.render import geometry
 
     stages = {
@@ -302,15 +321,19 @@ def profile_render(scene, render_s, label):
         "sweep kernel": (intersect, "sweep"),
         "bvh pre-passes": (intersect, "prepare_bvh"),
         "tile_bvh/tile_bvh8 kernel": (intersect, "traverse"),
+        "grid_gather": (gather, "gather_rows"),
         "threefry": (rng, "threefry2x32"),
         "surface interaction": (geometry, "compute_surface_interaction"),
         "bsdf sample": (bsdfs, "bsdf_sample"),
         "bsdf eval": (bsdfs, "bsdf_eval_pdf"),
+        "flight profile setup": (media, "_flight_profile_setup"),
+        "flight sample": (media, "_flight_sample"),
+        "phase sample": (phase, "phase_sample"),
     }
     with stage_timers(stages) as spent:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        integrators.render(scene, seed=0)
+        render()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     rest = total - sum(spent.values())
@@ -320,19 +343,28 @@ def profile_render(scene, render_s, label):
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    if window is not None:
+        render = window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    common.counters["host_syncs"] = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        integrators.render(scene, seed=0)
+        render()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
+    counted_syncs = common.counters["host_syncs"]
     avgs = prof.key_averages()
     # device-side rows only: an aten op's row repeats its kernels' time
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     ours = {name: sum(e.self_device_time_total for e in kernels
                       if f"{name}_kernel" in e.key)
-            for name in intersect.KERNELS}
+            for name in intersect.KERNELS + ("grid_gather",)}
     launches = sum(e.count for e in avgs if e.key in (
         "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
     syncs = sum(e.count for e in avgs if e.key in (
@@ -345,17 +377,35 @@ def profile_render(scene, render_s, label):
               "(busy share not measured)", flush=True)
         return
     ours_txt = ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in ours.items())
+    what = "window" if window else "render"
     print(f"# {label} render profile: device kernel time "
           f"{device_us / 1e3:.1f} ms ({ours_txt}), busy share "
-          f"{device_us / 1e6 / render_s:.3f} of the unprofiled render "
+          f"{device_us / 1e6 / render_s:.3f} of the unprofiled {what} "
           f"({render_s * 1e3:.1f} ms), {device_us / 1e6 / prof_s:.3f} of "
           f"the profiled one ({prof_s * 1e3:.1f} ms); kernel launches "
-          f"{launches}, host syncs {syncs}", flush=True)
+          f"{launches}, host syncs {syncs} (any_lane sites "
+          f"{counted_syncs})", flush=True)
     ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)[:8]
     print(f"# {label} render profile, aten ops by device time (ms, calls): "
           + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.1f} "
                       f"({e.count})" for e in ops), flush=True)
+
+
+def zero_launches():
+    """Set every kernel's launch count to 0."""
+    from eradiate_kernel_tpu_torch.ops import gather, intersect
+
+    for counts in (intersect.launches, gather.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def all_launches():
+    """Every kernel's launch count: name -> launches."""
+    from eradiate_kernel_tpu_torch.ops import gather, intersect
+
+    return {**intersect.launches, **gather.launches}
 
 
 def counted_render(scene, prepare_name, **render_kw):
@@ -385,14 +435,13 @@ def counted_render(scene, prepare_name, **render_kw):
     setattr(intersect, prepare_name, counted_prepare)
     try:
         torch.cuda.synchronize()
-        for k in intersect.launches:
-            intersect.launches[k] = 0
+        zero_launches()
         counts.update(bounces=0, queries=0)
         t0 = time.perf_counter()
         img = integrators.render(scene, seed=0, **render_kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = dict(intersect.launches)
+        launches = all_launches()
     finally:
         path._bounce = bounce
         setattr(intersect, prepare_name, prepare)
@@ -425,6 +474,111 @@ def check_render(label, scene, img, seconds, launches, bounces, queries,
     assert bounces >= 1 and queries >= 2 * bounces - 1, \
         f"{label}: {queries} queries for {bounces} bounces"
     return mean
+
+
+def counted_regen(scene, n_lanes):
+    """Render ``scene`` on the lane pool with every kernel's launch count
+    and the host-sync count set to 0 just before and read just after.
+    Counts the closest-hit queries (intersect.prepare_sweep calls) and the
+    gridvolume gather lookups (volumes._trilinear_gather calls). Returns
+    (film, seconds, launches, counts)."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.integrators import common
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    counts = {"queries": 0, "lookups": 0}
+    prepare, trilinear = intersect.prepare_sweep, volumes._trilinear_gather
+
+    def counted_prepare(*a, **kw):
+        counts["queries"] += 1
+        return prepare(*a, **kw)
+
+    def counted_trilinear(*a, **kw):
+        counts["lookups"] += 1
+        return trilinear(*a, **kw)
+
+    intersect.prepare_sweep = counted_prepare
+    volumes._trilinear_gather = counted_trilinear
+    try:
+        stats = {}
+        torch.cuda.synchronize()
+        zero_launches()
+        common.counters["host_syncs"] = 0
+        t0 = time.perf_counter()
+        film, rays = integrators.render_wavefront_regen(
+            scene, n_lanes, 0, scene.config.spp, stats=stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+        counts.update(stats, rays=float(rays),
+                      host_syncs=common.counters["host_syncs"])
+    finally:
+        intersect.prepare_sweep = prepare
+        volumes._trilinear_gather = trilinear
+    return film, seconds, launches, counts
+
+
+def check_atmosphere(label, scene, film, seconds, launches, counts):
+    """Print an atmosphere render's line and hold its launches to its
+    queries and lookups. Returns the render's record."""
+    from eradiate_kernel_tpu_torch.films import develop
+
+    cfg = scene.config
+    img = develop(film)
+    assert img.shape == (cfg.film_height, cfg.film_width, 3)
+    assert bool(torch.isfinite(img).all()), f"{label}: non-finite pixels"
+    n_samples = cfg.film_height * cfg.film_width * cfg.spp
+    assert float(film[..., 4].sum()) == n_samples, f"{label}: samples lost"
+    mean = float(img.mean())
+    rec = dict(render_ms=seconds * 1e3,
+               msamples_per_s=n_samples / seconds / 1e6,
+               mrays_per_s=counts["rays"] / seconds / 1e6,
+               rays=counts["rays"], iterations=counts["iterations"],
+               host_syncs=counts["host_syncs"], image_mean=mean,
+               queries=counts["queries"], lookups=counts["lookups"],
+               launches=launches)
+    print(f"# {label}: {rec['render_ms']:.1f} ms, "
+          f"{rec['msamples_per_s']:.3f} Msamples/s, "
+          f"{rec['mrays_per_s']:.2f} Mrays/s ({counts['rays']:.0f} rays), "
+          f"loop iterations {counts['iterations']}, host syncs "
+          f"{counts['host_syncs']}, closest-hit queries {counts['queries']},"
+          f" gridvolume gathers {counts['lookups']}, launches {launches}, "
+          f"image mean {mean:.5f}", flush=True)
+    assert 0.01 < mean < 2.0, f"{label}: image mean {mean}"
+    # the atmosphere cube is one 12-triangle tile: every mesh query of the
+    # render went through the sweep kernel, every large-grid lookup through
+    # the gather kernel, and nothing else was launched
+    assert launches["tile_sweep"] == counts["queries"] > 0, \
+        f"{label}: {launches['tile_sweep']} sweeps, {counts['queries']} queries"
+    assert launches["grid_gather"] == counts["lookups"], \
+        f"{label}: {launches['grid_gather']} gathers, {counts['lookups']} lookups"
+    assert launches["tile_bvh"] == launches["tile_bvh8"] == 0, launches
+    return rec
+
+
+def gather_load(table, idx):
+    """The row-gather kernel against its plain version on one load, bit
+    for bit; times of the kernel, the plain version and index_select; the
+    bound. Returns the load's record."""
+    from eradiate_kernel_tpu_torch.ops import gather
+
+    out = gather._gather_cuda(table, idx)
+    ref = gather.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), "grid_gather differs from the plain gather"
+    L, R = out.shape
+    # bytes: each index read once, each gathered row read and written once
+    nbytes = L * (idx.element_size() + 2 * R * 4)
+    bound_ms, bound_by = bound(nbytes, 0)
+    return dict(
+        ms=cuda_ms(lambda: gather._gather_cuda(table, idx), reps=50),
+        plain_ms=cuda_ms(lambda: gather.gather_rows_plain(table, idx),
+                         reps=50),
+        library_ms=cuda_ms(lambda: torch.index_select(table, 0, idx),
+                           reps=50),
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
+        rows=table.shape[0], row_floats=R, lanes=L)
 
 
 def check_bvh_load(name, tiles, ray, n_rays):
@@ -462,17 +616,24 @@ def main():
         return 2
     from eradiate_kernel_tpu_torch import integrators
     from eradiate_kernel_tpu_torch.core.ray import Ray
-    from eradiate_kernel_tpu_torch.ops import bvh, intersect
+    from eradiate_kernel_tpu_torch.ops import _build, bvh, gather, intersect
     from eradiate_kernel_tpu_torch.ops.accel import pack_tiles
     from eradiate_kernel_tpu_torch.scene import build, load_dict
+    from eradiate_kernel_tpu_torch.textures import volumes
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
 
     dev = torch.device("cuda")
+    # the reference pins float32 matmuls to full precision; so does the port
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
     print(f"# device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # ---- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    secs = intersect.build_kernels(verbose=True)
+    secs = _build.build_kernels(verbose=True)
+    assert set(secs) == {"tile_sweep", "tile_bvh", "tile_bvh8",
+                         "grid_gather"}, secs
     print(f"# build: {', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}"
           f" (in parallel, {time.perf_counter() - t0:.2f} s in all)",
           flush=True)
@@ -647,12 +808,106 @@ def main():
     print(f"# whole path forest 64x64 spp4: tile_bvh vs tile_bvh8 films "
           f"agree ({flips} pixels over tolerance, budget 2)", flush=True)
 
-    if "--profile" in sys.argv[1:]:
-        profile_render(scene, render_s, "terrain")
-        profile_render(forest, forest_runs["tile_bvh"]["render_ms"] / 1e3,
-                       "forest")
+    # ---- 8. grid gather vs plain: the probe's shape and the 64^3 table -------
+    gen = torch.Generator().manual_seed(0)
+    probe_tab = torch.rand(4096, 1, generator=gen).to(dev)
+    probe_idx = torch.randint(0, 4096, (1024,), generator=gen,
+                              dtype=torch.int32).to(dev)
+    grid64 = torch.rand(1, 64, 64, 64, 1, generator=gen).to(dev)
+    packed = volumes.packed_corners(grid64)
+    pl = torch.rand(1 << 15, 3, generator=gen).to(dev)
+    corner_idx = volumes._corner_setup(
+        (1, 64, 64, 64), torch.zeros(1 << 15, dtype=torch.int32, device=dev),
+        pl)[0][0]
+    gather_loads = {"probe": gather_load(probe_tab, probe_idx),
+                    "packed 64^3": gather_load(packed, corner_idx)}
+    for load, rec in gather_loads.items():
+        print(f"# grid_gather {load} ({rec['rows']} rows of "
+              f"{rec['row_floats']} f32, {rec['lanes']} lanes): kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
+              f"(bit-equal), index_select {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})", flush=True)
 
-    # ---- 8. report -------------------------------------------------------------
+    # ---- 9-10. atmosphere renders on the regenerating lane pool --------------
+    lanes = 1 << 15
+
+    def bench_atmosphere(*args, **kw):
+        """bench.py's load: the atmosphere with residual NEE, set as the
+        bench sets it."""
+        d = atmosphere(*args, **kw)
+        d["integrator"]["nee_transmittance"] = "residual"
+        return load_dict(d)
+
+    flagship = bench_atmosphere(256, 256, 64, 12, grid_res=64)
+    integrators.render_wavefront_regen(flagship, lanes, 0, 1)  # warm-up
+    film, atmo_s, launches, counts = counted_regen(flagship, lanes)
+    atmo = {"flagship": check_atmosphere(
+        "atmosphere 256x256 spp64 max_depth 12 grid 64", flagship, film,
+        atmo_s, launches, counts)}
+    assert launches["grid_gather"] == 0  # the einsum path: 1,024 voxels
+    large = bench_atmosphere(256, 256, 16, 12, grid_res=(64, 64, 64))
+    assert large.vol_packed is not None
+    film, secs_l, launches, counts = counted_regen(large, lanes)
+    atmo["large3d"] = check_atmosphere(
+        "atmosphere 256x256 spp16 max_depth 12 grid 64^3", large, film,
+        secs_l, launches, counts)
+    assert launches["grid_gather"] > 0
+
+    # tile_sweep at the atmosphere's shape: the one-tile cube, a pool of
+    # 32,768 rays from inside the slab in random directions
+    o = torch.rand(lanes, 3, generator=gen) * torch.tensor([30.0, 30.0, 1.0])
+    o = (o - torch.tensor([15.0, 15.0, 0.0])).to(dev)
+    d = torch.nn.functional.normalize(torch.randn(lanes, 3, generator=gen),
+                                      dim=-1).to(dev)
+    args, _unsort, _n = intersect.prepare_sweep(flagship.geo.tiles(),
+                                                Ray.make(o, d))
+    out = intersect.sweep(*args)
+    ref = intersect._sweep_plain(*args)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("t", "uv", "prim", "shape", "visits"), out, ref):
+        assert torch.equal(a, b), f"atmosphere cube sweep: {what} differs"
+    bound_ms, bound_by, visits = sweep_bound(args, out[4])
+    cube_sweep = dict(
+        ms=cuda_ms(lambda: intersect.sweep(*args), reps=50),
+        plain_ms=cuda_ms(lambda: intersect._sweep_plain(*args), reps=5),
+        bound_ms=bound_ms, bound_by=bound_by, visits=visits,
+        intersect_tiles_ms=cuda_ms(lambda: intersect.intersect_tiles(
+            flagship.geo.tiles(), Ray.make(o, d)), reps=20))
+    print(f"# sweep atmosphere cube (1 tile, {lanes} rays): kernel "
+          f"{cube_sweep['ms']:.4f} ms, plain {cube_sweep['plain_ms']:.3f} ms "
+          f"(bit-equal), bound {bound_ms:.5f} ms ({bound_by}), "
+          f"intersect_tiles {cube_sweep['intersect_tiles_ms']:.3f} ms",
+          flush=True)
+
+    # ---- 11. whole path on the 64^3 atmosphere: kernels vs plain -------------
+    small_atmo = bench_atmosphere(64, 64, 4, 12, grid_res=(64, 64, 64))
+    film_k, _ = integrators.render_wavefront_regen(small_atmo, lanes, 3, 4)
+    for name, plain in (("grid_gather", gather.use_plain),
+                        ("tile_sweep", intersect.use_plain)):
+        with plain():
+            film_p, _ = integrators.render_wavefront_regen(small_atmo, lanes,
+                                                           3, 4)
+        flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
+                                 max_flips=2)
+        print(f"# whole path 64^3 atmosphere 64x64 spp4: {name} kernel vs "
+              f"plain films agree ({flips} pixels over tolerance, budget 2)",
+              flush=True)
+
+    if "--profile" in sys.argv[1:]:
+        profile_render(lambda: integrators.render(scene, seed=0), render_s,
+                       "terrain")
+        profile_render(lambda: integrators.render(forest, seed=0),
+                       forest_runs["tile_bvh"]["render_ms"] / 1e3, "forest")
+        # the profiler traces a 4-spp window of the same lane pool (262,144
+        # samples, 8 refills of the pool)
+        profile_render(
+            lambda: integrators.render_wavefront_regen(flagship, lanes, 0,
+                                                       64),
+            atmo_s, "atmosphere",
+            window=lambda: integrators.render_wavefront_regen(
+                flagship, lanes, 0, 4))
+
+    # ---- 12. report -----------------------------------------------------------
     p = loads["primary"]
     kernels = [{
         "name": "tile_sweep", "route": "cuda",
@@ -663,6 +918,8 @@ def main():
         "bound_by": p["bound_by"], "library_ms": None,
         "load": "2^20 primary rays on terrain(256)",
         "incoherent": loads["incoherent"],
+        "atmosphere_cube": dict(cube_sweep, launches={
+            k: v["launches"]["tile_sweep"] for k, v in atmo.items()}),
     }]
     for name, src, line in (("tile_bvh", "tile_bvh.cu", 206),
                             ("tile_bvh8", "tile_bvh8.cu", 718)):
@@ -683,7 +940,24 @@ def main():
             "terrain_incoherent": bvh_loads[(name, "terrain incoherent")],
             "forest_render": forest_runs[name],
         })
+    g = gather_loads["packed 64^3"]
+    kernels.append({
+        "name": "grid_gather", "route": "cuda",
+        "source": "eradiate_kernel_tpu_torch/csrc/grid_gather.cu",
+        "replaces": "tools/probe_pallas_gather.py:54",
+        "replaces_all": "tools/probe_pallas_gather.py:54,58,62,72 "
+                        "(k_fancy, k_take, k_tala, k_onehot via call :87)",
+        "launches": atmo["large3d"]["launches"]["grid_gather"],
+        "max_abs_err": 0.0, "ms": g["ms"], "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+        "library_ms": g["library_ms"],
+        "load": "64^3 packed corner table, 32,768 lanes",
+        "probe": gather_loads["probe"],
+    })
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"atmosphere": {
+        k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+        for k, v in atmo.items()}}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

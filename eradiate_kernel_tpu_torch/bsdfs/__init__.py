@@ -8,11 +8,12 @@ from __future__ import annotations
 
 import torch
 
-from . import common, diffuse, rpv
+from . import common, diffuse, null, rpv
 from .common import BSDFSample, zero_bsdf_sample
 
 REGISTRY = {
     "diffuse": diffuse,
+    "null": null,
     "rpv": rpv,
 }
 

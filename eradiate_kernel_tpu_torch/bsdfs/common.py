@@ -15,6 +15,7 @@ DeltaReflection = 0x20
 DeltaTransmission = 0x40
 Null = 0x1
 FrontSide = 0x8000
+BackSide = 0x10000
 
 Diffuse = DiffuseReflection | DiffuseTransmission
 Glossy = GlossyReflection | GlossyTransmission

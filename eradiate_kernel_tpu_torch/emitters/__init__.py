@@ -35,11 +35,14 @@ def directional_sample_direction(scene, params, slot, ref_p):
 KIND_SAMPLERS = {"directional": directional_sample_direction}
 
 
-def sample_emitter_direction(scene, si, s_pick, s1, s2, active):
+def sample_emitter_direction(scene, si, s_pick, s1, s2, active,
+                             test_visibility=True):
     """Scene::sample_emitter_direction (scene.cpp:169-215): uniform pick,
     per-kind direction sample, shadow ray. Returns (ds, weight) with the
     pick pmf folded in. ``s1``/``s2`` are drawn for every kind and unused
-    by the delta kinds of this slice."""
+    by the delta kinds of this slice. Without ``test_visibility`` (the
+    volumetric NEE, which walks the connection itself) no shadow ray is
+    traced, and ``si`` needs only ``p`` and ``t``."""
     cfg = scene.config
     n_em = cfg.n_emitters
     n = si.t.shape[0]
@@ -67,6 +70,8 @@ def sample_emitter_direction(scene, si, s_pick, s1, s2, active):
     ds = dataclasses.replace(ds, pdf=ds.pdf * (1.0 / n_em),
                              emitter_index=idx)
     value = value * n_em
+    if not test_visibility:
+        return ds, torch.where(active[..., None], value, 0.0)
     shadow_ray, _dist = si.spawn_ray_to(ds.p)
     occluded = ray_test(scene.geo, shadow_ray, active)
     return ds, torch.where((active & ~occluded)[..., None], value, 0.0)

@@ -34,15 +34,10 @@ leaf's instance space and the dense tile pass of step 5.
 from __future__ import annotations
 
 import contextlib
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
+from . import _build
 from .accel import TILE_K
 
 RAY_BLOCK = 256              # rays per block (one CUDA thread block)
@@ -340,16 +335,6 @@ def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape):
     return best.result() + (visited,)
 
 
-def _check(name, tensors, dev):
-    for arg, (a, dtype, shp) in tensors.items():
-        if (a.device != dev or a.dtype != dtype or tuple(a.shape) != shp
-                or not a.is_contiguous()):
-            raise ValueError(
-                f"{name}: {arg} must be a contiguous {dtype} tensor of "
-                f"shape {shp} on {dev}, got {a.dtype} {tuple(a.shape)} on "
-                f"{a.device}")
-
-
 def _hit_outputs(n, dev):
     return (torch.empty(n, dtype=torch.float32, device=dev),
             torch.empty(n, 2, dtype=torch.float32, device=dev),
@@ -367,10 +352,10 @@ def _tile_specs(T, v0, e1, e2, prim, shape):
 
 def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape):
     """Launch csrc/tile_sweep.cu on the current stream (no sync)."""
-    lib = build_kernel("tile_sweep")
+    lib = _build.load("tile_sweep")
     nb, T = ids.shape
     dev = rays.device
-    _check("tile_sweep", {
+    _build.check("tile_sweep", {
         "rays": (rays, torch.float32, (nb * RAY_BLOCK, 8)),
         "ids": (ids, torch.int32, (nb, T)),
         "count": (count, torch.int32, (nb,)),
@@ -450,92 +435,18 @@ def intersect_tiles(tiles, ray, return_visited=False):
 
 
 # =============================================================================
-# Building the CUDA kernels
+# The CUDA kernels (built by ops/_build.py at first use)
 # =============================================================================
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-_HEADERS = ("tile_common.cuh",)
 # kernel -> its launch function's ctypes argument types
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "tile_sweep": [_PTR] * 9 + [_INT, _INT] + [_PTR] * 6,
-    "tile_bvh": [_PTR] * 10 + [_INT] + [_PTR] * 6,
-    "tile_bvh8": [_PTR] * 10 + [_INT] + [_PTR] * 6,
+    "tile_sweep": [_build.PTR] * 9 + [_build.INT] * 2 + [_build.PTR] * 6,
+    "tile_bvh": [_build.PTR] * 10 + [_build.INT] + [_build.PTR] * 6,
+    "tile_bvh8": [_build.PTR] * 10 + [_build.INT] + [_build.PTR] * 6,
 }
+for _name, _args in _ARGTYPES.items():
+    _build.register(_name, _args, headers=("tile_common.cuh",))
 KERNELS = tuple(_ARGTYPES)
-_libs = {}
-
-
-def _so_path(name):
-    """build/<name>_<hash of the source and the shared header>.so"""
-    h = hashlib.sha256()
-    for f in (f"{name}.cu",) + _HEADERS:
-        with open(os.path.join(_CSRC, f), "rb") as fh:
-            h.update(fh.read())
-    build_dir = os.path.join(os.path.dirname(_CSRC), "build")
-    os.makedirs(build_dir, exist_ok=True)
-    return os.path.join(build_dir, f"{name}_{h.hexdigest()[:16]}.so")
-
-
-def build_kernels(names=KERNELS, verbose=False):
-    """Compile csrc/<name>.cu for sm_90a into the package's build/
-    directory, one nvcc per source, all started together, and load them.
-    Returns {name: seconds its build took} (0 for a library built before).
-    Raises if nvcc fails."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    procs = {}
-    for name in names:
-        if name in _libs:
-            continue
-        so = _so_path(name)
-        if os.path.exists(so):
-            continue
-        tmp = f"{so}.{os.getpid()}.tmp"
-        # -fmad=false: no a*b+c contraction, so the kernels round every
-        # product and sum like the plain versions' eager torch ops do
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-fmad=false", "-shared",
-               "-Xcompiler", "-fPIC", "-o", tmp,
-               os.path.join(_CSRC, f"{name}.cu")]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, so, time.perf_counter())
-    seconds = dict.fromkeys(names, 0.0)
-    failed = []
-    for name, (proc, tmp, so, t0) in procs.items():
-        out = proc.communicate()[0]
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{out}")
-            continue
-        if verbose:
-            print(out)
-        os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    for name in names:
-        build_kernel(name)
-    return seconds
-
-
-def build_kernel(name):
-    """The loaded ctypes library of kernel ``name``, built at first use."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    so = _so_path(name)
-    if not os.path.exists(so):
-        build_kernels((name,))
-        return _libs[name]
-    lib = ctypes.CDLL(so)
-    fn = getattr(lib, f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[name]
-    _libs[name] = lib
-    return lib
 
 
 # =============================================================================
@@ -726,13 +637,13 @@ def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2,
                    prim, shape):
     """Launch csrc/<name>.cu (tile_bvh or tile_bvh8) on the current stream
     (no sync)."""
-    lib = build_kernel(name)
+    lib = _build.load(name)
     nb = rays.shape[0] // RAY_BLOCK
     dev = rays.device
     N, I1 = tree_box.shape[0], xf.shape[0]
     box_shape, meta_shape = (((N, 1, 8), (N, 4)) if name == "tile_bvh"
                              else ((N, 8, 8), (N, 8, 4)))
-    _check(name, {
+    _build.check(name, {
         "rays": (rays, torch.float32, (nb * RAY_BLOCK, 8)),
         "box": (tree_box, torch.float32, box_shape),
         "meta": (tree_meta, torch.int32, meta_shape),

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..core.transform import Transform
+from ..core.transform import Transform, as_transform
 from ..core.types import Variant, resolve_device
 from ..ops.accel import TILE_K, pack_tiles
 from ..ops.bvh import build_tile_bvh, collapse_to_bvh8
@@ -18,10 +18,16 @@ from ..render.geometry import FAMILY_IMESH, FAMILY_MESH, FAMILY_RECT
 from .build_emitters import _build_bsdf, _build_scene_emitter
 from .build_sensors import _SENSOR_TYPES, _build_sensor
 from .build_shapes import _SHAPE_TYPES, _build_shape, shape_children
+from .build_spectra import (_axis_majorant_profiles,
+                            _control_and_residual_profiles)
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
 
-_BSDF_TYPES = ("diffuse", "rpv", "twosided")
+_BSDF_TYPES = ("diffuse", "rpv", "null", "twosided")
+_MEDIUM_TYPES = ("homogeneous", "heterogeneous")
+_INTEGRATOR_EXTRAS = ("max_iterations", "nee_steps", "nee_transmittance",
+                      "nee_quad_points", "ff_majorant")
+_WRAP_CODES = {"clamp": 0, "repeat": 1, "mirror": 2}
 
 
 class SceneBuilder:
@@ -37,6 +43,14 @@ class SceneBuilder:
         self.bsdf_table = []
         self.bsdf_flag_list = []
         self.emitter_table = []
+        self.media_rows = {}
+        self.phase_rows = {}
+        self.volume_rows = {}
+        self.medium_table = []
+        self.phase_table = []
+        self.volume_table = []
+        self.medium_phase_list = []
+        self.sensor_medium = -1  # medium the sensor is embedded in
         self.named = {}
         self.vertices = []
         self.normals = []
@@ -68,6 +82,133 @@ class SceneBuilder:
 
     def add_emitter_row(self, kind, row):
         return self._add(self.emitter_rows, self.emitter_table, kind, row)
+
+    def add_medium_row(self, kind, row, phase_idx):
+        self.medium_phase_list.append(phase_idx)
+        return self._add(self.media_rows, self.medium_table, kind, row)
+
+    def add_phase_row(self, kind, row):
+        return self._add(self.phase_rows, self.phase_table, kind, row)
+
+    def add_volume_row(self, kind, row):
+        return self._add(self.volume_rows, self.volume_table, kind, row)
+
+    # --- phase functions, volumes and media -----------------------------------
+    def phase(self, d):
+        t = (d or {"type": "isotropic"})["type"]
+        if t in ("isotropic", "rayleigh"):
+            return self.add_phase_row(t, {"_pad": np.float32(0)})
+        if t == "hg":
+            return self.add_phase_row("hg", {"g": np.float32(d.get("g", 0.8))})
+        raise NotImplementedError(
+            f"phase {t!r}: the port carries isotropic, hg and rayleigh; the "
+            "others come with slice 6")
+
+    def volume(self, v):
+        """A number, a list or a volume dict -> volume index."""
+        if isinstance(v, (int, float)):
+            return self.add_volume_row("constvolume", {
+                "value": np.asarray([float(v)], np.float32)})
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return self.add_volume_row("constvolume", {
+                "value": np.asarray(v, np.float32)})
+        t = v["type"]
+        if t == "constvolume":
+            val = np.atleast_1d(np.asarray(v.get("value", 1.0), np.float32))
+            return self.add_volume_row("constvolume", {"value": val})
+        if t != "gridvolume" or v.get("filter_type",
+                                      "trilinear") != "trilinear":
+            raise NotImplementedError(
+                f"volume {t!r} ({v.get('filter_type', 'trilinear')}): the "
+                "port carries constvolume and trilinear gridvolume; the "
+                "others come with slice 6")
+        data, w2l = self._grid_data(v)
+        wrap = v.get("wrap_mode", "clamp")
+        if wrap not in _WRAP_CODES:
+            raise ValueError(f'invalid wrap mode "{wrap}", must be one of: '
+                             '"repeat", "mirror", or "clamp"')
+        if data.shape[-1] not in (1, 3):
+            raise ValueError(f"gridvolume wants 1 or 3 channels, got "
+                             f"{data.shape[-1]}")
+        return self.add_volume_row("gridvolume", {
+            "wrap": np.int32(_WRAP_CODES[wrap]),
+            "w2l_m": np.asarray(w2l.m, np.float32),
+            "w2l_it": np.asarray(w2l.inv_t, np.float32),
+            "grid": data, "vmax": np.float32(float(data.max()))})
+
+    def _grid_data(self, v):
+        """Inline grid data (D, H, W[, C]) and its world_to_local."""
+        if "data" not in v:
+            raise NotImplementedError(
+                "gridvolume from a .vol file: comes with slice 7 (IO)")
+        data = np.asarray(v["data"], np.float32)
+        if data.ndim == 3:
+            data = data[..., None]
+        return data, as_transform(v.get("to_world")).inverse()
+
+    def medium(self, d):
+        """A medium dict (or a ref to a named one) -> medium index."""
+        if d is None:
+            return -1
+        if d.get("type") == "ref":
+            kind, idx = self.named[d["id"]]
+            if kind != "medium":
+                raise ValueError(f"ref {d['id']!r} names a {kind}")
+            return idx
+        t = d["type"]
+        if t not in _MEDIUM_TYPES:
+            raise NotImplementedError(f"medium {t!r}: the port carries "
+                                      f"{_MEDIUM_TYPES}")
+        phase_idx = self.phase(d.get("phase"))
+        if t == "homogeneous":
+            return self.add_medium_row("homogeneous", {
+                "sigma_t": np.int32(self.spectrum(d.get("sigma_t", 1.0))),
+                "albedo": np.int32(self.spectrum(d.get("albedo", 0.75))),
+                "scale": np.float32(d.get("scale", 1.0))}, phase_idx)
+        st_vol = self.volume(d.get("sigma_t", 1.0))
+        al_vol = self.volume(d.get("albedo", 0.75))
+        scale = float(d.get("scale", 1.0))
+        # majorant = scale * max sigma_t (heterogeneous.cpp:29)
+        kind, slot = self.volume_table[st_vol]
+        rows = self.volume_rows[kind][slot]
+        vmax = (float(rows["vmax"]) if "vmax" in rows
+                else float(np.max(rows["value"])))
+        # bounds: the sigma_t grid's unit cube; a constvolume's own to_world
+        if kind == "gridvolume":
+            w2l_m, w2l_it = rows["w2l_m"], rows["w2l_it"]
+        else:
+            w2l = as_transform(d.get("to_world")).inverse()
+            w2l_m = np.asarray(w2l.m, np.float32)
+            w2l_it = np.asarray(w2l.inv_t, np.float32)
+        # plane-parallel: a 1-channel clamp grid constant over (y, x) is a
+        # vertical profile sigma(z) with a closed-form optical depth
+        zok = False
+        zprof = np.zeros(1, np.float32)
+        if (kind == "gridvolume" and int(rows["wrap"]) == 0
+                and rows["grid"].shape[-1] == 1
+                and np.array_equal(rows["grid"], np.broadcast_to(
+                    rows["grid"][:, :1, :1], rows["grid"].shape))):
+            zok = True
+            zprof = rows["grid"][:, 0, 0, 0].astype(np.float32)
+        D = len(zprof)
+        if D > 1:
+            dz = 1.0 / (D - 1)
+            zcum = np.concatenate(
+                [[0.0], np.cumsum(0.5 * (zprof[:-1] + zprof[1:]) * dz)]
+            ).astype(np.float32)
+        else:
+            zcum = np.zeros(1, np.float32)
+        cprof, ccum, resprof = _control_and_residual_profiles(kind, rows,
+                                                              vmax)
+        return self.add_medium_row("heterogeneous", {
+            "sigma_t_vol": np.int32(st_vol), "albedo_vol": np.int32(al_vol),
+            "scale": np.float32(scale),
+            "majorant": np.float32(scale * vmax),
+            "axprof": _axis_majorant_profiles(rows, vmax),
+            "w2l_m": w2l_m, "w2l_it": w2l_it,
+            "zok": np.bool_(zok), "zprof": zprof, "zcum": zcum,
+            "zD": np.int32(D), "cprof": cprof, "ccum": ccum,
+            "cD": np.int32(len(cprof)), "resprof": resprof}, phase_idx)
 
     def spectrum(self, value):
         """A python value / plugin dict -> spectrum index; the rgb variant
@@ -105,7 +246,8 @@ class SceneBuilder:
     # --- geometry ----------------------------------------------------------------
     def _new_shape(self, family, prim_slot):
         self.shape_rows.append(dict(family=family, prim_slot=prim_slot,
-                                    bsdf=-1, emitter=-1))
+                                    bsdf=-1, emitter=-1, interior=-1,
+                                    exterior=-1))
         return len(self.shape_rows) - 1
 
     def add_mesh(self, verts, faces, normals=None, uvs=None):
@@ -254,15 +396,22 @@ class SceneBuilder:
             # pad row so per-shape gathers are well formed; family -1
             # matches no intersection family
             self.shape_rows.append(dict(family=-1, prim_slot=0, bsdf=0,
-                                        emitter=-1))
+                                        emitter=-1, interior=-1,
+                                        exterior=-1))
         arrays = {}
 
         def registry(name, rows_dict, table, kind_name, slot_name):
             kinds = list(rows_dict)
             for kind, rows in rows_dict.items():
                 for key in rows[0]:
-                    arrays[f"{name}.{kind}.{key}"] = np.stack(
-                        [np.asarray(r[key]) for r in rows])
+                    vals = [np.asarray(r[key]) for r in rows]
+                    if vals[0].ndim and len({v.shape for v in vals}) > 1:
+                        # pad variable-shape rows (grids) in every dim
+                        tgt = np.max([v.shape for v in vals], axis=0)
+                        vals = [np.pad(v, [(0, n - m) for n, m in
+                                           zip(tgt, v.shape)])
+                                for v in vals]
+                    arrays[f"{name}.{kind}.{key}"] = np.stack(vals)
             arrays[kind_name] = np.asarray([kinds.index(k) for k, _ in table],
                                            np.int32).reshape(-1)
             arrays[slot_name] = np.asarray([s for _, s in table],
@@ -278,11 +427,32 @@ class SceneBuilder:
                              "tex_kind", "tex_slot")
         spec_kinds = registry("spectra", self.spectra, self.spec_table,
                               "spec_kind", "spec_slot")
+        # plane-parallel closed-form optical depth needs EVERY heterogeneous
+        # medium to be a vertical profile; profile rows pad to one length
+        het_rows = self.media_rows.get("heterogeneous", [])
+        het_profile1d = bool(het_rows) and all(bool(r["zok"])
+                                               for r in het_rows)
+        for prof, cum in (("zprof", "zcum"), ("cprof", "ccum")):
+            n = max((len(r[prof]) for r in het_rows), default=0)
+            for r in het_rows:
+                if len(r[prof]) < n:
+                    pad = (0, n - len(r[prof]))
+                    r[prof] = np.pad(r[prof], pad, mode="edge")
+                    r[cum] = np.pad(r[cum], pad, mode="edge")
+        medium_kinds = registry("media", self.media_rows, self.medium_table,
+                                "medium_kind", "medium_slot")
+        phase_kinds = registry("phases", self.phase_rows, self.phase_table,
+                               "phase_kind", "phase_slot")
+        volume_kinds = registry("volumes", self.volume_rows,
+                                self.volume_table, "vol_kind", "vol_slot")
+        arrays["medium_phase"] = np.asarray(self.medium_phase_list, np.int32)
         arrays["bsdf_flags"] = np.asarray(self.bsdf_flag_list, np.int32)
         shape_col = lambda key: np.asarray([r[key] for r in self.shape_rows],
                                            np.int32)
         arrays["shape_bsdf"] = shape_col("bsdf")
         arrays["shape_emitter"] = shape_col("emitter")
+        arrays["shape_interior"] = shape_col("interior")
+        arrays["shape_exterior"] = shape_col("exterior")
 
         cat = lambda parts, shape, dtype: (np.concatenate(parts) if parts
                                            else np.zeros(shape, dtype))
@@ -327,6 +497,9 @@ class SceneBuilder:
             variant=self.variant,
             bsdf_kinds=bsdf_kinds, emitter_kinds=emitter_kinds,
             texture_kinds=tex_kinds, spectrum_kinds=spec_kinds,
+            medium_kinds=medium_kinds, phase_kinds=phase_kinds,
+            volume_kinds=volume_kinds, het_profile1d=het_profile1d,
+            sensor_medium=self.sensor_medium,
             sensor_kind=sensor_kind,
             n_emitters=len(self.emitter_table), env_emitter=-1,
             film_width=film_cfg["width"], film_height=film_cfg["height"],
@@ -395,17 +568,18 @@ def load_dict(d: dict, variant: Variant | None = None,
             sampler = val.get("sampler", {})
             spp = int(sampler.get("sample_count", 16))
             b.sampler_kind = sampler.get("type", "independent")
-        elif t == "path":
+            if "medium" in val:
+                b.sensor_medium = b.medium(val["medium"])
+        elif t in ("path", "volpath"):
             integrator_cfg = IntegratorConfig(
                 kind=t,
                 max_depth=int(val.get("max_depth", 8)),
                 rr_depth=int(val.get("rr_depth", 5)),
                 hide_emitters=bool(val.get("hide_emitters", False)),
-                extra=tuple(sorted(
-                    (k, v) for k, v in val.items()
-                    if k in ("max_iterations", "nee_steps",
-                             "nee_transmittance", "nee_quad_points",
-                             "ff_majorant"))))
+                extra=tuple(sorted((k, v) for k, v in val.items()
+                                   if k in _INTEGRATOR_EXTRAS)))
+        elif t in _MEDIUM_TYPES:
+            b.named[key] = ("medium", b.medium(val))
         elif t not in _BSDF_TYPES:
             raise NotImplementedError(
                 f"scene entry {key!r} of type {t!r}: not carried by this "

@@ -1,6 +1,7 @@
 """Shape construction (scene/build_shapes.py counterpart): triangle meshes
-given as vertex/face arrays, cubes, rectangles, and two-level instancing
-(shapegroups of meshes under instance transforms)."""
+given as vertex/face arrays, cubes, rectangles, two-level instancing
+(shapegroups of meshes under instance transforms), and the media a shape
+bounds (interior/exterior)."""
 
 from __future__ import annotations
 
@@ -143,11 +144,11 @@ def _build_shape(builder, d):
     tw = as_transform(d.get("to_world"))
     if t == "instance":
         return _build_instance(builder, d, tw)
-    for key in ("emitter", "interior", "exterior", "attributes"):
+    for key in ("emitter", "attributes"):
         if key in d:
             raise NotImplementedError(
-                f"shape {key!r}: area emitters, media and mesh attributes "
-                "come with later slices of the port")
+                f"shape {key!r}: area emitters and mesh attributes come "
+                "with slice 5 of the port")
     if t == "rectangle":
         idx = builder.add_rectangle(tw)
     elif t == "cube":
@@ -166,6 +167,15 @@ def _build_shape(builder, d):
     else:
         raise NotImplementedError(
             f"shape {t!r}: this slice of the port carries {_SHAPE_TYPES}")
-    builder.shape_rows[idx]["bsdf"] = _build_bsdf(
-        builder, d.get("bsdf", {"type": "diffuse"}))
+    row = builder.shape_rows[idx]
+    bsdf_d = d.get("bsdf")
+    if bsdf_d is None:
+        # shapes bounding a medium default to a null (passthrough) BSDF
+        bsdf_d = {"type": "null"} if ("interior" in d or "exterior" in d) \
+            else {"type": "diffuse"}
+    row["bsdf"] = _build_bsdf(builder, bsdf_d)
+    if "interior" in d:
+        row["interior"] = builder.medium(d["interior"])
+    if "exterior" in d:
+        row["exterior"] = builder.medium(d["exterior"])
     return idx

@@ -18,17 +18,22 @@ import torch
 from ..core.transform import Transform
 from ..core.types import Variant, resolve_device
 from ..render.geometry import Geometry
+from ..textures.volumes import packed_corners_of
 
 # what this slice of the port carries
 SUPPORTED = {
-    "bsdf_kinds": {"diffuse", "rpv"},
+    "bsdf_kinds": {"diffuse", "rpv", "null"},
     "emitter_kinds": {"directional"},
     "texture_kinds": {"constant"},
     "spectrum_kinds": {"baked"},
     "sensor_kind": {"perspective"},
     "rfilter": {"box"},
     "sampler_kind": {"independent"},
+    "medium_kinds": {"homogeneous", "heterogeneous"},
+    "phase_kinds": {"isotropic", "hg", "rayleigh"},
+    "volume_kinds": {"constvolume", "gridvolume"},
 }
+INTEGRATORS = ("path", "volpath")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +65,13 @@ class SceneConfig:
     pixel_format: str = "rgb"
     crop_offset: tuple = (0, 0)
     crop_size: tuple = ()  # () = full film
+    medium_kinds: tuple = ()
+    phase_kinds: tuple = ()
+    volume_kinds: tuple = ()
+    sensor_medium: int = -1  # medium the sensor is embedded in
+    # every heterogeneous medium is a vertical profile sigma(z): its
+    # optical depth has a closed form (media.medium_tau_segment)
+    het_profile1d: bool = False
 
     def __post_init__(self):
         for name, allowed in SUPPORTED.items():
@@ -70,10 +82,19 @@ class SceneConfig:
                 raise NotImplementedError(
                     f"{name} {bad}: not carried by this slice of the port "
                     f"(it has {sorted(allowed)})")
-        if self.integrator.kind != "path":
+        if self.integrator.kind not in INTEGRATORS:
             raise NotImplementedError(
-                f"integrator {self.integrator.kind!r}: this slice of the "
-                "port carries only 'path'")
+                f"integrator {self.integrator.kind!r}: the port carries "
+                f"{INTEGRATORS}; volpathmis comes with slice 6")
+        extra = dict(self.integrator.extra)
+        if extra.get("nee_transmittance", "residual") != "residual":
+            raise NotImplementedError(
+                "nee_transmittance: the port carries 'residual'; 'track' and "
+                "'quadrature' come with slice 6")
+        if extra.get("ff_majorant", "profile") != "profile":
+            raise NotImplementedError(
+                "ff_majorant: the port carries 'profile'; 'segment' comes "
+                "with slice 6")
 
 
 def bounding_sphere(points):
@@ -90,6 +111,8 @@ class Scene:
     geo: Geometry
     shape_bsdf: torch.Tensor      # (n_shapes,) i32
     shape_emitter: torch.Tensor   # (n_shapes,) i32 (-1)
+    shape_interior: torch.Tensor  # (n_shapes,) i32 medium (-1)
+    shape_exterior: torch.Tensor  # (n_shapes,) i32 medium (-1)
     bsdfs: dict                   # kind -> param -> tensor
     bsdf_kind: torch.Tensor
     bsdf_slot: torch.Tensor
@@ -103,10 +126,24 @@ class Scene:
     spectra: dict
     spec_kind: torch.Tensor
     spec_slot: torch.Tensor
+    media: dict
+    medium_kind: torch.Tensor
+    medium_slot: torch.Tensor
+    medium_phase: torch.Tensor    # (n_media,) i32 phase index per medium
+    phases: dict
+    phase_kind: torch.Tensor
+    phase_slot: torch.Tensor
+    volumes: dict
+    vol_kind: torch.Tensor
+    vol_slot: torch.Tensor
     sensor: dict                  # to_world Transform, tan_half_fov
     bsphere_center: torch.Tensor  # (3,)
     bsphere_radius: torch.Tensor  # ()
     config: SceneConfig
+    # the gridvolume rows' packed 8-corner table (textures.volumes.
+    # packed_corners), built once at load for grids on the gather path;
+    # derived from volumes.gridvolume.grid, so not one of arrays()
+    vol_packed: torch.Tensor | None = None
 
     def arrays(self) -> dict:
         """Every array of the scene as numpy, by dotted name."""
@@ -115,7 +152,7 @@ class Scene:
         def walk(prefix, obj):
             if dataclasses.is_dataclass(obj):
                 for f in dataclasses.fields(obj):
-                    if f.name != "config":
+                    if f.name not in ("config", "vol_packed"):
                         walk(f"{prefix}{f.name}.", getattr(obj, f.name))
             elif isinstance(obj, dict):
                 for k, v in obj.items():
@@ -162,6 +199,7 @@ def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
         for f in dataclasses.fields(Geometry)})
     registry = lambda name, kinds: {k: tensors(tree[name][k]) for k in kinds}
     top = lambda name: _tensor(tree[name], device)
+    volumes = registry("volumes", config.volume_kinds)
     return Scene(
         geo=geo, shape_bsdf=top("shape_bsdf"),
         shape_emitter=top("shape_emitter"),
@@ -174,6 +212,16 @@ def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
         tex_kind=top("tex_kind"), tex_slot=top("tex_slot"),
         spectra=registry("spectra", config.spectrum_kinds),
         spec_kind=top("spec_kind"), spec_slot=top("spec_slot"),
+        shape_interior=top("shape_interior"),
+        shape_exterior=top("shape_exterior"),
+        media=registry("media", config.medium_kinds),
+        medium_kind=top("medium_kind"), medium_slot=top("medium_slot"),
+        medium_phase=top("medium_phase"),
+        phases=registry("phases", config.phase_kinds),
+        phase_kind=top("phase_kind"), phase_slot=top("phase_slot"),
+        volumes=volumes,
+        vol_kind=top("vol_kind"), vol_slot=top("vol_slot"),
+        vol_packed=packed_corners_of(volumes),
         sensor={"to_world": transform(tree["sensor"]["to_world"]),
                 "tan_half_fov": _tensor(tree["sensor"]["tan_half_fov"],
                                         device)},

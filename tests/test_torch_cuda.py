@@ -11,7 +11,7 @@ import torch
 
 from bench_mesh import terrain
 from eradiate_kernel_tpu_torch.core.ray import Ray
-from eradiate_kernel_tpu_torch.ops import accel, bvh, intersect
+from eradiate_kernel_tpu_torch.ops import accel, bvh, gather, intersect
 
 
 @pytest.fixture
@@ -83,3 +83,24 @@ def test_tile_bvh_matches_plain(cuda_device, n, wide):
     assert torch.isfinite(out[0]).any() and int(out[4][:, 0].sum()) > 0
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 1, 1024, torch.int32),
+                                   (8 * 17 * 16 * 16, 8, 5000, torch.int64),
+                                   (100, 3, 77, torch.int32)])
+def test_grid_gather_matches_plain(cuda_device, shape):
+    """The row-gather kernel against the plain gather, bit equal, with
+    indices past both ends (clamped): the probe's shape, packed-corner
+    rows, and rows that are not a multiple of 16 bytes."""
+    V, R, L, dtype = shape
+    rng = np.random.default_rng(V)
+    table = torch.as_tensor(rng.random((V, R)).astype(np.float32),
+                            device=cuda_device)
+    idx = torch.as_tensor(rng.integers(-3, V + 3, L), dtype=dtype,
+                          device=cuda_device)
+    before = gather.launches["grid_gather"]
+    out = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather.launches["grid_gather"] == before + 1
+    assert torch.equal(out, gather.gather_rows_plain(table, idx))

@@ -108,7 +108,7 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     ("shape", {"type": "sphere"}),
     ("shape", {"type": "cylinder"}),
     ("emitter", {"type": "constant"}),
-    ("integrator", {"type": "volpath"}),
+    ("integrator", {"type": "volpathmis"}),
     ("bsdf", {"type": "conductor"}),
     ("texture", {"type": "bitmap", "data": np.ones((2, 2, 3))}),
     ("rfilter", {"type": "gaussian"}),
