@@ -7,10 +7,12 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build every CUDA kernel of the port (tile_sweep, tile_bvh, tile_bvh8,
      grid_gather) from the repository's sources, one nvcc per source, in
-     parallel;
+     parallel, printing each kernel's registers and spills and a few
+     instruction counts of its SASS;
   2. hold the tile-sweep kernel against its plain PyTorch version on the
-     bench terrain (terrain(256): 130,050 triangles, 1,017 tiles) with
-     2^20 coherent primary rays and 2^20 incoherent rays;
+     bench terrain (terrain(256): 130,050 triangles, 1,017 tiles: the
+     sorted pipeline) with 2^20 coherent primary rays and 2^20 incoherent
+     rays;
   3. render the terrain scene at full width (256x256 film, 16 spp, path
      tracer with max_depth 6, RPV surface, directional sun) through the
      port's ``load_dict`` and ``integrators.render``, counting kernel
@@ -26,32 +28,43 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and through the 8-wide BVH (ERT_BVH_WIDE=1), counting launches;
   7. render a 64x64, 4 spp forest through each BVH kernel and its plain
      version and compare the films;
-  8. hold the row-gather kernel against its plain version, bit for bit: on
-     the gather probe's shape (4,096 rows of 1 float, 1,024 lanes) and on
-     the packed 8-corner table of a 64^3 grid with 32,768 lanes of corner
-     indices of random points;
+  8. hold the row-gather kernel's gather entry against its plain version,
+     bit for bit: on the gather probe's shape (4,096 rows of 1 float, 1,024
+     lanes) and on the packed 8-corner table of a 64^3 grid with 32,768
+     lanes of corner indices of random points, with the wrapper's host time
+     piece by piece; then its fused trilinear entry against the plain chain
+     on the 64^3 load, timed beside torch's grid_sample on the same grid;
   9. render the atmosphere (utils/scenes.atmosphere, bench.py's flagship
      load: 256x256 film, 64 spp, volpath max_depth 12, a 64 x 4 x 4
      plane-parallel grid, residual NEE transmittance) on the regenerating
      lane pool of 32,768 lanes, counting kernel launches (tile_sweep ==
-     closest-hit queries: the atmosphere cube is one tile), loop
-     iterations and host syncs;
+     closest-hit queries: the atmosphere cube is one tile, one fused
+     launch a query), loop iterations and host syncs;
  10. render the atmosphere with a 64^3 grid (bench.py's large3d) at 16 spp
-     the same way; grid_gather launches == gridvolume lookups > 0;
+     the same way; grid_gather launches == gridvolume lookups > 0 (one
+     fused launch a lookup); then the fused query on the cube (32,768
+     rays) and on an 8-tile terrain(23) against its plain version, bit for
+     bit, timed beside the eager sorted pipeline; and the fused query
+     against the sorted pipeline on 8-, 16- and 32-tile terrains under
+     2^15 and 2^20 primary and incoherent rays (where the sort starts to
+     pay);
  11. render a 64x64, 4 spp 64^3 atmosphere through the kernels, through
      the plain gather and through the plain sweep, and compare the films;
  12. print the kernels line, the card's name and power limit, and the
      final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
-the full-width terrain, forest and flagship atmosphere renders: host time
-per stage (each stage synchronised before and after) and a torch.profiler
-pass whose kernel tables go to smoke_out/profile_<scene>.txt.
+the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
+renders: host time per stage (each stage synchronised before and after)
+and a torch.profiler pass whose kernel tables go to
+smoke_out/profile_<scene>.txt.
 """
 
+import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +75,18 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+
+# each kernel's device functions (profiler rows are matched by these names)
+KERNEL_FUNCS = {"tile_sweep": ("tile_sweep_kernel", "tile_sweep_small_kernel"),
+                "tile_bvh": ("tile_bvh_kernel",),
+                "tile_bvh8": ("tile_bvh8_kernel",),
+                "grid_gather": ("grid_gather_kernel", "grid_trilinear_kernel")}
+# SASS opcode families counted per kernel function: the reciprocal and
+# the calls of its slow path, 32- and 128-bit shared loads, async copies,
+# barriers, FP32 arithmetic (an opcode counts under a family it equals or
+# extends with a "." suffix; LDS only as itself)
+SASS_OPS = ("MUFU.RCP", "CALL", "LDS", "LDS.128", "LDGSTS", "BAR.SYNC",
+            "BAR.RED", "FFMA", "FMUL", "FADD")
 
 
 def terrain(n=256, seed=0):
@@ -167,6 +192,36 @@ def forest_scene(width, height, spp, max_depth, n_inst=256):
                           {"type": "rotate", "axis": [0, 0, 1],
                            "angle": float(rng.uniform(0, 360))}]}
     return d
+
+
+def sass_counts(name):
+    """{kernel function: {opcode: count}} of kernel ``name``'s SASS, for the
+    functions of KERNEL_FUNCS and the opcodes of SASS_OPS; None where the
+    toolkit has no cuobjdump."""
+    from eradiate_kernel_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    sass = subprocess.run([cuobjdump, "-sass", _build._so_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    op_re = re.compile(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z0-9_.]+)")
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            cur = next((k for k in KERNEL_FUNCS[name] if k in fn), None)
+            if cur is not None:
+                counts.setdefault(cur, collections.Counter())
+            continue
+        m = op_re.search(line)
+        if cur is not None and m:
+            counts[cur][m.group(1)] += 1
+    fam = lambda op, key: op == key or (key != "LDS"
+                                         and op.startswith(key + "."))
+    return {fn: {key: sum(n for op, n in c.items() if fam(op, key))
+                 for key in SASS_OPS} for fn, c in counts.items()}
 
 
 def cuda_ms(fn, reps):
@@ -313,15 +368,16 @@ def profile_render(render, render_s, label, window=None):
     from eradiate_kernel_tpu_torch import bsdfs, media, phase
     from eradiate_kernel_tpu_torch.core import rng
     from eradiate_kernel_tpu_torch.integrators import common
-    from eradiate_kernel_tpu_torch.ops import gather, intersect
+    from eradiate_kernel_tpu_torch.ops import intersect
     from eradiate_kernel_tpu_torch.render import geometry
 
     stages = {
         "sweep pre-passes": (intersect, "prepare_sweep"),
         "sweep kernel": (intersect, "sweep"),
+        "fused sweep query": (intersect, "sweep_small"),
         "bvh pre-passes": (intersect, "prepare_bvh"),
         "tile_bvh/tile_bvh8 kernel": (intersect, "traverse"),
-        "grid_gather": (gather, "gather_rows"),
+        "volume lookups": (media, "volume_eval"),
         "threefry": (rng, "threefry2x32"),
         "surface interaction": (geometry, "compute_surface_interaction"),
         "bsdf sample": (bsdfs, "bsdf_sample"),
@@ -361,10 +417,10 @@ def profile_render(render, render_s, label, window=None):
     avgs = prof.key_averages()
     # device-side rows only: an aten op's row repeats its kernels' time
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
+    busy_us = sum(e.self_device_time_total for e in kernels)
     ours = {name: sum(e.self_device_time_total for e in kernels
-                      if f"{name}_kernel" in e.key)
-            for name in intersect.KERNELS + ("grid_gather",)}
+                      if any(f in e.key for f in funcs))
+            for name, funcs in KERNEL_FUNCS.items()}
     launches = sum(e.count for e in avgs if e.key in (
         "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
     syncs = sum(e.count for e in avgs if e.key in (
@@ -372,16 +428,16 @@ def profile_render(render, render_s, label, window=None):
     os.makedirs("smoke_out", exist_ok=True)
     with open(os.path.join("smoke_out", f"profile_{label}.txt"), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=50))
-    if device_us == 0:
+    if busy_us == 0:
         print(f"# {label} render profile: the profiler saw no device time "
               "(busy share not measured)", flush=True)
         return
     ours_txt = ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in ours.items())
     what = "window" if window else "render"
     print(f"# {label} render profile: device kernel time "
-          f"{device_us / 1e3:.1f} ms ({ours_txt}), busy share "
-          f"{device_us / 1e6 / render_s:.3f} of the unprofiled {what} "
-          f"({render_s * 1e3:.1f} ms), {device_us / 1e6 / prof_s:.3f} of "
+          f"{busy_us / 1e3:.1f} ms ({ours_txt}), busy share "
+          f"{busy_us / 1e6 / render_s:.3f} of the unprofiled {what} "
+          f"({render_s * 1e3:.1f} ms), {busy_us / 1e6 / prof_s:.3f} of "
           f"the profiled one ({prof_s * 1e3:.1f} ms); kernel launches "
           f"{launches}, host syncs {syncs} (any_lane sites "
           f"{counted_syncs})", flush=True)
@@ -479,27 +535,28 @@ def check_render(label, scene, img, seconds, launches, bounces, queries,
 def counted_regen(scene, n_lanes):
     """Render ``scene`` on the lane pool with every kernel's launch count
     and the host-sync count set to 0 just before and read just after.
-    Counts the closest-hit queries (intersect.prepare_sweep calls) and the
-    gridvolume gather lookups (volumes._trilinear_gather calls). Returns
-    (film, seconds, launches, counts)."""
+    Counts the closest-hit queries (calls of intersect.prepare_sweep or
+    of the fused query's intersect.prepare_small) and the gridvolume gather
+    lookups (volumes._trilinear_gather calls). Returns (film, seconds,
+    launches, counts)."""
     from eradiate_kernel_tpu_torch import integrators
     from eradiate_kernel_tpu_torch.integrators import common
     from eradiate_kernel_tpu_torch.ops import intersect
     from eradiate_kernel_tpu_torch.textures import volumes
 
     counts = {"queries": 0, "lookups": 0}
-    prepare, trilinear = intersect.prepare_sweep, volumes._trilinear_gather
+    prepare, small = intersect.prepare_sweep, intersect.prepare_small
+    trilinear = volumes._trilinear_gather
 
-    def counted_prepare(*a, **kw):
-        counts["queries"] += 1
-        return prepare(*a, **kw)
+    def counted(fn, what):
+        def wrapper(*a, **kw):
+            counts[what] += 1
+            return fn(*a, **kw)
+        return wrapper
 
-    def counted_trilinear(*a, **kw):
-        counts["lookups"] += 1
-        return trilinear(*a, **kw)
-
-    intersect.prepare_sweep = counted_prepare
-    volumes._trilinear_gather = counted_trilinear
+    intersect.prepare_sweep = counted(prepare, "queries")
+    intersect.prepare_small = counted(small, "queries")
+    volumes._trilinear_gather = counted(trilinear, "lookups")
     try:
         stats = {}
         torch.cuda.synchronize()
@@ -515,6 +572,7 @@ def counted_regen(scene, n_lanes):
                       host_syncs=common.counters["host_syncs"])
     finally:
         intersect.prepare_sweep = prepare
+        intersect.prepare_small = small
         volumes._trilinear_gather = trilinear
     return film, seconds, launches, counts
 
@@ -547,8 +605,8 @@ def check_atmosphere(label, scene, film, seconds, launches, counts):
           f"image mean {mean:.5f}", flush=True)
     assert 0.01 < mean < 2.0, f"{label}: image mean {mean}"
     # the atmosphere cube is one 12-triangle tile: every mesh query of the
-    # render went through the sweep kernel, every large-grid lookup through
-    # the gather kernel, and nothing else was launched
+    # render was one launch of the fused sweep, every large-grid lookup one
+    # launch of the fused trilinear lookup, and nothing else was launched
     assert launches["tile_sweep"] == counts["queries"] > 0, \
         f"{label}: {launches['tile_sweep']} sweeps, {counts['queries']} queries"
     assert launches["grid_gather"] == counts["lookups"], \
@@ -578,7 +636,208 @@ def gather_load(table, idx):
         library_ms=cuda_ms(lambda: torch.index_select(table, 0, idx),
                            reps=50),
         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
-        rows=table.shape[0], row_floats=R, lanes=L)
+        rows=table.shape[0], row_floats=R, lanes=L,
+        device_us={"kernel": device_us(
+            lambda: gather._gather_cuda(table, idx), ("grid_gather",)),
+            "index_select": device_us(
+                lambda: torch.index_select(table, 0, idx))})
+
+
+def device_us(fn, names=None, reps=200):
+    """Mean device time (us) a call of fn() of the kernels whose names
+    contain one of ``names`` (every kernel when None), by torch.profiler
+    over reps back-to-back calls; None if the profiler saw no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (names is None or any(n in e.key for n in names)))
+    return total / reps if total else None
+
+
+def gather_host_us(table, idx, n=2000, rounds=5):
+    """Host time (us a call, time.perf_counter over n back-to-back calls,
+    the median of ``rounds`` rounds that take the pieces in turn) of each
+    piece of a gather launch: the generic dict-loop check (_build.check)
+    and the lean direct one, the output allocation both ways, the stream
+    lookup both ways, the ctypes call alone, the whole wrapper, and
+    index_select."""
+    from eradiate_kernel_tpu_torch.ops import _build, gather
+
+    dev = table.device
+    V, R = table.shape
+    L = idx.shape[0]
+    fn = gather._fn("grid_gather_launch")
+    out = gather._gather_cuda(table, idx)
+    raw = _build.stream(dev.index)
+    assert raw == torch.cuda.current_stream(dev).cuda_stream
+    launch = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), V, R, L,
+              idx.dtype == torch.int64, R % 4 == 0, raw)
+    pieces = {
+        "generic check": lambda: _build.check(
+            "grid_gather", {"table": (table, torch.float32, (V, R)),
+                            "idx": (idx, idx.dtype, (L,))}, dev),
+        "direct check": lambda: gather._check_rows(table, idx),
+        "torch.empty": lambda: torch.empty(L, R, dtype=torch.float32,
+                                           device=dev),
+        "new_empty": lambda: table.new_empty((L, R)),
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream": lambda: _build.stream(dev.index),
+        "ctypes launch": lambda: fn(*launch),
+        "wrapper": lambda: gather._gather_cuda(table, idx),
+        "index_select": lambda: torch.index_select(table, 0, idx),
+    }
+    times = {name: [] for name in pieces}
+    for _ in range(rounds):
+        for name, f in pieces.items():
+            f()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                f()
+            times[name].append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def trilinear_load(grid, packed, slot, pl):
+    """The fused trilinear lookup against the plain chain on one load, bit
+    for bit; times of both and of grid_sample, the one PyTorch call that
+    computes the same lookup (on the unpacked grid of one slot); the
+    bound. Returns the load's record."""
+    from eradiate_kernel_tpu_torch.ops import gather
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    grid_shape = grid.shape
+    out = gather.grid_trilinear(packed, grid_shape, slot, pl)
+    ref = volumes.trilinear_gather_plain(packed, grid_shape, slot, pl)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), "grid_trilinear differs from the plain chain"
+    L, C = out.shape
+    # grid_sample with align_corners=True maps g in [-1, 1] to g' = (g + 1)
+    # / 2 * (n - 1) and clamps it to [0, n - 1] under 'border': the lookup's
+    # clamp(p, 0, 1) * (n - 1), up to the rounding of p * 2 - 1
+    assert grid_shape[0] == 1 and not bool(slot.any())
+    vol = grid.permute(0, 4, 1, 2, 3).contiguous()
+    g = (pl * 2 - 1).view(1, 1, 1, L, 3)
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            vol, g, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    lib_err = float((library().reshape(C, L).T - out).abs().max())
+    assert lib_err < 1e-5, f"grid_sample differs from the lookup by {lib_err}"
+    # bytes: the point, the slot, the 8C-float row, the result; operations:
+    # the corner setup (4 an axis) and 7 lerps of 3 a channel
+    bound_ms, bound_by = bound(L * (12 + 4 + 8 * C * 4 + C * 4),
+                               L * (12 + 21 * C))
+    return dict(
+        ms=cuda_ms(lambda: gather.grid_trilinear(packed, grid_shape, slot,
+                                                 pl), reps=50),
+        plain_ms=cuda_ms(lambda: volumes.trilinear_gather_plain(
+            packed, grid_shape, slot, pl), reps=50),
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
+        library_ms=cuda_ms(library, reps=50), library_max_abs_err=lib_err,
+        rows=packed.shape[0], channels=C, lanes=L,
+        device_us={"kernel": device_us(lambda: gather.grid_trilinear(
+            packed, grid_shape, slot, pl), ("grid_trilinear",)),
+            "plain chain": device_us(lambda: volumes.trilinear_gather_plain(
+                packed, grid_shape, slot, pl)),
+            "grid_sample": device_us(library)})
+
+
+def small_query_load(tiles, ray):
+    """One closest-hit query of a small tile set through intersect_tiles:
+    one counted launch of the fused query, bit-equal to its plain version
+    (visits included); the eager sorted pipeline's sweep bit-equal to its
+    plain version and its t equal to the fused query's; times of the fused
+    query, its plain version, the eager pipeline and the eager pipeline's
+    kernel alone; the bound. Returns the load's record."""
+    from eradiate_kernel_tpu_torch.ops import intersect
+
+    n = ray.o.shape[0]
+    args = intersect.prepare_small(tiles, ray)
+    before = intersect.launches["tile_sweep"]
+    out = intersect.intersect_tiles(tiles, ray, return_visited=True)
+    torch.cuda.synchronize()
+    assert intersect.launches["tile_sweep"] == before + 1, \
+        "the fused query is not one tile_sweep launch"
+    ref = intersect._sweep_small_plain(*args)
+    for what, a, b in zip(("t", "uv", "prim", "shape", "visits"), out, ref):
+        assert torch.equal(a, b), f"fused sweep: {what} differs"
+    eager_args, _unsort, _n = intersect.prepare_sweep(tiles, ray)
+    e_out = intersect.sweep(*eager_args)
+    e_ref = intersect._sweep_plain(*eager_args)
+    for what, a, b in zip(("t", "uv", "prim", "shape", "visits"), e_out,
+                          e_ref):
+        assert torch.equal(a, b), f"sorted sweep: {what} differs"
+    e_full = intersect.intersect_tiles_sorted(tiles, ray)
+    assert torch.equal(e_full[0], out[0]), "fused and sorted t differ"
+    T = tiles["lo"].shape[0]
+    nb = out[4].shape[0]
+    visits, eager_visits = int(out[4].sum()), int(e_out[4].sum())
+    # bytes: the ray fields, the root and tile boxes and the tiles once, the
+    # outputs; operations: tiles visited x 256 x 128 tests, counting the
+    # visits the query needs: the fewer of the two orders' (the unsorted
+    # blocks' extra visits are the fused query's own cost)
+    nbytes = n * 32 + 24 + T * 24 + tile_bytes(T) + n * 20 + nb * 4
+    ops = (min(visits, eager_visits) * intersect.RAY_BLOCK * intersect.TILE_K
+           * intersect.FLOPS_PER_TEST)
+    bound_ms, bound_by = bound(nbytes, ops)
+    return dict(
+        ms=cuda_ms(lambda: intersect.intersect_tiles(tiles, ray), reps=50),
+        plain_ms=cuda_ms(lambda: intersect._sweep_small_plain(*args),
+                         reps=5),
+        eager_pipeline_ms=cuda_ms(
+            lambda: intersect.intersect_tiles_sorted(tiles, ray), reps=20),
+        eager_kernel_ms=cuda_ms(lambda: intersect.sweep(*eager_args),
+                                reps=50),
+        bound_ms=bound_ms, bound_by=bound_by, visits=visits,
+        eager_visits=eager_visits, fused_extra_visits=visits - eager_visits,
+        tiles=T, rays=n,
+        device_us={"kernel": device_us(
+            lambda: intersect.intersect_tiles(tiles, ray),
+            ("tile_sweep_small",), reps=50),
+            "eager pipeline": device_us(
+                lambda: intersect.intersect_tiles_sorted(tiles, ray),
+                reps=20)},
+        hit_frac=float(torch.isfinite(out[0]).float().mean()),
+        max_abs_err=0.0)
+
+
+def crossover_load(tiles, ray):
+    """The fused query (unsorted, one launch) against the sorted pipeline
+    on a tile set that either can serve, whatever SWEEP_FUSED_MAX_TILES
+    routes: the same t; the time and the tile visits of each. Returns the
+    load's record."""
+    from eradiate_kernel_tpu_torch.ops import intersect
+
+    def fused():
+        return intersect.sweep_small(*intersect.prepare_small(tiles, ray))
+
+    def srt():
+        return intersect.intersect_tiles_sorted(tiles, ray,
+                                                return_visited=True)
+
+    f_out, s_out = fused(), srt()
+    assert torch.equal(f_out[0], s_out[0]), "fused and sorted t differ"
+    rec = dict(tiles=tiles["lo"].shape[0], rays=ray.o.shape[0],
+               fused_ms=cuda_ms(fused, reps=10),
+               sorted_ms=cuda_ms(srt, reps=10),
+               fused_visits=int(f_out[4].sum()),
+               sorted_visits=int(s_out[4].sum()))
+    rec["fused_over_sorted"] = rec["fused_ms"] / rec["sorted_ms"]
+    return rec
 
 
 def check_bvh_load(name, tiles, ray, n_rays):
@@ -637,11 +896,18 @@ def main():
     print(f"# build: {', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}"
           f" (in parallel, {time.perf_counter() - t0:.2f} s in all)",
           flush=True)
+    # what 1/det compiles to: tile_bvh's leaf writes 1.0f / det, the sweep
+    # __frcp_rn(det); and the sweep's staging (LDGSTS) and 128-bit loads
+    for name in ("tile_sweep", "tile_bvh", "grid_gather"):
+        for fn, ops in (sass_counts(name) or {name: "no cuobjdump"}).items():
+            print(f"# SASS {fn}: {ops}", flush=True)
 
     # ---- 2. tile sweep vs plain on the bench terrain --------------------------
     V, F = terrain(256)
     tiles_np = pack_tiles(V, F, np.zeros(len(F), np.int32))
     tiles = {k: torch.as_tensor(v, device=dev) for k, v in tiles_np.items()}
+    # the tables a scene's Geometry builds once at load
+    tiles["root"], tiles["rows"] = intersect.sweep_tables(tiles)
     print(f"# terrain: {len(F)} triangles, {len(tiles_np['lo'])} tiles",
           flush=True)
     n_rays = 1 << 20
@@ -816,17 +1082,31 @@ def main():
     grid64 = torch.rand(1, 64, 64, 64, 1, generator=gen).to(dev)
     packed = volumes.packed_corners(grid64)
     pl = torch.rand(1 << 15, 3, generator=gen).to(dev)
-    corner_idx = volumes._corner_setup(
-        (1, 64, 64, 64), torch.zeros(1 << 15, dtype=torch.int32, device=dev),
-        pl)[0][0]
-    gather_loads = {"probe": gather_load(probe_tab, probe_idx),
-                    "packed 64^3": gather_load(packed, corner_idx)}
-    for load, rec in gather_loads.items():
+    slot0 = torch.zeros(1 << 15, dtype=torch.int32, device=dev)
+    corner_idx = volumes._corner0((1, 64, 64, 64), slot0, pl)[0]
+    gather_loads = {"probe": (probe_tab, probe_idx),
+                    "packed 64^3": (packed, corner_idx)}
+    for load, (table, idx) in gather_loads.items():
+        rec = gather_loads[load] = gather_load(table, idx)
+        rec["host_us"] = gather_host_us(table, idx)
         print(f"# grid_gather {load} ({rec['rows']} rows of "
               f"{rec['row_floats']} f32, {rec['lanes']} lanes): kernel "
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
               f"(bit-equal), index_select {rec['library_ms']:.4f} ms, bound "
-              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})", flush=True)
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); device us a "
+              f"call {rec['device_us']}; host us a call (median of 5 rounds "
+              f"of 2,000 calls): " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in rec["host_us"].items()),
+              flush=True)
+    trilinear = trilinear_load(grid64, packed, slot0, pl)
+    print(f"# grid_trilinear packed 64^3 ({trilinear['lanes']} lanes): fused "
+          f"lookup {trilinear['ms']:.4f} ms, plain chain "
+          f"{trilinear['plain_ms']:.4f} ms (bit-equal), grid_sample "
+          f"{trilinear['library_ms']:.4f} ms (max abs err "
+          f"{trilinear['library_max_abs_err']:.2e}), bound "
+          f"{trilinear['bound_ms']:.5f} ms ({trilinear['bound_by']}); device "
+          f"us a call {trilinear['device_us']}",
+          flush=True)
 
     # ---- 9-10. atmosphere renders on the regenerating lane pool --------------
     lanes = 1 << 15
@@ -853,31 +1133,59 @@ def main():
         secs_l, launches, counts)
     assert launches["grid_gather"] > 0
 
-    # tile_sweep at the atmosphere's shape: the one-tile cube, a pool of
-    # 32,768 rays from inside the slab in random directions
+    # the fused query at the atmosphere's shape: the one-tile cube, a pool
+    # of 32,768 rays from inside the slab in random directions; then an
+    # 8-tile terrain(23) (968 triangles) under the bench camera's primary
+    # rays and incoherent rays, 32,768 each
     o = torch.rand(lanes, 3, generator=gen) * torch.tensor([30.0, 30.0, 1.0])
     o = (o - torch.tensor([15.0, 15.0, 0.0])).to(dev)
     d = torch.nn.functional.normalize(torch.randn(lanes, 3, generator=gen),
                                       dim=-1).to(dev)
-    args, _unsort, _n = intersect.prepare_sweep(flagship.geo.tiles(),
-                                                Ray.make(o, d))
-    out = intersect.sweep(*args)
-    ref = intersect._sweep_plain(*args)
-    torch.cuda.synchronize()
-    for what, a, b in zip(("t", "uv", "prim", "shape", "visits"), out, ref):
-        assert torch.equal(a, b), f"atmosphere cube sweep: {what} differs"
-    bound_ms, bound_by, visits = sweep_bound(args, out[4])
-    cube_sweep = dict(
-        ms=cuda_ms(lambda: intersect.sweep(*args), reps=50),
-        plain_ms=cuda_ms(lambda: intersect._sweep_plain(*args), reps=5),
-        bound_ms=bound_ms, bound_by=bound_by, visits=visits,
-        intersect_tiles_ms=cuda_ms(lambda: intersect.intersect_tiles(
-            flagship.geo.tiles(), Ray.make(o, d)), reps=20))
-    print(f"# sweep atmosphere cube (1 tile, {lanes} rays): kernel "
-          f"{cube_sweep['ms']:.4f} ms, plain {cube_sweep['plain_ms']:.3f} ms "
-          f"(bit-equal), bound {bound_ms:.5f} ms ({bound_by}), "
-          f"intersect_tiles {cube_sweep['intersect_tiles_ms']:.3f} ms",
-          flush=True)
+    small_loads = {"atmosphere cube": (flagship.geo.tiles(), Ray.make(o, d))}
+    V8, F8 = terrain(23)
+    tiles8 = {k: torch.as_tensor(v, device=dev) for k, v in
+              pack_tiles(V8, F8, np.zeros(len(F8), np.int32)).items()}
+    assert tiles8["lo"].shape[0] == 8
+    tiles8["root"], tiles8["rows"] = intersect.sweep_tables(tiles8)
+    for kind in ("primary", "incoherent"):
+        o8, d8 = make_rays(lanes, kind, seed=5)
+        small_loads[f"terrain(23) {kind}"] = (tiles8, Ray.make(
+            torch.as_tensor(o8, device=dev), torch.as_tensor(d8, device=dev)))
+    for load, (tl, ray) in small_loads.items():
+        rec = small_loads[load] = small_query_load(tl, ray)
+        print(f"# fused sweep {load} ({rec['tiles']} tiles, {rec['rays']} "
+              f"rays): intersect_tiles (one launch) {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.3f} ms (bit-equal, visits {rec['visits']}),"
+              f" bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}); eager "
+              f"sorted pipeline {rec['eager_pipeline_ms']:.3f} ms, its kernel "
+              f"{rec['eager_kernel_ms']:.4f} ms (visits "
+              f"{rec['eager_visits']}); hits {rec['hit_frac']:.3f}; device "
+              f"us a call {rec['device_us']}",
+              flush=True)
+    # where the sort starts to pay (intersect.SWEEP_FUSED_MAX_RAY_TILES):
+    # terrain(23), (33), (46) (8, 16 and 32 tiles) under primary rays (the
+    # path tracer's first bounce) and incoherent ones, 2^15 (the lane
+    # pool's size) and 2^20 (a 256x256 spp16 pass) of each, the fused query
+    # beside the sorted pipeline
+    crossover = {}
+    for n_grid in (23, 33, 46):
+        Vc, Fc = terrain(n_grid)
+        tc = {k: torch.as_tensor(v, device=dev) for k, v in
+              pack_tiles(Vc, Fc, np.zeros(len(Fc), np.int32)).items()}
+        tc["root"], tc["rows"] = intersect.sweep_tables(tc)
+        for kind in ("primary", "incoherent"):
+            for log_n in (15, 20):
+                oc, dc = make_rays(1 << log_n, kind, seed=6)
+                rec = crossover_load(tc, Ray.make(
+                    torch.as_tensor(oc, device=dev),
+                    torch.as_tensor(dc, device=dev)))
+                crossover[f"{rec['tiles']} tiles {kind} 2^{log_n}"] = rec
+                print(f"# fused vs sorted, terrain({n_grid}) {rec['tiles']} "
+                      f"tiles, 2^{log_n} {kind} rays: fused "
+                      f"{rec['fused_ms']:.3f} ms (visits "
+                      f"{rec['fused_visits']}), sorted {rec['sorted_ms']:.3f}"
+                      f" ms (visits {rec['sorted_visits']}), ratio "
+                      f"{rec['fused_over_sorted']:.3f}", flush=True)
 
     # ---- 11. whole path on the 64^3 atmosphere: kernels vs plain -------------
     small_atmo = bench_atmosphere(64, 64, 4, 12, grid_res=(64, 64, 64))
@@ -906,6 +1214,11 @@ def main():
             atmo_s, "atmosphere",
             window=lambda: integrators.render_wavefront_regen(
                 flagship, lanes, 0, 4))
+        profile_render(
+            lambda: integrators.render_wavefront_regen(large, lanes, 0, 16),
+            secs_l, "large3d",
+            window=lambda: integrators.render_wavefront_regen(
+                large, lanes, 0, 2))
 
     # ---- 12. report -----------------------------------------------------------
     p = loads["primary"]
@@ -918,8 +1231,12 @@ def main():
         "bound_by": p["bound_by"], "library_ms": None,
         "load": "2^20 primary rays on terrain(256)",
         "incoherent": loads["incoherent"],
-        "atmosphere_cube": dict(cube_sweep, launches={
-            k: v["launches"]["tile_sweep"] for k, v in atmo.items()}),
+        "atmosphere_cube": dict(small_loads["atmosphere cube"], launches={
+            k: v["launches"]["tile_sweep"] for k, v in atmo.items()},
+            load="fused query, 32,768 rays, 1 tile"),
+        "tiles8_primary": small_loads["terrain(23) primary"],
+        "tiles8_incoherent": small_loads["terrain(23) incoherent"],
+        "fused_vs_sorted": crossover,
     }]
     for name, src, line in (("tile_bvh", "tile_bvh.cu", 206),
                             ("tile_bvh8", "tile_bvh8.cu", 718)):
@@ -940,7 +1257,8 @@ def main():
             "terrain_incoherent": bvh_loads[(name, "terrain incoherent")],
             "forest_render": forest_runs[name],
         })
-    g = gather_loads["packed 64^3"]
+    # the main path's lookups run the fused trilinear entry (its library
+    # call: grid_sample); the gather entry's loads carry index_select
     kernels.append({
         "name": "grid_gather", "route": "cuda",
         "source": "eradiate_kernel_tpu_torch/csrc/grid_gather.cu",
@@ -948,11 +1266,15 @@ def main():
         "replaces_all": "tools/probe_pallas_gather.py:54,58,62,72 "
                         "(k_fancy, k_take, k_tala, k_onehot via call :87)",
         "launches": atmo["large3d"]["launches"]["grid_gather"],
-        "max_abs_err": 0.0, "ms": g["ms"], "plain_ms": g["plain_ms"],
-        "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
-        "library_ms": g["library_ms"],
-        "load": "64^3 packed corner table, 32,768 lanes",
-        "probe": gather_loads["probe"],
+        "max_abs_err": 0.0, "ms": trilinear["ms"],
+        "plain_ms": trilinear["plain_ms"], "bound_ms": trilinear["bound_ms"],
+        "bound_by": trilinear["bound_by"],
+        "library_ms": trilinear["library_ms"],
+        "library_call": "torch.nn.functional.grid_sample (5-D, bilinear, "
+                        "border, align_corners=True)",
+        "load": "fused trilinear lookup, 64^3 packed table, 32,768 lanes",
+        "gather_packed_64^3": gather_loads["packed 64^3"],
+        "gather_probe": gather_loads["probe"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"atmosphere": {

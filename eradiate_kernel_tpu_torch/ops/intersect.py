@@ -8,11 +8,14 @@ pre-passes). Each Pallas kernel becomes a hand-written CUDA kernel under
 contract, used for tensors on the CPU and to check the kernel on the card:
 
   Pallas kernel (pallas_intersect.py)   CUDA kernel      plain version
-  ``_kernel`` :94                       tile_sweep.cu    ``_sweep_plain``
+  ``_kernel`` :94                       tile_sweep.cu    ``_sweep_plain``,
+                                                         ``_sweep_small_plain``
   ``_bvh_kernel`` :206                  tile_bvh.cu      ``_bvh_plain``
   ``_bvh8_kernel`` :718                 tile_bvh8.cu     ``_bvh8_plain``
 
-Sweep pipeline (all on the rays' device):
+Sweep pipeline (all on the rays' device), for tile sets of more than
+SWEEP_FUSED_MAX_TILES tiles or loads of more than SWEEP_FUSED_MAX_RAY_TILES
+rays x tiles:
   1. cap each ray's maxt at its exit from the root AABB;
   2. for >= SORT_MIN_RAYS rays, sort by a coherence key (octant, origin
      cell, direction cell) and unsort the results afterwards;
@@ -24,6 +27,14 @@ Sweep pipeline (all on the rays' device):
      once the block's largest best t is <= the next tile's ``tnear``; each
      visit is a dense 256 x 128 Moller-Trumbore pass with a first-index
      tie-break.
+Smaller loads (the atmosphere's one-tile cube under its 32,768-lane pool)
+take steps 1 and 3-5 in one launch of the fused entry, without the
+coherence sort: with one tile the ray order changes no result, and with a
+few the closest t does not depend on it (a tie between triangles at the
+same t may pick another one, Queue 2's contract). The root box and the
+packed triangle rows the kernels stage are built once per scene
+(render/geometry.py::Geometry: the box at load, the rows at the first
+sweep query).
 
 The BVH traversals share steps 1 (binary only), 2 and 3, then walk the
 tree per block of 256 rays: one stack per block, a block-wide slab test of
@@ -42,6 +53,17 @@ from .accel import TILE_K
 
 RAY_BLOCK = 256              # rays per block (one CUDA thread block)
 SORT_MIN_RAYS = 4 * RAY_BLOCK
+# the fused one-launch query serves at most SWEEP_FUSED_MAX_TILES tiles (its
+# capacity: one warp ranks a block's tiles, csrc/tile_sweep.cu, whose entry
+# refuses more) and at most SWEEP_FUSED_MAX_RAY_TILES rays x tiles. Without
+# the coherence sort its blocks of incoherent rays visit every tile, so its
+# time grows with rays x tiles; the sorted pipeline pays ~3 ms of eager
+# passes at any size, host time that varies with the host. On an H100 at
+# 2^20 incoherent rays the fused query took 0.38-0.88x the sorted
+# pipeline's time at 8 tiles and 0.96-1.49x at 16 (two runs); at 32,768
+# rays, 0.02-0.11x up to 32 tiles (chip_smoke.py, PERF.md)
+SWEEP_FUSED_MAX_TILES = 32
+SWEEP_FUSED_MAX_RAY_TILES = 1 << 23
 STACK_SIZE = 64              # traversal stack per block (both BVH kernels)
 LEAF_INST_BITS = 12          # BVH8 leaf entries: -((tile << 12) | (inst+1)) - 1
 
@@ -132,6 +154,33 @@ def _maybe_sorted(rays, lo, hi):
     unsort = torch.empty_like(order)
     unsort[order] = torch.arange(n, device=rays.device)
     return rays[order], unsort
+
+
+def root_box(lo, hi):
+    """(2, 3) [lo; hi] box around tile boxes lo/hi (T, 3), T >= 1."""
+    return torch.stack([torch.amin(lo, dim=0), torch.amax(hi, dim=0)])
+
+
+def tile_rows(v0, e1, e2, prim, shape):
+    """(T, K, 12) f32 packed triangles, the layout the sweep kernel stages:
+    [v0x v0y v0z e1x | e1y e1z e2x e2y | e2z prim shape 0] with prim and
+    shape as int32 bits, three 16-byte loads a triangle."""
+    ids = torch.stack([prim, shape, torch.zeros_like(prim)], dim=-1)
+    return torch.cat([v0, e1, e2, ids.view(torch.float32)], dim=-1
+                     ).contiguous()
+
+
+def sweep_tables(tiles):
+    """The sweep's per-tile-set tables: (root box (2, 3), packed rows (T,
+    K, 12)). Geometry.tiles() carries both, built once per scene ('root',
+    'rows'); a bare ops.accel.pack_tiles dict gets them here."""
+    root, rows = tiles.get("root"), tiles.get("rows")
+    if root is None:
+        root = root_box(tiles["lo"], tiles["hi"])
+    if rows is None:
+        rows = tile_rows(tiles["v0"], tiles["e1"], tiles["e2"],
+                         tiles["prim"], tiles["shape"])
+    return root, rows
 
 
 def _cap_maxt_to_root(rays, lo, hi):
@@ -301,15 +350,24 @@ _PLAIN_CHUNK = max(1, _PLAIN_MAX_ELEMS // (RAY_BLOCK * TILE_K))
 
 
 # =============================================================================
-# The sweep: plain version and CUDA kernel, one contract
+# The sweep: plain versions and CUDA kernel, one contract per entry
 # =============================================================================
 #
+# sweep (after prepare_sweep's pre-passes):
 # In:  rays (nb*RAY_BLOCK, 8) f32 [o, d, mint, maxt]; ids/tnear (nb, T);
-#      count (nb,) i32; v0/e1/e2 (T, K, 3) f32; prim/shape (T, K) i32.
+#      count (nb,) i32; v0/e1/e2 (T, K, 3) f32; prim/shape (T, K) i32;
+#      rows (T, K, 12) f32, tile_rows of v0..shape: the kernel reads them,
+#      the plain version reads v0..shape.
 # Out: t (n,) f32 (inf on a miss), uv (n, 2) f32, prim (n,) i32,
 #      shape (n,) i32 (-1 on a miss), visited (nb,) i32 tiles swept per block.
+#
+# sweep_small (the fused query, 1 <= T <= SWEEP_FUSED_MAX_TILES):
+# In:  o, d (n, 3), mint, maxt (n,) f32 as the Ray holds them; root (2, 3);
+#      lo/hi (T, 3) f32; v0/e1/e2/prim/shape/rows as above.
+# Out: t, uv, prim, shape of the n rays (no padding), visited (nb,).
 
-def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape):
+def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape,
+                 rows=None):
     nb = count.shape[0]
     r = rays.reshape(nb, RAY_BLOCK, 8)
     best = _Best(r)
@@ -335,6 +393,19 @@ def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape):
     return best.result() + (visited,)
 
 
+def _sweep_small_plain(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim,
+                       shape, rows=None):
+    """The fused query's plain version: the eager pre-passes without the
+    coherence sort, then _sweep_plain."""
+    n = o.shape[0]
+    rays = torch.cat([o, d, mint[:, None], maxt[:, None]], dim=-1)
+    rays = _pad_blocks(_cap_maxt_to_root(rays, root[0], root[1]))
+    ids, tnear, count = _admitted_tiles(rays, lo, hi)
+    t, uv, prim_o, shape_o, visited = _sweep_plain(
+        rays, ids, count, tnear, v0, e1, e2, prim, shape)
+    return t[:n], uv[:n], prim_o[:n], shape_o[:n], visited
+
+
 def _hit_outputs(n, dev):
     return (torch.empty(n, dtype=torch.float32, device=dev),
             torch.empty(n, 2, dtype=torch.float32, device=dev),
@@ -350,9 +421,16 @@ def _tile_specs(T, v0, e1, e2, prim, shape):
             "shape": (shape, torch.int32, (T, TILE_K))}
 
 
-def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape):
-    """Launch csrc/tile_sweep.cu on the current stream (no sync)."""
-    lib = _build.load("tile_sweep")
+def _rows_spec(rows, T):
+    """The packed rows' check; the kernel stages them with 16-byte copies."""
+    if rows.data_ptr() % 16:
+        raise ValueError("tile_sweep: rows must be 16-byte aligned")
+    return {"rows": (rows, torch.float32, (T, TILE_K, 12))}
+
+
+def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape, rows):
+    """Launch csrc/tile_sweep.cu's sweep on the current stream (no sync)."""
+    fn = _build.entry("tile_sweep", "tile_sweep_launch")
     nb, T = ids.shape
     dev = rays.device
     _build.check("tile_sweep", {
@@ -360,27 +438,68 @@ def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape):
         "ids": (ids, torch.int32, (nb, T)),
         "count": (count, torch.int32, (nb,)),
         "tnear": (tnear, torch.float32, (nb, T)),
-        **_tile_specs(v0.shape[0], v0, e1, e2, prim, shape)}, dev)
+        **_rows_spec(rows, v0.shape[0])}, dev)
     t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
     visited = torch.empty(nb, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.tile_sweep_launch(
-        rays.data_ptr(), ids.data_ptr(), count.data_ptr(), tnear.data_ptr(),
-        v0.data_ptr(), e1.data_ptr(), e2.data_ptr(), prim.data_ptr(),
-        shape.data_ptr(), nb, T, t.data_ptr(), uv.data_ptr(),
-        prim_o.data_ptr(), shape_o.data_ptr(), visited.data_ptr(), stream)
+    err = fn(rays.data_ptr(), ids.data_ptr(), count.data_ptr(),
+             tnear.data_ptr(), rows.data_ptr(), nb, T, t.data_ptr(),
+             uv.data_ptr(), prim_o.data_ptr(), shape_o.data_ptr(),
+             visited.data_ptr(), _build.stream(dev.index))
     if err != 0:
         raise RuntimeError(f"tile_sweep launch failed: cudaError {err}")
     launches["tile_sweep"] += 1
     return t, uv, prim_o, shape_o, visited
 
 
-def sweep(rays, ids, count, tnear, v0, e1, e2, prim, shape):
+def _sweep_small_cuda(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim,
+                      shape, rows):
+    """Launch csrc/tile_sweep.cu's fused query on the current stream (no
+    sync); counted as a tile_sweep launch."""
+    fn = _build.entry("tile_sweep", "tile_sweep_small_launch")
+    n, T = o.shape[0], lo.shape[0]
+    dev = o.device
+    _build.check("tile_sweep", {
+        "o": (o, torch.float32, (n, 3)), "d": (d, torch.float32, (n, 3)),
+        "mint": (mint, torch.float32, (n,)),
+        "maxt": (maxt, torch.float32, (n,)),
+        "root": (root, torch.float32, (2, 3)),
+        "lo": (lo, torch.float32, (T, 3)), "hi": (hi, torch.float32, (T, 3)),
+        **_rows_spec(rows, T)}, dev)
+    nb = -(-n // RAY_BLOCK)
+    t, uv, prim_o, shape_o = _hit_outputs(n, dev)
+    visited = torch.empty(nb, dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, uv, prim_o, shape_o, visited
+    err = fn(o.data_ptr(), d.data_ptr(), mint.data_ptr(), maxt.data_ptr(), n,
+             root.data_ptr(), lo.data_ptr(), hi.data_ptr(), T,
+             rows.data_ptr(), t.data_ptr(), uv.data_ptr(), prim_o.data_ptr(),
+             shape_o.data_ptr(), visited.data_ptr(), _build.stream(dev.index))
+    if err != 0:
+        # the entry range-checks the tile count (cudaErrorInvalidValue)
+        raise RuntimeError(f"tile_sweep fused query on {T} tiles failed: "
+                           f"cudaError {err}")
+    launches["tile_sweep"] += 1
+    return t, uv, prim_o, shape_o, visited
+
+
+def sweep(rays, ids, count, tnear, v0, e1, e2, prim, shape, rows):
     """The sweep on the tensors' device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors (or under use_plain)."""
+    args = (rays, ids, count, tnear, v0, e1, e2, prim, shape, rows)
     if _on_plain(rays, "tile_sweep"):
-        return _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape)
-    return _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape)
+        return _sweep_plain(*args)
+    return _sweep_cuda(*args)
+
+
+def sweep_small(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim, shape,
+                rows):
+    """The fused query (prepare_small's arguments) on the tensors' device:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors (or
+    under use_plain)."""
+    args = (o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim, shape, rows)
+    if _on_plain(o, "tile_sweep"):
+        return _sweep_small_plain(*args)
+    return _sweep_small_cuda(*args)
 
 
 def _ray_rows(ray):
@@ -406,32 +525,56 @@ def _unsorted(out, unsort, n):
 
 
 def prepare_sweep(tiles, ray):
-    """The pre-passes of intersect_tiles: -> (sweep arguments, unsort index
-    or None, number of real rays)."""
+    """The pre-passes of intersect_tiles_sorted: -> (sweep arguments,
+    unsort index or None, number of real rays)."""
     n = ray.o.shape[0]
-    root_lo = torch.amin(tiles["lo"], dim=0)
-    root_hi = torch.amax(tiles["hi"], dim=0)
-    rays = _cap_maxt_to_root(_ray_rows(ray), root_lo, root_hi)
-    rays, unsort = _maybe_sorted(rays, root_lo, root_hi)
+    root, rows = sweep_tables(tiles)
+    rays = _cap_maxt_to_root(_ray_rows(ray), root[0], root[1])
+    rays, unsort = _maybe_sorted(rays, root[0], root[1])
     rays = _pad_blocks(rays)
     ids, tnear, count = _admitted_tiles(rays, tiles["lo"], tiles["hi"])
     args = (rays, ids, count, tnear, tiles["v0"], tiles["e1"], tiles["e2"],
-            tiles["prim"], tiles["shape"])
+            tiles["prim"], tiles["shape"], rows)
     return args, unsort, n
+
+
+def prepare_small(tiles, ray):
+    """The fused query's arguments (no eager pre-pass: the ray fields as
+    the Ray holds them, the tile set's tables)."""
+    f32 = lambda a: a.to(torch.float32).contiguous()
+    root, rows = sweep_tables(tiles)
+    return (f32(ray.o), f32(ray.d), f32(ray.mint), f32(ray.maxt), root,
+            tiles["lo"], tiles["hi"], tiles["v0"], tiles["e1"], tiles["e2"],
+            tiles["prim"], tiles["shape"], rows)
+
+
+def intersect_tiles_sorted(tiles, ray, return_visited=False):
+    """The sweep pipeline with its eager pre-passes and the coherence sort
+    (any number of tiles); intersect_tiles' path above the fused query's
+    reach."""
+    args, unsort, n = prepare_sweep(tiles, ray)
+    t, uv, prim, shape, visited = sweep(*args)
+    out = _unsorted((t, uv, prim, shape), unsort, n)
+    return out + (visited,) if return_visited else out
 
 
 def intersect_tiles(tiles, ray, return_visited=False):
     """Closest-hit query over the tile set.
 
-    tiles: dict of tensors in the ops.accel.pack_tiles layout; ray: core.ray
-    Ray with (N,)-shaped fields. Returns (t, uv, prim, shape) with t = inf
-    and shape = -1 on a miss; with ``return_visited`` also the (nb,) count
-    of tiles each ray block swept.
+    tiles: dict of tensors in the ops.accel.pack_tiles layout, optionally
+    with the sweep_tables 'root' and 'rows'; ray: core.ray Ray with
+    (N,)-shaped fields. Returns (t, uv, prim, shape) with t = inf and
+    shape = -1 on a miss; with ``return_visited`` also the (nb,) count of
+    tiles each ray block swept. Up to SWEEP_FUSED_MAX_TILES tiles and
+    SWEEP_FUSED_MAX_RAY_TILES rays x tiles: the fused query (one kernel
+    launch on the card); above: the sorted pipeline.
     """
-    args, unsort, n = prepare_sweep(tiles, ray)
-    t, uv, prim, shape, visited = sweep(*args)
-    out = _unsorted((t, uv, prim, shape), unsort, n)
-    return out + (visited,) if return_visited else out
+    T = tiles["v0"].shape[0]
+    if (T > SWEEP_FUSED_MAX_TILES
+            or ray.o.shape[0] * T > SWEEP_FUSED_MAX_RAY_TILES):
+        return intersect_tiles_sorted(tiles, ray, return_visited)
+    out = sweep_small(*prepare_small(tiles, ray))
+    return out if return_visited else out[:4]
 
 
 # =============================================================================
@@ -439,14 +582,18 @@ def intersect_tiles(tiles, ray, return_visited=False):
 # =============================================================================
 
 # kernel -> its launch function's ctypes argument types
-_ARGTYPES = {
-    "tile_sweep": [_build.PTR] * 9 + [_build.INT] * 2 + [_build.PTR] * 6,
-    "tile_bvh": [_build.PTR] * 10 + [_build.INT] + [_build.PTR] * 6,
-    "tile_bvh8": [_build.PTR] * 10 + [_build.INT] + [_build.PTR] * 6,
+_P, _I, _L = _build.PTR, _build.INT, _build.LONG
+_ENTRIES = {
+    "tile_sweep": {
+        "tile_sweep_launch": [_P] * 5 + [_I] * 2 + [_P] * 6,
+        "tile_sweep_small_launch": [_P] * 4 + [_L] + [_P] * 3 + [_I]
+                                   + [_P] * 7},
+    "tile_bvh": {"tile_bvh_launch": [_P] * 10 + [_I] + [_P] * 6},
+    "tile_bvh8": {"tile_bvh8_launch": [_P] * 10 + [_I] + [_P] * 6},
 }
-for _name, _args in _ARGTYPES.items():
-    _build.register(_name, _args, headers=("tile_common.cuh",))
-KERNELS = tuple(_ARGTYPES)
+for _name, _entries in _ENTRIES.items():
+    _build.register(_name, _entries, headers=("tile_common.cuh",))
+KERNELS = tuple(_ENTRIES)
 
 
 # =============================================================================
@@ -637,7 +784,7 @@ def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2,
                    prim, shape):
     """Launch csrc/<name>.cu (tile_bvh or tile_bvh8) on the current stream
     (no sync)."""
-    lib = _build.load(name)
+    fn = _build.entry(name, f"{name}_launch")
     nb = rays.shape[0] // RAY_BLOCK
     dev = rays.device
     N, I1 = tree_box.shape[0], xf.shape[0]
@@ -652,13 +799,12 @@ def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2,
         **_tile_specs(v0.shape[0], v0, e1, e2, prim, shape)}, dev)
     t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
     stats = torch.empty(nb, 3, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, f"{name}_launch")(
+    err = fn(
         rays.data_ptr(), tree_box.data_ptr(), tree_meta.data_ptr(),
         xf.data_ptr(), sbase.data_ptr(), v0.data_ptr(), e1.data_ptr(),
         e2.data_ptr(), prim.data_ptr(), shape.data_ptr(), nb, t.data_ptr(),
         uv.data_ptr(), prim_o.data_ptr(), shape_o.data_ptr(),
-        stats.data_ptr(), stream)
+        stats.data_ptr(), _build.stream(dev.index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1

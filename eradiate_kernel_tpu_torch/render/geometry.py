@@ -23,7 +23,8 @@ from ..core.frame import Frame
 from ..core.math import INVALID_T, cross, normalize, sqr
 from ..core.ray import Ray
 from ..core.transform import Transform
-from ..ops.intersect import intersect_bvh, intersect_bvh8, intersect_tiles
+from ..ops.intersect import (intersect_bvh, intersect_bvh8, intersect_tiles,
+                             root_box, tile_rows)
 from .records import PreliminaryIntersection, SurfaceInteraction
 
 FAMILY_MESH = 0
@@ -80,22 +81,47 @@ class Geometry:
     inst_hi: torch.Tensor       # (I, 3)
     shape_inst: torch.Tensor    # (n_shapes,) i32 instance of a shape, or -1
 
+    def __post_init__(self):
+        # the sweep's per-scene tables (ops/intersect.py::sweep_tables),
+        # built once rather than per query: the root box of all tiles here,
+        # the packed triangle rows at the first sweep query (tiles_rows)
+        root = (root_box(self.tiles_lo, self.tiles_hi) if self.has_tiles
+                else None)
+        object.__setattr__(self, "tiles_root", root)
+        object.__setattr__(self, "_tiles_rows", None)
+
     @property
     def has_tiles(self):
         return self.tiles_v0.shape[0] > 0
+
+    @property
+    def tiles_rows(self):
+        """(T, K, 12) packed triangle rows the sweep kernel stages, built at
+        the first read and kept (None without tiles); scenes whose queries
+        take a BVH never build them."""
+        if self._tiles_rows is None and self.has_tiles:
+            object.__setattr__(self, "_tiles_rows", tile_rows(
+                self.tiles_v0, self.tiles_e1, self.tiles_e2, self.tiles_prim,
+                self.tiles_shape))
+        return self._tiles_rows
 
     @property
     def n_instances(self):
         return self.inst_f_off.shape[0]
 
     def tiles(self):
-        return {"v0": self.tiles_v0, "e1": self.tiles_e1,
-                "e2": self.tiles_e2, "prim": self.tiles_prim,
-                "shape": self.tiles_shape, "lo": self.tiles_lo,
-                "hi": self.tiles_hi, "nbox": self.bvh_box,
-                "nmeta": self.bvh_meta, "cbox": self.bvh8_box,
-                "cmeta": self.bvh8_meta, "xf": self.tiles_xf,
-                "sbase": self.tiles_sbase}
+        """The tile kernels' arrays; 'rows' only when the accel policy sends
+        the scene's queries to the sweep, the one reader of them."""
+        tiles = {"v0": self.tiles_v0, "e1": self.tiles_e1,
+                 "e2": self.tiles_e2, "prim": self.tiles_prim,
+                 "shape": self.tiles_shape, "lo": self.tiles_lo,
+                 "hi": self.tiles_hi, "root": self.tiles_root,
+                 "nbox": self.bvh_box, "nmeta": self.bvh_meta,
+                 "cbox": self.bvh8_box, "cmeta": self.bvh8_meta,
+                 "xf": self.tiles_xf, "sbase": self.tiles_sbase}
+        if self.has_tiles and _accel_mode(self) == "tiles":
+            tiles["rows"] = self.tiles_rows
+        return tiles
 
 
 def _accel_mode(geo: Geometry) -> str:

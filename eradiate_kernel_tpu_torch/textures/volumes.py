@@ -7,8 +7,11 @@ chooses them:
     contraction of ``_trilinear_einsum``, contracted one axis at a time
     (never a lanes x D*H*W intermediate), in full float32;
   - larger grids: one packed 8-corner row per lane (``packed_corners``,
-    built once per scene at load) fetched through the ``grid_gather``
-    kernel (ops/gather.py), then the trilinear combine ``_lerp8``.
+    built once per scene at load) at the index of corner c000
+    (``_corner0``), then the trilinear combine ``_lerp8``: the whole lookup
+    is one launch of the ``grid_gather`` kernel's trilinear entry
+    (ops/gather.py::grid_trilinear) for CUDA tensors, and the eager chain
+    ``trilinear_gather_plain`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ def _axis_weights(g, n_axis):
     return torch.where(ar == i1[..., None], w + f, w)
 
 
-def _corner_setup(grid_shape, vslot, pl):
-    """Flat indices of the 8 corner voxels (zyx-binary order c000..c111)
-    and the three fractional weights. grid_shape: (S, D, H, W)."""
+def _corner0(grid_shape, vslot, pl):
+    """Flat index of corner c000 (the packed row's voxel) and the three
+    fractional weights: the reference's _corner_setup for its first corner
+    only, the one the packed path reads. grid_shape: (S, D, H, W)."""
     S, D, H, W = grid_shape
     gx = torch.clamp(pl[..., 0], 0.0, 1.0) * (W - 1)
     gy = torch.clamp(pl[..., 1], 0.0, 1.0) * (H - 1)
@@ -47,17 +51,12 @@ def _corner_setup(grid_shape, vslot, pl):
     fx = (gx - x0)[..., None]
     fy = (gy - y0)[..., None]
     fz = (gz - z0)[..., None]
-    x1 = torch.clamp(x0 + 1, max=W - 1)
-    y1 = torch.clamp(y0 + 1, max=H - 1)
-    z1 = torch.clamp(z0 + 1, max=D - 1)
-    base = vslot * (D * H * W)
-    idx = [base + (z * H + y) * W + x
-           for z in (z0, z1) for y in (y0, y1) for x in (x0, x1)]
+    idx = vslot * (D * H * W) + (z0 * H + y0) * W + x0
     return idx, fx, fy, fz
 
 
 def _lerp8(c, fx, fy, fz):
-    """Trilinear combine of 8 corner values in _corner_setup order."""
+    """Trilinear combine of 8 corner values, c000..c111 (zyx binary)."""
     c00 = c[0] * (1 - fx) + c[1] * fx
     c01 = c[2] * (1 - fx) + c[3] * fx
     c10 = c[4] * (1 - fx) + c[5] * fx
@@ -69,8 +68,8 @@ def _lerp8(c, fx, fy, fz):
 
 def packed_corners(grid):
     """(S, D, H, W, C) -> (S*D*H*W, 8*C): every voxel's trilinear
-    neighbourhood in one row (c000..c111 in _corner_setup order, +1
-    neighbours edge-clamped like min(i + 1, n - 1))."""
+    neighbourhood in one row (c000..c111, zyx binary order, +1 neighbours
+    edge-clamped like min(i + 1, n - 1))."""
     S, D, H, W, C = grid.shape
 
     def shift(dz, dy, dx):
@@ -99,15 +98,25 @@ def packed_corners_of(volumes):
     return packed_corners(params["grid"])
 
 
-def _trilinear_gather(packed, grid_shape, vslot, pl):
-    """Packed-neighbourhood gather and lerp: one 8C-wide row per lane (its
-    8 corner voxels) through the grid_gather kernel."""
+def trilinear_gather_plain(packed, grid_shape, vslot, pl):
+    """The packed-neighbourhood lookup as an eager chain: corner c000's
+    index, its 8C-wide row (its 8 corner voxels) through the plain row
+    gather, then _lerp8. The plain version of ops.gather.grid_trilinear."""
     S, D, H, W, C = grid_shape
-    idx, fx, fy, fz = _corner_setup((S, D, H, W), vslot, pl)
-    rows = gather.gather_rows(packed, idx[0].reshape(-1))
-    rows = rows.reshape(idx[0].shape + (8 * C,))
+    idx, fx, fy, fz = _corner0((S, D, H, W), vslot, pl)
+    rows = gather.gather_rows_plain(packed, idx.reshape(-1))
+    rows = rows.reshape(idx.shape + (8 * C,))
     return _lerp8([rows[..., k * C:(k + 1) * C] for k in range(8)],
                   fx, fy, fz)
+
+
+def _trilinear_gather(packed, grid_shape, vslot, pl):
+    """Packed-neighbourhood lookup on the tensors' device: one launch of
+    the grid_gather kernel's trilinear entry for CUDA tensors, the plain
+    chain for CPU tensors (or under gather.use_plain)."""
+    if gather.on_plain(packed):
+        return trilinear_gather_plain(packed, grid_shape, vslot, pl)
+    return gather.grid_trilinear(packed, grid_shape, vslot, pl)
 
 
 def _trilinear_einsum(grid, vslot, pl):

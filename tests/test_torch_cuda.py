@@ -11,7 +11,8 @@ import torch
 
 from bench_mesh import terrain
 from eradiate_kernel_tpu_torch.core.ray import Ray
-from eradiate_kernel_tpu_torch.ops import accel, bvh, gather, intersect
+from eradiate_kernel_tpu_torch.ops import _build, accel, bvh, gather, intersect
+from eradiate_kernel_tpu_torch.textures import volumes
 
 
 @pytest.fixture
@@ -61,6 +62,114 @@ def test_tile_sweep_matches_plain(cuda_device, n):
     assert torch.isfinite(out[0]).any()
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+def _soup_tiles(F, dev, seed=0):
+    """pack_tiles of a random triangle soup in [-1.15, 1.15]^3."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1, 1, (F, 3))
+    V = (c[:, None, :] + rng.uniform(-0.15, 0.15, (F, 3, 3))).reshape(-1, 3)
+    tiles = accel.pack_tiles(V.astype(np.float32),
+                             np.arange(3 * F, dtype=np.int32).reshape(F, 3),
+                             np.arange(F, dtype=np.int32) % 5)
+    return {k: torch.as_tensor(v, device=dev) for k, v in tiles.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [1, 8, intersect.SWEEP_FUSED_MAX_TILES])
+def test_fused_sweep_matches_plain(cuda_device, n_tiles):
+    """The fused query against its plain version (the eager pre-passes
+    without the sort, then the plain sweep) on a ragged ray count: hits and
+    per-block visit counts bit equal, one counted launch."""
+    tiles = _soup_tiles(128 * n_tiles - 20, cuda_device)
+    assert tiles["lo"].shape[0] == n_tiles
+    ray = _rays(3 * intersect.RAY_BLOCK + 17, cuda_device)
+    args = intersect.prepare_small(tiles, ray)
+    before = intersect.launches["tile_sweep"]
+    out = intersect.sweep_small(*args)
+    torch.cuda.synchronize()
+    assert intersect.launches["tile_sweep"] == before + 1
+    ref = intersect._sweep_small_plain(*args)
+    assert torch.isfinite(out[0]).any() and int(out[4].sum()) > 0
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    for a, b in zip(intersect.intersect_tiles(tiles, ray,
+                                              return_visited=True), out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_sweep_refuses_past_its_capacity(cuda_device):
+    """The fused entry holds SWEEP_FUSED_MAX_TILES = 32 tiles (one warp
+    ranks them): its own range check refuses one more, and the wrapper
+    raises."""
+    n_tiles = intersect.SWEEP_FUSED_MAX_TILES + 1
+    tiles = _soup_tiles(128 * n_tiles - 20, cuda_device)
+    assert tiles["lo"].shape[0] == n_tiles
+    args = intersect.prepare_small(tiles, _rays(300, cuda_device))
+    before = intersect.launches["tile_sweep"]
+    with pytest.raises(RuntimeError, match=f"fused query on {n_tiles} tiles"):
+        intersect.sweep_small(*args)
+    assert intersect.launches["tile_sweep"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 8 * intersect.RAY_BLOCK + 17])
+def test_sorted_sweep_matches_plain(cuda_device, n):
+    """Above SWEEP_FUSED_MAX_TILES tiles (terrain(65): 64 tiles) the sorted
+    pipeline's sweep kernel against the plain sweep, bit equal."""
+    V, F = terrain(65)
+    tiles = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             accel.pack_tiles(V, F, np.zeros(len(F), np.int32)).items()}
+    assert tiles["lo"].shape[0] > intersect.SWEEP_FUSED_MAX_TILES
+    ray = _rays(n, cuda_device)
+    args, _unsort, _n = intersect.prepare_sweep(tiles, ray)
+    before = intersect.launches["tile_sweep"]
+    out = intersect.sweep(*args)
+    torch.cuda.synchronize()
+    assert intersect.launches["tile_sweep"] == before + 1
+    ref = intersect._sweep_plain(*args)
+    assert torch.isfinite(out[0]).any()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3])
+def test_grid_trilinear_matches_plain(cuda_device, C):
+    """The fused trilinear lookup against the plain chain, bit equal, on a
+    (2, 8, 32, 32, C) grid with points around [0, 1]^3 and a NaN point."""
+    rng = np.random.default_rng(C)
+    grid = torch.as_tensor(rng.random((2, 8, 32, 32, C)).astype(np.float32),
+                           device=cuda_device)
+    packed = volumes.packed_corners(grid)
+    pl = rng.uniform(-0.1, 1.1, (50, 100, 3)).astype(np.float32)
+    pl[0, 0, 1] = np.nan
+    pl = torch.as_tensor(pl, device=cuda_device)
+    slot = torch.as_tensor(rng.integers(0, 2, (50, 100)).astype(np.int32),
+                           device=cuda_device)
+    before = gather.launches["grid_gather"]
+    out = volumes._trilinear_gather(packed, grid.shape, slot, pl)
+    torch.cuda.synchronize()
+    assert gather.launches["grid_gather"] == before + 1
+    ref = volumes.trilinear_gather_plain(packed, grid.shape, slot, pl)
+    assert out.shape == (50, 100, C)
+    assert bool(torch.isnan(out[0, 0]).all())
+    # bit for bit, the NaN lane too (torch.equal says NaN != NaN)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_raw_stream_is_the_current_stream(cuda_device):
+    """The wrappers' raw stream handle is torch.cuda.current_stream()'s,
+    on the default stream and inside a side stream."""
+    index = torch.cuda.current_device()
+    cur = lambda: torch.cuda.current_stream(index).cuda_stream
+    assert _build.stream(index) == cur()
+    side = torch.cuda.Stream(index)
+    with torch.cuda.stream(side):
+        assert _build.stream(index) == cur() == side.cuda_stream
+    assert _build.stream(index) != side.cuda_stream
 
 
 @pytest.mark.cuda

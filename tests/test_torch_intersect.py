@@ -115,17 +115,11 @@ def test_prepasses_bit_equal(name):
     assert mask.any()
 
 
-@pytest.mark.parametrize("n", [600, 1100])   # 1100 >= SORT_MIN_RAYS: sorted
-@pytest.mark.parametrize("name", sorted(MESHES))
-def test_plain_sweep_matches_pallas(name, n):
-    V, F, tiles = _tiles(name)
-    o, d, mint, maxt = _rays(n, seed=n)
-    ray = Ray(o=torch.as_tensor(o), d=torch.as_tensor(d),
-              mint=torch.as_tensor(mint), maxt=torch.as_tensor(maxt),
-              time=torch.zeros(n))
-    t, uv, prim, shape, visited = intersect.intersect_tiles(
-        {k: torch.as_tensor(v) for k, v in tiles.items()}, ray,
-        return_visited=True)
+def _assert_matches_pallas(V, F, tiles, o, d, mint, maxt, out):
+    """The port's (t, uv, prim, shape, visited) against the Pallas kernel
+    in interpret mode on the same rays, under Queue 2's contract."""
+    n = o.shape[0]
+    t, uv, prim, shape, visited = out
     jray = JRay.make(jnp.asarray(o), jnp.asarray(d), mint=jnp.asarray(mint),
                      maxt=jnp.asarray(maxt), wavelengths=jnp.zeros((n, 0)))
     rt, ruv, rprim, rshape = (np.asarray(a) for a in jpi.intersect_tiles(
@@ -148,18 +142,181 @@ def test_plain_sweep_matches_pallas(name, n):
     np.testing.assert_allclose(uv.numpy()[hit], ruv[hit], rtol=0, atol=1e-4)
     np.testing.assert_array_equal(shape.numpy(), rshape)
     # prim must agree wherever no other triangle reaches the same t
-    tt, _, _, ok = moller_trumbore(
-        torch.as_tensor(o)[:, None], torch.as_tensor(d)[:, None],
-        *(torch.as_tensor(V[F[:, i]]) for i in range(3)))
-    tt = torch.where(ok, tt, float("inf")).numpy()
-    ties = np.zeros(n, np.int64)
-    ties[hit] = (np.abs(tt[hit] - t[hit, None])
-                 <= 1e-6 * np.abs(t[hit, None])).sum(1)
-    unique = ties == 1
+    unique = _unique_hits(V, F, o, d, t)
     assert unique.sum() > 0.9 * hit.sum()
     np.testing.assert_array_equal(prim.numpy()[unique], rprim[unique])
     # the early exit leaves the visit count at or below the admitted count
     assert int(visited.sum()) > 0
+
+
+def _unique_hits(V, F, o, d, t):
+    """Rays whose hit t no other triangle of the mesh reaches (within
+    1e-6 relative)."""
+    n = o.shape[0]
+    tt, _, _, ok = moller_trumbore(
+        torch.as_tensor(o)[:, None], torch.as_tensor(d)[:, None],
+        *(torch.as_tensor(V[F[:, i]]) for i in range(3)))
+    tt = torch.where(ok, tt, float("inf")).numpy()
+    hit = np.isfinite(t)
+    ties = np.zeros(n, np.int64)
+    ties[hit] = (np.abs(tt[hit] - t[hit, None])
+                 <= 1e-6 * np.abs(t[hit, None])).sum(1)
+    return ties == 1
+
+
+def _ray(o, d, mint, maxt):
+    return Ray(o=torch.as_tensor(o), d=torch.as_tensor(d),
+               mint=torch.as_tensor(mint), maxt=torch.as_tensor(maxt),
+               time=torch.zeros(o.shape[0]))
+
+
+# both tile sets are fused-query sized (4 and 16 tiles): intersect_tiles
+# takes the fused query's plain version, unsorted at either ray count
+@pytest.mark.parametrize("n", [600, 1100])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_plain_sweep_matches_pallas(name, n):
+    V, F, tiles = _tiles(name)
+    o, d, mint, maxt = _rays(n, seed=n)
+    out = intersect.intersect_tiles(
+        {k: torch.as_tensor(v) for k, v in tiles.items()},
+        _ray(o, d, mint, maxt), return_visited=True)
+    _assert_matches_pallas(V, F, tiles, o, d, mint, maxt, out)
+
+
+# a one-tile set (100 triangles, the atmosphere cube's case) and an
+# eight-tile one (1,000 triangles)
+SMALL = {"tile1": lambda: soup(100, seed=5), "tiles8": lambda: soup(1000)}
+
+
+@pytest.mark.parametrize("path", ["fused", "sorted"])
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_small_tile_sets_match_pallas(name, path):
+    """The fused query's plain version (unsorted) and the sorted pipeline
+    against the Pallas kernel; 1,100 rays are past SORT_MIN_RAYS, so the
+    sorted pipeline sorts."""
+    V, F = SMALL[name]()
+    tiles = accel.pack_tiles(V, F, np.zeros(len(F), np.int32))
+    assert len(tiles["lo"]) == {"tile1": 1, "tiles8": 8}[name]
+    o, d, mint, maxt = _rays(1100, seed=11)
+    query = {"fused": intersect.intersect_tiles,
+             "sorted": intersect.intersect_tiles_sorted}[path]
+    out = query({k: torch.as_tensor(v) for k, v in tiles.items()},
+                _ray(o, d, mint, maxt), return_visited=True)
+    _assert_matches_pallas(V, F, tiles, o, d, mint, maxt, out)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL) + ["terrain"])
+def test_fused_query_matches_sorted_pipeline(name):
+    """Without the coherence sort the blocks hold other rays and visit
+    tiles in another order: t is the same exactly, prim, shape and uv
+    wherever the hit t is unique."""
+    V, F = {**SMALL, **MESHES}[name]()
+    tiles = {k: torch.as_tensor(v) for k, v in accel.pack_tiles(
+        V, F, np.arange(len(F), dtype=np.int32) % 3).items()}
+    o, d, mint, maxt = _rays(1100, seed=12)
+    ray = _ray(o, d, mint, maxt)
+    fused = intersect.intersect_tiles(tiles, ray)
+    ref = intersect.intersect_tiles_sorted(tiles, ray)
+    np.testing.assert_array_equal(fused[0].numpy(), ref[0].numpy())
+    assert np.isfinite(ref[0].numpy()).sum() > 100
+    unique = _unique_hits(V, F, o, d, ref[0].numpy())
+    for a, b in zip(fused[1:], ref[1:]):
+        np.testing.assert_array_equal(a.numpy()[unique], b.numpy()[unique])
+    np.testing.assert_array_equal(fused[3].numpy() >= 0,
+                                  ref[3].numpy() >= 0)
+
+
+def test_sweep_tables_built_once_at_load():
+    """A scene's Geometry carries the root box (amin of the tile boxes' lo,
+    amax of their hi) and the packed rows; the query reads them from
+    tiles() instead of reducing per query."""
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    V, F = terrain(17)
+    scene = load_dict({
+        "type": "scene",
+        "m": {"type": "mesh", "vertices": V, "faces": F},
+        "camera": {"type": "perspective",
+                   "film": {"type": "hdrfilm", "width": 4, "height": 4,
+                            "rfilter": {"type": "box"}}},
+        "integrator": {"type": "path"}}, device="cpu")
+    geo = scene.geo
+    tiles = geo.tiles()
+    assert tiles["root"] is geo.tiles_root
+    np.testing.assert_array_equal(
+        tiles["root"].numpy(),
+        np.stack([geo.tiles_lo.numpy().min(0), geo.tiles_hi.numpy().max(0)]))
+    rows = tiles["rows"].numpy()
+    assert rows.shape == (len(geo.tiles_lo), intersect.TILE_K, 12)
+    np.testing.assert_array_equal(rows[..., 0:3], geo.tiles_v0.numpy())
+    np.testing.assert_array_equal(rows[..., 3:6], geo.tiles_e1.numpy())
+    np.testing.assert_array_equal(rows[..., 6:9], geo.tiles_e2.numpy())
+    ids = rows[..., 9:12].view(np.int32)
+    np.testing.assert_array_equal(ids[..., 0], geo.tiles_prim.numpy())
+    np.testing.assert_array_equal(ids[..., 1], geo.tiles_shape.numpy())
+    assert not ids[..., 2].any()
+    # the same hits as a query that builds the tables itself
+    o, d, mint, maxt = _rays(300, seed=3)
+    ray = _ray(o, d, mint, maxt)
+    bare = {k: v for k, v in tiles.items() if k not in ("root", "rows")}
+    for a, b in zip(intersect.intersect_tiles(tiles, ray),
+                    intersect.intersect_tiles(bare, ray)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_tiles, n_rays, path", [
+    (1, 1 << 15, "fused"),    # the atmosphere's cube under its lane pool
+    (32, 1 << 15, "fused"),
+    (8, 1 << 20, "fused"),    # 2^23 rays x tiles, at the limit
+    (16, 1 << 20, "sorted"),
+    (1, (1 << 23) + 1, "sorted"),
+    (33, 16, "sorted"),       # past the fused entry's capacity
+])
+def test_fused_query_reach(monkeypatch, n_tiles, n_rays, path):
+    """intersect_tiles takes the fused query up to SWEEP_FUSED_MAX_TILES
+    tiles and SWEEP_FUSED_MAX_RAY_TILES rays x tiles, else the sorted
+    pipeline."""
+    import types
+
+    taken = []
+    monkeypatch.setattr(intersect, "prepare_small", lambda t, r: ())
+    monkeypatch.setattr(intersect, "sweep_small",
+                        lambda *a: taken.append("fused") or (None,) * 5)
+    monkeypatch.setattr(intersect, "intersect_tiles_sorted",
+                        lambda t, r, v: taken.append("sorted"))
+    intersect.intersect_tiles({"v0": torch.empty(n_tiles, 0, 3)},
+                              types.SimpleNamespace(o=torch.empty(n_rays, 0)))
+    assert taken == [path]
+
+
+@pytest.mark.parametrize("accel", ["bvh", "bvh8"])
+def test_bvh_scenes_build_no_sweep_rows(monkeypatch, accel):
+    """The packed rows are the sweep's alone: a scene whose queries take a
+    BVH neither carries nor builds them; the first sweep query builds them
+    once and later ones read the same tensor."""
+    from eradiate_kernel_tpu_torch.render.geometry import (
+        ray_intersect_preliminary)
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    V, F = terrain(17)
+    geo = load_dict({
+        "type": "scene",
+        "m": {"type": "mesh", "vertices": V, "faces": F},
+        "camera": {"type": "perspective",
+                   "film": {"type": "hdrfilm", "width": 4, "height": 4,
+                            "rfilter": {"type": "box"}}},
+        "integrator": {"type": "path"}}, device="cpu").geo
+    o, d, mint, maxt = _rays(300, seed=4)
+    ray = _ray(o, d, mint, maxt)
+    monkeypatch.setenv("ERT_ACCEL", accel)
+    assert "rows" not in geo.tiles()
+    via_bvh = ray_intersect_preliminary(geo, ray)
+    assert geo._tiles_rows is None
+    monkeypatch.setenv("ERT_ACCEL", "tiles")
+    via_sweep = ray_intersect_preliminary(geo, ray)
+    rows = geo._tiles_rows
+    assert rows is not None and geo.tiles()["rows"] is rows
+    np.testing.assert_array_equal(via_bvh.t.numpy(), via_sweep.t.numpy())
 
 
 def _geo(n_tiles, n_instances=0, n_bvh8=1):

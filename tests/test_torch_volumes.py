@@ -73,3 +73,43 @@ def test_apply_wrap_matches_reference():
                                rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(out_in.numpy(), np.asarray(ref_in))
     assert out_in.numpy().any() and not out_in.numpy().all()
+
+
+def _grid_lookups(C, n=3000, seed=5):
+    """A random (2, 8, 32, 32, C) grid (8,192 voxels a slot: the gather
+    path), local points inside and around [0, 1]^3, random slots."""
+    rng = np.random.default_rng(seed)
+    grid = rng.random((2, 8, 32, 32, C)).astype(np.float32)
+    pl = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    vslot = rng.integers(0, 2, n).astype(np.int32)
+    return grid, vslot, pl
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_trilinear_gather_plain_matches_reference(C):
+    """The plain packed-row lookup (the fused kernel's plain version)
+    against the reference's _trilinear_gather, at the gather path's
+    tolerance of test_volume_eval_matches_reference."""
+    grid, vslot, pl = _grid_lookups(C)
+    ref = np.asarray(jvol._trilinear_gather(
+        jnp.asarray(grid), jnp.asarray(vslot), jnp.asarray(pl)))
+    tgrid = torch.as_tensor(grid)
+    out = volumes.trilinear_gather_plain(
+        volumes.packed_corners(tgrid), tgrid.shape, torch.as_tensor(vslot),
+        torch.as_tensor(pl)).numpy()
+    assert out.shape == (len(pl), C)
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-7)
+
+
+def test_corner0_matches_reference_corner_setup():
+    """The packed path computes only corner c000's index: equal to the
+    reference's first of eight, and the same fractional weights."""
+    grid, vslot, pl = _grid_lookups(1, seed=6)
+    S, D, H, W, _ = grid.shape
+    ref_idx, *ref_f = jvol._corner_setup((S, D, H, W), jnp.asarray(vslot),
+                                         jnp.asarray(pl))
+    idx, *f = volumes._corner0((S, D, H, W), torch.as_tensor(vslot),
+                               torch.as_tensor(pl))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx[0]))
+    for a, b in zip(f, ref_f):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
