@@ -19,13 +19,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      launches;
   4. render a 64x64, 4 spp version twice, through the kernel and through
      the plain sweep, and compare the films;
-  5. hold each tile-BVH kernel (binary and 8-wide) against its plain
-     version: terrain(256) through the BVH with the loads of phase 2, and
-     the instanced forest (bench_mesh.py's bench_forest: one 2,048-triangle
-     crown instanced 256 times, 4,096 BVH leaves) with 2^19 primary rays;
+  5. hold each tile-BVH kernel (binary and 8-wide, walking in warps of
+     ops/intersect.py's BVH_GROUP = 32 rays) against its plain version,
+     bit for bit, visit counts included: terrain(256) through the BVH with
+     the loads of phase 2, and the instanced forest (bench_mesh.py's
+     bench_forest: one 2,048-triangle crown instanced 256 times, 4,096 BVH
+     leaves) with 2^19 primary rays;
   6. render the forest at full width (256x256, 16 spp, max_depth 6, RPV
      ground, directional sun) through the binary BVH (the default policy)
-     and through the 8-wide BVH (ERT_BVH_WIDE=1), counting launches;
+     and through the 8-wide BVH (ERT_BVH_WIDE=1), counting launches; then
+     once more with every launch synchronised and timed (the kernel stage:
+     ms a launch) and its visits summed for the bound;
   7. render a 64x64, 4 spp forest through each BVH kernel and its plain
      version and compare the films;
   8. hold the row-gather kernel's gather entry against its plain version,
@@ -85,8 +89,8 @@ KERNEL_FUNCS = {"tile_sweep": ("tile_sweep_kernel", "tile_sweep_small_kernel"),
 # the calls of its slow path, 32- and 128-bit shared loads, async copies,
 # barriers, FP32 arithmetic (an opcode counts under a family it equals or
 # extends with a "." suffix; LDS only as itself)
-SASS_OPS = ("MUFU.RCP", "CALL", "LDS", "LDS.128", "LDGSTS", "BAR.SYNC",
-            "BAR.RED", "FFMA", "FMUL", "FADD")
+SASS_OPS = ("MUFU.RCP", "CALL", "LDS", "LDS.128", "LDG.E.128", "LDGSTS",
+            "BAR.SYNC", "BAR.RED", "WARPSYNC", "FFMA", "FMUL", "FADD")
 
 
 def terrain(n=256, seed=0):
@@ -282,20 +286,20 @@ def sweep_bound(args, visited):
 
 def bvh_bound(args, stats, wide):
     """Least time (ms) the card could take for one BVH traversal. Bytes:
-    rays in, the tree, instance rows and tiles once, outputs and stats.
-    Operations: leaves visited x 256 x 128 tests x FLOPS_PER_TEST, plus
-    inner nodes visited x 256 rays x (2 or 8) children x FLOPS_PER_SLAB."""
+    rays in, the tree, instance rows and packed tile rows once, outputs and
+    stats. Operations: leaves visited x BVH_GROUP x 128 tests x
+    FLOPS_PER_TEST, plus inner nodes visited x BVH_GROUP rays x (2 or 8)
+    children x FLOPS_PER_SLAB, from the per-group stats. (The TPU's 256-ray
+    walk tests more: 1.3-3.6x on these loads, PERF.md.)"""
     from eradiate_kernel_tpu_torch.ops import intersect
 
-    rays = args[0]
+    rays, g = args[0], intersect.BVH_GROUP
     tree = sum(a.numel() * 4 for a in args[1:5])
     inner, leaves = (int(x) for x in stats[:, :2].sum(0))
     nbytes = (rays.shape[0] * (32 + 20) + stats.numel() * 4 + tree
-              + tile_bytes(args[5].shape[0]))
-    ops = (leaves * intersect.RAY_BLOCK * intersect.TILE_K
-           * intersect.FLOPS_PER_TEST
-           + inner * intersect.RAY_BLOCK * (8 if wide else 2)
-           * intersect.FLOPS_PER_SLAB)
+              + args[5].numel() * 4)
+    ops = (leaves * g * intersect.TILE_K * intersect.FLOPS_PER_TEST
+           + inner * g * (8 if wide else 2) * intersect.FLOPS_PER_SLAB)
     return bound(nbytes, ops) + (inner, leaves)
 
 
@@ -869,6 +873,46 @@ def check_bvh_load(name, tiles, ray, n_rays):
                 intersect_ms=full_ms, mrays_per_s=n_rays / full_ms / 1e3)
 
 
+def render_kernel_stage(scene, name):
+    """Render ``scene`` once with every BVH traversal synchronised before
+    and after and its host time summed (the kernel stage), and the bound
+    summed over the launches from each launch's visits. Returns the
+    stage's record."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.ops import intersect
+
+    wide = name == "tile_bvh8"
+    traverse = intersect.traverse
+    rec = dict(stage_ms=0.0, launches=0, bound_ms=0.0, inner_visits=0,
+               leaf_visits=0, bound_by=collections.Counter())
+
+    def timed(nm, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = traverse(nm, *args)
+        torch.cuda.synchronize()
+        rec["stage_ms"] += (time.perf_counter() - t0) * 1e3
+        rec["launches"] += 1
+        b_ms, b_by, inner, leaves = bvh_bound(args, out[4], wide)
+        rec["bound_ms"] += b_ms
+        rec["bound_by"][b_by] += 1
+        rec["inner_visits"] += inner
+        rec["leaf_visits"] += leaves
+        return out
+
+    saved = dict(intersect.launches)
+    intersect.traverse = timed
+    try:
+        integrators.render(scene, seed=0)
+    finally:
+        intersect.traverse = traverse
+        intersect.launches.update(saved)
+    rec["ms_per_launch"] = rec["stage_ms"] / rec["launches"]
+    rec["bound_ms_per_launch"] = rec["bound_ms"] / rec["launches"]
+    rec["bound_by"] = rec["bound_by"].most_common(1)[0][0]
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -896,9 +940,10 @@ def main():
     print(f"# build: {', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}"
           f" (in parallel, {time.perf_counter() - t0:.2f} s in all)",
           flush=True)
-    # what 1/det compiles to: tile_bvh's leaf writes 1.0f / det, the sweep
-    # __frcp_rn(det); and the sweep's staging (LDGSTS) and 128-bit loads
-    for name in ("tile_sweep", "tile_bvh", "grid_gather"):
+    # the leaves' reciprocal (__frcp_rn), staging (LDGSTS), 128-bit shared
+    # or global loads, and the barriers a kernel build takes (BAR: block,
+    # WARPSYNC: warp)
+    for name in ("tile_sweep", "tile_bvh", "tile_bvh8", "grid_gather"):
         for fn, ops in (sass_counts(name) or {name: "no cuobjdump"}).items():
             print(f"# SASS {fn}: {ops}", flush=True)
 
@@ -1054,6 +1099,17 @@ def main():
                                  msamples_per_s=n_samples / secs_r / 1e6,
                                  launches=launches[name], queries=queries,
                                  image_mean=mean)
+        # the render's own queries (the bounces' rays): its kernel stage
+        # with each launch synchronised, ms a launch beside the bound
+        with env(ERT_BVH_WIDE=wide):
+            stage = render_kernel_stage(forest, name)
+        forest_runs[name]["kernel"] = stage
+        print(f"# forest render ({name}) kernel stage "
+              f"{stage['stage_ms']:.1f} ms over {stage['launches']} "
+              f"launches, {stage['ms_per_launch']:.3f} ms a launch, bound "
+              f"{stage['bound_ms_per_launch']:.3f} ms a launch "
+              f"({stage['bound_by']}), inner nodes {stage['inner_visits']}, "
+              f"leaves {stage['leaf_visits']}", flush=True)
 
     # ---- 7. whole path: each BVH kernel vs its plain version ----------------
     small_forest = load_dict(forest_scene(64, 64, 4, 6))
@@ -1253,6 +1309,7 @@ def main():
             "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
             "library_ms": None,
             "load": "2^19 primary rays on the instanced forest",
+            "group": intersect.BVH_GROUP,
             "terrain_primary": bvh_loads[(name, "terrain primary")],
             "terrain_incoherent": bvh_loads[(name, "terrain incoherent")],
             "forest_render": forest_runs[name],

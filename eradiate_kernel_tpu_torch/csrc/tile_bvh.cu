@@ -1,5 +1,5 @@
-// Binary tile-BVH traversal: closest ray/triangle hits for blocks of 256
-// rays, walking the binary BVH over 128-triangle tiles as a block.
+// Binary tile-BVH traversal: closest ray/triangle hits for warps of 32 rays
+// walking the binary BVH over 128-triangle tiles together.
 //
 // Replaces the Pallas TPU kernel `_bvh_kernel` in
 // eradiate_kernel_tpu/ops/pallas_intersect.py:206, launched through
@@ -10,82 +10,57 @@
 //   nmeta (N, 4) i32      [left, right, tile, inst]; tile >= 0 is a leaf
 //   xf    (I+1, 12) f32   world-to-local affine rows, row 0 the identity
 //   sbase (I+1,) i32      shape base of each instance, 0 in row 0
-//   v0/e1/e2 (T, 128, 3) f32, prim/shape (T, 128) i32
+//   rows  (T, 128, 12) f32 packed triangles (tile_common.cuh)
 // out t (n,) (inf on a miss), uv (n, 2), prim (n,), shape (n,) (-1 on a
-// miss), stats (nb, 3) i32 [inner nodes visited, leaves visited, deepest
-// stack]; a deepest stack of kStack + 1 reports an overflow, which ends
-// the block's walk (the wrapper raises).
+// miss), stats (n / 32, 3) i32 [inner nodes visited, leaves visited,
+// deepest stack]; a deepest stack of kStack + 1 reports an overflow, which
+// ends the warp's walk (the wrapper raises).
 //
-// Design: one thread block per ray block, one thread per ray, and the
-// whole block walks the tree together as the TPU kernel does: one stack in
-// shared memory, written by thread 0 behind a barrier. At an inner node
-// each thread slab-tests both children; "some ray enters" is
-// __syncthreads_or and a child's entry distance is the block minimum of
-// `near` over the rays that enter. The nearer child is pushed last (popped
-// first), the left one on a tie. At a leaf every thread moves its ray into
-// the instance's space by the leaf's affine row (the ray parameter t is
-// unchanged by an affine map) and runs the leaf test of tile_common.cuh;
-// a block max of best_t after every leaf tightens the slab tests' far
-// bound. The expressions, their order and the culling bound are the
-// reference's (pallas_intersect.py:256-358), so the plain PyTorch version
-// visits the same nodes and the two agree bit for bit.
+// Design: one thread per ray; a warp walks the tree as the TPU kernel walks
+// it with its block (tile_walk.cuh). At an inner node each lane slab-tests
+// both children; the warp ballots "some ray enters" and takes its minimum
+// entry distance per child, then applies its culling bound (its largest
+// best t) to that minimum: with fminf (which never returns NaN for a
+// non-NaN operand), near <= min(far, maxt, bound) holds exactly when
+// near <= min(far, maxt) and near <= bound, so "some ray enters under the
+// bound" is "some ray enters, and the smallest entry distance is <= the
+// bound", and the decisions, and so the visits and stats, are those of the
+// plain walk's single-pass test, NaN maxt included. The nearer child is
+// pushed last (popped first), the left one on a tie. A leaf moves each ray
+// into the instance's space by the leaf's affine row and tests the tile.
+// The expressions and their order are the reference's
+// (pallas_intersect.py:256-358), so the plain PyTorch version visits the
+// same nodes and the two agree bit for bit.
 //
-// Bound on an H100: operations. Each leaf visit is 256 x 128 tests of 46
-// FP32 operations on 5.6 KB of tile data; an inner visit is 2 x 256 slab
-// tests of 26 operations on 80 bytes of node data.
+// Bound on an H100: operations. Each leaf visit is 32 x 128 tests of 46
+// FP32 operations on 6 KB of tile data; an inner visit is 2 x 32 slab
+// tests of 26 operations on 80 bytes of node data. Under -fmad=false no
+// multiply-add contracts, so the reachable ceiling is 2x the stated bound.
+// The first form of this kernel walked the TPU's 256-ray block with five
+// block barriers an inner node and three a leaf; the warp walk takes none
+// and tests 1.3-3.6x fewer triangles on the loads of chip_smoke.py, since
+// a warp visits only the leaves its own rays need (PERF.md).
 
-#include "tile_common.cuh"
+#include "tile_walk.cuh"
 
 namespace {
 
-using tile::kRayBlock;
-using tile::kWarps;
+using walk::kFull;
+using walk::kStack;
 
-constexpr int kStack = 64;   // pallas_intersect.py:203
-
-// minima of a and b over the thread block; every thread gets both
-__device__ __forceinline__ void block_min2(float &a, float &b, float *s_warp,
-                                           float *s_out) {
-    for (int off = 16; off > 0; off >>= 1) {
-        a = fminf(a, __shfl_xor_sync(0xffffffffu, a, off));
-        b = fminf(b, __shfl_xor_sync(0xffffffffu, b, off));
-    }
-    const int w = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-        s_warp[w] = a;
-        s_warp[kWarps + w] = b;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        float ma = s_warp[0], mb = s_warp[kWarps];
-        for (int i = 1; i < kWarps; ++i) {
-            ma = fminf(ma, s_warp[i]);
-            mb = fminf(mb, s_warp[kWarps + i]);
-        }
-        s_out[0] = ma;
-        s_out[1] = mb;
-    }
-    __syncthreads();
-    a = s_out[0];
-    b = s_out[1];
-}
-
-__global__ void __launch_bounds__(kRayBlock) tile_bvh_kernel(
+__global__ void __launch_bounds__(walk::kThreads) tile_bvh_kernel(
     const float *__restrict__ rays, const float *__restrict__ nbox,
     const int32_t *__restrict__ nmeta, const float *__restrict__ xf,
-    const int32_t *__restrict__ sbase, const float *__restrict__ v0,
-    const float *__restrict__ e1, const float *__restrict__ e2,
-    const int32_t *__restrict__ prim, const int32_t *__restrict__ shape,
+    const int32_t *__restrict__ sbase, const float *__restrict__ rows,
     float *__restrict__ t_out, float *__restrict__ uv_out,
     int32_t *__restrict__ prim_out, int32_t *__restrict__ shape_out,
     int32_t *__restrict__ stats_out) {
-    __shared__ tile::TileSmem s_tile;
-    __shared__ float s_warp[2 * kWarps], s_red[2];
-    __shared__ int32_t s_stack[kStack];
+    __shared__ int32_t s_stack[walk::kWarps][kStack];
+    const int lane = threadIdx.x & 31;
+    int32_t *stack = s_stack[threadIdx.x >> 5];   // the warp's stack
 
-    const int64_t b = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int64_t r = b * kRayBlock + tid;
+    const int64_t r =
+        static_cast<int64_t>(blockIdx.x) * walk::kThreads + threadIdx.x;
     const float *ray = rays + r * 8;
     const float ox = ray[0], oy = ray[1], oz = ray[2];
     const float dx = ray[3], dy = ray[4], dz = ray[5];
@@ -93,35 +68,35 @@ __global__ void __launch_bounds__(kRayBlock) tile_bvh_kernel(
     const float ix = tile::rcp(dx), iy = tile::rcp(dy), iz = tile::rcp(dz);
 
     tile::Hit h{maxt, 0.0f, 0.0f, 0, -1};
-    float bt_ub = tile::block_max(maxt, s_warp, s_red);
-    if (tid == 0) s_stack[0] = 0;   // the root
-    __syncthreads();
-    // sp, the stack and every decision below are block-uniform
+    float bt_ub = walk::warp_max(maxt);   // the warp's largest best t
+    if (lane == 0) stack[0] = 0;          // the root
+    __syncwarp();
+    // sp, the stack and every decision below are warp-uniform
     int sp = 1, n_inner = 0, n_leaf = 0, deepest = 1;
     while (sp > 0) {
         --sp;
-        const int node = s_stack[sp];
-        const int32_t *meta = nmeta + 4 * node;
-        const int left = meta[0], right = meta[1], tile_id = meta[2];
-        if (tile_id >= 0) {
-            tile::leaf(s_tile, tile_id, meta[3] + 1, xf, sbase, v0, e1, e2,
-                       prim, shape, ox, oy, oz, dx, dy, dz, mint, h);
-            bt_ub = tile::block_max(h.t, s_warp, s_red);
+        const int node = stack[sp];
+        const int4 meta = *reinterpret_cast<const int4 *>(nmeta + 4 * node);
+        if (meta.z >= 0) {
+            bt_ub = walk::leaf(rows, meta.z, meta.w + 1, xf, sbase, ox, oy,
+                               oz, dx, dy, dz, mint, h);
             ++n_leaf;
             continue;
         }
         ++n_inner;
-        const float far_cap = fminf(maxt, bt_ub);
+        const int left = meta.x, right = meta.y;
         float near_l, near_r;
         const bool ok_l = tile::slab(nbox + 8 * left, ox, oy, oz, ix, iy,
-                                     iz, mint, far_cap, near_l);
+                                     iz, mint, maxt, near_l);
         const bool ok_r = tile::slab(nbox + 8 * right, ox, oy, oz, ix, iy,
-                                     iz, mint, far_cap, near_r);
-        const bool hit_l = __syncthreads_or(ok_l);
-        const bool hit_r = __syncthreads_or(ok_r);
-        near_l = ok_l ? near_l : INFINITY;
-        near_r = ok_r ? near_r : INFINITY;
-        block_min2(near_l, near_r, s_warp, s_red);
+                                     iz, mint, maxt, near_r);
+        const float m_l = walk::warp_min(ok_l ? near_l : INFINITY);
+        const float m_r = walk::warp_min(ok_r ? near_r : INFINITY);
+        // the warp's bound on best t, applied to the minima
+        const bool hit_l = __ballot_sync(kFull, ok_l) && m_l <= bt_ub;
+        const bool hit_r = __ballot_sync(kFull, ok_r) && m_r <= bt_ub;
+        near_l = hit_l ? m_l : INFINITY;
+        near_r = hit_r ? m_r : INFINITY;
         // the near child on top (popped first); both missed: left first
         const bool l_first = near_l <= near_r;
         const int first = l_first ? left : right;
@@ -133,48 +108,40 @@ __global__ void __launch_bounds__(kRayBlock) tile_bvh_kernel(
             deepest = kStack + 1;
             break;
         }
-        if (tid == 0) {
-            if (push_second) s_stack[sp] = second;
-            if (push_first) s_stack[sp + push_second] = first;
+        if (lane == 0) {
+            if (push_second) stack[sp] = second;
+            if (push_first) stack[sp + push_second] = first;
         }
+        __syncwarp();
         sp = top;
         deepest = max(deepest, sp);
-        __syncthreads();
     }
 
     tile::write_hit(h, maxt, r, t_out, uv_out, prim_out, shape_out);
-    if (tid == 0) {
-        stats_out[3 * b] = n_inner;
-        stats_out[3 * b + 1] = n_leaf;
-        stats_out[3 * b + 2] = deepest;
-    }
+    walk::write_stats(r, n_inner, n_leaf, deepest, stats_out);
 }
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t); returns cudaGetLastError().
+// Launch on `stream` (a cudaStream_t) for n_blocks blocks of 256 rays;
+// returns cudaGetLastError().
 extern "C" int tile_bvh_launch(
     const void *rays, const void *nbox, const void *nmeta, const void *xf,
-    const void *sbase, const void *v0, const void *e1, const void *e2,
-    const void *prim, const void *shape, int n_blocks, void *t_out,
+    const void *sbase, const void *rows, int n_blocks, void *t_out,
     void *uv_out, void *prim_out, void *shape_out, void *stats_out,
     void *stream) {
-    if (n_blocks > 0) {
-        tile_bvh_kernel<<<n_blocks, kRayBlock, 0,
+    if (n_blocks > 0)
+        tile_bvh_kernel<<<n_blocks * (walk::kRayBlock / walk::kThreads),
+                          walk::kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float *>(rays),
             static_cast<const float *>(nbox),
             static_cast<const int32_t *>(nmeta),
             static_cast<const float *>(xf),
             static_cast<const int32_t *>(sbase),
-            static_cast<const float *>(v0), static_cast<const float *>(e1),
-            static_cast<const float *>(e2),
-            static_cast<const int32_t *>(prim),
-            static_cast<const int32_t *>(shape),
-            static_cast<float *>(t_out), static_cast<float *>(uv_out),
-            static_cast<int32_t *>(prim_out),
+            static_cast<const float *>(rows), static_cast<float *>(t_out),
+            static_cast<float *>(uv_out), static_cast<int32_t *>(prim_out),
             static_cast<int32_t *>(shape_out),
             static_cast<int32_t *>(stats_out));
-    }
     return static_cast<int>(cudaGetLastError());
 }

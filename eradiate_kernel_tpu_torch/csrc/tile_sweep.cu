@@ -67,12 +67,11 @@ namespace {
 
 using tile::Hit;
 using tile::kRayBlock;
-using tile::kTileK;
+using tile::kTileWords;
 using tile::kWarps;
 
-constexpr int kRowWords = 12;                    // floats per packed triangle
-constexpr int kTileWords = kTileK * kRowWords;   // 1,536 floats, 6 KB
 constexpr int kTileChunks = kTileWords / 4;      // 16-byte copies per tile
+
 // the fused entry's capacity: one warp ranks the tile list, a lane a tile
 // (tile_sweep_small_launch refuses more; ops/intersect.py's
 // SWEEP_FUSED_MAX_TILES routes no more to it, which a card test checks)
@@ -108,46 +107,6 @@ __device__ __forceinline__ void wait_staged() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// tile_common.cuh's test_tile on the packed rows: the same expressions in
-// the same order, three 128-bit broadcast loads a triangle
-__device__ __forceinline__ void test_rows(const float *__restrict__ s,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float mint, Hit &h) {
-    const float4 *row = reinterpret_cast<const float4 *>(s);
-#pragma unroll 2
-    for (int q = 0; q < kTileK; ++q) {
-        const float4 a = row[3 * q], b = row[3 * q + 1], c = row[3 * q + 2];
-        const float v0x = a.x, v0y = a.y, v0z = a.z, e1x = a.w;
-        const float e1y = b.x, e1z = b.y, e2x = b.z, e2y = b.w;
-        const float e2z = c.x;
-        const int32_t prim = __float_as_int(c.y);
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv_det = __frcp_rn(fabsf(det) < 1e-12f ? 1e-12f : det);
-        const float tx = ox - v0x;
-        const float ty = oy - v0y;
-        const float tz = oz - v0z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool ok = fabsf(det) >= 1e-12f && u >= 0.0f && v >= 0.0f &&
-                        u + v <= 1.0f && prim >= 0 && t >= mint && t < h.t;
-        if (ok) {
-            h.t = t;
-            h.u = u;
-            h.v = v;
-            h.prim = prim;
-            h.shape = __float_as_int(c.z);
-        }
-    }
-}
-
 // Sweep a block's list: tile id(k) with entry bound key(k) for k < cnt,
 // near to far, until no thread's best t exceeds the next key. Returns the
 // number of tiles visited. Every thread of the block calls it.
@@ -166,7 +125,7 @@ __device__ __forceinline__ int sweep_list(float (*s_rows)[kTileWords], Id id,
         wait_staged();
         if (!__syncthreads_or(pred)) break;
         if (k + 1 < cnt) stage_async(s_rows[(k + 1) & 1], rows, id(k + 1));
-        test_rows(s_rows[k & 1], ox, oy, oz, dx, dy, dz, mint, h);
+        tile::test_rows(s_rows[k & 1], ox, oy, oz, dx, dy, dz, mint, 0, h);
     }
     return k;
 }

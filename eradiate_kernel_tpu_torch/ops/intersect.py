@@ -37,9 +37,10 @@ packed triangle rows the kernels stage are built once per scene
 sweep query).
 
 The BVH traversals share steps 1 (binary only), 2 and 3, then walk the
-tree per block of 256 rays: one stack per block, a block-wide slab test of
-the children at each inner node, and at each leaf the rays moved into the
-leaf's instance space and the dense tile pass of step 5.
+tree per group of BVH_GROUP rays (one warp): one stack per group, a
+group-wide slab test of the children at each inner node, and at each leaf
+the rays moved into the leaf's instance space and the dense tile pass of
+step 5 on the packed rows.
 """
 
 from __future__ import annotations
@@ -64,7 +65,12 @@ SORT_MIN_RAYS = 4 * RAY_BLOCK
 # rays, 0.02-0.11x up to 32 tiles (chip_smoke.py, PERF.md)
 SWEEP_FUSED_MAX_TILES = 32
 SWEEP_FUSED_MAX_RAY_TILES = 1 << 23
-STACK_SIZE = 64              # traversal stack per block (both BVH kernels)
+STACK_SIZE = 64              # traversal stack per group (both BVH kernels)
+# rays a BVH group walks together (RAY_BLOCK's counterpart for the BVH
+# kernels, kGroup of csrc/tile_walk.cuh): one warp. On an H100 the TPU's
+# 256-ray group took 1.3-4x the warp's time on every load (forest render:
+# 23.5 against 5.9 ms a launch; PERF.md), so it is not built
+BVH_GROUP = 32
 LEAF_INST_BITS = 12          # BVH8 leaf entries: -((tile << 12) | (inst+1)) - 1
 
 # launches of each CUDA kernel in this process (its wrapper adds one per
@@ -162,7 +168,7 @@ def root_box(lo, hi):
 
 
 def tile_rows(v0, e1, e2, prim, shape):
-    """(T, K, 12) f32 packed triangles, the layout the sweep kernel stages:
+    """(T, K, 12) f32 packed triangles, the layout every tile kernel reads:
     [v0x v0y v0z e1x | e1y e1z e2x e2y | e2z prim shape 0] with prim and
     shape as int32 bits, three 16-byte loads a triangle."""
     ids = torch.stack([prim, shape, torch.zeros_like(prim)], dim=-1)
@@ -170,17 +176,31 @@ def tile_rows(v0, e1, e2, prim, shape):
                      ).contiguous()
 
 
+def row_views(rows):
+    """(v0, e1, e2, prim, shape) as views of packed rows (no copy): the
+    pack_tiles arrays that tile_rows packed."""
+    return (rows[..., 0:3], rows[..., 3:6], rows[..., 6:9],
+            rows[..., 9].view(torch.int32), rows[..., 10].view(torch.int32))
+
+
+def packed_rows(tiles):
+    """The tile set's packed rows: 'rows' where the dict carries them (a
+    scene's Geometry, built once at load), else packed here."""
+    rows = tiles.get("rows")
+    if rows is None:
+        rows = tile_rows(tiles["v0"], tiles["e1"], tiles["e2"],
+                         tiles["prim"], tiles["shape"])
+    return rows
+
+
 def sweep_tables(tiles):
     """The sweep's per-tile-set tables: (root box (2, 3), packed rows (T,
     K, 12)). Geometry.tiles() carries both, built once per scene ('root',
     'rows'); a bare ops.accel.pack_tiles dict gets them here."""
-    root, rows = tiles.get("root"), tiles.get("rows")
+    root = tiles.get("root")
     if root is None:
         root = root_box(tiles["lo"], tiles["hi"])
-    if rows is None:
-        rows = tile_rows(tiles["v0"], tiles["e1"], tiles["e2"],
-                         tiles["prim"], tiles["shape"])
-    return root, rows
+    return root, packed_rows(tiles)
 
 
 def _cap_maxt_to_root(rays, lo, hi):
@@ -318,7 +338,7 @@ class _Best:
         self.t = self.maxt.clone()
         self.u = torch.zeros_like(self.t)
         self.v = torch.zeros_like(self.t)
-        self.prim = torch.zeros(nb, RAY_BLOCK, dtype=torch.int32,
+        self.prim = torch.zeros(nb, r.shape[1], dtype=torch.int32,
                                 device=r.device)
         self.shape = torch.full_like(self.prim, -1)
 
@@ -355,22 +375,21 @@ _PLAIN_CHUNK = max(1, _PLAIN_MAX_ELEMS // (RAY_BLOCK * TILE_K))
 #
 # sweep (after prepare_sweep's pre-passes):
 # In:  rays (nb*RAY_BLOCK, 8) f32 [o, d, mint, maxt]; ids/tnear (nb, T);
-#      count (nb,) i32; v0/e1/e2 (T, K, 3) f32; prim/shape (T, K) i32;
-#      rows (T, K, 12) f32, tile_rows of v0..shape: the kernel reads them,
-#      the plain version reads v0..shape.
+#      count (nb,) i32; rows (T, K, 12) f32 packed triangles (tile_rows;
+#      the plain version reads their row_views).
 # Out: t (n,) f32 (inf on a miss), uv (n, 2) f32, prim (n,) i32,
 #      shape (n,) i32 (-1 on a miss), visited (nb,) i32 tiles swept per block.
 #
 # sweep_small (the fused query, 1 <= T <= SWEEP_FUSED_MAX_TILES):
 # In:  o, d (n, 3), mint, maxt (n,) f32 as the Ray holds them; root (2, 3);
-#      lo/hi (T, 3) f32; v0/e1/e2/prim/shape/rows as above.
+#      lo/hi (T, 3) f32; rows as above.
 # Out: t, uv, prim, shape of the n rays (no padding), visited (nb,).
 
-def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape,
-                 rows=None):
+def _sweep_plain(rays, ids, count, tnear, rows):
     nb = count.shape[0]
     r = rays.reshape(nb, RAY_BLOCK, 8)
     best = _Best(r)
+    tris = row_views(rows)
     visited = torch.zeros(nb, dtype=torch.int32, device=rays.device)
     for c0 in range(0, nb, _PLAIN_CHUNK):
         blk = torch.arange(c0, min(c0 + _PLAIN_CHUNK, nb),
@@ -386,23 +405,22 @@ def _sweep_plain(rays, ids, count, tnear, v0, e1, e2, prim, shape,
             b = blk[running]
             rb = r[b]
             best.leaf(b, rb[..., 0:3], rb[..., 3:6], rb[..., 6],
-                      ids[b, k].long(), v0, e1, e2, prim, shape)
+                      ids[b, k].long(), *tris)
             visited[b] += 1
             bt_ub[running] = torch.amax(best.t[b], dim=1)
             k += 1
     return best.result() + (visited,)
 
 
-def _sweep_small_plain(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim,
-                       shape, rows=None):
+def _sweep_small_plain(o, d, mint, maxt, root, lo, hi, rows):
     """The fused query's plain version: the eager pre-passes without the
     coherence sort, then _sweep_plain."""
     n = o.shape[0]
     rays = torch.cat([o, d, mint[:, None], maxt[:, None]], dim=-1)
     rays = _pad_blocks(_cap_maxt_to_root(rays, root[0], root[1]))
     ids, tnear, count = _admitted_tiles(rays, lo, hi)
-    t, uv, prim_o, shape_o, visited = _sweep_plain(
-        rays, ids, count, tnear, v0, e1, e2, prim, shape)
+    t, uv, prim_o, shape_o, visited = _sweep_plain(rays, ids, count, tnear,
+                                                   rows)
     return t[:n], uv[:n], prim_o[:n], shape_o[:n], visited
 
 
@@ -413,22 +431,14 @@ def _hit_outputs(n, dev):
             torch.empty(n, dtype=torch.int32, device=dev))
 
 
-def _tile_specs(T, v0, e1, e2, prim, shape):
-    return {"v0": (v0, torch.float32, (T, TILE_K, 3)),
-            "e1": (e1, torch.float32, (T, TILE_K, 3)),
-            "e2": (e2, torch.float32, (T, TILE_K, 3)),
-            "prim": (prim, torch.int32, (T, TILE_K)),
-            "shape": (shape, torch.int32, (T, TILE_K))}
-
-
-def _rows_spec(rows, T):
-    """The packed rows' check; the kernel stages them with 16-byte copies."""
+def _rows_spec(rows, T, name):
+    """The packed rows' check; the kernels read them 16 bytes at a time."""
     if rows.data_ptr() % 16:
-        raise ValueError("tile_sweep: rows must be 16-byte aligned")
+        raise ValueError(f"{name}: rows must be 16-byte aligned")
     return {"rows": (rows, torch.float32, (T, TILE_K, 12))}
 
 
-def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape, rows):
+def _sweep_cuda(rays, ids, count, tnear, rows):
     """Launch csrc/tile_sweep.cu's sweep on the current stream (no sync)."""
     fn = _build.entry("tile_sweep", "tile_sweep_launch")
     nb, T = ids.shape
@@ -438,7 +448,7 @@ def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape, rows):
         "ids": (ids, torch.int32, (nb, T)),
         "count": (count, torch.int32, (nb,)),
         "tnear": (tnear, torch.float32, (nb, T)),
-        **_rows_spec(rows, v0.shape[0])}, dev)
+        **_rows_spec(rows, T, "tile_sweep")}, dev)
     t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
     visited = torch.empty(nb, dtype=torch.int32, device=dev)
     err = fn(rays.data_ptr(), ids.data_ptr(), count.data_ptr(),
@@ -451,8 +461,7 @@ def _sweep_cuda(rays, ids, count, tnear, v0, e1, e2, prim, shape, rows):
     return t, uv, prim_o, shape_o, visited
 
 
-def _sweep_small_cuda(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim,
-                      shape, rows):
+def _sweep_small_cuda(o, d, mint, maxt, root, lo, hi, rows):
     """Launch csrc/tile_sweep.cu's fused query on the current stream (no
     sync); counted as a tile_sweep launch."""
     fn = _build.entry("tile_sweep", "tile_sweep_small_launch")
@@ -464,7 +473,7 @@ def _sweep_small_cuda(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim,
         "maxt": (maxt, torch.float32, (n,)),
         "root": (root, torch.float32, (2, 3)),
         "lo": (lo, torch.float32, (T, 3)), "hi": (hi, torch.float32, (T, 3)),
-        **_rows_spec(rows, T)}, dev)
+        **_rows_spec(rows, T, "tile_sweep")}, dev)
     nb = -(-n // RAY_BLOCK)
     t, uv, prim_o, shape_o = _hit_outputs(n, dev)
     visited = torch.empty(nb, dtype=torch.int32, device=dev)
@@ -482,21 +491,20 @@ def _sweep_small_cuda(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim,
     return t, uv, prim_o, shape_o, visited
 
 
-def sweep(rays, ids, count, tnear, v0, e1, e2, prim, shape, rows):
+def sweep(rays, ids, count, tnear, rows):
     """The sweep on the tensors' device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors (or under use_plain)."""
-    args = (rays, ids, count, tnear, v0, e1, e2, prim, shape, rows)
+    args = (rays, ids, count, tnear, rows)
     if _on_plain(rays, "tile_sweep"):
         return _sweep_plain(*args)
     return _sweep_cuda(*args)
 
 
-def sweep_small(o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim, shape,
-                rows):
+def sweep_small(o, d, mint, maxt, root, lo, hi, rows):
     """The fused query (prepare_small's arguments) on the tensors' device:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors (or
     under use_plain)."""
-    args = (o, d, mint, maxt, root, lo, hi, v0, e1, e2, prim, shape, rows)
+    args = (o, d, mint, maxt, root, lo, hi, rows)
     if _on_plain(o, "tile_sweep"):
         return _sweep_small_plain(*args)
     return _sweep_small_cuda(*args)
@@ -533,8 +541,7 @@ def prepare_sweep(tiles, ray):
     rays, unsort = _maybe_sorted(rays, root[0], root[1])
     rays = _pad_blocks(rays)
     ids, tnear, count = _admitted_tiles(rays, tiles["lo"], tiles["hi"])
-    args = (rays, ids, count, tnear, tiles["v0"], tiles["e1"], tiles["e2"],
-            tiles["prim"], tiles["shape"], rows)
+    args = (rays, ids, count, tnear, rows)
     return args, unsort, n
 
 
@@ -544,8 +551,7 @@ def prepare_small(tiles, ray):
     f32 = lambda a: a.to(torch.float32).contiguous()
     root, rows = sweep_tables(tiles)
     return (f32(ray.o), f32(ray.d), f32(ray.mint), f32(ray.maxt), root,
-            tiles["lo"], tiles["hi"], tiles["v0"], tiles["e1"], tiles["e2"],
-            tiles["prim"], tiles["shape"], rows)
+            tiles["lo"], tiles["hi"], rows)
 
 
 def intersect_tiles_sorted(tiles, ray, return_visited=False):
@@ -588,11 +594,13 @@ _ENTRIES = {
         "tile_sweep_launch": [_P] * 5 + [_I] * 2 + [_P] * 6,
         "tile_sweep_small_launch": [_P] * 4 + [_L] + [_P] * 3 + [_I]
                                    + [_P] * 7},
-    "tile_bvh": {"tile_bvh_launch": [_P] * 10 + [_I] + [_P] * 6},
-    "tile_bvh8": {"tile_bvh8_launch": [_P] * 10 + [_I] + [_P] * 6},
+    "tile_bvh": {"tile_bvh_launch": [_P] * 6 + [_I] + [_P] * 6},
+    "tile_bvh8": {"tile_bvh8_launch": [_P] * 6 + [_I] + [_P] * 6},
 }
 for _name, _entries in _ENTRIES.items():
-    _build.register(_name, _entries, headers=("tile_common.cuh",))
+    _build.register(_name, _entries, headers=(
+        ("tile_common.cuh",) if _name == "tile_sweep"
+        else ("tile_common.cuh", "tile_walk.cuh")))
 KERNELS = tuple(_ENTRIES)
 
 
@@ -604,15 +612,17 @@ KERNELS = tuple(_ENTRIES)
 #      nmeta (N, 4) i32; 8-wide: cbox (N8, 8, 8) f32 and cmeta (N8, 8, 4)
 #      i32, the ops/bvh.py layouts); xf (I+1, 12) f32 world-to-local affine
 #      rows (row 0 the identity) and sbase (I+1,) i32 shape bases, indexed
-#      by inst + 1; v0/e1/e2/prim/shape as for the sweep.
-# Out: t, uv, prim, shape as for the sweep; stats (nb, 3) i32 per block:
-#      [inner nodes visited, leaves visited, deepest stack]. A deepest
-#      stack of STACK_SIZE + 1 marks an overflow, which ends that block's
-#      walk; the wrappers raise on it.
+#      by inst + 1; rows (T, K, 12) f32 packed triangles (tile_rows; the
+#      plain versions read their row_views).
+# Out: t, uv, prim, shape as for the sweep; stats (n / BVH_GROUP, 3) i32 per
+#      group: [inner nodes visited, leaves visited, deepest stack]. A
+#      deepest stack of STACK_SIZE + 1 marks an overflow, which ends that
+#      group's walk; the wrappers raise on it.
 #
-# Both plain versions walk each block's tree exactly as the kernels do:
-# one (nb, STACK_SIZE) stack, one pop per running block per step, leaf
-# and inner steps in the same order, the same float32 expressions.
+# Both plain versions walk each group's tree exactly as the kernels do:
+# one (groups, STACK_SIZE) stack, one pop per running group per step, leaf
+# and inner steps in the same order, the same float32 expressions and the
+# same culling bound (the group's largest best t).
 
 def _rcp(d):
     """Per-ray reciprocal direction, finite for zero components."""
@@ -636,7 +646,7 @@ def _slab_plain(box, o, inv, mint, far_cap):
 
 
 class _Walk:
-    """Block-uniform traversal state of nb blocks: per-block stacks,
+    """Group-uniform traversal state of nb groups: per-group stacks,
     stack pointers, culling bounds and stats."""
 
     def __init__(self, r, best):
@@ -708,16 +718,20 @@ class _Walk:
             torch.maximum(self.stats[b, 2], top.to(torch.int32)))
 
 
-def _bvh_plain(rays, nbox, nmeta, xf, sbase, v0, e1, e2, prim, shape):
-    nb = rays.shape[0] // RAY_BLOCK
-    r = rays.reshape(nb, RAY_BLOCK, 8)
+# groups a plain walk takes at once (its temporaries under _PLAIN_MAX_ELEMS)
+_BVH_CHUNK = _PLAIN_MAX_ELEMS // (BVH_GROUP * TILE_K)
+
+
+def _bvh_plain(rays, nbox, nmeta, xf, sbase, rows):
+    r = rays.reshape(-1, BVH_GROUP, 8)
+    nb = r.shape[0]
     best = _Best(r)
     walk = _Walk(r, best)
     box = nbox.reshape(-1, 8)
     meta = nmeta.long()
-    tris = (v0, e1, e2, prim, shape)
-    for c0 in range(0, nb, _PLAIN_CHUNK):
-        blk = torch.arange(c0, min(c0 + _PLAIN_CHUNK, nb), device=rays.device)
+    tris = row_views(rows)
+    for c0 in range(0, nb, _BVH_CHUNK):
+        blk = torch.arange(c0, min(c0 + _BVH_CHUNK, nb), device=rays.device)
         while (popped := walk.pop(blk)) is not None:
             b, node = popped
             m = meta[node]
@@ -744,15 +758,15 @@ def _bvh_plain(rays, nbox, nmeta, xf, sbase, v0, e1, e2, prim, shape):
     return best.result() + (walk.stats,)
 
 
-def _bvh8_plain(rays, cbox, cmeta, xf, sbase, v0, e1, e2, prim, shape):
-    nb = rays.shape[0] // RAY_BLOCK
-    r = rays.reshape(nb, RAY_BLOCK, 8)
+def _bvh8_plain(rays, cbox, cmeta, xf, sbase, rows):
+    r = rays.reshape(-1, BVH_GROUP, 8)
+    nb = r.shape[0]
     best = _Best(r)
     walk = _Walk(r, best)
     meta = cmeta.long()
-    tris = (v0, e1, e2, prim, shape)
-    for c0 in range(0, nb, _PLAIN_CHUNK):
-        blk = torch.arange(c0, min(c0 + _PLAIN_CHUNK, nb), device=rays.device)
+    tris = row_views(rows)
+    for c0 in range(0, nb, _BVH_CHUNK):
+        blk = torch.arange(c0, min(c0 + _BVH_CHUNK, nb), device=rays.device)
         while (popped := walk.pop(blk)) is not None:
             b, enc = popped
             is_leaf = enc < 0
@@ -780,8 +794,7 @@ def _bvh8_plain(rays, cbox, cmeta, xf, sbase, v0, e1, e2, prim, shape):
     return best.result() + (walk.stats,)
 
 
-def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2,
-                   prim, shape):
+def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, rows):
     """Launch csrc/<name>.cu (tile_bvh or tile_bvh8) on the current stream
     (no sync)."""
     fn = _build.entry(name, f"{name}_launch")
@@ -796,14 +809,15 @@ def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2,
         "meta": (tree_meta, torch.int32, meta_shape),
         "xf": (xf, torch.float32, (I1, 12)),
         "sbase": (sbase, torch.int32, (I1,)),
-        **_tile_specs(v0.shape[0], v0, e1, e2, prim, shape)}, dev)
+        **_rows_spec(rows, rows.shape[0], name)}, dev)
+    if tree_meta.data_ptr() % 16:
+        raise ValueError(f"{name}: meta must be 16-byte aligned")
     t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
-    stats = torch.empty(nb, 3, dtype=torch.int32, device=dev)
+    stats = torch.empty(nb * RAY_BLOCK // BVH_GROUP, 3, dtype=torch.int32,
+                        device=dev)
     err = fn(
         rays.data_ptr(), tree_box.data_ptr(), tree_meta.data_ptr(),
-        xf.data_ptr(), sbase.data_ptr(), v0.data_ptr(), e1.data_ptr(),
-        e2.data_ptr(), prim.data_ptr(), shape.data_ptr(), nb, t.data_ptr(),
-        uv.data_ptr(), prim_o.data_ptr(), shape_o.data_ptr(),
+        xf.data_ptr(), sbase.data_ptr(), rows.data_ptr(), nb, t.data_ptr(), uv.data_ptr(), prim_o.data_ptr(), shape_o.data_ptr(),
         stats.data_ptr(), _build.stream(dev.index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -814,13 +828,12 @@ def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2,
 _PLAIN_WALKS = {"tile_bvh": _bvh_plain, "tile_bvh8": _bvh8_plain}
 
 
-def traverse(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2, prim,
-             shape):
+def traverse(name, rays, tree_box, tree_meta, xf, sbase, rows):
     """The BVH traversal ``name`` (tile_bvh: binary tree nbox/nmeta;
     tile_bvh8: 8-wide tree cbox/cmeta) on the tensors' device: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors (or under
     use_plain). Raises on a stack overflow."""
-    args = (rays, tree_box, tree_meta, xf, sbase, v0, e1, e2, prim, shape)
+    args = (rays, tree_box, tree_meta, xf, sbase, rows)
     if _on_plain(rays, name):
         out = _PLAIN_WALKS[name](*args)
     else:
@@ -828,7 +841,7 @@ def traverse(name, rays, tree_box, tree_meta, xf, sbase, v0, e1, e2, prim,
     stats = out[4]
     if stats.numel() and int(stats[:, 2].max()) > STACK_SIZE:
         raise RuntimeError(
-            f"{name}: a block's traversal stack overflowed its "
+            f"{name}: a group's traversal stack overflowed its "
             f"{STACK_SIZE} entries")
     return out
 
@@ -866,8 +879,7 @@ def prepare_bvh(tiles, ray, wide=False):
         xf, sbase = tiles["xf"], tiles["sbase"]
     tree = ((tiles["cbox"], tiles["cmeta"]) if wide
             else (tiles["nbox"], tiles["nmeta"]))
-    args = (rays,) + tree + (xf, sbase, tiles["v0"], tiles["e1"],
-                             tiles["e2"], tiles["prim"], tiles["shape"])
+    args = (rays,) + tree + (xf, sbase, packed_rows(tiles))
     return args, unsort, n
 
 
@@ -878,8 +890,9 @@ def intersect_bvh(tiles, ray, return_stats=False, wide=False):
     tiles: the pack_tiles tensors plus 'nbox' (N,1,8) / 'nmeta' (N,4);
     instanced scenes add 'xf' (I+1, 12) world-to-local affine rows (row 0
     the identity) and 'sbase' (I+1,) shape bases. Same contract as
-    intersect_tiles; ``return_stats`` adds the (nb, 3) per-block
-    [inner nodes, leaves, deepest stack]."""
+    intersect_tiles; 'rows' (packed_rows) where the dict carries them.
+    ``return_stats`` adds the (n / BVH_GROUP, 3) per-group [inner nodes,
+    leaves, deepest stack]."""
     args, unsort, n = prepare_bvh(tiles, ray, wide)
     t, uv, prim, shape, stats = traverse(
         "tile_bvh8" if wide else "tile_bvh", *args)

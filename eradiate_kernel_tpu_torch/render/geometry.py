@@ -24,7 +24,7 @@ from ..core.math import INVALID_T, cross, normalize, sqr
 from ..core.ray import Ray
 from ..core.transform import Transform
 from ..ops.intersect import (intersect_bvh, intersect_bvh8, intersect_tiles,
-                             root_box, tile_rows)
+                             root_box, row_views, tile_rows)
 from .records import PreliminaryIntersection, SurfaceInteraction
 
 FAMILY_MESH = 0
@@ -37,6 +37,9 @@ MAX_SWEEP_TILES = 2048
 
 _QUERIES = {"tiles": intersect_tiles, "bvh": intersect_bvh,
             "bvh8": intersect_bvh8}
+# the pack_tiles fields that are views of Geometry.tiles_rows
+_TILE_FIELDS = ("tiles_v0", "tiles_e1", "tiles_e2", "tiles_prim",
+                "tiles_shape")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,36 +85,33 @@ class Geometry:
     shape_inst: torch.Tensor    # (n_shapes,) i32 instance of a shape, or -1
 
     def __post_init__(self):
-        # the sweep's per-scene tables (ops/intersect.py::sweep_tables),
-        # built once rather than per query: the root box of all tiles here,
-        # the packed triangle rows at the first sweep query (tiles_rows)
-        root = (root_box(self.tiles_lo, self.tiles_hi) if self.has_tiles
-                else None)
+        # the tile kernels' per-scene tables, built once rather than per
+        # query: the root box of all tiles (ops/intersect.py::sweep_tables)
+        # and the packed triangle rows every tile kernel reads
+        # (tiles_rows). The scene keeps one copy of its triangles: the
+        # tiles_v0 .. tiles_shape fields become views of the rows
+        # (intersect.row_views), which the plain versions read.
+        root = rows = None
+        if self.has_tiles:
+            root = root_box(self.tiles_lo, self.tiles_hi)
+            rows = tile_rows(self.tiles_v0, self.tiles_e1, self.tiles_e2,
+                             self.tiles_prim, self.tiles_shape)
+            for name, view in zip(_TILE_FIELDS, row_views(rows)):
+                object.__setattr__(self, name, view)
         object.__setattr__(self, "tiles_root", root)
-        object.__setattr__(self, "_tiles_rows", None)
+        object.__setattr__(self, "tiles_rows", rows)
 
     @property
     def has_tiles(self):
         return self.tiles_v0.shape[0] > 0
 
     @property
-    def tiles_rows(self):
-        """(T, K, 12) packed triangle rows the sweep kernel stages, built at
-        the first read and kept (None without tiles); scenes whose queries
-        take a BVH never build them."""
-        if self._tiles_rows is None and self.has_tiles:
-            object.__setattr__(self, "_tiles_rows", tile_rows(
-                self.tiles_v0, self.tiles_e1, self.tiles_e2, self.tiles_prim,
-                self.tiles_shape))
-        return self._tiles_rows
-
-    @property
     def n_instances(self):
         return self.inst_f_off.shape[0]
 
     def tiles(self):
-        """The tile kernels' arrays; 'rows' only when the accel policy sends
-        the scene's queries to the sweep, the one reader of them."""
+        """The tile kernels' arrays, the packed rows and root box included
+        (the sweep and both BVH kernels read the rows)."""
         tiles = {"v0": self.tiles_v0, "e1": self.tiles_e1,
                  "e2": self.tiles_e2, "prim": self.tiles_prim,
                  "shape": self.tiles_shape, "lo": self.tiles_lo,
@@ -119,7 +119,7 @@ class Geometry:
                  "nbox": self.bvh_box, "nmeta": self.bvh_meta,
                  "cbox": self.bvh8_box, "cmeta": self.bvh8_meta,
                  "xf": self.tiles_xf, "sbase": self.tiles_sbase}
-        if self.has_tiles and _accel_mode(self) == "tiles":
+        if self.has_tiles:
             tiles["rows"] = self.tiles_rows
         return tiles
 

@@ -147,10 +147,13 @@ def _brute_t(V, F, o, d):
 @pytest.mark.parametrize("wide", [False, True], ids=["bvh", "bvh8"])
 @pytest.mark.parametrize("nfaces", [100, 1500])
 def test_plain_traversal_matches_pallas(nfaces, wide):
+    """Each plain walk, in groups of BVH_GROUP rays, against the Pallas
+    kernel's 256-ray blocks: the results do not depend on the group."""
     V, F = soup(nfaces, seed=1)
     tiles = _bvh_tiles(V, F)
     o, d, maxt = _rays()
     port, stats, ref = _both(tiles, o, d, maxt, wide)
+    assert stats.shape == (-(-len(o) // 256) * 256 // intersect.BVH_GROUP, 3)
     _assert_close_hits(port, ref, _t_condition(V, F, ref[2], o, d),
                        _brute_t(V, F, o, d))
     # 100 faces make one tile, a root leaf (no inner node for the binary
@@ -220,3 +223,25 @@ def test_stack_overflow_raises(monkeypatch):
     for fn in (intersect.intersect_bvh, intersect.intersect_bvh8):
         with pytest.raises(RuntimeError, match="overflowed"):
             fn(tiles, ray)
+
+
+@pytest.mark.parametrize("accel", ["bvh", "bvh8"])
+def test_geometry_carries_rows_for_bvh(monkeypatch, accel):
+    """Geometry.tiles() of an instanced scene carries the packed rows for
+    ERT_ACCEL=bvh|bvh8, bit-equal to tile_rows of the pack_tiles arrays as
+    the reference builds them."""
+    from eradiate_kernel_tpu_torch.render.geometry import _accel_mode
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from test_torch_instancing import instanced_scene
+
+    monkeypatch.setenv("ERT_ACCEL", accel)
+    d = instanced_scene()
+    geo = load_dict(d, device="cpu").geo
+    assert _accel_mode(geo) == accel
+    rgeo = _instanced_reference_scene().geo
+    rows = geo.tiles()["rows"]
+    packed = intersect.tile_rows(*(torch.as_tensor(np.array(a)) for a in (
+        rgeo.tiles_v0, rgeo.tiles_e1, rgeo.tiles_e2, rgeo.tiles_prim,
+        rgeo.tiles_shape)))
+    assert rows.dtype == packed.dtype and rows.is_contiguous()
+    assert torch.equal(rows.view(torch.int32), packed.view(torch.int32))

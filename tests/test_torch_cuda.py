@@ -172,26 +172,144 @@ def test_raw_stream_is_the_current_stream(cuda_device):
     assert _build.stream(index) != side.cuda_stream
 
 
+WIDE = pytest.mark.parametrize("wide", [False, True],
+                               ids=["tile_bvh", "tile_bvh8"])
+
+
+def _kernel_vs_plain(tiles, ray, wide):
+    """One BVH kernel launch against its plain walk on the same arguments:
+    hits, stats and the overflow mark bit equal. Returns the kernel's
+    outputs."""
+    name = "tile_bvh8" if wide else "tile_bvh"
+    args, _unsort, _n = intersect.prepare_bvh(tiles, ray, wide=wide)
+    before = intersect.launches[name]
+    out = intersect._traverse_cuda(name, *args)
+    torch.cuda.synchronize()
+    assert intersect.launches[name] == before + 1
+    ref = intersect._PLAIN_WALKS[name](*args)
+    assert out[4].shape == (args[0].shape[0] // intersect.BVH_GROUP, 3)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("wide", [False, True], ids=["tile_bvh", "tile_bvh8"])
+@WIDE
 @pytest.mark.parametrize("n", [17, 8 * intersect.RAY_BLOCK + 17])
 def test_tile_bvh_matches_plain(cuda_device, n, wide):
-    """Each BVH kernel against its plain traversal: hits and per-block
-    visit counts and stack depths bit equal."""
+    """Each BVH kernel against its plain traversal: hits and per-group
+    visit counts and stack depths bit equal; through intersect_bvh too,
+    which launches the kernel once (and not under use_plain)."""
     ray = _rays(n, cuda_device)
     tdev = _terrain_tiles(cuda_device)
+    out = _kernel_vs_plain(tdev, ray, wide)
+    assert torch.isfinite(out[0]).any() and int(out[4][:, 0].sum()) > 0
     name = "tile_bvh8" if wide else "tile_bvh"
     fn = intersect.intersect_bvh8 if wide else intersect.intersect_bvh
     before = intersect.launches[name]
-    out = fn(tdev, ray, return_stats=True)
+    full = fn(tdev, ray, return_stats=True)
     torch.cuda.synchronize()
     assert intersect.launches[name] == before + 1
     with intersect.use_plain():
         ref = fn(tdev, ray, return_stats=True)
     assert intersect.launches[name] == before + 1
-    assert torch.isfinite(out[0]).any() and int(out[4][:, 0].sum()) > 0
+    for a, b in zip(full, ref):
+        assert torch.equal(a, b)
+
+
+def _bvh_soup_tiles(dev):
+    """A 1,500-triangle soup (12 tiles) with both BVHs."""
+    tiles = {k: v.cpu().numpy() for k, v in _soup_tiles(1500, dev).items()}
+    nbox, nmeta, _ = bvh.build_tile_bvh(tiles["lo"], tiles["hi"])
+    cbox, cmeta = bvh.collapse_to_bvh8(nbox, nmeta)
+    tiles.update(nbox=nbox, nmeta=nmeta, cbox=cbox, cmeta=cmeta)
+    return {k: torch.as_tensor(v, device=dev) for k, v in tiles.items()}
+
+
+def _forest_tiles(dev):
+    """chip_smoke.py's instanced forest, 16 instances of the crown, as its
+    scene's Geometry carries it (instance rows, shape bases, packed rows),
+    and the centres of the instances' world boxes."""
+    from chip_smoke import forest_scene
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    geo = load_dict(forest_scene(8, 8, 1, 2, n_inst=16), device=dev).geo
+    assert geo.n_instances == 16
+    return geo.tiles(), ((geo.inst_lo + geo.inst_hi) / 2).cpu().numpy()
+
+
+@pytest.mark.cuda
+@WIDE
+@pytest.mark.parametrize("scene", ["soup", "forest"])
+def test_tile_bvh_matches_plain_scenes(cuda_device, scene, wide):
+    """Each BVH kernel against its plain walk on a triangle soup and on an
+    instanced scene (leaves under instance transforms)."""
+    if scene == "soup":
+        tiles, ray = _bvh_soup_tiles(cuda_device), _rays(3000, cuda_device)
+    else:
+        tiles, centres = _forest_tiles(cuda_device)
+        # from above and around a crown, at a point near its centre
+        rng = np.random.default_rng(9)
+        target = (centres[rng.integers(0, len(centres), 3000)]
+                  + rng.uniform(-0.3, 0.3, (3000, 3)))
+        o = target + rng.uniform([-2, -2, 1], [2, 2, 3], (3000, 3))
+        d = target - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        o, d = o.astype(np.float32), d.astype(np.float32)
+        ray = Ray.make(torch.as_tensor(o, device=cuda_device),
+                       torch.as_tensor(d, device=cuda_device))
+    out = _kernel_vs_plain(tiles, ray, wide)
+    assert torch.isfinite(out[0]).float().mean() > 0.05
+
+
+def _deep_tree(wide, dev, depth=80):
+    """A hand-made tree whose walk pushes past the 64-entry stack: every
+    node's children share one box around the rays, so every child is
+    entered at the same distance; the chain's next node pops first (left
+    on the binary tie, the lowest slot in the 8-wide order) and the other
+    children, leaves of one tile, stay on the stack."""
+    box = torch.tensor([-2, -2, -2, 2, 2, 2, 0, 0], dtype=torch.float32)
+    if not wide:
+        # node 2i: chain node, children 2i+2 (chain) and 2i+1 (leaf)
+        n = 2 * depth + 1
+        meta = torch.full((n, 4), -1, dtype=torch.int32)
+        for i in range(depth):
+            meta[2 * i] = torch.tensor([2 * i + 2, 2 * i + 1, -1, -1])
+            meta[2 * i + 1, 2] = 0
+        meta[2 * depth, 2] = 0
+        tree = (box.repeat(n, 1, 1), meta)
+    else:
+        # node i: slot 0 the chain's next node, slots 1-7 leaves of tile 0
+        meta = torch.full((depth, 8, 4), -1, dtype=torch.int32)
+        meta[..., 1] = 0
+        meta[..., 3] = 0
+        meta[:-1, 0, 0] = torch.arange(1, depth, dtype=torch.int32)
+        meta[:-1, 0, 1] = -1
+        tree = (box.repeat(depth, 8, 1), meta)
+    return tuple(a.to(dev) for a in tree)
+
+
+@pytest.mark.cuda
+@WIDE
+def test_tile_bvh_overflow_mark(cuda_device, wide):
+    """A walk deeper than the kernel's 64-entry stack: each kernel marks the
+    overflow (deepest stack 65) in every group, bit-equal to its plain walk
+    up to that point, and the query raises."""
+    name = "tile_bvh8" if wide else "tile_bvh"
+    tiles = _soup_tiles(100, cuda_device)
+    box, meta = _deep_tree(wide, cuda_device)
+    ray = _rays(2 * intersect.RAY_BLOCK, cuda_device)
+    rays = intersect._pad_blocks(intersect._ray_rows(ray))
+    xf, sbase = intersect._identity_xf(cuda_device)
+    args = (rays, box, meta, xf, sbase, intersect.packed_rows(tiles))
+    out = intersect._traverse_cuda(name, *args)
+    torch.cuda.synchronize()
+    ref = intersect._PLAIN_WALKS[name](*args)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+    assert (out[4][:, 2] == intersect.STACK_SIZE + 1).all()
+    with pytest.raises(RuntimeError, match="overflowed"):
+        intersect.traverse(name, *args)
 
 
 @pytest.mark.cuda

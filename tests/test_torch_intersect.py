@@ -291,9 +291,10 @@ def test_fused_query_reach(monkeypatch, n_tiles, n_rays, path):
 
 @pytest.mark.parametrize("accel", ["bvh", "bvh8"])
 def test_bvh_scenes_build_no_sweep_rows(monkeypatch, accel):
-    """The packed rows are the sweep's alone: a scene whose queries take a
-    BVH neither carries nor builds them; the first sweep query builds them
-    once and later ones read the same tensor."""
+    """A scene holds one copy of its triangles: the packed rows, built once
+    at load, which the sweep and both BVH kernels read; the pack_tiles
+    fields are views of them, and a BVH query reads the same tensor as a
+    sweep query and finds the same hits."""
     from eradiate_kernel_tpu_torch.render.geometry import (
         ray_intersect_preliminary)
     from eradiate_kernel_tpu_torch.scene import load_dict
@@ -306,16 +307,25 @@ def test_bvh_scenes_build_no_sweep_rows(monkeypatch, accel):
                    "film": {"type": "hdrfilm", "width": 4, "height": 4,
                             "rfilter": {"type": "box"}}},
         "integrator": {"type": "path"}}, device="cpu").geo
+    rows = geo.tiles_rows
+    base = rows.untyped_storage().data_ptr()
+    for name in ("tiles_v0", "tiles_e1", "tiles_e2", "tiles_prim",
+                 "tiles_shape"):
+        assert getattr(geo, name).untyped_storage().data_ptr() == base, name
     o, d, mint, maxt = _rays(300, seed=4)
     ray = _ray(o, d, mint, maxt)
+    seen = []
+    traverse = intersect.traverse
+    monkeypatch.setattr(intersect, "traverse",
+                        lambda *a, **kw: seen.append(a[6]) or traverse(*a,
+                                                                       **kw))
     monkeypatch.setenv("ERT_ACCEL", accel)
-    assert "rows" not in geo.tiles()
+    assert geo.tiles()["rows"] is rows
     via_bvh = ray_intersect_preliminary(geo, ray)
-    assert geo._tiles_rows is None
+    assert len(seen) == 1 and seen[0] is rows
     monkeypatch.setenv("ERT_ACCEL", "tiles")
     via_sweep = ray_intersect_preliminary(geo, ray)
-    rows = geo._tiles_rows
-    assert rows is not None and geo.tiles()["rows"] is rows
+    assert geo.tiles_rows is rows and geo.tiles()["rows"] is rows
     np.testing.assert_array_equal(via_bvh.t.numpy(), via_sweep.t.numpy())
 
 
