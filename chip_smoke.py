@@ -54,8 +54,30 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      pay);
  11. render a 64x64, 4 spp 64^3 atmosphere through the kernels, through
      the plain gather and through the plain sweep, and compare the films;
- 12. print the kernels line, the card's name and power limit, and the
-     final ``{"ok": true, ...}`` line.
+ 13. hold the trilinear lookup's backward entry (grid_trilinear_bwd)
+     against its plain version on phase 8's 64^3 load (32,768 lanes of
+     random points, C = 1 and C = 3) within rtol 1e-5 and atol 1e-7 (its
+     atomics add in an order that changes from run to run), and bit for
+     bit on 32,768 lanes whose corners no two lanes share; timed beside
+     the plain index_add_ chain and the backward of grid_sample;
+ 14. value+grad (the mean of the developed image with respect to the
+     gridvolume grid, the albedo and the spectra, the sun's irradiance
+     among them) of the flagship and of the 64^3 atmosphere at 256x256,
+     spp 4 (the primal phases take 64 and 16; cut for the time limit),
+     through autodiff.traverse, integrators.render(regen=True) and
+     loss.backward() (the lane pool's path-replay backward): primal and
+     value+grad times, forward and adjoint loop iterations, host syncs,
+     launches of every kernel and entry in the forward and in the
+     backward (grid_trilinear_bwd launches == gridvolume lookups of the
+     adjoint > 0 on the 64^3 scene), threefry's share of a synchronised
+     flagship value+grad, and the peak device memory; the film bit-equal
+     to the primal render's, the gradients finite and not all zero; then
+     the 64x64 spp4 value+grad of the 64^3 atmosphere through the kernels
+     and through the plain gather and the plain sweep, gradients within
+     phase 13's tolerance;
+ 12. (last) print the kernels line (every kernel and entry, the backward
+     included), the value+grad records, the card's name and power limit,
+     and the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
@@ -84,13 +106,16 @@ FP32_FLOPS = 67e12
 KERNEL_FUNCS = {"tile_sweep": ("tile_sweep_kernel", "tile_sweep_small_kernel"),
                 "tile_bvh": ("tile_bvh_kernel",),
                 "tile_bvh8": ("tile_bvh8_kernel",),
-                "grid_gather": ("grid_gather_kernel", "grid_trilinear_kernel")}
+                "grid_gather": ("grid_gather_kernel", "grid_trilinear_kernel",
+                                "grid_trilinear_bwd_kernel")}
 # SASS opcode families counted per kernel function: the reciprocal and
 # the calls of its slow path, 32- and 128-bit shared loads, async copies,
-# barriers, FP32 arithmetic (an opcode counts under a family it equals or
+# barriers, global reductions (Hopper's REDG: atomics whose result is
+# unused), FP32 arithmetic (an opcode counts under a family it equals or
 # extends with a "." suffix; LDS only as itself)
 SASS_OPS = ("MUFU.RCP", "CALL", "LDS", "LDS.128", "LDG.E.128", "LDGSTS",
-            "BAR.SYNC", "BAR.RED", "WARPSYNC", "FFMA", "FMUL", "FADD")
+            "BAR.SYNC", "BAR.RED", "WARPSYNC", "REDG", "FFMA", "FMUL",
+            "FADD")
 
 
 def terrain(n=256, seed=0):
@@ -760,6 +785,202 @@ def trilinear_load(grid, packed, slot, pl):
             "grid_sample": device_us(library)})
 
 
+def trilinear_bwd_load(grid, slot, pl, ct):
+    """The lookup's backward kernel against its plain version on one load:
+    rtol 1e-5 and atol 1e-7 on d_grid, since the atomics add in an order
+    that changes from run to run; times of both and of the one PyTorch call
+    that computes the same gradient, torch.autograd.grad of grid_sample
+    with respect to the unpacked grid (its backward alone: the forward is
+    kept with retain_graph); the bound. Returns the load's record."""
+    from eradiate_kernel_tpu_torch.ops import gather
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    shape = tuple(grid.shape)
+    out = gather.grid_trilinear_bwd(ct, shape, slot, pl)
+    ref = volumes.trilinear_backward_plain(ct, shape, slot, pl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-7)
+    err = float((out - ref).abs().max())
+    L, C = ct.shape
+    assert shape[0] == 1 and not bool(slot.any())
+    vol = grid.permute(0, 4, 1, 2, 3).contiguous().requires_grad_()
+    with torch.enable_grad():
+        sampled = torch.nn.functional.grid_sample(
+            vol, (pl * 2 - 1).view(1, 1, 1, L, 3), mode="bilinear",
+            padding_mode="border", align_corners=True)
+    ct_lib = ct.T.reshape(1, C, 1, 1, L).contiguous()
+
+    def library():
+        return torch.autograd.grad(sampled, vol, ct_lib, retain_graph=True)[0]
+
+    # grid_sample's fractions differ from the lookup's by the rounding of
+    # p * 2 - 1 (trilinear_load), so its gradient differs by as much
+    lib_err = float((library().permute(0, 2, 3, 4, 1) - out).abs().max())
+    assert lib_err < 1e-4, f"grid_sample's gradient differs by {lib_err}"
+    # bytes: the point, the slot and the cotangent read, 8C floats of
+    # atomics; operations: the corner setup (12) and 14 a channel
+    bound_ms, bound_by = bound(L * (12 + 4 + 4 * C) + L * 8 * C * 4,
+                               L * (12 + 14 * C))
+    return dict(
+        ms=cuda_ms(lambda: gather.grid_trilinear_bwd(ct, shape, slot, pl),
+                   reps=50),
+        plain_ms=cuda_ms(lambda: volumes.trilinear_backward_plain(
+            ct, shape, slot, pl), reps=50),
+        library_ms=cuda_ms(library, reps=50), library_max_abs_err=lib_err,
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+        channels=C, lanes=L,
+        device_us={"kernel": device_us(lambda: gather.grid_trilinear_bwd(
+            ct, shape, slot, pl), ("grid_trilinear_bwd",)),
+            "plain": device_us(lambda: volumes.trilinear_backward_plain(
+                ct, shape, slot, pl)),
+            "grid_sample backward": device_us(library)})
+
+
+def distinct_corner_lanes(n, dev, gen):
+    """Lanes at every other voxel of an n^3 grid along each axis plus a
+    fraction in [0.1, 0.9]: no two lanes share a corner."""
+    ar = torch.arange(0, n - 1, 2, device=dev)
+    z, y, x = torch.meshgrid(ar, ar, ar, indexing="ij")
+    idx = torch.stack([x.flatten(), y.flatten(), z.flatten()], -1)
+    frac = 0.1 + 0.8 * torch.rand(idx.shape, generator=gen).to(dev)
+    return (idx + frac) / (n - 1)
+
+
+def value_grad(scene, n_lanes, keys, threefry=False):
+    """The lane pool's value+grad of the developed image's mean with
+    respect to the ParameterMap keys ``keys``, through the user's entry
+    points (autodiff.traverse, integrators.render(regen=True),
+    loss.backward()), after a primal render of the same scene and seed.
+    Every count is set to 0 just before the value+grad and read after its
+    forward and after its backward: kernel launches, closest-hit queries
+    and gridvolume lookups, loop iterations, host syncs. With
+    ``threefry``, one more value+grad with every threefry call
+    synchronised and timed (its share of that run). Returns (record, the
+    parameters with their .grad)."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.core import rng
+    from eradiate_kernel_tpu_torch.films import develop
+    from eradiate_kernel_tpu_torch.integrators import common, replay
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.textures import volumes
+    from eradiate_kernel_tpu_torch.utils import autodiff
+
+    pm = autodiff.traverse(scene).keep(keys)
+    render = lambda sc: integrators.render(
+        sc, seed=0, samples_per_pass=n_lanes, regen=True, develop_film=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    primal = render(scene)
+    torch.cuda.synchronize()
+    primal_s = time.perf_counter() - t0
+
+    counts = {"queries": 0, "lookups": 0}
+    small, trilinear = intersect.prepare_small, volumes._trilinear_gather
+
+    def counted(fn, what):
+        def wrapper(*a, **kw):
+            counts[what] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def snapshot():
+        return dict(launches=all_launches(), **counts,
+                    host_syncs=common.counters["host_syncs"],
+                    **replay.counters)
+
+    intersect.prepare_small = counted(small, "queries")
+    volumes._trilinear_gather = counted(trilinear, "lookups")
+    try:
+        params = pm.trainable()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        common.counters["host_syncs"] = 0
+        replay.counters.update(forward_iterations=0, adjoint_iterations=0)
+        t0 = time.perf_counter()
+        film = render(pm.with_trainable(params))
+        loss = develop(film).mean()
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        fwd = snapshot()
+        loss.backward()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        end = snapshot()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        intersect.prepare_small = small
+        volumes._trilinear_gather = trilinear
+    bwd = {k: ({kk: vv - fwd[k][kk] for kk, vv in v.items()}
+               if isinstance(v, dict) else v - fwd[k])
+           for k, v in end.items()}
+    assert torch.equal(film.detach(), primal), \
+        "the value+grad film differs from the primal render's"
+    rec = dict(primal_ms=primal_s * 1e3, value_grad_ms=total_s * 1e3,
+               forward_ms=forward_s * 1e3,
+               backward_ms=(total_s - forward_s) * 1e3,
+               value_grad_over_primal=total_s / primal_s,
+               forward=fwd, backward=bwd, peak_bytes=peak,
+               loss=float(loss.detach()))
+    if threefry:
+        with stage_timers({"threefry": (rng, "threefry2x32")}) as spent:
+            p2 = pm.trainable()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            develop(render(pm.with_trainable(p2))).mean().backward()
+            torch.cuda.synchronize()
+            sync_s = time.perf_counter() - t0
+        rec.update(threefry_ms=spent["threefry"] * 1e3,
+                   synchronised_ms=sync_s * 1e3,
+                   threefry_share=spent["threefry"] / sync_s)
+    return rec, params
+
+
+def check_value_grad(label, scene, rec, params):
+    """Print a value+grad's line and hold it to its counts: one sweep
+    launch a closest-hit query and one lookup launch a gridvolume lookup,
+    forward and adjoint, one backward launch a lookup of the adjoint, and
+    finite gradients that are not all zero (the spectra on the sun's row:
+    the RPV rows' gradient is NaN in the reference too, ROADMAP Queue
+    3)."""
+    a = {k: v.detach().cpu().numpy() for k, v in scene.tensors().items()}
+    sun = int(a["spec_slot"][a["emitters.directional.irradiance"][0]])
+    grads = {}
+    for k, p in params.items():
+        g = p.grad[sun] if k == "spectra.baked.value" else p.grad
+        assert g is not None and bool(torch.isfinite(g).all()), \
+            f"{label}: {k} gradient not finite"
+        assert bool(g.abs().sum() > 0), f"{label}: {k} gradient all zero"
+        grads[k] = float(g.abs().sum())
+    rec["grad_abs_sums"] = grads
+    fwd, bwd = rec["forward"], rec["backward"]
+    for part in (fwd, bwd):
+        la = part["launches"]
+        assert la["tile_sweep"] == part["queries"] > 0, (label, part)
+        assert la["grid_gather"] == part["lookups"], (label, part)
+        assert la["tile_bvh"] == la["tile_bvh8"] == 0, (label, part)
+    assert fwd["launches"]["grid_trilinear_bwd"] == 0, (label, fwd)
+    assert bwd["launches"]["grid_trilinear_bwd"] == bwd["lookups"], \
+        (label, bwd)
+    print(f"# {label} value+grad: primal {rec['primal_ms']:.1f} ms, "
+          f"value+grad {rec['value_grad_ms']:.1f} ms (forward "
+          f"{rec['forward_ms']:.1f}, backward {rec['backward_ms']:.1f}; "
+          f"{rec['value_grad_over_primal']:.2f}x the primal), loop "
+          f"iterations forward {fwd['forward_iterations']} adjoint "
+          f"{bwd['adjoint_iterations']}, host syncs forward "
+          f"{fwd['host_syncs']} backward {bwd['host_syncs']}, launches "
+          f"forward {fwd['launches']} backward {bwd['launches']}, "
+          f"closest-hit queries {fwd['queries']} + {bwd['queries']}, "
+          f"gridvolume lookups {fwd['lookups']} + {bwd['lookups']}, peak "
+          f"memory {rec['peak_bytes'] / 2**20:.1f} MiB, loss "
+          f"{rec['loss']:.6f}, |grad| sums {grads}"
+          + (f", threefry {rec['threefry_ms']:.1f} ms of a synchronised "
+             f"{rec['synchronised_ms']:.1f} ms run (share "
+             f"{rec['threefry_share']:.3f})" if "threefry_ms" in rec
+             else ""), flush=True)
+    return rec
+
+
 def small_query_load(tiles, ray):
     """One closest-hit query of a small tile set through intersect_tiles:
     one counted launch of the fused query, bit-equal to its plain version
@@ -1257,6 +1478,67 @@ def main():
               f"plain films agree ({flips} pixels over tolerance, budget 2)",
               flush=True)
 
+    # ---- 13. the trilinear lookup's backward vs plain on the 64^3 load -------
+    gen13 = torch.Generator().manual_seed(13)
+    grid64_c3 = torch.rand(1, 64, 64, 64, 3, generator=gen13).to(dev)
+    bwd_loads = {}
+    for g64 in (grid64, grid64_c3):
+        C = g64.shape[-1]
+        ct = torch.randn(pl.shape[0], C, generator=gen13).to(dev)
+        rec = bwd_loads[f"C={C}"] = trilinear_bwd_load(g64, slot0, pl, ct)
+        # exact where no two lanes share a corner (32^3 lanes)
+        pl_d = distinct_corner_lanes(64, dev, gen13)
+        ct_d = torch.randn(pl_d.shape[0], C, generator=gen13).to(dev)
+        slot_d = torch.zeros(pl_d.shape[0], dtype=torch.int32, device=dev)
+        assert torch.equal(
+            gather.grid_trilinear_bwd(ct_d, g64.shape, slot_d, pl_d),
+            volumes.trilinear_backward_plain(ct_d, g64.shape, slot_d, pl_d))
+        print(f"# grid_trilinear_bwd 64^3 C={C} ({rec['lanes']} lanes): "
+              f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
+              f"(max abs err {rec['max_abs_err']:.2e}; bit-equal on "
+              f"{pl_d.shape[0]} lanes with distinct corners), grid_sample "
+              f"backward {rec['library_ms']:.4f} ms (max abs err "
+              f"{rec['library_max_abs_err']:.2e}), bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); device us a "
+              f"call {rec['device_us']}", flush=True)
+
+    # ---- 14. value+grad of the flagship and the 64^3 atmosphere ----------------
+    # spp 4 (the primal phases take 64 and 16): the time limit
+    grads = {}
+    keys = ["volumes.gridvolume.grid", "volumes.constvolume.value",
+            "spectra.baked.value"]
+    flagship4 = bench_atmosphere(256, 256, 4, 12, grid_res=64)
+    rec, params = value_grad(flagship4, lanes, keys, threefry=True)
+    grads["flagship"] = check_value_grad(
+        "atmosphere 256x256 spp4 max_depth 12 grid 64", flagship4, rec,
+        params)
+    assert rec["backward"]["launches"]["grid_trilinear_bwd"] == 0  # einsum
+    large4 = bench_atmosphere(256, 256, 4, 12, grid_res=(64, 64, 64))
+    rec, params = value_grad(large4, lanes, keys)
+    grads["large3d"] = check_value_grad(
+        "atmosphere 256x256 spp4 max_depth 12 grid 64^3", large4, rec, params)
+    assert rec["backward"]["launches"]["grid_trilinear_bwd"] > 0
+    # the same value+grad at 64x64 through the kernels and through the
+    # plain gather (lookup and backward) and the plain sweep
+    small_vg = {}
+    for name, plain in (("kernels", contextlib.nullcontext),
+                        ("grid_gather plain", gather.use_plain),
+                        ("tile_sweep plain", intersect.use_plain)):
+        with plain():
+            _rec, params = value_grad(small_atmo, lanes, keys)
+        small_vg[name] = {k: p.grad for k, p in params.items()}
+    for name in ("grid_gather plain", "tile_sweep plain"):
+        worst = 0.0
+        for k, g in small_vg["kernels"].items():
+            ref = small_vg[name][k]
+            ok = torch.isfinite(ref)
+            torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
+            assert torch.equal(ok, torch.isfinite(g)), k
+            worst = max(worst, float((g[ok] - ref[ok]).abs().max()))
+        print(f"# whole path 64^3 atmosphere 64x64 spp4 value+grad: kernels "
+              f"vs {name} gradients agree (rtol 1e-5, atol 1e-7; max abs "
+              f"err {worst:.2e})", flush=True)
+
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
                        "terrain")
@@ -1333,7 +1615,29 @@ def main():
         "gather_packed_64^3": gather_loads["packed 64^3"],
         "gather_probe": gather_loads["probe"],
     })
+    bwd1 = bwd_loads["C=1"]
+    kernels.append({
+        "name": "grid_trilinear_bwd", "route": "cuda",
+        "source": "eradiate_kernel_tpu_torch/csrc/grid_gather.cu",
+        "replaces": "tools/probe_pallas_gather.py:54",
+        "replaces_all": "tools/probe_pallas_gather.py:54,58,62,72 (the "
+                        "gather probe's kernels; this is the backward "
+                        "entry of their port's trilinear lookup)",
+        "launches": grads["large3d"]["backward"]["launches"][
+            "grid_trilinear_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_loads.values()),
+        "ms": bwd1["ms"], "plain_ms": bwd1["plain_ms"],
+        "bound_ms": bwd1["bound_ms"], "bound_by": bwd1["bound_by"],
+        "library_ms": bwd1["library_ms"],
+        "library_call": "torch.autograd.grad of "
+                        "torch.nn.functional.grid_sample (5-D, bilinear, "
+                        "border, align_corners=True) with respect to the "
+                        "unpacked grid",
+        "load": "64^3 grid, C = 1, 32,768 lanes of random points",
+        "C=3": bwd_loads["C=3"],
+    })
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"value_grad": grads}))
     print(json.dumps({"atmosphere": {
         k: {kk: vv for kk, vv in v.items() if kk != "launches"}
         for k, v in atmo.items()}}))

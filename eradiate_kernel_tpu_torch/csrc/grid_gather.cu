@@ -1,10 +1,13 @@
-// Per-lane row gather from a resident table, and the packed-corner
-// trilinear lookup built on it. Two entries:
+// Per-lane row gather from a resident table, the packed-corner trilinear
+// lookup built on it, and the lookup's gradient with respect to the grid.
+// Three entries:
 //
-//   grid_gather_launch     out[j, :] = table[clamp(idx[j], 0, V - 1), :]
-//   grid_trilinear_launch  out[j, :] = the trilinear interpolation of a
-//                          gridvolume at local point pl[j] of grid slot
-//                          slot[j], from the packed 8-corner table
+//   grid_gather_launch        out[j, :] = table[clamp(idx[j], 0, V - 1), :]
+//   grid_trilinear_launch     out[j, :] = the trilinear interpolation of a
+//                             gridvolume at local point pl[j] of grid slot
+//                             slot[j], from the packed 8-corner table
+//   grid_trilinear_bwd_launch d_grid += the transpose of the lookup applied
+//                             to the cotangent ct (L, C)
 //
 // Replaces the Pallas TPU gather probe of tools/probe_pallas_gather.py
 // (kernels `k_fancy` :54, `k_take` :58, `k_tala` :62 and `k_onehot` :72,
@@ -45,6 +48,21 @@
 // chain (volumes.trilinear_gather_plain). Bound on an H100: bytes, L x (12
 // + 4 + 8C*4 + C*4) (the point, the slot, the row, the result) over 3.35
 // TB/s; it does ~25 FP32 operations a lane.
+//
+// grid_trilinear_bwd_launch is the exact transpose of grid ->
+// packed_corners -> clamped row gather -> _lerp8 (the plain version is
+// textures/volumes.py::trilinear_backward_plain). Contract:
+//   ct (L, C) f32, pl (L, 3) f32, slot (L,) i32 as the lookup took them;
+//   d_grid (S*D*H*W*C) f32, zeroed by the caller.
+// One thread per lane recomputes corner c000's row and the fractions with
+// the lookup's own code (corner_row), splits the row into its voxel
+// (s, z, y, x) and adds ct[j, c] times the weight _lerp8 gives corner k,
+// ((ct (1 - fz|fz)) (1 - fy|fy)) (1 - fx|fx), into the 8 voxels
+// (s, min(z + dz, D - 1), min(y + dy, H - 1), min(x + dx, W - 1)), the
+// edge-clamped neighbours packed_corners stores, with atomicAdd on f32.
+// Each product rounds as the plain version's does; the sums land in an
+// order that changes from run to run. Bound on an H100: bytes, L x (12 +
+// 4 + 4C) read plus L x 8C x 4 bytes of atomics over 3.35 TB/s.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -112,13 +130,13 @@ __device__ __forceinline__ float lerp8(const float *c, int C, float fx,
   return c0 * (1.0f - fz) + c1 * fz;
 }
 
-__global__ void __launch_bounds__(kThreads) grid_trilinear_kernel(
-    const float *__restrict__ packed, const float *__restrict__ pl,
-    const int32_t *__restrict__ slot, int64_t n_rows, int D, int H, int W,
-    int C, int64_t n_lanes, float *__restrict__ out) {
-  const int64_t j = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  if (j >= n_lanes) return;
-  float fx, fy, fz;
+// corner c000's packed row of lane j, clamped as the gather clamps it,
+// and the three fractions: the lookup and its backward share it
+__device__ __forceinline__ int64_t corner_row(const float *pl,
+                                              const int32_t *slot, int64_t j,
+                                              int64_t n_rows, int D, int H,
+                                              int W, float &fx, float &fy,
+                                              float &fz) {
   const int32_t x0 = corner0(pl[3 * j], W, fx);
   const int32_t y0 = corner0(pl[3 * j + 1], H, fy);
   const int32_t z0 = corner0(pl[3 * j + 2], D, fz);
@@ -126,8 +144,18 @@ __global__ void __launch_bounds__(kThreads) grid_trilinear_kernel(
   const uint32_t u = static_cast<uint32_t>(slot[j]) *
                          static_cast<uint32_t>(D * H * W) +
                      (static_cast<uint32_t>(z0) * H + y0) * W + x0;
-  int64_t r = static_cast<int32_t>(u);
-  r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
+  const int64_t r = static_cast<int32_t>(u);
+  return r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
+}
+
+__global__ void __launch_bounds__(kThreads) grid_trilinear_kernel(
+    const float *__restrict__ packed, const float *__restrict__ pl,
+    const int32_t *__restrict__ slot, int64_t n_rows, int D, int H, int W,
+    int C, int64_t n_lanes, float *__restrict__ out) {
+  const int64_t j = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (j >= n_lanes) return;
+  float fx, fy, fz;
+  const int64_t r = corner_row(pl, slot, j, n_rows, D, H, W, fx, fy, fz);
   if (C == 1) {
     const float4 *row = reinterpret_cast<const float4 *>(packed) + 2 * r;
     const float4 a = __ldg(row), b = __ldg(row + 1);
@@ -137,6 +165,38 @@ __global__ void __launch_bounds__(kThreads) grid_trilinear_kernel(
     const float *row = packed + r * 8 * C;
     for (int ch = 0; ch < C; ++ch)
       out[j * C + ch] = lerp8(row + ch, C, fx, fy, fz);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) grid_trilinear_bwd_kernel(
+    const float *__restrict__ ct, const float *__restrict__ pl,
+    const int32_t *__restrict__ slot, int64_t n_rows, int D, int H, int W,
+    int C, int64_t n_lanes, float *__restrict__ d_grid) {
+  const int64_t j = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (j >= n_lanes) return;
+  float fx, fy, fz;
+  const int64_t r = corner_row(pl, slot, j, n_rows, D, H, W, fx, fy, fz);
+  // the row's voxel and its +1 neighbours, edge-clamped as packed_corners
+  // builds them; base = s * D * H * W
+  const int64_t x = r % W, y = (r / W) % H, z = (r / (W * H)) % D;
+  const int64_t base = r - (z * H + y) * W - x;
+  const int64_t xs[2] = {x, x + 1 < W ? x + 1 : W - 1};
+  const int64_t ys[2] = {y, y + 1 < H ? y + 1 : H - 1};
+  const int64_t zs[2] = {z, z + 1 < D ? z + 1 : D - 1};
+  const float wx[2] = {1.0f - fx, fx}, wy[2] = {1.0f - fy, fy},
+              wz[2] = {1.0f - fz, fz};
+  for (int c = 0; c < C; ++c) {
+    const float g = ct[j * C + c];
+    for (int dz = 0; dz < 2; ++dz) {
+      const float gz = g * wz[dz];
+      for (int dy = 0; dy < 2; ++dy) {
+        const float gzy = gz * wy[dy];
+        for (int dx = 0; dx < 2; ++dx) {
+          const int64_t v = base + (zs[dz] * H + ys[dy]) * W + xs[dx];
+          atomicAdd(d_grid + v * C + c, gzy * wx[dx]);
+        }
+      }
+    }
   }
 }
 
@@ -175,6 +235,26 @@ extern "C" int grid_trilinear_launch(const void *packed, const void *pl,
         static_cast<const float *>(packed), static_cast<const float *>(pl),
         static_cast<const int32_t *>(slot), n_rows, D, H, W, C, n_lanes,
         static_cast<float *>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the lookup's backward on `stream` (no sync): ct (n_lanes, C), pl
+// (n_lanes, 3), slot (n_lanes,) i32 as the lookup took them; d_grid
+// (n_rows * C), n_rows = S * D * H * W, zeroed by the caller. Returns
+// cudaGetLastError() after the launch.
+extern "C" int grid_trilinear_bwd_launch(const void *ct, const void *pl,
+                                         const void *slot, void *d_grid,
+                                         long long n_rows, int D, int H,
+                                         int W, int C, long long n_lanes,
+                                         void *stream) {
+  if (n_lanes > 0) {
+    const long long blocks = (n_lanes + kThreads - 1) / kThreads;
+    grid_trilinear_bwd_kernel<<<blocks, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float *>(ct), static_cast<const float *>(pl),
+        static_cast<const int32_t *>(slot), n_rows, D, H, W, C, n_lanes,
+        static_cast<float *>(d_grid));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -95,40 +95,26 @@ def _put_lanes(pool, fresh, idx):
     return pool.index_copy(0, idx, fresh)
 
 
-def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None):
-    """Regenerating wavefront render: a pool of ``n_lanes`` lanes; each
-    lane whose path finished is harvested and refilled with the next
-    unstarted sample, so occupancy stays near 100 % whatever the spread of
-    path lengths.
+def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
+              harvest=None, refill=None, stats=None):
+    """The lane pool's schedule, shared by the render and its path-replay
+    adjoint (integrators/replay.py): a pool of ``n_lanes`` lanes; each lane
+    whose path finished is harvested and refilled with the next unstarted
+    sample. Per iteration:
 
-    The film is built from a per-sample slot buffer: a finished lane writes
-    its [X, Y, Z, A, 1] row at slot ``sample`` (slots are unique, so the
-    writes need no atomics and are deterministic); a reshape-sum over the
-    spp axis gives the film at the end. Lanes may run in any order: a
-    sample's random numbers are keyed by its index.
+    1. ``harvest(vp, rw, slot)`` sees the pool; ``slot`` (n_lanes,) holds
+       the sample index of each lane whose path ended since the last visit
+       and ``total`` (a trash row) for the others;
+    2. dead lanes take the next unstarted samples (camera ray, fresh
+       integrator state); ``refill(ridx, new)`` is told which lanes took
+       which samples;
+    3. ``bounce(vp, occupied)`` runs one bounce over the whole pool (its
+       unoccupied lanes inactive) and returns the new state.
 
-    Returns (film (ch, cw, 5), rays traced (a 0-d tensor)). ``stats``, a
-    dict, receives the loop iterations and the samples dropped by the
-    runaway cap."""
-    cfg = scene.config
-    mod = REGISTRY[cfg.integrator.kind]
-    if not regen_supported(cfg):
-        raise NotImplementedError(
-            f"the lane pool runs volpath; {cfg.integrator.kind!r} takes the "
-            "scan driver (render(regen=False))")
-    if filter_radius(cfg.rfilter, dict(cfg.rfilter_params)) > 0.5 + 1e-6:
-        raise NotImplementedError(
-            "the lane pool needs a single-pixel filter (radius <= 0.5)")
+    Returns the rays traced (a 0-d tensor). ``stats``, a dict, receives the
+    loop iterations and the samples dropped by the runaway cap."""
+    mod = REGISTRY[scene.config.integrator.kind]
     dev = scene.bsphere_center.device
-    cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
-                                                  cfg.film_height)
-    total = ch * cw * spp
-    n_lanes = min(n_lanes, total)
-    max_iterations, bounce_kwargs = mod._knobs(scene)
-    bounce_kwargs.update(mod._PRIMAL_BOUNCE_KWARGS)
-
-    # slot `total` is the trash row of lanes that finished nothing
-    slots = torch.zeros(total + 1, N_BASE_CHANNELS, device=dev)
     trash = torch.full((n_lanes,), total, dtype=torch.int64, device=dev)
     lane_sample = trash.clone()
     occupied = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
@@ -142,9 +128,8 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None):
         # 1. harvest the lanes whose path ended since the last visit
         if vp is not None:
             finished = occupied & ~vp.active
-            rows = _film_rows(vp.result * rw, vp.valid_ray)
-            slots.index_copy_(0, torch.where(finished, lane_sample, trash),
-                              rows)
+            if harvest is not None:
+                harvest(vp, rw, torch.where(finished, lane_sample, trash))
             occupied = occupied & vp.active
 
         # 2. refill dead lanes with the next unstarted samples
@@ -169,13 +154,15 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None):
             occupied = occupied.index_fill(0, ridx, True)
             its = its.index_fill(0, ridx, 0)
             next_sample += m
+            if refill is not None:
+                refill(ridx, new)
         if n_dead - m == n_lanes:  # nothing occupied, nothing left
             break
 
         # 3. one bounce over the whole (nearly full) pool
         vp = dataclasses.replace(vp, active=vp.active & occupied,
                                  n_rays=torch.zeros((), device=dev))
-        vp = mod._bounce(scene, vp, **bounce_kwargs)
+        vp = bounce(vp, occupied)
         rays = rays + vp.n_rays
         its = its + 1
         # the per-lane iteration cap (the scan driver's trip count)
@@ -186,8 +173,67 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None):
         stats["iterations"] = it
         stats["dropped"] = (total - next_sample) + (
             int(occupied.sum()) if it >= cap else 0)
+    return rays
+
+
+def _check_regen(cfg):
+    """Raise unless the lane pool can render this scene config."""
+    if not regen_supported(cfg):
+        raise NotImplementedError(
+            f"the lane pool runs volpath; {cfg.integrator.kind!r} takes the "
+            "scan driver (render(regen=False))")
+    if filter_radius(cfg.rfilter, dict(cfg.rfilter_params)) > 0.5 + 1e-6:
+        raise NotImplementedError(
+            "the lane pool needs a single-pixel filter (radius <= 0.5)")
+
+
+def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
+                           sample_log=False):
+    """Regenerating wavefront render: the lane pool of ``_run_pool`` with
+    ``n_lanes`` lanes keeps occupancy near 100 % whatever the spread of
+    path lengths.
+
+    The film is built from a per-sample slot buffer: a finished lane writes
+    its [X, Y, Z, A, 1] row at slot ``sample`` (slots are unique, so the
+    writes need no atomics and are deterministic); a reshape-sum over the
+    spp axis gives the film at the end. Lanes may run in any order: a
+    sample's random numbers are keyed by its index.
+
+    Returns (film (ch, cw, 5), rays traced (a 0-d tensor)); with
+    ``sample_log`` also the sample log (total, nc): row s is sample s's
+    integrator ``result`` before the ray weight, written beside its film
+    row (the path-replay backward's radiance totals). ``stats``, a dict,
+    receives the loop iterations and the samples dropped by the runaway
+    cap."""
+    cfg = scene.config
+    mod = REGISTRY[cfg.integrator.kind]
+    _check_regen(cfg)
+    dev = scene.bsphere_center.device
+    cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
+                                                  cfg.film_height)
+    total = ch * cw * spp
+    n_lanes = min(n_lanes, total)
+    max_iterations, bounce_kwargs = mod._knobs(scene)
+    bounce_kwargs.update(mod._PRIMAL_BOUNCE_KWARGS)
+
+    # slot `total` is the trash row of lanes that finished nothing
+    slots = torch.zeros(total + 1, N_BASE_CHANNELS, device=dev)
+    rlog = (torch.zeros(total + 1, cfg.variant.n_channels, device=dev)
+            if sample_log else None)
+
+    def harvest(vp, rw, slot):
+        slots.index_copy_(0, slot, _film_rows(vp.result * rw, vp.valid_ray))
+        if rlog is not None:
+            rlog.index_copy_(0, slot, vp.result)
+
+    rays = _run_pool(scene, n_lanes, seed, spp, total, max_iterations,
+                     lambda vp, _occ: mod._bounce(scene, vp, **bounce_kwargs),
+                     harvest=harvest, stats=stats)
     film = slots[:total].reshape(ch * cw, spp, N_BASE_CHANNELS).sum(1)
-    return film.reshape(ch, cw, N_BASE_CHANNELS), rays
+    film = film.reshape(ch, cw, N_BASE_CHANNELS)
+    if sample_log:
+        return film, rays, rlog[:total]
+    return film, rays
 
 
 def regen_supported(cfg) -> bool:
@@ -202,7 +248,10 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
            develop_film=True, regen=False):
     """Multi-pass wavefront render, or with ``regen`` the lane pool of
     ``samples_per_pass`` lanes. Returns the developed image (H, W, 3), or
-    the raw (H, W, 5) film with ``develop_film=False``."""
+    the raw (H, W, 5) film with ``develop_film=False``. Both drivers are
+    differentiable with respect to the scene's value-class tensors: the
+    scan driver by autograd through its passes, the lane pool through the
+    path-replay backward (integrators/replay.py)."""
     cfg = scene.config
     spp = spp or cfg.spp
     cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
@@ -211,8 +260,16 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
     if samples_per_pass is None:
         samples_per_pass = min(total, 1 << 22)
     if regen and regen_supported(cfg):
-        film, _rays = render_wavefront_regen(scene, samples_per_pass, seed,
-                                             spp)
+        from . import replay
+
+        if replay.replay_supported(cfg):
+            # differentiable: the primal runs the same lane pool; under
+            # autograd the backward is the path-replay adjoint sweep
+            film = replay.render_regen_diff(scene, seed, samples_per_pass,
+                                            spp)
+        else:
+            film, _rays = render_wavefront_regen(scene, samples_per_pass,
+                                                 seed, spp)
     else:
         film = torch.zeros(ch, cw, N_BASE_CHANNELS,
                            device=scene.bsphere_center.device)

@@ -96,7 +96,8 @@ def _bounce(scene, s: _PathState, max_depth, rr_depth):
 
     # ---- russian roulette (path.cpp:137-141) --------------------------------
     smp, rr_sample = s.sampler.next_1d()
-    q = torch.clamp(torch.amax(s.throughput, dim=-1) * s.eta ** 2, max=0.95)
+    q = torch.clamp(torch.amax(s.throughput, dim=-1) * s.eta ** 2,
+                    max=0.95).detach()
     do_rr = s.depth >= rr_depth
     survive = ~do_rr | (rr_sample < q)
     throughput = torch.where(do_rr[:, None],

@@ -11,6 +11,14 @@ volpath.py counterpart; volpath.cpp as a masked wavefront program).
   dead code for scenes whose emitters are all delta emitters, the only
   ones this slice carries, and comes with slice 5.
 
+Detach discipline (volpath.cpp:83): every sampling decision is cut from
+the gradient as the reference cuts it with stop_gradient: the RR
+probability, the null/real probability, the sigma_n and sigma_t divisors
+of the null and real event weights, the residual walk's collision rate,
+the media's majorants and rate profiles (media/__init__.py) and the
+preliminary intersection (render/geometry.py). Gradients of value-class
+parameters then flow only through the carried throughput and result.
+
 A site whose lanes are all dead is skipped when gating is on: the
 reference's ``lax.cond(jnp.any(mask), ...)`` is ``if any_lane(mask):``
 here, one host sync each. The regenerating driver turns the bounce-level
@@ -274,7 +282,8 @@ def _walk_step_residual(scene, s, ds, ca):
         p_col = ray.at(torch.where(hit_res, dt, 0.0))
         st = media.medium_sigma_t(scene, med, p_col, nc)
         sc = media.medium_ctrl_sigma(scene, med, p_col, nc)
-        return 1.0 - (st - sc) / torch.clamp(rate, min=1e-20)[..., None]
+        den = torch.clamp(rate, min=1e-20).detach()[..., None]
+        return 1.0 - (st - sc) / den
 
     w_col = ca(hit_res, col_block,
                lambda: torch.ones_like(s.transmittance))
@@ -378,7 +387,7 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
 
     # --- russian roulette (volpath.cpp:79-87) ------------------------------
     q = torch.clamp(torch.amax(s.throughput, dim=-1) * s.eta ** 2, max=0.95)
-    q = torch.clamp(q, min=1e-6)
+    q = torch.clamp(q, min=1e-6).detach()
     perform_rr = s.depth > rr_depth
     smp, xi_rr = smp.next_1d()
     active = active & ((xi_rr < q) | ~perform_rr)
@@ -420,15 +429,15 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     # null vs real collision
     smp, xi_n = smp.next_1d()
     ext_ch = _index_ch(mi.combined_extinction, s.channel)
-    p_real = _index_ch(mi.sigma_t, s.channel) / torch.clamp(ext_ch,
-                                                            min=1e-30)
+    p_real = (_index_ch(mi.sigma_t, s.channel)
+              / torch.clamp(ext_ch, min=1e-30)).detach()
     null_scatter = xi_n >= p_real
     act_null = null_scatter & active_medium
     act_scatter = ~null_scatter & active_medium
 
     sn_ch = _index_ch(mi.sigma_n, s.channel)
     sn_ok = act_null & (sn_ch > 1e-15)
-    sn_den = torch.where(sn_ok, sn_ch, 1.0)[..., None]
+    sn_den = torch.where(sn_ok, sn_ch, 1.0).detach()[..., None]
     throughput = torch.where(
         sn_ok[..., None],
         throughput * mi.sigma_n * ext_ch[..., None] / sn_den, throughput)
@@ -445,7 +454,7 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     # real scatter (volpath.cpp:146-175)
     st_ch = _index_ch(mi.sigma_t, s.channel)
     st_ok = act_scatter & (st_ch > 1e-15)
-    st_den = torch.where(st_ok, st_ch, 1.0)[..., None]
+    st_den = torch.where(st_ok, st_ch, 1.0).detach()[..., None]
     throughput = torch.where(
         st_ok[..., None],
         throughput * mi.sigma_s * ext_ch[..., None] / st_den, throughput)
@@ -572,6 +581,21 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
         valid_ray=valid_ray,
         active=active & (active_surface | active_medium), n_rays=n_rays)
 
+
+# the lane pool's path-replay backward (integrators/replay.py) may
+# differentiate this integrator: its state carries the additive `result`
+# and the multiplicative `throughput` the replay's cotangents are for, and
+# every other float field (eta: feeds only the detached RR probability; the
+# ray and the hit: trajectory-class) has a zero cotangent under the detach
+# discipline
+_REPLAY_OK = True
+
+# bounce kwargs of the replay's adjoint sweep: walks end early (autograd
+# differentiates the steps they ran, replay.py's docstring), the site and
+# walk gates are on (a skipped site records no graph); the reference's
+# choice off its TPU
+_REPLAY_BOUNCE_KWARGS = {"while_walks": True, "gate_sites": True,
+                         "gate_walks": True}
 
 # bounce kwargs the regenerating (primal) driver adds to _knobs': walks
 # end early; the bounce-level gates are off (occupancy near 100 %), the

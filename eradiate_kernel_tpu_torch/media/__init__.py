@@ -6,8 +6,14 @@ Free flight samples against the LOCAL z-profile majorant of the segment
 (``_flight_profile_setup``/``_flight_sample``: piecewise constant along
 the ray, inverse-transform sampled in closed form); ``eval_tr_and_pdf``
 rebuilds its optical depth from the parametrization stored on the
-interaction. Every majorant, rate and profile is a detached sampling
-parameter.
+interaction. The majorants and rates are sampling parameters: the segment
+majorant (``medium_majorant_segment``) and the rate profile and constant
+rate of ``_flight_profile_setup`` are detached, as the reference detaches
+them (volpath.cpp:83), so the residual walk's collision rate, which is
+read off that profile, is detached too. The optical depth rebuilt from
+the profile (``eval_tr_and_pdf``) and the media's sigma values stay
+attached: gradients reach the scene through sigma_t, sigma_s and sigma_n,
+never through a sampling decision.
 """
 
 from __future__ import annotations
@@ -160,7 +166,7 @@ def medium_majorant_segment(scene, medium_idx, ray, mint, maxt, nc):
     p1 = torch.clamp(w2l.transform_affine_point(ray.at(t1)), 0.0, 1.0)
     seg = _axis_range_max(params["axprof"][slot], p0, p1) \
         * params["majorant"][slot]
-    seg = torch.clamp(seg, min=1e-8)
+    seg = torch.clamp(seg, min=1e-8).detach()
     return torch.where(m[..., None], seg[..., None], out)
 
 
@@ -171,7 +177,8 @@ def _flight_profile_setup(prof3, mag, w2l, ray, a, b):
     The travel coordinate q runs along the ray (q = z going up, 1 - z going
     down); the profile is flipped to match. Returns (mq (N, P), qa, qb,
     adlz, m_at_a, is_const); horizontal rays (is_const) use the constant
-    rate m_at_a, the range-max of mq over [qa, qb]."""
+    rate m_at_a, the range-max of mq over [qa, qb]. mq and m_at_a are
+    detached sampling parameters."""
     P = prof3.shape[-1]
     t1 = torch.clamp(b, max=INVALID_T)
     p0 = torch.clamp(w2l.transform_affine_point(ray.at(a)), 0.0, 1.0)
@@ -199,7 +206,8 @@ def _flight_profile_setup(prof3, mag, w2l, ray, a, b):
     span = (ar >= k0[..., None]) & (ar <= k1[..., None])
     m_at_a = torch.amax(torch.where(span, mq, 0.0), dim=-1)
     is_const = adlz < 1e-7
-    return mq, qa, qb, torch.clamp(adlz, min=1e-20), m_at_a, is_const
+    return (mq.detach(), qa, qb, torch.clamp(adlz, min=1e-20),
+            m_at_a.detach(), is_const)
 
 
 def _bin_edges(P, device):

@@ -4,15 +4,21 @@ probe (tools/probe_pallas_gather.py, kernels ``k_fancy``/``k_take``/
 packed-corner trilinear lookup built on it. Both are entries of the CUDA
 kernel ``csrc/grid_gather.cu``:
 
-    gather_rows:    out[j, :] = table[clamp(idx[j], 0, V - 1), :]
-    grid_trilinear: the trilinear lookup of textures/volumes.py's packed
-                    path (corner c000's index, the 8-corner row, _lerp8)
+    gather_rows:        out[j, :] = table[clamp(idx[j], 0, V - 1), :]
+    grid_trilinear:     the trilinear lookup of textures/volumes.py's
+                        packed path (corner c000's index, the 8-corner
+                        row, _lerp8)
+    grid_trilinear_bwd: that lookup's gradient with respect to the grid
+                        (each lane's cotangent scattered into its 8 corner
+                        voxels with atomics)
 
 Each launches its entry for CUDA tensors; for CPU tensors (or under
-use_plain) the plain PyTorch versions serve: ``gather_rows_plain`` here and
-``volumes.trilinear_gather_plain`` beside the eager chain it keeps. Indices
-are clamped like the reference's jnp gathers (torch indexing would raise on
-them). Every launch of either entry counts as a ``grid_gather`` launch.
+use_plain) the plain PyTorch versions serve: ``gather_rows_plain`` here,
+``volumes.trilinear_gather_plain`` beside the eager chain it keeps and
+``volumes.trilinear_backward_plain``. Indices are clamped like the
+reference's jnp gathers (torch indexing would raise on them). A launch of
+either forward entry counts as a ``grid_gather`` launch, a launch of the
+backward entry as a ``grid_trilinear_bwd`` launch.
 
 The wrappers are lean: the ctypes functions are looked up once, the checks
 compare attributes directly, and the stream is the raw current-stream
@@ -28,12 +34,13 @@ import torch
 from . import _build
 
 # launches of the kernel in this process (the wrappers add one per launch)
-launches = {"grid_gather": 0}
+launches = {"grid_gather": 0, "grid_trilinear_bwd": 0}
 
 _P, _I, _L = _build.PTR, _build.INT, _build.LONG
 _build.register("grid_gather", {
     "grid_gather_launch": [_P] * 3 + [_L, _I, _L, _I, _I, _P],
-    "grid_trilinear_launch": [_P] * 4 + [_L] + [_I] * 4 + [_L, _P]})
+    "grid_trilinear_launch": [_P] * 4 + [_L] + [_I] * 4 + [_L, _P],
+    "grid_trilinear_bwd_launch": [_P] * 4 + [_L] + [_I] * 4 + [_L, _P]})
 
 _F32 = torch.float32
 _IDX = (torch.int32, torch.int64)
@@ -159,3 +166,37 @@ def grid_trilinear(packed, grid_shape, slot, pl):
             raise RuntimeError(f"grid_gather launch failed: cudaError {err}")
         launches["grid_gather"] += 1
     return out.reshape(batch + (C,))
+
+
+def grid_trilinear_bwd(ct, grid_shape, slot, pl):
+    """Launch the backward entry of csrc/grid_gather.cu on the current
+    stream (no sync): ct (..., C) f32, the cotangent of grid_trilinear's
+    output; slot (...) i32 and pl (..., 3) f32 as the lookup took them ->
+    d_grid of ``grid_shape`` (S, D, H, W, C) f32. Equal to
+    volumes.trilinear_backward_plain up to the order of the atomic sums."""
+    fn = _fn("grid_trilinear_bwd_launch")
+    S, D, H, W, C = grid_shape
+    ct = ct.reshape(-1, C).contiguous()
+    slot = slot.reshape(-1).contiguous()
+    pl = pl.reshape(-1, 3).contiguous()
+    L = slot.shape[0]
+    dev = ct.get_device()
+    if (ct.dtype != _F32 or pl.dtype != _F32 or slot.dtype != torch.int32
+            or ct.shape[0] != L or pl.shape[0] != L or dev < 0
+            or pl.get_device() != dev or slot.get_device() != dev):
+        raise ValueError(
+            f"grid_gather: the trilinear backward takes a float32 cotangent "
+            f"(..., {C}), float32 points (..., 3) and int32 slots (...) on "
+            f"one CUDA device, got {ct.dtype} {tuple(ct.shape)} on "
+            f"{ct.device}, {pl.dtype} {tuple(pl.shape)}, {slot.dtype} "
+            f"{tuple(slot.shape)}")
+    d_grid = torch.zeros(grid_shape, dtype=_F32, device=ct.device)
+    if L:
+        err = fn(ct.data_ptr(), pl.data_ptr(), slot.data_ptr(),
+                 d_grid.data_ptr(), S * D * H * W, D, H, W, C, L,
+                 _build.stream(dev))
+        if err != 0:
+            raise RuntimeError(
+                f"grid_trilinear_bwd launch failed: cudaError {err}")
+        launches["grid_trilinear_bwd"] += 1
+    return d_grid

@@ -233,12 +233,14 @@ def ray_test(geo: Geometry, ray: Ray, active=None):
 def compute_surface_interaction(geo: Geometry, ray: Ray,
                                 pi: PreliminaryIntersection):
     """Recompute the hit per family of the hit shape (mesh.cpp and
-    rectangle.cpp formulas)."""
+    rectangle.cpp formulas), differentiably in the ray and the primitive
+    data; the preliminary hit's distance is detached and clamped before
+    any use (a miss's inf would make a zero cotangent NaN)."""
     n_lanes = ray.o.shape[0]
     dev = ray.o.device
     valid = pi.is_valid
     family = geo.shape_family[torch.clamp(pi.shape_index, min=0)]
-    pit = torch.where(valid, torch.clamp(pi.t, max=INVALID_T), 0.0)
+    pit = torch.where(valid, torch.clamp(pi.t.detach(), max=INVALID_T), 0.0)
     t = torch.where(valid, pit, INVALID_T)
     p = ray.at(pit)
     axis = lambda i: torch.nn.functional.one_hot(
@@ -346,5 +348,10 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
 
 
 def ray_intersect(geo: Geometry, ray: Ray, active=None):
-    return compute_surface_interaction(
-        geo, ray, ray_intersect_preliminary(geo, ray, active))
+    """The closest hit. The preliminary intersection is a sampling decision
+    (which primitive, how far): it is found with autograd off, so it comes
+    out detached as a whole, as the reference's ray_intersect detaches it;
+    only the recomputed surface interaction carries gradients."""
+    with torch.no_grad():
+        pi = ray_intersect_preliminary(geo, ray, active)
+    return compute_surface_interaction(geo, ray, pi)

@@ -25,8 +25,11 @@ from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
 
 _BSDF_TYPES = ("diffuse", "rpv", "null", "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
+# the integrator's extra properties load_dict keeps (the reference's, and
+# replay_lanes: the lane count of the path-replay adjoint, which the
+# reference reads from the extras but its load_dict drops)
 _INTEGRATOR_EXTRAS = ("max_iterations", "nee_steps", "nee_transmittance",
-                      "nee_quad_points", "ff_majorant")
+                      "nee_quad_points", "ff_majorant", "replay_lanes")
 _WRAP_CODES = {"clamp": 0, "repeat": 1, "mirror": 2}
 
 

@@ -6,6 +6,9 @@ attribute paths (``geo.tiles_v0``, ``bsdfs.rpv.rho_0``,
 ``sensor.to_world.m``, ...). ``Scene.arrays`` flattens a scene to numpy
 under those names and ``from_numpy`` builds one from them, so a scene can
 be carried over from the reference (or compared with it) leaf by leaf.
+``Scene.tensors`` gives the same leaves as tensors and
+``Scene.with_tensors`` builds a scene with some of them replaced (the
+ParameterMap and the path-replay backward build scenes that way).
 """
 
 from __future__ import annotations
@@ -147,21 +150,64 @@ class Scene:
 
     def arrays(self) -> dict:
         """Every array of the scene as numpy, by dotted name."""
+        return {k: v.detach().cpu().numpy()
+                for k, v in self.tensors().items()}
+
+    def tensors(self) -> dict:
+        """Every tensor of the scene by dotted name (the names of arrays();
+        the derived vol_packed is not one of them)."""
         out = {}
 
         def walk(prefix, obj):
             if dataclasses.is_dataclass(obj):
-                for f in dataclasses.fields(obj):
-                    if f.name not in ("config", "vol_packed"):
-                        walk(f"{prefix}{f.name}.", getattr(obj, f.name))
+                for f in _fields(obj):
+                    walk(f"{prefix}{f.name}.", getattr(obj, f.name))
             elif isinstance(obj, dict):
                 for k, v in obj.items():
                     walk(f"{prefix}{k}.", v)
             else:
-                out[prefix[:-1]] = obj.detach().cpu().numpy()
+                out[prefix[:-1]] = obj
 
         walk("", self)
         return out
+
+    def with_tensors(self, values: dict) -> "Scene":
+        """The scene with the tensors named in ``values`` (dotted names of
+        tensors()) replaced, the others shared; a subtree with no new
+        tensor is kept as it is (a Geometry is rebuilt only if one of its
+        tensors is new). A new gridvolume grid comes with its own packed
+        corner table vol_packed (built with autograd off: the grid's
+        gradient comes through volumes.GridTrilinear)."""
+        unknown = set(values) - set(self.tensors())
+        if unknown:
+            raise KeyError(f"not tensors of the scene: {sorted(unknown)}")
+
+        def build(prefix, obj):
+            if dataclasses.is_dataclass(obj):
+                new = {f.name: build(f"{prefix}{f.name}.",
+                                     getattr(obj, f.name))
+                       for f in _fields(obj)}
+                new = {k: v for k, v in new.items()
+                       if v is not getattr(obj, k)}
+                return dataclasses.replace(obj, **new) if new else obj
+            if isinstance(obj, dict):
+                new = {k: build(f"{prefix}{k}.", v) for k, v in obj.items()}
+                same = all(new[k] is obj[k] for k in obj)
+                return obj if same else new
+            return values.get(prefix[:-1], obj)
+
+        scene = build("", self)
+        if "volumes.gridvolume.grid" in values:
+            scene = dataclasses.replace(
+                scene, vol_packed=packed_corners_of(scene.volumes))
+        return scene
+
+
+def _fields(obj):
+    """The fields of a scene record that hold tensors (a Scene's config and
+    its derived vol_packed do not)."""
+    return [f for f in dataclasses.fields(obj)
+            if f.name not in ("config", "vol_packed")]
 
 
 def _tensor(a, device):

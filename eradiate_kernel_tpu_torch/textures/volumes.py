@@ -7,11 +7,21 @@ chooses them:
     contraction of ``_trilinear_einsum``, contracted one axis at a time
     (never a lanes x D*H*W intermediate), in full float32;
   - larger grids: one packed 8-corner row per lane (``packed_corners``,
-    built once per scene at load) at the index of corner c000
-    (``_corner0``), then the trilinear combine ``_lerp8``: the whole lookup
-    is one launch of the ``grid_gather`` kernel's trilinear entry
+    a table derived from the grid, built at load and rebuilt with the
+    grid's values by scene.with_tensors) at the index of corner c000
+    (``_corner0``), then the trilinear combine ``_lerp8``: the whole
+    lookup is one launch of the ``grid_gather`` kernel's trilinear entry
     (ops/gather.py::grid_trilinear) for CUDA tensors, and the eager chain
     ``trilinear_gather_plain`` for CPU tensors.
+
+The packed lookup is differentiable with respect to the grid
+(``GridTrilinear``): its backward scatters each lane's cotangent into the
+8 grid voxels it read, one launch of the kernel's backward entry
+(ops/gather.py::grid_trilinear_bwd) for CUDA tensors and the plain
+``trilinear_backward_plain`` for CPU tensors. The table itself carries no
+gradient. The lookup positions are trajectory-class (under the detach
+discipline no value-class parameter moves them): the CUDA lookup gives
+them no gradient and refuses positions that require one.
 """
 
 from __future__ import annotations
@@ -88,14 +98,16 @@ def packed_corners(grid):
 
 def packed_corners_of(volumes):
     """The packed table of a scene's gridvolume rows when they take the
-    gather path, else None (built once per scene, at load)."""
+    gather path, else None: a table derived from the grid, built with
+    autograd off (the grid's gradient comes through GridTrilinear)."""
     params = volumes.get("gridvolume")
     if params is None:
         return None
     S, D, H, W, C = params["grid"].shape
     if D * H * W <= EINSUM_MAX_VOXELS:
         return None
-    return packed_corners(params["grid"])
+    with torch.no_grad():
+        return packed_corners(params["grid"])
 
 
 def trilinear_gather_plain(packed, grid_shape, vslot, pl):
@@ -110,13 +122,91 @@ def trilinear_gather_plain(packed, grid_shape, vslot, pl):
                   fx, fy, fz)
 
 
-def _trilinear_gather(packed, grid_shape, vslot, pl):
-    """Packed-neighbourhood lookup on the tensors' device: one launch of
-    the grid_gather kernel's trilinear entry for CUDA tensors, the plain
-    chain for CPU tensors (or under gather.use_plain)."""
+def trilinear_backward_plain(ct, grid_shape, vslot, pl):
+    """The packed lookup's gradient with respect to the grid: ct (..., C),
+    the cotangent of trilinear_gather_plain's output -> d_grid of
+    ``grid_shape`` (S, D, H, W, C). The exact transpose of grid ->
+    packed_corners -> clamped row gather -> _lerp8: each lane adds ct times
+    the weight _lerp8 gives corner k, ((ct (1 - fz|fz)) (1 - fy|fy))
+    (1 - fx|fx), into the voxels of its row's 8 corners (the row's voxel
+    and its +1 neighbours, edge-clamped as packed_corners clamps them), by
+    one index_add_. The plain version of ops.gather.grid_trilinear_bwd."""
+    S, D, H, W, C = grid_shape
+    n_rows = S * D * H * W
+    idx, fx, fy, fz = _corner0((S, D, H, W), vslot, pl)
+    r = idx.reshape(-1).clamp(0, n_rows - 1).long()  # the gather's clamp
+    x, y, z = r % W, (r // W) % H, (r // (W * H)) % D
+    base = r - (z * H + y) * W - x
+    xs = (x, torch.clamp(x + 1, max=W - 1))
+    ys = (y, torch.clamp(y + 1, max=H - 1))
+    zs = (z, torch.clamp(z + 1, max=D - 1))
+    fx, fy, fz = (f.reshape(-1, 1) for f in (fx, fy, fz))
+    g = ct.reshape(-1, C)
+    rows, vals = [], []
+    for dz in (0, 1):
+        gz = g * (fz if dz else 1 - fz)
+        for dy in (0, 1):
+            gzy = gz * (fy if dy else 1 - fy)
+            for dx in (0, 1):
+                vals.append(gzy * (fx if dx else 1 - fx))
+                rows.append(base + (zs[dz] * H + ys[dy]) * W + xs[dx])
+    d_grid = torch.zeros(n_rows, C, dtype=ct.dtype, device=ct.device)
+    d_grid.index_add_(0, torch.cat(rows), torch.cat(vals))
+    return d_grid.reshape(S, D, H, W, C)
+
+
+def _lookup(packed, grid_shape, vslot, pl):
+    """The packed lookup on the tensors' device: one launch of the
+    grid_gather kernel's trilinear entry for CUDA tensors, the plain chain
+    for CPU tensors (or under gather.use_plain)."""
     if gather.on_plain(packed):
         return trilinear_gather_plain(packed, grid_shape, vslot, pl)
     return gather.grid_trilinear(packed, grid_shape, vslot, pl)
+
+
+class GridTrilinear(torch.autograd.Function):
+    """The packed lookup as an op differentiable with respect to the grid:
+    the forward reads the packed table (``_lookup``), the backward gives
+    the grid its gradient (one launch of the kernel's backward entry for
+    CUDA tensors, trilinear_backward_plain for CPU tensors). The table,
+    the slots and the positions get none."""
+
+    @staticmethod
+    def forward(ctx, grid, packed, vslot, pl):
+        ctx.save_for_backward(vslot, pl)
+        ctx.grid_shape = tuple(grid.shape)
+        return _lookup(packed, grid.shape, vslot, pl)
+
+    @staticmethod
+    def backward(ctx, ct):
+        vslot, pl = ctx.saved_tensors
+        ct = ct.contiguous()
+        if gather.on_plain(ct):
+            d_grid = trilinear_backward_plain(ct, ctx.grid_shape, vslot, pl)
+        else:
+            d_grid = gather.grid_trilinear_bwd(ct, ctx.grid_shape, vslot, pl)
+        return d_grid, None, None, None
+
+
+def _trilinear_gather(grid, packed, vslot, pl):
+    """Packed-neighbourhood lookup of ``grid`` through its packed table.
+    With autograd on, a grid that requires a gradient gets it through
+    GridTrilinear. Positions that require a gradient are refused on CUDA
+    (the kernel has no gradient for them); on the CPU the plain chain then
+    runs on a packed table built from the grid, differentiable in both."""
+    if torch.is_grad_enabled():
+        if pl.requires_grad:
+            if not gather.on_plain(packed):
+                raise ValueError(
+                    "grid_gather: the lookup positions require a gradient, "
+                    "which the CUDA lookup does not give; the positions are "
+                    "trajectory-class (make only value-class parameters "
+                    "trainable, or detach them)")
+            return trilinear_gather_plain(packed_corners(grid), grid.shape,
+                                          vslot, pl)
+        if grid.requires_grad:
+            return GridTrilinear.apply(grid, packed, vslot, pl)
+    return _lookup(packed, grid.shape, vslot, pl)
 
 
 def _trilinear_einsum(grid, vslot, pl):
@@ -177,7 +267,7 @@ def volume_eval(scene, vol_idx, p):
             grid = params["grid"]
             S, D, H, W, C = grid.shape
             if D * H * W > EINSUM_MAX_VOXELS:
-                c = _trilinear_gather(scene.vol_packed, grid.shape, slot, pl)
+                c = _trilinear_gather(grid, scene.vol_packed, slot, pl)
             else:
                 c = _trilinear_einsum(grid, slot, pl)
             c = torch.where(inside[..., None], c, 0.0)

@@ -149,7 +149,7 @@ def test_grid_trilinear_matches_plain(cuda_device, C):
     slot = torch.as_tensor(rng.integers(0, 2, (50, 100)).astype(np.int32),
                            device=cuda_device)
     before = gather.launches["grid_gather"]
-    out = volumes._trilinear_gather(packed, grid.shape, slot, pl)
+    out = volumes._trilinear_gather(grid, packed, slot, pl)
     torch.cuda.synchronize()
     assert gather.launches["grid_gather"] == before + 1
     ref = volumes.trilinear_gather_plain(packed, grid.shape, slot, pl)
@@ -157,6 +157,99 @@ def test_grid_trilinear_matches_plain(cuda_device, C):
     assert bool(torch.isnan(out[0, 0]).all())
     # bit for bit, the NaN lane too (torch.equal says NaN != NaN)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3])
+def test_grid_trilinear_bwd_matches_plain(cuda_device, C):
+    """The lookup's backward kernel against its plain version on a (2, 8,
+    32, 32, C) grid: within rtol 1e-5 and atol 1e-7 (the atomics add in an
+    order that changes from run to run), and bit for bit on lanes whose 8
+    corners no other lane touches (one lane per other voxel along each
+    axis)."""
+    rng = np.random.default_rng(10 + C)
+    shape = (2, 8, 32, 32, C)
+    pl = rng.uniform(-0.1, 1.1, (60, 100, 3)).astype(np.float32)
+    pl = torch.as_tensor(pl, device=cuda_device)
+    slot = torch.as_tensor(rng.integers(0, 2, (60, 100)).astype(np.int32),
+                           device=cuda_device)
+    ct = torch.as_tensor(rng.normal(size=(60, 100, C)).astype(np.float32),
+                         device=cuda_device)
+    before = gather.launches["grid_trilinear_bwd"]
+    out = gather.grid_trilinear_bwd(ct, shape, slot, pl)
+    torch.cuda.synchronize()
+    assert gather.launches["grid_trilinear_bwd"] == before + 1
+    ref = volumes.trilinear_backward_plain(ct, shape, slot, pl)
+    assert out.shape == shape and bool(out.abs().sum() > 0)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-7)
+    # distinct corners: voxel centres (2i, 2j, 2k) + a fraction
+    z, y, x = torch.meshgrid(*(torch.arange(0, n - 1, 2, device=cuda_device)
+                               for n in shape[1:4]), indexing="ij")
+    frac = torch.as_tensor(rng.uniform(0.1, 0.9, (z.numel(), 3)),
+                           dtype=torch.float32, device=cuda_device)
+    idx = torch.stack([x.flatten(), y.flatten(), z.flatten()], -1)
+    n_axis = torch.tensor(shape[1:4][::-1], device=cuda_device)
+    pl_d = (idx + frac) / (n_axis - 1)
+    slot_d = torch.ones(z.numel(), dtype=torch.int32, device=cuda_device)
+    ct_d = torch.as_tensor(rng.normal(size=(z.numel(), C)),
+                           dtype=torch.float32, device=cuda_device)
+    assert torch.equal(gather.grid_trilinear_bwd(ct_d, shape, slot_d, pl_d),
+                       volumes.trilinear_backward_plain(ct_d, shape, slot_d,
+                                                        pl_d))
+
+
+@pytest.mark.cuda
+def test_lookup_refuses_positions_that_require_grad(cuda_device):
+    """The CUDA lookup gives the positions no gradient, so it refuses
+    positions that require one (never a silent zero)."""
+    grid = torch.rand(1, 17, 17, 17, 1, device=cuda_device,
+                      requires_grad=True)
+    packed = volumes.packed_corners(grid.detach())
+    slot = torch.zeros(10, dtype=torch.int32, device=cuda_device)
+    pl = torch.rand(10, 3, device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError, match="trajectory-class"):
+        volumes._trilinear_gather(grid, packed, slot, pl)
+    out = volumes._trilinear_gather(grid, packed, slot, pl.detach())
+    assert out.requires_grad
+
+
+@pytest.mark.cuda
+def test_value_grad_matches_plain_versions(cuda_device):
+    """A 16x16, 4 spp value+grad of an atmosphere with a 17 x 16 x 16 grid
+    (the packed path) through the kernels and through the plain versions
+    of the gather and the sweep: the same film bit for bit, and gradients
+    within the backward kernel's tolerance (rtol 1e-5, atol 1e-7: the
+    order of its atomic sums)."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.films import develop
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils import autodiff
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(16, 16, 4, 12, grid_res=(17, 16, 16))
+    scene = load_dict(d)
+    keys = ["volumes.gridvolume.grid", "volumes.constvolume.value"]
+    pm = autodiff.traverse(scene).keep(keys)
+
+    def value_grad():
+        params = pm.trainable()
+        film = integrators.render(pm.with_trainable(params), seed=3,
+                                  samples_per_pass=256, regen=True,
+                                  develop_film=False)
+        develop(film).mean().backward()
+        return film.detach(), [params[k].grad for k in keys]
+
+    before = dict(gather.launches)
+    film, grads = value_grad()
+    torch.cuda.synchronize()
+    assert gather.launches["grid_trilinear_bwd"] > before[
+        "grid_trilinear_bwd"]
+    with gather.use_plain(), intersect.use_plain():
+        film_p, grads_p = value_grad()
+    assert torch.equal(film, film_p)
+    for g, gp in zip(grads, grads_p):
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
+        torch.testing.assert_close(g, gp, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.cuda

@@ -3,6 +3,7 @@ the same seeded inputs: the packed corner table bit for bit, gridvolume
 lookups on the gather path (a (17, 16, 16) grid, > 4,096 voxels) and on
 the einsum path (the flagship's 64 x 4 x 4 grid), and the wrap modes."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -113,3 +114,64 @@ def test_corner0_matches_reference_corner_setup():
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx[0]))
     for a, b in zip(f, ref_f):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _large_lookups(C, n=1024, seed=7):
+    """A (2, 17, 17, 17, C) grid (4,913 voxels a slot: the packed path),
+    1,024 local points inside and around [0, 1]^3, random slots and a
+    random cotangent."""
+    rng = np.random.default_rng(seed)
+    grid = rng.random((2, 17, 17, 17, C)).astype(np.float32)
+    pl = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    vslot = rng.integers(0, 2, n).astype(np.int32)
+    return grid, vslot, pl, rng.normal(size=(n, C)).astype(np.float32)
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_trilinear_backward_plain_matches_reference_vjp(C):
+    """The plain backward (the backward kernel's plain version) equals
+    jax.vjp of the reference's _trilinear_gather with respect to the grid,
+    at rtol 1e-5 and atol 1e-7: the same products, summed in another
+    order."""
+    grid, vslot, pl, ct = _large_lookups(C)
+    _out, vjp = jax.vjp(lambda g: jvol._trilinear_gather(
+        g, jnp.asarray(vslot), jnp.asarray(pl)), jnp.asarray(grid))
+    (ref,) = vjp(jnp.asarray(ct))
+    out = volumes.trilinear_backward_plain(
+        torch.as_tensor(ct), grid.shape, torch.as_tensor(vslot),
+        torch.as_tensor(pl))
+    assert out.shape == grid.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_packed_lookup_grid_gradient_matches_reference():
+    """A gridvolume lookup of the packed path differentiates the grid: the
+    gradient of volume_eval with respect to the scene's grid equals the
+    reference's (its _trilinear_gather builds the packed table from the
+    grid inside the lookup)."""
+    d = atmosphere(8, 8, 1, 4, grid_res=(17, 16, 16))
+    ref_scene = jload_dict(d)
+    scene = load_dict(d, device="cpu")
+    n = 1000
+    p = _points(n, 3)
+    vidx = np.zeros(n, np.int32)
+    rng = np.random.default_rng(3)
+    ct = rng.normal(size=(n, 3)).astype(np.float32)
+
+    def ref_eval(grid):
+        vols = dict(ref_scene.volumes)
+        vols["gridvolume"] = dict(vols["gridvolume"], grid=grid)
+        sc = ref_scene.replace(volumes=vols)
+        return jvol.volume_eval(sc, jnp.asarray(vidx), jnp.asarray(p),
+                                jnp.zeros((n, 3)))
+
+    _o, vjp = jax.vjp(ref_eval, ref_scene.volumes["gridvolume"]["grid"])
+    (ref,) = vjp(jnp.asarray(ct))
+    grid = scene.volumes["gridvolume"]["grid"].clone().requires_grad_()
+    sc = scene.with_tensors({"volumes.gridvolume.grid": grid})
+    out = volumes.volume_eval(sc, torch.as_tensor(vidx), torch.as_tensor(p))
+    (g,) = torch.autograd.grad(out, grid, torch.as_tensor(ct))
+    assert np.abs(np.asarray(ref)).sum() > 0
+    np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-7)
