@@ -30,8 +30,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      and through the 8-wide BVH (ERT_BVH_WIDE=1), counting launches; then
      once more with every launch synchronised and timed (the kernel stage:
      ms a launch) and its visits summed for the bound;
-  7. render a 64x64, 4 spp forest through each BVH kernel and its plain
-     version and compare the films;
+  7. render a 64x64, 4 spp, max_depth 2 forest (depth cut from 6 for the
+     time limit) through each BVH kernel and its plain version and compare
+     the films;
   8. hold the row-gather kernel's gather entry against its plain version,
      bit for bit: on the gather probe's shape (4,096 rows of 1 float, 1,024
      lanes) and on the packed 8-corner table of a 64^3 grid with 32,768
@@ -39,13 +40,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      piece by piece; then its fused trilinear entry against the plain chain
      on the 64^3 load, timed beside torch's grid_sample on the same grid;
   9. render the atmosphere (utils/scenes.atmosphere, bench.py's flagship
-     load: 256x256 film, 64 spp, volpath max_depth 12, a 64 x 4 x 4
+     load: 256x256 film, 16 spp (bench.py: 64; cut for the time limit),
+     volpath max_depth 12, a 64 x 4 x 4
      plane-parallel grid, residual NEE transmittance) on the regenerating
      lane pool of 32,768 lanes, counting kernel launches (tile_sweep ==
      closest-hit queries: the atmosphere cube is one tile, one fused
      launch a query), loop iterations and host syncs;
- 10. render the atmosphere with a 64^3 grid (bench.py's large3d) at 16 spp
-     the same way; grid_gather launches == gridvolume lookups > 0 (one
+ 10. render the atmosphere with a 64^3 grid (bench.py's large3d) at 4 spp
+     (bench.py: 64; cut for the time limit) the same way; grid_gather launches == gridvolume lookups > 0 (one
      fused launch a lookup); then the fused query on the cube (32,768
      rays) and on an 8-tile terrain(23) against its plain version, bit for
      bit, timed beside the eager sorted pipeline; and the fused query
@@ -63,7 +65,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  14. value+grad (the mean of the developed image with respect to the
      gridvolume grid, the albedo and the spectra, the sun's irradiance
      among them) of the flagship and of the 64^3 atmosphere at 256x256,
-     spp 4 (the primal phases take 64 and 16; cut for the time limit),
+     spp 2 (cut from 4 for the time limit),
      through autodiff.traverse, integrators.render(regen=True) and
      loss.backward() (the lane pool's path-replay backward): primal and
      value+grad times, forward and adjoint loop iterations, host syncs,
@@ -75,13 +77,46 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the 64x64 spp4 value+grad of the 64^3 atmosphere through the kernels
      and through the plain gather and the plain sweep, gradients within
      phase 13's tolerance;
+ 15. render the Cornell box (utils/scenes.cornell_box(256, 256, spp=64,
+     max_depth=6): 4,194,304 samples, as the flagship) on the lane pool of
+     32,768 lanes through render(regen=True): time, Msamples/s, loop
+     iterations and host syncs (the pool's two an iteration and the path
+     tracer's bounce gates); its six rectangles launch no kernel; then a
+     64x64 spp4 Cornell box through the pool and the scan driver, films
+     compared;
+ 16. the analytic gates on the card: a constant environment of 0.7
+     renders 0.7 (scan driver and pool), furnace(0.5, 1.0)'s centre pixels
+     0.5 within tests/test_render.py's 0.02, and the volumetric scattering
+     furnace (albedo 1 under a constant environment) L = 1 within
+     tests/test_volpath.py's figures;
+ 17. the terrain render (phase 3's scene) on the lane pool of 2^18 lanes
+     through render(regen=True): tile_sweep launches == closest-hit
+     queries, and its film against the scan driver's;
+ 18. the forest render (phase 6's scene) on the same pool through
+     tile_bvh and tile_bvh8: launches == closest-hit queries;
+ 19. value+grad through the path replay of terrain(256) and the forest at
+     256x256, spp 4 (the primal phases take 16; cut for the time limit):
+     d(mean image)/d(spectra.baked.value), its sun's row and the crown's
+     diffuse reflectance row compared finite and not zero (the RPV rows
+     are NaN in the reference too), forward and adjoint launches (one a
+     closest-hit query), iterations, host syncs, peak memory, value+grad
+     time against the primal's, the film bit-equal to the primal's; then
+     at 64x64 the gradients through the sweep and tile_bvh (the kernels of
+     those value+grads) against their plain versions (rtol 1e-5, atol
+     1e-7);
+ 20. the flagship atmosphere at 256x256, spp 4, under a constant sky
+     (radiance 0.1, added to the dict here), which runs volpath's MIS
+     emitter walk, on the lane pool of 32,768 lanes: tile_sweep launches
+     == closest-hit queries; then a 64x64 spp4 film through the kernel
+     against the plain sweep's;
  12. (last) print the kernels line (every kernel and entry, the backward
      included), the value+grad records, the card's name and power limit,
      and the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
-renders: host time per stage (each stage synchronised before and after)
+renders and of the Cornell box, terrain and forest renders on the lane
+pool: host time per stage (each stage synchronised before and after)
 and a torch.profiler pass whose kernel tables go to
 smoke_out/profile_<scene>.txt.
 """
@@ -97,6 +132,12 @@ import time
 
 import numpy as np
 import torch
+
+# the sizes of phases 15-20: films (width, height, spp, max_depth), the
+# kernel-vs-plain films' width, the furnace gates' spp and the pool's lanes
+SIZES = {"cbox": (256, 256, 64, 6), "small": 64, "furnace_spp": 128,
+         "pool_lanes": 1 << 18, "value_grad": (256, 256, 4, 6),
+         "sky": (256, 256, 4, 12)}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -251,6 +292,16 @@ def sass_counts(name):
                                          and op.startswith(key + "."))
     return {fn: {key: sum(n for op, n in c.items() if fam(op, key))
                  for key in SASS_OPS} for fn, c in counts.items()}
+
+
+_T0 = time.perf_counter()
+
+
+def phase_clock(phase):
+    """Print the seconds since the script started as phase ``phase``
+    begins (where the run's time goes)."""
+    print(f"# phase {phase} starts at {time.perf_counter() - _T0:.1f} s",
+          flush=True)
 
 
 def cuda_ms(fn, reps):
@@ -414,6 +465,9 @@ def profile_render(render, render_s, label, window=None):
         "flight profile setup": (media, "_flight_profile_setup"),
         "flight sample": (media, "_flight_sample"),
         "phase sample": (phase, "phase_sample"),
+        "sphere hits": (geometry, "_intersect_spheres"),
+        "rectangle hits": (geometry, "_intersect_rects"),
+        "disk hits": (geometry, "_intersect_disks"),
     }
     with stage_timers(stages) as spent:
         torch.cuda.synchronize()
@@ -561,51 +615,6 @@ def check_render(label, scene, img, seconds, launches, bounces, queries,
     return mean
 
 
-def counted_regen(scene, n_lanes):
-    """Render ``scene`` on the lane pool with every kernel's launch count
-    and the host-sync count set to 0 just before and read just after.
-    Counts the closest-hit queries (calls of intersect.prepare_sweep or
-    of the fused query's intersect.prepare_small) and the gridvolume gather
-    lookups (volumes._trilinear_gather calls). Returns (film, seconds,
-    launches, counts)."""
-    from eradiate_kernel_tpu_torch import integrators
-    from eradiate_kernel_tpu_torch.integrators import common
-    from eradiate_kernel_tpu_torch.ops import intersect
-    from eradiate_kernel_tpu_torch.textures import volumes
-
-    counts = {"queries": 0, "lookups": 0}
-    prepare, small = intersect.prepare_sweep, intersect.prepare_small
-    trilinear = volumes._trilinear_gather
-
-    def counted(fn, what):
-        def wrapper(*a, **kw):
-            counts[what] += 1
-            return fn(*a, **kw)
-        return wrapper
-
-    intersect.prepare_sweep = counted(prepare, "queries")
-    intersect.prepare_small = counted(small, "queries")
-    volumes._trilinear_gather = counted(trilinear, "lookups")
-    try:
-        stats = {}
-        torch.cuda.synchronize()
-        zero_launches()
-        common.counters["host_syncs"] = 0
-        t0 = time.perf_counter()
-        film, rays = integrators.render_wavefront_regen(
-            scene, n_lanes, 0, scene.config.spp, stats=stats)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = all_launches()
-        counts.update(stats, rays=float(rays),
-                      host_syncs=common.counters["host_syncs"])
-    finally:
-        intersect.prepare_sweep = prepare
-        intersect.prepare_small = small
-        volumes._trilinear_gather = trilinear
-    return film, seconds, launches, counts
-
-
 def check_atmosphere(label, scene, film, seconds, launches, counts):
     """Print an atmosphere render's line and hold its launches to its
     queries and lookups. Returns the render's record."""
@@ -622,15 +631,17 @@ def check_atmosphere(label, scene, film, seconds, launches, counts):
                msamples_per_s=n_samples / seconds / 1e6,
                mrays_per_s=counts["rays"] / seconds / 1e6,
                rays=counts["rays"], iterations=counts["iterations"],
-               host_syncs=counts["host_syncs"], image_mean=mean,
+               host_syncs=counts["gate_syncs"],
+               pool_syncs=counts["pool_syncs"], image_mean=mean,
                queries=counts["queries"], lookups=counts["lookups"],
                launches=launches)
     print(f"# {label}: {rec['render_ms']:.1f} ms, "
           f"{rec['msamples_per_s']:.3f} Msamples/s, "
           f"{rec['mrays_per_s']:.2f} Mrays/s ({counts['rays']:.0f} rays), "
-          f"loop iterations {counts['iterations']}, host syncs "
-          f"{counts['host_syncs']}, closest-hit queries {counts['queries']},"
-          f" gridvolume gathers {counts['lookups']}, launches {launches}, "
+          f"loop iterations {counts['iterations']}, host syncs (any_lane) "
+          f"{counts['gate_syncs']} (+ the pool's {counts['pool_syncs']}), "
+          f"closest-hit queries {counts['queries']}, gridvolume gathers "
+          f"{counts['lookups']}, launches {launches}, "
           f"image mean {mean:.5f}", flush=True)
     assert 0.01 < mean < 2.0, f"{label}: image mean {mean}"
     # the atmosphere cube is one 12-triangle tile: every mesh query of the
@@ -846,17 +857,20 @@ def distinct_corner_lanes(n, dev, gen):
     return (idx + frac) / (n - 1)
 
 
-def value_grad(scene, n_lanes, keys, threefry=False):
+def value_grad(scene, n_lanes, keys, threefry=False,
+               prepare=("prepare_small",), primal=True):
     """The lane pool's value+grad of the developed image's mean with
     respect to the ParameterMap keys ``keys``, through the user's entry
     points (autodiff.traverse, integrators.render(regen=True),
     loss.backward()), after a primal render of the same scene and seed.
     Every count is set to 0 just before the value+grad and read after its
     forward and after its backward: kernel launches, closest-hit queries
-    and gridvolume lookups, loop iterations, host syncs. With
+    (calls of the intersect functions named in ``prepare``) and gridvolume
+    lookups, loop iterations, host syncs. With
     ``threefry``, one more value+grad with every threefry call
-    synchronised and timed (its share of that run). Returns (record, the
-    parameters with their .grad)."""
+    synchronised and timed (its share of that run). Without ``primal``
+    no primal render (and no film check): the value+grad alone. Returns
+    (record, the parameters with their .grad)."""
     from eradiate_kernel_tpu_torch import integrators
     from eradiate_kernel_tpu_torch.core import rng
     from eradiate_kernel_tpu_torch.films import develop
@@ -868,14 +882,16 @@ def value_grad(scene, n_lanes, keys, threefry=False):
     pm = autodiff.traverse(scene).keep(keys)
     render = lambda sc: integrators.render(
         sc, seed=0, samples_per_pass=n_lanes, regen=True, develop_film=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    primal = render(scene)
-    torch.cuda.synchronize()
-    primal_s = time.perf_counter() - t0
+    if primal:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        primal = render(scene)
+        torch.cuda.synchronize()
+        primal_s = time.perf_counter() - t0
 
     counts = {"queries": 0, "lookups": 0}
-    small, trilinear = intersect.prepare_small, volumes._trilinear_gather
+    saved = {name: getattr(intersect, name) for name in prepare}
+    trilinear = volumes._trilinear_gather
 
     def counted(fn, what):
         def wrapper(*a, **kw):
@@ -888,7 +904,8 @@ def value_grad(scene, n_lanes, keys, threefry=False):
                     host_syncs=common.counters["host_syncs"],
                     **replay.counters)
 
-    intersect.prepare_small = counted(small, "queries")
+    for name, fn in saved.items():
+        setattr(intersect, name, counted(fn, "queries"))
     volumes._trilinear_gather = counted(trilinear, "lookups")
     try:
         params = pm.trainable()
@@ -909,19 +926,21 @@ def value_grad(scene, n_lanes, keys, threefry=False):
         end = snapshot()
         peak = torch.cuda.max_memory_allocated()
     finally:
-        intersect.prepare_small = small
+        for name, fn in saved.items():
+            setattr(intersect, name, fn)
         volumes._trilinear_gather = trilinear
     bwd = {k: ({kk: vv - fwd[k][kk] for kk, vv in v.items()}
                if isinstance(v, dict) else v - fwd[k])
            for k, v in end.items()}
-    assert torch.equal(film.detach(), primal), \
-        "the value+grad film differs from the primal render's"
-    rec = dict(primal_ms=primal_s * 1e3, value_grad_ms=total_s * 1e3,
-               forward_ms=forward_s * 1e3,
+    rec = dict(value_grad_ms=total_s * 1e3, forward_ms=forward_s * 1e3,
                backward_ms=(total_s - forward_s) * 1e3,
-               value_grad_over_primal=total_s / primal_s,
                forward=fwd, backward=bwd, peak_bytes=peak,
                loss=float(loss.detach()))
+    if primal is not False:
+        assert torch.equal(film.detach(), primal), \
+            "the value+grad film differs from the primal render's"
+        rec.update(primal_ms=primal_s * 1e3,
+                   value_grad_over_primal=total_s / primal_s)
     if threefry:
         with stage_timers({"threefry": (rng, "threefry2x32")}) as spent:
             p2 = pm.trainable()
@@ -1134,6 +1153,347 @@ def render_kernel_stage(scene, name):
     return rec
 
 
+def counted_pool(scene, n_lanes, seed=0, spp=None):
+    """render(scene, regen=True) (the lane pool; samples_per_pass lanes)
+    with every kernel's launch count and the host-sync count set to 0 just
+    before and read just after. Counts the closest-hit queries (calls of
+    intersect.prepare_sweep, prepare_small and prepare_bvh) and the
+    gridvolume gather lookups (volumes._trilinear_gather calls), and reads
+    the pool's loop iterations and rays traced from integrators._run_pool.
+    Host syncs: the pool's own are 2 an iteration (the dead-lane count and
+    nonzero); ``gate_syncs`` are the any_lane gates of the integrator's
+    bounce. Returns (film, seconds, launches, counts)."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.integrators import common
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    counts = {"queries": 0, "lookups": 0}
+    saved = {name: getattr(intersect, name)
+             for name in ("prepare_sweep", "prepare_small", "prepare_bvh")}
+    run_pool = integrators._run_pool
+    trilinear = volumes._trilinear_gather
+    pool = {}
+
+    def counted(fn, what="queries"):
+        def wrapper(*a, **kw):
+            counts[what] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def counted_run_pool(*a, stats=None, **kw):
+        stats = {} if stats is None else stats
+        pool["rays"] = float(run_pool(*a, stats=stats, **kw))
+        pool.update(stats)
+        return torch.tensor(pool["rays"])
+
+    for name, fn in saved.items():
+        setattr(intersect, name, counted(fn))
+    integrators._run_pool = counted_run_pool
+    volumes._trilinear_gather = counted(trilinear, "lookups")
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        common.counters["host_syncs"] = 0
+        t0 = time.perf_counter()
+        film = integrators.render(scene, seed=seed, spp=spp, regen=True,
+                                  samples_per_pass=n_lanes,
+                                  develop_film=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = all_launches()
+        counts.update(pool, gate_syncs=common.counters["host_syncs"],
+                      pool_syncs=2 * pool["iterations"])
+    finally:
+        for name, fn in saved.items():
+            setattr(intersect, name, fn)
+        integrators._run_pool = run_pool
+        volumes._trilinear_gather = trilinear
+    counts["host_syncs"] = counts["gate_syncs"] + counts["pool_syncs"]
+    counts["gate_sync_share"] = counts["gate_syncs"] / counts["host_syncs"]
+    return film, seconds, launches, counts
+
+
+def check_pool(label, scene, film, seconds, launches, counts, kernel,
+               mean_range):
+    """Print a lane-pool render's line and hold its launches: one launch
+    of ``kernel`` a closest-hit query and no other kernel launched (with
+    ``kernel`` None, no kernel launched at all). Returns its record."""
+    from eradiate_kernel_tpu_torch.films import develop
+
+    cfg = scene.config
+    img = develop(film)
+    n_samples = cfg.film_height * cfg.film_width * cfg.spp
+    assert bool(torch.isfinite(img).all()), f"{label}: non-finite pixels"
+    assert float(film[..., 4].sum()) == n_samples, f"{label}: samples lost"
+    assert counts["dropped"] == 0, f"{label}: {counts}"
+    mean = float(img.mean())
+    rec = dict(render_ms=seconds * 1e3,
+               msamples_per_s=n_samples / seconds / 1e6,
+               mrays_per_s=counts["rays"] / seconds / 1e6, image_mean=mean,
+               launches=launches, **counts)
+    print(f"# {label}: {rec['render_ms']:.1f} ms, "
+          f"{rec['msamples_per_s']:.3f} Msamples/s, "
+          f"{rec['mrays_per_s']:.2f} Mrays/s ({counts['rays']:.0f} rays), "
+          f"loop iterations {counts['iterations']}, host syncs "
+          f"{counts['host_syncs']} (pool {counts['pool_syncs']}, bounce "
+          f"gates {counts['gate_syncs']}: share "
+          f"{counts['gate_sync_share']:.3f}), closest-hit queries "
+          f"{counts['queries']}, launches {launches}"
+          + ("" if kernel else " (no kernel: analytic shapes only)")
+          + f", image mean {mean:.5f}", flush=True)
+    assert mean_range[0] < mean < mean_range[1], \
+        f"{label}: image mean {mean} out of {mean_range}"
+    if kernel is None:
+        assert sum(launches.values()) == 0, (label, launches)
+    else:
+        assert launches[kernel] == counts["queries"] > 0, (label, launches,
+                                                           counts)
+        assert sum(launches.values()) == launches[kernel], (label, launches)
+    return rec
+
+
+def spec_row(scene, tex):
+    """The spectra.baked.value row of constant texture index ``tex``."""
+    spec = int(scene.textures["constant"]["spec"][scene.tex_slot[tex]])
+    return int(scene.spec_slot[spec])
+
+
+def surface_value_grad(label, scene, n_lanes, kernel, rows):
+    """value_grad of a surface scene with respect to spectra.baked.value,
+    held to its counts: one ``kernel`` launch a closest-hit query forward
+    and in the adjoint, no other kernel; the gradient rows ``rows`` (name
+    -> row) finite and not all zero. Prints its line; returns its
+    record."""
+    rec, params = value_grad(scene, n_lanes, ["spectra.baked.value"],
+                             prepare=("prepare_sweep", "prepare_small",
+                                      "prepare_bvh"))
+    g = params["spectra.baked.value"].grad
+    rec["grad_rows"] = {}
+    for name, row in rows.items():
+        assert bool(torch.isfinite(g[row]).all()), f"{label}: {name} grad"
+        assert bool(g[row].abs().sum() > 0), f"{label}: {name} grad zero"
+        rec["grad_rows"][name] = g[row].tolist()
+    fwd, bwd = rec["forward"], rec["backward"]
+    for part in (fwd, bwd):
+        la = part["launches"]
+        assert la[kernel] == part["queries"] > 0, (label, part)
+        assert sum(la.values()) == la[kernel], (label, part)
+    print(f"# {label} value+grad: primal {rec['primal_ms']:.1f} ms, "
+          f"value+grad {rec['value_grad_ms']:.1f} ms (forward "
+          f"{rec['forward_ms']:.1f}, backward {rec['backward_ms']:.1f}; "
+          f"{rec['value_grad_over_primal']:.2f}x the primal), loop "
+          f"iterations forward {fwd['forward_iterations']} adjoint "
+          f"{bwd['adjoint_iterations']}, bounce-gate host syncs forward "
+          f"{fwd['host_syncs']} backward {bwd['host_syncs']}, {kernel} "
+          f"launches forward {fwd['launches'][kernel]} backward "
+          f"{bwd['launches'][kernel]} (= closest-hit queries "
+          f"{fwd['queries']} + {bwd['queries']}), peak memory "
+          f"{rec['peak_bytes'] / 2**20:.1f} MiB, loss {rec['loss']:.6f}, "
+          f"gradient rows {rec['grad_rows']}", flush=True)
+    return rec
+
+
+def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
+    """Phases 15-20 (slice 5a): the Cornell box, the analytic gates, the
+    terrain and the forest on the lane pool and through the path replay,
+    and the atmosphere under a constant sky. ``scene``, ``forest``,
+    ``render_s`` and ``forest_runs`` are phases 3 and 6's terrain and
+    forest and their scan renders; ``atmo`` receives the sky-lit
+    atmosphere's record. Returns (pool records, gate values, value+grad
+    records)."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import (atmosphere,
+                                                         cornell_box, furnace)
+
+    # ---- 15. the Cornell box at full width on the lane pool --------------------
+    phase_clock("15")
+    # cornell_box(256, 256, spp=64, max_depth=6): 4,194,304 samples, as the
+    # flagship; six analytic rectangles: no kernel runs
+    cbox = load_dict(cornell_box(*SIZES["cbox"]))
+    integrators.render(cbox, seed=0, spp=1, regen=True,
+                       samples_per_pass=lanes)  # warm-up
+    film, secs_c, launches, counts = counted_pool(cbox, lanes)
+    pools = {"cornell box": check_pool(
+        "cornell box 256x256 spp64 max_depth 6 (lane pool)", cbox, film,
+        secs_c, launches, counts, None, (0.05, 0.5))}
+    small_cbox = load_dict(cornell_box(SIZES["small"], SIZES["small"], 4, 6))
+    scan = integrators.render(small_cbox, seed=3, develop_film=False)
+    pool = integrators.render(small_cbox, seed=3, regen=True,
+                              samples_per_pass=lanes, develop_film=False)
+    flips = films_equivalent(scan.cpu().numpy(), pool.cpu().numpy(),
+                             max_flips=2)
+    print(f"# cornell box 64x64 spp4: lane pool vs scan driver films agree "
+          f"({flips} pixels over tolerance, budget 2)", flush=True)
+
+    # ---- 16. the analytic gates on the card ----------------------------------
+    phase_clock("16")
+    env_scene = load_dict({
+        "type": "scene", "integrator": {"type": "path", "max_depth": 2},
+        "sensor": {"type": "perspective",
+                   "film": {"type": "hdrfilm", "width": SIZES["small"],
+                            "height": SIZES["small"],
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": 4}},
+        "env": {"type": "constant", "radiance": 0.7}})
+    gates = {}
+    for regen in (False, True):
+        img = integrators.render(env_scene, regen=regen,
+                                 samples_per_pass=lanes)
+        gates[f"env regen={regen}"] = float((img - 0.7).abs().max())
+        assert gates[f"env regen={regen}"] <= 1e-3, gates
+    img = integrators.render(load_dict(furnace(0.5, 1.0, 16, 16, SIZES["furnace_spp"], 16)),
+                             seed=3, regen=True, samples_per_pass=lanes)
+    centre = img[6:10, 6:10].mean(dim=(0, 1))
+    gates["furnace centre"] = centre.tolist()
+    assert bool(((centre - 0.5).abs() < 0.02).all()), gates
+    medium_furnace = load_dict({
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": 256,
+                       "rr_depth": 1000},
+        "sensor": {"type": "perspective", "fov": 30.0,
+                   "to_world": {"type": "look_at", "origin": [0, 0, -4],
+                                "target": [0, 0, 0], "up": [0, 1, 0]},
+                   "film": {"type": "hdrfilm", "width": 8, "height": 8,
+                            "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent",
+                               "sample_count": SIZES["furnace_spp"]}},
+        "bound": {"type": "sphere", "radius": 1.0,
+                  "interior": {"type": "homogeneous", "sigma_t": 1.0,
+                               "albedo": 1.0}},
+        "env": {"type": "constant", "radiance": 1.0}})
+    img = integrators.render(medium_furnace, seed=2, regen=True,
+                             samples_per_pass=lanes)
+    gates["volumetric furnace mean"] = float(img.mean())
+    gates["volumetric furnace centre"] = float(img[4, 4].mean())
+    assert abs(gates["volumetric furnace mean"] - 1.0) < 0.03, gates
+    assert abs(gates["volumetric furnace centre"] - 1.0) < 0.12, gates
+    print(f"# analytic gates: constant environment 0.7 -> max error "
+          f"{gates['env regen=False']:.2e} (scan), "
+          f"{gates['env regen=True']:.2e} (pool); furnace(0.5, 1.0) centre "
+          f"{centre.tolist()} (0.5 within 0.02); volumetric furnace L "
+          f"{gates['volumetric furnace mean']:.4f}, centre "
+          f"{gates['volumetric furnace centre']:.4f} (1 within 0.03 and "
+          f"0.12)", flush=True)
+
+    # ---- 17-18. terrain(256) and the forest on the lane pool -----------------
+    phase_clock("17-18")
+    # 2^18 lanes: four fills of the 1,048,576 samples
+    pool_lanes = SIZES["pool_lanes"]
+    integrators.render(scene, seed=0, spp=1, regen=True,
+                       samples_per_pass=pool_lanes)  # warm-up
+    film, secs_t, launches, counts = counted_pool(scene, pool_lanes)
+    pools["terrain"] = check_pool(
+        "terrain render 256x256 spp16 max_depth 6 (lane pool)", scene, film,
+        secs_t, launches, counts, "tile_sweep", (0.005, 0.5))
+    # the budget of the CPU tests' films, 2 flipped pixels a 1,024
+    # samples: a hit on a shared edge (equal t) takes the triangle the
+    # sweep visits first, and the visit order follows the coherence sort of
+    # each query's rays, which differ between the pool and the scan
+    scan = integrators.render(scene, seed=0, develop_film=False)
+    budget = 2 * int(film[..., 4].sum()) // 1024
+    flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
+                             max_flips=budget)
+    pools["terrain"].update(scan_ms=render_s * 1e3, flips_vs_scan=flips)
+    print(f"# terrain 256x256 spp16: lane pool vs scan driver films agree "
+          f"({flips} pixels over tolerance, budget {budget}: 2 a 1,024 "
+          f"samples); scan render {render_s * 1e3:.1f} ms", flush=True)
+    for name, wide in (("tile_bvh", "0"), ("tile_bvh8", "1")):
+        with env(ERT_BVH_WIDE=wide):
+            integrators.render(forest, seed=0, spp=1, regen=True,
+                               samples_per_pass=pool_lanes)  # warm-up
+            film, secs_f, launches, counts = counted_pool(forest, pool_lanes)
+        pools[f"forest {name}"] = check_pool(
+            f"forest render 256x256 spp16 max_depth 6 ({name}, lane pool)",
+            forest, film, secs_f, launches, counts, name, (0.005, 0.5))
+        pools[f"forest {name}"]["scan_ms"] = forest_runs[name]["render_ms"]
+
+    # ---- 19. value+grad through the path replay: forest and terrain(256) ------
+    phase_clock("19")
+    small_vg = (SIZES["small"], SIZES["small"], 4, 6)
+    # spp 4 (the primal phases take 16): the time limit
+    surface_vg = {}
+    vg_scenes = {
+        "terrain": (load_dict(terrain_scene(V, F, *SIZES["value_grad"])),
+                    "0", "tile_sweep"),
+        "forest": (load_dict(forest_scene(*SIZES["value_grad"])), "0",
+                   "tile_bvh")}
+    for label, (sc, wide, kernel) in vg_scenes.items():
+        rows = {"sun": spec_row(sc, int(
+            sc.emitters["directional"]["irradiance"][0]))}
+        if label == "forest":  # the crown's diffuse reflectance
+            rows["crown"] = spec_row(sc, int(
+                sc.bsdfs["diffuse"]["reflectance"][0]))
+        with env(ERT_BVH_WIDE=wide):
+            surface_vg[label] = surface_value_grad(
+                f"{label} 256x256 spp4 max_depth 6", sc, pool_lanes, kernel,
+                rows)
+    # at 64x64 the gradients through the kernels and through the plain
+    # versions (the RPV rows are NaN in both: ROADMAP Queue 3)
+    # (the kernels of the value+grads above: the sweep and tile_bvh)
+    for label, d_small in (("terrain", terrain_scene(V, F, *small_vg)),
+                           ("forest tile_bvh", forest_scene(*small_vg))):
+        sc = load_dict(d_small)
+        grads_64 = {}
+        for how, ctx in (("kernels", contextlib.nullcontext),
+                         ("plain", intersect.use_plain)):
+            with ctx():
+                _rec, params = value_grad(sc, lanes, ["spectra.baked.value"],
+                                          primal=False)
+            grads_64[how] = params["spectra.baked.value"].grad
+        g, ref = grads_64["kernels"], grads_64["plain"]
+        ok = torch.isfinite(ref)
+        assert torch.equal(ok, torch.isfinite(g)), label
+        torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
+        print(f"# {label} 64x64 spp4 value+grad: kernels vs plain gradients "
+              f"agree (rtol 1e-5, atol 1e-7; max abs err "
+              f"{float((g[ok] - ref[ok]).abs().max()):.2e})", flush=True)
+
+    # ---- 20. the atmosphere under a constant sky: volpath's MIS walk ----------
+    phase_clock("20")
+    def sky_atmosphere(*args, **kw):
+        d = atmosphere(*args, **kw)
+        d["integrator"]["nee_transmittance"] = "residual"
+        d["sky"] = {"type": "constant", "radiance": 0.1}
+        return load_dict(d)
+
+    sky = sky_atmosphere(*SIZES["sky"], grid_res=64)
+    assert sky.config.env_emitter >= 0
+    film, secs_s, launches, counts = counted_pool(sky, lanes)
+    atmo["sky"] = check_atmosphere(
+        "sky-lit atmosphere 256x256 spp4 max_depth 12 grid 64", sky, film,
+        secs_s, launches, counts)
+    small_sky = sky_atmosphere(SIZES["small"], SIZES["small"], 4, 12,
+                               grid_res=64)
+    film_k, _ = integrators.render_wavefront_regen(small_sky, lanes, 3, 4)
+    with intersect.use_plain():
+        film_p, _ = integrators.render_wavefront_regen(small_sky, lanes, 3,
+                                                       4)
+    flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
+                             max_flips=2)
+    print(f"# sky-lit atmosphere 64x64 spp4: tile_sweep kernel vs plain "
+          f"films agree ({flips} pixels over tolerance, budget 2)",
+          flush=True)
+    if "--profile" in sys.argv[1:]:
+        # the profiler traces a 4-spp window of the same pool
+        profile_render(
+            lambda: integrators.render(cbox, seed=0, regen=True,
+                                       samples_per_pass=lanes),
+            secs_c, "cbox", window=lambda: integrators.render(
+                cbox, seed=0, spp=4, regen=True, samples_per_pass=lanes))
+        profile_render(
+            lambda: integrators.render(scene, seed=0, regen=True,
+                                       samples_per_pass=pool_lanes),
+            secs_t, "terrain_pool")
+        profile_render(
+            lambda: integrators.render(forest, seed=0, regen=True,
+                                       samples_per_pass=pool_lanes),
+            pools["forest tile_bvh"]["render_ms"] / 1e3, "forest_pool")
+    return pools, gates, surface_vg
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1154,6 +1514,7 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # ---- 1. build ------------------------------------------------------------
+    phase_clock("1")
     t0 = time.perf_counter()
     secs = _build.build_kernels(verbose=True)
     assert set(secs) == {"tile_sweep", "tile_bvh", "tile_bvh8",
@@ -1169,6 +1530,7 @@ def main():
             print(f"# SASS {fn}: {ops}", flush=True)
 
     # ---- 2. tile sweep vs plain on the bench terrain --------------------------
+    phase_clock("2")
     V, F = terrain(256)
     tiles_np = pack_tiles(V, F, np.zeros(len(F), np.int32))
     tiles = {k: torch.as_tensor(v, device=dev) for k, v in tiles_np.items()}
@@ -1220,6 +1582,7 @@ def main():
               flush=True)
 
     # ---- 3. full-width terrain render through the port's entry points -------
+    phase_clock("3")
     scene = load_dict(terrain_scene(V, F, 256, 256, 16, 6))
     integrators.render(scene, seed=0, spp=1)  # warm-up (allocator)
     img, render_s, launches, bounces, queries, traced = counted_render(
@@ -1230,6 +1593,7 @@ def main():
     sweep_launches = launches["tile_sweep"]
 
     # ---- 4. whole path: kernel vs plain sweep --------------------------------
+    phase_clock("4")
     small = load_dict(terrain_scene(V, F, 64, 64, 4, 6))
     film_k = integrators.render(small, seed=3, develop_film=False)
     with intersect.use_plain():
@@ -1240,6 +1604,7 @@ def main():
           f"({flips} pixels over tolerance, budget 2)", flush=True)
 
     # ---- 5. BVH kernels vs plain: terrain(256) and the forest ---------------
+    phase_clock("5")
     t0 = time.perf_counter()
     nbox, nmeta, depth = bvh.build_tile_bvh(tiles_np["lo"], tiles_np["hi"])
     cbox, cmeta = bvh.collapse_to_bvh8(nbox, nmeta)
@@ -1305,6 +1670,7 @@ def main():
                   "(Mrays/s ratio, full queries)", flush=True)
 
     # ---- 6. full-width forest renders through each BVH kernel ---------------
+    phase_clock("6")
     integrators.render(forest, seed=0, spp=1)  # warm-up (allocator)
     forest_runs = {}
     for name, wide in (("tile_bvh", "0"), ("tile_bvh8", "1")):
@@ -1333,7 +1699,9 @@ def main():
               f"leaves {stage['leaf_visits']}", flush=True)
 
     # ---- 7. whole path: each BVH kernel vs its plain version ----------------
-    small_forest = load_dict(forest_scene(64, 64, 4, 6))
+    phase_clock("7")
+    # max_depth 2 (phase 6 renders 6): the time limit (the plain walks)
+    small_forest = load_dict(forest_scene(64, 64, 4, 2))
     films = {}
     for name, wide in (("tile_bvh", "0"), ("tile_bvh8", "1")):
         with env(ERT_BVH_WIDE=wide):
@@ -1352,6 +1720,7 @@ def main():
           f"agree ({flips} pixels over tolerance, budget 2)", flush=True)
 
     # ---- 8. grid gather vs plain: the probe's shape and the 64^3 table -------
+    phase_clock("8")
     gen = torch.Generator().manual_seed(0)
     probe_tab = torch.rand(4096, 1, generator=gen).to(dev)
     probe_idx = torch.randint(0, 4096, (1024,), generator=gen,
@@ -1386,6 +1755,7 @@ def main():
           flush=True)
 
     # ---- 9-10. atmosphere renders on the regenerating lane pool --------------
+    phase_clock("9-10")
     lanes = 1 << 15
 
     def bench_atmosphere(*args, **kw):
@@ -1395,18 +1765,20 @@ def main():
         d["integrator"]["nee_transmittance"] = "residual"
         return load_dict(d)
 
-    flagship = bench_atmosphere(256, 256, 64, 12, grid_res=64)
+    # spp 16 and 4 (bench.py: 64 and 64; cut from 64 and 16 when phases
+    # 15-20 were added): the time limit
+    flagship = bench_atmosphere(256, 256, 16, 12, grid_res=64)
     integrators.render_wavefront_regen(flagship, lanes, 0, 1)  # warm-up
-    film, atmo_s, launches, counts = counted_regen(flagship, lanes)
+    film, atmo_s, launches, counts = counted_pool(flagship, lanes)
     atmo = {"flagship": check_atmosphere(
-        "atmosphere 256x256 spp64 max_depth 12 grid 64", flagship, film,
+        "atmosphere 256x256 spp16 max_depth 12 grid 64", flagship, film,
         atmo_s, launches, counts)}
     assert launches["grid_gather"] == 0  # the einsum path: 1,024 voxels
-    large = bench_atmosphere(256, 256, 16, 12, grid_res=(64, 64, 64))
+    large = bench_atmosphere(256, 256, 4, 12, grid_res=(64, 64, 64))
     assert large.vol_packed is not None
-    film, secs_l, launches, counts = counted_regen(large, lanes)
+    film, secs_l, launches, counts = counted_pool(large, lanes)
     atmo["large3d"] = check_atmosphere(
-        "atmosphere 256x256 spp16 max_depth 12 grid 64^3", large, film,
+        "atmosphere 256x256 spp4 max_depth 12 grid 64^3", large, film,
         secs_l, launches, counts)
     assert launches["grid_gather"] > 0
 
@@ -1465,6 +1837,7 @@ def main():
                       f"{rec['fused_over_sorted']:.3f}", flush=True)
 
     # ---- 11. whole path on the 64^3 atmosphere: kernels vs plain -------------
+    phase_clock("11")
     small_atmo = bench_atmosphere(64, 64, 4, 12, grid_res=(64, 64, 64))
     film_k, _ = integrators.render_wavefront_regen(small_atmo, lanes, 3, 4)
     for name, plain in (("grid_gather", gather.use_plain),
@@ -1479,6 +1852,7 @@ def main():
               flush=True)
 
     # ---- 13. the trilinear lookup's backward vs plain on the 64^3 load -------
+    phase_clock("13")
     gen13 = torch.Generator().manual_seed(13)
     grid64_c3 = torch.rand(1, 64, 64, 64, 3, generator=gen13).to(dev)
     bwd_loads = {}
@@ -1503,20 +1877,22 @@ def main():
               f"call {rec['device_us']}", flush=True)
 
     # ---- 14. value+grad of the flagship and the 64^3 atmosphere ----------------
-    # spp 4 (the primal phases take 64 and 16): the time limit
+    phase_clock("14")
+    # spp 2 (cut from 4; the primal phases take 16 and 4): the time limit
     grads = {}
     keys = ["volumes.gridvolume.grid", "volumes.constvolume.value",
             "spectra.baked.value"]
-    flagship4 = bench_atmosphere(256, 256, 4, 12, grid_res=64)
+    flagship4 = bench_atmosphere(256, 256, 2, 12, grid_res=64)
     rec, params = value_grad(flagship4, lanes, keys, threefry=True)
     grads["flagship"] = check_value_grad(
-        "atmosphere 256x256 spp4 max_depth 12 grid 64", flagship4, rec,
+        "atmosphere 256x256 spp2 max_depth 12 grid 64", flagship4, rec,
         params)
     assert rec["backward"]["launches"]["grid_trilinear_bwd"] == 0  # einsum
-    large4 = bench_atmosphere(256, 256, 4, 12, grid_res=(64, 64, 64))
+    large4 = bench_atmosphere(256, 256, 2, 12, grid_res=(64, 64, 64))
     rec, params = value_grad(large4, lanes, keys)
     grads["large3d"] = check_value_grad(
-        "atmosphere 256x256 spp4 max_depth 12 grid 64^3", large4, rec, params)
+        "atmosphere 256x256 spp2 max_depth 12 grid 64^3", large4, rec,
+        params)
     assert rec["backward"]["launches"]["grid_trilinear_bwd"] > 0
     # the same value+grad at 64x64 through the kernels and through the
     # plain gather (lookup and backward) and the plain sweep
@@ -1525,7 +1901,7 @@ def main():
                         ("grid_gather plain", gather.use_plain),
                         ("tile_sweep plain", intersect.use_plain)):
         with plain():
-            _rec, params = value_grad(small_atmo, lanes, keys)
+            _rec, params = value_grad(small_atmo, lanes, keys, primal=False)
         small_vg[name] = {k: p.grad for k, p in params.items()}
     for name in ("grid_gather plain", "tile_sweep plain"):
         worst = 0.0
@@ -1539,6 +1915,9 @@ def main():
               f"vs {name} gradients agree (rtol 1e-5, atol 1e-7; max abs "
               f"err {worst:.2e})", flush=True)
 
+    pools, gates, surface_vg = surface_phases(
+        scene, forest, V, F, render_s, forest_runs, lanes, atmo)
+
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
                        "terrain")
@@ -1548,17 +1927,18 @@ def main():
         # samples, 8 refills of the pool)
         profile_render(
             lambda: integrators.render_wavefront_regen(flagship, lanes, 0,
-                                                       64),
+                                                       16),
             atmo_s, "atmosphere",
             window=lambda: integrators.render_wavefront_regen(
                 flagship, lanes, 0, 4))
         profile_render(
-            lambda: integrators.render_wavefront_regen(large, lanes, 0, 16),
+            lambda: integrators.render_wavefront_regen(large, lanes, 0, 4),
             secs_l, "large3d",
             window=lambda: integrators.render_wavefront_regen(
                 large, lanes, 0, 2))
 
     # ---- 12. report -----------------------------------------------------------
+    phase_clock("12")
     p = loads["primary"]
     kernels = [{
         "name": "tile_sweep", "route": "cuda",
@@ -1572,6 +1952,13 @@ def main():
         "atmosphere_cube": dict(small_loads["atmosphere cube"], launches={
             k: v["launches"]["tile_sweep"] for k, v in atmo.items()},
             load="fused query, 32,768 rays, 1 tile"),
+        "launches_lane_pool": {
+            "terrain render": pools["terrain"]["launches"]["tile_sweep"],
+            "terrain value+grad forward": surface_vg["terrain"]["forward"][
+                "launches"]["tile_sweep"],
+            "terrain value+grad backward": surface_vg["terrain"][
+                "backward"]["launches"]["tile_sweep"],
+            "sky-lit atmosphere": atmo["sky"]["launches"]["tile_sweep"]},
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -1595,6 +1982,13 @@ def main():
             "terrain_primary": bvh_loads[(name, "terrain primary")],
             "terrain_incoherent": bvh_loads[(name, "terrain incoherent")],
             "forest_render": forest_runs[name],
+            "launches_lane_pool": dict(
+                {"forest render": pools[f"forest {name}"]["launches"][name]},
+                **({"forest value+grad forward": surface_vg["forest"][
+                    "forward"]["launches"][name],
+                    "forest value+grad backward": surface_vg["forest"][
+                        "backward"]["launches"][name]}
+                   if name == "tile_bvh" else {})),
         })
     # the main path's lookups run the fused trilinear entry (its library
     # call: grid_sample); the gather entry's loads carry index_select
@@ -1641,6 +2035,8 @@ def main():
     print(json.dumps({"atmosphere": {
         k: {kk: vv for kk, vv in v.items() if kk != "launches"}
         for k, v in atmo.items()}}))
+    print(json.dumps({"lane_pool": pools, "surface_value_grad": surface_vg,
+                      "gates": gates}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

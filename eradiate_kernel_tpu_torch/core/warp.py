@@ -1,4 +1,5 @@
-"""Sampling warps used by the surface path (core/warp.py counterpart)."""
+"""Sampling warps (core/warp.py counterpart): the ones the surface path,
+the emitters and shape sampling call."""
 
 from __future__ import annotations
 
@@ -8,7 +9,9 @@ import torch
 
 from .math import safe_sqrt
 
+TWO_PI = 2.0 * math.pi
 INV_PI = 1.0 / math.pi
+INV_FOUR_PI = 1.0 / (4.0 * math.pi)
 
 
 def square_to_uniform_disk_concentric(sample):
@@ -23,6 +26,23 @@ def square_to_uniform_disk_concentric(sample):
     phi = torch.where(quadrant_1_or_3, 0.5 * math.pi - phi, phi)
     phi = torch.where(is_zero, 0.0, phi)
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def square_to_uniform_triangle(sample):
+    """Barycentric (u, v) with u + v <= 1."""
+    t = safe_sqrt(1.0 - sample[..., 0])
+    return torch.stack([1.0 - t, t * sample[..., 1]], dim=-1)
+
+
+def square_to_uniform_sphere(sample):
+    z = 1.0 - 2.0 * sample[..., 1]
+    r = safe_sqrt(1.0 - z * z)
+    phi = TWO_PI * sample[..., 0]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_sphere_pdf(d):
+    return torch.full_like(d[..., 0], INV_FOUR_PI)
 
 
 def square_to_cosine_hemisphere(sample):

@@ -21,9 +21,10 @@ from ..core.rng import Sampler
 from ..core.spectrum import srgb_to_xyz
 from ..films import N_BASE_CHANNELS, develop, film_put
 from ..rfilters import filter_radius
-from . import path, volpath
+from . import depth, direct, path, volpath
 
-REGISTRY = {"path": path, "volpath": volpath}
+REGISTRY = {"path": path, "direct": direct, "depth": depth,
+            "volpath": volpath}
 
 
 def _camera_lanes(scene, seed, spp, sample):
@@ -180,8 +181,8 @@ def _check_regen(cfg):
     """Raise unless the lane pool can render this scene config."""
     if not regen_supported(cfg):
         raise NotImplementedError(
-            f"the lane pool runs volpath; {cfg.integrator.kind!r} takes the "
-            "scan driver (render(regen=False))")
+            f"the lane pool runs path and volpath; {cfg.integrator.kind!r} "
+            "takes the scan driver (render(regen=False))")
     if filter_radius(cfg.rfilter, dict(cfg.rfilter_params)) > 0.5 + 1e-6:
         raise NotImplementedError(
             "the lane pool needs a single-pixel filter (radius <= 0.5)")
@@ -214,7 +215,7 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     total = ch * cw * spp
     n_lanes = min(n_lanes, total)
     max_iterations, bounce_kwargs = mod._knobs(scene)
-    bounce_kwargs.update(mod._PRIMAL_BOUNCE_KWARGS)
+    bounce_kwargs.update(getattr(mod, "_PRIMAL_BOUNCE_KWARGS", {}))
 
     # slot `total` is the trash row of lanes that finished nothing
     slots = torch.zeros(total + 1, N_BASE_CHANNELS, device=dev)
@@ -238,8 +239,8 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
 
 def regen_supported(cfg) -> bool:
     """Whether the lane pool can run this integrator: it needs the bounce
-    hooks (volpath has them; the port's path tracer takes the scan
-    driver)."""
+    hooks (path and volpath have them; direct and depth take the scan
+    driver, as in the reference)."""
     mod = REGISTRY[cfg.integrator.kind]
     return all(hasattr(mod, h) for h in ("_init_state", "_bounce", "_knobs"))
 

@@ -3,8 +3,11 @@
 One masked bounce per loop iteration over SoA path state. The intersection
 is deferred to the top of the bounce, and the emitter-hit MIS weight is
 computed from the previous bounce's carried (bsdf_pdf, hit point, delta
-flag). A site whose lanes are all dead is skipped: ``if mask.any()`` (one
-host sync per site) stands in for the reference's ``lax.cond``.
+flag). Depth is per lane, so the bounce also drives the regenerating lane
+pool (integrators.render_wavefront_regen) and its path-replay backward
+(integrators/replay.py). A site whose lanes are all dead is skipped:
+``if any_lane(mask):`` (one counted host sync per site) stands in for the
+reference's ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from ..core.ray import Ray
 from ..core.rng import Sampler
 from ..render.geometry import ray_intersect
 from ..render.records import SurfaceInteraction, invalid_si, merge
-from .common import mis_weight
+from .common import any_lane, mis_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,13 +43,33 @@ class _PathState:
     n_rays: torch.Tensor              # () rays traced
 
 
-def _init_state(scene, sampler: Sampler, ray: Ray):
+# the path-replay backward (integrators/replay.py) may differentiate this
+# integrator: `result` and `throughput` carry the replay's cotangents.
+# prev_bsdf_pdf's cross-bounce cotangent is dropped, the detached-MIS
+# approximation (exact for value-class parameters, whose pdfs do not
+# depend on them)
+_REPLAY_OK = True
+
+
+def _knobs(scene):
+    """(max_iterations, bounce kwargs): the lane pool's contract."""
+    cfg = scene.config.integrator
+    return cfg.max_depth, dict(max_depth=cfg.max_depth,
+                               rr_depth=cfg.rr_depth)
+
+
+def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
+    """Fresh per-lane path state; a ray with a non-finite origin starts
+    dead."""
     n = ray.o.shape[0]
     dev = ray.o.device
     ones = torch.ones(n, device=dev)
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+    ok = (0.0 * ray.o[:, 0]) == 0.0
     return _PathState(
         sampler=sampler, ray=ray, si=invalid_si(n, dev),
-        needs_intersection=torch.ones(n, dtype=torch.bool, device=dev),
+        needs_intersection=ok.clone(),
         throughput=torch.ones(n, 3, device=dev),
         result=torch.zeros(n, 3, device=dev), eta=ones,
         # prev_delta=True gives em_pdf=0 at the first hit -> weight 1
@@ -54,11 +77,10 @@ def _init_state(scene, sampler: Sampler, ray: Ray):
         prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
         valid_ray=torch.zeros(n, dtype=torch.bool, device=dev),
         depth=torch.zeros(n, dtype=torch.int32, device=dev),
-        active=torch.ones(n, dtype=torch.bool, device=dev),
-        n_rays=torch.zeros((), device=dev))
+        active=active & ok, n_rays=torch.zeros((), device=dev))
 
 
-def _bounce(scene, s: _PathState, max_depth, rr_depth):
+def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
     """One masked wavefront bounce (the loop body of path.cpp:100-227)."""
     n = s.ray.o.shape[0]
     dev = s.ray.o.device
@@ -67,7 +89,7 @@ def _bounce(scene, s: _PathState, max_depth, rr_depth):
     # ---- deferred intersection for this bounce's hit ------------------------
     do_isect = s.needs_intersection & active
     si = s.si
-    if do_isect.any():
+    if any_lane(do_isect):
         si = merge(ray_intersect(scene.geo, s.ray, do_isect), s.si, do_isect)
     n_rays = s.n_rays + do_isect.sum()
     needs_intersection = s.needs_intersection & ~do_isect
@@ -78,7 +100,7 @@ def _bounce(scene, s: _PathState, max_depth, rr_depth):
     escaped = ~si.is_valid
     mis_lanes = active & ~s.prev_delta
     em_pdf = torch.zeros(n, device=dev)
-    if mis_lanes.any():
+    if any_lane(mis_lanes):
         em_pdf = emitters.pdf_emitter_direction(scene, s.prev_p, si, escaped,
                                                 mis_lanes)
     em_pdf = torch.where(s.prev_delta, 0.0, em_pdf)
@@ -87,7 +109,7 @@ def _bounce(scene, s: _PathState, max_depth, rr_depth):
     if scene.config.integrator.hide_emitters:
         hit_emit = active & (s.depth != 0)
     emit = torch.zeros(n, 3, device=dev)
-    if hit_emit.any():
+    if any_lane(hit_emit):
         emit = (emitters.eval_emitter_hit(scene, si, hit_emit)
                 + emitters.eval_environment(scene, s.ray, escaped, hit_emit))
     result = s.result + emission_weight[:, None] * s.throughput * emit
@@ -112,7 +134,7 @@ def _bounce(scene, s: _PathState, max_depth, rr_depth):
     bsdf_idx = scene.shape_bsdf[torch.clamp(si.shape_index, min=0)]
     is_smooth = (scene.bsdf_flags[bsdf_idx] & bsdf_flags.Smooth) != 0
     nee_active = active & is_smooth & (scene.config.n_emitters > 0)
-    if nee_active.any():
+    if any_lane(nee_active):
         ds, emitter_weight = emitters.sample_emitter_direction(
             scene, si, s_pick, s1, s2, nee_active)
         bsdf_val, bsdf_pdf = bsdfs.bsdf_eval_pdf(
@@ -127,7 +149,7 @@ def _bounce(scene, s: _PathState, max_depth, rr_depth):
     # ---- BSDF sampling (path.cpp:177-205) -----------------------------------
     smp, sb1 = smp.next_1d()
     smp, sb2 = smp.next_2d()
-    if active.any():
+    if any_lane(active):
         bs, bsdf_weight = bsdfs.bsdf_sample(scene, bsdf_idx, si, sb1, sb2,
                                             active)
     else:
@@ -161,11 +183,11 @@ def _trace(scene, sampler: Sampler, ray: Ray):
     The reference scans a fixed max_depth bounces. Once every lane is dead
     a bounce changes nothing but the sampler's counter, which no later
     draw reads, so the loop stops there."""
-    cfg = scene.config.integrator
+    max_iterations, bkw = _knobs(scene)
     state = _init_state(scene, sampler, ray)
     bounces = 0
-    while bounces < cfg.max_depth and bool(state.active.any()):
-        state = _bounce(scene, state, cfg.max_depth, cfg.rr_depth)
+    while bounces < max_iterations and any_lane(state.active):
+        state = _bounce(scene, state, **bkw)
         bounces += 1
     return state, bounces
 

@@ -109,7 +109,7 @@ def _adjoint_sweep(scene, seed, slog, ct_film, n_lanes, spp, needs):
     cx, cy = cfg.crop_offset
     total = ch * cw * spp
     max_iterations, bounce_kwargs = mod._knobs(scene)
-    bounce_kwargs.update(mod._REPLAY_BOUNCE_KWARGS)
+    bounce_kwargs.update(getattr(mod, "_REPLAY_BOUNCE_KWARGS", {}))
     # the sweep's lane count is its own: trajectories are keyed by sample
     n_lanes = min(int(dict(cfg.integrator.extra).get("replay_lanes",
                                                      n_lanes)), total)

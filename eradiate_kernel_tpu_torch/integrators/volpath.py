@@ -7,14 +7,19 @@ volpath.py counterpart; volpath.cpp as a masked wavefront program).
   boundaries with the residual ratio-tracking transmittance walk
   (``nee_transmittance="residual"``; for plane-parallel media its residual
   is zero and the walk is the exact closed form);
-- BSDF sampling at surfaces. The MIS walk of ``evaluate_direct_light`` is
-  dead code for scenes whose emitters are all delta emitters, the only
-  ones this slice carries, and comes with slice 5.
+- BSDF sampling at surfaces, and for scenes with area or environment
+  emitters the MIS walk of ``evaluate_direct_light`` (volpath.cpp:370-465):
+  the BSDF-sampled ray is walked through media and null boundaries with
+  the same residual estimator until it finds an emitter, and its
+  contribution is weighted against the emitter-sampling pdf. For scenes
+  whose emitters are all delta emitters the walk is dead code and is
+  skipped, as in the reference.
 
 Detach discipline (volpath.cpp:83): every sampling decision is cut from
 the gradient as the reference cuts it with stop_gradient: the RR
 probability, the null/real probability, the sigma_n and sigma_t divisors
-of the null and real event weights, the residual walk's collision rate,
+of the null and real event weights, the residual walks' collision rates
+(the NEE walk's and the MIS walk's),
 the media's majorants and rate profiles (media/__init__.py) and the
 preliminary intersection (render/geometry.py). Gradients of value-class
 parameters then flow only through the carried throughput and result.
@@ -44,6 +49,13 @@ from ..render.records import SurfaceInteraction, invalid_si, merge
 from .common import any_lane, mis_weight
 
 _DELTA_EMITTERS = ("point", "directional", "spot", "projector")
+
+
+def _all_emitters_delta(cfg):
+    """No emitter can be hit by a sampled ray (delta positions and
+    directions only, no environment): the MIS walk is dead code."""
+    return cfg.env_emitter < 0 and all(k in _DELTA_EMITTERS
+                                       for k in cfg.emitter_kinds)
 
 
 def _gate(on):
@@ -105,6 +117,8 @@ class _WalkHit:
     p: torch.Tensor            # (N, 3)
     n: torch.Tensor            # (N, 3) geometric normal
     shape_index: torch.Tensor  # (N,) i32, -1 invalid
+    uv: torch.Tensor           # (N, 2) surface uv (emitter textures)
+    wi: torch.Tensor           # (N, 3) local incident direction
 
     @property
     def is_valid(self):
@@ -118,7 +132,8 @@ class _WalkHit:
 
 
 def _walk_hit(si):
-    return _WalkHit(t=si.t, p=si.p, n=si.n, shape_index=si.shape_index)
+    return _WalkHit(t=si.t, p=si.p, n=si.n, shape_index=si.shape_index,
+                    uv=si.uv, wi=si.wi)
 
 
 def _invalid_walk_hit(n, dev):
@@ -127,7 +142,8 @@ def _invalid_walk_hit(n, dev):
     return _WalkHit(t=torch.full((n,), INVALID_T, device=dev),
                     p=torch.zeros(n, 3, device=dev), n=up,
                     shape_index=torch.full((n,), -1, dtype=torch.int32,
-                                           device=dev))
+                                           device=dev),
+                    uv=torch.zeros(n, 2, device=dev), wi=up)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,16 +261,15 @@ def _walk_step_closed_form(scene, s, ds, ca):
                        no_hit)
 
 
-def _walk_step_residual(scene, s, ds, ca):
-    """One residual-ratio-tracking walk step (Novak et al. 2014): over the
-    medium segment up to the next surface,
+def _residual_segment(scene, s, ray, si, active, seg_end, ca):
+    """The medium part of a residual-ratio-tracking step (Novak et al.
+    2014), shared by the NEE walk and the MIS walk: over the medium segment
+    up to ``seg_end``,
       T_seg = exp(-int sigma_c) * prod_collisions (1 - (sigma - sigma_c)/R)
-    with collisions at the residual rate R >= |sigma - sigma_c|. A step
-    either collides (advances inside the medium) or crosses the surface
-    bounding the segment."""
+    with collisions at the residual rate R >= |sigma - sigma_c|. Returns
+    (sampler, collided, the collision distance (0 elsewhere), the
+    transmittance, the ray and the hit moved to a collision)."""
     nc = s.transmittance.shape[-1]
-    (remaining, ray, active, si, needs_intersection, n_rays,
-     seg_end) = _walk_prelude(scene, s, ds, ca)
     in_medium = active & (s.medium_idx >= 0)
     med = torch.clamp(s.medium_idx, min=0)
     smp, xi = s.sampler.next_1d()
@@ -269,7 +284,7 @@ def _walk_step_residual(scene, s, ds, ca):
             scene, med, ray, a, torch.where(hit, dt, b), nc)
         return hit, torch.where(hit, dt, 0.0), rate, tau_c
 
-    z = torch.zeros_like(s.total_dist)
+    z = torch.zeros_like(seg_end)
     hit_res, dt, rate, tau_c = ca(
         in_medium, med_block,
         lambda: (torch.zeros_like(active), z, z,
@@ -279,9 +294,11 @@ def _walk_step_residual(scene, s, ds, ca):
                                 s.transmittance)
 
     def col_block():
-        p_col = ray.at(torch.where(hit_res, dt, 0.0))
+        p_col = ray.at(dt)
         st = media.medium_sigma_t(scene, med, p_col, nc)
         sc = media.medium_ctrl_sigma(scene, med, p_col, nc)
+        # the collision rate is a sampling parameter (ref volpath.py:739,
+        # :875); it arrives detached from the rate profile already
         den = torch.clamp(rate, min=1e-20).detach()[..., None]
         return 1.0 - (st - sc) / den
 
@@ -289,13 +306,23 @@ def _walk_step_residual(scene, s, ds, ca):
                lambda: torch.ones_like(s.transmittance))
     transmittance = torch.where(hit_res[..., None], transmittance * w_col,
                                 transmittance)
-    total_dist = s.total_dist + torch.where(
-        active, torch.where(hit_res, dt, seg_end), 0.0)
     ray = dataclasses.replace(
-        ray, o=torch.where(hit_res[..., None],
-                           ray.at(torch.where(hit_res, dt, 0.0)), ray.o),
+        ray, o=torch.where(hit_res[..., None], ray.at(dt), ray.o),
         mint=torch.where(hit_res, 0.0, ray.mint))
     si = dataclasses.replace(si, t=torch.where(hit_res, si.t - dt, si.t))
+    return smp, hit_res, dt, transmittance, ray, si
+
+
+def _walk_step_residual(scene, s, ds, ca):
+    """One residual walk step of the NEE walk: it either collides inside
+    the medium (_residual_segment) or crosses the surface bounding the
+    segment."""
+    (remaining, ray, active, si, needs_intersection, n_rays,
+     seg_end) = _walk_prelude(scene, s, ds, ca)
+    smp, hit_res, dt, transmittance, ray, si = _residual_segment(
+        scene, s, ray, si, active, seg_end, ca)
+    total_dist = s.total_dist + torch.where(
+        active, torch.where(hit_res, dt, seg_end), 0.0)
     return _walk_cross(scene, s, ray, si, remaining, active & ~hit_res,
                        transmittance, needs_intersection, total_dist, n_rays,
                        smp, hit_res)
@@ -344,6 +371,108 @@ def _sample_emitter(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
 
 
 # =============================================================================
+# evaluate_direct_light (volpath.cpp:370-465): walk a BSDF-sampled ray
+# through media and null boundaries until it finds an emitter
+# =============================================================================
+
+@dataclasses.dataclass(frozen=True)
+class _DirectState:
+    sampler: Sampler
+    ray: Ray
+    si: _WalkHit
+    needs_intersection: torch.Tensor
+    medium_idx: torch.Tensor
+    transmittance: torch.Tensor
+    emitter_val: torch.Tensor  # (N, 3) transmittance x emitted radiance
+    emitter_pdf: torch.Tensor  # (N,) emitter sampling's pdf of the hit
+    active: torch.Tensor
+    n_rays: torch.Tensor       # () rays traced
+
+
+def _direct_step_residual(scene, s, ref_p, ca):
+    """One step of the MIS walk: it collides inside the medium
+    (_residual_segment) or reaches the surface ending its segment, where it
+    either finds an emitter (area, or the environment on escape: the walk
+    ends with its value and pdf) or crosses a null boundary."""
+    active = s.active
+    ray = s.ray
+    do_isect = s.needs_intersection & active
+    si = ca(do_isect,
+            lambda: merge(_walk_hit(ray_intersect(scene.geo, ray, do_isect)),
+                          s.si, do_isect),
+            lambda: s.si)
+    needs_intersection = s.needs_intersection & ~do_isect
+    n_rays = s.n_rays + do_isect.sum()
+    smp, hit_res, _dt, transmittance, ray, si = _residual_segment(
+        scene, s, ray, si, active, torch.clamp(si.t, max=INVALID_T), ca)
+
+    # lanes that passed their segment reach its end: an emitter hit or a
+    # null crossing
+    passed = active & ~hit_res
+    em_idx = scene.shape_emitter[_shape_of(si)]
+    hit_area = passed & si.is_valid & (em_idx >= 0)
+    hit_env = passed & ~si.is_valid & (scene.config.env_emitter >= 0)
+    emitter_hit = hit_area | hit_env
+
+    def emitter_block():
+        e_val = (emitters.eval_emitter_hit(scene, si, hit_area)
+                 + emitters.eval_environment(scene, ray, ~si.is_valid,
+                                             hit_env))
+        epdf = emitters.pdf_emitter_direction(scene, ref_p, si,
+                                              ~si.is_valid, emitter_hit)
+        return (torch.where(emitter_hit[..., None], transmittance * e_val,
+                            s.emitter_val),
+                torch.where(emitter_hit, epdf, s.emitter_pdf))
+
+    emitter_val, emitter_pdf = ca(emitter_hit, emitter_block,
+                                  lambda: (s.emitter_val, s.emitter_pdf))
+    active = active & ~emitter_hit
+    hit_res = hit_res & active
+    active_surface = passed & active & si.is_valid
+    transmittance = torch.where(
+        active_surface[..., None],
+        transmittance * _eval_null_transmission(scene, si, active_surface),
+        transmittance)
+    ray = Ray(o=torch.where(active_surface[..., None],
+                            si.offset_origin(ray.d), ray.o),
+              d=ray.d, mint=torch.where(active_surface, 0.0, ray.mint),
+              maxt=ray.maxt, time=ray.time)
+    nonzero = torch.any(transmittance != 0.0, dim=-1)
+    has_trans = active_surface & _is_medium_transition(scene, si)
+    return _DirectState(
+        sampler=smp, ray=ray, si=si,
+        needs_intersection=needs_intersection | active_surface,
+        medium_idx=torch.where(has_trans, _target_medium(scene, si, ray.d),
+                               s.medium_idx),
+        transmittance=transmittance, emitter_val=emitter_val,
+        emitter_pdf=emitter_pdf,
+        active=(hit_res | active_surface) & nonzero, n_rays=n_rays)
+
+
+def _evaluate_direct_light(scene, ref_p, ray, si_ray, medium_idx, sampler,
+                           active, nee_steps, use_while, ca):
+    """The MIS walk of the BSDF-sampled ``ray`` (its first hit ``si_ray``
+    already found) -> (transmittance x emitted radiance (N, 3), emitter
+    sampling's pdf of that direction, sampler, rays traced). Under
+    plane-parallel media the residual tables are zero, so the walk is the
+    closed form with a dead collision site, as in the reference."""
+    n = ref_p.shape[0]
+    dev = ref_p.device
+    state = _DirectState(
+        sampler=sampler, ray=ray, si=_walk_hit(si_ray),
+        needs_intersection=torch.zeros(n, dtype=torch.bool, device=dev),
+        medium_idx=medium_idx,
+        transmittance=torch.where(active[..., None],
+                                  torch.ones(n, 3, device=dev), 0.0),
+        emitter_val=torch.zeros(n, 3, device=dev),
+        emitter_pdf=torch.zeros(n, device=dev), active=active,
+        n_rays=torch.zeros((), device=dev))
+    final = _run_walk(lambda s: _direct_step_residual(scene, s, ref_p, ca),
+                      state, nee_steps, use_while)
+    return final.emitter_val, final.emitter_pdf, final.sampler, final.n_rays
+
+
+# =============================================================================
 # the main loop (volpath.cpp:38-258)
 # =============================================================================
 
@@ -375,11 +504,6 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     nc = s.throughput.shape[-1]
     ca = _gate(gate_sites)
     ca_walk = _gate(gate_sites if gate_walks is None else gate_walks)
-    if not all(k in _DELTA_EMITTERS for k in cfg.emitter_kinds) \
-            or cfg.env_emitter >= 0:
-        raise NotImplementedError(
-            "volpath with area or environment emitters (the MIS walk of "
-            "evaluate_direct_light): comes with slice 5")
     smp = s.sampler
     active = s.active & torch.any(s.throughput != 0.0, dim=-1)
     ray = s.ray
@@ -484,11 +608,13 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     # emitter hits on specular chains only
     em_idx = scene.shape_emitter[_shape_of(si)]
     hit_area = active_surface & si.is_valid & (em_idx >= 0)
-    use_emit = hit_area & specular_chain
+    hit_env = active_surface & ~si.is_valid & (cfg.env_emitter >= 0)
+    use_emit = (hit_area | hit_env) & specular_chain
     e_val = ca(use_emit,
-               lambda: emitters.eval_emitter_hit(scene, si, use_emit)
+               lambda: emitters.eval_emitter_hit(scene, si,
+                                                 use_emit & hit_area)
                + emitters.eval_environment(scene, ray, ~si.is_valid,
-                                           use_emit),
+                                           use_emit & hit_env),
                lambda: torch.zeros(n, nc, device=dev))
     result = s.result + torch.where(use_emit[..., None], throughput * e_val,
                                     0.0)
@@ -561,6 +687,9 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     specular_chain = specular_chain | (non_null & sampled_delta)
     specular_chain = specular_chain & ~(active_surface & sampled_smooth)
 
+    add_emitter = (active_surface & ~sampled_delta & ~sampled_null
+                   & torch.any(throughput != 0, dim=-1) & (depth < max_depth)
+                   & (cfg.n_emitters > 0))
     si_new = ca(active_surface,
                 lambda: merge(ray_intersect(scene.geo, ray, active_surface),
                               si, active_surface),
@@ -572,6 +701,27 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     has_trans = active_surface & _is_medium_transition(scene, si)
     medium_next = torch.where(has_trans, _target_medium(scene, si, ray.d),
                               s.medium_idx)
+
+    if not _all_emitters_delta(cfg):
+        # the MIS walk of the BSDF-sampled ray; the skipped branch advances
+        # the sampler as the walk does: nee_steps dimensions
+        def direct_skip():
+            return (torch.zeros(n, nc, device=dev),
+                    torch.zeros(n, device=dev),
+                    dataclasses.replace(smp, dim=smp.dim + nee_steps),
+                    torch.zeros((), device=dev))
+
+        emitted_d, emitter_pdf, smp, nr_d = ca(
+            add_emitter,
+            lambda: _evaluate_direct_light(
+                scene, si.p, ray, si_new, medium_next, smp, add_emitter,
+                nee_steps, while_walks, ca_walk),
+            direct_skip)
+        n_rays = n_rays + nr_d
+        w_dir = mis_weight(bs.pdf, emitter_pdf)
+        result = result + torch.where(
+            (add_emitter & (emitter_pdf > 0))[..., None],
+            throughput * w_dir[..., None] * emitted_d, 0.0)
 
     return _VolPathState(
         sampler=smp, ray=ray, si=merge(si_new, si, active_surface),

@@ -2,7 +2,7 @@
 
 Two phases as in the reference: ``ray_intersect_preliminary`` finds the
 closest hit (triangle meshes and instances through a tile kernel of
-ops/intersect.py, rectangles by a brute-force test) and
+ops/intersect.py; spheres, rectangles and disks by a brute-force test) and
 ``compute_surface_interaction`` recomputes the hit from primitive data.
 
 Accel policy of the port (``_accel_mode``): the reference's policy on its
@@ -15,12 +15,13 @@ sweep; instanced scenes and larger meshes take the binary tile BVH, or the
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 
 import torch
 
 from ..core.frame import Frame
-from ..core.math import INVALID_T, cross, normalize, sqr
+from ..core.math import INVALID_T, cross, dot, normalize, safe_sqrt, sqr
 from ..core.ray import Ray
 from ..core.transform import Transform
 from ..ops.intersect import (intersect_bvh, intersect_bvh8, intersect_tiles,
@@ -28,7 +29,9 @@ from ..ops.intersect import (intersect_bvh, intersect_bvh8, intersect_tiles,
 from .records import PreliminaryIntersection, SurfaceInteraction
 
 FAMILY_MESH = 0
+FAMILY_SPHERE = 1
 FAMILY_RECT = 2
+FAMILY_DISK = 3
 FAMILY_IMESH = 6  # instanced mesh (two-level: shared group geometry)
 
 # above this tile count the policy switches from the sweep to the BVH (the
@@ -44,16 +47,22 @@ _TILE_FIELDS = ("tiles_v0", "tiles_e1", "tiles_e2", "tiles_prim",
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Mesh, rectangle and instancing pools plus the triangle-tile
-    accelerators."""
+    """Mesh, sphere, rectangle, disk and instancing pools plus the
+    triangle-tile accelerators."""
 
     vertices: torch.Tensor      # (V, 3)
     normals: torch.Tensor       # (V, 3) zero rows -> face normal
     uvs: torch.Tensor           # (V, 2)
     faces: torch.Tensor         # (F, 3) i32
     face_shape: torch.Tensor    # (F,) i32 global shape index
+    sph_center: torch.Tensor    # (S, 3)
+    sph_radius: torch.Tensor    # (S,)
+    sph_shape: torch.Tensor     # (S,) i32
+    sph_flip: torch.Tensor      # (S,) bool: normals point inward
     rect_to_world: Transform    # (R, 4, 4) canonical [-1,1]^2 in z=0
     rect_shape: torch.Tensor    # (R,) i32
+    disk_to_world: Transform    # (D, 4, 4) canonical unit disk in z=0
+    disk_shape: torch.Tensor    # (D,) i32
     shape_family: torch.Tensor  # (n_shapes,) i32
     tiles_v0: torch.Tensor      # (T, K, 3)
     tiles_e1: torch.Tensor      # (T, K, 3)
@@ -178,6 +187,33 @@ def _plane_hit_local(to_world: Transform, ray: Ray):
     return t, p, torch.abs(d[..., 2]) >= 1e-12
 
 
+def _sphere_roots(center, radius, o, d):
+    """(valid, near, far) of the stable quadratic (sphere.cpp:272-349)."""
+    L = o - center
+    a = dot(d, d)
+    b = 2.0 * dot(d, L)
+    c = dot(L, L) - sqr(radius)
+    disc = sqr(b) - 4.0 * a * c
+    sqrt_d = safe_sqrt(disc)
+    q = -0.5 * (b + torch.where(b >= 0, sqrt_d, -sqrt_d))
+    t0 = q / a
+    t1 = c / torch.where(torch.abs(q) < 1e-20, 1e-20, q)
+    return disc >= 0.0, torch.minimum(t0, t1), torch.maximum(t0, t1)
+
+
+def _intersect_spheres(geo: Geometry, ray: Ray):
+    valid, near, far = _sphere_roots(geo.sph_center, geo.sph_radius,
+                                     ray.o[:, None, :], ray.d[:, None, :])
+    mint, maxt = ray.mint[:, None], ray.maxt[:, None]
+    t = torch.where((near >= mint) & (near <= maxt), near,
+                    torch.where((far >= mint) & (far <= maxt), far,
+                                float("inf")))
+    t = torch.where(valid, t, float("inf"))
+    tb, best = torch.min(t, dim=-1)
+    return (tb, torch.zeros(tb.shape[0], 2, device=tb.device),
+            best.to(torch.int32), geo.sph_shape[best])
+
+
 def _intersect_rects(geo: Geometry, ray: Ray):
     t, p, ok = _plane_hit_local(geo.rect_to_world, ray)
     inside = (torch.abs(p[..., 0]) <= 1.0) & (torch.abs(p[..., 1]) <= 1.0)
@@ -191,9 +227,25 @@ def _intersect_rects(geo: Geometry, ray: Ray):
             geo.rect_shape[best])
 
 
+def _intersect_disks(geo: Geometry, ray: Ray):
+    t, p, ok = _plane_hit_local(geo.disk_to_world, ray)
+    valid = (ok & (sqr(p[..., 0]) + sqr(p[..., 1]) <= 1.0)
+             & (t >= ray.mint[:, None]) & (t <= ray.maxt[:, None]))
+    t = torch.where(valid, t, float("inf"))
+    tb, best = torch.min(t, dim=-1)
+    pb = torch.gather(p[..., :2], 1,
+                      best[:, None, None].expand(-1, 1, 2))[:, 0]
+    r = safe_sqrt(sqr(pb[:, 0]) + sqr(pb[:, 1]))
+    phi = torch.atan2(pb[:, 1], pb[:, 0])
+    phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+    return (tb, torch.stack([r, phi / (2 * math.pi)], dim=-1),
+            best.to(torch.int32), geo.disk_shape[best])
+
+
 def ray_intersect_preliminary(geo: Geometry, ray: Ray,
                               active=None) -> PreliminaryIntersection:
-    """Closest hit over meshes, instances and rectangles. ``active``
+    """Closest hit over meshes, instances, spheres, rectangles and disks
+    (in the reference's order, so ties resolve alike). ``active``
     (optional bool (N,)) marks the lanes whose hits are wanted; the tile
     kernel sees the others as dead rays (maxt = mint), which cannot hit.
     One tile kernel serves every mesh leaf, instanced or not."""
@@ -218,8 +270,12 @@ def ray_intersect_preliminary(geo: Geometry, ray: Ray,
             tile_ray = dataclasses.replace(
                 ray, maxt=torch.where(active, ray.maxt, ray.mint))
         merge(*_QUERIES[_accel_mode(geo)](geo.tiles(), tile_ray))
+    if geo.sph_shape.shape[0] > 0:
+        merge(*_intersect_spheres(geo, ray))
     if geo.rect_shape.shape[0] > 0:
         merge(*_intersect_rects(geo, ray))
+    if geo.disk_shape.shape[0] > 0:
+        merge(*_intersect_disks(geo, ray))
     shape = torch.where(torch.isfinite(t), shape, -1)
     return PreliminaryIntersection(t=t, prim_uv=uv, prim_index=prim,
                                    shape_index=shape)
@@ -232,8 +288,8 @@ def ray_test(geo: Geometry, ray: Ray, active=None):
 
 def compute_surface_interaction(geo: Geometry, ray: Ray,
                                 pi: PreliminaryIntersection):
-    """Recompute the hit per family of the hit shape (mesh.cpp and
-    rectangle.cpp formulas), differentiably in the ray and the primitive
+    """Recompute the hit per family of the hit shape (mesh.cpp, sphere.cpp,
+    rectangle.cpp and disk.cpp formulas), differentiably in the ray and the primitive
     data; the preliminary hit's distance is detached and clamped before
     any use (a miss's inf would make a zero cotangent NaN)."""
     n_lanes = ray.o.shape[0]
@@ -316,6 +372,33 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
         dp_du = sel(m, l2w.transform_vector(v1 - v0), dp_du)
         dp_dv = sel(m, l2w.transform_vector(v2 - v0), dp_dv)
 
+    S = geo.sph_shape.shape[0]
+    if S > 0:
+        m = (family == FAMILY_SPHERE) & valid
+        k = torch.clamp(pi.prim_index, 0, S - 1).long()
+        c, r, flip = geo.sph_center[k], geo.sph_radius[k], geo.sph_flip[k]
+        _v, near, far = _sphere_roots(c, r, ray.o, ray.d)
+        # which root was hit is a sampling decision (a bool: no gradient)
+        use_far = torch.abs(pit - far) < torch.abs(pit - near)
+        ts = torch.where(use_far, far, near)
+        # re-projected onto the sphere for robustness (sphere.cpp)
+        ns = normalize(ray.at(ts) - c)
+        ps = c + ns * r[:, None]
+        nss = torch.where(flip[:, None], -ns, ns)
+        theta = torch.acos(torch.clamp(ns[:, 2], -1, 1))
+        phi = torch.atan2(ns[:, 1], ns[:, 0])
+        phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+        du = torch.stack([-ns[:, 1], ns[:, 0], torch.zeros_like(theta)],
+                         dim=-1)
+        t = sel(m, ts, t)
+        p = sel(m, ps, p)
+        n = sel(m, nss, n)
+        sh_n = sel(m, nss, sh_n)
+        uv = sel(m, torch.stack([phi / (2 * math.pi), theta / math.pi],
+                                dim=-1), uv)
+        dp_du = sel(m, du, dp_du)
+        dp_dv = sel(m, cross(nss, du), dp_dv)
+
     R = geo.rect_shape.shape[0]
     if R > 0:
         m = (family == FAMILY_RECT) & valid
@@ -338,6 +421,29 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
         uv = sel(m, 0.5 * (p_l[:, :2] + 1.0), uv)
         dp_du = sel(m, tw.transform_vector(2.0 * axis(0)), dp_du)
         dp_dv = sel(m, tw.transform_vector(2.0 * axis(1)), dp_dv)
+
+    D = geo.disk_shape.shape[0]
+    if D > 0:
+        m = (family == FAMILY_DISK) & valid
+        k = torch.clamp(pi.prim_index, 0, D - 1).long()
+        tw = Transform(m=geo.disk_to_world.m[k],
+                       inv_t=geo.disk_to_world.inv_t[k])
+        inv = tw.inverse()
+        o_l = inv.transform_affine_point(ray.o)
+        d_l = inv.transform_vector(ray.d)
+        dz = torch.where(torch.abs(d_l[:, 2]) < 1e-12, 1e-12, d_l[:, 2])
+        td = -o_l[:, 2] / dz
+        p_l = o_l + d_l * td[:, None]
+        pd = tw.transform_affine_point(
+            torch.cat([p_l[:, :2], torch.zeros_like(p_l[:, :1])], dim=-1))
+        nd = normalize(tw.transform_normal(axis(2)))
+        t = sel(m, td, t)
+        p = sel(m, pd, p)
+        n = sel(m, nd, n)
+        sh_n = sel(m, nd, sh_n)
+        uv = sel(m, pi.prim_uv, uv)
+        dp_du = sel(m, tw.transform_vector(axis(0)), dp_du)
+        dp_dv = sel(m, tw.transform_vector(axis(1)), dp_dv)
 
     sh_frame = Frame.from_normal(sh_n)
     return SurfaceInteraction(

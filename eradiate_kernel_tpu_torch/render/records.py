@@ -102,11 +102,23 @@ def invalid_si(n, device):
 
 
 @dataclasses.dataclass(frozen=True)
+class PositionSample:
+    """A point sampled on a shape's surface (area-measure pdf)."""
+
+    p: torch.Tensor            # (N, 3)
+    n: torch.Tensor            # (N, 3)
+    uv: torch.Tensor           # (N, 2)
+    pdf: torch.Tensor          # (N,)
+    delta: torch.Tensor        # (N,) bool
+
+
+@dataclasses.dataclass(frozen=True)
 class DirectionSample:
     """A position sample seen from a reference point (solid-angle pdf)."""
 
     p: torch.Tensor
     n: torch.Tensor
+    uv: torch.Tensor           # (N, 2)
     d: torch.Tensor            # (N, 3) reference -> target
     dist: torch.Tensor
     pdf: torch.Tensor

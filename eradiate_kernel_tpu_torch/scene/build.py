@@ -14,10 +14,13 @@ from ..core.transform import Transform, as_transform
 from ..core.types import Variant, resolve_device
 from ..ops.accel import TILE_K, pack_tiles
 from ..ops.bvh import build_tile_bvh, collapse_to_bvh8
-from ..render.geometry import FAMILY_IMESH, FAMILY_MESH, FAMILY_RECT
-from .build_emitters import _build_bsdf, _build_scene_emitter
+from ..render.geometry import (FAMILY_DISK, FAMILY_IMESH, FAMILY_MESH,
+                               FAMILY_RECT, FAMILY_SPHERE)
+from .build_emitters import (_EMITTER_SCENE_TYPES, _build_bsdf,
+                             _build_scene_emitter)
 from .build_sensors import _SENSOR_TYPES, _build_sensor
-from .build_shapes import _SHAPE_TYPES, _build_shape, shape_children
+from .build_shapes import (_SHAPE_TYPES, _build_shape, shape_children,
+                           triangle_areas)
 from .build_spectra import (_axis_majorant_profiles,
                             _control_and_residual_profiles)
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
@@ -25,6 +28,7 @@ from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
 
 _BSDF_TYPES = ("diffuse", "rpv", "null", "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
+_INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath")
 # the integrator's extra properties load_dict keeps (the reference's, and
 # replay_lanes: the lane count of the path-replay adjoint, which the
 # reference reads from the extras but its load_dict drops)
@@ -60,8 +64,12 @@ class SceneBuilder:
         self.uvs = []
         self.faces = []
         self.face_shape = []
+        self.face_areas = []    # per mesh: (F,) f64 triangle areas
+        self.spheres = []       # (center, radius, flip)
         self.rects = []
+        self.disks = []
         self.shape_rows = []
+        self.env_emitter = -1   # emitter index of the environment
         # two-level instancing: shared group-local mesh pools + instances
         self.ig_vertices = []
         self.ig_normals = []
@@ -247,10 +255,13 @@ class SceneBuilder:
         return np.bool_(props.get("_twosided", False))
 
     # --- geometry ----------------------------------------------------------------
-    def _new_shape(self, family, prim_slot):
+    def _new_shape(self, family, prim_slot, area, face_offset=0,
+                   face_count=0):
         self.shape_rows.append(dict(family=family, prim_slot=prim_slot,
                                     bsdf=-1, emitter=-1, interior=-1,
-                                    exterior=-1))
+                                    exterior=-1, area=area,
+                                    face_offset=face_offset,
+                                    face_count=face_count))
         return len(self.shape_rows) - 1
 
     def add_mesh(self, verts, faces, normals=None, uvs=None):
@@ -262,14 +273,32 @@ class SceneBuilder:
                             else np.asarray(normals, np.float32))
         self.uvs.append(np.zeros((len(verts), 2), np.float32) if uvs is None
                         else np.asarray(uvs, np.float32))
+        f_off = sum(len(f) for f in self.faces)
         self.faces.append(faces + v_off)
-        shape_idx = self._new_shape(FAMILY_MESH, 0)
+        areas = triangle_areas(verts, faces)
+        shape_idx = self._new_shape(FAMILY_MESH, 0, float(areas.sum()),
+                                    f_off, len(faces))
         self.face_shape.append(np.full(len(faces), shape_idx, np.int32))
+        self.face_areas.append(areas.astype(np.float64))
         return shape_idx
 
+    def add_sphere(self, center, radius, flip=False):
+        self.spheres.append((np.asarray(center, np.float32),
+                             np.float32(radius), bool(flip)))
+        return self._new_shape(FAMILY_SPHERE, len(self.spheres) - 1,
+                               float(4 * np.pi * radius ** 2))
+
     def add_rectangle(self, to_world: Transform):
+        m = np.asarray(to_world.m)
+        area = 4.0 * float(np.linalg.norm(np.cross(m[:3, 0], m[:3, 1])))
         self.rects.append(to_world)
-        return self._new_shape(FAMILY_RECT, len(self.rects) - 1)
+        return self._new_shape(FAMILY_RECT, len(self.rects) - 1, area)
+
+    def add_disk(self, to_world: Transform):
+        m = np.asarray(to_world.m)
+        area = float(np.pi * np.linalg.norm(np.cross(m[:3, 0], m[:3, 1])))
+        self.disks.append(to_world)
+        return self._new_shape(FAMILY_DISK, len(self.disks) - 1, area)
 
     def _instancing_arrays(self):
         """The geometry's instancing pools; empty without instances."""
@@ -400,7 +429,8 @@ class SceneBuilder:
             # matches no intersection family
             self.shape_rows.append(dict(family=-1, prim_slot=0, bsdf=0,
                                         emitter=-1, interior=-1,
-                                        exterior=-1))
+                                        exterior=-1, area=1.0,
+                                        face_offset=0, face_count=0))
         arrays = {}
 
         def registry(name, rows_dict, table, kind_name, slot_name):
@@ -456,27 +486,47 @@ class SceneBuilder:
         arrays["shape_emitter"] = shape_col("emitter")
         arrays["shape_interior"] = shape_col("interior")
         arrays["shape_exterior"] = shape_col("exterior")
+        arrays["shape_prim_slot"] = shape_col("prim_slot")
+        arrays["shape_face_offset"] = shape_col("face_offset")
+        arrays["shape_face_count"] = shape_col("face_count")
+        arrays["shape_area"] = np.asarray(
+            [r["area"] for r in self.shape_rows], np.float32)
+        # strictly increasing global cumsum: one searchsorted picks a face
+        # of any mesh (render/shape_sampling.py)
+        face_areas = (np.concatenate(self.face_areas) if self.face_areas
+                      else np.zeros(0))
+        arrays["face_area_cumsum"] = np.cumsum(
+            np.maximum(face_areas, 1e-12)).astype(np.float32)
 
         cat = lambda parts, shape, dtype: (np.concatenate(parts) if parts
                                            else np.zeros(shape, dtype))
         V = cat(self.vertices, (0, 3), np.float32)
         F = cat(self.faces, (0, 3), np.int32)
         FS = cat(self.face_shape, (0,), np.int32)
+        of_family = lambda fam: np.asarray(
+            [i for i, r in enumerate(self.shape_rows) if r["family"] == fam],
+            np.int32)
         geo = {"vertices": V,
                "normals": cat(self.normals, (0, 3), np.float32),
                "uvs": cat(self.uvs, (0, 2), np.float32),
                "faces": F, "face_shape": FS,
-               "rect_shape": np.asarray(
-                   [i for i, r in enumerate(self.shape_rows)
-                    if r["family"] == FAMILY_RECT], np.int32),
+               "sph_center": (np.stack([c for c, _r, _f in self.spheres])
+                              if self.spheres
+                              else np.zeros((0, 3), np.float32)),
+               "sph_radius": np.asarray([r for _c, r, _f in self.spheres],
+                                        np.float32),
+               "sph_shape": of_family(FAMILY_SPHERE),
+               "sph_flip": np.asarray([f for _c, _r, f in self.spheres],
+                                      bool),
+               "rect_shape": of_family(FAMILY_RECT),
+               "disk_shape": of_family(FAMILY_DISK),
                "shape_family": shape_col("family")}
-        if self.rects:
-            geo["rect_to_world.m"] = np.stack([t.m for t in self.rects])
-            geo["rect_to_world.inv_t"] = np.stack(
-                [t.inv_t for t in self.rects])
-        else:
-            geo["rect_to_world.m"] = np.zeros((0, 4, 4), np.float32)
-            geo["rect_to_world.inv_t"] = np.zeros((0, 4, 4), np.float32)
+        for name, tfs in (("rect_to_world", self.rects),
+                          ("disk_to_world", self.disks)):
+            for part in ("m", "inv_t"):
+                geo[f"{name}.{part}"] = (
+                    np.stack([getattr(t, part) for t in tfs]) if tfs
+                    else np.zeros((0, 4, 4), np.float32))
         geo.update(self._accel_arrays(V, F, FS))
         geo.update(self._instancing_arrays())
         arrays.update({f"geo.{k}": v for k, v in geo.items()})
@@ -484,7 +534,10 @@ class SceneBuilder:
         pts = [V] if len(V) else []
         for inst in self.instances:
             pts.append(np.stack([inst["lo"], inst["hi"]]))
-        for t in self.rects:
+        for c, r, _flip in self.spheres:
+            pts.append(c[None] + np.array([[r, r, r], [-r, -r, -r]],
+                                          np.float32))
+        for t in self.rects + self.disks:
             corners = np.array([[x, y, 0, 1] for x in (-1, 1)
                                 for y in (-1, 1)], np.float32) @ t.m.T
             pts.append(corners[:, :3])
@@ -504,7 +557,8 @@ class SceneBuilder:
             volume_kinds=volume_kinds, het_profile1d=het_profile1d,
             sensor_medium=self.sensor_medium,
             sensor_kind=sensor_kind,
-            n_emitters=len(self.emitter_table), env_emitter=-1,
+            n_emitters=len(self.emitter_table),
+            env_emitter=self.env_emitter,
             film_width=film_cfg["width"], film_height=film_cfg["height"],
             rfilter=film_cfg.get("rfilter", "gaussian"),
             rfilter_params=tuple(sorted(
@@ -546,7 +600,7 @@ def load_dict(d: dict, variant: Variant | None = None,
             b.named[key] = ("shapegroup", shape_children(val))
         elif t in _SHAPE_TYPES:
             b.named[key] = ("shape", _build_shape(b, val))
-        elif t == "directional":
+        elif t in _EMITTER_SCENE_TYPES:
             _build_scene_emitter(b, val)
         elif t in _SENSOR_TYPES:
             sensor_kind = t
@@ -573,7 +627,7 @@ def load_dict(d: dict, variant: Variant | None = None,
             b.sampler_kind = sampler.get("type", "independent")
             if "medium" in val:
                 b.sensor_medium = b.medium(val["medium"])
-        elif t in ("path", "volpath"):
+        elif t in _INTEGRATOR_TYPES:
             integrator_cfg = IntegratorConfig(
                 kind=t,
                 max_depth=int(val.get("max_depth", 8)),

@@ -4,6 +4,10 @@ from __future__ import annotations
 
 import numpy as np
 
+# the scene-level emitter types of the port (spot, projector and envmap
+# come with slice 5b)
+_EMITTER_SCENE_TYPES = ("constant", "point", "directional")
+
 
 def _build_bsdf(builder, d, twosided=False):
     from .. import bsdfs as bsdf_pkg
@@ -29,11 +33,26 @@ def _build_bsdf(builder, d, twosided=False):
     return builder.add_bsdf_row(t, mod.build(props, builder), mod.FLAGS)
 
 
+def _build_emitter_for_shape(builder, d, shape_idx):
+    """The area emitter of shape ``shape_idx``."""
+    if d["type"] != "area":
+        raise ValueError(f"a shape's emitter must be 'area', got {d['type']!r}")
+    return builder.add_emitter_row("area", {
+        "radiance": np.int32(builder.texture(d.get("radiance", 1.0))),
+        "shape": np.int32(shape_idx)})
+
+
 def _build_scene_emitter(builder, d):
     t = d["type"]
-    if t != "directional":
-        raise NotImplementedError(
-            f"emitter {t!r}: this slice of the port carries 'directional'")
+    if t == "constant":
+        idx = builder.add_emitter_row("constant", {
+            "radiance": np.int32(builder.texture(d.get("radiance", 1.0)))})
+        builder.env_emitter = idx
+        return idx
+    if t == "point":
+        return builder.add_emitter_row("point", {
+            "position": np.asarray(d.get("position", [0, 0, 0]), np.float32),
+            "intensity": np.int32(builder.texture(d.get("intensity", 1.0)))})
     return builder.add_emitter_row("directional", {
         "direction": np.asarray(d.get("direction", [0, 0, -1]), np.float32),
         "irradiance": np.int32(builder.texture(d.get("irradiance", 1.0)))})

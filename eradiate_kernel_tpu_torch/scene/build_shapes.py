@@ -1,7 +1,8 @@
 """Shape construction (scene/build_shapes.py counterpart): triangle meshes
-given as vertex/face arrays, cubes, rectangles, two-level instancing
-(shapegroups of meshes under instance transforms), and the media a shape
-bounds (interior/exterior)."""
+given as vertex/face arrays, cubes, spheres, rectangles, disks, two-level
+instancing (shapegroups of meshes under instance transforms), the area
+emitter a shape carries and the media a shape bounds
+(interior/exterior)."""
 
 from __future__ import annotations
 
@@ -9,9 +10,9 @@ import numpy as np
 
 from ..core.transform import as_transform
 from ..render.geometry import FAMILY_IMESH
-from .build_emitters import _build_bsdf
+from .build_emitters import _build_bsdf, _build_emitter_for_shape
 
-_SHAPE_TYPES = ("mesh", "cube", "rectangle", "instance")
+_SHAPE_TYPES = ("mesh", "cube", "sphere", "rectangle", "disk", "instance")
 # every shape type of the reference's dict loader: a shapegroup's children
 # are the entries of these types (the ones outside the slice raise when an
 # instance builds them)
@@ -29,6 +30,13 @@ _CUBE_F = np.array(
 # shapegroup children stored once in group-local pools; the reference's
 # file formats (obj, ply, serialized) come with the port of utils/meshio.py
 _GROUP_MESH_TYPES = ("mesh", "cube")
+
+
+def triangle_areas(verts, faces):
+    """(F,) areas of the triangles ``faces`` of ``verts``."""
+    e1 = verts[faces[:, 1]] - verts[faces[:, 0]]
+    e2 = verts[faces[:, 2]] - verts[faces[:, 0]]
+    return 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
 
 
 def _load_mesh_arrays(d):
@@ -84,7 +92,8 @@ def _build_group_geom(builder, key, children):
             else np.asarray(uvs, np.float32))
         builder.ig_faces.append(np.asarray(faces, np.int32) + v_off)
         builder.ig_face_sub.append(np.full(len(faces), sub_ord, np.int32))
-        subs.append(c.get("bsdf"))
+        subs.append({"bsdf": c.get("bsdf"), "area": float(
+            triangle_areas(verts, np.asarray(faces, np.int32)).sum())})
         lo = np.minimum(lo, verts.min(0))
         hi = np.maximum(hi, verts.max(0))
     rec = dict(f_off=f_off,
@@ -121,11 +130,14 @@ def _build_instance(builder, d, tw):
 
     inst_id = len(builder.instances)
     m = np.asarray(tw.m)
+    # surface-area scale of the linear map (exact for a uniform scale)
+    ascale = abs(np.linalg.det(m[:3, :3])) ** (2.0 / 3.0)
     shape_base = None
-    for bsdf in rec["subs"]:
-        sidx = builder._new_shape(FAMILY_IMESH, inst_id)
+    for sub in rec["subs"]:
+        sidx = builder._new_shape(FAMILY_IMESH, inst_id,
+                                  sub["area"] * ascale)
         builder.shape_rows[sidx]["bsdf"] = _build_bsdf(
-            builder, bsdf or {"type": "diffuse"})
+            builder, sub["bsdf"] or {"type": "diffuse"})
         if shape_base is None:
             shape_base = sidx
     # world AABB: the 8 local corners transformed
@@ -144,13 +156,23 @@ def _build_shape(builder, d):
     tw = as_transform(d.get("to_world"))
     if t == "instance":
         return _build_instance(builder, d, tw)
-    for key in ("emitter", "attributes"):
-        if key in d:
-            raise NotImplementedError(
-                f"shape {key!r}: area emitters and mesh attributes come "
-                "with slice 5 of the port")
+    if "attributes" in d:
+        raise NotImplementedError(
+            "shape 'attributes': mesh attributes come with slice 5b of the "
+            "port")
     if t == "rectangle":
         idx = builder.add_rectangle(tw)
+    elif t == "disk":
+        idx = builder.add_disk(tw)
+    elif t == "sphere":
+        # to_world applied to the analytic parameterization, its uniform
+        # scale taken from the determinant (sphere.cpp:88-99)
+        m = np.asarray(tw.m)
+        center = m[:3, :3] @ np.asarray(d.get("center", [0, 0, 0]),
+                                        np.float32) + m[:3, 3]
+        scale = float(np.cbrt(abs(np.linalg.det(m[:3, :3]))))
+        idx = builder.add_sphere(center, float(d.get("radius", 1.0)) * scale,
+                                 d.get("flip_normals", False))
     elif t == "cube":
         m = np.asarray(tw.m)
         idx = builder.add_mesh(_CUBE_V @ m[:3, :3].T + m[:3, 3], _CUBE_F)
@@ -174,6 +196,8 @@ def _build_shape(builder, d):
         bsdf_d = {"type": "null"} if ("interior" in d or "exterior" in d) \
             else {"type": "diffuse"}
     row["bsdf"] = _build_bsdf(builder, bsdf_d)
+    if "emitter" in d:
+        row["emitter"] = _build_emitter_for_shape(builder, d["emitter"], idx)
     if "interior" in d:
         row["interior"] = builder.medium(d["interior"])
     if "exterior" in d:

@@ -26,7 +26,7 @@ from ..textures.volumes import packed_corners_of
 # what this slice of the port carries
 SUPPORTED = {
     "bsdf_kinds": {"diffuse", "rpv", "null"},
-    "emitter_kinds": {"directional"},
+    "emitter_kinds": {"directional", "area", "constant", "point"},
     "texture_kinds": {"constant"},
     "spectrum_kinds": {"baked"},
     "sensor_kind": {"perspective"},
@@ -36,7 +36,7 @@ SUPPORTED = {
     "phase_kinds": {"isotropic", "hg", "rayleigh"},
     "volume_kinds": {"constvolume", "gridvolume"},
 }
-INTEGRATORS = ("path", "volpath")
+INTEGRATORS = ("path", "direct", "depth", "volpath")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +116,11 @@ class Scene:
     shape_emitter: torch.Tensor   # (n_shapes,) i32 (-1)
     shape_interior: torch.Tensor  # (n_shapes,) i32 medium (-1)
     shape_exterior: torch.Tensor  # (n_shapes,) i32 medium (-1)
+    shape_prim_slot: torch.Tensor  # (n_shapes,) i32 row in its family pool
+    shape_area: torch.Tensor      # (n_shapes,) surface area
+    shape_face_offset: torch.Tensor  # (n_shapes,) i32 first face (meshes)
+    shape_face_count: torch.Tensor   # (n_shapes,) i32
+    face_area_cumsum: torch.Tensor   # (F,) strictly increasing
     bsdfs: dict                   # kind -> param -> tensor
     bsdf_kind: torch.Tensor
     bsdf_slot: torch.Tensor
@@ -260,6 +265,11 @@ def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
         spec_kind=top("spec_kind"), spec_slot=top("spec_slot"),
         shape_interior=top("shape_interior"),
         shape_exterior=top("shape_exterior"),
+        shape_prim_slot=top("shape_prim_slot"),
+        shape_area=top("shape_area"),
+        shape_face_offset=top("shape_face_offset"),
+        shape_face_count=top("shape_face_count"),
+        face_area_cumsum=top("face_area_cumsum"),
         media=registry("media", config.medium_kinds),
         medium_kind=top("medium_kind"), medium_slot=top("medium_slot"),
         medium_phase=top("medium_phase"),

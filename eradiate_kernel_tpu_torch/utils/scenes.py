@@ -1,9 +1,76 @@
-"""Canned scenes (utils/scenes.py counterpart): the plane-parallel
-atmosphere, the repository's main workload."""
+"""Canned scenes (utils/scenes.py counterpart): the Cornell box, the
+furnace and the plane-parallel atmosphere, the repository's main
+workload. Each returns the reference's dict for the same arguments."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..core.transform import Transform
+
+
+def cornell_box(width=64, height=64, spp=16, max_depth=6, integrator="path"):
+    """The Cornell box of six rectangles and a rectangular area light near
+    the ceiling (the geometry of the cbox scene). The sample mapping puts
+    camera-space +x on the image's left, so the red wall is at x = +1."""
+    T = Transform
+    rect = lambda xf, bsdf: {"type": "rectangle", "to_world": xf.m,
+                             "bsdf": {"type": "ref", "id": bsdf}}
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": max_depth},
+        "sensor": {
+            "type": "perspective", "fov": 39.3077,
+            "to_world": T.look_at([0, 0, -3.9], [0, 0, 0], [0, 1, 0]),
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "white_bsdf": {"type": "diffuse", "reflectance": {
+            "type": "rgb", "value": [0.885, 0.698, 0.666]}},
+        "red_bsdf": {"type": "diffuse", "reflectance": {
+            "type": "rgb", "value": [0.57, 0.04, 0.04]}},
+        "green_bsdf": {"type": "diffuse", "reflectance": {
+            "type": "rgb", "value": [0.105, 0.37, 0.067]}},
+        "floor": rect(T.translate([0, -1, 0]) @ T.rotate([1, 0, 0], -90),
+                      "white_bsdf"),
+        "ceiling": rect(T.translate([0, 1, 0]) @ T.rotate([1, 0, 0], 90),
+                        "white_bsdf"),
+        "back": rect(T.translate([0, 0, 1]) @ T.rotate([1, 0, 0], 180),
+                     "white_bsdf"),
+        "left": rect(T.translate([-1, 0, 0]) @ T.rotate([0, 1, 0], 90),
+                     "green_bsdf"),
+        "right": rect(T.translate([1, 0, 0]) @ T.rotate([0, 1, 0], -90),
+                      "red_bsdf"),
+        "light": {"type": "rectangle",
+                  "to_world": (T.translate([0, 0.99, 0])
+                               @ T.rotate([1, 0, 0], 90)
+                               @ T.scale([0.23, 0.19, 1.0])).m,
+                  "bsdf": {"type": "diffuse", "reflectance": 0.0},
+                  "emitter": {"type": "area", "radiance": {
+                      "type": "rgb", "value": [18.387, 13.9873, 6.75357]}}},
+    }
+
+
+def furnace(albedo=0.5, radiance=1.0, width=16, height=16, spp=64,
+            max_depth=32, integrator="path"):
+    """A diffuse unit sphere under a constant environment: a pixel on the
+    sphere sees radiance x sum_k albedo^k over the bounces it reaches."""
+    return {
+        "type": "scene",
+        "integrator": {"type": integrator, "max_depth": max_depth},
+        "sensor": {
+            "type": "perspective", "fov": 40.0,
+            "to_world": Transform.look_at([0, 0, -4], [0, 0, 0],
+                                          [0, 1, 0]).m,
+            "film": {"type": "hdrfilm", "width": width, "height": height,
+                     "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp},
+        },
+        "sphere": {"type": "sphere", "radius": 1.0,
+                   "bsdf": {"type": "diffuse", "reflectance": albedo}},
+        "env": {"type": "constant", "radiance": radiance},
+    }
 
 
 def atmosphere(width=64, height=64, spp=16, max_depth=16, grid_res=16,

@@ -424,3 +424,71 @@ def test_grid_gather_matches_plain(cuda_device, shape):
     torch.cuda.synchronize()
     assert gather.launches["grid_gather"] == before + 1
     assert torch.equal(out, gather.gather_rows_plain(table, idx))
+
+
+def _surface_scene(name):
+    """(scene dict, ERT_BVH_WIDE, the kernel its mesh queries launch, the
+    gradient keys) of the pool and replay card tests."""
+    from chip_smoke import forest_scene, terrain_scene
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    if name == "terrain":
+        V, F = terrain(33)  # 16 tiles: the fused sweep query
+        return (terrain_scene(V, F, 16, 16, 4, 4), "0", "tile_sweep",
+                ["spectra.baked.value"])
+    if name.startswith("forest"):
+        wide = name == "forest-bvh8"
+        return (forest_scene(16, 16, 4, 4, n_inst=16), "1" if wide else "0",
+                "tile_bvh8" if wide else "tile_bvh", ["spectra.baked.value"])
+    d = atmosphere(16, 16, 4, 12, grid_res=64)
+    d["sky"] = {"type": "constant", "radiance": 0.1}
+    return d, "0", "tile_sweep", ["volumes.gridvolume.grid",
+                                  "spectra.baked.value"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["terrain", "forest-bvh", "forest-bvh8",
+                                  "sky"])
+def test_pool_and_replay_match_plain_versions(cuda_device, name,
+                                              monkeypatch):
+    """A 16x16, 4 spp value+grad on the lane pool (render(regen=True), its
+    backward the path replay) of a surface scene through its mesh kernel
+    and through the plain version: the terrain (tile_sweep), the
+    16-instance forest (tile_bvh, tile_bvh8) and the sky-lit atmosphere
+    (volpath's MIS walk; the cube's fused sweep). The same film bit for
+    bit, the kernel launched in the forward and in the backward, and
+    gradients within rtol 1e-5, atol 1e-7 where the plain version's are
+    finite (the RPV rows are NaN in both, ROADMAP Queue 3)."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.films import develop
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils import autodiff
+
+    d, wide, kernel, keys = _surface_scene(name)
+    monkeypatch.setenv("ERT_BVH_WIDE", wide)
+    scene = load_dict(d)
+    pm = autodiff.traverse(scene).keep(keys)
+
+    def value_grad():
+        params = pm.trainable()
+        film = integrators.render(pm.with_trainable(params), seed=3,
+                                  samples_per_pass=256, regen=True,
+                                  develop_film=False)
+        launched = intersect.launches[kernel]
+        develop(film).mean().backward()
+        return (film.detach(), [params[k].grad for k in keys], launched,
+                intersect.launches[kernel] - launched)
+
+    before = intersect.launches[kernel]
+    film, grads, fwd, _ = value_grad()
+    torch.cuda.synchronize()
+    assert fwd > before and intersect.launches[kernel] > fwd
+    with intersect.use_plain():
+        film_p, grads_p, _, plain_bwd = value_grad()
+    assert plain_bwd == 0
+    assert torch.equal(film, film_p)
+    for g, gp in zip(grads, grads_p):
+        ok = torch.isfinite(gp)
+        assert torch.equal(ok, torch.isfinite(g))
+        assert bool(g[ok].abs().sum() > 0)
+        torch.testing.assert_close(g[ok], gp[ok], rtol=1e-5, atol=1e-7)

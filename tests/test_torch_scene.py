@@ -105,9 +105,9 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", [
-    ("shape", {"type": "sphere"}),
+    ("shape", {"type": "cone"}),
     ("shape", {"type": "cylinder"}),
-    ("emitter", {"type": "constant"}),
+    ("emitter", {"type": "spot"}),
     ("integrator", {"type": "volpathmis"}),
     ("bsdf", {"type": "conductor"}),
     ("texture", {"type": "bitmap", "data": np.ones((2, 2, 3))}),
