@@ -21,7 +21,7 @@ from ..core.rng import Sampler
 from ..core.spectrum import srgb_to_xyz
 from ..films import N_BASE_CHANNELS, develop, film_put
 from ..rfilters import filter_radius
-from . import depth, direct, path, volpath
+from . import common, depth, direct, path, volpath
 
 REGISTRY = {"path": path, "direct": direct, "depth": depth,
             "volpath": volpath}
@@ -135,9 +135,11 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
 
         # 2. refill dead lanes with the next unstarted samples
         n_dead = n_lanes - int(occupied.sum())  # host sync
+        common.counters["pool_syncs"] += 1
         m = min(n_dead, total - next_sample)
         if m > 0:
-            ridx = torch.nonzero(~occupied)[:m, 0]
+            ridx = torch.nonzero(~occupied)[:m, 0]  # host sync
+            common.counters["pool_syncs"] += 1
             new = next_sample + torch.arange(m, dtype=torch.int64,
                                              device=dev)
             smp, ray, fresh_rw, _pos = _camera_lanes(scene, seed, spp, new)

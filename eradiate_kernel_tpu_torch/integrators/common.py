@@ -13,9 +13,10 @@ def mis_weight(pdf_a, pdf_b):
                        pdf_a / torch.clamp(pdf_a + pdf_b, min=1e-30), 0.0)
 
 
-# host syncs of the volumetric integrator and the lane pool in this process
-# (one per any_lane call); chip_smoke.py reads it
-counters = {"host_syncs": 0}
+# host syncs in this process: ``host_syncs`` the integrators' any_lane
+# gates (one a call), ``pool_syncs`` the lane pool's own (its dead-lane
+# count and refill nonzero); chip_smoke.py reads both
+counters = {"host_syncs": 0, "pool_syncs": 0}
 
 
 def any_lane(mask):
