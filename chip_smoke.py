@@ -111,9 +111,41 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      emitter walk, on the lane pool of 32,768 lanes: tile_sweep launches
      == closest-hit queries; then a 64x64 spp4 film through the kernel
      against the plain sweep's;
+ 21. Eradiate's 1D atmosphere under distant sensors (slice 5b): the
+     flagship's atmosphere (grid 64, max_depth 12, residual NEE) under
+     utils.scenes.atmosphere(sensor="distant"), a 1x1 film of 262,144
+     samples (bench.py's distant load) in the mono variant, then under an
+     mdistant of 128 view zeniths in [-75, 75] degrees in the sun's
+     principal plane (2,048 spp each), then the 1x1 film in rgb, all on
+     the lane pool of 32,768 lanes: time, Msamples/s, iterations, syncs,
+     tile_sweep launches == closest-hit queries;
+ 22. the single-scattering closed form (tests/test_single_scattering_
+     oracle.py's four cases, its formula copied here) through a 1x1
+     distant at max_depth 2, 4 seeds of 262,144 samples, gated at
+     |mean - closed form| < 4 sigma + 0.005 expected;
+ 23. the sensors' analytic gates under a constant environment (spp
+     4,096): distant single, plane and hemisphere, mdistant and
+     mradiancemeter read 0.7 within 1e-3, a slanted cross-section distant
+     0.7 / 0.8, distantflux sums to pi within 1 %, irradiancemeter reads
+     pi within 2 %; and a bilambertian plane (r 0.6, t 0.4) under a sky of
+     1 reads 1 within 0.01;
+ 24. the forest's BRF: the forest under a distant sensor (64x64
+     hemisphere, point target at the canopy), spp 64, path max_depth 6,
+     on a pool of 2^18 lanes through tile_bvh and tile_bvh8 (launches ==
+     queries); and each BVH kernel against its plain walk on the 2^18
+     parallel rays of a nadir distant sensor, bit for bit;
+ 25. the reference's default filter: terrain(256) at 256x256 spp16
+     max_depth 6 with no rfilter (gaussian, radius 2) through the scan
+     driver and the pool of 2^18 lanes (films within 64 pixels), the
+     splat's share of a synchronised pool render, value+grad at spp 4
+     through the path replay (launches == queries), and film_put and
+     film_gather on 2^20 random samples into 256x256 against the same
+     call on the CPU (rtol 1e-5), timed beside the bound and an
+     index_put_ splat;
  12. (last) print the kernels line (every kernel and entry, the backward
-     included), the value+grad records, the card's name and power limit,
-     and the final ``{"ok": true, ...}`` line.
+     included, with their launches on phases 21-25), the value+grad and
+     measurement records, the card's name and power limit, and the final
+     ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
@@ -883,7 +915,7 @@ def value_grad(scene, n_lanes, keys, threefry=False, with_primal=True):
     threefry call synchronised and timed (its share of that run). Without
     ``with_primal`` no primal render (and no film check): the value+grad
     alone. Returns (record, the parameters with their .grad)."""
-    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch import films, integrators
     from eradiate_kernel_tpu_torch.core import rng
     from eradiate_kernel_tpu_torch.films import develop
     from eradiate_kernel_tpu_torch.utils import autodiff
@@ -920,8 +952,13 @@ def value_grad(scene, n_lanes, keys, threefry=False, with_primal=True):
                forward=fwd, backward=bwd, peak_bytes=peak,
                loss=float(loss.detach()))
     if with_primal:
-        assert torch.equal(film.detach(), primal_film), \
-            "the value+grad film differs from the primal render's"
+        if films._single_pixel(scene.config.rfilter,
+                               dict(scene.config.rfilter_params)):
+            assert torch.equal(film.detach(), primal_film), \
+                "the value+grad film differs from the primal render's"
+        else:  # a wide splat adds with atomics, in no fixed order
+            torch.testing.assert_close(film.detach(), primal_film,
+                                       rtol=1e-5, atol=1e-5)
         rec.update(primal_ms=primal_s * 1e3,
                    value_grad_over_primal=total_s / primal_s)
     if threefry:
@@ -1179,13 +1216,16 @@ def check_pool(label, scene, film, seconds, launches, counts, kernel,
     """Print a lane-pool render's line and hold its launches: one launch
     of ``kernel`` a closest-hit query and no other kernel launched (with
     ``kernel`` None, no kernel launched at all). Returns its record."""
-    from eradiate_kernel_tpu_torch.films import develop
+    from eradiate_kernel_tpu_torch import films
 
     cfg = scene.config
-    img = develop(film)
+    img = films.develop(film, mono=cfg.variant.is_monochromatic)
     n_samples = cfg.film_height * cfg.film_width * cfg.spp
     assert bool(torch.isfinite(img).all()), f"{label}: non-finite pixels"
-    assert float(film[..., 4].sum()) == n_samples, f"{label}: samples lost"
+    if films._single_pixel(cfg.rfilter, dict(cfg.rfilter_params)):
+        # one pixel a sample, weight 1
+        assert float(film[..., 4].sum()) == n_samples, \
+            f"{label}: samples lost"
     assert counts["dropped"] == 0, f"{label}: {counts}"
     mean = float(img.mean())
     rec = dict(render_ms=seconds * 1e3,
@@ -1461,6 +1501,391 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
                                        samples_per_pass=pool_lanes),
             pools["forest tile_bvh"]["render_ms"] / 1e3, "forest_pool")
     return pools, gates, surface_vg
+
+
+# tests/test_single_scattering_oracle.py's slab, closed form and CASES (a
+# copy: that module imports the JAX package)
+SS_CASES = [
+    # (profile kind, albedo, rho, phase, d_sun, d_view)
+    ("exp", 0.9, 0.0, "rayleigh", (0.3, 0.0, -0.954), (0.0, 0.0, -1.0)),
+    ("exp", 0.8, 0.3, "rayleigh", (0.35, 0.1, -0.93), (0.4, -0.2, -0.9)),
+    ("exp", 0.9, 0.0, "isotropic", (0.0, 0.45, -0.89), (-0.3, 0.0, -0.95)),
+    ("linear", 0.7, 0.15, "rayleigh", (0.2, -0.3, -0.93), (0.0, 0.0, -1.0)),
+]
+
+
+def ss_profile(kind, D=16):
+    z = (np.arange(D) + 0.5) / D
+    if kind == "exp":
+        profile = np.exp(-z / 0.25)
+        return profile * (0.5 / profile.mean())
+    return 0.8 * (1.0 - z) + 0.1
+
+
+def ss_slab_scene(profile, albedo, rho, phase, d_sun, d_view, spp):
+    """The plane-parallel slab in z [0, 1] (the atmosphere's geometry) with
+    its ground 0.01 below the medium, a Lambertian ground, the
+    directional sun, a 1x1 distant sensor; volpath max_depth 2."""
+    D = len(profile)
+    sigma = np.broadcast_to(
+        np.asarray(profile, np.float32)[:, None, None], (D, 4, 4)).copy()
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": 2, "rr_depth": 100},
+        "sensor": {
+            "type": "distant", "direction": list(-np.asarray(d_view)),
+            "target": [0.5, 0.5, 0.0],
+            "film": {"width": 1, "height": 1, "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp}},
+        "surface": {
+            "type": "rectangle",
+            "to_world": [{"type": "scale", "value": 20.0},
+                         {"type": "translate", "value": [0.5, 0.5, -0.01]}],
+            "bsdf": {"type": "diffuse", "reflectance": float(rho)}},
+        "atmo": {
+            "type": "cube",
+            "to_world": [{"type": "scale", "value": [20.0, 20.0, 0.5]},
+                         {"type": "translate", "value": [0.5, 0.5, 0.5]}],
+            "bsdf": {"type": "null"},
+            "interior": {
+                "type": "heterogeneous",
+                "sigma_t": {"type": "gridvolume", "data": sigma,
+                            "to_world": [{"type": "scale",
+                                          "value": [40.0, 40.0, 1.0]},
+                                         {"type": "translate",
+                                          "value": [-19.5, -19.5, 0.0]}]},
+                "albedo": float(albedo), "phase": {"type": phase}}},
+        "sun": {"type": "directional", "direction": list(d_sun),
+                "irradiance": 1.0},
+    }
+
+
+def ss_closed_form(profile, albedo, rho, phase, d_sun, d_view):
+    """TOA radiance at one scattering order: sky plus ground (the
+    reference test's formula; tau from node-centred interpolation)."""
+    zs = np.linspace(0.0, 1.0, 8001)
+    sig = np.interp(zs, np.linspace(0.0, 1.0, len(profile)), profile)
+    tau = np.trapezoid(sig, zs)
+    d_s = np.asarray(d_sun, np.float64) / np.linalg.norm(d_sun)
+    w = -np.asarray(d_view, np.float64) / np.linalg.norm(d_view)
+    mu0, mu = -d_s[2], w[2]
+    cos_theta = float(np.dot(d_s, w))
+    p = (3.0 / (16.0 * np.pi) * (1.0 + cos_theta ** 2) if phase == "rayleigh"
+         else 1.0 / (4.0 * np.pi))
+    m = 1.0 / mu + 1.0 / mu0
+    return (albedo * p * mu0 / (mu + mu0) * (1.0 - np.exp(-tau * m))
+            + mu0 * rho / np.pi * np.exp(-tau * m))
+
+
+def splat_bound(n, H, W, n_taps, gather=False):
+    """Least time (ms) of a wide splat (or its adjoint gather) of n samples
+    into an H x W x 5 film: each input read once (positions, 5 values or
+    the film), each output written once; operations: per sample the
+    2 n_taps filter weights (~10 operations each: the exp counted as 4),
+    n_taps^2 weight products and n_taps^2 x 5 multiply-adds."""
+    nbytes = n * 8 + (H * W * 5 * 4 + n * 5 * 4) \
+        + (n * 5 * 4 if gather else H * W * 5 * 4)
+    ops = n * (2 * n_taps * 10 + n_taps * n_taps * (1 + 2 * 5))
+    return bound(nbytes, ops)
+
+
+def splat_index_put(image, pos, values, kind):
+    """film_put's wide splat with index_put_(accumulate=True) in place of
+    index_add_ (timed beside it: the former sorts its indices on the card,
+    the latter adds with atomics)."""
+    from eradiate_kernel_tpu_torch import films
+
+    H, W, C = image.shape
+    iy, ix, wy, wx = films._taps(image, pos, kind, None)
+    flat = image.view(H * W, C)
+    for r in range(iy.shape[1]):
+        w = wy[:, r:r + 1] * wx
+        flat.index_put_(((iy[:, r:r + 1] * W + ix).reshape(-1),),
+                        (values[:, None, :] * w[..., None]).reshape(-1, C),
+                        accumulate=True)
+    return image
+
+
+def measurement_phases(V, F, lanes, box_ms):
+    """Phases 21-25 (slice 5b): Eradiate's measurement path. The 1D
+    atmosphere under distant sensors (mono, mdistant, rgb), the
+    single-scattering anchor, the sensors' analytic gates and a
+    bilambertian furnace, the forest's BRF under a distant sensor with
+    the BVH kernels on parallel rays, and the reference's default filter
+    (gaussian) on terrain(256): scan, pool, value+grad and the splat, its
+    times beside ``box_ms``, the box film's scan and pool render ms of
+    phases 3 and 17. Returns the phases' records."""
+    from eradiate_kernel_tpu_torch import films, integrators
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    rec = {}
+    dev = torch.device("cuda")
+
+    # ---- 21. Eradiate's 1D atmosphere under distant sensors ------------------
+    phase_clock("21")
+    # bench.py's distant load: 262,144 samples a call (W*H*spp // 16 at
+    # 256x256, spp 64) on the flagship's atmosphere (grid 64, max_depth
+    # 12, residual NEE)
+    n_distant = 1 << 18
+    sun = np.asarray([0.3, 0.0, -0.94])
+
+    def distant_atmosphere(variant, sensor=None):
+        d = atmosphere(spp=n_distant, max_depth=12, grid_res=64,
+                       sun_direction=tuple(sun), sensor="distant")
+        d["integrator"]["nee_transmittance"] = "residual"
+        if sensor is not None:
+            d["sensor"] = sensor
+        return load_dict(d, Variant(variant))
+
+    # 128 view zeniths in [-75, 75] degrees in the sun's principal plane
+    # (x-z); mdistant takes the ray direction, down towards the target
+    zen = np.deg2rad(np.linspace(-75.0, 75.0, 128))
+    pp_dirs = np.stack([-np.sin(zen), np.zeros_like(zen), -np.cos(zen)], -1)
+    runs = {
+        "mono distant 1x1": distant_atmosphere("mono"),
+        "mono mdistant 128 principal plane": distant_atmosphere("mono", {
+            "type": "mdistant", "directions": pp_dirs.tolist(),
+            "target": [0.5, 0.5, 0.0],
+            "sampler": {"type": "independent",
+                        "sample_count": n_distant // 128}}),
+        "rgb distant 1x1": distant_atmosphere("rgb"),
+    }
+    integrators.render(runs["mono distant 1x1"], seed=0, spp=1 << 12,
+                       regen=True, samples_per_pass=lanes)  # warm-up
+    rec["atmosphere"] = {}
+    for label, sc in runs.items():
+        cfg = sc.config
+        assert cfg.film_width * cfg.film_height * cfg.spp == n_distant
+        film, secs, launches, counts = counted_pool(sc, lanes)
+        r = check_pool(f"atmosphere {label} spp {cfg.spp} max_depth 12 "
+                       "grid 64", sc, film, secs, launches, counts,
+                       "tile_sweep", (1e-4, 2.0))
+        img = films.develop(film, mono=cfg.variant.is_monochromatic)
+        r["radiance"] = img.reshape(-1).tolist()
+        rec["atmosphere"][label] = r
+    pp = np.asarray(rec["atmosphere"]["mono mdistant 128 principal plane"][
+        "radiance"]).reshape(-1)
+    assert pp.shape == (128,) and np.isfinite(pp).all() and (pp >= 0).all()
+    assert pp.max() > 0
+    print(f"# principal plane (mono, 128 view zeniths -75..75 deg): "
+          f"radiance min {pp.min():.5f} max {pp.max():.5f} at view zenith "
+          f"{np.rad2deg(zen[int(pp.argmax())]):.1f} deg", flush=True)
+
+    # ---- 22. the single-scattering anchor ------------------------------------
+    phase_clock("22")
+    rec["single_scattering"] = {}
+    for kind, albedo, rho, phase, d_sun, d_view in SS_CASES:
+        profile = ss_profile(kind)
+        expected = ss_closed_form(profile, albedo, rho, phase, d_sun, d_view)
+        sc = load_dict(ss_slab_scene(profile, albedo, rho, phase, d_sun,
+                                     d_view, 1 << 18))
+        t0 = time.perf_counter()
+        vals = np.asarray([float(integrators.render(
+            sc, seed=100 + s, regen=True, samples_per_pass=lanes).mean())
+            for s in range(4)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mean, stderr = vals.mean(), vals.std(ddof=1) / 2.0
+        tol = 4.0 * stderr + 0.005 * expected
+        label = f"{kind} {phase} albedo {albedo} rho {rho}"
+        rec["single_scattering"][label] = dict(
+            mean=mean, expected=expected, stderr=stderr, tol=tol,
+            ms=secs * 1e3)
+        print(f"# single scattering {label}: {mean:.6f} vs closed form "
+              f"{expected:.6f} (stderr {stderr:.2e}, gate {tol:.2e}; 4 seeds "
+              f"x 262,144 samples in {secs * 1e3:.0f} ms)", flush=True)
+        assert abs(mean - expected) < tol, (label, mean, expected, tol)
+
+    # ---- 23. the sensors' analytic gates and a bilambertian furnace ------------
+    phase_clock("23")
+
+    def env_render(sensor, radiance=0.7, extra=None, max_depth=4):
+        d = {"type": "scene",
+             "integrator": {"type": "path", "max_depth": max_depth},
+             "sensor": {**sensor, "sampler": {"type": "independent",
+                                              "sample_count": 4096}},
+             "env": {"type": "constant", "radiance": radiance}}
+        d.update(extra or {})
+        return integrators.render(load_dict(d), seed=1, regen=True,
+                                  samples_per_pass=lanes)
+
+    box = {"type": "box"}
+    f1 = {"width": 1, "height": 1, "rfilter": box}
+    gates = {}
+    for label, sensor, want in (
+            ("distant single", {"type": "distant", "direction": [0, 0, 1],
+                                "film": f1}, 0.7),
+            ("distant plane", {"type": "distant", "target": [0, 0, 0],
+                               "film": {"width": 8, "height": 1,
+                                        "rfilter": box}}, 0.7),
+            ("distant hemisphere", {"type": "distant", "target": [0, 0, 0],
+                                    "film": {"width": 4, "height": 4,
+                                             "rfilter": box}}, 0.7),
+            ("mdistant", {"type": "mdistant", "directions": [
+                [0, 0, -1], [0.6, 0, -0.8], [0, 0.6, -0.8]]}, 0.7),
+            ("mradiancemeter", {"type": "mradiancemeter",
+                                "origins": [[0, 0, 3], [5, 5, 3]],
+                                "directions": [[0, 0, -1], [0, 0, 1]]}, 0.7),
+            ("distant cross-section slanted",
+             {"type": "distant", "direction": [0.6, 0.0, 0.8], "film": f1},
+             0.7 / 0.8)):
+        err = float((env_render(sensor) - want).abs().max())
+        gates[label] = err
+        assert err <= 1e-3, (label, err)
+    flux = float(env_render({"type": "distantflux", "film": {
+        "width": 4, "height": 4, "rfilter": box}}, 1.0)[..., 1].sum())
+    gates["distantflux sum"] = flux
+    assert abs(flux - np.pi) < 0.01 * np.pi, flux
+    irr = float(env_render({"type": "irradiancemeter", "film": f1,
+                            "shape": {"type": "ref", "id": "meter"}}, 1.0,
+                           {"meter": {"type": "rectangle",
+                                      "bsdf": {"type": "diffuse",
+                                               "reflectance": 0.0}}})[0, 0, 1])
+    gates["irradiancemeter"] = irr
+    assert abs(irr - np.pi) < 0.02 * np.pi, irr
+    # r + t = 1: every bounce carries weight 1 back to the sky
+    leaf = env_render({"type": "distant", "direction": [0, 0, 1],
+                       "target": [0, 0, 0], "film": f1}, 1.0,
+                      {"plane": {"type": "rectangle",
+                                 "to_world": {"type": "scale",
+                                              "value": 100.0},
+                                 "bsdf": {"type": "bilambertian",
+                                          "reflectance": 0.6,
+                                          "transmittance": 0.4}}},
+                      max_depth=64)
+    gates["bilambertian furnace"] = leaf.reshape(-1).tolist()
+    assert bool(((leaf - 1.0).abs() < 0.01).all()), gates
+    rec["gates"] = gates
+    print(f"# sensor gates (constant environment, spp 4096, lane pool): "
+          f"{json.dumps(gates)}", flush=True)
+
+    # ---- 24. the forest's BRF under a distant sensor --------------------------
+    phase_clock("24")
+    pool_lanes = 1 << 18
+    d = forest_scene(64, 64, 64, 6)
+    d["camera"] = {"type": "distant", "target": [0.0, 0.0, 0.15],
+                   "film": {"width": 64, "height": 64, "rfilter": box},
+                   "sampler": {"type": "independent", "sample_count": 64}}
+    brf = load_dict(d)
+    assert dict(brf.config.sensor_static)["direction_mode"] == "hemisphere"
+    rec["forest_brf"] = {}
+    for name, wide in (("tile_bvh", "0"), ("tile_bvh8", "1")):
+        with env(ERT_BVH_WIDE=wide):
+            integrators.render(brf, seed=0, spp=1, regen=True,
+                               samples_per_pass=pool_lanes)  # warm-up
+            film, secs, launches, counts = counted_pool(brf, pool_lanes)
+        rec["forest_brf"][name] = check_pool(
+            f"forest BRF distant 64x64 hemisphere spp64 max_depth 6 ({name},"
+            " lane pool)", brf, film, secs, launches, counts, name,
+            (0.005, 1.0))
+    # the first bounce of a single-direction distant sensor: 2^18 parallel
+    # rays over the bounding sphere's cross-section
+    d["camera"] = {"type": "distant", "direction": [0.0, 0.0, 1.0],
+                   "film": f1, "sampler": {"type": "independent",
+                                           "sample_count": 1 << 18}}
+    nadir = load_dict(d)
+    _smp, ray, _w, _pos = integrators._camera_lanes(
+        nadir, 0, 1 << 18, torch.arange(1 << 18, device=dev))
+    rec["forest_parallel"] = {}
+    for name in ("tile_bvh", "tile_bvh8"):
+        r = check_bvh_load(name, nadir.geo.tiles(), ray, 1 << 18)
+        rec["forest_parallel"][name] = r
+        print(f"# {name} forest 2^18 parallel nadir rays: kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms (bit-equal), "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), inner nodes "
+              f"{r['inner_visits']}, leaves {r['leaf_visits']}, hits "
+              f"{r['hit_frac']:.3f}, intersect {r['intersect_ms']:.3f} ms "
+              f"({r['mrays_per_s']:.1f} Mrays/s)", flush=True)
+
+    # ---- 25. the reference's default filter on terrain(256) -------------------
+    phase_clock("25")
+    d = terrain_scene(V, F, 256, 256, 16, 6)
+    del d["camera"]["film"]["rfilter"]  # gaussian, stddev 0.5, radius 2
+    gauss = load_dict(d)
+    assert gauss.config.rfilter == "gaussian"
+    integrators.render(gauss, seed=0, spp=1)  # warm-up
+    img, scan_s, launches, bounces, queries, traced = counted_render(gauss)
+    check_render("terrain 256x256 spp16 max_depth 6 gaussian (scan)", gauss,
+                 img, scan_s, launches, bounces, queries, traced,
+                 "tile_sweep", (0.005, 0.5))
+    integrators.render(gauss, seed=0, spp=1, regen=True,
+                       samples_per_pass=pool_lanes)  # warm-up
+    film, pool_s, launches, counts = counted_pool(gauss, pool_lanes)
+    g = check_pool("terrain 256x256 spp16 max_depth 6 gaussian (lane pool)",
+                   gauss, film, pool_s, launches, counts, "tile_sweep",
+                   (0.005, 0.5))
+    scan = integrators.render(gauss, seed=0, develop_film=False)
+    flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
+                             max_flips=64)
+    # the splat's share of a synchronised pool render (film_put timed with
+    # the card synchronised before and after each call)
+    with stage_timers({"splat": (integrators, "film_put")}) as spent:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrators.render(gauss, seed=0, regen=True,
+                           samples_per_pass=pool_lanes, develop_film=False)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+    g.update(scan_ms=scan_s * 1e3, flips_vs_scan=flips,
+             box_scan_ms=box_ms["scan"], box_pool_ms=box_ms["pool"],
+             splat_ms=spent["splat"] * 1e3, synchronised_ms=sync_s * 1e3,
+             splat_share=spent["splat"] / sync_s)
+    print(f"# terrain gaussian 256x256 spp16: scan {scan_s * 1e3:.1f} ms, "
+          f"lane pool {pool_s * 1e3:.1f} ms (the box film's: "
+          f"{box_ms['scan']:.1f} and {box_ms['pool']:.1f} ms), films agree "
+          f"({flips} pixels over tolerance, budget "
+          f"64); splat {spent['splat'] * 1e3:.1f} ms of a synchronised "
+          f"{sync_s * 1e3:.1f} ms pool render (share "
+          f"{spent['splat'] / sync_s:.3f})", flush=True)
+    rec["gaussian"] = g
+    d4 = terrain_scene(V, F, 256, 256, 4, 6)
+    del d4["camera"]["film"]["rfilter"]
+    sc = load_dict(d4)
+    rec["gaussian_value_grad"] = surface_value_grad(
+        "terrain gaussian 256x256 spp4 max_depth 6", sc, pool_lanes,
+        "tile_sweep", {"sun": spec_row(sc, int(
+            sc.emitters["directional"]["irradiance"][0]))})
+    # the splat and its adjoint on 2^20 random samples into 256x256
+    gen = torch.Generator().manual_seed(25)
+    n, H, W = 1 << 20, 256, 256
+    pos = torch.rand(n, 2, generator=gen) * torch.tensor([W + 4.0, H + 4.0]) \
+        - 2.0
+    vals = torch.rand(n, 5, generator=gen)
+    ct = torch.rand(H, W, 5, generator=gen)
+    pos_d, vals_d, ct_d = pos.to(dev), vals.to(dev), ct.to(dev)
+    put = lambda: films.film_put(torch.zeros(H, W, 5, device=dev), pos_d,
+                                 vals_d, "gaussian")
+    gat = lambda: films.film_gather(ct_d, pos_d, "gaussian")
+    ref_put = films.film_put(torch.zeros(H, W, 5), pos, vals, "gaussian")
+    ref_gat = films.film_gather(ct, pos, "gaussian")
+    torch.testing.assert_close(put().cpu(), ref_put, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gat().cpu(), ref_gat, rtol=1e-5, atol=1e-6)
+    put_ms, gat_ms = cuda_ms(put, reps=10), cuda_ms(gat, reps=10)
+    iput_ms = cuda_ms(lambda: splat_index_put(
+        torch.zeros(H, W, 5, device=dev), pos_d, vals_d, "gaussian"), reps=10)
+    t0 = time.perf_counter()
+    films.film_put(torch.zeros(H, W, 5), pos, vals, "gaussian")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_taps = int(2 * 2.0 + 0.999) + 1
+    put_b, put_by = splat_bound(n, H, W, n_taps)
+    gat_b, gat_by = splat_bound(n, H, W, n_taps, gather=True)
+    rec["splat"] = dict(
+        put_ms=put_ms, put_index_put_ms=iput_ms, gather_ms=gat_ms,
+        put_cpu_ms=plain_ms, put_bound_ms=put_b, put_bound_by=put_by,
+        gather_bound_ms=gat_b, gather_bound_by=gat_by,
+        put_max_abs_err=float((put().cpu() - ref_put).abs().max()),
+        gather_max_abs_err=float((gat().cpu() - ref_gat).abs().max()))
+    print(f"# gaussian splat, 2^20 samples into 256x256: film_put "
+          f"(index_add_) {put_ms:.3f} ms, with index_put_(accumulate) "
+          f"{iput_ms:.3f} ms, film_gather {gat_ms:.3f} ms; the CPU's "
+          f"film_put {plain_ms:.0f} ms; bounds {put_b:.4f} ms ({put_by}) "
+          f"and {gat_b:.4f} ms ({gat_by}); against the CPU: max abs err "
+          f"{rec['splat']['put_max_abs_err']:.2e} (put), "
+          f"{rec['splat']['gather_max_abs_err']:.2e} (gather)", flush=True)
+    return rec
 
 
 def main():
@@ -1887,6 +2312,8 @@ def main():
 
     pools, gates, surface_vg = surface_phases(
         scene, forest, V, F, render_s, forest_runs, lanes, atmo)
+    measure = measurement_phases(V, F, lanes, {
+        "scan": render_s * 1e3, "pool": pools["terrain"]["render_ms"]})
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -1929,6 +2356,17 @@ def main():
             "terrain value+grad backward": surface_vg["terrain"][
                 "backward"]["launches"]["tile_sweep"],
             "sky-lit atmosphere": atmo["sky"]["launches"]["tile_sweep"]},
+        "launches_measurement": dict(
+            {k: v["launches"]["tile_sweep"]
+             for k, v in measure["atmosphere"].items()},
+            **{"terrain gaussian pool": measure["gaussian"]["launches"][
+                "tile_sweep"],
+               "terrain gaussian value+grad forward": measure[
+                   "gaussian_value_grad"]["forward"]["launches"][
+                   "tile_sweep"],
+               "terrain gaussian value+grad backward": measure[
+                   "gaussian_value_grad"]["backward"]["launches"][
+                   "tile_sweep"]}),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -1959,6 +2397,10 @@ def main():
                     "forest value+grad backward": surface_vg["forest"][
                         "backward"]["launches"][name]}
                    if name == "tile_bvh" else {})),
+            "launches_measurement": {
+                "forest BRF distant 64x64 spp64": measure["forest_brf"][
+                    name]["launches"][name]},
+            "forest_parallel_nadir_2^18": measure["forest_parallel"][name],
         })
     # the main path's lookups run the fused trilinear entry (its library
     # call: grid_sample); the gather entry's loads carry index_select
@@ -1977,6 +2419,10 @@ def main():
                         "border, align_corners=True)",
         "load": "fused trilinear lookup, 64^3 packed table, 32,768 lanes",
         "gather_packed_64^3": gather_loads["packed 64^3"],
+        # the measurement path's 64 x 4 x 4 grid (1,024 voxels) takes the
+        # einsum lookup: no launch there
+        "launches_measurement": {k: v["launches"]["grid_gather"]
+                                 for k, v in measure["atmosphere"].items()},
         "gather_probe": gather_loads["probe"],
     })
     bwd1 = bwd_loads["C=1"]
@@ -1999,6 +2445,12 @@ def main():
                         "unpacked grid",
         "load": "64^3 grid, C = 1, 32,768 lanes of random points",
         "C=3": bwd_loads["C=3"],
+        # the measurement path's gradient (terrain under the gaussian film)
+        # looks up no gridvolume
+        "launches_measurement": {
+            "terrain gaussian value+grad backward": measure[
+                "gaussian_value_grad"]["backward"]["launches"][
+                "grid_trilinear_bwd"]},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"value_grad": grads}))
@@ -2007,6 +2459,7 @@ def main():
         for k, v in atmo.items()}}))
     print(json.dumps({"lane_pool": pools, "surface_value_grad": surface_vg,
                       "gates": gates}))
+    print(json.dumps({"measurement": measure}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -8,13 +8,14 @@ from __future__ import annotations
 
 import torch
 
-from . import common, diffuse, null, rpv
+from . import bilambertian, common, diffuse, null, rpv
 from .common import BSDFSample, zero_bsdf_sample
 
 REGISTRY = {
     "diffuse": diffuse,
     "null": null,
     "rpv": rpv,
+    "bilambertian": bilambertian,
 }
 
 
@@ -22,7 +23,9 @@ def bsdf_sample(scene, bsdf_index, si, s1, s2, active):
     """Dispatch sample() over the kinds present -> (BSDFSample, weight)."""
     kind_id = scene.bsdf_kind[bsdf_index]
     slot = scene.bsdf_slot[bsdf_index]
-    bs, weight = zero_bsdf_sample(si.t.shape[0], 3, si.t.device)
+    bs, weight = zero_bsdf_sample(si.t.shape[0],
+                                  scene.config.variant.n_channels,
+                                  si.t.device)
     for k, kind in enumerate(scene.config.bsdf_kinds):
         m = active & (kind_id == k)
         b, w = REGISTRY[kind].sample(scene, scene.bsdfs[kind],
@@ -38,10 +41,11 @@ def bsdf_sample(scene, bsdf_index, si, s1, s2, active):
 
 
 def bsdf_eval_pdf(scene, bsdf_index, si, wo, active):
-    """Dispatch eval_pdf() -> (value incl. cosine (N, 3), pdf (N,))."""
+    """Dispatch eval_pdf() -> (value incl. cosine (N, nc), pdf (N,))."""
     kind_id = scene.bsdf_kind[bsdf_index]
     slot = scene.bsdf_slot[bsdf_index]
-    value = torch.zeros(si.t.shape[0], 3, device=si.t.device)
+    value = torch.zeros(si.t.shape[0], scene.config.variant.n_channels,
+                        device=si.t.device)
     pdf = torch.zeros_like(si.t)
     for k, kind in enumerate(scene.config.bsdf_kinds):
         m = active & (kind_id == k)

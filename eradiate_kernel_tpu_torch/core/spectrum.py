@@ -1,4 +1,5 @@
-"""sRGB <-> XYZ color conversion (the rgb part of core/spectrum.py)."""
+"""sRGB <-> XYZ color conversion and luminance (the rgb and mono part of
+core/spectrum.py)."""
 
 from __future__ import annotations
 
@@ -26,3 +27,9 @@ def srgb_to_xyz(rgb):
 
 def xyz_to_srgb(xyz):
     return _apply(XYZ_TO_SRGB_M, xyz)
+
+
+def luminance(value):
+    """Y of linear sRGB values (..., 3) -> (...)."""
+    return (value[..., 0] * 0.212671 + value[..., 1] * 0.715160
+            + value[..., 2] * 0.072169)

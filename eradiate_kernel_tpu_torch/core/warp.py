@@ -1,5 +1,5 @@
 """Sampling warps (core/warp.py counterpart): the ones the surface path,
-the emitters and shape sampling call."""
+the emitters, shape sampling and the sensors call."""
 
 from __future__ import annotations
 
@@ -43,6 +43,14 @@ def square_to_uniform_sphere(sample):
 
 def square_to_uniform_sphere_pdf(d):
     return torch.full_like(d[..., 0], INV_FOUR_PI)
+
+
+def square_to_uniform_hemisphere(sample):
+    """Concentric low-distortion mapping (warp.h:158-173)."""
+    p = square_to_uniform_disk_concentric(sample)
+    z = 1.0 - torch.sum(p * p, dim=-1)
+    scale = safe_sqrt(z + 1.0)
+    return torch.stack([p[..., 0] * scale, p[..., 1] * scale, z], dim=-1)
 
 
 def square_to_cosine_hemisphere(sample):

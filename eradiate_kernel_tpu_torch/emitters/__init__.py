@@ -134,13 +134,14 @@ def sample_emitter_direction(scene, si, s_pick, s1, s2, active,
         p=z3, n=z3, uv=_zeros_like_batch(si.t, 2), d=z3, dist=z, pdf=z,
         delta=torch.zeros_like(active),
         emitter_index=torch.full_like(si.t, -1, dtype=torch.int32))
+    zc = _zeros_like_batch(si.t, cfg.variant.n_channels)
     if n_em == 0:
-        return ds, z3
+        return ds, zc
 
     idx = torch.clamp((s_pick * n_em).to(torch.int32), max=n_em - 1)
     kind_id = scene.emitter_kind[idx]
     slot = scene.emitter_slot[idx]
-    value = z3
+    value = zc
     for k, kind in enumerate(cfg.emitter_kinds):
         m = active & (kind_id == k)
         # other kinds' lanes read slot 0 (the reference's gathers clamp)
@@ -188,7 +189,7 @@ def pdf_emitter_direction(scene, ref_p, si_hit, escaped, active):
 def eval_emitter_hit(scene, si, active):
     """Radiance emitted toward the viewer at a surface hit (area
     emitters)."""
-    out = _zeros_like_batch(si.t, 3)
+    out = _zeros_like_batch(si.t, scene.config.variant.n_channels)
     if "area" not in scene.config.emitter_kinds:
         return out
     em_idx = scene.shape_emitter[torch.clamp(si.shape_index, min=0)]
@@ -202,7 +203,7 @@ def eval_emitter_hit(scene, si, active):
 def eval_environment(scene, ray, escaped, active):
     """Radiance of escaped rays (the constant environment)."""
     cfg = scene.config
-    out = _zeros_like_batch(ray.o, 3)
+    out = _zeros_like_batch(ray.o, cfg.variant.n_channels)
     if cfg.env_emitter < 0:
         return out
     slot = scene.emitter_slot[cfg.env_emitter].expand(ray.o.shape[0])

@@ -7,7 +7,9 @@ ray, the integrator, and a row of [X, Y, Z, A, W] in the film. The scan
 driver renders contiguous runs of samples per pass; the lane pool keeps a
 fixed number of lanes busy, refilling each lane whose path ended with the
 next unstarted sample. Both draw every sample from the same RNG stream, so
-they render the same film up to the order of the film sums.
+they render the same film up to the order of the film sums. A mono film
+holds the one radiance channel in each of X, Y and Z (the reference's
+layout); rgb converts to XYZ.
 """
 
 from __future__ import annotations
@@ -48,10 +50,12 @@ def _camera_lanes(scene, seed, spp, sample):
 
 
 def _film_rows(spec, valid):
-    """[X, Y, Z, A, W] rows of finished samples."""
+    """[X, Y, Z, A, W] rows of finished samples: rgb (N, 3) converts to
+    XYZ, mono (N, 1) repeats into X, Y and Z."""
     one = torch.ones_like(spec[:, :1])
-    return torch.cat([srgb_to_xyz(spec), torch.where(valid, 1.0, 0.0)[:, None],
-                      one], dim=-1)
+    xyz = spec.expand(-1, 3) if spec.shape[1] == 1 else srgb_to_xyz(spec)
+    return torch.cat([xyz, torch.where(valid, 1.0, 0.0)[:, None], one],
+                     dim=-1)
 
 
 def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
@@ -103,9 +107,10 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
     whose path finished is harvested and refilled with the next unstarted
     sample. Per iteration:
 
-    1. ``harvest(vp, rw, slot)`` sees the pool; ``slot`` (n_lanes,) holds
-       the sample index of each lane whose path ended since the last visit
-       and ``total`` (a trash row) for the others;
+    1. ``harvest(vp, rw, pos, slot)`` sees the pool (``rw`` the ray
+       weights, ``pos`` the film positions of its lanes); ``slot``
+       (n_lanes,) holds the sample index of each lane whose path ended
+       since the last visit and ``total`` (a trash row) for the others;
     2. dead lanes take the next unstarted samples (camera ray, fresh
        integrator state); ``refill(ridx, new)`` is told which lanes took
        which samples;
@@ -120,7 +125,7 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
     lane_sample = trash.clone()
     occupied = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
     its = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
-    vp = rw = None
+    vp = rw = pos = None
     rays = torch.zeros((), device=dev)
     next_sample = 0
     it = 0
@@ -130,7 +135,8 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
         if vp is not None:
             finished = occupied & ~vp.active
             if harvest is not None:
-                harvest(vp, rw, torch.where(finished, lane_sample, trash))
+                harvest(vp, rw, pos,
+                        torch.where(finished, lane_sample, trash))
             occupied = occupied & vp.active
 
         # 2. refill dead lanes with the next unstarted samples
@@ -142,17 +148,19 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
             common.counters["pool_syncs"] += 1
             new = next_sample + torch.arange(m, dtype=torch.int64,
                                              device=dev)
-            smp, ray, fresh_rw, _pos = _camera_lanes(scene, seed, spp, new)
+            smp, ray, fresh_rw, fresh_pos = _camera_lanes(scene, seed, spp,
+                                                          new)
             fresh = mod._init_state(scene, smp, ray)
             if vp is None:  # the first fill: every lane at once
                 vp = dataclasses.replace(fresh, sampler=dataclasses.replace(
                     fresh.sampler, dim=torch.full(
                         (n_lanes,), fresh.sampler.dim, dtype=torch.int64,
                         device=dev)))
-                rw = fresh_rw
+                rw, pos = fresh_rw, fresh_pos
             else:
                 vp = _put_lanes(vp, fresh, ridx)
                 rw = rw.index_copy(0, ridx, fresh_rw)
+                pos = pos.index_copy(0, ridx, fresh_pos)
             lane_sample = lane_sample.index_copy(0, ridx, new)
             occupied = occupied.index_fill(0, ridx, True)
             its = its.index_fill(0, ridx, 0)
@@ -185,9 +193,6 @@ def _check_regen(cfg):
         raise NotImplementedError(
             f"the lane pool runs path and volpath; {cfg.integrator.kind!r} "
             "takes the scan driver (render(regen=False))")
-    if filter_radius(cfg.rfilter, dict(cfg.rfilter_params)) > 0.5 + 1e-6:
-        raise NotImplementedError(
-            "the lane pool needs a single-pixel filter (radius <= 0.5)")
 
 
 def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
@@ -196,11 +201,13 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     ``n_lanes`` lanes keeps occupancy near 100 % whatever the spread of
     path lengths.
 
-    The film is built from a per-sample slot buffer: a finished lane writes
-    its [X, Y, Z, A, 1] row at slot ``sample`` (slots are unique, so the
-    writes need no atomics and are deterministic); a reshape-sum over the
-    spp axis gives the film at the end. Lanes may run in any order: a
-    sample's random numbers are keyed by its index.
+    Under a single-pixel filter the film is built from a per-sample slot
+    buffer: a finished lane writes its [X, Y, Z, A, 1] row at slot
+    ``sample`` (slots are unique, so the writes need no atomics and are
+    deterministic); a reshape-sum over the spp axis gives the film at the
+    end. Under a wider filter each iteration splats its finished lanes into
+    the film with film_put (the others add zero rows). Lanes may run in any
+    order: a sample's random numbers are keyed by its index.
 
     Returns (film (ch, cw, 5), rays traced (a 0-d tensor)); with
     ``sample_log`` also the sample log (total, nc): row s is sample s's
@@ -219,21 +226,33 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     max_iterations, bounce_kwargs = mod._knobs(scene)
     bounce_kwargs.update(getattr(mod, "_PRIMAL_BOUNCE_KWARGS", {}))
 
+    rp = dict(cfg.rfilter_params)
+    wide = filter_radius(cfg.rfilter, rp) > 0.5 + 1e-6
     # slot `total` is the trash row of lanes that finished nothing
-    slots = torch.zeros(total + 1, N_BASE_CHANNELS, device=dev)
+    slots = (None if wide else
+             torch.zeros(total + 1, N_BASE_CHANNELS, device=dev))
+    film = torch.zeros(ch, cw, N_BASE_CHANNELS, device=dev) if wide else None
+    offset = torch.tensor(cfg.crop_offset, dtype=torch.float32, device=dev)
     rlog = (torch.zeros(total + 1, cfg.variant.n_channels, device=dev)
             if sample_log else None)
 
-    def harvest(vp, rw, slot):
-        slots.index_copy_(0, slot, _film_rows(vp.result * rw, vp.valid_ray))
+    def harvest(vp, rw, pos, slot):
+        rows = _film_rows(vp.result * rw, vp.valid_ray)
+        if wide:
+            film_put(film, pos - offset,
+                     torch.where((slot < total)[:, None], rows, 0.0),
+                     cfg.rfilter, rp)
+        else:
+            slots.index_copy_(0, slot, rows)
         if rlog is not None:
             rlog.index_copy_(0, slot, vp.result)
 
     rays = _run_pool(scene, n_lanes, seed, spp, total, max_iterations,
                      lambda vp, _occ: mod._bounce(scene, vp, **bounce_kwargs),
                      harvest=harvest, stats=stats)
-    film = slots[:total].reshape(ch * cw, spp, N_BASE_CHANNELS).sum(1)
-    film = film.reshape(ch, cw, N_BASE_CHANNELS)
+    if not wide:
+        film = slots[:total].reshape(ch * cw, spp, N_BASE_CHANNELS).sum(1)
+        film = film.reshape(ch, cw, N_BASE_CHANNELS)
     if sample_log:
         return film, rays, rlog[:total]
     return film, rays
@@ -281,7 +300,7 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
                                                      total - off), seed, spp)
     if not develop_film:
         return film
-    return develop(film, cfg.pixel_format)
+    return develop(film, cfg.pixel_format, cfg.variant.is_monochromatic)
 
 
 __all__ = ["REGISTRY", "render", "render_wavefront",

@@ -67,11 +67,12 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dev)
     ok = (0.0 * ray.o[:, 0]) == 0.0
+    nc = scene.config.variant.n_channels
     return _PathState(
         sampler=sampler, ray=ray, si=invalid_si(n, dev),
         needs_intersection=ok.clone(),
-        throughput=torch.ones(n, 3, device=dev),
-        result=torch.zeros(n, 3, device=dev), eta=ones,
+        throughput=torch.ones(n, nc, device=dev),
+        result=torch.zeros(n, nc, device=dev), eta=ones,
         # prev_delta=True gives em_pdf=0 at the first hit -> weight 1
         prev_bsdf_pdf=ones, prev_p=torch.zeros(n, 3, device=dev),
         prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
@@ -108,7 +109,7 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
     hit_emit = active
     if scene.config.integrator.hide_emitters:
         hit_emit = active & (s.depth != 0)
-    emit = torch.zeros(n, 3, device=dev)
+    emit = torch.zeros_like(s.result)
     if any_lane(hit_emit):
         emit = (emitters.eval_emitter_hit(scene, si, hit_emit)
                 + emitters.eval_environment(scene, s.ray, escaped, hit_emit))

@@ -8,9 +8,13 @@ them onto the device in one step.
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
 
-from ..core.transform import Transform, as_transform
+import numpy as np
+import torch
+
+from ..core.spectrum import luminance
+from ..core.transform import AnimatedTransform, Transform, as_transform
 from ..core.types import Variant, resolve_device
 from ..ops.accel import TILE_K, pack_tiles
 from ..ops.bvh import build_tile_bvh, collapse_to_bvh8
@@ -26,7 +30,7 @@ from .build_spectra import (_axis_majorant_profiles,
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
 
-_BSDF_TYPES = ("diffuse", "rpv", "null", "twosided")
+_BSDF_TYPES = ("diffuse", "rpv", "null", "bilambertian", "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
 _INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath")
 # the integrator's extra properties load_dict keeps (the reference's, and
@@ -222,11 +226,15 @@ class SceneBuilder:
             "cD": np.int32(len(cprof)), "resprof": resprof}, phase_idx)
 
     def spectrum(self, value):
-        """A python value / plugin dict -> spectrum index; the rgb variant
-        bakes every spectrum into an (3,) constant."""
+        """A python value / plugin dict -> spectrum index; every spectrum
+        bakes into a constant: (3,) rgb, or in mono (1,) its luminance."""
         def baked(rgb):
+            rgb = np.asarray(rgb, np.float32)
+            if self.variant.is_monochromatic:
+                rgb = np.asarray([float(luminance(torch.as_tensor(rgb)))],
+                                 np.float32)
             return self._add(self.spectra, self.spec_table, "baked",
-                             {"value": np.asarray(rgb, np.float32)})
+                             {"value": rgb})
 
         if isinstance(value, (int, float)):
             return baked([value] * 3)
@@ -238,15 +246,15 @@ class SceneBuilder:
         if t == "uniform":
             return baked([float(value.get("value", 1.0))] * 3)
         raise NotImplementedError(
-            f"spectrum {t!r}: this slice of the port carries numbers, rgb "
-            "triples, 'rgb', 'srgb' and 'uniform'")
+            f"spectrum {t!r}: the port carries numbers, rgb triples, 'rgb', "
+            "'srgb' and 'uniform'; the others come with slice 6 (spectra)")
 
     def texture(self, value):
         if isinstance(value, dict) and value.get("type") in (
                 "mesh_attribute", "checkerboard", "bitmap"):
             raise NotImplementedError(
-                f"texture {value['type']!r}: this slice of the port carries "
-                "constant textures only")
+                f"texture {value['type']!r}: the port carries constant "
+                "textures; the others come with slice 5c")
         spec = self.spectrum(value)
         return self._add(self.textures, self.tex_table, "constant",
                          {"spec": np.int32(spec)})
@@ -410,8 +418,8 @@ class SceneBuilder:
         return out
 
     # --- finalize ------------------------------------------------------------------
-    def finalize(self, sensor_kind, sensor_params, film_cfg, integrator_cfg,
-                 spp):
+    def finalize(self, sensor_kind, sensor_params, sensor_static, film_cfg,
+                 integrator_cfg, spp):
         """-> (arrays by dotted name, SceneConfig)."""
         if not self.spec_table:
             self._add(self.spectra, self.spec_table, "baked",
@@ -545,9 +553,13 @@ class SceneBuilder:
             np.concatenate(pts) if pts else np.zeros((0, 3), np.float32))
         arrays["bsphere_center"] = np.asarray(center)
         arrays["bsphere_radius"] = np.float32(max(radius, 1e-3))
-        arrays["sensor.to_world.m"] = sensor_params["to_world"].m
-        arrays["sensor.to_world.inv_t"] = sensor_params["to_world"].inv_t
-        arrays["sensor.tan_half_fov"] = sensor_params["tan_half_fov"]
+        for key, v in sensor_params.items():
+            if isinstance(v, (Transform, AnimatedTransform)):
+                for f in dataclasses.fields(v):
+                    arrays[f"sensor.{key}.{f.name}"] = np.asarray(
+                        getattr(v, f.name))
+            else:
+                arrays[f"sensor.{key}"] = v
 
         cfg = SceneConfig(
             variant=self.variant,
@@ -556,7 +568,7 @@ class SceneBuilder:
             medium_kinds=medium_kinds, phase_kinds=phase_kinds,
             volume_kinds=volume_kinds, het_profile1d=het_profile1d,
             sensor_medium=self.sensor_medium,
-            sensor_kind=sensor_kind,
+            sensor_kind=sensor_kind, sensor_static=sensor_static,
             n_emitters=len(self.emitter_table),
             env_emitter=self.env_emitter,
             film_width=film_cfg["width"], film_height=film_cfg["height"],
@@ -608,7 +620,8 @@ def load_dict(d: dict, variant: Variant | None = None,
             film = val.get("film", {})
             if film.get("type", "hdrfilm") != "hdrfilm":
                 raise NotImplementedError(
-                    f"film {film['type']!r}: the port carries 'hdrfilm'")
+                    f"film {film['type']!r}: the port carries 'hdrfilm'; "
+                    "specfilm comes with slice 6")
             film_cfg["width"] = int(film.get("width", 64))
             film_cfg["height"] = int(film.get("height", 64))
             film_cfg["pixel_format"] = str(film.get("pixel_format", "rgb"))
@@ -619,9 +632,10 @@ def load_dict(d: dict, variant: Variant | None = None,
                     int(film.get("crop_width", film_cfg["width"])),
                     int(film.get("crop_height", film_cfg["height"])))
             rf = film.get("rfilter", {"type": "gaussian"})
-            film_cfg["rfilter"] = rf.get("type", "gaussian")
-            film_cfg["rfilter_params"] = {k: v for k, v in rf.items()
-                                          if k != "type"}
+            if isinstance(rf, dict):  # else the default gaussian, as in ref
+                film_cfg["rfilter"] = rf.get("type", "gaussian")
+                film_cfg["rfilter_params"] = {k: v for k, v in rf.items()
+                                              if k != "type"}
             sampler = val.get("sampler", {})
             spp = int(sampler.get("sample_count", 16))
             b.sampler_kind = sampler.get("type", "independent")
@@ -639,16 +653,20 @@ def load_dict(d: dict, variant: Variant | None = None,
             b.named[key] = ("medium", b.medium(val))
         elif t not in _BSDF_TYPES:
             raise NotImplementedError(
-                f"scene entry {key!r} of type {t!r}: not carried by this "
-                "slice of the port")
+                f"scene entry {key!r} of type {t!r}: not carried by the "
+                "port; Mitsuba's other plugins (spot, projector, envmap) "
+                "come with slice 5c, the other integrators with slice 6")
 
     if pending_sensor is not None:
-        sensor_params = _build_sensor(b, sensor_kind, pending_sensor,
-                                      film_cfg)
+        # built after every shape (irradiancemeter's shape ref); its film
+        # overrides (mdistant, mradiancemeter) reach finalize in film_cfg
+        sensor_params, sensor_static = _build_sensor(
+            b, sensor_kind, pending_sensor, film_cfg)
     else:
         sensor_params = {
             "to_world": Transform.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]),
             "tan_half_fov": np.float32(np.tan(np.deg2rad(34.0) / 2))}
-    arrays, cfg = b.finalize(sensor_kind, sensor_params, film_cfg,
-                             integrator_cfg, spp)
+        sensor_static = ()
+    arrays, cfg = b.finalize(sensor_kind, sensor_params, sensor_static,
+                             film_cfg, integrator_cfg, spp)
     return from_numpy(arrays, cfg, device)

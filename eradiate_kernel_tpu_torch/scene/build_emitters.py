@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 
 # the scene-level emitter types of the port (spot, projector and envmap
-# come with slice 5b)
+# come with slice 5c)
 _EMITTER_SCENE_TYPES = ("constant", "point", "directional")
 
 
@@ -25,8 +25,8 @@ def _build_bsdf(builder, d, twosided=False):
         return _build_bsdf(builder, child[0], twosided=True)
     if t not in bsdf_pkg.REGISTRY:
         raise NotImplementedError(
-            f"bsdf {t!r}: this slice of the port carries "
-            f"{sorted(bsdf_pkg.REGISTRY)}")
+            f"bsdf {t!r}: the port carries {sorted(bsdf_pkg.REGISTRY)}; "
+            "Mitsuba's other materials come with slice 5c")
     mod = bsdf_pkg.REGISTRY[t]
     props = dict(d)
     props["_twosided"] = twosided

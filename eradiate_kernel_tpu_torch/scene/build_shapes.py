@@ -158,7 +158,7 @@ def _build_shape(builder, d):
         return _build_instance(builder, d, tw)
     if "attributes" in d:
         raise NotImplementedError(
-            "shape 'attributes': mesh attributes come with slice 5b of the "
+            "shape 'attributes': mesh attributes come with slice 5c of the "
             "port")
     if t == "rectangle":
         idx = builder.add_rectangle(tw)
@@ -188,7 +188,8 @@ def _build_shape(builder, d):
         idx = builder.add_mesh(verts, d["faces"], normals, d.get("uvs"))
     else:
         raise NotImplementedError(
-            f"shape {t!r}: this slice of the port carries {_SHAPE_TYPES}")
+            f"shape {t!r}: the port carries {_SHAPE_TYPES}; cylinder, cone "
+            "and mesh files come with slice 5c")
     row = builder.shape_rows[idx]
     bsdf_d = d.get("bsdf")
     if bsdf_d is None:

@@ -75,10 +75,13 @@ def furnace(albedo=0.5, radiance=1.0, width=16, height=16, spp=64,
 
 def atmosphere(width=64, height=64, spp=16, max_depth=16, grid_res=16,
                tau=0.36, albedo=0.9, surface_reflectance=0.3,
-               sun_direction=(0.3, 0.0, -0.94)):
+               sun_direction=(0.3, 0.0, -0.94), sensor="perspective"):
     """Plane-parallel Rayleigh atmosphere over an RPV ground: gridvolume
     sigma_t with an exponential profile (vertical optical depth ``tau``),
-    Rayleigh phase, directional sun, a perspective camera looking down.
+    Rayleigh phase, directional sun. ``sensor``: 'perspective', a camera
+    looking down on a ``width`` x ``height`` film, or 'distant', the
+    radiance leaving the top of the atmosphere straight up (rays travel
+    along -direction) towards the point (0.5, 0.5, 0) on a 1x1 film.
 
     ``grid_res``: an int D gives a (D, 4, 4) plane-parallel profile; a
     tuple (D, H, W) a full 3D grid with a mild horizontal modulation of
@@ -101,17 +104,24 @@ def atmosphere(width=64, height=64, spp=16, max_depth=16, grid_res=16,
                * np.exp(-z / 0.5)[:, None, None])
         sigma = (sigma * mod).astype(np.float32)
 
-    return {
-        "type": "scene",
-        "integrator": {"type": "volpath", "max_depth": max_depth},
-        "sensor": {
+    if sensor == "distant":
+        sensor_dict = {
+            "type": "distant", "direction": [0, 0, 1],
+            "target": [0.5, 0.5, 0.0],
+            "film": {"width": 1, "height": 1, "rfilter": {"type": "box"}},
+            "sampler": {"type": "independent", "sample_count": spp}}
+    else:
+        sensor_dict = {
             "type": "perspective", "fov": 60.0,
             "to_world": {"type": "look_at", "origin": [0.5, 0.5, 3.0],
                          "target": [0.5, 0.5, 0.0], "up": [0, 1, 0]},
             "film": {"width": width, "height": height,
                      "rfilter": {"type": "box"}},
-            "sampler": {"type": "independent", "sample_count": spp},
-        },
+            "sampler": {"type": "independent", "sample_count": spp}}
+    return {
+        "type": "scene",
+        "integrator": {"type": "volpath", "max_depth": max_depth},
+        "sensor": sensor_dict,
         "surface": {
             "type": "rectangle",
             "to_world": [{"type": "scale", "value": 20.0},

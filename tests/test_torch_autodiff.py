@@ -38,8 +38,12 @@ def test_film_gather_is_the_adjoint_of_film_put():
     lhs = torch.sum(film_put(torch.zeros_like(ct), pos, v, "box") * ct)
     rhs = torch.sum(v * film_gather(ct, pos, "box"))
     assert float(lhs) == pytest.approx(float(rhs), rel=1e-6)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        film_gather(ct, pos, "box", {"radius": 1.5})
+    # a wide filter: up to 4 x 4 taps a sample, those outside the film
+    # weighing 0
+    wide = {"radius": 1.5}
+    lhs = torch.sum(film_put(torch.zeros_like(ct), pos, v, "box", wide) * ct)
+    rhs = torch.sum(v * film_gather(ct, pos, "box", wide))
+    assert float(lhs) == pytest.approx(float(rhs), rel=1e-5)
 
 
 def test_film_gather_matches_reference():

@@ -492,3 +492,27 @@ def test_pool_and_replay_match_plain_versions(cuda_device, name,
         assert torch.equal(ok, torch.isfinite(g))
         assert bool(g[ok].abs().sum() > 0)
         torch.testing.assert_close(g[ok], gp[ok], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gaussian", "lanczos"])
+def test_wide_film_put_and_gather_match_cpu(cuda_device, kind):
+    """The wide-filter splat and its adjoint gather (eager torch, one
+    function for both devices) on the card against the same call on the
+    CPU: rtol 1e-5, the order of the card's float atomics."""
+    from eradiate_kernel_tpu_torch.films import film_gather, film_put
+
+    rng = np.random.default_rng(8)
+    H, W, n = 48, 64, 1 << 16
+    pos = torch.as_tensor(rng.uniform([-2, -2], [W + 2, H + 2], (n, 2)),
+                          dtype=torch.float32)
+    v = torch.as_tensor(rng.random((n, 5)), dtype=torch.float32)
+    img = torch.as_tensor(rng.random((H, W, 5)), dtype=torch.float32)
+    put = film_put(torch.zeros(H, W, 5, device=cuda_device),
+                   pos.to(cuda_device), v.to(cuda_device), kind)
+    torch.testing.assert_close(put.cpu(), film_put(torch.zeros(H, W, 5), pos,
+                                                   v, kind),
+                               rtol=1e-5, atol=1e-5)
+    got = film_gather(img.to(cuda_device), pos.to(cuda_device), kind)
+    torch.testing.assert_close(got.cpu(), film_gather(img, pos, kind),
+                               rtol=1e-5, atol=1e-6)
