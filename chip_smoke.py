@@ -142,15 +142,42 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      film_gather on 2^20 random samples into 256x256 against the same
      call on the CPU (rtol 1e-5), timed beside the bound and an
      index_put_ splat;
+ 26. the materials Cornell box (slice 5c-1): utils.scenes.cornell_box at
+     256x256, spp 16 (PR 7's box takes 64; cut for the time limit),
+     max_depth 6, with a dielectric, a rough gold and a rough dielectric
+     sphere, a 12-triangle cube mesh (one tile: the fused query) under a
+     Beckmann rough plastic with a checkerboard, the back wall under a
+     bump map and the floor under a normal map (inline 64x64 bitmaps), on
+     the lane pool of 32,768 lanes: time, Msamples/s, iterations, host
+     syncs, tile_sweep launches == closest-hit queries; a 64x64 spp4 film
+     through the kernel against the plain sweep (budget 2); value+grad at
+     256x256 spp 2 through the path replay (the checkerboard's colours,
+     the gold's eta and k and the walls' reflectances finite and not
+     zero, the film bit-equal to the primal's, forward and adjoint
+     launches == queries, peak memory); the 64x64 spp4 gradient through
+     the kernel against the plain sweep (rtol 1e-5, atol 1e-7);
+ 27. the materials terrain(256) (the sorted sweep): uvs, a per-vertex
+     colour and a blendbsdf (checkerboard weight) over a plastic and an
+     anisotropic Beckmann rough conductor, 256x256 spp16 max_depth 6
+     through the scan driver and a pool of 2^18 lanes (launches ==
+     queries, films within phase 17's 64 pixels), and a 64x64 spp4 film
+     through the kernel against the plain sweep (budget 2);
+ 28. tests/test_bsdfs.py's furnace gates (the conductor mirror, the
+     dielectric, the thin dielectric, the rough dielectric at alpha 0.02,
+     the blend of diffuse and conductor, a flat normal map, the mask's
+     pass-through rectangle) at 32x32 spp 256 with each test's max_depth
+     and rr_depth, on the lane pool, each held to its test's tolerance;
  12. (last) print the kernels line (every kernel and entry, the backward
-     included, with their launches on phases 21-25), the value+grad and
-     measurement records, the card's name and power limit, and the final
-     ``{"ok": true, ...}`` line.
+     included, with their launches on phases 21-27), the value+grad,
+     measurement and materials records, the card's name and power limit,
+     and the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
-renders and of the Cornell box, terrain and forest renders on the lane
-pool: host time per stage (each stage synchronised before and after)
+renders and of the Cornell box, terrain, forest, materials Cornell box
+and materials terrain renders on the lane pool: host time per stage
+(each stage synchronised before and after; the nested BSDF dispatch and
+the BSDFs' texture lookups timed inside the BSDF stages)
 and a torch.profiler pass whose kernel tables go to
 smoke_out/profile_<scene>.txt.
 """
@@ -477,7 +504,7 @@ def profile_render(render, render_s, label, window=None):
     from eradiate_kernel_tpu_torch.core import rng
     from eradiate_kernel_tpu_torch.integrators import common
     from eradiate_kernel_tpu_torch.ops import intersect
-    from eradiate_kernel_tpu_torch.render import geometry
+    from eradiate_kernel_tpu_torch.render import geometry, texture
 
     stages = {
         "sweep pre-passes": (intersect, "prepare_sweep"),
@@ -497,7 +524,14 @@ def profile_render(render, render_s, label, window=None):
         "rectangle hits": (geometry, "_intersect_rects"),
         "disk hits": (geometry, "_intersect_disks"),
     }
-    with stage_timers(stages) as spent:
+    # stages inside "bsdf sample" and "bsdf eval" (timed, not summed): a
+    # wrapper's nested dispatch, and the BSDFs' texture lookups
+    inner = {
+        "nested bsdf sample": (bsdfs, "dispatch_sample_nested"),
+        "nested bsdf eval": (bsdfs, "dispatch_eval_pdf_nested"),
+        "bsdf textures": (texture, "texture_eval"),
+    }
+    with stage_timers(stages) as spent, stage_timers(inner) as spent_in:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         render()
@@ -505,8 +539,12 @@ def profile_render(render, render_s, label, window=None):
         total = time.perf_counter() - t0
     rest = total - sum(spent.values())
     parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in spent.items() if v)
+    inside = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in spent_in.items()
+                       if v)
     print(f"# {label} render stages (synchronised, ms): total "
-          f"{total * 1e3:.1f}: {parts}, other {rest * 1e3:.1f}", flush=True)
+          f"{total * 1e3:.1f}: {parts}, other {rest * 1e3:.1f}"
+          + (f"; inside the bsdf stages: {inside}" if inside else ""),
+          flush=True)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1888,6 +1926,285 @@ def measurement_phases(V, F, lanes, box_ms):
     return rec
 
 
+# chip_smoke.py phase 26's additions to the Cornell box (a copy of
+# tests/test_torch_materials_render.py's add_materials: that module imports
+# the JAX package)
+CUBE_V = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                   [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]],
+                  np.float32)
+CUBE_F = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7],
+                   [0, 1, 5], [0, 5, 4], [2, 3, 7], [2, 7, 6],
+                   [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]], np.int32)
+
+
+def materials_cornell(width, height, spp, max_depth, res=64):
+    """utils.scenes.cornell_box with a dielectric (bk7), a rough gold (GGX,
+    alpha 0.2) and a rough dielectric (GGX, alpha 0.1) sphere, a
+    12-triangle cube mesh under a Beckmann rough plastic (alpha 0.1) with
+    a checkerboard diffuse reflectance (its uvs span [0.2, 0.8], off the
+    checker's edges), the back wall under a bump map of an inline 64x64
+    sinusoidal height and the floor under a normal map of an inline 64x64
+    bitmap; all clear of the light."""
+    from eradiate_kernel_tpu_torch.utils.scenes import cornell_box
+
+    d = cornell_box(width, height, spp, max_depth)
+    g = (np.arange(res, dtype=np.float32) + 0.5) / res
+    u, v = np.meshgrid(g, g)
+    height_map = 0.5 + 0.5 * np.sin(8 * np.pi * u) * np.sin(8 * np.pi * v)
+    n = np.stack([0.3 * np.sin(6 * np.pi * u), 0.3 * np.cos(6 * np.pi * v),
+                  np.ones_like(u)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    c, s = np.cos(np.pi / 6), np.sin(np.pi / 6)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    d["back"]["bsdf"] = {
+        "type": "bumpmap", "scale": 0.05,
+        "bumpmap": {"type": "bitmap", "data": height_map.astype(np.float32)},
+        "nested": {"type": "ref", "id": "white_bsdf"}}
+    d["floor"]["bsdf"] = {
+        "type": "normalmap",
+        "normalmap": {"type": "bitmap",
+                      "data": (0.5 * n + 0.5).astype(np.float32)},
+        "nested": {"type": "ref", "id": "white_bsdf"}}
+    d["glass"] = {"type": "sphere", "center": [-0.5, -0.69, -0.3],
+                  "radius": 0.3,
+                  "bsdf": {"type": "dielectric", "int_ior": "bk7"}}
+    d["gold"] = {"type": "sphere", "center": [0.5, -0.69, 0.4],
+                 "radius": 0.3,
+                 "bsdf": {"type": "roughconductor", "distribution": "ggx",
+                          "alpha": 0.2, "material": "Au"}}
+    d["frosted"] = {"type": "sphere", "center": [0.1, -0.74, -0.5],
+                    "radius": 0.25,
+                    "bsdf": {"type": "roughdielectric",
+                             "distribution": "ggx", "alpha": 0.1}}
+    d["cube"] = {
+        "type": "mesh",
+        "vertices": ((CUBE_V * 0.22) @ rot.T
+                     + np.float32([-0.35, -0.77, 0.45])).astype(np.float32),
+        "faces": CUBE_F, "uvs": 0.5 + 0.3 * CUBE_V[:, :2],
+        "bsdf": {"type": "roughplastic", "distribution": "beckmann",
+                 "alpha": 0.1,
+                 "diffuse_reflectance": {"type": "checkerboard",
+                                         "color0": [0.8, 0.3, 0.1],
+                                         "color1": [0.1, 0.3, 0.8]}}}
+    return d
+
+
+def materials_terrain(V, F, width, height, spp, max_depth):
+    """terrain_scene with uvs ((x + 1) / 2, (y + 1) / 2), a per-vertex
+    colour from the height (a mesh attribute) and a blendbsdf whose weight
+    is a checkerboard (0.2 / 0.8) over a plastic reading that colour and an
+    anisotropic Beckmann rough conductor (alpha_u 0.1, alpha_v 0.4). As
+    in the reference, only the diffuse BSDF hands a mesh_attribute its
+    primitive: the plastic's base reads 0 (ROADMAP Queue 3)."""
+    d = terrain_scene(V, F, width, height, spp, max_depth)
+    s = (V[:, 2] - V[:, 2].min()) / (V[:, 2].max() - V[:, 2].min())
+    d["terrain"]["uvs"] = 0.5 * (V[:, :2] + 1.0)
+    d["terrain"]["attributes"] = {"vertex_color": np.stack(
+        [0.2 + 0.6 * s, 0.5 - 0.2 * s, 0.8 - 0.6 * s], -1).astype(
+            np.float32)}
+    d["terrain"]["bsdf"] = {
+        "type": "blendbsdf",
+        "weight": {"type": "checkerboard", "color0": 0.2, "color1": 0.8},
+        "base": {"type": "plastic", "diffuse_reflectance": {
+            "type": "mesh_attribute", "name": "vertex_color"}},
+        "metal": {"type": "roughconductor", "distribution": "beckmann",
+                  "alpha_u": 0.1, "alpha_v": 0.4}}
+    return d
+
+
+def furnace_gate_scene(bsdf, width, spp, max_depth=48, rr_depth=1000,
+                       shape="sphere"):
+    """tests/test_bsdfs.py's furnace: a unit sphere (or the mask test's
+    rectangle) under a constant environment of 1, seen from (0, 0, -4)."""
+    return {
+        "type": "scene",
+        "integrator": {"type": "path", "max_depth": max_depth,
+                       "rr_depth": rr_depth},
+        "sensor": {"type": "perspective",
+                   "to_world": {"type": "look_at", "origin": [0, 0, -4],
+                                "target": [0, 0, 0], "up": [0, 1, 0]},
+                   "film": {"type": "hdrfilm", "width": width,
+                            "height": width, "rfilter": {"type": "box"}},
+                   "sampler": {"type": "independent", "sample_count": spp}},
+        "object": ({"type": "sphere", "radius": 1.0, "bsdf": bsdf}
+                   if shape == "sphere" else
+                   {"type": "rectangle", "bsdf": bsdf}),
+        "env": {"type": "constant", "radiance": 1.0},
+    }
+
+
+# tests/test_bsdfs.py:128-178: (bsdf, shape, max_depth, tolerance around 1)
+FURNACE_GATES = {
+    "conductor mirror": ({"type": "conductor"}, "sphere", 48, 0.01),
+    "dielectric": ({"type": "dielectric"}, "sphere", 48, 0.01),
+    "thindielectric": ({"type": "thindielectric"}, "sphere", 48, 0.01),
+    "roughdielectric alpha 0.02": ({"type": "roughdielectric",
+                                    "alpha": 0.02}, "sphere", 48, 0.02),
+    "blend of diffuse and conductor": (
+        {"type": "blendbsdf", "weight": 0.5,
+         "a": {"type": "diffuse", "reflectance": 1.0},
+         "b": {"type": "conductor"}}, "sphere", 48, 0.02),
+    "flat normalmap": ({"type": "normalmap", "normalmap": [0.5, 0.5, 1.0],
+                        "b": {"type": "diffuse", "reflectance": 1.0}},
+                       "sphere", 48, 0.02),
+    "mask pass-through rectangle": (
+        {"type": "mask", "opacity": 0.5,
+         "b": {"type": "twosided",
+               "a": {"type": "diffuse", "reflectance": 1.0}}},
+        "rectangle", 16, 0.03),
+}
+
+
+def materials_phases(V, F, lanes):
+    """Phases 26-28 (slice 5c-1): Mitsuba's surface materials. The
+    materials Cornell box on the lane pool (the fused sweep on its cube),
+    with its value+grad through the path replay; the materials terrain(256)
+    (the sorted sweep) through the scan driver and the pool; each against
+    the plain sweep at 64x64; and the BSDF furnace gates. Returns the
+    phases' records."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    rec = {}
+
+    # ---- 26. the materials Cornell box --------------------------------------
+    phase_clock("26")
+    # 256x256 spp 16 (PR 7's box takes 64): 1,048,576 samples, the time
+    # limit; the cube is one tile: one fused tile_sweep launch a query
+    box = load_dict(materials_cornell(256, 256, 16, 6))
+    integrators.render(box, seed=0, spp=1, regen=True,
+                       samples_per_pass=lanes)  # warm-up
+    film, secs, launches, counts = counted_pool(box, lanes)
+    rec["cornell"] = check_pool(
+        "materials cornell box 256x256 spp16 max_depth 6 (lane pool)", box,
+        film, secs, launches, counts, "tile_sweep", (0.05, 0.5))
+    small = load_dict(materials_cornell(64, 64, 4, 6))
+    film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+    with intersect.use_plain():
+        film_p, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+    flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
+                             max_flips=2)
+    rec["cornell"]["flips_vs_plain_64"] = flips
+    print(f"# materials cornell box 64x64 spp4: tile_sweep kernel vs plain "
+          f"films agree ({flips} pixels over tolerance, budget 2)",
+          flush=True)
+    # value+grad at spp 2: d(mean image)/d(spectra.baked.value)
+    vg = load_dict(materials_cornell(256, 256, 2, 6))
+    rows = materials_rows(vg)
+    rec["cornell_value_grad"] = surface_value_grad(
+        "materials cornell box 256x256 spp2 max_depth 6", vg, lanes,
+        "tile_sweep", rows)
+    sc = load_dict(materials_cornell(64, 64, 4, 6))
+    grads = {}
+    t0 = time.perf_counter()
+    for how, ctx in (("kernels", contextlib.nullcontext),
+                     ("plain", intersect.use_plain)):
+        with ctx():
+            r, params = value_grad(sc, lanes, ["spectra.baked.value"],
+                                   with_primal=False)
+        grads[how] = params["spectra.baked.value"].grad
+        for part in (r["forward"], r["backward"]):
+            want = part["queries"] if how == "kernels" else 0
+            assert part["queries"] > 0, (how, part)
+            assert part["launches"]["tile_sweep"] == want, (how, part)
+            assert sum(part["launches"].values()) == want, (how, part)
+    g, ref = grads["kernels"], grads["plain"]
+    ok = torch.isfinite(ref)
+    assert torch.equal(ok, torch.isfinite(g))
+    torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
+    rec["cornell_value_grad"]["grad_max_abs_err_vs_plain_64"] = float(
+        (g[ok] - ref[ok]).abs().max())
+    print(f"# materials cornell box 64x64 spp4 value+grad: tile_sweep vs "
+          f"plain gradients agree (rtol 1e-5, atol 1e-7; max abs err "
+          f"{rec['cornell_value_grad']['grad_max_abs_err_vs_plain_64']:.2e};"
+          f" both legs {time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # ---- 27. the materials terrain(256): the sorted sweep -------------------
+    phase_clock("27")
+    terr = load_dict(materials_terrain(V, F, 256, 256, 16, 6))
+    integrators.render(terr, seed=0, spp=1)  # warm-up
+    img, scan_s, launches, bounces, queries, traced = counted_render(terr)
+    check_render("materials terrain 256x256 spp16 max_depth 6 (scan)", terr,
+                 img, scan_s, launches, bounces, queries, traced,
+                 "tile_sweep", (0.005, 0.5))
+    pool_lanes = 1 << 18
+    integrators.render(terr, seed=0, spp=1, regen=True,
+                       samples_per_pass=pool_lanes)  # warm-up
+    film, pool_s, launches_p, counts = counted_pool(terr, pool_lanes)
+    rec["terrain"] = check_pool(
+        "materials terrain 256x256 spp16 max_depth 6 (lane pool)", terr,
+        film, pool_s, launches_p, counts, "tile_sweep", (0.005, 0.5))
+    scan = integrators.render(terr, seed=0, develop_film=False)
+    # phase 17's budget: shared-edge ties follow each query's coherence sort
+    flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
+                             max_flips=64)
+    small = load_dict(materials_terrain(V, F, 64, 64, 4, 6))
+    film_k = integrators.render(small, seed=3, develop_film=False)
+    with intersect.use_plain():
+        film_p = integrators.render(small, seed=3, develop_film=False)
+    flips_plain = films_equivalent(film_p.cpu().numpy(),
+                                   film_k.cpu().numpy(), max_flips=2)
+    rec["terrain"].update(scan_ms=scan_s * 1e3, scan_launches=launches[
+        "tile_sweep"], flips_vs_scan=flips, flips_vs_plain_64=flips_plain)
+    print(f"# materials terrain 256x256 spp16: scan {scan_s * 1e3:.1f} ms, "
+          f"lane pool {pool_s * 1e3:.1f} ms, films agree ({flips} pixels "
+          f"over tolerance, budget 64); 64x64 spp4 kernel vs plain films "
+          f"agree ({flips_plain} pixels, budget 2)", flush=True)
+
+    # ---- 28. the BSDF furnace gates -----------------------------------------
+    phase_clock("28")
+    gates = {}
+    t0 = time.perf_counter()
+    for label, (bsdf, shape, depth, tol) in FURNACE_GATES.items():
+        sc = load_dict(furnace_gate_scene(bsdf, 32, 256, depth,
+                                          shape=shape))
+        with counting() as read:
+            img = integrators.render(sc, seed=7, regen=True,
+                                     samples_per_pass=lanes)
+            assert sum(read()["launches"].values()) == 0, label
+        assert bool(torch.isfinite(img).all()), label
+        centre = float(img[12:20, 12:20].mean())
+        gates[label] = centre
+        assert abs(centre - 1.0) <= tol, (label, centre, tol)
+    rec["gates"] = dict(gates, seconds=time.perf_counter() - t0)
+    print(f"# BSDF furnace gates, 32x32 spp256 on the lane pool (centre "
+          f"8x8 mean, 1 within tests/test_bsdfs.py's tolerance): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in gates.items())
+          + f" ({rec['gates']['seconds']:.1f} s together)", flush=True)
+
+    if "--profile" in sys.argv[1:]:
+        profile_render(
+            lambda: integrators.render(box, seed=0, regen=True,
+                                       samples_per_pass=lanes),
+            secs, "materials_cbox", window=lambda: integrators.render(
+                box, seed=0, spp=4, regen=True, samples_per_pass=lanes))
+        profile_render(
+            lambda: integrators.render(terr, seed=0, regen=True,
+                                       samples_per_pass=pool_lanes),
+            pool_s, "materials_terrain_pool")
+    return rec
+
+
+def materials_rows(scene):
+    """spectra.baked.value rows of the materials Cornell box by name: the
+    cube's checkerboard colours, the gold's eta and k, the walls'
+    reflectances."""
+    a = {k: v.detach().cpu().numpy() for k, v in scene.tensors().items()}
+    row = lambda spec: int(a["spec_slot"][spec])
+    checker = a["tex_slot"][a["bsdfs.roughplastic.diffuse_reflectance"][0]]
+    refl = a["bsdfs.diffuse.reflectance"]
+    rows = {"checkerboard color0": row(a["textures.checkerboard.spec0"][
+                checker]),
+            "checkerboard color1": row(a["textures.checkerboard.spec1"][
+                checker]),
+            "gold eta": row(a["bsdfs.roughconductor.eta"][0]),
+            "gold k": row(a["bsdfs.roughconductor.k"][0])}
+    for name, tex in zip(("white", "red", "green"), refl[:3]):
+        rows[name] = spec_row(scene, int(tex))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2314,6 +2631,7 @@ def main():
         scene, forest, V, F, render_s, forest_runs, lanes, atmo)
     measure = measurement_phases(V, F, lanes, {
         "scan": render_s * 1e3, "pool": pools["terrain"]["render_ms"]})
+    materials = materials_phases(V, F, lanes)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -2367,6 +2685,17 @@ def main():
                "terrain gaussian value+grad backward": measure[
                    "gaussian_value_grad"]["backward"]["launches"][
                    "tile_sweep"]}),
+        "launches_materials": {
+            "materials cornell box pool (fused)": materials["cornell"][
+                "launches"]["tile_sweep"],
+            "materials cornell box value+grad forward": materials[
+                "cornell_value_grad"]["forward"]["launches"]["tile_sweep"],
+            "materials cornell box value+grad backward": materials[
+                "cornell_value_grad"]["backward"]["launches"]["tile_sweep"],
+            "materials terrain scan (sorted)": materials["terrain"][
+                "scan_launches"],
+            "materials terrain pool (sorted)": materials["terrain"][
+                "launches"]["tile_sweep"]},
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -2460,6 +2789,7 @@ def main():
     print(json.dumps({"lane_pool": pools, "surface_value_grad": surface_vg,
                       "gates": gates}))
     print(json.dumps({"measurement": measure}))
+    print(json.dumps({"materials": materials}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

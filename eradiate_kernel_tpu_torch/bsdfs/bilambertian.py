@@ -10,7 +10,6 @@ import math
 import torch
 
 from ..core import warp
-from ..render.texture import texture_eval
 from . import common
 
 FLAGS = (common.DiffuseReflection | common.DiffuseTransmission
@@ -25,10 +24,10 @@ def build(props, builder):
     }
 
 
-def _weights(scene, params, slot):
+def _weights(scene, params, slot, si):
     """(r, t, w_r): the two albedos and the reflection lobe's share."""
-    r = texture_eval(scene, params["reflectance"][slot])
-    t = texture_eval(scene, params["transmittance"][slot])
+    r = common.tex(scene, params["reflectance"][slot], si)
+    t = common.tex(scene, params["transmittance"][slot], si)
     total = torch.mean(r + t, dim=-1)
     w_r = torch.where(total > 0, torch.mean(r, dim=-1)
                       / torch.clamp(total, min=1e-12), 0.0)
@@ -37,7 +36,7 @@ def _weights(scene, params, slot):
 
 def sample(scene, params, slot, si, s1, s2, active):
     cos_i = si.wi[..., 2]
-    r, t, w_r = _weights(scene, params, slot)
+    r, t, w_r = _weights(scene, params, slot, si)
     wo = warp.square_to_cosine_hemisphere(s2)
     pdf_base = warp.square_to_cosine_hemisphere_pdf(wo)
     sel_r = (s1 < w_r) & active
@@ -58,7 +57,7 @@ def sample(scene, params, slot, si, s1, s2, active):
 def eval_pdf(scene, params, slot, si, wo, active):
     cos_i = si.wi[..., 2]
     cos_o = wo[..., 2]
-    r, t, w_r = _weights(scene, params, slot)
+    r, t, w_r = _weights(scene, params, slot, si)
     is_reflect = torch.sign(cos_i) == torch.sign(cos_o)
     value = torch.where(is_reflect[..., None], r, t) \
         * (torch.abs(cos_o) / math.pi)[..., None]

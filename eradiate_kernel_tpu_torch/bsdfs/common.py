@@ -1,4 +1,14 @@
-"""BSDF flags and the sample record (bsdfs/common.py counterpart)."""
+"""BSDF flags, the sample record and shared helpers (bsdfs/common.py
+counterpart). Every kind is a module of wavefront functions:
+
+  build(props, builder) -> row dict          (host side, scene build)
+  sample(scene, params, slot, si, s1, s2, active) -> (BSDFSample, weight)
+  eval_pdf(scene, params, slot, si, wo, active)   -> (value, pdf)
+
+``weight`` is value * cos / pdf; ``value`` includes the cosine. The port
+carries the reference's RADIANCE transport mode only: its integrators
+never pass IMPORTANCE (a grep of the JAX package finds it only inside
+bsdfs/), so the kinds take no ``mode`` argument."""
 
 from __future__ import annotations
 
@@ -14,8 +24,15 @@ GlossyTransmission = 0x10
 DeltaReflection = 0x20
 DeltaTransmission = 0x40
 Null = 0x1
+Anisotropic = 0x1000
+NonSymmetric = 0x4000
 FrontSide = 0x8000
 BackSide = 0x10000
+
+Reflection = DiffuseReflection | GlossyReflection | DeltaReflection
+Transmission = (DiffuseTransmission | GlossyTransmission | DeltaTransmission
+                | Null)
+All = Reflection | Transmission
 
 Diffuse = DiffuseReflection | DiffuseTransmission
 Glossy = GlossyReflection | GlossyTransmission
@@ -50,3 +67,14 @@ def twosided_frame(twosided, wi):
     Returns (wi', flip mask)."""
     flip = twosided & (wi[..., 2] < 0.0)
     return torch.where(flip[..., None], flip_z(wi), wi), flip
+
+
+def tex(scene, index, si, mesh_attributes=False):
+    """Texture ``index`` (N,) at the lanes' uv. Only the diffuse BSDF hands
+    a mesh_attribute texture its primitive (``mesh_attributes``), as in the
+    reference; elsewhere that texture reads 0 there too."""
+    from ..render.texture import texture_eval
+
+    if mesh_attributes:
+        return texture_eval(scene, index, si.uv, si.prim_index, si.prim_uv)
+    return texture_eval(scene, index, si.uv)

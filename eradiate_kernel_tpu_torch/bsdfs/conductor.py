@@ -1,0 +1,68 @@
+"""Smooth conductor (bsdfs/conductor.py counterpart; conductor.cpp).
+Params: eta and k (spectrum indices of the complex relative IOR, given
+or from a named preset of fresnel.CONDUCTOR_PRESETS; the default
+material "none" is a perfect mirror), specular_reflectance (texture
+index), twosided."""
+
+from __future__ import annotations
+
+import torch
+
+from ..render import fresnel as fr
+from . import common
+
+FLAGS = common.DeltaReflection | common.FrontSide
+
+
+def _eta_k(props, builder):
+    """(eta, k) spectrum indices of a conductor's props."""
+    if "eta" in props or "k" in props:
+        return (builder.spectrum(props.get("eta", 0.0)),
+                builder.spectrum(props.get("k", 1.0)))
+    eta_rgb, k_rgb = fr.CONDUCTOR_PRESETS[props.get("material",
+                                                    "none").lower()]
+    return builder.spectrum(list(eta_rgb)), builder.spectrum(list(k_rgb))
+
+
+def build(props, builder):
+    eta, k = _eta_k(props, builder)
+    return {
+        "eta": eta, "k": k,
+        "specular_reflectance": builder.texture(
+            props.get("specular_reflectance", 1.0)),
+        "twosided": builder.twosided_flag(props),
+    }
+
+
+def spectrum(scene, index):
+    """(N, nc) values of the spectra ``index`` (N,): eta and k are not
+    spatially varying."""
+    return scene.spectra["baked"]["value"][scene.spec_slot[index]]
+
+
+def fresnel_term(scene, params, slot, si, cos_i):
+    """(N, nc) conductor Fresnel term at ``cos_i`` times the specular
+    reflectance."""
+    f = fr.fresnel_conductor(cos_i, spectrum(scene, params["eta"][slot]),
+                             spectrum(scene, params["k"][slot]))
+    return f * common.tex(scene, params["specular_reflectance"][slot], si)
+
+
+def sample(scene, params, slot, si, s1, s2, active):
+    wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
+    cos_i = wi[..., 2]
+    act = active & (cos_i > 0.0)
+    wo = fr.reflect(wi)
+    weight = fresnel_term(scene, params, slot, si, cos_i)
+    bs = common.BSDFSample(
+        wo=torch.where(flip[..., None], common.flip_z(wo), wo),
+        pdf=torch.where(act, 1.0, 0.0), eta=torch.ones_like(cos_i),
+        sampled_type=torch.full_like(cos_i, FLAGS, dtype=torch.int32))
+    return bs, torch.where(act[..., None], weight, 0.0)
+
+
+def eval_pdf(scene, params, slot, si, wo, active):
+    n = si.t.shape[0]
+    return (torch.zeros(n, scene.config.variant.n_channels,
+                        device=si.t.device),
+            torch.zeros(n, device=si.t.device))

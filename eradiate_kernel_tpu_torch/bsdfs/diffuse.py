@@ -8,7 +8,6 @@ import math
 import torch
 
 from ..core import warp
-from ..render.texture import texture_eval
 from . import common
 
 FLAGS = common.DiffuseReflection | common.FrontSide
@@ -26,7 +25,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     act = active & (wi[..., 2] > 0.0)
     wo = warp.square_to_cosine_hemisphere(s2)
     pdf = warp.square_to_cosine_hemisphere_pdf(wo)
-    value = texture_eval(scene, params["reflectance"][slot])
+    value = common.tex(scene, params["reflectance"][slot], si, True)
     bs = common.BSDFSample(
         wo=torch.where(flip[..., None], common.flip_z(wo), wo),
         pdf=torch.where(act, pdf, 0.0),
@@ -41,7 +40,7 @@ def eval_pdf(scene, params, slot, si, wo, active):
     wo = torch.where(flip[..., None], common.flip_z(wo), wo)
     cos_o = wo[..., 2]
     act = active & (wi[..., 2] > 0.0) & (cos_o > 0.0)
-    refl = texture_eval(scene, params["reflectance"][slot])
+    refl = common.tex(scene, params["reflectance"][slot], si, True)
     value = refl * (cos_o[..., None] / math.pi)
     return (torch.where(act[..., None], value, 0.0),
             torch.where(act, cos_o / math.pi, 0.0))

@@ -11,7 +11,6 @@ import torch
 from ..core import warp
 from ..core.frame import cos_theta, sin_cos_phi_2, sin_theta, tan_theta
 from ..core.math import safe_sqrt, sqr
-from ..render.texture import texture_eval
 from . import common
 
 FLAGS = common.GlossyReflection | common.FrontSide
@@ -36,12 +35,12 @@ def _sincos_phi(v):
     return sp, cp
 
 
-def eval_rpv(scene, params, slot, wi, wo):
+def eval_rpv(scene, params, slot, si, wi, wo):
     """BRDF value without the cosine factor (rpv.cpp:107-146)."""
-    rho_0 = texture_eval(scene, params["rho_0"][slot])
-    rho_c = texture_eval(scene, params["rho_c"][slot])
-    g = texture_eval(scene, params["g"][slot])
-    k = texture_eval(scene, params["k"][slot])
+    rho_0 = common.tex(scene, params["rho_0"][slot], si)
+    rho_c = common.tex(scene, params["rho_c"][slot], si)
+    g = common.tex(scene, params["g"][slot], si)
+    k = common.tex(scene, params["k"][slot], si)
 
     sp1, cp1 = _sincos_phi(wi)
     sp2, cp2 = _sincos_phi(wo)
@@ -65,7 +64,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     act = active & (wi[..., 2] > 0.0)
     wo = warp.square_to_cosine_hemisphere(s2)
     pdf = warp.square_to_cosine_hemisphere_pdf(wo)
-    value = eval_rpv(scene, params, slot, wi, wo)
+    value = eval_rpv(scene, params, slot, si, wi, wo)
     bs = common.BSDFSample(
         wo=torch.where(flip[..., None], common.flip_z(wo), wo),
         pdf=torch.where(act, pdf, 0.0),
@@ -81,7 +80,7 @@ def eval_pdf(scene, params, slot, si, wo, active):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     wo = torch.where(flip[..., None], common.flip_z(wo), wo)
     act = active & (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0)
-    value = (eval_rpv(scene, params, slot, wi, wo)
+    value = (eval_rpv(scene, params, slot, si, wi, wo)
              * torch.abs(wo[..., 2])[..., None])
     pdf = warp.square_to_cosine_hemisphere_pdf(wo)
     return (torch.where(act[..., None], value, 0.0),

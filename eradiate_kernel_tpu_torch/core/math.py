@@ -33,6 +33,13 @@ def dot(a, b, keepdim=False):
     return torch.sum(a * b, dim=-1, keepdim=keepdim)
 
 
+def channel_mean(v, keepdim=False):
+    """The mean over the last axis as its sum times 1 / n: the reference's
+    jnp.mean as XLA lowers it, to the ulp (a bump map's finite differences
+    amplify an ulp of its height 1,000-fold)."""
+    return torch.sum(v, dim=-1, keepdim=keepdim) * (1.0 / v.shape[-1])
+
+
 def normalize(v):
     return v * safe_rsqrt(torch.sum(v * v, dim=-1, keepdim=True))
 

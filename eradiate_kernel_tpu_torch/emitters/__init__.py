@@ -27,7 +27,7 @@ def _zeros_like_batch(x, *shape, dtype=torch.float32):
 def area_eval(scene, params, slot, si, active):
     """Radiance of an area emitter seen along si.wi (front side only)."""
     front = si.wi[:, 2] > 0.0
-    v = texture_eval(scene, params["radiance"][slot])
+    v = texture_eval(scene, params["radiance"][slot], si.uv)
     return torch.where((active & front)[:, None], v, 0.0)
 
 
@@ -42,7 +42,7 @@ def area_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     cos_em = dot(ps.n, -d)
     front = cos_em > 1e-7
     pdf_sa = ps.pdf * dist2 / torch.clamp(torch.abs(cos_em), min=1e-20)
-    value = texture_eval(scene, params["radiance"][slot])
+    value = texture_eval(scene, params["radiance"][slot], ps.uv)
     value = torch.where((active & front)[:, None], value, 0.0)
     ds = DirectionSample(
         p=ps.p, n=ps.n, uv=ps.uv, d=d, dist=dist,
@@ -74,7 +74,7 @@ def constant_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     d = warp.square_to_uniform_sphere(s2)
     pdf = warp.square_to_uniform_sphere_pdf(d)
     r = 2.0 * scene.bsphere_radius
-    value = texture_eval(scene, params["radiance"][slot])
+    value = texture_eval(scene, params["radiance"][slot], s2)
     ds = DirectionSample(
         p=ref_p + d * r, n=-d, uv=s2, d=d, dist=r.expand(pdf.shape[0]),
         pdf=pdf, delta=torch.zeros_like(active),

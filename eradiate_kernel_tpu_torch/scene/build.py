@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..bsdfs import REGISTRY as BSDF_REGISTRY
 from ..core.spectrum import luminance
 from ..core.transform import AnimatedTransform, Transform, as_transform
 from ..core.types import Variant, resolve_device
@@ -30,7 +31,7 @@ from .build_spectra import (_axis_majorant_profiles,
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
 
-_BSDF_TYPES = ("diffuse", "rpv", "null", "bilambertian", "twosided")
+_BSDF_TYPES = (*BSDF_REGISTRY, "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
 _INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath")
 # the integrator's extra properties load_dict keeps (the reference's, and
@@ -63,6 +64,9 @@ class SceneBuilder:
         self.medium_phase_list = []
         self.sensor_medium = -1  # medium the sensor is embedded in
         self.named = {}
+        self.bitmaps = []           # (H, W, 3) f32 images of bitmap textures
+        self.mesh_attr_names = []   # attribute name per slot
+        self.mesh_attr_chunks = {}  # name -> list of (v_offset, (V_i, C))
         self.vertices = []
         self.normals = []
         self.uvs = []
@@ -250,11 +254,33 @@ class SceneBuilder:
             "'srgb' and 'uniform'; the others come with slice 6 (spectra)")
 
     def texture(self, value):
-        if isinstance(value, dict) and value.get("type") in (
-                "mesh_attribute", "checkerboard", "bitmap"):
-            raise NotImplementedError(
-                f"texture {value['type']!r}: the port carries constant "
-                "textures; the others come with slice 5c")
+        """A value / texture dict -> texture index: constant (a spectrum),
+        checkerboard, bitmap (inline ``data``) or mesh_attribute."""
+        t = value.get("type") if isinstance(value, dict) else None
+        if t == "mesh_attribute":
+            name = value["name"]
+            if name not in self.mesh_attr_names:
+                self.mesh_attr_names.append(name)
+            return self._add(self.textures, self.tex_table, "mesh_attribute",
+                             {"attr": np.int32(
+                                 self.mesh_attr_names.index(name)),
+                              "scale": np.float32(value.get("scale", 1.0))})
+        if t == "checkerboard":
+            s0 = self.spectrum(value.get("color0", 0.4))
+            s1 = self.spectrum(value.get("color1", 0.2))
+            return self._add(self.textures, self.tex_table, "checkerboard",
+                             {"spec0": np.int32(s0), "spec1": np.int32(s1)})
+        if t == "bitmap":
+            if "data" not in value:
+                raise NotImplementedError(
+                    "bitmap from a file: image IO (utils/bitmap.py and the "
+                    "EXR readers) comes with slice 7; pass inline 'data'")
+            data = np.asarray(value["data"], np.float32)
+            if data.ndim == 2:
+                data = data[..., None].repeat(3, -1)
+            self.bitmaps.append(data)
+            return self._add(self.textures, self.tex_table, "bitmap",
+                             {"image": np.int32(len(self.bitmaps) - 1)})
         spec = self.spectrum(value)
         return self._add(self.textures, self.tex_table, "constant",
                          {"spec": np.int32(spec)})
@@ -272,10 +298,21 @@ class SceneBuilder:
                                     face_count=face_count))
         return len(self.shape_rows) - 1
 
-    def add_mesh(self, verts, faces, normals=None, uvs=None):
+    def add_mesh(self, verts, faces, normals=None, uvs=None,
+                 attributes=None):
         verts = np.asarray(verts, np.float32)
         faces = np.asarray(faces, np.int32)
         v_off = sum(len(v) for v in self.vertices)
+        for name, arr in (attributes or {}).items():
+            arr = np.atleast_2d(np.asarray(arr, np.float32))
+            if arr.shape[0] != len(verts):
+                arr = arr.T
+            if arr.shape[0] != len(verts):
+                raise ValueError(f"attribute {name!r}: {arr.shape[0]} "
+                                 f"values for {len(verts)} vertices")
+            self.mesh_attr_chunks.setdefault(name, []).append((v_off, arr))
+            if name not in self.mesh_attr_names:
+                self.mesh_attr_names.append(name)
         self.vertices.append(verts)
         self.normals.append(np.zeros_like(verts) if normals is None
                             else np.asarray(normals, np.float32))
@@ -417,6 +454,21 @@ class SceneBuilder:
             [0] + [i["shape_base"] for i in self.instances], i32)
         return out
 
+    def _mesh_attr_data(self, n_vertices):
+        """(A, V, 3) per-vertex data of the mesh attributes (1-channel
+        ones repeated into 3); a (1, 1, 3) zero without any."""
+        if not self.mesh_attr_names:
+            return np.zeros((1, 1, 3), np.float32)
+        data = np.zeros((len(self.mesh_attr_names), max(n_vertices, 1), 3),
+                        np.float32)
+        for a, name in enumerate(self.mesh_attr_names):
+            for off, arr in self.mesh_attr_chunks.get(name, []):
+                c = min(arr.shape[1], 3)
+                data[a, off:off + len(arr), :c] = arr[:, :c]
+                if c == 1:
+                    data[a, off:off + len(arr), 1:3] = arr[:, :1]
+        return data
+
     # --- finalize ------------------------------------------------------------------
     def finalize(self, sensor_kind, sensor_params, sensor_static, film_cfg,
                  integrator_cfg, spp):
@@ -538,6 +590,9 @@ class SceneBuilder:
         geo.update(self._accel_arrays(V, F, FS))
         geo.update(self._instancing_arrays())
         arrays.update({f"geo.{k}": v for k, v in geo.items()})
+        arrays["bitmap_data"] = (np.stack(self.bitmaps) if self.bitmaps
+                                 else np.zeros((1, 1, 1, 3), np.float32))
+        arrays["mesh_attr_data"] = self._mesh_attr_data(len(V))
 
         pts = [V] if len(V) else []
         for inst in self.instances:
@@ -654,8 +709,8 @@ def load_dict(d: dict, variant: Variant | None = None,
         elif t not in _BSDF_TYPES:
             raise NotImplementedError(
                 f"scene entry {key!r} of type {t!r}: not carried by the "
-                "port; Mitsuba's other plugins (spot, projector, envmap) "
-                "come with slice 5c, the other integrators with slice 6")
+                "port; the spot, projector and envmap emitters come with "
+                "slice 5c-2, the other integrators with slice 6")
 
     if pending_sensor is not None:
         # built after every shape (irradiancemeter's shape ref); its film

@@ -5,8 +5,11 @@ from __future__ import annotations
 import numpy as np
 
 # the scene-level emitter types of the port (spot, projector and envmap
-# come with slice 5c)
+# come with slice 5c-2)
 _EMITTER_SCENE_TYPES = ("constant", "point", "directional")
+# the reference's BSDFs that read core/mueller.py
+_POLARIZED_BSDFS = ("pplastic", "polarizer", "retarder", "circular",
+                    "measured_polarized")
 
 
 def _build_bsdf(builder, d, twosided=False):
@@ -24,9 +27,11 @@ def _build_bsdf(builder, d, twosided=False):
             raise ValueError("twosided needs exactly one nested bsdf")
         return _build_bsdf(builder, child[0], twosided=True)
     if t not in bsdf_pkg.REGISTRY:
+        later = ("slice 6 (the polarized variant)" if t in _POLARIZED_BSDFS
+                 else "slice 5c-2 (measured)")
         raise NotImplementedError(
             f"bsdf {t!r}: the port carries {sorted(bsdf_pkg.REGISTRY)}; "
-            "Mitsuba's other materials come with slice 5c")
+            f"{t!r} comes with {later}")
     mod = bsdf_pkg.REGISTRY[t]
     props = dict(d)
     props["_twosided"] = twosided

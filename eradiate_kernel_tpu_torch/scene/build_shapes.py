@@ -156,10 +156,6 @@ def _build_shape(builder, d):
     tw = as_transform(d.get("to_world"))
     if t == "instance":
         return _build_instance(builder, d, tw)
-    if "attributes" in d:
-        raise NotImplementedError(
-            "shape 'attributes': mesh attributes come with slice 5c of the "
-            "port")
     if t == "rectangle":
         idx = builder.add_rectangle(tw)
     elif t == "disk":
@@ -185,11 +181,12 @@ def _build_shape(builder, d):
             if normals is not None:
                 inv_t = np.linalg.inv(m[:3, :3]).T
                 normals = np.asarray(normals, np.float32) @ inv_t.T
-        idx = builder.add_mesh(verts, d["faces"], normals, d.get("uvs"))
+        idx = builder.add_mesh(verts, d["faces"], normals, d.get("uvs"),
+                               d.get("attributes"))
     else:
         raise NotImplementedError(
             f"shape {t!r}: the port carries {_SHAPE_TYPES}; cylinder, cone "
-            "and mesh files come with slice 5c")
+            "and mesh files come with slice 5c-2")
     row = builder.shape_rows[idx]
     bsdf_d = d.get("bsdf")
     if bsdf_d is None:

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..bsdfs import REGISTRY as BSDF_REGISTRY
 from ..core.transform import AnimatedTransform, Transform
 from ..core.types import Variant, resolve_device
 from ..render.geometry import Geometry
@@ -25,9 +26,10 @@ from ..textures.volumes import packed_corners_of
 
 # what the port carries
 SUPPORTED = {
-    "bsdf_kinds": {"diffuse", "rpv", "null", "bilambertian"},
+    "bsdf_kinds": set(BSDF_REGISTRY),
     "emitter_kinds": {"directional", "area", "constant", "point"},
-    "texture_kinds": {"constant"},
+    "texture_kinds": {"constant", "checkerboard", "bitmap",
+                      "mesh_attribute"},
     "spectrum_kinds": {"baked"},
     "sensor_kind": {"perspective", "thinlens", "radiancemeter",
                     "mradiancemeter", "distant", "mdistant", "distantflux",
@@ -41,8 +43,8 @@ SUPPORTED = {
 }
 INTEGRATORS = ("path", "direct", "depth", "volpath")
 # the slice that brings the kinds SUPPORTED does not have yet
-_LATER = {"bsdf_kinds": "5c", "emitter_kinds": "5c", "texture_kinds": "5c",
-          "sampler_kind": "5c", "spectrum_kinds": "6", "medium_kinds": "6",
+_LATER = {"bsdf_kinds": "5c-2 or 6", "emitter_kinds": "5c-2",
+          "sampler_kind": "5c-2", "spectrum_kinds": "6", "medium_kinds": "6",
           "phase_kinds": "6", "volume_kinds": "6"}
 
 
@@ -95,7 +97,7 @@ class SceneConfig:
             if bad:
                 raise NotImplementedError(
                     f"{name} {bad}: the port carries {sorted(allowed)}; "
-                    f"the others come with slice {_LATER.get(name, '5c')}")
+                    f"the others come with slice {_LATER.get(name, '5c-2')}")
         if self.integrator.kind not in INTEGRATORS:
             raise NotImplementedError(
                 f"integrator {self.integrator.kind!r}: the port carries "
@@ -155,6 +157,8 @@ class Scene:
     volumes: dict
     vol_kind: torch.Tensor
     vol_slot: torch.Tensor
+    bitmap_data: torch.Tensor     # (n, H, W, 3) images of bitmap textures
+    mesh_attr_data: torch.Tensor  # (A, V, 3) per-vertex mesh attributes
     sensor: dict                  # the sensor's params (build_sensors)
     bsphere_center: torch.Tensor  # (3,)
     bsphere_radius: torch.Tensor  # ()
@@ -295,6 +299,7 @@ def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
         volumes=volumes,
         vol_kind=top("vol_kind"), vol_slot=top("vol_slot"),
         vol_packed=packed_corners_of(volumes),
+        bitmap_data=top("bitmap_data"), mesh_attr_data=top("mesh_attr_data"),
         sensor={k: sensor_param(k, v) for k, v in tree["sensor"].items()},
         bsphere_center=top("bsphere_center"),
         bsphere_radius=top("bsphere_radius"),

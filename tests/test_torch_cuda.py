@@ -516,3 +516,54 @@ def test_wide_film_put_and_gather_match_cpu(cuda_device, kind):
     got = film_gather(img.to(cuda_device), pos.to(cuda_device), kind)
     torch.testing.assert_close(got.cpu(), film_gather(img, pos, kind),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "terrain"])
+def test_materials_match_plain_versions(cuda_device, name):
+    """chip_smoke.py phases 26-27 at 64x64, spp 4: the materials Cornell
+    box on the lane pool (the cube's fused sweep) and the materials
+    terrain(33) on the scan driver (the sorted sweep) through the kernel
+    and through the plain sweep, films within 1e-4 but 2 pixels, the
+    kernel launched once a query; the Cornell box's value+grad through
+    the path replay within rtol 1e-5, atol 1e-7."""
+    from chip_smoke import (films_equivalent, materials_cornell,
+                            materials_terrain)
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.films import develop
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils import autodiff
+
+    if name == "cornell":
+        scene = load_dict(materials_cornell(64, 64, 4, 6))
+        render = lambda sc: integrators.render(
+            sc, seed=3, regen=True, samples_per_pass=4096,
+            develop_film=False)
+    else:
+        V, F = terrain(33)
+        scene = load_dict(materials_terrain(V, F, 64, 64, 4, 6))
+        render = lambda sc: integrators.render(sc, seed=3,
+                                               develop_film=False)
+    before = intersect.launches["tile_sweep"]
+    film = render(scene)
+    torch.cuda.synchronize()
+    assert intersect.launches["tile_sweep"] > before
+    with intersect.use_plain():
+        film_p = render(scene)
+    films_equivalent(film_p.cpu().numpy(), film.cpu().numpy(), max_flips=2)
+    if name != "cornell":
+        return
+    pm = autodiff.traverse(scene).keep(["spectra.baked.value"])
+    grads = []
+    for plain in (False, True):
+        params = pm.trainable()
+        if plain:
+            with intersect.use_plain():
+                develop(render(pm.with_trainable(params))).mean().backward()
+        else:
+            develop(render(pm.with_trainable(params))).mean().backward()
+        grads.append(params["spectra.baked.value"].grad)
+    g, gp = grads
+    ok = torch.isfinite(gp)
+    assert torch.equal(ok, torch.isfinite(g)) and bool(g.abs().sum() > 0)
+    torch.testing.assert_close(g[ok], gp[ok], rtol=1e-5, atol=1e-7)

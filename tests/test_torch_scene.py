@@ -109,9 +109,9 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     ("shape", {"type": "cylinder"}),
     ("emitter", {"type": "spot"}),
     ("integrator", {"type": "volpathmis"}),
-    ("bsdf", {"type": "conductor"}),
-    ("texture", {"type": "bitmap", "data": np.ones((2, 2, 3))}),
-    ("bsdf", {"type": "plastic"}),
+    ("bsdf", {"type": "measured"}),
+    ("texture", {"type": "bitmap", "filename": "ground.exr"}),
+    ("bsdf", {"type": "pplastic"}),
 ])
 def test_types_outside_the_slice_raise(entry):
     kind, val = entry
@@ -124,7 +124,7 @@ def test_types_outside_the_slice_raise(entry):
         d["camera"]["film"]["rfilter"] = val
     else:
         d["extra"] = val
-    with pytest.raises(NotImplementedError, match=r"slice (5c|6)"):
+    with pytest.raises(NotImplementedError, match=r"slice (5c|6|7)"):
         load_dict(d, device="cpu")
 
 
