@@ -167,10 +167,45 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the blend of diffuse and conductor, a flat normal map, the mask's
      pass-through rectangle) at 32x32 spp 256 with each test's max_depth
      and rr_depth, on the lane pool, each held to its test's tolerance;
+ 29. mesh files (slice 5c-2): terrain(256) written as PLY (utils.meshio.
+     write_ply), OBJ and Mitsuba serialized (this script's write_obj and
+     write_serialized) under smoke_out/mesh_files, each loaded through
+     load_dict (host seconds printed): its arrays bit-equal to the inline
+     mesh scene's (an OBJ's vertex numbering aside: the same triangles
+     and tiles) and its 256x256 spp16 max_depth 6 film through the sorted
+     sweep bit-equal to phase 3's, launches == queries; the forest with
+     its crown read from an OBJ shapegroup child (to_world scale 0.5):
+     tiles and BVHs bit-equal to the inline crown's, 64x64 spp4 max_depth
+     2 films through tile_bvh and tile_bvh8 bit-equal to the inline
+     forest's, launches == queries;
+ 30. the measured ground under an envmap sky: terrain(256) from the PLY
+     under a measured BRDF (fields in the layout of tests/test_measured.py's
+     synth_fields, T = 6, L = 16, res = 32, from the seed), a 256 x 512
+     envmap (a smooth sky and a one-texel sun 10^4 times it) and the
+     multijitter sampler; 256x256 spp16 max_depth 6 on the scan driver
+     and a pool of 2^18 lanes (launches == queries, films within 64
+     pixels); a 64x64 spp4 film through the kernel against the plain
+     sweep (budget 2); value+grad at spp 4 with respect to the envmap's
+     image and the measured spectra (finite, not zero; launches ==
+     queries), and at 64x64 spp4 max_depth 3 (depth cut for the plain
+     sweep's time, as phase 19) through the kernel against the plain
+     sweep (rtol 1e-5, atol 1e-7);
+ 31. the lights-and-quadrics box: cornell_box(256, 256, 16, 6) with its
+     area light replaced by a spot and a projector (an inline 64x64
+     bitmap), a cylinder, a cone and a 12-triangle cube (the fused
+     query), the ldsampler sampler, on the lane pool of 32,768 lanes
+     (launches == queries); threefry's and _sobol_2's shares of a
+     synchronised spp4 render; a 64x64 spp4 film through the kernel
+     against the plain sweep (budget 2); value+grad at spp 2 (the walls'
+     reflectance rows finite, not zero); sample_emitter_ray over 2^20
+     lanes against the same call on the CPU (1e-6);
+ 32. the five samplers draw 2^20 lanes x 8 dimensions (next_1d,
+     next_2d; spp 6, so the strata's divisions are not by powers of 2)
+     bit-equal to the same calls on the CPU, ms a draw;
  12. (last) print the kernels line (every kernel and entry, the backward
-     included, with their launches on phases 21-27), the value+grad,
-     measurement and materials records, the card's name and power limit,
-     and the final ``{"ok": true, ...}`` line.
+     included, with their launches on phases 21-31), the value+grad,
+     measurement, materials and slice 5c-2 records, the card's name and
+     power limit, and the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
@@ -317,6 +352,31 @@ def forest_scene(width, height, spp, max_depth, n_inst=256):
                           {"type": "rotate", "axis": [0, 0, 1],
                            "angle": float(rng.uniform(0, 360))}]}
     return d
+
+
+def write_obj(path, V, F):
+    """A Wavefront OBJ of vertices V and triangles F (positions only; the
+    shortest decimals that round-trip float32)."""
+    with open(path, "w") as fh:
+        fh.writelines(f"v {x!r} {y!r} {z!r}\n"
+                      for x, y, z in V.astype(np.float32).tolist())
+        fh.writelines(f"f {a} {b} {c}\n" for a, b, c in (F + 1).tolist())
+
+
+def write_serialized(path, V, F, name="mesh"):
+    """A one-mesh Mitsuba ``serialized`` file (version 4, float32, no
+    normals or uvs): magic 0x041C, version, a zlib stream of flags, name,
+    counts, positions and faces, then the footer of offsets and count."""
+    import struct
+    import zlib
+
+    body = (struct.pack("<I", 0x1000) + name.encode() + b"\0"
+            + struct.pack("<QQ", len(V), len(F))
+            + np.ascontiguousarray(V, "<f4").tobytes()
+            + np.ascontiguousarray(F, "<u4").tobytes())
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<HH", 0x041C, 4) + zlib.compress(body)
+                 + struct.pack("<QI", 0, 1))
 
 
 def sass_counts(name):
@@ -2205,6 +2265,381 @@ def materials_rows(scene):
     return rows
 
 
+def synth_measured_fields(T=6, L=16, res=32, seed=0):
+    """A measured BRDF's fields in the layout of a ``.bsdf`` file (that of
+    tests/test_measured.py's synth_fields): isotropic (one phi_i), T
+    incident elevations, L wavelengths and res x res warp grids; a
+    forward lobe that tightens with theta_i, zero on the first two
+    theta_m columns (the pdf stays bounded near the specular direction),
+    its widths and spectral scales drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    theta_i = np.linspace(0, np.pi / 2 * 0.95, T).astype(np.float32)
+    u = np.linspace(0, 1, res)
+    theta_m = u ** 2 * (np.pi / 2)
+    window = np.ones(res)
+    window[:2] = 0.0
+    vndf = np.zeros((1, T, res, res), np.float32)
+    lum = np.zeros((1, T, res, res), np.float32)
+    phi_row = 1.0 + 0.3 * np.cos(2 * np.pi * u)[:, None]
+    for t in range(T):
+        alpha = (0.2 + 0.5 * t / max(T - 1, 1)) * rng.uniform(0.8, 1.2)
+        lobe = (np.exp(-(theta_m / alpha) ** 2) * np.cos(theta_m)
+                + 1e-3) * window
+        vndf[0, t] = phi_row * lobe[None, :]
+        lum[0, t] = phi_row * ((lobe + 1e-6) ** 0.8)[None, :] * window
+    ndf = (np.exp(-(theta_m / 0.35) ** 2)[None, :].repeat(res, 0)
+           + 1e-3).astype(np.float32)
+    sigma = (0.25 + 0.5 * np.cos(theta_m)[None, :].repeat(res, 0)
+             ).astype(np.float32)
+    scale = np.sort(rng.uniform(0.3, 1.0, L))
+    spectra = (vndf[:, :, None] * scale[None, None, :, None, None]
+               ).astype(np.float32)
+    return {"theta_i": theta_i, "phi_i": np.zeros(1, np.float32),
+            "wavelengths": np.linspace(400, 700, L).astype(np.float32),
+            "ndf": ndf, "sigma": sigma, "vndf": vndf, "luminance": lum,
+            "spectra": spectra, "jacobian": np.ones(1, np.uint8)}
+
+
+def sky_image(h=256, w=512, seed=0):
+    """A smooth lat-long sky (rows from the emitter's +y pole to its -y
+    pole) with a one-texel sun 10^4 times the sky's mean."""
+    rng = np.random.default_rng(seed)
+    theta = (np.arange(h) / (h - 1) * np.pi)[:, None, None]
+    phi = (np.arange(w) / w * 2 * np.pi)[None, :, None]
+    tint = rng.uniform(0.8, 1.2, 3)
+    img = (0.25 + 0.15 * np.cos(theta) + 0.03 * np.sin(phi + rng.uniform(
+        0, 2 * np.pi))) * tint
+    img = img.astype(np.float32)
+    img[int(rng.integers(h // 8, h // 3)), int(rng.integers(0, w))] = \
+        1e4 * img.mean()
+    return img
+
+
+def measured_terrain(ply, fields, sky, width, height, spp, max_depth):
+    """terrain(256) read from ``ply`` under a measured BRDF, lit by an
+    envmap whose +y pole is the world's +z (no sun of its own), seen
+    through the bench camera with the multijitter sampler."""
+    d = terrain_scene(np.zeros((3, 3), np.float32),
+                      np.zeros((1, 3), np.int32), width, height, spp,
+                      max_depth)
+    d["terrain"] = {"type": "ply", "filename": ply,
+                    "bsdf": {"type": "measured", "fields": fields}}
+    del d["sun"]
+    d["sky"] = {"type": "envmap", "data": sky,
+                "to_world": {"type": "rotate", "axis": [1, 0, 0],
+                             "angle": 90.0}}
+    d["camera"]["sampler"]["type"] = "multijitter"
+    return d
+
+
+def quadrics_box(width, height, spp, max_depth, seed=0):
+    """utils.scenes.cornell_box with its area light replaced by a spot
+    (down from the ceiling) and a projector (an inline 64x64 bitmap from
+    ``seed``) and with a cylinder, a cone and a 12-triangle cube (one
+    tile: the fused query) on the floor; the ldsampler sampler."""
+    from eradiate_kernel_tpu_torch.utils.scenes import cornell_box
+
+    rng = np.random.default_rng(seed)
+    d = cornell_box(width, height, spp, max_depth)
+    del d["light"]
+    d["spot"] = {"type": "spot", "position": [0.0, 0.95, 0.0],
+                 "direction": [0.0, -1.0, 0.1], "cutoff_angle": 50.0,
+                 "beam_width": 35.0, "intensity": [6.0, 5.0, 4.0]}
+    d["projector"] = {
+        "type": "projector", "fov": 40.0,
+        "to_world": {"type": "look_at", "origin": [-0.8, 0.8, -0.8],
+                     "target": [0.2, -0.6, 0.5], "up": [0, 1, 0]},
+        "irradiance": {"type": "bitmap", "data": (3.0 * rng.random(
+            (64, 64, 3))).astype(np.float32)}}
+    upright = {"type": "rotate", "axis": [1, 0, 0], "angle": -90.0}
+    d["pipe"] = {"type": "cylinder", "radius": 0.15, "length": 0.9,
+                 "to_world": [upright, {"type": "translate",
+                                        "value": [-0.5, -1.0, 0.3]}],
+                 "bsdf": {"type": "ref", "id": "white_bsdf"}}
+    d["cone"] = {"type": "cone", "radius": 0.25, "length": 0.6,
+                 "to_world": [upright, {"type": "translate",
+                                        "value": [0.45, -1.0, -0.2]}],
+                 "bsdf": {"type": "ref", "id": "red_bsdf"}}
+    d["cube"] = {"type": "mesh",
+                 "vertices": (CUBE_V * 0.2 + np.float32([0.0, -0.8, 0.5])
+                              ).astype(np.float32),
+                 "faces": CUBE_F, "bsdf": {"type": "ref", "id": "green_bsdf"}}
+    d["sensor"]["sampler"] = {"type": "ldsampler", "sample_count": spp}
+    return d
+
+
+def kernel_vs_plain_grads(scene, lanes, keys, kernels):
+    """value_grad of ``scene`` through the kernels and through the plain
+    versions (intersect.use_plain): the gradients within rtol 1e-5, atol
+    1e-7, each leg's launches one of ``kernels`` a query (the plain leg
+    none). Returns the largest absolute difference."""
+    from eradiate_kernel_tpu_torch.ops import intersect
+
+    grads = {}
+    for how, ctx in (("kernels", contextlib.nullcontext),
+                     ("plain", intersect.use_plain)):
+        with ctx():
+            r, params = value_grad(scene, lanes, keys, with_primal=False)
+        grads[how] = {k: p.grad for k, p in params.items()}
+        for part in (r["forward"], r["backward"]):
+            want = part["queries"] if how == "kernels" else 0
+            assert part["queries"] > 0, (how, part)
+            assert sum(part["launches"][k] for k in kernels) == want, \
+                (how, part)
+            assert sum(part["launches"].values()) == want, (how, part)
+    worst = 0.0
+    for k, g in grads["kernels"].items():
+        ref = grads["plain"][k]
+        ok = torch.isfinite(ref)
+        assert torch.equal(ok, torch.isfinite(g)), k
+        torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
+        worst = max(worst, float((g[ok] - ref[ok]).abs().max()))
+    return worst
+
+
+def slice_5c2_phases(V, F, scene, img, lanes):
+    """Phases 29-32 (slice 5c-2): mesh files, the measured BSDF under an
+    envmap sky, the lights-and-quadrics box and the samplers. ``scene``
+    and ``img`` are phase 3's inline terrain and its film. Returns the
+    phases' records."""
+    from eradiate_kernel_tpu_torch import emitters, films, integrators
+    from eradiate_kernel_tpu_torch.core import rng
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils import meshio
+
+    rec = {}
+    pool_lanes = 1 << 18
+    out = os.path.join("smoke_out", "mesh_files")
+    os.makedirs(out, exist_ok=True)
+
+    # ---- 29. mesh files --------------------------------------------------------
+    phase_clock("29")
+    paths = {"ply": os.path.join(out, "terrain.ply"),
+             "obj": os.path.join(out, "terrain.obj"),
+             "serialized": os.path.join(out, "terrain.serialized")}
+    t0 = time.perf_counter()
+    meshio.write_ply(paths["ply"], V, F)
+    write_obj(paths["obj"], V, F)
+    write_serialized(paths["serialized"], V, F)
+    rec["write_s"] = time.perf_counter() - t0
+    base = scene.tensors()
+    rec["files"] = {}
+    for kind, path in paths.items():
+        d = terrain_scene(V, F, 256, 256, 16, 6)
+        d["terrain"] = {"type": kind, "filename": path,
+                        "bsdf": d["terrain"]["bsdf"]}
+        t0 = time.perf_counter()
+        sc = load_dict(d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        # an OBJ numbers its vertices in order of first use: its vertex
+        # and face arrays differ, its triangles, tiles (the packed rows'
+        # views) and tables do not
+        for name, t in sc.tensors().items():
+            if kind == "obj" and name in ("geo.vertices", "geo.faces"):
+                continue
+            assert torch.equal(t, base[name]), (kind, name)
+        assert torch.equal(sc.geo.vertices[sc.geo.faces.long()],
+                           scene.geo.vertices[scene.geo.faces.long()]), kind
+        film, secs, launches, bounces, queries, traced = counted_render(sc)
+        check_render(f"terrain from {kind} 256x256 spp16 max_depth 6 "
+                     "(scan)", sc, film, secs, launches, bounces, queries,
+                     traced, "tile_sweep", (0.005, 0.5))
+        assert torch.equal(film, img), f"{kind}: film differs from inline"
+        rec["files"][kind] = dict(load_dict_s=load_s, render_ms=secs * 1e3,
+                                  launches=launches["tile_sweep"],
+                                  queries=queries)
+    print("# mesh files: terrain(256) written in "
+          f"{rec['write_s']:.2f} s; load_dict host seconds "
+          + ", ".join(f"{k} {v['load_dict_s']:.2f}"
+                      for k, v in rec["files"].items())
+          + "; arrays and 256x256 spp16 films bit-equal to the inline "
+          "mesh's", flush=True)
+    # the forest with its crown read from an OBJ shapegroup child
+    Vc, Fc = terrain(33)
+    crown = os.path.join(out, "crown.obj")
+    write_obj(crown, Vc, Fc)
+    d = forest_scene(64, 64, 4, 2)
+    d["grp"]["crown"] = {"type": "obj", "filename": crown,
+                         "to_world": {"type": "scale", "value": 0.5},
+                         "bsdf": {"type": "diffuse"}}
+    t0 = time.perf_counter()
+    fo = load_dict(d)
+    torch.cuda.synchronize()
+    rec["forest"] = dict(load_dict_s=time.perf_counter() - t0)
+    inline = load_dict(forest_scene(64, 64, 4, 2))
+    for name in ("tiles_v0", "tiles_e1", "tiles_e2", "tiles_prim",
+                 "tiles_shape", "bvh_box", "bvh_meta", "bvh8_box",
+                 "bvh8_meta", "inst_l2w"):
+        a, b = getattr(fo.geo, name), getattr(inline.geo, name)
+        same = (torch.equal(a.m, b.m) if name == "inst_l2w"
+                else torch.equal(a, b))
+        assert same, f"forest from obj: {name} differs"
+    for name, wide in (("tile_bvh", "0"), ("tile_bvh8", "1")):
+        with env(ERT_BVH_WIDE=wide):
+            film, secs, launches, bounces, queries, traced = \
+                counted_render(fo)
+            ref = integrators.render(inline, seed=0)
+        check_render(f"forest with an OBJ crown 64x64 spp4 max_depth 2 "
+                     f"({name})", fo, film, secs, launches, bounces,
+                     queries, traced, name, (0.005, 0.5))
+        assert torch.equal(film, ref), f"forest from obj ({name}) differs"
+        rec["forest"][name] = dict(launches=launches[name],
+                                   queries=queries)
+    print(f"# forest with an OBJ crown: load_dict "
+          f"{rec['forest']['load_dict_s']:.2f} s, films through tile_bvh "
+          f"and tile_bvh8 bit-equal to the inline crown's", flush=True)
+
+    # ---- 30. the measured ground under an envmap sky ---------------------------
+    phase_clock("30")
+    fields = synth_measured_fields(6, 16, 32, seed=5)
+    sky = sky_image(256, 512, seed=6)
+    mt = load_dict(measured_terrain(paths["ply"], fields, sky, 256, 256, 16,
+                                    6))
+    integrators.render(mt, seed=0, spp=1)  # warm-up
+    film, scan_s, launches, bounces, queries, traced = counted_render(mt)
+    check_render("measured terrain under an envmap 256x256 spp16 max_depth "
+                 "6 (scan)", mt, film, scan_s, launches, bounces, queries,
+                 traced, "tile_sweep", (1e-3, 5.0))
+    integrators.render(mt, seed=0, spp=1, regen=True,
+                       samples_per_pass=pool_lanes)  # warm-up
+    pfilm, pool_s, plaunches, counts = counted_pool(mt, pool_lanes)
+    rec["measured"] = check_pool(
+        "measured terrain under an envmap 256x256 spp16 max_depth 6 (lane "
+        "pool)", mt, pfilm, pool_s, plaunches, counts, "tile_sweep",
+        (1e-3, 5.0))
+    scan = integrators.render(mt, seed=0, develop_film=False)
+    flips = films_equivalent(scan.cpu().numpy(), pfilm.cpu().numpy(),
+                             max_flips=64)
+    small = load_dict(measured_terrain(paths["ply"], fields, sky, 64, 64, 4,
+                                       6))
+    film_k = integrators.render(small, seed=3, develop_film=False)
+    with intersect.use_plain():
+        film_p = integrators.render(small, seed=3, develop_film=False)
+    flips_plain = films_equivalent(film_p.cpu().numpy(),
+                                   film_k.cpu().numpy(), max_flips=2)
+    rec["measured"].update(scan_ms=scan_s * 1e3, scan_launches=launches[
+        "tile_sweep"], flips_vs_scan=flips, flips_vs_plain_64=flips_plain)
+    print(f"# measured terrain: scan {scan_s * 1e3:.1f} ms, lane pool "
+          f"{pool_s * 1e3:.1f} ms, films agree ({flips} pixels over "
+          f"tolerance, budget 64); 64x64 spp4 kernel vs plain films agree "
+          f"({flips_plain} pixels, budget 2)", flush=True)
+    keys = ["emitters.envmap.image", "bsdfs.measured.spectra"]
+    vg = load_dict(measured_terrain(paths["ply"], fields, sky, 256, 256, 4,
+                                    6))
+    r, params = value_grad(vg, pool_lanes, keys)
+    for k, p in params.items():
+        assert bool(torch.isfinite(p.grad).all()), f"{k} gradient"
+        assert bool(p.grad.abs().sum() > 0), f"{k} gradient all zero"
+    for part in (r["forward"], r["backward"]):
+        la = part["launches"]
+        assert la["tile_sweep"] == part["queries"] > 0, part
+        assert sum(la.values()) == la["tile_sweep"], part
+    r["grad_abs_sums"] = {k: float(p.grad.abs().sum())
+                          for k, p in params.items()}
+    # max_depth 3 (the films take 6): phase 19's cut, the plain sweep's
+    # time through both legs
+    r["grad_max_abs_err_vs_plain_64"] = kernel_vs_plain_grads(
+        load_dict(measured_terrain(paths["ply"], fields, sky, 64, 64, 4, 3)),
+        lanes, keys, ("tile_sweep",))
+    rec["measured_value_grad"] = r
+    print(f"# measured terrain under an envmap 256x256 spp4 value+grad: "
+          f"primal {r['primal_ms']:.1f} ms, value+grad "
+          f"{r['value_grad_ms']:.1f} ms ({r['value_grad_over_primal']:.2f}x"
+          f"), launches forward {r['forward']['launches']['tile_sweep']} "
+          f"backward {r['backward']['launches']['tile_sweep']} (= queries), "
+          f"peak memory {r['peak_bytes'] / 2**20:.1f} MiB, |grad| sums "
+          f"{r['grad_abs_sums']}; 64x64 spp4 max_depth 3 gradients "
+          f"through the kernel vs plain (rtol 1e-5, atol 1e-7; max abs err "
+          f"{r['grad_max_abs_err_vs_plain_64']:.2e})", flush=True)
+
+    # ---- 31. the lights-and-quadrics box ---------------------------------------
+    phase_clock("31")
+    box = load_dict(quadrics_box(256, 256, 16, 6))
+    integrators.render(box, seed=0, spp=1, regen=True,
+                       samples_per_pass=lanes)  # warm-up
+    bfilm, box_s, blaunches, counts = counted_pool(box, lanes)
+    rec["box"] = check_pool(
+        "lights-and-quadrics box 256x256 spp16 max_depth 6 (lane pool)",
+        box, bfilm, box_s, blaunches, counts, "tile_sweep", (0.01, 2.0))
+    with stage_timers({"threefry": (rng, "threefry2x32"),
+                       "sobol": (rng, "_sobol_2")}) as spent:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        integrators.render(box, seed=0, spp=4, regen=True,
+                           samples_per_pass=lanes)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+    rec["box"].update(synchronised_ms_spp4=sync_s * 1e3,
+                      threefry_share=spent["threefry"] / sync_s,
+                      sobol_share=spent["sobol"] / sync_s)
+    small = load_dict(quadrics_box(64, 64, 4, 6))
+    film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+    with intersect.use_plain():
+        film_p, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+    rec["box"]["flips_vs_plain_64"] = films_equivalent(
+        film_p.cpu().numpy(), film_k.cpu().numpy(), max_flips=2)
+    vg = load_dict(quadrics_box(256, 256, 2, 6))
+    a = {k: v.detach().cpu().numpy() for k, v in vg.tensors().items()}
+    rows = {name: spec_row(vg, int(tex)) for name, tex in zip(
+        ("white", "red", "green"), a["bsdfs.diffuse.reflectance"][:3])}
+    rec["box_value_grad"] = surface_value_grad(
+        "lights-and-quadrics box 256x256 spp2 max_depth 6", vg, lanes,
+        "tile_sweep", rows)
+    # emission rays of the box's spot and projector, card against CPU
+    n = 1 << 20
+    dev = box.bsphere_center.device
+    cpu_box = load_dict(quadrics_box(256, 256, 16, 6), device="cpu")
+    got = emitters.sample_emitter_ray(
+        box, rng.Sampler.seed(7, torch.arange(n, device=dev)),
+        torch.zeros(n, device=dev))
+    want = emitters.sample_emitter_ray(
+        cpu_box, rng.Sampler.seed(7, torch.arange(n)), torch.zeros(n))
+    assert torch.equal(got[2].cpu(), want[2]), "emitter picks differ"
+    err = 0.0
+    for a_, b_ in ((got[0].o, want[0].o), (got[0].d, want[0].d),
+                   (got[1], want[1])):
+        torch.testing.assert_close(a_.cpu(), b_, rtol=1e-6, atol=1e-6)
+        err = max(err, float((a_.cpu() - b_).abs().max()))
+    rec["box"]["emitter_rays_max_abs_err"] = err
+    print(f"# lights-and-quadrics box: 64x64 spp4 kernel vs plain films "
+          f"agree ({rec['box']['flips_vs_plain_64']} pixels, budget 2); "
+          f"a synchronised spp4 pool render {sync_s * 1e3:.1f} ms: "
+          f"threefry share {rec['box']['threefry_share']:.3f}, the "
+          f"ldsampler's _sobol_2 share {rec['box']['sobol_share']:.3f}; "
+          f"sample_emitter_ray on 2^20 lanes within 1e-6 of the CPU (max "
+          f"abs err {err:.2e})", flush=True)
+
+    # ---- 32. the samplers on the card ------------------------------------------
+    phase_clock("32")
+    rec["samplers"] = {}
+    lane = (torch.arange(n, dtype=torch.int64) * 40503 + 2 ** 31) % 2 ** 32
+    for kind in rng.SAMPLER_KINDS:
+        draws = []
+        for where in (dev, "cpu"):
+            # spp 6: strata of 2 x 3, divisions that are not a power of 2
+            smp = rng.Sampler.seed(11, lane.to(where), kind=kind, spp=6)
+            seq = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step in range(8):
+                smp, u = smp.next_2d() if step % 2 else smp.next_1d()
+                seq.append(u)
+            torch.cuda.synchronize()
+            if where == dev:
+                rec["samplers"][kind] = dict(
+                    ms_per_draw=(time.perf_counter() - t0) * 1e3 / 8)
+            draws.append(seq)
+        for g, c in zip(*draws):
+            assert torch.equal(g.cpu(), c), f"{kind}: draws differ"
+    print("# samplers: 2^20 lanes x 8 dimensions (next_1d, next_2d) "
+          "bit-equal to the CPU, ms a draw on the card: "
+          + ", ".join(f"{k} {v['ms_per_draw']:.3f}"
+                      for k, v in rec["samplers"].items()), flush=True)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2302,6 +2737,7 @@ def main():
                  launches, bounces, queries, traced, "tile_sweep",
                  (0.005, 0.5))
     sweep_launches = launches["tile_sweep"]
+    terrain_img = img  # phase 29's films from mesh files equal it
 
     # ---- 4. whole path: kernel vs plain sweep --------------------------------
     phase_clock("4")
@@ -2632,6 +3068,7 @@ def main():
     measure = measurement_phases(V, F, lanes, {
         "scan": render_s * 1e3, "pool": pools["terrain"]["render_ms"]})
     materials = materials_phases(V, F, lanes)
+    s5c2 = slice_5c2_phases(V, F, scene, terrain_img, lanes)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -2696,6 +3133,26 @@ def main():
                 "scan_launches"],
             "materials terrain pool (sorted)": materials["terrain"][
                 "launches"]["tile_sweep"]},
+        "launches_slice_5c2": dict(
+            {f"terrain from {k} scan (sorted)": v["launches"]
+             for k, v in s5c2["files"].items()},
+            **{"measured terrain scan (sorted)": s5c2["measured"][
+                "scan_launches"],
+               "measured terrain pool (sorted)": s5c2["measured"][
+                   "launches"]["tile_sweep"],
+               "measured terrain value+grad forward": s5c2[
+                   "measured_value_grad"]["forward"]["launches"][
+                   "tile_sweep"],
+               "measured terrain value+grad backward": s5c2[
+                   "measured_value_grad"]["backward"]["launches"][
+                   "tile_sweep"],
+               "lights-and-quadrics box pool (fused)": s5c2["box"][
+                   "launches"]["tile_sweep"],
+               "lights-and-quadrics box value+grad forward": s5c2[
+                   "box_value_grad"]["forward"]["launches"]["tile_sweep"],
+               "lights-and-quadrics box value+grad backward": s5c2[
+                   "box_value_grad"]["backward"]["launches"][
+                   "tile_sweep"]}),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -2730,6 +3187,9 @@ def main():
                 "forest BRF distant 64x64 spp64": measure["forest_brf"][
                     name]["launches"][name]},
             "forest_parallel_nadir_2^18": measure["forest_parallel"][name],
+            "launches_slice_5c2": {
+                "forest with an OBJ crown 64x64 spp4": s5c2["forest"][
+                    name]["launches"]},
         })
     # the main path's lookups run the fused trilinear entry (its library
     # call: grid_sample); the gather entry's loads carry index_select
@@ -2790,6 +3250,7 @@ def main():
                       "gates": gates}))
     print(json.dumps({"measurement": measure}))
     print(json.dumps({"materials": materials}))
+    print(json.dumps({"slice_5c2": s5c2}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

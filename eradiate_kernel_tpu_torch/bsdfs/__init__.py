@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import (bilambertian, blendbsdf, bumpmap, common, conductor,
-               dielectric, diffuse, mask, normalmap, null, plastic,
+               dielectric, diffuse, mask, measured, normalmap, null, plastic,
                roughconductor, roughdielectric, roughplastic, rpv,
                thindielectric)
 from .common import BSDFSample, zero_bsdf_sample
@@ -31,6 +31,7 @@ REGISTRY = {
     "thindielectric": thindielectric,
     "plastic": plastic,
     "roughplastic": roughplastic,
+    "measured": measured,
     "mask": mask,
     "blendbsdf": blendbsdf,
     "normalmap": normalmap,

@@ -61,3 +61,55 @@ def square_to_cosine_hemisphere(sample):
 
 def square_to_cosine_hemisphere_pdf(d):
     return torch.clamp(d[..., 2], min=0.0) * INV_PI
+
+
+def interval_to_linear(a, b, u):
+    """Sample t in [0,1] with density proportional to lerp(a, b, t)."""
+    denom = b - a
+    t = (safe_sqrt(a * a + (b * b - a * a) * u) - a) / torch.where(
+        torch.abs(denom) < 1e-12, 1e-12, denom)
+    return torch.where(torch.abs(denom) < 1e-12 * (a + b), u,
+                       torch.clamp(t, 0.0, 1.0))
+
+
+def linear_to_interval(a, b, t):
+    """Inverse of interval_to_linear: the CDF of the linear density."""
+    denom = a + b
+    u = t * (2.0 * a + (b - a) * t) / torch.where(torch.abs(denom) < 1e-12,
+                                                  1e-12, denom)
+    return torch.where(torch.abs(denom) < 1e-12, t, torch.clamp(u, 0.0, 1.0))
+
+
+def square_to_bilinear(v00, v10, v01, v11, sample):
+    """Sample [0,1]^2 with density proportional to the bilinear interpolant
+    of corners v00 (x0, y0), v10 (x1, y0), v01 (x0, y1), v11 (x1, y1).
+    Returns (position, the interpolant at the position)."""
+    y = interval_to_linear(v00 + v10, v01 + v11, sample[..., 1])
+    c0 = v00 * (1 - y) + v01 * y
+    c1 = v10 * (1 - y) + v11 * y
+    x = interval_to_linear(c0, c1, sample[..., 0])
+    return torch.stack([x, y], -1), c0 * (1 - x) + c1 * x
+
+
+def bilinear_to_square(v00, v10, v01, v11, pos):
+    """Inverse of square_to_bilinear: (sample, interpolant at pos)."""
+    x = pos[..., 0]
+    y = pos[..., 1]
+    c0 = v00 * (1 - y) + v01 * y
+    c1 = v10 * (1 - y) + v11 * y
+    return (torch.stack([linear_to_interval(c0, c1, x),
+                         linear_to_interval(v00 + v10, v01 + v11, y)], -1),
+            c0 * (1 - x) + c1 * x)
+
+
+def square_to_uniform_cone(sample, cos_cutoff):
+    """A uniform direction in the cone of cos_cutoff around +z."""
+    ct = 1.0 - (1.0 - cos_cutoff) * sample[..., 1]
+    st = safe_sqrt(1.0 - ct * ct)
+    phi = TWO_PI * sample[..., 0]
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1)
+
+
+def square_to_uniform_cone_pdf(d, cos_cutoff):
+    return torch.where(d[..., 2] >= cos_cutoff,
+                       (1.0 / TWO_PI) / (1.0 - cos_cutoff), 0.0)

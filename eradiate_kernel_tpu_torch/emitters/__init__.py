@@ -1,19 +1,26 @@
 """Emitters and scene-level emitter sampling (emitters/__init__.py
 counterpart; Scene::sample_emitter_direction, scene.cpp:169-215): area
-emitters on shapes, the constant environment, point and directional
-lights. Each kind's ``*_sample_direction`` returns (DirectionSample,
-value) with the value already divided by the kind's pdf where it has one
-(the area kind's division happens in sample_emitter_direction, as in the
-reference)."""
+emitters on shapes, the constant and envmap environments, point, spot,
+projector and directional lights. Each kind's ``*_sample_direction``
+returns (DirectionSample, value) with the value already divided by the
+kind's pdf where it has one (the area kind's division happens in
+sample_emitter_direction, as in the reference). ``sample_emitter_ray``
+draws rays leaving the emitters (Endpoint::sample_ray; no integrator of
+either package traces them)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..core import warp
-from ..core.math import dot, normalize
+from ..core.frame import Frame
+from ..core.hierarchical2d import h2d_pdf, h2d_sample
+from ..core.math import channel_mean, dot, normalize
+from ..core.ray import Ray
+from ..core.transform import Transform
 from ..render import shape_sampling
 from ..render.geometry import ray_test
 from ..render.records import DirectionSample, merge
@@ -112,10 +119,147 @@ def directional_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     return ds, value
 
 
+def _toward(params, slot, ref_p):
+    """(p, d, dist, dist2) from ``ref_p`` to the delta position."""
+    p = params["position"][slot]
+    delta = p - ref_p
+    dist2 = torch.clamp(torch.sum(delta * delta, dim=-1), min=1e-20)
+    dist = torch.sqrt(dist2)
+    return p, delta / dist[:, None], dist, dist2
+
+
+def _delta_sample(p, d, dist, uv):
+    return DirectionSample(
+        p=p, n=-d, uv=uv, d=d, dist=dist, pdf=torch.ones_like(dist),
+        delta=torch.ones_like(dist, dtype=torch.bool),
+        emitter_index=_zeros_like_batch(dist, dtype=torch.int32))
+
+
+def spot_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+    """spot.cpp: a cone light with a linear falloff between the beam and
+    cutoff angles; a delta position."""
+    p, d, dist, dist2 = _toward(params, slot, ref_p)
+    cos_a = dot(normalize(params["direction"][slot]), -d)
+    ccut = params["cos_cutoff"][slot]
+    cbeam = params["cos_beam"][slot]
+    falloff = torch.clamp((cos_a - ccut) / torch.clamp(cbeam - ccut,
+                                                       min=1e-6), 0.0, 1.0)
+    value = (texture_eval(scene, params["intensity"][slot])
+             * (falloff / dist2)[:, None])
+    return _delta_sample(p, d, dist, _zeros_like_batch(dist, 2)), value
+
+
+def _w2l(params, slot):
+    return Transform(m=params["w2l_m"][slot], inv_t=params["w2l_it"][slot])
+
+
+def projector_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+    """projector.cpp: an image projected from a delta position; its uv is
+    the direction through the projector's frustum (the perspective
+    sensor's mapping, x mirrored)."""
+    p, d, dist, dist2 = _toward(params, slot, ref_p)
+    d_loc = _w2l(params, slot).transform_vector(-d)
+    tan_x = params["tan_half_fov"][slot]
+    aspect = params["aspect"][slot]
+    z = torch.clamp(d_loc[:, 2], min=1e-6)
+    u = 0.5 * (1.0 - d_loc[:, 0] / (z * tan_x))
+    v = 0.5 * (1.0 - d_loc[:, 1] / (z * tan_x * aspect))
+    inside = (d_loc[:, 2] > 0) & (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
+    uv = torch.stack([u, v], dim=-1)
+    value = texture_eval(scene, params["irradiance"][slot], uv)
+    value = torch.where((active & inside)[:, None], value / dist2[:, None],
+                        0.0)
+    return _delta_sample(p, d, dist, uv), value
+
+
+# --- envmap (envmap.cpp): a lat-long image with hierarchical sampling -------
+# The reference's y-up lat-long mapping: u = atan2(x, -z) / 2pi and
+# v = acos(y) / pi in the emitter's frame. Texels are bilinear vertex
+# samples (row y at theta = y / (H-1) pi, rows 0 and H-1 the poles) and the
+# stored image repeats its first column after the last to close the seam.
+
+def _envmap_dir_to_uv(params, slot, d):
+    dl = normalize(_w2l(params, slot).transform_vector(d))
+    theta = torch.acos(torch.clamp(dl[:, 1], -1.0, 1.0))
+    phi = torch.atan2(dl[:, 0], -dl[:, 2])
+    phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+    return torch.stack([phi / (2 * math.pi), theta / math.pi], -1), theta
+
+
+def _envmap_uv_to_dir(params, slot, uv):
+    phi = uv[:, 0] * 2 * math.pi
+    theta = uv[:, 1] * math.pi
+    st = torch.sin(theta)
+    dl = torch.stack([st * torch.sin(phi), torch.cos(theta),
+                      -st * torch.cos(phi)], -1)
+    return (normalize(_w2l(params, slot).inverse().transform_vector(dl)),
+            theta)
+
+
+def _envmap_bilinear(scene, params, slot, uv):
+    """The image's vertex-aligned bilinear value at uv, times its scale;
+    the channel mean in mono."""
+    img = params["image"]  # (S, H, W+1, 3)
+    H, W = img.shape[1], img.shape[2]
+    u = torch.clamp(uv[:, 0], 0.0, 1.0) * (W - 1)
+    v = torch.clamp(uv[:, 1], 0.0, 1.0) * (H - 1)
+    x0 = torch.clamp(torch.floor(u).to(torch.int64), 0, W - 2)
+    y0 = torch.clamp(torch.floor(v).to(torch.int64), 0, H - 2)
+    x1 = x0 + 1
+    y1 = y0 + 1
+    fx = torch.clamp(u - x0, 0.0, 1.0)[:, None]
+    fy = torch.clamp(v - y0, 0.0, 1.0)[:, None]
+    c = (img[slot, y0, x0] * (1 - fx) * (1 - fy)
+         + img[slot, y0, x1] * fx * (1 - fy)
+         + img[slot, y1, x0] * (1 - fx) * fy + img[slot, y1, x1] * fx * fy)
+    rgb = c * params["scale"][slot][:, None]
+    if scene.config.variant.n_channels == 3:
+        return rgb
+    return channel_mean(rgb, keepdim=True)
+
+
+def envmap_eval(scene, params, slot, d, active):
+    uv, _theta = _envmap_dir_to_uv(params, slot, d)
+    return torch.where(active[:, None],
+                       _envmap_bilinear(scene, params, slot, uv), 0.0)
+
+
+def envmap_pdf_direction(scene, params, slot, d, active):
+    """The Hierarchical2D density over the spherical Jacobian,
+    2 pi^2 sin theta."""
+    uv, theta = _envmap_dir_to_uv(params, slot, d)
+    p = h2d_pdf(params, slot, uv, prefix="h2d_")
+    st = torch.clamp(torch.sin(theta), min=1e-6)
+    return torch.where(active, p / (2.0 * math.pi * math.pi * st), 0.0)
+
+
+def envmap_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+    """uv by the Hierarchical2D warp of the sin-weighted luminance, so
+    value / pdf is the colour-to-luminance ratio, bounded even for a
+    one-texel sun."""
+    uv, p2 = h2d_sample(params, slot, s2, prefix="h2d_")
+    d, theta = _envmap_uv_to_dir(params, slot, uv)
+    st = torch.clamp(torch.sin(theta), min=1e-6)
+    pdf = torch.where(p2 > 0, p2 / (2.0 * math.pi * math.pi * st), 0.0)
+    pdf = torch.where(active, pdf, 0.0)
+    value = _envmap_bilinear(scene, params, slot, uv)
+    value = torch.where((active & (pdf > 0))[:, None],
+                        value / torch.clamp(pdf, min=1e-20)[:, None], 0.0)
+    r = 2.0 * scene.bsphere_radius
+    ds = DirectionSample(
+        p=ref_p + d * r, n=-d, uv=uv, d=d, dist=r.expand(pdf.shape[0]),
+        pdf=pdf, delta=torch.zeros_like(active),
+        emitter_index=_zeros_like_batch(pdf, dtype=torch.int32))
+    return ds, value
+
+
 KIND_SAMPLERS = {"area": area_sample_direction,
                  "constant": constant_sample_direction,
                  "point": point_sample_direction,
-                 "directional": directional_sample_direction}
+                 "directional": directional_sample_direction,
+                 "spot": spot_sample_direction,
+                 "projector": projector_sample_direction,
+                 "envmap": envmap_sample_direction}
 
 
 def sample_emitter_direction(scene, si, s_pick, s1, s2, active,
@@ -165,10 +309,12 @@ def sample_emitter_direction(scene, si, s_pick, s1, s2, active,
     return ds, torch.where((active & ~occluded)[:, None], value, 0.0)
 
 
-def pdf_emitter_direction(scene, ref_p, si_hit, escaped, active):
+def pdf_emitter_direction(scene, ref_p, si_hit, escaped, active, d=None):
     """Solid-angle pdf of emitter sampling choosing the direction that hit
-    ``si_hit`` (an area emitter) or escaped (the constant environment):
-    the MIS weight of BSDF-sampled rays (scene.cpp pdf_emitter_direction)."""
+    ``si_hit`` (an area emitter) or escaped along ``d`` (the environment):
+    the MIS weight of BSDF-sampled rays (scene.cpp pdf_emitter_direction).
+    Without ``d`` an envmap's escaped lanes take the uniform sphere's pdf,
+    as in the reference."""
     cfg = scene.config
     pdf = torch.zeros(ref_p.shape[0], device=ref_p.device)
     if cfg.n_emitters == 0:
@@ -182,7 +328,13 @@ def pdf_emitter_direction(scene, ref_p, si_hit, escaped, active):
                                     ref_p, si_hit.p, si_hit.n, has)
         pdf = torch.where(has, p_area, pdf)
     if cfg.env_emitter >= 0:
-        pdf = torch.where(active & escaped, warp.INV_FOUR_PI, pdf)
+        m = active & escaped
+        if "envmap" in cfg.emitter_kinds and d is not None:
+            slot = scene.emitter_slot[cfg.env_emitter].expand(m.shape[0])
+            pdf = torch.where(m, envmap_pdf_direction(
+                scene, scene.emitters["envmap"], slot, d, m), pdf)
+        else:
+            pdf = torch.where(m, warp.INV_FOUR_PI, pdf)
     return pdf / cfg.n_emitters
 
 
@@ -201,12 +353,156 @@ def eval_emitter_hit(scene, si, active):
 
 
 def eval_environment(scene, ray, escaped, active):
-    """Radiance of escaped rays (the constant environment)."""
+    """Radiance of escaped rays (the constant or envmap environment)."""
     cfg = scene.config
     out = _zeros_like_batch(ray.o, cfg.variant.n_channels)
     if cfg.env_emitter < 0:
         return out
     slot = scene.emitter_slot[cfg.env_emitter].expand(ray.o.shape[0])
     m = active & escaped
-    v = constant_eval(scene, scene.emitters["constant"], slot, m)
+    if "envmap" in cfg.emitter_kinds:
+        v = envmap_eval(scene, scene.emitters["envmap"], slot, ray.d, m)
+    else:
+        v = constant_eval(scene, scene.emitters["constant"], slot, m)
     return torch.where(m[:, None], v, out)
+
+
+# --- Endpoint::sample_ray: rays leaving the emitters -------------------------
+# Each kind draws a ray and its importance weight from the same numbers
+# (wl_s, s_a, s_b, s_c); in the port's rgb and mono variants the weight is
+# the plain texture value and the ray carries no wavelengths.
+
+def _zero_uv(slot):
+    return torch.zeros(slot.shape[0], 2, device=slot.device)
+
+
+def area_sample_ray(scene, params, slot, s_a, s_b, s_c, time, active):
+    """area.cpp:74-119: a position on the shape, a cosine direction;
+    weight = radiance pi / p_area."""
+    ps = shape_sampling.sample_position(scene, params["shape"][slot], s_a,
+                                        s_b)
+    spec = texture_eval(scene, params["radiance"][slot], ps.uv)
+    d = Frame.from_normal(ps.n).to_world(
+        warp.square_to_cosine_hemisphere(s_c))
+    w = spec * (math.pi / torch.clamp(ps.pdf, min=1e-20))[:, None]
+    return Ray.make(ps.p, d, time=time), w
+
+
+def constant_sample_ray(scene, params, slot, s_a, s_b, s_c, time, active):
+    """constant.cpp:60-79: a position on the bounding sphere, an inward
+    cosine direction; weight = radiance 4 (pi R)^2."""
+    spec = texture_eval(scene, params["radiance"][slot], _zero_uv(slot))
+    v0 = warp.square_to_uniform_sphere(s_b)
+    r = scene.bsphere_radius
+    o = scene.bsphere_center + v0 * r
+    d = Frame.from_normal(-v0).to_world(warp.square_to_cosine_hemisphere(s_c))
+    return Ray.make(o, d, time=time), spec * (4.0 * (math.pi * r) ** 2)
+
+
+def point_sample_ray(scene, params, slot, s_a, s_b, s_c, time, active):
+    """point.cpp:60-78: a uniform direction; weight = 4 pi intensity."""
+    spec = texture_eval(scene, params["intensity"][slot], _zero_uv(slot))
+    d = warp.square_to_uniform_sphere(s_b)
+    o = params["position"][slot].expand(d.shape)
+    return Ray.make(o, d, time=time), spec * (4.0 * math.pi)
+
+
+def directional_sample_ray(scene, params, slot, s_a, s_b, s_c, time,
+                           active):
+    """directional.cpp:80-106: an origin on the bounding sphere's cross
+    section upwind of the scene; weight = pi R^2 irradiance."""
+    spec = texture_eval(scene, params["irradiance"][slot], _zero_uv(slot))
+    d = normalize(params["direction"][slot])
+    off = warp.square_to_uniform_disk_concentric(s_b)
+    fr = Frame.from_normal(d)
+    perp = fr.s * off[..., 0:1] + fr.t * off[..., 1:2]
+    r = scene.bsphere_radius
+    o = scene.bsphere_center + (perp - d) * r
+    return Ray.make(o, d, time=time), spec * (math.pi * r ** 2)
+
+
+def spot_sample_ray(scene, params, slot, s_a, s_b, s_c, time, active):
+    """spot.cpp:117-137: a uniform direction in the cutoff cone; weight =
+    intensity falloff / pdf."""
+    spec = texture_eval(scene, params["intensity"][slot], _zero_uv(slot))
+    axis = normalize(params["direction"][slot])
+    ccut = params["cos_cutoff"][slot]
+    cbeam = params["cos_beam"][slot]
+    local = warp.square_to_uniform_cone(s_b, ccut)
+    pdf = warp.square_to_uniform_cone_pdf(local, ccut)
+    d = Frame.from_normal(axis).to_world(local)
+    falloff = torch.clamp((local[:, 2] - ccut)
+                          / torch.clamp(cbeam - ccut, min=1e-6), 0.0, 1.0)
+    o = params["position"][slot].expand(d.shape)
+    w = spec * (falloff / torch.clamp(pdf, min=1e-20))[:, None]
+    return Ray.make(o, d, time=time), w
+
+
+def projector_sample_ray(scene, params, slot, s_a, s_b, s_c, time, active):
+    """projector.cpp:117-152: a film uv drawn uniformly, shot through the
+    frustum; weight = the irradiance there."""
+    uv = s_c
+    spec = texture_eval(scene, params["irradiance"][slot], uv)
+    tan_x = params["tan_half_fov"][slot]
+    aspect = params["aspect"][slot]
+    d_loc = torch.stack([(1.0 - 2.0 * uv[:, 0]) * tan_x,
+                         (1.0 - 2.0 * uv[:, 1]) * tan_x * aspect,
+                         torch.ones_like(tan_x)], -1)
+    # local to world: the inverse of the stored world-to-local matrix
+    l2w = torch.linalg.inv(params["w2l_m"][slot])
+    d = normalize(torch.einsum("nij,nj->ni", l2w[:, :3, :3], d_loc))
+    o = params["position"][slot].expand(d.shape)
+    return Ray.make(o, d, time=time), spec
+
+
+KIND_RAY_SAMPLERS = {"area": area_sample_ray,
+                     "constant": constant_sample_ray,
+                     "point": point_sample_ray,
+                     "directional": directional_sample_ray,
+                     "spot": spot_sample_ray,
+                     "projector": projector_sample_ray}
+
+
+def sample_emitter_ray(scene, sampler, time, active=None):
+    """Rays leaving the emitters: a uniform emitter pick, then the kind's
+    sample_ray; the pick pmf is folded into the weight. Returns (ray,
+    weight (N, nc), emitter index, sampler). An envmap raises, as the
+    reference's does (envmap.cpp:149-154)."""
+    cfg = scene.config
+    n_em = cfg.n_emitters
+    if n_em == 0:
+        raise ValueError("sample_emitter_ray: the scene has no emitters")
+    for kind in cfg.emitter_kinds:
+        if kind not in KIND_RAY_SAMPLERS:
+            raise NotImplementedError(
+                f"sample_ray for emitter kind {kind!r} (envmap.cpp:149-154 "
+                "raises too)")
+    sampler, s_pick = sampler.next_1d()
+    sampler, _wl_s = sampler.next_1d()  # the spectral variants' draw
+    sampler, s_a = sampler.next_1d()
+    sampler, s_b = sampler.next_2d()
+    sampler, s_c = sampler.next_2d()
+    idx = torch.clamp((s_pick * n_em).to(torch.int32), max=n_em - 1)
+    kind_id = scene.emitter_kind[idx]
+    slot = scene.emitter_slot[idx]
+    n = idx.shape[0]
+    dev = idx.device
+    active = (torch.ones(n, dtype=torch.bool, device=dev) if active is None
+              else active)
+    time = torch.as_tensor(time, dtype=torch.float32, device=dev).expand(n)
+    ray = Ray.make(torch.zeros(n, 3, device=dev),
+                   torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3),
+                   time=time)
+    weight = torch.zeros(n, cfg.variant.n_channels, device=dev)
+    for k, kind in enumerate(cfg.emitter_kinds):
+        m = active & (kind_id == k)
+        r_k, w_k = KIND_RAY_SAMPLERS[kind](
+            scene, scene.emitters[kind], torch.where(kind_id == k, slot, 0),
+            s_a, s_b, s_c, time, m)
+        ray = dataclasses.replace(
+            ray, o=torch.where(m[:, None], r_k.o, ray.o),
+            d=torch.where(m[:, None], r_k.d, ray.d),
+            mint=torch.where(m, r_k.mint, ray.mint),
+            maxt=torch.where(m, r_k.maxt, ray.maxt))
+        weight = torch.where(m[:, None], w_k * n_em, weight)
+    return ray, torch.where(active[:, None], weight, 0.0), idx, sampler

@@ -36,7 +36,8 @@ def _camera_lanes(scene, seed, spp, sample):
     H, W = cfg.film_height, cfg.film_width
     cw = cfg.crop_size[0] if cfg.crop_size else W
     cx, cy = cfg.crop_offset
-    sampler, jitter = Sampler.seed(seed, sample).next_2d()
+    sampler, jitter = Sampler.seed(seed, sample, kind=cfg.sampler_kind,
+                                   spp=spp).next_2d()
     pixel = sample // spp
     px = (pixel % cw).to(torch.float32) + cx
     py = (pixel // cw).to(torch.float32) + cy

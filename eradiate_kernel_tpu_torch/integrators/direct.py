@@ -45,7 +45,7 @@ def sample(scene, sampler, ray):
             + emitters.eval_environment(scene, ray2, ~si2.is_valid, active))
     delta_lobe = (bs.sampled_type & bsdf_flags.Delta) != 0
     em_pdf = emitters.pdf_emitter_direction(scene, si.p, si2, ~si2.is_valid,
-                                            active & ~delta_lobe)
+                                            active & ~delta_lobe, d=ray2.d)
     em_pdf = torch.where(delta_lobe, 0.0, em_pdf)
     mis2 = mis_weight(bs.pdf, em_pdf)
     result = result + torch.where(active[:, None],

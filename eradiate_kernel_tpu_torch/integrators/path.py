@@ -103,7 +103,7 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
     em_pdf = torch.zeros(n, device=dev)
     if any_lane(mis_lanes):
         em_pdf = emitters.pdf_emitter_direction(scene, s.prev_p, si, escaped,
-                                                mis_lanes)
+                                                mis_lanes, d=s.ray.d)
     em_pdf = torch.where(s.prev_delta, 0.0, em_pdf)
     emission_weight = mis_weight(s.prev_bsdf_pdf, em_pdf)
     hit_emit = active

@@ -420,7 +420,8 @@ def _direct_step_residual(scene, s, ref_p, ca):
                  + emitters.eval_environment(scene, ray, ~si.is_valid,
                                              hit_env))
         epdf = emitters.pdf_emitter_direction(scene, ref_p, si,
-                                              ~si.is_valid, emitter_hit)
+                                              ~si.is_valid, emitter_hit,
+                                              d=ray.d)
         return (torch.where(emitter_hit[..., None], transmittance * e_val,
                             s.emitter_val),
                 torch.where(emitter_hit, epdf, s.emitter_pdf))

@@ -2,7 +2,8 @@
 
 Two phases as in the reference: ``ray_intersect_preliminary`` finds the
 closest hit (triangle meshes and instances through a tile kernel of
-ops/intersect.py; spheres, rectangles and disks by a brute-force test) and
+ops/intersect.py; spheres, rectangles, disks, cylinders and cones by a
+brute-force test) and
 ``compute_surface_interaction`` recomputes the hit from primitive data.
 
 Accel policy of the port (``_accel_mode``): the reference's policy on its
@@ -32,6 +33,8 @@ FAMILY_MESH = 0
 FAMILY_SPHERE = 1
 FAMILY_RECT = 2
 FAMILY_DISK = 3
+FAMILY_CYLINDER = 4
+FAMILY_CONE = 5
 FAMILY_IMESH = 6  # instanced mesh (two-level: shared group geometry)
 
 # above this tile count the policy switches from the sweep to the BVH (the
@@ -47,8 +50,8 @@ _TILE_FIELDS = ("tiles_v0", "tiles_e1", "tiles_e2", "tiles_prim",
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Mesh, sphere, rectangle, disk and instancing pools plus the
-    triangle-tile accelerators."""
+    """Mesh, sphere, rectangle, disk, cylinder, cone and instancing pools
+    plus the triangle-tile accelerators."""
 
     vertices: torch.Tensor      # (V, 3)
     normals: torch.Tensor       # (V, 3) zero rows -> face normal
@@ -63,6 +66,16 @@ class Geometry:
     rect_shape: torch.Tensor    # (R,) i32
     disk_to_world: Transform    # (D, 4, 4) canonical unit disk in z=0
     disk_shape: torch.Tensor    # (D,) i32
+    # cylinders: along +z, z in [0, length], in the local frame
+    cyl_to_world: Transform     # (C, 4, 4)
+    cyl_length: torch.Tensor    # (C,)
+    cyl_radius: torch.Tensor    # (C,)
+    cyl_shape: torch.Tensor     # (C,) i32
+    # cones: base radius at z=0, apex at z=length, in the local frame
+    cone_to_world: Transform    # (K, 4, 4)
+    cone_length: torch.Tensor   # (K,)
+    cone_radius: torch.Tensor   # (K,)
+    cone_shape: torch.Tensor    # (K,) i32
     shape_family: torch.Tensor  # (n_shapes,) i32
     tiles_v0: torch.Tensor      # (T, K, 3)
     tiles_e1: torch.Tensor      # (T, K, 3)
@@ -242,10 +255,74 @@ def _intersect_disks(geo: Geometry, ray: Ray):
             best.to(torch.int32), geo.disk_shape[best])
 
 
+def _quadric_roots(a, b, c):
+    """(ok, t0 <= t1) of a x^2 + b x + c by the stable form, with the
+    reference's guards against a zero a or q."""
+    disc = sqr(b) - 4.0 * a * c
+    sq = safe_sqrt(disc)
+    a_s = torch.where(torch.abs(a) < 1e-20, 1e-20, a)
+    q = -0.5 * (b + torch.where(b >= 0, sq, -sq))
+    r0 = q / a_s
+    r1 = c / torch.where(torch.abs(q) < 1e-20, 1e-20, q)
+    return disc >= 0, torch.minimum(r0, r1), torch.maximum(r0, r1)
+
+
+def _closest_quadric(ok, t0, t1, o, d, length, ray, shapes):
+    """The nearest root within [mint, maxt] and z in [0, length] of each
+    (lane, primitive) pair, reduced over the primitives."""
+    z0 = o[..., 2] + d[..., 2] * t0
+    z1 = o[..., 2] + d[..., 2] * t1
+    mint, maxt = ray.mint[:, None], ray.maxt[:, None]
+    v0 = ok & (t0 >= mint) & (t0 <= maxt) & (z0 >= 0) & (z0 <= length)
+    v1 = ok & (t1 >= mint) & (t1 <= maxt) & (z1 >= 0) & (z1 <= length)
+    t = torch.where(v0, t0, torch.where(v1, t1, float("inf")))
+    tb, best = torch.min(t, dim=-1)
+    return (tb, torch.zeros(tb.shape[0], 2, device=tb.device),
+            best.to(torch.int32), shapes[best])
+
+
+def _local_rays(to_world: Transform, ray: Ray):
+    """Ray origins and directions in each primitive's frame (N, P, 3)."""
+    inv = to_world.inverse()
+    return (inv.transform_affine_point(ray.o[:, None, :]),
+            inv.transform_vector(ray.d[:, None, :]))
+
+
+def _intersect_cylinders(geo: Geometry, ray: Ray):
+    o, d = _local_rays(geo.cyl_to_world, ray)
+    a = sqr(d[..., 0]) + sqr(d[..., 1])
+    b = 2.0 * (d[..., 0] * o[..., 0] + d[..., 1] * o[..., 1])
+    c = sqr(o[..., 0]) + sqr(o[..., 1]) - sqr(geo.cyl_radius)
+    ok, t0, t1 = _quadric_roots(a, b, c)
+    return _closest_quadric(ok, t0, t1, o, d, geo.cyl_length, ray,
+                            geo.cyl_shape)
+
+
+def _cone_coeffs(geo: Geometry, o, d):
+    """Quadratic coefficients of the cone x^2 + y^2 = (r (1 - z/L))^2 for
+    local-frame rays: (a, b, c, slope r/L)."""
+    r = geo.cone_radius
+    k = r / torch.clamp(geo.cone_length, min=1e-9)
+    c0 = r - k * o[..., 2]
+    c1 = -k * d[..., 2]
+    a = sqr(d[..., 0]) + sqr(d[..., 1]) - sqr(c1)
+    b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 1] * d[..., 1]) - 2.0 * c0 * c1
+    c = sqr(o[..., 0]) + sqr(o[..., 1]) - sqr(c0)
+    return a, b, c, k
+
+
+def _intersect_cones(geo: Geometry, ray: Ray):
+    o, d = _local_rays(geo.cone_to_world, ray)
+    a, b, c, _k = _cone_coeffs(geo, o, d)
+    ok, t0, t1 = _quadric_roots(a, b, c)
+    return _closest_quadric(ok, t0, t1, o, d, geo.cone_length, ray,
+                            geo.cone_shape)
+
+
 def ray_intersect_preliminary(geo: Geometry, ray: Ray,
                               active=None) -> PreliminaryIntersection:
-    """Closest hit over meshes, instances, spheres, rectangles and disks
-    (in the reference's order, so ties resolve alike). ``active``
+    """Closest hit over meshes, instances, spheres, rectangles, disks,
+    cylinders and cones (in the reference's order, so ties resolve alike). ``active``
     (optional bool (N,)) marks the lanes whose hits are wanted; the tile
     kernel sees the others as dead rays (maxt = mint), which cannot hit.
     One tile kernel serves every mesh leaf, instanced or not."""
@@ -276,6 +353,10 @@ def ray_intersect_preliminary(geo: Geometry, ray: Ray,
         merge(*_intersect_rects(geo, ray))
     if geo.disk_shape.shape[0] > 0:
         merge(*_intersect_disks(geo, ray))
+    if geo.cyl_shape.shape[0] > 0:
+        merge(*_intersect_cylinders(geo, ray))
+    if geo.cone_shape.shape[0] > 0:
+        merge(*_intersect_cones(geo, ray))
     shape = torch.where(torch.isfinite(t), shape, -1)
     return PreliminaryIntersection(t=t, prim_uv=uv, prim_index=prim,
                                    shape_index=shape)
@@ -289,7 +370,8 @@ def ray_test(geo: Geometry, ray: Ray, active=None):
 def compute_surface_interaction(geo: Geometry, ray: Ray,
                                 pi: PreliminaryIntersection):
     """Recompute the hit per family of the hit shape (mesh.cpp, sphere.cpp,
-    rectangle.cpp and disk.cpp formulas), differentiably in the ray and the primitive
+    rectangle.cpp, disk.cpp, cylinder.cpp and cone.cpp formulas),
+    differentiably in the ray and the primitive
     data; the preliminary hit's distance is detached and clamped before
     any use (a miss's inf would make a zero cotangent NaN)."""
     n_lanes = ray.o.shape[0]
@@ -444,6 +526,39 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
         uv = sel(m, pi.prim_uv, uv)
         dp_du = sel(m, tw.transform_vector(axis(0)), dp_du)
         dp_dv = sel(m, tw.transform_vector(axis(1)), dp_dv)
+
+    for fam, pool in ((FAMILY_CYLINDER, "cyl"), (FAMILY_CONE, "cone")):
+        P = getattr(geo, f"{pool}_shape").shape[0]
+        if P == 0:
+            continue
+        m = (family == fam) & valid
+        k = torch.clamp(pi.prim_index, 0, P - 1).long()
+        to_world = getattr(geo, f"{pool}_to_world")
+        tw = Transform(m=to_world.m[k], inv_t=to_world.inv_t[k])
+        pq = ray.at(pit)
+        p_l = tw.inverse().transform_affine_point(pq)
+        L = getattr(geo, f"{pool}_length")[k]
+        if fam == FAMILY_CYLINDER:
+            n_l = torch.cat([p_l[:, :2], torch.zeros_like(p_l[:, :1])],
+                            dim=-1)
+        else:
+            slope = geo.cone_radius[k] / torch.clamp(L, min=1e-9)
+            rho = safe_sqrt(sqr(p_l[:, 0]) + sqr(p_l[:, 1]))
+            n_l = torch.stack([p_l[:, 0], p_l[:, 1], slope * rho], dim=-1)
+        nq = normalize(tw.transform_normal(n_l))
+        phi = torch.atan2(p_l[:, 1], p_l[:, 0])
+        phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+        uvq = torch.stack([phi / (2 * math.pi),
+                           p_l[:, 2] / torch.clamp(L, min=1e-9)], dim=-1)
+        du = tw.transform_vector(torch.stack(
+            [-torch.sin(phi), torch.cos(phi), torch.zeros_like(phi)], dim=-1))
+        t = sel(m, pit, t)
+        p = sel(m, pq, p)
+        n = sel(m, nq, n)
+        sh_n = sel(m, nq, sh_n)
+        uv = sel(m, uvq, uv)
+        dp_du = sel(m, du, dp_du)
+        dp_dv = sel(m, cross(nq, du), dp_dv)
 
     sh_frame = Frame.from_normal(sh_n)
     return SurfaceInteraction(

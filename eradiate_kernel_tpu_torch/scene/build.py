@@ -19,8 +19,9 @@ from ..core.transform import AnimatedTransform, Transform, as_transform
 from ..core.types import Variant, resolve_device
 from ..ops.accel import TILE_K, pack_tiles
 from ..ops.bvh import build_tile_bvh, collapse_to_bvh8
-from ..render.geometry import (FAMILY_DISK, FAMILY_IMESH, FAMILY_MESH,
-                               FAMILY_RECT, FAMILY_SPHERE)
+from ..render.geometry import (FAMILY_CONE, FAMILY_CYLINDER, FAMILY_DISK,
+                               FAMILY_IMESH, FAMILY_MESH, FAMILY_RECT,
+                               FAMILY_SPHERE)
 from .build_emitters import (_EMITTER_SCENE_TYPES, _build_bsdf,
                              _build_scene_emitter)
 from .build_sensors import _SENSOR_TYPES, _build_sensor
@@ -53,6 +54,7 @@ class SceneBuilder:
         self.spec_table = []    # (kind, slot)
         self.tex_table = []
         self.bsdf_table = []
+        self.bsdf_static = {}   # kind -> per-slot hashable table sizes
         self.bsdf_flag_list = []
         self.emitter_table = []
         self.media_rows = {}
@@ -76,6 +78,8 @@ class SceneBuilder:
         self.spheres = []       # (center, radius, flip)
         self.rects = []
         self.disks = []
+        self.cyls = []          # (to_world, length, radius)
+        self.cones = []         # (to_world, length, radius)
         self.shape_rows = []
         self.env_emitter = -1   # emitter index of the environment
         # two-level instancing: shared group-local mesh pools + instances
@@ -96,6 +100,11 @@ class SceneBuilder:
         return len(table) - 1
 
     def add_bsdf_row(self, kind, row, flags):
+        # a row's "_static" (table resolutions) goes to the config's
+        # bsdf_static, not to the arrays
+        static = row.pop("_static", None)
+        if static is not None:
+            self.bsdf_static.setdefault(kind, []).append(static)
         self.bsdf_flag_list.append(flags)
         return self._add(self.bsdf_rows, self.bsdf_table, kind, row)
 
@@ -345,6 +354,19 @@ class SceneBuilder:
         self.disks.append(to_world)
         return self._new_shape(FAMILY_DISK, len(self.disks) - 1, area)
 
+    def add_cylinder(self, to_world: Transform, length, radius):
+        scale = float(np.linalg.norm(np.asarray(to_world.m)[:3, 0]))
+        area = float(2 * np.pi * radius * length) * scale
+        self.cyls.append((to_world, np.float32(length), np.float32(radius)))
+        return self._new_shape(FAMILY_CYLINDER, len(self.cyls) - 1, area)
+
+    def add_cone(self, to_world: Transform, length, radius):
+        scale = float(np.linalg.norm(np.asarray(to_world.m)[:3, 0]))
+        slant = float(np.hypot(radius, length))
+        area = float(np.pi * radius * slant) * scale
+        self.cones.append((to_world, np.float32(length), np.float32(radius)))
+        return self._new_shape(FAMILY_CONE, len(self.cones) - 1, area)
+
     def _instancing_arrays(self):
         """The geometry's instancing pools; empty without instances."""
         f32, i32 = np.float32, np.int32
@@ -580,9 +602,18 @@ class SceneBuilder:
                                       bool),
                "rect_shape": of_family(FAMILY_RECT),
                "disk_shape": of_family(FAMILY_DISK),
+               "cyl_shape": of_family(FAMILY_CYLINDER),
+               "cone_shape": of_family(FAMILY_CONE),
                "shape_family": shape_col("family")}
+        for pool, rows in (("cyl", self.cyls), ("cone", self.cones)):
+            geo[f"{pool}_length"] = np.asarray([r[1] for r in rows],
+                                               np.float32)
+            geo[f"{pool}_radius"] = np.asarray([r[2] for r in rows],
+                                               np.float32)
         for name, tfs in (("rect_to_world", self.rects),
-                          ("disk_to_world", self.disks)):
+                          ("disk_to_world", self.disks),
+                          ("cyl_to_world", [r[0] for r in self.cyls]),
+                          ("cone_to_world", [r[0] for r in self.cones])):
             for part in ("m", "inv_t"):
                 geo[f"{name}.{part}"] = (
                     np.stack([getattr(t, part) for t in tfs]) if tfs
@@ -634,7 +665,9 @@ class SceneBuilder:
             sampler_kind=getattr(self, "sampler_kind", "independent"),
             pixel_format=film_cfg.get("pixel_format", "rgb"),
             crop_offset=tuple(film_cfg.get("crop_offset", (0, 0))),
-            crop_size=tuple(film_cfg.get("crop_size", ())))
+            crop_size=tuple(film_cfg.get("crop_size", ())),
+            bsdf_static=tuple(sorted((k, tuple(v))
+                                     for k, v in self.bsdf_static.items())))
         return arrays, cfg
 
 
@@ -709,8 +742,7 @@ def load_dict(d: dict, variant: Variant | None = None,
         elif t not in _BSDF_TYPES:
             raise NotImplementedError(
                 f"scene entry {key!r} of type {t!r}: not carried by the "
-                "port; the spot, projector and envmap emitters come with "
-                "slice 5c-2, the other integrators with slice 6")
+                "port; the other integrators come with slice 6")
 
     if pending_sensor is not None:
         # built after every shape (irradiancemeter's shape ref); its film

@@ -1,5 +1,6 @@
 """Shape construction (scene/build_shapes.py counterpart): triangle meshes
-given as vertex/face arrays, cubes, spheres, rectangles, disks, two-level
+given as vertex/face arrays or read from OBJ, PLY and Mitsuba serialized
+files, cubes, spheres, rectangles, disks, cylinders, cones, two-level
 instancing (shapegroups of meshes under instance transforms), the area
 emitter a shape carries and the media a shape bounds
 (interior/exterior)."""
@@ -10,14 +11,11 @@ import numpy as np
 
 from ..core.transform import as_transform
 from ..render.geometry import FAMILY_IMESH
+from ..utils.meshio import load_obj, load_ply, load_serialized
 from .build_emitters import _build_bsdf, _build_emitter_for_shape
 
-_SHAPE_TYPES = ("mesh", "cube", "sphere", "rectangle", "disk", "instance")
-# every shape type of the reference's dict loader: a shapegroup's children
-# are the entries of these types (the ones outside the slice raise when an
-# instance builds them)
-_ANY_SHAPE_TYPES = ("rectangle", "disk", "sphere", "cylinder", "cone",
-                    "cube", "mesh", "obj", "ply", "serialized", "instance")
+_SHAPE_TYPES = ("rectangle", "disk", "sphere", "cylinder", "cone", "cube",
+                "mesh", "obj", "ply", "serialized", "instance")
 
 _CUBE_V = np.array(
     [[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
@@ -27,9 +25,8 @@ _CUBE_F = np.array(
      [0, 1, 5], [0, 5, 4], [2, 3, 7], [2, 7, 6],   # -y, +y
      [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]], np.int32)  # +x, -x
 
-# shapegroup children stored once in group-local pools; the reference's
-# file formats (obj, ply, serialized) come with the port of utils/meshio.py
-_GROUP_MESH_TYPES = ("mesh", "cube")
+# shapegroup children stored once in group-local pools
+_GROUP_MESH_TYPES = ("mesh", "cube", "obj", "ply", "serialized")
 
 
 def triangle_areas(verts, faces):
@@ -37,6 +34,17 @@ def triangle_areas(verts, faces):
     e1 = verts[faces[:, 1]] - verts[faces[:, 0]]
     e2 = verts[faces[:, 2]] - verts[faces[:, 0]]
     return 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+
+
+def _read_mesh_file(d):
+    """(verts, faces, normals or None, uvs or None) of an obj, ply or
+    serialized dict's file, untransformed."""
+    t = d["type"]
+    if t == "obj":
+        return load_obj(d["filename"])
+    if t == "ply":
+        return (*load_ply(d["filename"]), None, None)
+    return load_serialized(d["filename"], int(d.get("shape_index", 0)))
 
 
 def _load_mesh_arrays(d):
@@ -54,14 +62,18 @@ def _load_mesh_arrays(d):
     if d["type"] == "cube":
         v, _ = xf(_CUBE_V)
         return v, _CUBE_F.copy(), None, None
-    v, n = xf(d["vertices"], d.get("normals"))
-    return v, np.asarray(d["faces"], np.int32), n, d.get("uvs")
+    if d["type"] == "mesh":
+        v, n = xf(d["vertices"], d.get("normals"))
+        return v, np.asarray(d["faces"], np.int32), n, d.get("uvs")
+    verts, faces, normals, uvs = _read_mesh_file(d)
+    v, n = xf(verts, normals)
+    return v, faces, n, uvs
 
 
 def shape_children(d, exclude=()):
     """The shape-typed dict entries of d (a shapegroup or an instance)."""
     return [v for v in d.values()
-            if isinstance(v, dict) and v.get("type") in _ANY_SHAPE_TYPES
+            if isinstance(v, dict) and v.get("type") in _SHAPE_TYPES
             and v["type"] not in exclude]
 
 
@@ -183,10 +195,22 @@ def _build_shape(builder, d):
                 normals = np.asarray(normals, np.float32) @ inv_t.T
         idx = builder.add_mesh(verts, d["faces"], normals, d.get("uvs"),
                                d.get("attributes"))
+    elif t in ("obj", "ply", "serialized"):
+        # the file's vertices under to_world (identity if absent)
+        verts, faces, normals, uvs = _read_mesh_file(d)
+        m = np.asarray(tw.m)
+        verts = verts @ m[:3, :3].T + m[:3, 3]
+        if normals is not None:
+            inv_t = np.linalg.inv(m[:3, :3]).T
+            normals = normals @ inv_t.T
+        idx = builder.add_mesh(verts, faces, normals, uvs)
+    elif t == "cylinder":
+        idx = builder.add_cylinder(tw, d.get("length", 1.0),
+                                   d.get("radius", 1.0))
+    elif t == "cone":
+        idx = builder.add_cone(tw, d.get("length", 1.0), d.get("radius", 1.0))
     else:
-        raise NotImplementedError(
-            f"shape {t!r}: the port carries {_SHAPE_TYPES}; cylinder, cone "
-            "and mesh files come with slice 5c-2")
+        raise ValueError(f"unknown shape type {t!r}")
     row = builder.shape_rows[idx]
     bsdf_d = d.get("bsdf")
     if bsdf_d is None:

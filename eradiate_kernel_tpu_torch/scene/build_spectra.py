@@ -1,9 +1,21 @@
-"""Media-profile build helpers (the profile part of scene/build_spectra.py):
-numpy at scene build, bit-equal to the reference's tables."""
+"""Scene-build helpers of scene/build_spectra.py: an envmap's inline image
+and the media profiles (numpy at scene build, bit-equal to the
+reference's tables)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+def _image_data(d):
+    """The image of an envmap dict: its inline ``data`` (float32). A file
+    raises: image IO comes with slice 7."""
+    if "data" not in d:
+        raise NotImplementedError(
+            f"{d.get('type')} from a file ({d.get('filename')!r}): image IO "
+            "(utils/bitmap.py and the EXR readers) comes with slice 7; pass "
+            "inline 'data'")
+    return np.asarray(d["data"], np.float32)
+
 
 AXPROF_BINS = 64  # fixed per-axis majorant profile resolution (media)
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..bsdfs import REGISTRY as BSDF_REGISTRY
+from ..core.rng import SAMPLER_KINDS
 from ..core.transform import AnimatedTransform, Transform
 from ..core.types import Variant, resolve_device
 from ..render.geometry import Geometry
@@ -27,7 +28,8 @@ from ..textures.volumes import packed_corners_of
 # what the port carries
 SUPPORTED = {
     "bsdf_kinds": set(BSDF_REGISTRY),
-    "emitter_kinds": {"directional", "area", "constant", "point"},
+    "emitter_kinds": {"directional", "area", "constant", "point", "spot",
+                      "projector", "envmap"},
     "texture_kinds": {"constant", "checkerboard", "bitmap",
                       "mesh_attribute"},
     "spectrum_kinds": {"baked"},
@@ -36,15 +38,14 @@ SUPPORTED = {
                     "irradiancemeter"},
     "rfilter": {"box", "tent", "gaussian", "mitchell", "catmullrom",
                 "lanczos"},
-    "sampler_kind": {"independent"},
+    "sampler_kind": set(SAMPLER_KINDS),
     "medium_kinds": {"homogeneous", "heterogeneous"},
     "phase_kinds": {"isotropic", "hg", "rayleigh"},
     "volume_kinds": {"constvolume", "gridvolume"},
 }
 INTEGRATORS = ("path", "direct", "depth", "volpath")
 # the slice that brings the kinds SUPPORTED does not have yet
-_LATER = {"bsdf_kinds": "5c-2 or 6", "emitter_kinds": "5c-2",
-          "sampler_kind": "5c-2", "spectrum_kinds": "6", "medium_kinds": "6",
+_LATER = {"bsdf_kinds": "6", "spectrum_kinds": "6", "medium_kinds": "6",
           "phase_kinds": "6", "volume_kinds": "6"}
 
 
@@ -88,6 +89,9 @@ class SceneConfig:
     # every heterogeneous medium is a vertical profile sigma(z): its
     # optical depth has a closed form (media.medium_tau_segment)
     het_profile1d: bool = False
+    # per-slot table sizes of data-driven BSDFs (the measured BSDF):
+    # ((kind, (slot 0's, slot 1's, ...)), ...)
+    bsdf_static: tuple = ()
 
     def __post_init__(self):
         for name, allowed in SUPPORTED.items():
@@ -97,7 +101,7 @@ class SceneConfig:
             if bad:
                 raise NotImplementedError(
                     f"{name} {bad}: the port carries {sorted(allowed)}; "
-                    f"the others come with slice {_LATER.get(name, '5c-2')}")
+                    f"the others come with slice {_LATER.get(name, '6')}")
         if self.integrator.kind not in INTEGRATORS:
             raise NotImplementedError(
                 f"integrator {self.integrator.kind!r}: the port carries "

@@ -567,3 +567,60 @@ def test_materials_match_plain_versions(cuda_device, name):
     ok = torch.isfinite(gp)
     assert torch.equal(ok, torch.isfinite(g)) and bool(g.abs().sum() > 0)
     torch.testing.assert_close(g[ok], gp[ok], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["measured", "box"])
+def test_slice_5c2_matches_plain_versions(cuda_device, name, tmp_path):
+    """chip_smoke.py phases 30-31 at 32x32, spp 4: terrain(33) read from a
+    PLY under a measured BRDF and an envmap (multijitter; the sorted
+    sweep, scan driver) and the lights-and-quadrics box (ldsampler; the
+    cube's fused sweep, lane pool), through the kernel and through the
+    plain sweep: films within 1e-4 but 2 pixels, the kernel launched."""
+    from chip_smoke import (films_equivalent, measured_terrain,
+                            quadrics_box, sky_image, synth_measured_fields)
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils import meshio
+
+    if name == "measured":
+        V, F = terrain(33)
+        meshio.write_ply(tmp_path / "t.ply", V, F)
+        scene = load_dict(measured_terrain(
+            str(tmp_path / "t.ply"), synth_measured_fields(6, 16, 32, 5),
+            sky_image(64, 128, 6), 32, 32, 4, 6))
+        render = lambda: integrators.render(scene, seed=3,
+                                            develop_film=False)
+    else:
+        scene = load_dict(quadrics_box(32, 32, 4, 6))
+        render = lambda: integrators.render(
+            scene, seed=3, regen=True, samples_per_pass=2048,
+            develop_film=False)
+    before = intersect.launches["tile_sweep"]
+    film = render()
+    torch.cuda.synchronize()
+    assert intersect.launches["tile_sweep"] > before
+    with intersect.use_plain():
+        film_p = render()
+    assert float(film.sum()) > 0
+    films_equivalent(film_p.cpu().numpy(), film.cpu().numpy(), max_flips=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["independent", "stratified",
+                                  "multijitter", "orthogonal", "ldsampler"])
+def test_sampler_draws_match_cpu(cuda_device, kind):
+    """Each sampler's draws on 2^16 lanes near 2^32, bit-equal to the same
+    calls on the CPU."""
+    from eradiate_kernel_tpu_torch.core.rng import Sampler
+
+    lane = (torch.arange(1 << 16, dtype=torch.int64) * 40503
+            + 2 ** 32 - 2 ** 20) % 2 ** 32
+    gpu = Sampler.seed(5, lane.to(cuda_device), kind=kind, spp=9)
+    cpu = Sampler.seed(5, lane, kind=kind, spp=9)
+    for step in range(6):
+        if step % 2:
+            (gpu, u), (cpu, v) = gpu.next_2d(), cpu.next_2d()
+        else:
+            (gpu, u), (cpu, v) = gpu.next_1d(), cpu.next_1d()
+        assert torch.equal(u.cpu(), v), (kind, step)

@@ -105,11 +105,11 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", [
-    ("shape", {"type": "cone"}),
-    ("shape", {"type": "cylinder"}),
-    ("emitter", {"type": "spot"}),
+    ("emitter", {"type": "envmap", "filename": "sky.exr"}),
+    ("texture", {"type": "blackbody", "temperature": 5800.0}),
+    ("bsdf", {"type": "measured_polarized"}),
     ("integrator", {"type": "volpathmis"}),
-    ("bsdf", {"type": "measured"}),
+    ("medium", {"type": "homogeneous", "phase": {"type": "tabphase"}}),
     ("texture", {"type": "bitmap", "filename": "ground.exr"}),
     ("bsdf", {"type": "pplastic"}),
 ])
