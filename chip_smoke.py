@@ -202,10 +202,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  32. the five samplers draw 2^20 lanes x 8 dimensions (next_1d,
      next_2d; spp 6, so the strata's divisions are not by powers of 2)
      bit-equal to the same calls on the CPU, ms a draw;
+ 33. slice 6a: bench.py's large3d (256x256, the 64^3 grid, 32,768 lanes,
+     max_depth 12; spp 4, bench.py: 64) under its ablations:
+     nee_transmittance "track", "quadrature" with 8 nodes, and
+     ff_majorant "segment" with the residual walk; each render's time,
+     launches (tile_sweep == queries, grid_gather == lookups), walk steps,
+     lookup points and host syncs, its film within 3 standard errors of
+     phase 10's residual film (the same estimand), and a 64x64 spp4 film
+     through the kernels against the plain gather and the plain sweep
+     (budget 2); the 64^3 density written to a .vol file
+     (smoke_out/vol/) and read back nearest-filtered through
+     use_grid_bbox: grid_gather's gather entry launched once a lookup,
+     the 64x64 films against the plain versions, and the gather entry on
+     the render's table timed beside index_select; the flagship's
+     atmosphere with an aerosol (a blendphase of Rayleigh and a 181-node
+     tabphase of HG g = 0.7), an irregular ground reflectance and a
+     5800 K blackbody sun (spp 4), its 64x64 film against the plain
+     sweep; value+grad at spp 2 of the quadrature render and the nearest
+     grid (d(mean)/d(grid, albedo); forward and backward launches, the
+     film bit-equal to the primal's) and their 64x64 spp4 gradients
+     through the kernels against the plain versions (rtol 1e-5, atol
+     1e-7);
  12. (last) print the kernels line (every kernel and entry, the backward
-     included, with their launches on phases 21-31), the value+grad,
-     measurement, materials and slice 5c-2 records, the card's name and
-     power limit, and the final ``{"ok": true, ...}`` line.
+     included, with their launches on phases 21-33), the value+grad,
+     measurement, materials, slice 5c-2 and slice 6a records, the card's
+     name and power limit, and the final ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
@@ -665,8 +686,10 @@ PREPARES = ("prepare_sweep", "prepare_small", "prepare_bvh")
 @contextlib.contextmanager
 def counting():
     """Inside the block, count the closest-hit queries (calls of the
-    intersect functions in PREPARES) and the gridvolume lookups (calls of
-    volumes._trilinear_gather). Every kernel's launch count, the host-sync
+    intersect functions in PREPARES), the gridvolume lookups (calls of
+    volumes._trilinear_gather), the nearest-filter lookups (calls of
+    volumes._nearest_gather) and the points both looked up. Every kernel's
+    launch count, the host-sync
     counts and the replay's iteration counts are set to 0 on entry.
     Yields ``read()``: launches (kernel -> count), queries, lookups,
     host_syncs (the integrators' any_lane gates), pool_syncs (the lane
@@ -675,14 +698,18 @@ def counting():
     from eradiate_kernel_tpu_torch.ops import gather, intersect
     from eradiate_kernel_tpu_torch.textures import volumes
 
-    counts = {"queries": 0, "lookups": 0}
+    counts = {"queries": 0, "lookups": 0, "nearest_lookups": 0,
+              "lookup_points": 0}
     sites = [(intersect, name, "queries") for name in PREPARES] + [
-        (volumes, "_trilinear_gather", "lookups")]
+        (volumes, "_trilinear_gather", "lookups"),
+        (volumes, "_nearest_gather", "nearest_lookups")]
     originals = [getattr(mod, name) for mod, name, _ in sites]
 
     def counted(fn, what):
         def wrapper(*a, **kw):
             counts[what] += 1
+            if what != "queries":  # the lookup's points: pl is (..., 3)
+                counts["lookup_points"] += a[-1].numel() // 3
             return fn(*a, **kw)
         return wrapper
 
@@ -780,23 +807,27 @@ def check_atmosphere(label, scene, film, seconds, launches, counts):
                host_syncs=counts["gate_syncs"],
                pool_syncs=counts["pool_syncs"], image_mean=mean,
                queries=counts["queries"], lookups=counts["lookups"],
-               launches=launches)
+               nearest_lookups=counts["nearest_lookups"],
+               lookup_points=counts["lookup_points"], launches=launches)
     print(f"# {label}: {rec['render_ms']:.1f} ms, "
           f"{rec['msamples_per_s']:.3f} Msamples/s, "
           f"{rec['mrays_per_s']:.2f} Mrays/s ({counts['rays']:.0f} rays), "
           f"loop iterations {counts['iterations']}, host syncs (any_lane) "
           f"{counts['gate_syncs']} (+ the pool's {counts['pool_syncs']}), "
           f"closest-hit queries {counts['queries']}, gridvolume gathers "
-          f"{counts['lookups']}, launches {launches}, "
+          f"{counts['lookups']} (nearest {counts['nearest_lookups']}; "
+          f"{counts['lookup_points']} points), launches {launches}, "
           f"image mean {mean:.5f}", flush=True)
     assert 0.01 < mean < 2.0, f"{label}: image mean {mean}"
     # the atmosphere cube is one 12-triangle tile: every mesh query of the
     # render was one launch of the fused sweep, every large-grid lookup one
-    # launch of the fused trilinear lookup, and nothing else was launched
+    # launch of the fused trilinear lookup, every nearest-filter lookup one
+    # launch of the gather entry, and nothing else was launched
     assert launches["tile_sweep"] == counts["queries"] > 0, \
         f"{label}: {launches['tile_sweep']} sweeps, {counts['queries']} queries"
-    assert launches["grid_gather"] == counts["lookups"], \
-        f"{label}: {launches['grid_gather']} gathers, {counts['lookups']} lookups"
+    lookups = counts["lookups"] + counts["nearest_lookups"]
+    assert launches["grid_gather"] == lookups, \
+        f"{label}: {launches['grid_gather']} gathers, {lookups} lookups"
     assert launches["tile_bvh"] == launches["tile_bvh8"] == 0, launches
     return rec
 
@@ -1094,7 +1125,8 @@ def check_value_grad(label, scene, rec, params):
     for part in (fwd, bwd):
         la = part["launches"]
         assert la["tile_sweep"] == part["queries"] > 0, (label, part)
-        assert la["grid_gather"] == part["lookups"], (label, part)
+        assert la["grid_gather"] == part["lookups"] + part[
+            "nearest_lookups"], (label, part)
         assert la["tile_bvh"] == la["tile_bvh8"] == 0, (label, part)
     assert fwd["launches"]["grid_trilinear_bwd"] == 0, (label, fwd)
     assert bwd["launches"]["grid_trilinear_bwd"] == bwd["lookups"], \
@@ -1109,7 +1141,9 @@ def check_value_grad(label, scene, rec, params):
           f"{fwd['pool_syncs']} + {bwd['pool_syncs']}), launches "
           f"forward {fwd['launches']} backward {bwd['launches']}, "
           f"closest-hit queries {fwd['queries']} + {bwd['queries']}, "
-          f"gridvolume lookups {fwd['lookups']} + {bwd['lookups']}, peak "
+          f"gridvolume lookups {fwd['lookups']} + {bwd['lookups']} "
+          f"(nearest {fwd['nearest_lookups']} + {bwd['nearest_lookups']}), "
+          f"peak "
           f"memory {rec['peak_bytes'] / 2**20:.1f} MiB, loss "
           f"{rec['loss']:.6f}, |grad| sums {grads}"
           + (f", threefry {rec['threefry_ms']:.1f} ms of a synchronised "
@@ -1302,7 +1336,9 @@ def counted_pool(scene, n_lanes, seed=0, spp=None):
             got = read()
     finally:
         integrators._run_pool = run_pool
-    counts = dict(queries=got["queries"], lookups=got["lookups"], **pool,
+    counts = dict(queries=got["queries"], lookups=got["lookups"],
+                  nearest_lookups=got["nearest_lookups"],
+                  lookup_points=got["lookup_points"], **pool,
                   gate_syncs=got["host_syncs"], pool_syncs=got["pool_syncs"])
     counts["host_syncs"] = counts["gate_syncs"] + counts["pool_syncs"]
     counts["gate_sync_share"] = counts["gate_syncs"] / counts["host_syncs"]
@@ -1317,7 +1353,7 @@ def check_pool(label, scene, film, seconds, launches, counts, kernel,
     from eradiate_kernel_tpu_torch import films
 
     cfg = scene.config
-    img = films.develop(film, mono=cfg.variant.is_monochromatic)
+    img = films.develop(film, cfg.variant.mode)
     n_samples = cfg.film_height * cfg.film_width * cfg.spp
     assert bool(torch.isfinite(img).all()), f"{label}: non-finite pixels"
     if films._single_pixel(cfg.rfilter, dict(cfg.rfilter_params)):
@@ -1761,7 +1797,7 @@ def measurement_phases(V, F, lanes, box_ms):
         r = check_pool(f"atmosphere {label} spp {cfg.spp} max_depth 12 "
                        "grid 64", sc, film, secs, launches, counts,
                        "tile_sweep", (1e-4, 2.0))
-        img = films.develop(film, mono=cfg.variant.is_monochromatic)
+        img = films.develop(film, cfg.variant.mode)
         r["radiance"] = img.reshape(-1).tolist()
         rec["atmosphere"][label] = r
     pp = np.asarray(rec["atmosphere"]["mono mdistant 128 principal plane"][
@@ -2640,6 +2676,302 @@ def slice_5c2_phases(V, F, scene, img, lanes):
     return rec
 
 
+def hg_table(g, n=181):
+    """A Henyey-Greenstein phase function tabulated on n uniform cosines
+    of the scattering angle (a tabphase's ``values``)."""
+    mu = np.linspace(-1.0, 1.0, n)
+    return ((1 - g * g) / (1 + g * g - 2 * g * mu) ** 1.5
+            / (4 * np.pi)).tolist()
+
+
+@contextlib.contextmanager
+def walk_steps():
+    """Inside the block, count the steps the transmittance walks of volpath
+    run (the NEE walk's and the MIS walk's)."""
+    from eradiate_kernel_tpu_torch.integrators import volpath
+
+    steps = {"n": 0}
+    run_walk = volpath._run_walk
+
+    def counted_run_walk(body, *a, **kw):
+        def step(s):
+            steps["n"] += 1
+            return body(s)
+        return run_walk(step, *a, **kw)
+
+    volpath._run_walk = counted_run_walk
+    try:
+        yield steps
+    finally:
+        volpath._run_walk = run_walk
+
+
+def same_estimand(film, ref_film):
+    """Two independent renders of one estimand: the mean of the per-pixel
+    differences of the developed images within 3 standard errors of it
+    (the spread of the differences over sqrt of their count). Returns the
+    record."""
+    from eradiate_kernel_tpu_torch.films import develop
+
+    a = develop(film).double().cpu().numpy().ravel()
+    b = develop(ref_film).double().cpu().numpy().ravel()
+    d = a - b
+    se = float(d.std(ddof=1) / np.sqrt(d.size))
+    rec = dict(mean=float(a.mean()), ref_mean=float(b.mean()),
+               mean_diff=float(d.mean()), std_err=se,
+               z=float(d.mean()) / se)
+    assert abs(rec["mean_diff"]) <= 3 * se, rec
+    return rec
+
+
+def films_vs_plain(scene, lanes, legs=("grid_gather", "tile_sweep")):
+    """A lane-pool film of ``scene`` through the kernels and through the
+    plain version of each kernel of ``legs``: films_equivalent with phase
+    11's budget of 2 pixels. Returns the pixels over tolerance a leg."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.ops import gather, intersect
+
+    plains = {"grid_gather": gather.use_plain,
+              "tile_sweep": intersect.use_plain}
+    spp = scene.config.spp
+    film_k, _ = integrators.render_wavefront_regen(scene, lanes, 3, spp)
+    flips = {}
+    for name in legs:
+        with plains[name]():
+            film_p, _ = integrators.render_wavefront_regen(scene, lanes, 3,
+                                                           spp)
+        flips[name] = films_equivalent(film_p.cpu().numpy(),
+                                       film_k.cpu().numpy(), max_flips=2)
+    return flips
+
+
+def grads_vs_plain(scene, lanes, keys):
+    """value_grad of ``scene`` through the kernels and through the plain
+    gather and the plain sweep: gradients within rtol 1e-5, atol 1e-7
+    (phase 14's tolerance). Returns the largest absolute difference a
+    leg."""
+    from eradiate_kernel_tpu_torch.ops import gather, intersect
+
+    grads = {}
+    for name, plain in (("kernels", contextlib.nullcontext),
+                        ("grid_gather plain", gather.use_plain),
+                        ("tile_sweep plain", intersect.use_plain)):
+        with plain():
+            _rec, params = value_grad(scene, lanes, keys, with_primal=False)
+        grads[name] = {k: p.grad for k, p in params.items()}
+    worst = {}
+    for name in ("grid_gather plain", "tile_sweep plain"):
+        worst[name] = 0.0
+        for k, g in grads["kernels"].items():
+            ref = grads[name][k]
+            ok = torch.isfinite(ref)
+            assert torch.equal(ok, torch.isfinite(g)), k
+            assert bool(g[ok].abs().sum() > 0), k
+            torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
+            worst[name] = max(worst[name],
+                              float((g[ok] - ref[ok]).abs().max()))
+    return worst
+
+
+def nearest_bwd_load(grid, idx, gen):
+    """The nearest lookup's backward (volumes.nearest_backward, the body
+    of NearestGather.backward: the cotangents of ``idx``'s lanes
+    index_add_-ed into a zero grid) on the card against the same call on
+    the CPU (rtol 1e-5, atol 1e-7: the card's atomics add in no fixed
+    order), timed. Returns the record."""
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    C = grid.shape[-1]
+    V = grid.numel() // C
+    ct = torch.randn(idx.shape[0], C, generator=gen).to(grid.device)
+    backward = lambda: volumes.nearest_backward(ct, idx, V)
+    d = backward()
+    ref = volumes.nearest_backward(ct.cpu(), idx.cpu(), V)
+    torch.testing.assert_close(d.cpu(), ref, rtol=1e-5, atol=1e-7)
+    # bytes: the grid zeroed; each lane's index and cotangent read and its
+    # row added into (read and written)
+    nbytes = V * C * 4 + idx.shape[0] * (idx.element_size() + 3 * C * 4)
+    bound_ms, bound_by = bound(nbytes, idx.shape[0] * C)
+    return dict(ms=cuda_ms(backward, reps=50), bound_ms=bound_ms,
+                bound_by=bound_by, lanes=idx.shape[0],
+                max_abs_err=float((d.cpu() - ref).abs().max()),
+                device_us=device_us(backward))
+
+
+def slice_6a_launches(rec, kernel):
+    """``kernel``'s launches in each render and value+grad of phase 33."""
+    out = {f"large3d {k}": v["launches"][kernel]
+           for k, v in rec["ablations"].items()}
+    out["nearest 64^3"] = rec["nearest"]["launches"][kernel]
+    out["aerosol atmosphere"] = rec["aerosol"]["launches"][kernel]
+    for k, v in rec["value_grad"].items():
+        out[f"{k} value+grad forward"] = v["forward"]["launches"][kernel]
+        out[f"{k} value+grad backward"] = v["backward"]["launches"][kernel]
+    return out
+
+
+def slice_6a_phases(lanes, large_film, large_rec):
+    """Phase 33 (slice 6a): bench.py's large3d under its ablations
+    (nee_transmittance 'track', 'quadrature' with 8 nodes, ff_majorant
+    'segment'), a nearest-filter 64^3 grid read from a .vol file, the
+    flagship's profile atmosphere with an aerosol and measured spectra,
+    and value+grad of the quadrature render and the nearest grid.
+    ``large_film`` and ``large_rec`` are phase 10's residual large3d film
+    and record. Returns the records."""
+    from eradiate_kernel_tpu_torch.ops import gather
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.textures import volumes
+    from eradiate_kernel_tpu_torch.utils import volfile
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    rec = {"ablations": {}}
+    large_rec["lookup_points_a_step"] = (large_rec["lookup_points"]
+                                         / large_rec["walk_steps"])
+
+    def render(label, scene):
+        with walk_steps() as steps:
+            film, secs, launches, counts = counted_pool(scene, lanes)
+        r = check_atmosphere(label, scene, film, secs, launches, counts)
+        r["walk_steps"] = steps["n"]
+        print(f"# {label}: walk steps {steps['n']}", flush=True)
+        return film, r
+
+    # (a) large3d (spp 4, bench.py 64: the time limit) under each ablation;
+    # films of 64x64 spp4 through the kernels and the plain versions
+    ablations = {"track": {"nee_transmittance": "track"},
+                 "quadrature": {"nee_transmittance": "quadrature",
+                                "nee_quad_points": 8},
+                 "segment": {"nee_transmittance": "residual",
+                             "ff_majorant": "segment"}}
+
+    def large3d(width, spp, extra):
+        d = atmosphere(width, width, spp, 12, grid_res=(64, 64, 64))
+        d["integrator"].update(extra)
+        return d
+
+    for name, extra in ablations.items():
+        phase_clock(f"33a {name}")
+        scene = load_dict(large3d(256, 4, extra))
+        film, r = render(f"atmosphere 256x256 spp4 max_depth 12 grid 64^3, "
+                         f"{name}", scene)
+        assert r["lookups"] > 0 and r["nearest_lookups"] == 0, r
+        r["vs_residual"] = same_estimand(film, large_film)
+        r["vs_plain_64"] = films_vs_plain(
+            load_dict(large3d(64, 4, extra)), lanes)
+        r["lookup_points_a_step"] = r["lookup_points"] / r["walk_steps"]
+        print(f"# large3d {name}: against phase 10's residual film "
+              f"{r['vs_residual']}; 64x64 spp4 kernels vs plain "
+              f"{r['vs_plain_64']} pixels over tolerance (budget 2); lookup "
+              f"points a walk step {r['lookup_points_a_step']:.0f} (the "
+              f"residual walk's {large_rec['lookup_points_a_step']:.0f})",
+              flush=True)
+        rec["ablations"][name] = r
+
+    # (b) the 64^3 density written to a .vol file with its bbox, read back
+    # nearest-filtered through use_grid_bbox
+    phase_clock("33b")
+    out = os.path.join("smoke_out", "vol")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "large3d_sigma_t.vol")
+
+    def nearest(width, spp):
+        d = atmosphere(width, width, spp, 12, grid_res=(64, 64, 64))
+        grid = d["atmo"]["interior"]["sigma_t"]
+        volfile.write_vol(path, grid.pop("data"),
+                          bbox=((-19.5, -19.5, 0.0), (20.5, 20.5, 1.0)))
+        del grid["to_world"]
+        grid.update(filename=path, use_grid_bbox=True,
+                    filter_type="nearest")
+        return d
+
+    scene_b = load_dict(nearest(256, 4))
+    assert scene_b.config.volume_kinds == ("gridvolume_nearest",
+                                           "constvolume")
+    film, r = render("atmosphere 256x256 spp4 max_depth 12 nearest 64^3 "
+                     "from a .vol file", scene_b)
+    assert r["nearest_lookups"] > 0 and r["lookups"] == 0, r
+    assert r["launches"]["grid_gather"] == r["nearest_lookups"], r
+    r["vs_plain_64"] = films_vs_plain(load_dict(nearest(64, 4)), lanes)
+    # the gather entry on the render's table (the grid's (S*D*H*W, 1)
+    # view) at 32,768 lanes of random points, beside index_select
+    grid = scene_b.volumes["gridvolume_nearest"]["grid"]
+    gen = torch.Generator().manual_seed(33)
+    pl = torch.rand(lanes, 3, generator=gen).to(grid.device)
+    idx = volumes._nearest_index(tuple(grid.shape[:4]),
+                                 torch.zeros(lanes, dtype=torch.int32,
+                                             device=grid.device), pl)
+    r["gather_entry"] = gather_load(grid.reshape(-1, grid.shape[-1]), idx)
+    r["nearest_backward"] = nearest_bwd_load(grid, idx, gen)
+    g = r["gather_entry"]
+    print(f"# nearest 64^3: 64x64 spp4 kernels vs plain {r['vs_plain_64']} "
+          f"pixels over tolerance (budget 2); gather entry on the grid "
+          f"({g['rows']} rows of {g['row_floats']} f32, {g['lanes']} lanes) "
+          f"{g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms (bit-equal), "
+          f"index_select {g['library_ms']:.4f} ms, bound "
+          f"{g['bound_ms']:.5f} ms ({g['bound_by']}); device us a call "
+          f"{g['device_us']}", flush=True)
+    b = r["nearest_backward"]
+    print(f"# nearest 64^3 backward (NearestGather: index_add_ of {b['lanes']}"
+          f" lanes' cotangents): {b['ms']:.4f} ms by CUDA events "
+          f"({b['device_us']} us device), against the CPU's within rtol "
+          f"1e-5 (max abs err {b['max_abs_err']:.2e}), bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_by']})", flush=True)
+    rec["nearest"] = r
+
+    # (c) the flagship's profile atmosphere with an aerosol (a blendphase,
+    # weight 0.3, of Rayleigh and a 181-node table of HG g = 0.7), an
+    # irregular ground reflectance and a 5800 K blackbody sun
+    phase_clock("33c")
+
+    def aerosol(width, spp):
+        d = atmosphere(width, width, spp, 12, grid_res=64)
+        d["atmo"]["interior"]["phase"] = {
+            "type": "blendphase", "weight": 0.3,
+            "rayleigh": {"type": "rayleigh"},
+            "aerosol": {"type": "tabphase", "values": hg_table(0.7)}}
+        d["surface"]["bsdf"]["rho_0"] = {
+            "type": "irregular", "wavelengths": [400.0, 480.0, 560.0, 700.0],
+            "values": [0.05, 0.12, 0.2, 0.35]}
+        d["sun"]["irradiance"] = {"type": "blackbody", "temperature": 5800.0,
+                                  "scale": 1e-4}
+        return d
+
+    scene_c = load_dict(aerosol(256, 4))
+    assert scene_c.config.het_profile1d
+    _film, r = render("atmosphere 256x256 spp4 max_depth 12 grid 64, "
+                      "aerosol blendphase, blackbody sun", scene_c)
+    r["vs_plain_64"] = films_vs_plain(load_dict(aerosol(64, 4)), lanes,
+                                      legs=("tile_sweep",))
+    print(f"# aerosol atmosphere: 64x64 spp4 kernels vs plain "
+          f"{r['vs_plain_64']} pixels over tolerance (budget 2)", flush=True)
+    rec["aerosol"] = r
+
+    # (d) value+grad at spp 2 of (a)'s quadrature render and of (b)
+    phase_clock("33d")
+    vg = {}
+    for name, d_full, d_small, key in (
+            ("quadrature", large3d(256, 2, ablations["quadrature"]),
+             large3d(64, 4, ablations["quadrature"]),
+             "volumes.gridvolume.grid"),
+            ("nearest", nearest(256, 2), nearest(64, 4),
+             "volumes.gridvolume_nearest.grid")):
+        keys = [key, "volumes.constvolume.value"]
+        scene = load_dict(d_full)
+        r, params = value_grad(scene, lanes, keys)
+        vg[name] = check_value_grad(
+            f"atmosphere 256x256 spp2 max_depth 12 64^3 {name}", scene, r,
+            params)
+        bwd = r["backward"]["launches"]
+        assert (bwd["grid_trilinear_bwd"] > 0) == (name == "quadrature"), r
+        vg[name]["vs_plain_64"] = grads_vs_plain(load_dict(d_small), lanes,
+                                                 keys)
+        print(f"# {name} 64x64 spp4 value+grad: kernels vs plain gradients "
+              f"agree (rtol 1e-5, atol 1e-7; max abs err "
+              f"{vg[name]['vs_plain_64']})", flush=True)
+    rec["value_grad"] = vg
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2923,10 +3255,13 @@ def main():
     assert launches["grid_gather"] == 0  # the einsum path: 1,024 voxels
     large = bench_atmosphere(256, 256, 4, 12, grid_res=(64, 64, 64))
     assert large.vol_packed is not None
-    film, secs_l, launches, counts = counted_pool(large, lanes)
+    with walk_steps() as steps:
+        film, secs_l, launches, counts = counted_pool(large, lanes)
+    large_film = film  # phase 33's ablations hold their films to it
     atmo["large3d"] = check_atmosphere(
         "atmosphere 256x256 spp4 max_depth 12 grid 64^3", large, film,
         secs_l, launches, counts)
+    atmo["large3d"]["walk_steps"] = steps["n"]
     assert launches["grid_gather"] > 0
 
     # the fused query at the atmosphere's shape: the one-tile cube, a pool
@@ -3069,6 +3404,7 @@ def main():
         "scan": render_s * 1e3, "pool": pools["terrain"]["render_ms"]})
     materials = materials_phases(V, F, lanes)
     s5c2 = slice_5c2_phases(V, F, scene, terrain_img, lanes)
+    s6a = slice_6a_phases(lanes, large_film, atmo["large3d"])
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -3153,6 +3489,7 @@ def main():
                "lights-and-quadrics box value+grad backward": s5c2[
                    "box_value_grad"]["backward"]["launches"][
                    "tile_sweep"]}),
+        "launches_slice_6a": slice_6a_launches(s6a, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -3213,6 +3550,10 @@ def main():
         "launches_measurement": {k: v["launches"]["grid_gather"]
                                  for k, v in measure["atmosphere"].items()},
         "gather_probe": gather_loads["probe"],
+        # slice 6a: the gather entry on a render path (nearest-filter
+        # lookups), the trilinear entry under the ablations
+        "launches_slice_6a": slice_6a_launches(s6a, "grid_gather"),
+        "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
     })
     bwd1 = bwd_loads["C=1"]
     kernels.append({
@@ -3240,6 +3581,7 @@ def main():
             "terrain gaussian value+grad backward": measure[
                 "gaussian_value_grad"]["backward"]["launches"][
                 "grid_trilinear_bwd"]},
+        "launches_slice_6a": slice_6a_launches(s6a, "grid_trilinear_bwd"),
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"value_grad": grads}))
@@ -3251,6 +3593,7 @@ def main():
     print(json.dumps({"measurement": measure}))
     print(json.dumps({"materials": materials}))
     print(json.dumps({"slice_5c2": s5c2}))
+    print(json.dumps({"slice_6a": s6a}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

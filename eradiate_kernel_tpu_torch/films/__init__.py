@@ -87,13 +87,13 @@ def film_gather(image, pos, rfilter_kind: str, rfilter_params=None):
     return out
 
 
-def develop(image, pixel_format: str = "rgb", mono: bool = False):
+def develop(image, mode: str = "rgb", pixel_format: str = "rgb"):
     """Weight-divide and convert XYZ (hdrfilm.cpp develop): 'rgb' (linear
-    sRGB), 'rgba' (+ alpha), 'xyz' or 'luminance'; a mono film develops to
-    its luminance (H, W, 1) whatever the format."""
+    sRGB), 'rgba' (+ alpha), 'xyz' or 'luminance'; a ``mode="mono"`` film
+    develops to its luminance (H, W, 1) whatever the format."""
     w = torch.clamp(image[..., 4:5], min=1e-12)
     xyz = image[..., 0:3] / w
-    if mono or pixel_format == "luminance":
+    if mode == "mono" or pixel_format == "luminance":
         return xyz[..., 1:2]
     if pixel_format == "xyz":
         return xyz

@@ -301,7 +301,7 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
                                                      total - off), seed, spp)
     if not develop_film:
         return film
-    return develop(film, cfg.pixel_format, cfg.variant.is_monochromatic)
+    return develop(film, cfg.variant.mode, cfg.pixel_format)
 
 
 __all__ = ["REGISTRY", "render", "render_wavefront",

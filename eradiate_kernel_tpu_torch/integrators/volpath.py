@@ -4,22 +4,26 @@ volpath.py counterpart; volpath.cpp as a masked wavefront program).
 - hero-channel distance sampling (volpath.cpp:63-67) against the media's
   profile majorants, null/real event classification (volpath.cpp:105-151);
 - next-event estimation toward the emitters through media and null
-  boundaries with the residual ratio-tracking transmittance walk
-  (``nee_transmittance="residual"``; for plane-parallel media its residual
-  is zero and the walk is the exact closed form);
+  boundaries with the integrator's ``nee_transmittance`` walk: residual
+  ratio tracking ("residual", the default; for plane-parallel media its
+  residual is zero and the walk is the exact closed form), ratio tracking
+  against the majorant ("track", volpath.cpp:282-365) or Gauss-Legendre
+  quadrature with ``nee_quad_points`` nodes ("quadrature"); free flights
+  fly against the media's local profile majorant or, under
+  ``ff_majorant="segment"``, the segment's one majorant;
 - BSDF sampling at surfaces, and for scenes with area or environment
   emitters the MIS walk of ``evaluate_direct_light`` (volpath.cpp:370-465):
-  the BSDF-sampled ray is walked through media and null boundaries with
-  the same residual estimator until it finds an emitter, and its
-  contribution is weighted against the emitter-sampling pdf. For scenes
-  whose emitters are all delta emitters the walk is dead code and is
-  skipped, as in the reference.
+  the BSDF-sampled ray is walked through media and null boundaries (the
+  residual estimator under "residual", ratio tracking under the others)
+  until it finds an emitter, and its contribution is weighted against the
+  emitter-sampling pdf. For scenes whose emitters are all delta emitters
+  the walk is dead code and is skipped, as in the reference.
 
 Detach discipline (volpath.cpp:83): every sampling decision is cut from
 the gradient as the reference cuts it with stop_gradient: the RR
 probability, the null/real probability, the sigma_n and sigma_t divisors
 of the null and real event weights, the residual walks' collision rates
-(the NEE walk's and the MIS walk's),
+(the NEE walk's and the MIS walk's), the tracked walks' flight pdfs,
 the media's majorants and rate profiles (media/__init__.py) and the
 preliminary intersection (render/geometry.py). Gradients of value-class
 parameters then flow only through the carried throughput and result.
@@ -236,11 +240,13 @@ def _walk_cross(scene, s, ray, si, remaining, passed, transmittance,
                       total_dist=total_dist, active=active, n_rays=n_rays)
 
 
-def _walk_step_closed_form(scene, s, ds, ca):
-    """One deterministic walk step for plane-parallel media (the residual
-    walk when every heterogeneous medium is a vertical profile: its
-    residual is zero, so the step is the exact closed-form optical depth
-    over the medium segment up to the next surface, then the crossing)."""
+def _walk_step_quadrature(scene, s, ds, ca, quad_points=8):
+    """One deterministic walk step: the optical depth of the medium
+    segment up to the next surface (media.medium_tau_segment: the exact
+    closed form for plane-parallel media, Gauss-Legendre with
+    ``quad_points`` nodes for 3D grids), then the crossing. It draws
+    nothing. The residual walk takes it for plane-parallel media (their
+    residual is zero), and ``nee_transmittance="quadrature"`` for all."""
     nc = s.transmittance.shape[-1]
     (remaining, ray, active, si, needs_intersection, n_rays,
      seg_end) = _walk_prelude(scene, s, ds, ca)
@@ -249,7 +255,8 @@ def _walk_step_closed_form(scene, s, ds, ca):
     def tau():
         med = torch.clamp(s.medium_idx, min=0)
         a, b = _medium_segment(scene, med, ray, in_medium, seg_end)
-        return media.medium_tau_segment(scene, med, ray, a, b, nc)
+        return media.medium_tau_segment(scene, med, ray, a, b, nc,
+                                        quad_points)
 
     tau = ca(in_medium, tau, lambda: torch.zeros_like(s.transmittance))
     transmittance = torch.where(in_medium[..., None],
@@ -260,6 +267,97 @@ def _walk_step_closed_form(scene, s, ds, ca):
     return _walk_cross(scene, s, ray, si, remaining, active, transmittance,
                        needs_intersection, total_dist, n_rays, s.sampler,
                        no_hit)
+
+
+def _tracked_segment(scene, s, ray, active, remaining, channel, ca):
+    """The opening of a ratio-tracking step (volpath.cpp:282-312), shared
+    by the NEE walk and the MIS walk: one free-flight draw against the
+    majorant (dimension dim0 + k, drawn before the step's intersection),
+    the merged intersection of the medium and surface lanes, and the
+    transmittance ratio tr / pdf of the flight (its pdf detached, ref
+    volpath.py:544, :988). ``remaining`` caps the flight (the NEE walk's
+    distance left to the emitter; None: the hit). Returns (sampler, mi,
+    si, the medium and surface lanes, needs_intersection, n_rays, the
+    transmittance)."""
+    n = ray.o.shape[0]
+    nc = s.transmittance.shape[-1]
+    active_medium = active & (s.medium_idx >= 0)
+    active_surface = active & ~active_medium
+    med = torch.clamp(s.medium_idx, min=0)
+    smp, xi = s.sampler.next_1d()
+    mi = ca(active_medium,
+            lambda: media.sample_interaction(scene, med, ray, xi, channel,
+                                             active_medium),
+            lambda: media.invalid_mi(n, nc, ray.o.device))
+    do_isect = s.needs_intersection & (active_medium | active_surface)
+    si = ca(do_isect,
+            lambda: merge(_walk_hit(ray_intersect(scene.geo, ray, do_isect)),
+                          s.si, do_isect),
+            lambda: s.si)
+    mi = dataclasses.replace(mi, t=torch.where(
+        active_medium & (si.t < mi.t), INVALID_T, mi.t))
+    t_end = si.t if remaining is None else torch.minimum(si.t, remaining)
+    tr, ff_pdf = media.eval_tr_and_pdf(mi, t_end)
+    tr_pdf = _index_ch(ff_pdf, channel)
+    ok_pdf = tr_pdf > 1e-15
+    den = torch.where(ok_pdf, tr_pdf, 1.0).detach()[..., None]
+    ratio = torch.where(ok_pdf[..., None], tr / den, 0.0)
+    transmittance = torch.where(active_medium[..., None],
+                                s.transmittance * ratio, s.transmittance)
+    return (smp, mi, si, active_medium, active_surface,
+            s.needs_intersection & ~do_isect, s.n_rays + do_isect.sum(),
+            transmittance)
+
+
+def _walk_step_tracked(scene, s, ds, channel, ca):
+    """One ratio-tracking step of the NEE walk (volpath.cpp:282-365): a
+    free flight to a null collision (transmittance times sigma_n) or
+    through the segment to the surface bounding it (null transmission and
+    a medium transition); ``nee_transmittance="track"``."""
+    remaining = torch.clamp(ds.dist * (1.0 - 1e-4) - s.total_dist, 0.0,
+                            INVALID_T)
+    ray = dataclasses.replace(s.ray, maxt=remaining)
+    active = s.active & (remaining > 0)
+    (smp, mi, si, active_medium, active_surface, needs_intersection, n_rays,
+     transmittance) = _tracked_segment(scene, s, ray, active, remaining,
+                                       channel, ca)
+    # a flight past the remaining distance is done
+    total_dist = torch.where(
+        active_medium & (mi.t > remaining) & mi.is_valid, ds.dist,
+        s.total_dist)
+    mi = dataclasses.replace(mi, t=torch.where(
+        active_medium & (mi.t > remaining), INVALID_T, mi.t))
+    escaped_medium = active_medium & ~mi.is_valid
+    active_medium = active_medium & mi.is_valid
+    total_dist = torch.where(active_medium, total_dist + mi.t, total_dist)
+    # null collision: advance, times sigma_n
+    ray = dataclasses.replace(
+        ray, o=torch.where(active_medium[..., None], mi.p, ray.o),
+        mint=torch.where(active_medium, 0.0, ray.mint))
+    si = dataclasses.replace(si, t=torch.where(active_medium, si.t - mi.t,
+                                               si.t))
+    transmittance = torch.where(active_medium[..., None],
+                                transmittance * mi.sigma_n, transmittance)
+    active_surface = active_surface | escaped_medium
+    total_dist = torch.where(active_surface, total_dist + si.t, total_dist)
+    active_surface = active_surface & si.is_valid & active & ~active_medium
+    transmittance = torch.where(
+        active_surface[..., None],
+        transmittance * _eval_null_transmission(scene, si, active_surface),
+        transmittance)
+    ray = Ray(o=torch.where(active_surface[..., None],
+                            si.offset_origin(ray.d), ray.o),
+              d=ray.d, mint=torch.where(active_surface, 0.0, ray.mint),
+              maxt=remaining, time=ray.time)
+    nonzero = torch.any(transmittance > 0, dim=-1)
+    has_trans = active_surface & _is_medium_transition(scene, si)
+    return _WalkState(
+        sampler=smp, ray=ray, si=si,
+        needs_intersection=needs_intersection | active_surface,
+        medium_idx=torch.where(has_trans, _target_medium(scene, si, ray.d),
+                               s.medium_idx),
+        transmittance=transmittance, total_dist=total_dist,
+        active=(active_medium | active_surface) & nonzero, n_rays=n_rays)
 
 
 def _residual_segment(scene, s, ray, si, active, seg_end, ca):
@@ -329,10 +427,19 @@ def _walk_step_residual(scene, s, ds, ca):
                        smp, hit_res)
 
 
+def _nee_mode(scene):
+    return dict(scene.config.integrator.extra).get("nee_transmittance",
+                                                   "residual")
+
+
 def _sample_emitter(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
-                    sampler, active, nee_steps, use_while, ca):
+                    channel, sampler, active, nee_steps, use_while, ca):
     """Emitter radiance attenuated by the walked transmittance along the
-    connection -> (contribution (N, 3), ds, sampler, rays traced)."""
+    connection -> (contribution (N, 3), ds, sampler, rays traced). The
+    walk is the integrator's ``nee_transmittance``: 'residual' (residual
+    ratio tracking; for plane-parallel media the exact closed form),
+    'quadrature' (Gauss-Legendre with ``nee_quad_points`` nodes) or
+    'track' (ratio tracking against the majorant)."""
     n = ref_p.shape[0]
     dev = ref_p.device
     sampler, s_pick = sampler.next_1d()
@@ -359,12 +466,21 @@ def _sample_emitter(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
             n, scene.config.variant.n_channels, device=dev), 0.0),
         total_dist=torch.zeros(n, device=dev), active=active,
         n_rays=torch.zeros((), device=dev))
-    # plane-parallel media: the residual is identically zero, so the walk
-    # is the deterministic closed form (no rate, draw or collision site)
-    step = (_walk_step_closed_form if scene.config.het_profile1d
-            else _walk_step_residual)
-    final = _run_walk(lambda s: step(scene, s, ds, ca), state, nee_steps,
-                      use_while)
+    mode = _nee_mode(scene)
+    if mode == "track":
+        step = lambda s: _walk_step_tracked(scene, s, ds, channel, ca)
+    elif mode == "quadrature":
+        K = int(dict(scene.config.integrator.extra).get("nee_quad_points",
+                                                        8))
+        step = lambda s: _walk_step_quadrature(scene, s, ds, ca, K)
+    elif scene.config.het_profile1d:
+        # plane-parallel media: the residual is identically zero, so the
+        # walk is the deterministic closed form (no rate, draw or
+        # collision site)
+        step = lambda s: _walk_step_quadrature(scene, s, ds, ca)
+    else:
+        step = lambda s: _walk_step_residual(scene, s, ds, ca)
+    final = _run_walk(step, state, nee_steps, use_while)
     # lanes still walking after the cap contribute nothing
     contrib = torch.where(final.active[..., None], 0.0,
                           final.transmittance) * emitter_val
@@ -390,26 +506,12 @@ class _DirectState:
     n_rays: torch.Tensor       # () rays traced
 
 
-def _direct_step_residual(scene, s, ref_p, ca):
-    """One step of the MIS walk: it collides inside the medium
-    (_residual_segment) or reaches the surface ending its segment, where it
-    either finds an emitter (area, or the environment on escape: the walk
-    ends with its value and pdf) or crosses a null boundary."""
-    active = s.active
-    ray = s.ray
-    do_isect = s.needs_intersection & active
-    si = ca(do_isect,
-            lambda: merge(_walk_hit(ray_intersect(scene.geo, ray, do_isect)),
-                          s.si, do_isect),
-            lambda: s.si)
-    needs_intersection = s.needs_intersection & ~do_isect
-    n_rays = s.n_rays + do_isect.sum()
-    smp, hit_res, _dt, transmittance, ray, si = _residual_segment(
-        scene, s, ray, si, active, torch.clamp(si.t, max=INVALID_T), ca)
-
-    # lanes that passed their segment reach its end: an emitter hit or a
-    # null crossing
-    passed = active & ~hit_res
+def _direct_emitter(scene, s, si, ray, ref_p, transmittance, passed, ca):
+    """The emitter test of a MIS walk step at the end of its segment:
+    ``passed`` lanes that find an area emitter (or escape to the
+    environment) end the walk with transmittance x emitted radiance and
+    emitter sampling's pdf of the direction. Returns (emitter_val,
+    emitter_pdf, the lanes that found one)."""
     em_idx = scene.shape_emitter[_shape_of(si)]
     hit_area = passed & si.is_valid & (em_idx >= 0)
     hit_env = passed & ~si.is_valid & (scene.config.env_emitter >= 0)
@@ -428,9 +530,16 @@ def _direct_step_residual(scene, s, ref_p, ca):
 
     emitter_val, emitter_pdf = ca(emitter_hit, emitter_block,
                                   lambda: (s.emitter_val, s.emitter_pdf))
-    active = active & ~emitter_hit
-    hit_res = hit_res & active
-    active_surface = passed & active & si.is_valid
+    return emitter_val, emitter_pdf, emitter_hit
+
+
+def _direct_end(scene, s, ray, si, active_surface, transmittance,
+                needs_intersection, emitter_val, emitter_pdf, still, n_rays,
+                smp, nonzero_of):
+    """The end of a MIS walk step: ``active_surface`` lanes cross their
+    null boundary (null transmission, a step past it, a medium
+    transition); the walk goes on for them and for ``still``, the lanes
+    inside the medium."""
     transmittance = torch.where(
         active_surface[..., None],
         transmittance * _eval_null_transmission(scene, si, active_surface),
@@ -439,7 +548,6 @@ def _direct_step_residual(scene, s, ref_p, ca):
                             si.offset_origin(ray.d), ray.o),
               d=ray.d, mint=torch.where(active_surface, 0.0, ray.mint),
               maxt=ray.maxt, time=ray.time)
-    nonzero = torch.any(transmittance != 0.0, dim=-1)
     has_trans = active_surface & _is_medium_transition(scene, si)
     return _DirectState(
         sampler=smp, ray=ray, si=si,
@@ -448,16 +556,75 @@ def _direct_step_residual(scene, s, ref_p, ca):
                                s.medium_idx),
         transmittance=transmittance, emitter_val=emitter_val,
         emitter_pdf=emitter_pdf,
-        active=(hit_res | active_surface) & nonzero, n_rays=n_rays)
+        active=(still | active_surface) & nonzero_of(transmittance),
+        n_rays=n_rays)
 
 
-def _evaluate_direct_light(scene, ref_p, ray, si_ray, medium_idx, sampler,
-                           active, nee_steps, use_while, ca):
+def _direct_step_residual(scene, s, ref_p, ca):
+    """One residual step of the MIS walk: it collides inside the medium
+    (_residual_segment) or reaches the surface ending its segment, where it
+    either finds an emitter (the walk ends with its value and pdf) or
+    crosses a null boundary."""
+    active = s.active
+    ray = s.ray
+    do_isect = s.needs_intersection & active
+    si = ca(do_isect,
+            lambda: merge(_walk_hit(ray_intersect(scene.geo, ray, do_isect)),
+                          s.si, do_isect),
+            lambda: s.si)
+    needs_intersection = s.needs_intersection & ~do_isect
+    n_rays = s.n_rays + do_isect.sum()
+    smp, hit_res, _dt, transmittance, ray, si = _residual_segment(
+        scene, s, ray, si, active, torch.clamp(si.t, max=INVALID_T), ca)
+    passed = active & ~hit_res
+    emitter_val, emitter_pdf, emitter_hit = _direct_emitter(
+        scene, s, si, ray, ref_p, transmittance, passed, ca)
+    active = active & ~emitter_hit
+    return _direct_end(scene, s, ray, si, passed & active & si.is_valid,
+                       transmittance, needs_intersection, emitter_val,
+                       emitter_pdf, hit_res & active, n_rays, smp,
+                       lambda t: torch.any(t != 0.0, dim=-1))
+
+
+def _direct_step_tracked(scene, s, ref_p, channel, ca):
+    """One ratio-tracking step of the MIS walk (volpath.cpp:370-465): a
+    free flight to a null collision, or through the segment to its
+    surface, where the walk finds an emitter or crosses a null
+    boundary."""
+    ray = s.ray
+    (smp, mi, si, active_medium, active_surface, needs_intersection, n_rays,
+     transmittance) = _tracked_segment(scene, s, ray, s.active, None,
+                                       channel, ca)
+    escaped_medium = active_medium & ~mi.is_valid
+    active_medium = active_medium & mi.is_valid
+    ray = dataclasses.replace(
+        ray, o=torch.where(active_medium[..., None], mi.p, ray.o),
+        mint=torch.where(active_medium, 0.0, ray.mint))
+    si = dataclasses.replace(si, t=torch.where(active_medium, si.t - mi.t,
+                                               si.t))
+    transmittance = torch.where(active_medium[..., None],
+                                transmittance * mi.sigma_n, transmittance)
+    active_surface = active_surface | escaped_medium
+    emitter_val, emitter_pdf, emitter_hit = _direct_emitter(
+        scene, s, si, ray, ref_p, transmittance, active_surface, ca)
+    active = s.active & ~emitter_hit
+    active_medium = active_medium & active
+    active_surface = active_surface & active & si.is_valid & ~active_medium
+    return _direct_end(scene, s, ray, si, active_surface, transmittance,
+                       needs_intersection, emitter_val, emitter_pdf,
+                       active_medium, n_rays, smp,
+                       lambda t: torch.any(t > 0, dim=-1))
+
+
+def _evaluate_direct_light(scene, ref_p, ray, si_ray, medium_idx, channel,
+                           sampler, active, nee_steps, use_while, ca):
     """The MIS walk of the BSDF-sampled ``ray`` (its first hit ``si_ray``
     already found) -> (transmittance x emitted radiance (N, 3), emitter
     sampling's pdf of that direction, sampler, rays traced). Under
-    plane-parallel media the residual tables are zero, so the walk is the
-    closed form with a dead collision site, as in the reference."""
+    ``nee_transmittance="residual"`` it takes the residual estimator
+    (under plane-parallel media the residual tables are zero, so the walk
+    is the closed form with a dead collision site, as in the reference);
+    under "track" and "quadrature" it ratio-tracks."""
     n = ref_p.shape[0]
     dev = ref_p.device
     state = _DirectState(
@@ -470,8 +637,11 @@ def _evaluate_direct_light(scene, ref_p, ray, si_ray, medium_idx, sampler,
                                 device=dev),
         emitter_pdf=torch.zeros(n, device=dev), active=active,
         n_rays=torch.zeros((), device=dev))
-    final = _run_walk(lambda s: _direct_step_residual(scene, s, ref_p, ca),
-                      state, nee_steps, use_while)
+    if _nee_mode(scene) == "residual":
+        step = lambda s: _direct_step_residual(scene, s, ref_p, ca)
+    else:
+        step = lambda s: _direct_step_tracked(scene, s, ref_p, channel, ca)
+    final = _run_walk(step, state, nee_steps, use_while)
     return final.emitter_val, final.emitter_pdf, final.sampler, final.n_rays
 
 
@@ -636,7 +806,7 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     def nee_block():
         emitted, ds, smp2, nr = _sample_emitter(
             scene, nee_ref_p, nee_ref_n, act_scatter, ray.time, s.medium_idx,
-            smp, nee_active, nee_steps, while_walks, ca_walk)
+            s.channel, smp, nee_active, nee_steps, while_walks, ca_walk)
         # medium lanes: phase x emitted
         phase_val = phase.phase_eval(scene, phase_idx, -nee_medium_d_in,
                                      ds.d, act_scatter)
@@ -717,8 +887,8 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
         emitted_d, emitter_pdf, smp, nr_d = ca(
             add_emitter,
             lambda: _evaluate_direct_light(
-                scene, si.p, ray, si_new, medium_next, smp, add_emitter,
-                nee_steps, while_walks, ca_walk),
+                scene, si.p, ray, si_new, medium_next, s.channel, smp,
+                add_emitter, nee_steps, while_walks, ca_walk),
             direct_skip)
         n_rays = n_rays + nr_d
         w_dir = mis_weight(bs.pdf, emitter_pdf)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import spectrum as sp
 from ..core.math import channel_mean
 
 
@@ -99,3 +100,12 @@ def _mesh_attribute(scene, p, s, prim_index, prim_uv, mono):
     rgb = (data[attr, f[:, 0]] * w + data[attr, f[:, 1]] * u
            + data[attr, f[:, 2]] * v) * p["scale"][s][..., None]
     return channel_mean(rgb, keepdim=True) if mono else rgb
+
+
+def d65_approx(wavelengths):
+    """The CIE D65 illuminant, approximated as a blackbody at 6504 K scaled
+    to 1 at 560 nm (float32, as the reference approximates it)."""
+    bb = sp.blackbody_radiance(wavelengths, 6504.0)
+    bb_mean = sp.blackbody_radiance(
+        torch.tensor(560.0, device=wavelengths.device), 6504.0)
+    return bb / bb_mean

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..bsdfs import REGISTRY as BSDF_REGISTRY
-from ..core.spectrum import luminance
+from ..core.spectrum import blackbody_radiance, luminance
 from ..core.transform import AnimatedTransform, Transform, as_transform
 from ..core.types import Variant, resolve_device
 from ..ops.accel import TILE_K, pack_tiles
@@ -22,12 +22,14 @@ from ..ops.bvh import build_tile_bvh, collapse_to_bvh8
 from ..render.geometry import (FAMILY_CONE, FAMILY_CYLINDER, FAMILY_DISK,
                                FAMILY_IMESH, FAMILY_MESH, FAMILY_RECT,
                                FAMILY_SPHERE)
+from ..render.texture import d65_approx
+from ..utils.volfile import read_vol
 from .build_emitters import (_EMITTER_SCENE_TYPES, _build_bsdf,
                              _build_scene_emitter)
 from .build_sensors import _SENSOR_TYPES, _build_sensor
 from .build_shapes import (_SHAPE_TYPES, _build_shape, shape_children,
                            triangle_areas)
-from .build_spectra import (_axis_majorant_profiles,
+from .build_spectra import (_axis_majorant_profiles, _cie_rgb_of_spectrum,
                             _control_and_residual_profiles)
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
@@ -128,9 +130,31 @@ class SceneBuilder:
             return self.add_phase_row(t, {"_pad": np.float32(0)})
         if t == "hg":
             return self.add_phase_row("hg", {"g": np.float32(d.get("g", 0.8))})
+        if t == "blendphase":
+            children = [v for v in d.values()
+                        if isinstance(v, dict) and "type" in v]
+            if len(children) != 2:
+                raise ValueError("blendphase needs two nested phases")
+            p0 = self.phase(children[0])
+            p1 = self.phase(children[1])
+            return self.add_phase_row("blendphase", {
+                "weight": np.float32(d.get("weight", 0.5)),
+                "phase0": np.int32(p0), "phase1": np.int32(p1)})
+        if t == "tabphase":
+            # the table in float64, stored as float32
+            values = np.asarray(d["values"], np.float64)
+            nodes = np.asarray(d.get("nodes", np.linspace(-1, 1, len(values))),
+                               np.float64)
+            cdf = np.cumsum(0.5 * (values[1:] + values[:-1]) * np.diff(nodes))
+            return self.add_phase_row("tabphase", {
+                "nodes": nodes.astype(np.float32),
+                "values": values.astype(np.float32),
+                "cdf": cdf.astype(np.float32),
+                "integral": np.float32(cdf[-1]),
+                "count": np.int32(len(values))})
         raise NotImplementedError(
-            f"phase {t!r}: the port carries isotropic, hg and rayleigh; the "
-            "others come with slice 6")
+            f"phase {t!r}: the port carries isotropic, hg, rayleigh, "
+            "tabphase and blendphase; user phase plugins come with slice 7b")
 
     def volume(self, v):
         """A number, a list or a volume dict -> volume index."""
@@ -144,12 +168,10 @@ class SceneBuilder:
         if t == "constvolume":
             val = np.atleast_1d(np.asarray(v.get("value", 1.0), np.float32))
             return self.add_volume_row("constvolume", {"value": val})
-        if t != "gridvolume" or v.get("filter_type",
-                                      "trilinear") != "trilinear":
+        if t != "gridvolume":
             raise NotImplementedError(
-                f"volume {t!r} ({v.get('filter_type', 'trilinear')}): the "
-                "port carries constvolume and trilinear gridvolume; the "
-                "others come with slice 6")
+                f"volume {t!r}: the port carries constvolume and gridvolume; "
+                "gridvolume_spectral comes with slice 6c (spectral)")
         data, w2l = self._grid_data(v)
         wrap = v.get("wrap_mode", "clamp")
         if wrap not in _WRAP_CODES:
@@ -158,21 +180,37 @@ class SceneBuilder:
         if data.shape[-1] not in (1, 3):
             raise ValueError(f"gridvolume wants 1 or 3 channels, got "
                              f"{data.shape[-1]}")
-        return self.add_volume_row("gridvolume", {
+        filt = v.get("filter_type", "trilinear")
+        if filt not in ("trilinear", "nearest"):
+            raise ValueError(f"gridvolume filter_type {filt!r}: 'trilinear' "
+                             "or 'nearest'")
+        # nearest filtering (grid3d.cpp FilterType::Nearest) is a kind of
+        # its own, so trilinear grids never pay for its branch
+        kind = "gridvolume_nearest" if filt == "nearest" else "gridvolume"
+        return self.add_volume_row(kind, {
             "wrap": np.int32(_WRAP_CODES[wrap]),
             "w2l_m": np.asarray(w2l.m, np.float32),
             "w2l_it": np.asarray(w2l.inv_t, np.float32),
             "grid": data, "vmax": np.float32(float(data.max()))})
 
     def _grid_data(self, v):
-        """Inline grid data (D, H, W[, C]) and its world_to_local."""
-        if "data" not in v:
-            raise NotImplementedError(
-                "gridvolume from a .vol file: comes with slice 7 (IO)")
-        data = np.asarray(v["data"], np.float32)
+        """Grid data (D, H, W, C) from inline ``data`` or a ``.vol``
+        ``filename`` (volume_data.h:44-104), and its world_to_local. With
+        ``use_grid_bbox`` the file's bbox -> unit-cube transform
+        premultiplies world_to_local (grid3d.cpp:152-154)."""
+        bbox = None
+        if "data" in v:
+            data = np.asarray(v["data"], np.float32)
+        else:
+            data, bbox = read_vol(v["filename"])
         if data.ndim == 3:
             data = data[..., None]
-        return data, as_transform(v.get("to_world")).inverse()
+        w2l = as_transform(v.get("to_world")).inverse()
+        if v.get("use_grid_bbox", False) and bbox is not None:
+            lo, hi = bbox
+            w2l = (Transform.scale(1.0 / np.maximum(hi - lo, 1e-20))
+                   @ Transform.translate(-lo)) @ w2l
+        return data, w2l
 
     def medium(self, d):
         """A medium dict (or a ref to a named one) -> medium index."""
@@ -202,7 +240,7 @@ class SceneBuilder:
         vmax = (float(rows["vmax"]) if "vmax" in rows
                 else float(np.max(rows["value"])))
         # bounds: the sigma_t grid's unit cube; a constvolume's own to_world
-        if kind == "gridvolume":
+        if kind in ("gridvolume", "gridvolume_nearest"):
             w2l_m, w2l_it = rows["w2l_m"], rows["w2l_it"]
         else:
             w2l = as_transform(d.get("to_world")).inverse()
@@ -238,9 +276,12 @@ class SceneBuilder:
             "zD": np.int32(D), "cprof": cprof, "ccum": ccum,
             "cD": np.int32(len(cprof)), "resprof": resprof}, phase_idx)
 
-    def spectrum(self, value):
+    def spectrum(self, value, emitter=False):
         """A python value / plugin dict -> spectrum index; every spectrum
-        bakes into a constant: (3,) rgb, or in mono (1,) its luminance."""
+        bakes into a constant: (3,) rgb, or in mono (1,) its luminance.
+        Measured and analytic spectra bake by CIE integration
+        (build_spectra._cie_rgb_of_spectrum): an ``emitter`` spectrum as
+        radiance, any other as a reflectance under D65."""
         def baked(rgb):
             rgb = np.asarray(rgb, np.float32)
             if self.variant.is_monochromatic:
@@ -248,6 +289,11 @@ class SceneBuilder:
                                  np.float32)
             return self._add(self.spectra, self.spec_table, "baked",
                              {"value": rgb})
+
+        def d65_rgb():
+            return np.asarray(_cie_rgb_of_spectrum(
+                lambda lam: d65_approx(torch.as_tensor(
+                    lam, dtype=torch.float32)).numpy(), True))
 
         if isinstance(value, (int, float)):
             return baked([value] * 3)
@@ -258,13 +304,40 @@ class SceneBuilder:
             return self.spectrum(np.asarray(value["value"], np.float32))
         if t == "uniform":
             return baked([float(value.get("value", 1.0))] * 3)
-        raise NotImplementedError(
-            f"spectrum {t!r}: the port carries numbers, rgb triples, 'rgb', "
-            "'srgb' and 'uniform'; the others come with slice 6 (spectra)")
+        if t == "d65":
+            return baked(d65_rgb() * float(value.get("scale", 1.0)))
+        if t == "regular":
+            lo, hi = value["lambda_min"], value["lambda_max"]
+            vals = np.asarray(value["values"], np.float32)
+            return baked(_cie_rgb_of_spectrum(
+                lambda lam: np.interp(lam, np.linspace(lo, hi, len(vals)),
+                                      vals, left=0, right=0), emitter))
+        if t == "irregular":
+            nodes = np.asarray(value["wavelengths"], np.float32)
+            vals = np.asarray(value["values"], np.float32)
+            return baked(_cie_rgb_of_spectrum(
+                lambda lam: np.interp(lam, nodes, vals, left=0, right=0),
+                emitter))
+        if t == "blackbody":
+            T = float(value["temperature"])
+            scale = float(value.get("scale", 1.0))
+            return baked(_cie_rgb_of_spectrum(
+                lambda lam: blackbody_radiance(torch.as_tensor(
+                    lam, dtype=torch.float32), T).numpy() * scale, True))
+        if t == "srgb_d65":
+            return baked(np.asarray(value["value"], np.float32) * d65_rgb())
+        if t == "discrete":
+            # a line spectrum: its rgb/mono bake is the sum of its values
+            wav = np.asarray(value["wavelengths"], np.float32)
+            vals = np.asarray(value.get("values", np.ones_like(wav)),
+                              np.float32)
+            return baked([float(vals.sum())] * 3)
+        raise ValueError(f"unknown spectrum type {t!r}")
 
-    def texture(self, value):
+    def texture(self, value, emitter=False):
         """A value / texture dict -> texture index: constant (a spectrum),
-        checkerboard, bitmap (inline ``data``) or mesh_attribute."""
+        checkerboard, bitmap (inline ``data``) or mesh_attribute; an
+        ``emitter`` texture bakes its spectra as radiance."""
         t = value.get("type") if isinstance(value, dict) else None
         if t == "mesh_attribute":
             name = value["name"]
@@ -275,8 +348,8 @@ class SceneBuilder:
                                  self.mesh_attr_names.index(name)),
                               "scale": np.float32(value.get("scale", 1.0))})
         if t == "checkerboard":
-            s0 = self.spectrum(value.get("color0", 0.4))
-            s1 = self.spectrum(value.get("color1", 0.2))
+            s0 = self.spectrum(value.get("color0", 0.4), emitter)
+            s1 = self.spectrum(value.get("color1", 0.2), emitter)
             return self._add(self.textures, self.tex_table, "checkerboard",
                              {"spec0": np.int32(s0), "spec1": np.int32(s1)})
         if t == "bitmap":
@@ -290,7 +363,7 @@ class SceneBuilder:
             self.bitmaps.append(data)
             return self._add(self.textures, self.tex_table, "bitmap",
                              {"image": np.int32(len(self.bitmaps) - 1)})
-        spec = self.spectrum(value)
+        spec = self.spectrum(value, emitter)
         return self._add(self.textures, self.tex_table, "constant",
                          {"spec": np.int32(spec)})
 

@@ -46,7 +46,8 @@ def _build_emitter_for_shape(builder, d, shape_idx):
     if d["type"] != "area":
         raise ValueError(f"a shape's emitter must be 'area', got {d['type']!r}")
     return builder.add_emitter_row("area", {
-        "radiance": np.int32(builder.texture(d.get("radiance", 1.0))),
+        "radiance": np.int32(builder.texture(d.get("radiance", 1.0),
+                                             emitter=True)),
         "shape": np.int32(shape_idx)})
 
 
@@ -54,19 +55,21 @@ def _build_scene_emitter(builder, d):
     t = d["type"]
     if t == "constant":
         idx = builder.add_emitter_row("constant", {
-            "radiance": np.int32(builder.texture(d.get("radiance", 1.0)))})
+            "radiance": np.int32(builder.texture(d.get("radiance", 1.0),
+                                                 emitter=True))})
         builder.env_emitter = idx
         return idx
     if t == "point":
         return builder.add_emitter_row("point", {
             "position": np.asarray(d.get("position", [0, 0, 0]), np.float32),
-            "intensity": np.int32(builder.texture(d.get("intensity", 1.0)))})
+            "intensity": np.int32(builder.texture(d.get("intensity", 1.0),
+                                                  emitter=True))})
     if t == "directional":
         return builder.add_emitter_row("directional", {
             "direction": np.asarray(d.get("direction", [0, 0, -1]),
                                     np.float32),
-            "irradiance": np.int32(builder.texture(d.get("irradiance",
-                                                         1.0)))})
+            "irradiance": np.int32(builder.texture(d.get("irradiance", 1.0),
+                                                   emitter=True))})
     if t == "spot":
         m = np.asarray(as_transform(d.get("to_world")).m)
         cutoff = float(d.get("cutoff_angle", 20.0))
@@ -77,7 +80,8 @@ def _build_scene_emitter(builder, d):
                                     np.float32),
             "cos_cutoff": np.float32(np.cos(np.deg2rad(cutoff))),
             "cos_beam": np.float32(np.cos(np.deg2rad(beam))),
-            "intensity": np.int32(builder.texture(d.get("intensity", 1.0)))})
+            "intensity": np.int32(builder.texture(d.get("intensity", 1.0),
+                                                  emitter=True))})
     if t == "projector":
         tw = as_transform(d.get("to_world"))
         w2l = tw.inverse()
@@ -93,7 +97,7 @@ def _build_scene_emitter(builder, d):
             "w2l_it": np.asarray(w2l.inv_t, np.float32),
             "tan_half_fov": np.float32(np.tan(np.deg2rad(fov) / 2)),
             "aspect": np.float32(aspect),
-            "irradiance": np.int32(builder.texture(irr))})
+            "irradiance": np.int32(builder.texture(irr, emitter=True))})
     if t == "envmap":
         return _build_envmap(builder, d)
     raise ValueError(f"unknown emitter type {t!r}")

@@ -1,10 +1,36 @@
-"""Scene-build helpers of scene/build_spectra.py: an envmap's inline image
-and the media profiles (numpy at scene build, bit-equal to the
-reference's tables)."""
+"""Scene-build helpers of scene/build_spectra.py: the rgb bake of a
+spectrum, an envmap's inline image and the media profiles (numpy at scene
+build, bit-equal to the reference's tables)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..core import spectrum as sp
+
+
+def _cie_rgb_of_spectrum(eval_fn, emitter: bool) -> np.ndarray:
+    """Bake a spectrum (a callable wavelength -> value) to linear sRGB by
+    CIE integration over 471 wavelengths (spectrum.cpp spectrum_to_rgb):
+    the CIE responses in float32, the trapezoid integrals in float64, the
+    XYZ -> sRGB matrix in float32. Reflectance spectra (``emitter``
+    False) are weighted by D65 and normalised by D65's luminance."""
+    from ..render.texture import d65_approx
+
+    lam = np.linspace(sp.CIE_MIN, sp.CIE_MAX, 471)
+    lam32 = torch.as_tensor(lam, dtype=torch.float32)
+    vals = np.asarray(eval_fn(lam), np.float64)
+    cie = sp.cie1931_xyz(lam32).numpy().astype(np.float64)
+    if emitter:
+        xyz = np.trapezoid(vals[:, None] * cie, lam, axis=0)
+    else:
+        d65 = d65_approx(lam32).numpy().astype(np.float64)
+        denom = np.trapezoid(d65 * cie[:, 1], lam)
+        xyz = np.trapezoid(vals[:, None] * d65[:, None] * cie, lam,
+                           axis=0) / denom
+    rgb = sp.xyz_to_srgb(torch.as_tensor(xyz[None], dtype=torch.float32))
+    return np.maximum(rgb.numpy()[0], 0.0)
 
 def _image_data(d):
     """The image of an envmap dict: its inline ``data`` (float32). A file

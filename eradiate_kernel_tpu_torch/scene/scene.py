@@ -40,13 +40,18 @@ SUPPORTED = {
                 "lanczos"},
     "sampler_kind": set(SAMPLER_KINDS),
     "medium_kinds": {"homogeneous", "heterogeneous"},
-    "phase_kinds": {"isotropic", "hg", "rayleigh"},
-    "volume_kinds": {"constvolume", "gridvolume"},
+    "phase_kinds": {"isotropic", "hg", "rayleigh", "tabphase",
+                    "blendphase"},
+    "volume_kinds": {"constvolume", "gridvolume", "gridvolume_nearest"},
 }
 INTEGRATORS = ("path", "direct", "depth", "volpath")
+# volpath's transmittance estimators and free-flight majorants, the default
+# first
+NEE_MODES = {"nee_transmittance": ("residual", "track", "quadrature"),
+             "ff_majorant": ("profile", "segment")}
 # the slice that brings the kinds SUPPORTED does not have yet
-_LATER = {"bsdf_kinds": "6", "spectrum_kinds": "6", "medium_kinds": "6",
-          "phase_kinds": "6", "volume_kinds": "6"}
+_LATER = {"bsdf_kinds": "6e", "spectrum_kinds": "6c", "medium_kinds": "6",
+          "phase_kinds": "7b", "volume_kinds": "6c"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,14 +112,9 @@ class SceneConfig:
                 f"integrator {self.integrator.kind!r}: the port carries "
                 f"{INTEGRATORS}; volpathmis comes with slice 6")
         extra = dict(self.integrator.extra)
-        if extra.get("nee_transmittance", "residual") != "residual":
-            raise NotImplementedError(
-                "nee_transmittance: the port carries 'residual'; 'track' and "
-                "'quadrature' come with slice 6")
-        if extra.get("ff_majorant", "profile") != "profile":
-            raise NotImplementedError(
-                "ff_majorant: the port carries 'profile'; 'segment' comes "
-                "with slice 6")
+        for key, allowed in NEE_MODES.items():
+            if extra.get(key, allowed[0]) not in allowed:
+                raise ValueError(f"{key} {extra[key]!r}: one of {allowed}")
 
 
 def bounding_sphere(points):

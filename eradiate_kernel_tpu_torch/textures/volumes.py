@@ -1,5 +1,5 @@
-"""3D volume textures (textures/volumes.py counterpart): constvolume and
-trilinear gridvolume.
+"""3D volume textures (textures/volumes.py counterpart): constvolume,
+trilinear gridvolume and nearest-filter gridvolume (``gridvolume_nearest``).
 
 Two trilinear paths, chosen by the grid's voxel count as the reference
 chooses them:
@@ -22,6 +22,13 @@ The packed lookup is differentiable with respect to the grid
 gradient. The lookup positions are trajectory-class (under the detach
 discipline no value-class parameter moves them): the CUDA lookup gives
 them no gradient and refuses positions that require one.
+
+A nearest-filter grid is read one voxel a lane: the flat voxel index of
+``_nearest_index`` and one launch of the ``grid_gather`` kernel's gather
+entry (ops/gather.py::gather_rows) on the (S*D*H*W, C) view of the grid
+for CUDA tensors, ``gather_rows_plain`` for CPU tensors, at any grid size.
+``NearestGather`` gives the grid its gradient: the scatter-add of each
+lane's cotangent into the voxel it read (``index_add_``).
 """
 
 from __future__ import annotations
@@ -229,6 +236,55 @@ def _trilinear_einsum(grid, vslot, pl):
     return torch.einsum("ns,nsc->nc", ws, t).reshape(batch + (C,))
 
 
+def _nearest_index(grid_shape, vslot, pl):
+    """Flat voxel index of the nearest-filter lookup (grid3d.cpp
+    FilterType::Nearest: scale to the resolution with no half-texel shift,
+    floor): voxel i of an axis of n covers [i/n, (i+1)/n)."""
+    S, D, H, W = grid_shape
+    x = torch.clamp((pl[..., 0] * W).to(torch.int32), 0, W - 1)
+    y = torch.clamp((pl[..., 1] * H).to(torch.int32), 0, H - 1)
+    z = torch.clamp((pl[..., 2] * D).to(torch.int32), 0, D - 1)
+    return vslot * (D * H * W) + (z * H + y) * W + x
+
+
+class NearestGather(torch.autograd.Function):
+    """Rows ``idx`` of the (V, C) view of a grid, differentiable with
+    respect to the grid: the forward is gather_rows (the kernel's gather
+    entry for CUDA tensors), the backward scatter-adds the cotangent into
+    the rows it read."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = flat.shape[0]
+        return gather.gather_rows(flat, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return nearest_backward(ct, idx, ctx.n_rows), None
+
+
+def nearest_backward(ct, idx, n_rows):
+    """The gradient of gather_rows(flat, idx) with respect to the (n_rows,
+    C) table ``flat``: the cotangents ct (L, C) added into the rows read
+    (index_add_, with the gather's clamp)."""
+    d_flat = ct.new_zeros((n_rows, ct.shape[-1]))
+    return d_flat.index_add_(0, idx.clamp(0, n_rows - 1), ct)
+
+
+def _nearest_gather(grid, vslot, pl):
+    """The nearest-voxel values (..., C) of ``grid`` (S, D, H, W, C): one
+    row gather over every lane, flattened."""
+    S, D, H, W, C = grid.shape
+    idx = _nearest_index((S, D, H, W), vslot, pl)
+    flat = grid.reshape(S * D * H * W, C)
+    if not flat.is_contiguous():
+        flat = flat.contiguous()
+    rows = NearestGather.apply(flat, idx.reshape(-1).contiguous())
+    return rows.reshape(idx.shape + (C,))
+
+
 def _apply_wrap(params, vslot, pl):
     """Per-slot wrap mode: 0 = clamp (outside lookups masked to zero),
     1 = repeat, 2 = mirror. Returns (wrapped local coords, inside mask)."""
@@ -259,14 +315,16 @@ def volume_eval(scene, vol_idx, p):
             elif v.shape[-1] != nc:
                 v = torch.mean(v, -1, keepdim=True).expand(
                     v.shape[:-1] + (nc,))
-        elif kind == "gridvolume":
+        elif kind in ("gridvolume", "gridvolume_nearest"):
             tw = Transform(m=params["w2l_m"][slot],
                            inv_t=params["w2l_it"][slot])
             pl, inside = _apply_wrap(params, slot,
                                      tw.transform_affine_point(p))
             grid = params["grid"]
             S, D, H, W, C = grid.shape
-            if D * H * W > EINSUM_MAX_VOXELS:
+            if kind == "gridvolume_nearest":
+                c = _nearest_gather(grid, slot, pl)
+            elif D * H * W > EINSUM_MAX_VOXELS:
                 c = _trilinear_gather(grid, scene.vol_packed, slot, pl)
             else:
                 c = _trilinear_einsum(grid, slot, pl)
@@ -280,7 +338,7 @@ def volume_eval(scene, vol_idx, p):
                     c.shape[:-1] + (nc,))
         else:
             raise NotImplementedError(
-                f"volume {kind!r}: comes with slice 6 of the port")
+                f"volume {kind!r}: comes with slice 6c (spectral)")
         out = torch.where(m[..., None], v, out)
     return out
 

@@ -624,3 +624,70 @@ def test_sampler_draws_match_cpu(cuda_device, kind):
         else:
             (gpu, u), (cpu, v) = gpu.next_1d(), cpu.next_1d()
         assert torch.equal(u.cpu(), v), (kind, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3])
+def test_nearest_lookup_and_backward_match_cpu(cuda_device, C):
+    """A nearest-filter lookup of a (2, 17, 33, 31, C) grid on the card is
+    one launch of grid_gather's gather entry (a C = 1 grid gives rows of
+    one float, off the vec4 path), bit-equal to the CPU's; its gradient
+    (volumes.NearestGather: index_add_ of the cotangent) matches the CPU's
+    within rtol 1e-5, atol 1e-7 (the card's atomics add in no fixed
+    order)."""
+    rng = np.random.default_rng(40 + C)
+    g = rng.random((2, 17, 33, 31, C)).astype(np.float32)
+    pl = rng.uniform(-0.1, 1.1, (64, 100, 3)).astype(np.float32)
+    slot = rng.integers(0, 2, (64, 100)).astype(np.int32)
+    ct = rng.normal(size=(64, 100, C)).astype(np.float32)
+    out, grads = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        grid = torch.as_tensor(g, device=dev).requires_grad_(True)
+        before = gather.launches["grid_gather"]
+        o = volumes._nearest_gather(grid, torch.as_tensor(slot, device=dev),
+                                    torch.as_tensor(pl, device=dev))
+        (o * torch.as_tensor(ct, device=dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert gather.launches["grid_gather"] == before + 1
+        out.append(o.detach().cpu())
+        grads.append(grid.grad.cpu())
+    assert out[0].shape == (64, 100, C)
+    assert torch.equal(out[0], out[1])
+    assert bool(grads[1].abs().sum() > 0)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_gauss_legendre_tau_matches_cpu(cuda_device):
+    """medium_tau_segment of the 17 x 16 x 16 atmosphere grid (the packed
+    path) by 8-node Gauss-Legendre quadrature on the card against the
+    CPU: one grid_gather launch for all 8 nodes of every lane, and the
+    optical depths within rtol 1e-6, atol 1e-7."""
+    from eradiate_kernel_tpu_torch import media
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(8, 8, 4, 6, grid_res=(17, 16, 16))
+    rng = np.random.default_rng(41)
+    n = 4096
+    o = rng.uniform([-15, -15, 0.05], [15, 15, 0.95], (n, 3))
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    a = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    b = (a + rng.uniform(0.0, 8.0, n)).astype(np.float32)
+    taus = []
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = load_dict(d, device=str(dev))
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        ray = Ray.make(t(o), t(v))
+        before = gather.launches["grid_gather"]
+        tau = media.medium_tau_segment(
+            scene, torch.zeros(n, dtype=torch.int32, device=dev), ray, t(a),
+            t(b), 3, quad_points=8)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert gather.launches["grid_gather"] == before + 1
+        taus.append(tau.cpu())
+    assert float(taus[1].max()) > 0.01
+    torch.testing.assert_close(taus[0], taus[1], rtol=1e-6, atol=1e-7)

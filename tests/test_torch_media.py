@@ -164,7 +164,7 @@ def _segments(n, seed):
 
 def test_medium_tau_segment_closed_form():
     # the plane-parallel closed form (3D grids take the Gauss-Legendre
-    # quadrature, which comes with slice 6)
+    # quadrature: tests/test_torch_nee_modes.py)
     jscene, scene = _scenes(64)
     assert scene.config.het_profile1d
     n = 1024

@@ -106,10 +106,12 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     ("emitter", {"type": "envmap", "filename": "sky.exr"}),
-    ("texture", {"type": "blackbody", "temperature": 5800.0}),
+    ("medium", {"type": "heterogeneous",
+                "sigma_t": {"type": "gridvolume_spectral",
+                            "data": np.ones((2, 2, 2, 4), np.float32)}}),
     ("bsdf", {"type": "measured_polarized"}),
     ("integrator", {"type": "volpathmis"}),
-    ("medium", {"type": "homogeneous", "phase": {"type": "tabphase"}}),
+    ("integrator", {"type": "moment"}),
     ("texture", {"type": "bitmap", "filename": "ground.exr"}),
     ("bsdf", {"type": "pplastic"}),
 ])
