@@ -223,10 +223,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      film bit-equal to the primal's) and their 64x64 spp4 gradients
      through the kernels against the plain versions (rtol 1e-5, atol
      1e-7);
+ 34. slice 7a: scenes from files, written under a temporary directory.
+     (a) terrain(256) as a PLY, a seeded 1024x1024 f32 albedo map as a
+     ZIP EXR feeding a diffuse bitmap (on the terrain, which has no uvs
+     and reads the map's origin texel as in the reference, and on a
+     ground rectangle around it), phase 30's 256x512 sky as an f16 PIZ
+     EXR feeding an envmap, a directional sun, the bench camera at
+     256x256, a box filter, path max_depth 6 and <default name="spp"
+     value="16"/> used as $spp, written by scene/xml.py::write_file:
+     load_file onto the card, every tensor bit-equal to load_dict's of
+     the dict with the images inline; a pool of 2^18 lanes (tile_sweep
+     launches == queries) whose film is within 2 pixels of the dict
+     scene's; films.save to EXR, PFM and RGBE, the EXR and PFM read back
+     bit-equal to the developed film. (b) bench.py's large3d written by
+     write_file with its grid in a .vol file: its tensors bit-equal to
+     load_dict's, rendered at spp 4 (seed 1) on 32,768 lanes, grid_gather
+     launches == lookups, its film within 3 standard errors of phase 10's
+     (same_estimand). (c) ``python -m eradiate_kernel_tpu_torch
+     terrain.xml -o out.exr --regen -D spp=4`` as a subprocess: exit 0,
+     its EXR within 2 pixels of the in-process film; runtime.render in
+     passes of 65,536 samples with a checkpoint, stopped after the first
+     pass and resumed: launches == queries, within 2 pixels of an
+     uninterrupted render. The time of every write, read, load and render
+     is printed;
  12. (last) print the kernels line (every kernel and entry, the backward
-     included, with their launches on phases 21-33), the value+grad,
-     measurement, materials, slice 5c-2 and slice 6a records, the card's
-     name and power limit, and the final ``{"ok": true, ...}`` line.
+     included, with their launches on phases 21-34), the value+grad,
+     measurement, materials, slice 5c-2, slice 6a and slice 7a records,
+     the card's name and power limit, and the final ``{"ok": true, ...}``
+     line.
 
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
@@ -2972,6 +2996,293 @@ def slice_6a_phases(lanes, large_film, large_rec):
     return rec
 
 
+def albedo_map(n=1024, seed=0):
+    """A seeded n x n ground-albedo map: smooth rgb fields in [0.1, 0.5]
+    with texel noise (float32)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 2 * np.pi, n)
+    ph = rng.uniform(0, 2 * np.pi, (3, 2))
+    img = np.stack([0.3 + 0.1 * np.sin(3 * x[:, None] + a)
+                    * np.cos(5 * x[None, :] + b) for a, b in ph], -1)
+    img += rng.normal(0.0, 0.05, img.shape)
+    return np.clip(img, 0.1, 0.5).astype(np.float32)
+
+
+def write_scene_xml(path, d, spp):
+    """``d`` written by scene/xml.py::write_file, its sampler's spp turned
+    into the parameter ``$spp`` with a <default> of ``spp``."""
+    from eradiate_kernel_tpu_torch.scene import xml
+
+    xml.write_file(path, d)
+    with open(path) as f:
+        text = f.read()
+    tag = f'<integer name="sample_count" value="{spp}" />'
+    assert tag in text
+    text = text.replace(tag, '<integer name="sample_count" value="$spp" />')
+    text = text.replace('<scene version="2.0.0">', '<scene version="2.0.0">\n'
+                        f'  <default name="spp" value="{spp}" />', 1)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def terrain_files(out, V, F, width, height, spp, albedo, sky):
+    """Phase 34(a)'s scene, written under ``out``: terrain(256) as a PLY
+    under a diffuse reflectance read from a ZIP EXR (f32), with a ground
+    rectangle around it under the same BSDF (a PLY has no uvs, so the
+    terrain reads the map's origin texel, as in the reference; the
+    rectangle reads all of it), a sky from a PIZ EXR (f16) rotated so its
+    +y pole is +z, a directional sun and the bench camera; the XML's spp
+    is ``$spp``. Returns (XML path, the dict with the images inline as
+    read back from the files, {file: seconds to write it})."""
+    from eradiate_kernel_tpu_torch.utils import bitmap, meshio
+
+    paths = {k: os.path.join(out, k) for k in
+             ("terrain.ply", "albedo.exr", "sky.exr", "terrain.xml")}
+    secs = {}
+    t0 = time.perf_counter()
+    meshio.write_ply(paths["terrain.ply"], V, F)
+    secs["terrain.ply"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bitmap.write_exr(paths["albedo.exr"], albedo, compression="zip")
+    secs["albedo.exr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bitmap.write_exr(paths["sky.exr"], sky, compression="piz",
+                     pixel_type="f16")
+    secs["sky.exr"] = time.perf_counter() - t0
+    d = terrain_scene(np.zeros((3, 3), np.float32),
+                      np.zeros((1, 3), np.int32), width, height, spp, 6)
+    d = {"type": "scene",
+         "albedo": {"type": "diffuse", "reflectance": {
+             "type": "bitmap", "filename": paths["albedo.exr"]}},
+         "terrain": {"type": "ply", "filename": paths["terrain.ply"],
+                     "bsdf": {"type": "ref", "id": "albedo"}},
+         "ground": {"type": "rectangle",
+                    "to_world": [{"type": "scale", "value": [4.0, 4.0, 1.0]},
+                                 {"type": "translate",
+                                  "value": [0.0, 0.0, -0.6]}],
+                    "bsdf": {"type": "ref", "id": "albedo"}},
+         "sun": d["sun"],
+         "sky": {"type": "envmap", "filename": paths["sky.exr"],
+                 "scale": 0.5,
+                 "to_world": {"type": "rotate", "axis": [1, 0, 0],
+                              "angle": 90.0}},
+         "camera": d["camera"], "integrator": d["integrator"]}
+    t0 = time.perf_counter()
+    write_scene_xml(paths["terrain.xml"], d, spp)
+    secs["terrain.xml"] = time.perf_counter() - t0
+    inline = dict(d)
+    inline["albedo"] = {"type": "diffuse", "reflectance": {
+        "type": "bitmap", "data": bitmap.read_exr(paths["albedo.exr"])[0]}}
+    inline["sky"] = dict(d["sky"], data=bitmap.read_exr(
+        paths["sky.exr"])[0])
+    del inline["sky"]["filename"]
+    return paths["terrain.xml"], inline, secs
+
+
+def slice_7a_launches(rec, kernel):
+    """``kernel``'s launches in each render of phase 34."""
+    return {k: v["launches"][kernel] for k, v in rec["renders"].items()}
+
+
+def slice_7a_phases(V, F, lanes, large_film):
+    """Phase 34 (slice 7a): scenes loaded from files. (a) terrain(256)
+    from a PLY, a ZIP EXR albedo map and a PIZ EXR sky, through the XML
+    loader, its arrays bit-equal to the dict scene's with the images
+    inline, rendered on a pool of 2^18 lanes, and its film saved to EXR,
+    PFM and RGBE; (b) bench.py's large3d from XML with its grid in a .vol
+    file, its film the same estimand as phase 10's; (c) the command line
+    on the terrain XML, and runtime.render stopped after a pass and
+    resumed from its checkpoint. ``large_film`` is phase 10's residual
+    large3d film. Every file goes to a temporary directory. Returns the
+    records."""
+    import copy
+    import tempfile
+
+    from eradiate_kernel_tpu_torch import films, integrators
+    from eradiate_kernel_tpu_torch.scene import load_dict, load_file, xml
+    from eradiate_kernel_tpu_torch.utils import bitmap, runtime, volfile
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    rec = {"renders": {}}
+    pool_lanes = 1 << 18
+
+    def same_tensors(a, b, label):
+        ta, tb = a.tensors(), b.tensors()
+        assert ta.keys() == tb.keys(), label
+        for name, t in tb.items():
+            assert t.device.type == "cuda", (label, name)
+            assert torch.equal(ta[name], t), (label, name)
+        return len(ta)
+
+    with tempfile.TemporaryDirectory() as out:
+        # ---- 34a. the terrain from files ----------------------------------------
+        phase_clock("34a")
+        path, d_inline, secs = terrain_files(
+            out, V, F, 256, 256, 16, albedo_map(1024, seed=7),
+            sky_image(256, 512, seed=6))
+        r = rec["terrain"] = {"write_s": secs}
+        t0 = time.perf_counter()
+        bitmap.read_exr(os.path.join(out, "albedo.exr"))
+        bitmap.read_exr(os.path.join(out, "sky.exr"))
+        r["read_exr_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene = load_file(path)
+        torch.cuda.synchronize()
+        r["load_file_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = load_dict(d_inline)
+        torch.cuda.synchronize()
+        r["load_dict_s"] = time.perf_counter() - t0
+        assert scene.config == ref.config and scene.config.spp == 16
+        r["tensors_bit_equal"] = same_tensors(scene, ref, "terrain")
+        integrators.render(scene, seed=0, spp=1, regen=True,
+                           samples_per_pass=pool_lanes)  # warm-up
+        film, secs_p, launches, counts = counted_pool(scene, pool_lanes)
+        pr = rec["renders"]["terrain from files pool"] = check_pool(
+            "terrain from XML, PLY and EXR files 256x256 spp16 max_depth 6 "
+            "(lane pool)", scene, film, secs_p, launches, counts,
+            "tile_sweep", (1e-3, 5.0))
+        film_d = integrators.render(ref, seed=0, regen=True,
+                                    samples_per_pass=pool_lanes,
+                                    develop_film=False)
+        pr["flips_vs_dict"] = films_equivalent(
+            film_d.cpu().numpy(), film.cpu().numpy(), max_flips=2)
+        pr["bit_equal_to_dict"] = bool(torch.equal(film, film_d))
+        img = films.develop(film).cpu().numpy()
+        r["save"] = {}
+        for ext in ("exr", "pfm", "hdr"):
+            p = os.path.join(out, f"film.{ext}")
+            t0 = time.perf_counter()
+            films.save(p, film)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = bitmap.read_image(p)
+            read_s = time.perf_counter() - t0
+            assert back.shape == img.shape, (ext, back.shape)
+            if ext == "hdr":  # shared exponents: within a step of the max
+                pos = np.maximum(img, 0.0)
+                err = float((np.abs(back - pos).max(-1)
+                             / np.maximum(pos.max(-1), 1e-30)).max())
+                assert err <= 2.0 ** -7, (ext, err)
+            else:
+                assert np.array_equal(back, img), ext
+                err = 0.0
+            r["save"][ext] = dict(save_s=save_s, read_s=read_s,
+                                  bytes=os.path.getsize(p), rel_err=err)
+        print(f"# 34a terrain from files: writes {secs} s; EXRs read back "
+              f"{r['read_exr_s']:.2f} s; load_file {r['load_file_s']:.2f} "
+              f"s, load_dict (images inline) {r['load_dict_s']:.2f} s, "
+              f"{r['tensors_bit_equal']} tensors bit-equal; pool film vs the "
+              f"dict scene's: {pr['flips_vs_dict']} pixels over tolerance "
+              f"(budget 2; bit-equal {pr['bit_equal_to_dict']}); films.save "
+              f"{r['save']}", flush=True)
+
+        # ---- 34b. the 64^3 atmosphere from XML and a .vol file ----------------
+        phase_clock("34b")
+        d = atmosphere(256, 256, 4, 12, grid_res=(64, 64, 64))
+        d["integrator"]["nee_transmittance"] = "residual"
+        d["sensor"]["film"]["type"] = "hdrfilm"
+        d_vol = copy.deepcopy(d)
+        grid = d_vol["atmo"]["interior"]["sigma_t"]
+        vol = os.path.join(out, "sigma_t.vol")
+        apath = os.path.join(out, "large3d.xml")
+        r = rec["large3d"] = {}
+        t0 = time.perf_counter()
+        volfile.write_vol(vol, grid.pop("data"))
+        grid["filename"] = vol
+        xml.write_file(apath, d_vol)
+        r["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene_b = load_file(apath)
+        torch.cuda.synchronize()
+        r["load_file_s"] = time.perf_counter() - t0
+        ref_b = load_dict(d)
+        assert scene_b.config == ref_b.config
+        assert scene_b.vol_packed is not None
+        r["tensors_bit_equal"] = same_tensors(scene_b, ref_b, "large3d")
+        # seed 1: independent of phase 10's film (seed 0), one estimand
+        film_b, secs_b, launches, counts = counted_pool(scene_b, lanes,
+                                                        seed=1)
+        br = rec["renders"]["large3d from XML and .vol pool"] = \
+            check_atmosphere("atmosphere 256x256 spp4 max_depth 12 grid 64^3 "
+                             "from XML and a .vol file", scene_b, film_b,
+                             secs_b, launches, counts)
+        assert launches["grid_gather"] == counts["lookups"] > 0, counts
+        br["vs_phase_10"] = same_estimand(film_b, large_film)
+        print(f"# 34b large3d from files: written {r['write_s']:.2f} s, "
+              f"load_file {r['load_file_s']:.2f} s, "
+              f"{r['tensors_bit_equal']} tensors bit-equal to load_dict's; "
+              f"against phase 10's film {br['vs_phase_10']}", flush=True)
+
+        # ---- 34c. the command line and the pass runtime -----------------------
+        phase_clock("34c")
+        r = rec["cli"] = {}
+        exr = os.path.join(out, "cli.exr")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "eradiate_kernel_tpu_torch", path, "-o",
+             exr, "--regen", "-D", "spp=4"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        r["wall_s"] = time.perf_counter() - t0
+        assert res.returncode == 0, res.stderr[-4000:]
+        r["stderr"] = res.stderr.strip().splitlines()
+        cli_img, names = bitmap.read_exr(exr)
+        assert names == ["R", "G", "B"]
+        scene4 = load_file(path, parameters={"spp": "4"})
+        assert scene4.config.spp == 4
+        film4 = integrators.render(scene4, seed=0, regen=True,
+                                   develop_film=False)
+        r["flips_vs_in_process"] = films_equivalent(
+            films.develop(film4).cpu().numpy(), cli_img, max_flips=2)
+        print(f"# 34c command line (--regen, spp 4): {r['wall_s']:.2f} s "
+              f"wall, the import included ({r['stderr']}); its EXR vs the "
+              f"in-process film: {r['flips_vs_in_process']} pixels over "
+              f"tolerance (budget 2)", flush=True)
+
+        class OnePass(runtime.RenderController):
+            """Stops after the first pass."""
+
+            def should_stop(self):
+                return super().should_stop() or self.partial is not None
+
+        r = rec["runtime"] = {"samples_per_pass": 1 << 16}
+        ckpt = os.path.join(out, "render.ckpt")
+        t0 = time.perf_counter()
+        runtime.render(scene4, seed=0, samples_per_pass=1 << 16,
+                       controller=OnePass(), checkpoint_path=ckpt,
+                       develop_film=False)
+        torch.cuda.synchronize()
+        r["first_pass_s"] = time.perf_counter() - t0
+        assert int(np.load(ckpt)["next_pass"]) == 1
+        with counting() as read:
+            t0 = time.perf_counter()
+            resumed = runtime.render(scene4, seed=0, samples_per_pass=1 << 16,
+                                     checkpoint_path=ckpt,
+                                     develop_film=False)
+            torch.cuda.synchronize()
+            r["resume_s"] = time.perf_counter() - t0
+            got = read()
+        assert not os.path.exists(ckpt)
+        launches = got["launches"]
+        assert launches["tile_sweep"] == got["queries"] > 0, got
+        assert sum(launches.values()) == launches["tile_sweep"], launches
+        rec["renders"]["runtime.render resumed (3 of 4 passes)"] = dict(
+            launches=launches, queries=got["queries"])
+        whole = runtime.render(scene4, seed=0, samples_per_pass=1 << 16,
+                               develop_film=False)
+        assert float(resumed[..., 4].sum()) == 256 * 256 * 4
+        r["flips_vs_uninterrupted"] = films_equivalent(
+            whole.cpu().numpy(), resumed.cpu().numpy(), max_flips=2)
+        print(f"# 34c runtime.render, 4 passes of 65,536 samples: stopped "
+              f"after the first ({r['first_pass_s']:.2f} s) and resumed from "
+              f"its checkpoint ({r['resume_s']:.2f} s; tile_sweep launches "
+              f"{launches['tile_sweep']} = queries); vs the uninterrupted "
+              f"film {r['flips_vs_uninterrupted']} pixels over tolerance "
+              f"(budget 2)", flush=True)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3405,6 +3716,7 @@ def main():
     materials = materials_phases(V, F, lanes)
     s5c2 = slice_5c2_phases(V, F, scene, terrain_img, lanes)
     s6a = slice_6a_phases(lanes, large_film, atmo["large3d"])
+    s7a = slice_7a_phases(V, F, lanes, large_film)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -3490,6 +3802,7 @@ def main():
                    "box_value_grad"]["backward"]["launches"][
                    "tile_sweep"]}),
         "launches_slice_6a": slice_6a_launches(s6a, "tile_sweep"),
+        "launches_slice_7a": slice_7a_launches(s7a, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -3553,6 +3866,7 @@ def main():
         # slice 6a: the gather entry on a render path (nearest-filter
         # lookups), the trilinear entry under the ablations
         "launches_slice_6a": slice_6a_launches(s6a, "grid_gather"),
+        "launches_slice_7a": slice_7a_launches(s7a, "grid_gather"),
         "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
     })
     bwd1 = bwd_loads["C=1"]
@@ -3594,6 +3908,7 @@ def main():
     print(json.dumps({"materials": materials}))
     print(json.dumps({"slice_5c2": s5c2}))
     print(json.dumps({"slice_6a": s6a}))
+    print(json.dumps({"slice_7a": s7a}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

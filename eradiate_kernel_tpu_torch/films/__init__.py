@@ -4,14 +4,17 @@ The film is an (H, W, 5) tensor with channels [X, Y, Z, A, W]. A filter of
 radius <= 0.5 puts each sample into one pixel; a wider one splats it over
 ``n = int(2r + 0.999) + 1`` taps an axis from ``floor(pos - r + 0.5)``
 with separable weights (imageblock.cpp), taps outside the film weighing 0.
-``film_gather`` is the adjoint of ``film_put`` over the same taps."""
+``film_gather`` is the adjoint of ``film_put`` over the same taps;
+``save`` develops a film and writes it to an image file."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.spectrum import xyz_to_srgb
 from ..rfilters import eval_filter, filter_radius
+from ..utils import bitmap
 
 N_BASE_CHANNELS = 5  # X, Y, Z, A, W
 
@@ -101,3 +104,33 @@ def develop(image, mode: str = "rgb", pixel_format: str = "rgb"):
     if pixel_format == "rgba":
         return torch.cat([rgb, image[..., 3:4] / w], dim=-1)
     return rgb
+
+
+def save(path: str, image, mode: str = "rgb", pixel_format: str = "rgb",
+         aovs: dict | None = None):
+    """Develop a raw film (on any device) and write it from host memory
+    (hdrfilm's develop-to-file): '.exr' as f32 ZIP with channels Y, RGB
+    or RGBA and then the ``aovs`` (name -> (H, W) image) under their
+    names; '.pfm', '.ppm' and '.hdr'/'.rgbe' in their formats; anything
+    else as PNG with the sRGB transfer."""
+    def host(a):
+        return np.asarray(a.detach().cpu() if torch.is_tensor(a) else a)
+
+    img = host(develop(image, mode, pixel_format))
+    low = path.lower()
+    if low.endswith(".exr"):
+        names = {1: ["Y"], 3: ["R", "G", "B"],
+                 4: ["R", "G", "B", "A"]}[img.shape[-1]]
+        if aovs:
+            extra = np.stack([host(v) for v in aovs.values()], -1)
+            img = np.concatenate([img, extra], -1)
+            names = names + list(aovs)
+        bitmap.write_exr(path, img, names)
+    elif low.endswith(".pfm"):
+        bitmap.write_pfm(path, img)
+    elif low.endswith(".ppm"):
+        bitmap.write_ppm(path, img)
+    elif low.endswith((".hdr", ".rgbe")):
+        bitmap.write_rgbe(path, img)
+    else:
+        bitmap.write_png(path, img)

@@ -30,7 +30,7 @@ from .build_sensors import _SENSOR_TYPES, _build_sensor
 from .build_shapes import (_SHAPE_TYPES, _build_shape, shape_children,
                            triangle_areas)
 from .build_spectra import (_axis_majorant_profiles, _cie_rgb_of_spectrum,
-                            _control_and_residual_profiles)
+                            _control_and_residual_profiles, _image_data)
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
 
@@ -336,8 +336,9 @@ class SceneBuilder:
 
     def texture(self, value, emitter=False):
         """A value / texture dict -> texture index: constant (a spectrum),
-        checkerboard, bitmap (inline ``data``) or mesh_attribute; an
-        ``emitter`` texture bakes its spectra as radiance."""
+        checkerboard, bitmap (inline ``data`` or an image ``filename``) or
+        mesh_attribute; an ``emitter`` texture bakes its spectra as
+        radiance."""
         t = value.get("type") if isinstance(value, dict) else None
         if t == "mesh_attribute":
             name = value["name"]
@@ -353,11 +354,7 @@ class SceneBuilder:
             return self._add(self.textures, self.tex_table, "checkerboard",
                              {"spec0": np.int32(s0), "spec1": np.int32(s1)})
         if t == "bitmap":
-            if "data" not in value:
-                raise NotImplementedError(
-                    "bitmap from a file: image IO (utils/bitmap.py and the "
-                    "EXR readers) comes with slice 7; pass inline 'data'")
-            data = np.asarray(value["data"], np.float32)
+            data = _image_data(value)
             if data.ndim == 2:
                 data = data[..., None].repeat(3, -1)
             self.bitmaps.append(data)

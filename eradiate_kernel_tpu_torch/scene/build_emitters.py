@@ -87,9 +87,12 @@ def _build_scene_emitter(builder, d):
         w2l = tw.inverse()
         fov = float(d.get("fov", 45.0))
         irr = d.get("irradiance", 1.0)
-        data = (np.asarray(irr["data"], np.float32)
-                if isinstance(irr, dict) and irr.get("type") == "bitmap"
-                and "data" in irr else None)
+        data = None
+        if isinstance(irr, dict) and irr.get("type") == "bitmap":
+            if "data" not in irr:  # the reference reads only inline data
+                raise ValueError("projector: an irradiance bitmap takes "
+                                 "inline 'data', not a 'filename'")
+            data = np.asarray(irr["data"], np.float32)
         aspect = (data.shape[1] / data.shape[0]) if data is not None else 1.0
         return builder.add_emitter_row("projector", {
             "position": np.asarray(np.asarray(tw.m)[:3, 3], np.float32),

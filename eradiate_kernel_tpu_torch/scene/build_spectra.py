@@ -1,6 +1,6 @@
 """Scene-build helpers of scene/build_spectra.py: the rgb bake of a
-spectrum, an envmap's inline image and the media profiles (numpy at scene
-build, bit-equal to the reference's tables)."""
+spectrum, a bitmap's or an envmap's image and the media profiles (numpy at
+scene build, bit-equal to the reference's tables)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..core import spectrum as sp
+from ..utils import bitmap
 
 
 def _cie_rgb_of_spectrum(eval_fn, emitter: bool) -> np.ndarray:
@@ -33,14 +34,17 @@ def _cie_rgb_of_spectrum(eval_fn, emitter: bool) -> np.ndarray:
     return np.maximum(rgb.numpy()[0], 0.0)
 
 def _image_data(d):
-    """The image of an envmap dict: its inline ``data`` (float32). A file
-    raises: image IO comes with slice 7."""
-    if "data" not in d:
-        raise NotImplementedError(
-            f"{d.get('type')} from a file ({d.get('filename')!r}): image IO "
-            "(utils/bitmap.py and the EXR readers) comes with slice 7; pass "
-            "inline 'data'")
-    return np.asarray(d["data"], np.float32)
+    """The image of a bitmap or envmap dict: its inline ``data``, or its
+    ``filename`` read on the host (float32): an EXR keeps its first 3
+    channels when it has 3 or more (a 1-channel EXR stays (H, W, 1)),
+    other formats go through ``bitmap.read_image``."""
+    if "data" in d:
+        return np.asarray(d["data"], np.float32)
+    fn = d["filename"]
+    if fn.lower().endswith(".exr"):
+        img, _names = bitmap.read_exr(fn)
+        return img[..., :3] if img.shape[-1] >= 3 else img
+    return np.asarray(bitmap.read_image(fn), np.float32)
 
 
 AXPROF_BINS = 64  # fixed per-axis majorant profile resolution (media)

@@ -691,3 +691,71 @@ def test_gauss_legendre_tau_matches_cpu(cuda_device):
         taus.append(tau.cpu())
     assert float(taus[1].max()) > 0.01
     torch.testing.assert_close(taus[0], taus[1], rtol=1e-6, atol=1e-7)
+
+
+def _same_tensors_on_card(a, b):
+    ta, tb = a.tensors(), b.tensors()
+    assert ta.keys() == tb.keys()
+    for name, t in ta.items():
+        assert t.device.type == "cuda", name
+        assert torch.equal(t, tb[name]), name
+
+
+@pytest.mark.cuda
+def test_scene_from_files_loads_onto_the_card(cuda_device, tmp_path):
+    """chip_smoke.py phase 34(a) at 32x32 spp 4 over terrain(33): the
+    scene read from XML, PLY and EXR files by load_file (its default
+    device, the card) has every tensor bit-equal to load_dict's of the
+    same dict with the images inline; its lane-pool film launches
+    tile_sweep once a closest-hit query and is within 1e-4 but 2 pixels of
+    the dict scene's."""
+    from chip_smoke import (albedo_map, counted_pool, films_equivalent,
+                            sky_image, terrain_files)
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.scene import load_dict, load_file
+
+    V, F = terrain(33)
+    path, inline, _ = terrain_files(str(tmp_path), V, F, 32, 32, 4,
+                                    albedo_map(64, seed=7),
+                                    sky_image(32, 64, seed=6))
+    scene = load_file(path)
+    ref = load_dict(inline)
+    _same_tensors_on_card(scene, ref)
+    assert scene.config == ref.config and scene.config.spp == 4
+    film, _, launches, counts = counted_pool(scene, 1024)
+    assert launches["tile_sweep"] == counts["queries"] > 0
+    film_d = integrators.render(ref, seed=0, regen=True,
+                                samples_per_pass=1024, develop_film=False)
+    assert float(film[..., 4].sum()) == 32 * 32 * 4
+    films_equivalent(film_d.cpu().numpy(), film.cpu().numpy(), max_flips=2)
+
+
+@pytest.mark.cuda
+def test_atmosphere_from_xml_and_vol_on_the_card(cuda_device, tmp_path):
+    """chip_smoke.py phase 34(b) at 16x16 spp 4: the 17 x 16 x 16
+    atmosphere written with dict_to_xml, its grid in a .vol file, loads
+    onto the card bit-equal to load_dict's scene; one grid_gather launch a
+    lookup, and its film within 1e-4 but 2 pixels of the dict scene's."""
+    import copy
+
+    from chip_smoke import counted_pool, films_equivalent
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.scene import load_dict, load_file, xml
+    from eradiate_kernel_tpu_torch.utils import volfile
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(16, 16, 4, 6, grid_res=(17, 16, 16))
+    d["sensor"]["film"]["type"] = "hdrfilm"
+    d_vol = copy.deepcopy(d)
+    grid = d_vol["atmo"]["interior"]["sigma_t"]
+    volfile.write_vol(str(tmp_path / "g.vol"), grid.pop("data"))
+    grid["filename"] = str(tmp_path / "g.vol")
+    xml.write_file(str(tmp_path / "a.xml"), d_vol)
+    scene = load_file(str(tmp_path / "a.xml"))
+    ref = load_dict(d)
+    _same_tensors_on_card(scene, ref)
+    film, _, launches, counts = counted_pool(scene, 512, seed=3)
+    assert launches["grid_gather"] == counts["lookups"] > 0
+    film_d = integrators.render(ref, seed=3, regen=True,
+                                samples_per_pass=512, develop_film=False)
+    films_equivalent(film_d.cpu().numpy(), film.cpu().numpy(), max_flips=2)

@@ -10,6 +10,7 @@ from a seed.
   ``pdf_emitter_direction`` (the escaped ray's direction ``d``).
 - ``sample_emitter_ray`` for every kind that has one (area, constant,
   point, directional, spot, projector), and the envmap's refusal.
+- An envmap read from an EXR file: the reference's arrays.
 - Renders on the scan driver and the lane pool, by ``path`` and
   ``volpath``, within tests/conftest.py::assert_driver_equivalent's budget
   (1e-4 relative a pixel, 2 flipped pixels); the gradient with respect to
@@ -43,8 +44,9 @@ from eradiate_kernel_tpu_torch.core import hierarchical2d as h2d
 from eradiate_kernel_tpu_torch.core.ray import Ray
 from eradiate_kernel_tpu_torch.core.rng import Sampler
 from eradiate_kernel_tpu_torch.scene import load_dict
-from eradiate_kernel_tpu_torch.utils import autodiff
+from eradiate_kernel_tpu_torch.utils import autodiff, bitmap
 from test_torch_lights import floor_points, lights_dict, samples
+from test_torch_scene import reference_arrays
 
 N = 4096
 RTOL, ATOL = 1e-5, 1e-6
@@ -242,10 +244,26 @@ def test_sample_emitter_ray_refuses_an_envmap():
             0, jnp.arange(8, dtype=jnp.uint32)), jnp.zeros(8))
 
 
-def test_envmap_from_a_file_refuses():
+def test_envmap_from_a_file_refuses(tmp_path):
+    """An envmap read from a ZIP EXR (f16) loads the reference's arrays bit
+    for bit; one compressed with DWAA, which only a native OpenEXR loader
+    reads (slice 7b), refuses."""
     d = emitters_dict()
-    d["env"] = {"type": "envmap", "filename": "sky.exr"}
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    path = str(tmp_path / "sky.exr")
+    bitmap.write_exr(path, d["env"].pop("data"), pixel_type="f16")
+    d["env"]["filename"] = path
+    ref = reference_arrays(jload_dict(d))
+    arrays = load_dict(d, device="cpu").arrays()
+    assert arrays["emitters.envmap.image"].shape[1:] == (9, 15, 3)
+    for name, a in arrays.items():
+        np.testing.assert_array_equal(a, ref[name], err_msg=name)
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    key = b"compression\x00compression\x00\x01\x00\x00\x00"
+    data[data.index(key) + len(key)] = 8  # DWAA
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    with pytest.raises(NotImplementedError, match="slice 7b"):
         load_dict(d, device="cpu")
 
 

@@ -105,14 +105,14 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", [
-    ("emitter", {"type": "envmap", "filename": "sky.exr"}),
+    ("film", {"type": "specfilm", "width": 4, "height": 4}),
     ("medium", {"type": "heterogeneous",
                 "sigma_t": {"type": "gridvolume_spectral",
                             "data": np.ones((2, 2, 2, 4), np.float32)}}),
     ("bsdf", {"type": "measured_polarized"}),
     ("integrator", {"type": "volpathmis"}),
     ("integrator", {"type": "moment"}),
-    ("texture", {"type": "bitmap", "filename": "ground.exr"}),
+    ("integrator", {"type": "aov", "aovs": "dd.y:depth"}),
     ("bsdf", {"type": "pplastic"}),
 ])
 def test_types_outside_the_slice_raise(entry):
@@ -124,6 +124,8 @@ def test_types_outside_the_slice_raise(entry):
         d["terrain"]["bsdf"] = {"type": "diffuse", "reflectance": val}
     elif kind == "rfilter":
         d["camera"]["film"]["rfilter"] = val
+    elif kind == "film":
+        d["camera"]["film"] = val
     else:
         d["extra"] = val
     with pytest.raises(NotImplementedError, match=r"slice (5c|6|7)"):

@@ -1,6 +1,6 @@
 """Slice 5c-1's textures in the port against the JAX package: the
-checkerboard, bitmap (inline data) and mesh_attribute kinds, in rgb and
-mono, on the same seeded lanes (bit for bit: the bilinear and barycentric
+checkerboard, bitmap (inline data, and an EXR file) and mesh_attribute
+kinds, in rgb and mono, on the same seeded lanes (bit for bit: the bilinear and barycentric
 formulas are evaluated in the reference's order, and XLA's CPU code
 contracts none of them), and the scene arrays of the materials scenes
 (bitmap_data, mesh_attr_data, every BSDF and texture table, bsdf_flags)
@@ -17,6 +17,7 @@ from eradiate_kernel_tpu.scene import load_dict as jload_dict
 from eradiate_kernel_tpu_torch.core.types import Variant
 from eradiate_kernel_tpu_torch.render.texture import texture_eval
 from eradiate_kernel_tpu_torch.scene import load_dict
+from eradiate_kernel_tpu_torch.utils import bitmap
 from test_torch_materials_render import materials_scenes
 from test_torch_scene import port_config, reference_arrays
 from test_torch_sensors import one_torch_thread  # noqa: F401
@@ -117,12 +118,21 @@ def test_scene_arrays_match_reference(name, variant):
     assert scene.config == port_config(jscene.config)
 
 
-def test_texture_dicts_refused_or_checked():
+def test_texture_dicts_refused_or_checked(tmp_path):
+    """A bitmap read from a PIZ EXR loads the reference's arrays bit for
+    bit, in rgb and mono; a mesh attribute of the wrong size is
+    refused."""
     d = texture_scene("rgb")
-    d["gray"]["bsdf"]["reflectance"] = {"type": "bitmap",
-                                        "filename": "ground.exr"}
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        load_dict(d, device="cpu")
+    path = str(tmp_path / "ground.exr")
+    bitmap.write_exr(path, np.random.default_rng(3).random(
+        (5, 7, 3)).astype(np.float32), compression="piz")
+    d["mesh"]["bsdf"]["a"]["reflectance"] = {"type": "bitmap",
+                                             "filename": path}
+    for variant in ("rgb", "mono"):
+        jscene, scene = _both(d, variant)
+        ref = reference_arrays(jscene)
+        for key, a in scene.arrays().items():
+            np.testing.assert_array_equal(a, ref[key], err_msg=key)
     d = texture_scene("rgb")
     d["mesh"]["attributes"]["color"] = np.zeros((5, 3), np.float32)
     with pytest.raises(ValueError, match="attribute 'color'"):
