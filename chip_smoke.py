@@ -92,11 +92,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  17. the terrain render (phase 3's scene) on the lane pool of 2^18 lanes
      through render(regen=True): tile_sweep launches == closest-hit
      queries, and its film against the scan driver's (budget 64 pixels:
-     shared-edge ties follow each query's coherence sort);
+     the scan splats 12 samples into the next pixel, phase 35c);
  18. the forest render (phase 6's scene) on the same pool through
      tile_bvh and tile_bvh8: launches == closest-hit queries;
  19. value+grad through the path replay of terrain(256) and the forest at
-     256x256, spp 4 (the primal phases take 16; cut for the time limit):
+     256x256, spp 2 (the primal phases take 16; cut for the time limit,
+     from 4 when phase 35 was added):
      d(mean image)/d(spectra.baked.value), its sun's row and the crown's
      diffuse reflectance row compared finite and not zero (the RPV rows
      are NaN in the reference too), forward and adjoint launches (one a
@@ -143,7 +144,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      call on the CPU (rtol 1e-5), timed beside the bound and an
      index_put_ splat;
  26. the materials Cornell box (slice 5c-1): utils.scenes.cornell_box at
-     256x256, spp 16 (PR 7's box takes 64; cut for the time limit),
+     256x256, spp 8 (phase 15's box takes 64; cut for the time limit,
+     from 16 when phase 35 was added),
      max_depth 6, with a dielectric, a rough gold and a rough dielectric
      sphere, a 12-triangle cube mesh (one tile: the fused query) under a
      Beckmann rough plastic with a checkerboard, the back wall under a
@@ -246,9 +248,37 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      pass and resumed: launches == queries, within 2 pixels of an
      uninterrupted render. The time of every write, read, load and render
      is printed;
+ 35. slice 6b: volpathmis and the AOV wrappers. (a) the flagship (spp 4,
+     seed 1; bench.py: 64) under volpathmis and under volpath on the lane
+     pool of 32,768 lanes: time, Msamples/s, iterations, host syncs, walk
+     steps, peak memory, tile_sweep launches == queries (a sample and an
+     iteration), the volpathmis film within 3 standard errors of phase
+     9's volpath film (same_estimand); (b) large3d (spp 4, seed 1) the
+     same, grid_gather launches == lookups > 0, its film against phase
+     10's, and a 64x64 spp4 volpathmis film through the kernels against
+     the plain gather and the plain sweep (budget 2); (c) aov (depth,
+     position, both normals, uv, prim and shape index) over path on phase
+     3's terrain(256) (spp 16) through the scan driver and a pool of 2^18
+     lanes: the base films within 2 pixels of phase 3's and phase 17's,
+     tile_sweep launches == the child's queries (phase 3's, phase 17's)
+     + the AOV queries (one a scan pass, one a pool refill; the refills
+     timed synchronised), the two drivers' AOVs within 1e-5 and the prim
+     index equal (but in 2 pixels) outside the pixels of the samples the
+     scan driver splats into the next pixel (its float32 pixel + jitter
+     rounds up; the pool writes a sample to its own pixel), and a 64x64
+     spp4 pool render through the
+     kernel and the plain sweep with depth bit-equal and every AOV
+     bit-equal where the prim index is; (d) duv_dx and duv_dy at 64x64
+     spp4 through the scan driver's offset camera rays: finite, non-zero
+     on every hit pixel; (e) moment over volpath on the flagship pool
+     (spp 4, seed 1): its base film equal to (a)'s volpath film (the
+     wrapper draws nothing), m2 >= mean^2 in every pixel; (f) films.save
+     of (c)'s pool film with its AOVs to EXR, read back bit-equal under
+     the reference's channel names;
  12. (last) print the kernels line (every kernel and entry, the backward
-     included, with their launches on phases 21-34), the value+grad,
-     measurement, materials, slice 5c-2, slice 6a and slice 7a records,
+     included, with their launches on phases 21-35), the value+grad,
+     measurement, materials, slice 5c-2, slice 6a, slice 7a and slice 6b
+     records,
      the card's name and power limit, and the final ``{"ok": true, ...}``
      line.
 
@@ -455,6 +485,9 @@ def sass_counts(name):
 
 
 _T0 = time.perf_counter()
+
+# films and counts of earlier phases that phase 35 holds its renders to
+REF_FILMS = {}
 
 
 def phase_clock(phase):
@@ -1545,11 +1578,14 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
     pools["terrain"] = check_pool(
         "terrain render 256x256 spp16 max_depth 6 (lane pool)", scene, film,
         secs_t, launches, counts, "tile_sweep", (0.005, 0.5))
-    # a hit on a shared edge (equal t) takes the triangle the sweep visits
-    # first, and the visit order follows the coherence sort of each query's
-    # rays, which differ between the pool and the scan: 24 pixels flip
-    # (the same 24 in every run on the H100), so the budget is 64, not the
-    # 2 of the 64x64 films
+    REF_FILMS.update({"terrain pool film": film,
+                      "terrain pool queries": counts["queries"]})
+    # the scan driver splats a sample at pixel + jitter in float32, which
+    # rounds up into the next pixel when the jitter is within half an ulp
+    # of 1; the pool writes it to its own pixel: 12 of the 1,048,576
+    # samples move, so 24 pixels flip (the same 24 in every run;
+    # scan_moved_pixels), and the budget is 64, not the 2 of the 64x64
+    # films
     scan = integrators.render(scene, seed=0, develop_film=False)
     flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
                              max_flips=64)
@@ -1569,12 +1605,13 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
 
     # ---- 19. value+grad through the path replay: forest and terrain(256) ------
     phase_clock("19")
-    # spp 4 (the primal phases take 16): the time limit
+    # spp 2 (the primal phases take 16; cut from 4 when phase 35 was
+    # added): the time limit
     surface_vg = {}
     vg_scenes = {
-        "terrain": (load_dict(terrain_scene(V, F, 256, 256, 4, 6)), "0",
+        "terrain": (load_dict(terrain_scene(V, F, 256, 256, 2, 6)), "0",
                     "tile_sweep"),
-        "forest": (load_dict(forest_scene(256, 256, 4, 6)), "0",
+        "forest": (load_dict(forest_scene(256, 256, 2, 6)), "0",
                    "tile_bvh")}
     for label, (sc, wide, kernel) in vg_scenes.items():
         rows = {"sun": spec_row(sc, int(
@@ -1584,7 +1621,7 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
                 sc.bsdfs["diffuse"]["reflectance"][0]))
         with env(ERT_BVH_WIDE=wide):
             surface_vg[label] = surface_value_grad(
-                f"{label} 256x256 spp4 max_depth 6", sc, pool_lanes, kernel,
+                f"{label} 256x256 spp2 max_depth 6", sc, pool_lanes, kernel,
                 rows)
     # at 64x64 spp4 the gradients through each kernel and through its plain
     # version; max_depth 3 (the value+grads above take 6): the plain walks'
@@ -2190,14 +2227,15 @@ def materials_phases(V, F, lanes):
 
     # ---- 26. the materials Cornell box --------------------------------------
     phase_clock("26")
-    # 256x256 spp 16 (PR 7's box takes 64): 1,048,576 samples, the time
-    # limit; the cube is one tile: one fused tile_sweep launch a query
-    box = load_dict(materials_cornell(256, 256, 16, 6))
+    # 256x256 spp 8 (phase 15's box takes 64; cut from 16 when phase 35 was
+    # added): the time limit; the cube is one tile: one fused tile_sweep
+    # launch a query
+    box = load_dict(materials_cornell(256, 256, 8, 6))
     integrators.render(box, seed=0, spp=1, regen=True,
                        samples_per_pass=lanes)  # warm-up
     film, secs, launches, counts = counted_pool(box, lanes)
     rec["cornell"] = check_pool(
-        "materials cornell box 256x256 spp16 max_depth 6 (lane pool)", box,
+        "materials cornell box 256x256 spp8 max_depth 6 (lane pool)", box,
         film, secs, launches, counts, "tile_sweep", (0.05, 0.5))
     small = load_dict(materials_cornell(64, 64, 4, 6))
     film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
@@ -2256,7 +2294,7 @@ def materials_phases(V, F, lanes):
         "materials terrain 256x256 spp16 max_depth 6 (lane pool)", terr,
         film, pool_s, launches_p, counts, "tile_sweep", (0.005, 0.5))
     scan = integrators.render(terr, seed=0, develop_film=False)
-    # phase 17's budget: shared-edge ties follow each query's coherence sort
+    # phase 17's budget: the scan splats a few samples into the next pixel
     flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
                              max_flips=64)
     small = load_dict(materials_terrain(V, F, 64, 64, 4, 6))
@@ -2711,8 +2749,9 @@ def hg_table(g, n=181):
 @contextlib.contextmanager
 def walk_steps():
     """Inside the block, count the steps the transmittance walks of volpath
-    run (the NEE walk's and the MIS walk's)."""
-    from eradiate_kernel_tpu_torch.integrators import volpath
+    (the NEE walk's and the MIS walk's) and of volpathmis (its two NEE
+    walks) run."""
+    from eradiate_kernel_tpu_torch.integrators import volpath, volpathmis
 
     steps = {"n": 0}
     run_walk = volpath._run_walk
@@ -2723,11 +2762,11 @@ def walk_steps():
             return body(s)
         return run_walk(step, *a, **kw)
 
-    volpath._run_walk = counted_run_walk
+    volpath._run_walk = volpathmis._run_walk = counted_run_walk
     try:
         yield steps
     finally:
-        volpath._run_walk = run_walk
+        volpath._run_walk = volpathmis._run_walk = run_walk
 
 
 def same_estimand(film, ref_film):
@@ -3283,6 +3322,337 @@ def slice_7a_phases(V, F, lanes, large_film):
     return rec
 
 
+# chip_smoke.py phase 35's AOV spec (every camera-hit type but the uv
+# partials, which keep the scan driver: phase 35d)
+AOV_SPEC = ("dd:depth,pp:position,nn:geo_normal,sn:sh_normal,uv:uv,"
+            "pi:prim_index,si:shape_index")
+
+
+def aov_channels(film, names):
+    """The {name: (H, W)} AOV images of a raw film: its channels after the
+    5 base ones over the weight (render(return_aovs=True)'s)."""
+    w = torch.clamp(film[..., 4:5], min=1e-12)
+    return {name: (film[..., 5 + i] / w[..., 0])
+            for i, name in enumerate(names)}
+
+
+def stacked(aovs, names):
+    """The (H, W, len(names)) stack of the named AOV images, as numpy."""
+    return torch.stack([aovs[n] for n in names], -1).cpu().numpy()
+
+
+def scan_moved_pixels(scene, seed, spp):
+    """(H, W) bool numpy: the pixels where the scan driver's film and the
+    lane pool's differ by construction. The scan driver splats a sample at
+    its jittered position, pixel + jitter in float32, which rounds up to
+    the next pixel when the jitter is within half an ulp of 1; the pool
+    writes it to its sample's own pixel. Marks both pixels of every such
+    sample; returns (mask, samples moved)."""
+    from eradiate_kernel_tpu_torch import integrators
+
+    cfg = scene.config
+    W, H = cfg.film_width, cfg.film_height
+    dev = scene.bsphere_center.device
+    sample = torch.arange(W * H * spp, device=dev)
+    pos = integrators._camera_lanes(scene, seed, spp, sample)[3]
+    own = sample // spp
+    lands = (torch.clamp(pos[:, 1].long(), 0, H - 1) * W
+             + torch.clamp(pos[:, 0].long(), 0, W - 1))
+    moved = lands != own
+    mask = torch.zeros(H * W, dtype=torch.bool, device=dev)
+    mask[own[moved]] = True
+    mask[lands[moved]] = True
+    return mask.reshape(H, W).cpu().numpy(), int(moved.sum())
+
+
+def aov_drivers_agree(a, b, moved):
+    """Two drivers' camera-hit AOVs of one scene agree within 1e-5 of
+    max(|value|, 1) but in 2 pixels, a group of channels (depth; position;
+    uv, both normals and the shape index), and the prim index is equal but
+    in 2 pixels, outside the pixels ``moved`` (scan_moved_pixels). Returns
+    the pixels over tolerance a group."""
+    keep = ~moved
+    groups = {"depth": ["dd"], "position": ["pp.x", "pp.y", "pp.z"],
+              "uv, normals, shape": ["uv.x", "uv.y", "nn.x", "nn.y", "nn.z",
+                                     "sn.x", "sn.y", "sn.z", "si"]}
+    out = {k: films_equivalent(stacked(a, v)[keep], stacked(b, v)[keep], 2,
+                               tol=1e-5) for k, v in groups.items()}
+    out["prim index"] = int(((a["pi"] != b["pi"]).cpu().numpy()
+                             & keep).sum())
+    assert out["prim index"] <= 2, out
+    return out
+
+
+def slice_6b_launches(rec, kernel):
+    """``kernel``'s launches in each render of phase 35."""
+    return {k: v["launches"][kernel] for k, v in rec["renders"].items()}
+
+
+def slice_6b_phases(V, F, lanes, refs):
+    """Phase 35 (slice 6b): volpathmis and the AOV wrappers at full width.
+    (a) the flagship under volpathmis on the lane pool (spp 4, seed 1),
+    beside volpath's render of the same spp and seed: time, Msamples/s,
+    iterations, host syncs, walk steps, peak memory, tile_sweep launches ==
+    queries; its film the same estimand as phase 9's. (b) large3d under
+    volpathmis (spp 4, seed 1), beside volpath's: grid_gather launches ==
+    lookups > 0, its film the same estimand as phase 10's, a 64x64 spp4
+    film through the kernels against the plain gather and the plain sweep.
+    (c) aov (seven camera-hit types) over path on phase 3's terrain(256)
+    (spp 16) through the scan driver and a pool of 2^18 lanes: the base
+    films equal phase 3's and phase 17's, the AOVs of the two drivers
+    agree, tile_sweep launches == the child's queries + the AOV queries
+    (one a pass, one a refill); a 64x64 spp4 pool render through the
+    kernel and the plain sweep: depth bit-equal, every AOV bit-equal where
+    the prim index is. (d) duv_dx and duv_dy on the terrain, 64x64 spp4,
+    scan driver: finite, non-zero on hit pixels. (e) moment over volpath
+    on the flagship pool (spp 4, seed 1): its base film bit-equal to (a)'s
+    volpath film, the second moment >= the squared mean. (f) films.save
+    of (c)'s pool film and AOVs to EXR, read back bit for bit under the
+    reference's names. ``refs``: phase 3's terrain image and queries,
+    phase 9's and 10's films, phase 17's terrain pool film and queries.
+    Returns the records."""
+    import tempfile
+
+    from eradiate_kernel_tpu_torch import films, integrators
+    from eradiate_kernel_tpu_torch.integrators import aov
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils import bitmap
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    rec = {"renders": {}}
+    pool_lanes = 1 << 18
+
+    def atmo_dict(grid_res, kind="volpath"):
+        d = atmosphere(256, 256, 4, 12, grid_res=grid_res)
+        d["integrator"]["nee_transmittance"] = "residual"
+        d["integrator"]["type"] = kind
+        return d
+
+    def atmo_pair(label, grid_res, ref_film):
+        """volpath and volpathmis renders of one atmosphere at spp 4, seed
+        1: each one's record, volpathmis's against ``ref_film``."""
+        out = {}
+        for kind in ("volpath", "volpathmis"):
+            scene = load_dict(atmo_dict(grid_res, kind))
+            torch.cuda.reset_peak_memory_stats()
+            with walk_steps() as steps:
+                film, secs, launches, counts = counted_pool(scene, lanes,
+                                                            seed=1)
+            r = rec["renders"][f"{label} {kind}"] = check_atmosphere(
+                f"{label} 256x256 spp4 max_depth 12 {kind} (seed 1)", scene,
+                film, secs, launches, counts)
+            r.update(walk_steps=steps["n"],
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     launches_per_sample=launches["tile_sweep"]
+                     / (256 * 256 * 4),
+                     queries_per_iteration=counts["queries"]
+                     / counts["iterations"])
+            out[kind] = (scene, film)
+        r["vs_volpath_spp64_seed0"] = same_estimand(film, ref_film)
+        v = rec["renders"][f"{label} volpath"]
+        print(f"# 35 {label}: volpathmis {r['render_ms']:.1f} ms against "
+              f"volpath's {v['render_ms']:.1f} ms ("
+              f"{r['render_ms'] / v['render_ms']:.2f}x); walk steps "
+              f"{r['walk_steps']} against {v['walk_steps']}; tile_sweep "
+              f"launches a sample {r['launches_per_sample']:.4f} against "
+              f"{v['launches_per_sample']:.4f}, queries an iteration "
+              f"{r['queries_per_iteration']:.2f} against "
+              f"{v['queries_per_iteration']:.2f}; peak memory "
+              f"{r['peak_bytes'] / 2**20:.1f} MiB against "
+              f"{v['peak_bytes'] / 2**20:.1f} MiB; against the volpath film "
+              f"at spp 64 (seed 0): {r['vs_volpath_spp64_seed0']}",
+              flush=True)
+        return out
+
+    # ---- 35a. volpathmis on the flagship ---------------------------------------
+    phase_clock("35a")
+    flag = atmo_pair("flagship", 64, refs["flagship film"])
+    assert rec["renders"]["flagship volpathmis"]["lookups"] == 0  # einsum
+
+    # ---- 35b. volpathmis on large3d ---------------------------------------------
+    phase_clock("35b")
+    atmo_pair("large3d", (64, 64, 64), refs["large3d film"])
+    r = rec["renders"]["large3d volpathmis"]
+    assert r["launches"]["grid_gather"] == r["lookups"] > 0, r
+    small = load_dict(dict(atmosphere(64, 64, 4, 12,
+                                      grid_res=(64, 64, 64)),
+                           integrator={"type": "volpathmis",
+                                       "max_depth": 12}))
+    r["flips_vs_plain_64"] = films_vs_plain(small, lanes)
+    print(f"# 35b large3d volpathmis 64x64 spp4: kernels vs plain films "
+          f"agree ({r['flips_vs_plain_64']} pixels over tolerance, budget "
+          f"2)", flush=True)
+
+    # ---- 35c. aov over path on terrain(256) ---------------------------------
+    phase_clock("35c")
+    d = terrain_scene(V, F, 256, 256, 16, 6)
+    d["integrator"] = {"type": "aov", "aovs": AOV_SPEC,
+                       "child": d["integrator"]}
+    scene = load_dict(d)
+    names = integrators.aov_names(scene.config)
+    refills = {"n": 0}
+    refill_aov = aov._refill_aov
+
+    def counted_refill(*a, **kw):
+        refills["n"] += 1
+        return refill_aov(*a, **kw)
+
+    aov._refill_aov = counted_refill
+    try:
+        with counting() as read:
+            t0 = time.perf_counter()
+            img_s, aovs_s = integrators.render(scene, seed=0,
+                                               return_aovs=True)
+            torch.cuda.synchronize()
+            scan_s = time.perf_counter() - t0
+            got = read()
+        n_passes = 1  # 1,048,576 samples: one pass of the scan driver
+        sr = rec["renders"]["terrain aov scan"] = dict(
+            render_ms=scan_s * 1e3, launches=got["launches"],
+            queries=got["queries"])
+        assert got["launches"]["tile_sweep"] == got["queries"] \
+            == refs["terrain queries"] + n_passes, (got, refs)
+        sr["flips_vs_phase_3"] = films_equivalent(
+            refs["terrain image"].cpu().numpy(), img_s.cpu().numpy(), 2)
+        integrators.render(scene, seed=0, spp=1, regen=True,
+                           samples_per_pass=pool_lanes)  # warm-up
+        refills["n"] = 0
+        film_p, pool_s, launches, counts = counted_pool(scene, pool_lanes)
+        pr = rec["renders"]["terrain aov pool"] = check_pool(
+            "terrain aov over path 256x256 spp16 max_depth 6 (lane pool)",
+            scene, film_p, pool_s, launches, counts, "tile_sweep",
+            (0.005, 0.5))
+        pr["refill_queries"] = refills["n"]
+        assert counts["queries"] == refs["terrain pool queries"] \
+            + refills["n"], (counts, refs["terrain pool queries"])
+        pr["flips_vs_phase_17"] = films_equivalent(
+            refs["terrain pool film"].cpu().numpy(),
+            film_p[..., :5].cpu().numpy(), 2)
+        # the refills' own time: each refill query synchronised and timed
+        with stage_timers({"refill": (aov, "_refill_aov")}) as spent:
+            integrators.render(scene, seed=0, regen=True,
+                               samples_per_pass=pool_lanes,
+                               develop_film=False)
+        pr["refill_ms"] = spent["refill"] * 1e3
+    finally:
+        aov._refill_aov = refill_aov
+    aovs_p = aov_channels(film_p, names)
+    moved, pr["scan_samples_moved"] = scan_moved_pixels(scene, 0, 16)
+    pr["scan_moved_pixels"] = int(moved.sum())
+    pr["pixels_over_vs_scan"] = aov_drivers_agree(aovs_s, aovs_p, moved)
+    # 64x64 spp4 on the pool: through the kernel and the plain sweep
+    d64 = terrain_scene(V, F, 64, 64, 4, 6)
+    d64["integrator"] = {"type": "aov", "aovs": AOV_SPEC,
+                         "child": d64["integrator"]}
+    small = load_dict(d64)
+    film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+    with intersect.use_plain():
+        film_q, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+    pr["flips_vs_plain_64"] = films_equivalent(
+        film_q[..., :5].cpu().numpy(), film_k[..., :5].cpu().numpy(), 2)
+    ak, aq = aov_channels(film_k, names), aov_channels(film_q, names)
+    assert torch.equal(ak["dd"], aq["dd"])
+    same_prim = ak["pi"] == aq["pi"]
+    pr["prim_ties_vs_plain_64"] = int((~same_prim).sum())
+    assert pr["prim_ties_vs_plain_64"] <= 2, pr["prim_ties_vs_plain_64"]
+    for name in names:
+        assert torch.equal(ak[name][same_prim], aq[name][same_prim]), name
+    print(f"# 35c terrain aov 256x256 spp16: scan {scan_s * 1e3:.1f} ms "
+          f"(tile_sweep launches {sr['queries']} = phase 3's "
+          f"{refs['terrain queries']} + {n_passes} AOV query; base image vs "
+          f"phase 3's: {sr['flips_vs_phase_3']} pixels over tolerance, "
+          f"budget 2); pool {pool_s * 1e3:.1f} ms (launches "
+          f"{counts['queries']} = phase 17's {refs['terrain pool queries']}"
+          f" + {pr['refill_queries']} refill queries taking "
+          f"{pr['refill_ms']:.1f} ms "
+          f"synchronised; base film vs phase 17's: "
+          f"{pr['flips_vs_phase_17']} pixels, budget 2); AOVs scan vs pool: "
+          f"pixels over 1e-5 {pr['pixels_over_vs_scan']} (budget 2 each) "
+          f"outside the {pr['scan_moved_pixels']} pixels of the "
+          f"{pr['scan_samples_moved']} samples the scan splats into the "
+          f"next pixel; 64x64 spp4 kernel "
+          f"vs plain sweep: films {pr['flips_vs_plain_64']} pixels over "
+          f"tolerance, AOVs bit-equal (prim ties "
+          f"{pr['prim_ties_vs_plain_64']})", flush=True)
+
+    # ---- 35d. the uv partials on the terrain ------------------------------------
+    phase_clock("35d")
+    d64 = terrain_scene(V, F, 64, 64, 4, 6)
+    d64["integrator"] = {"type": "aov", "aovs": "d1:duv_dx,d2:duv_dy,"
+                         "si:shape_index", "child": d64["integrator"]}
+    duv_scene = load_dict(d64)
+    assert not integrators.regen_supported(duv_scene.config)
+    with counting() as read:
+        _img, aovs_d = integrators.render(duv_scene, seed=0,
+                                          return_aovs=True)
+        got = read()
+    assert got["launches"]["tile_sweep"] == got["queries"] > 0, got
+    duv = torch.stack([aovs_d[k] for k in ("d1.x", "d1.y", "d2.x", "d2.y")],
+                      -1)
+    hit = aovs_d["si"] == 0  # every sample of the pixel hit the terrain
+    assert bool(torch.isfinite(duv).all()) and bool(hit.any())
+    assert bool((duv[hit][:, :2].abs().sum(-1) > 0).all())
+    assert bool((duv[hit][:, 2:].abs().sum(-1) > 0).all())
+    rec["duv"] = dict(hit_pixels=int(hit.sum()),
+                      median_abs=duv[hit].abs().median(0).values.tolist(),
+                      launches=got["launches"]["tile_sweep"])
+    rec["renders"]["terrain duv 64x64 scan"] = dict(launches=got["launches"])
+    print(f"# 35d duv_dx, duv_dy 64x64 spp4 (scan driver): finite, non-zero "
+          f"on the {rec['duv']['hit_pixels']} hit pixels (median |duv| "
+          f"{rec['duv']['median_abs']}); tile_sweep launches "
+          f"{rec['duv']['launches']} = queries", flush=True)
+
+    # ---- 35e. moment over volpath on the flagship ------------------------------
+    phase_clock("35e")
+    dm = atmo_dict(64)
+    dm["integrator"] = {"type": "moment", "child": dm["integrator"]}
+    mscene = load_dict(dm)
+    film_m, secs_m, launches, counts = counted_pool(mscene, lanes, seed=1)
+    mr = rec["renders"]["flagship moment over volpath"] = check_atmosphere(
+        "flagship moment over volpath 256x256 spp4 max_depth 12 (seed 1)",
+        mscene, film_m, secs_m, launches, counts)
+    base = flag["volpath"][1]
+    # the wrapper draws nothing: the child's samples are the same, so the
+    # film is too (bit for bit unless the wider slot buffer's spp sum
+    # associates differently: then within 1e-6, no pixel over)
+    mr["base_bit_equal_to_volpath"] = bool(torch.equal(film_m[..., :5],
+                                                       base))
+    films_equivalent(base.cpu().numpy(), film_m[..., :5].cpu().numpy(), 0,
+                     tol=1e-6)
+    m2 = aov_channels(film_m, ["m2.x", "m2.y", "m2.z"])
+    w = torch.clamp(film_m[..., 4], min=1e-12)
+    worst = 0.0
+    for i, c in enumerate("xyz"):
+        mean = film_m[..., i] / w
+        gap = m2[f"m2.{c}"] - mean * mean
+        # equality (one sample value in the pixel) within an ulp
+        assert bool((gap >= -1e-6 * mean * mean).all()), c
+        worst = min(worst, float(gap.min()))
+    mr["min_variance"] = worst
+    print(f"# 35e moment over volpath: {mr['render_ms']:.1f} ms; base film "
+          f"against volpath's of the same seed: bit-equal "
+          f"{mr['base_bit_equal_to_volpath']}; m2 - mean^2 >= 0 in every "
+          f"pixel (least {worst:.3e})", flush=True)
+
+    # ---- 35f. films.save of the AOV film -----------------------------------------
+    phase_clock("35f")
+    with tempfile.TemporaryDirectory() as out:
+        path = os.path.join(out, "aov.exr")
+        films.save(path, film_p, aovs=aovs_p)
+        back, got_names = bitmap.read_exr(path)
+    assert sorted(got_names) == sorted(["R", "G", "B"] + names), got_names
+    written = dict(zip(["R", "G", "B"], np.moveaxis(
+        films.develop(film_p).cpu().numpy(), -1, 0)))
+    written.update({k: v.cpu().numpy() for k, v in aovs_p.items()})
+    for i, name in enumerate(got_names):
+        assert np.array_equal(back[..., i], written[name]), name
+    rec["exr_channels"] = got_names
+    print(f"# 35f films.save: {len(got_names)} channels {got_names} read "
+          f"back bit-equal", flush=True)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3381,6 +3751,7 @@ def main():
                  (0.005, 0.5))
     sweep_launches = launches["tile_sweep"]
     terrain_img = img  # phase 29's films from mesh files equal it
+    REF_FILMS.update({"terrain image": img, "terrain queries": queries})
 
     # ---- 4. whole path: kernel vs plain sweep --------------------------------
     phase_clock("4")
@@ -3563,12 +3934,14 @@ def main():
     atmo = {"flagship": check_atmosphere(
         "atmosphere 256x256 spp64 max_depth 12 grid 64", flagship, film,
         atmo_s, launches, counts)}
+    REF_FILMS["flagship film"] = film  # phase 35's volpathmis is held to it
     assert launches["grid_gather"] == 0  # the einsum path: 1,024 voxels
     large = bench_atmosphere(256, 256, 4, 12, grid_res=(64, 64, 64))
     assert large.vol_packed is not None
     with walk_steps() as steps:
         film, secs_l, launches, counts = counted_pool(large, lanes)
     large_film = film  # phase 33's ablations hold their films to it
+    REF_FILMS["large3d film"] = film
     atmo["large3d"] = check_atmosphere(
         "atmosphere 256x256 spp4 max_depth 12 grid 64^3", large, film,
         secs_l, launches, counts)
@@ -3717,6 +4090,7 @@ def main():
     s5c2 = slice_5c2_phases(V, F, scene, terrain_img, lanes)
     s6a = slice_6a_phases(lanes, large_film, atmo["large3d"])
     s7a = slice_7a_phases(V, F, lanes, large_film)
+    s6b = slice_6b_phases(V, F, lanes, REF_FILMS)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -3803,6 +4177,7 @@ def main():
                    "tile_sweep"]}),
         "launches_slice_6a": slice_6a_launches(s6a, "tile_sweep"),
         "launches_slice_7a": slice_7a_launches(s7a, "tile_sweep"),
+        "launches_slice_6b": slice_6b_launches(s6b, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -3867,6 +4242,7 @@ def main():
         # lookups), the trilinear entry under the ablations
         "launches_slice_6a": slice_6a_launches(s6a, "grid_gather"),
         "launches_slice_7a": slice_7a_launches(s7a, "grid_gather"),
+        "launches_slice_6b": slice_6b_launches(s6b, "grid_gather"),
         "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
     })
     bwd1 = bwd_loads["C=1"]
@@ -3909,6 +4285,7 @@ def main():
     print(json.dumps({"slice_5c2": s5c2}))
     print(json.dumps({"slice_6a": s6a}))
     print(json.dumps({"slice_7a": s7a}))
+    print(json.dumps({"slice_6b": s6b}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

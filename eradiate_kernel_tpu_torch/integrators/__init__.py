@@ -3,7 +3,8 @@ counterpart): the scan driver ``render_wavefront`` and the regenerating
 lane pool ``render_wavefront_regen``.
 
 Sample index s -> pixel = s // spp, a jittered film position, a camera
-ray, the integrator, and a row of [X, Y, Z, A, W] in the film. The scan
+ray, the integrator, and a row of [X, Y, Z, A, W] in the film, then the
+wrapper integrators' AOV channels (aov, moment: ``n_aov`` of them). The scan
 driver renders contiguous runs of samples per pass; the lane pool keeps a
 fixed number of lanes busy, refilling each lane whose path ended with the
 next unstarted sample. Both draw every sample from the same RNG stream, so
@@ -15,23 +16,51 @@ layout); rgb converts to XYZ.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from .. import sensors
 from ..core.rng import Sampler
-from ..core.spectrum import srgb_to_xyz
 from ..films import N_BASE_CHANNELS, develop, film_put
 from ..rfilters import filter_radius
-from . import common, depth, direct, path, volpath
+from . import aov, common, depth, direct, moment, path, volpath, volpathmis
 
 REGISTRY = {"path": path, "direct": direct, "depth": depth,
-            "volpath": volpath}
+            "volpath": volpath, "volpathmis": volpathmis, "aov": aov,
+            "moment": moment}
 
 
-def _camera_lanes(scene, seed, spp, sample):
+def n_aov(cfg):
+    """The number of AOV channels the integrator adds after the film's 5."""
+    mod = REGISTRY[cfg.integrator.kind]
+    return mod.n_aov(cfg) if hasattr(mod, "n_aov") else 0
+
+
+def aov_names(cfg):
+    mod = REGISTRY[cfg.integrator.kind]
+    return mod.aov_names(cfg) if hasattr(mod, "aov_names") else []
+
+
+def _bounce_module(cfg):
+    """The module whose bounce hooks the lane pool drives: a wrapper's
+    child, else the integrator itself."""
+    mod = REGISTRY[cfg.integrator.kind]
+    return mod._regen_module(cfg) if hasattr(mod, "_regen_module") else mod
+
+
+def _needs_differentials(cfg):
+    """Whether the AOV spec asks for the offset camera rays (duv AOVs)."""
+    mod = REGISTRY[cfg.integrator.kind]
+    return bool(n_aov(cfg)) and getattr(mod, "needs_differentials",
+                                        lambda _cfg: False)(cfg)
+
+
+def _camera_lanes(scene, seed, spp, sample, differentials=False):
     """The camera part of samples ``sample`` (int64 (N,)): seed -> jitter
-    -> sensor ray. Returns (sampler, ray, ray weight, film position)."""
+    -> sensor ray. Returns (sampler, ray, ray weight, film position); with
+    ``differentials`` also the ray differentials, scaled by 1/sqrt(spp)
+    (integrator.cpp:257-261)."""
     cfg = scene.config
     H, W = cfg.film_height, cfg.film_width
     cw = cfg.crop_size[0] if cfg.crop_size else W
@@ -44,9 +73,13 @@ def _camera_lanes(scene, seed, spp, sample):
     pos = torch.stack([px, py], dim=-1) + jitter
     pos_film = pos / torch.tensor([W, H], dtype=torch.float32,
                                   device=pos.device)
-    ray, ray_weight, sampler = sensors.sample_ray(
-        scene, sampler, pos_film, torch.zeros(sample.shape[0],
-                                              device=pos.device))
+    time = torch.zeros(sample.shape[0], device=pos.device)
+    if differentials:
+        ray, rd, ray_weight, sampler = sensors.sample_ray_differential(
+            scene, sampler, pos_film, time, diff_scale=1.0 / math.sqrt(spp))
+        return sampler, ray, ray_weight, pos, rd
+    ray, ray_weight, sampler = sensors.sample_ray(scene, sampler, pos_film,
+                                                  time)
     return sampler, ray, ray_weight, pos
 
 
@@ -54,15 +87,16 @@ def _film_rows(spec, valid):
     """[X, Y, Z, A, W] rows of finished samples: rgb (N, 3) converts to
     XYZ, mono (N, 1) repeats into X, Y and Z."""
     one = torch.ones_like(spec[:, :1])
-    xyz = spec.expand(-1, 3) if spec.shape[1] == 1 else srgb_to_xyz(spec)
-    return torch.cat([xyz, torch.where(valid, 1.0, 0.0)[:, None], one],
-                     dim=-1)
+    return torch.cat([common.spec_to_xyz(spec),
+                      torch.where(valid, 1.0, 0.0)[:, None], one], dim=-1)
 
 
 def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
     """One pass of ``n_lanes`` samples from global sample index
-    ``lane_offset``; returns the partial film (H, W, 5). Lanes beyond the
-    film's sample count are masked out."""
+    ``lane_offset``; returns the partial film (H, W, 5 + n_aov). Lanes
+    beyond the film's sample count are masked out. An AOV integrator's
+    columns follow the base channels; only duv AOVs pay for the offset
+    camera rays."""
     cfg = scene.config
     dev = scene.bsphere_center.device
     H, W = cfg.film_height, cfg.film_width
@@ -72,13 +106,21 @@ def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
 
     lane = lane_offset + torch.arange(n_lanes, dtype=torch.int64, device=dev)
     lane_ok = lane < total
-    sampler, ray, ray_weight, pos = _camera_lanes(
-        scene, seed, spp, torch.clamp(lane, max=total - 1))
-    spec, valid, sampler = REGISTRY[cfg.integrator.kind].sample(scene,
-                                                                sampler, ray)
-    values = torch.where(lane_ok[:, None], _film_rows(spec * ray_weight,
-                                                      valid), 0.0)
-    image = torch.zeros(ch, cw, N_BASE_CHANNELS, device=dev)
+    mod = REGISTRY[cfg.integrator.kind]
+    extra = n_aov(cfg)
+    diff = _needs_differentials(cfg)
+    sampler, ray, ray_weight, pos, *rd = _camera_lanes(
+        scene, seed, spp, torch.clamp(lane, max=total - 1), diff)
+    if extra:
+        kw = {"ray_diff": rd[0]} if diff else {}
+        spec, valid, sampler, aovs = mod.sample_aov(scene, sampler, ray,
+                                                    ray_weight, **kw)
+        rows = torch.cat([_film_rows(spec * ray_weight, valid), aovs], -1)
+    else:
+        spec, valid, sampler = mod.sample(scene, sampler, ray)
+        rows = _film_rows(spec * ray_weight, valid)
+    values = torch.where(lane_ok[:, None], rows, 0.0)
+    image = torch.zeros(ch, cw, N_BASE_CHANNELS + extra, device=dev)
     offset = torch.tensor([cx, cy], dtype=torch.float32, device=dev)
     return film_put(image, pos - offset, values, cfg.rfilter,
                     dict(cfg.rfilter_params))
@@ -113,14 +155,14 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
        (n_lanes,) holds the sample index of each lane whose path ended
        since the last visit and ``total`` (a trash row) for the others;
     2. dead lanes take the next unstarted samples (camera ray, fresh
-       integrator state); ``refill(ridx, new)`` is told which lanes took
-       which samples;
+       integrator state); ``refill(ridx, new, ray)`` is told which lanes
+       took which samples, and their camera rays;
     3. ``bounce(vp, occupied)`` runs one bounce over the whole pool (its
        unoccupied lanes inactive) and returns the new state.
 
     Returns the rays traced (a 0-d tensor). ``stats``, a dict, receives the
     loop iterations and the samples dropped by the runaway cap."""
-    mod = REGISTRY[scene.config.integrator.kind]
+    mod = _bounce_module(scene.config)
     dev = scene.bsphere_center.device
     trash = torch.full((n_lanes,), total, dtype=torch.int64, device=dev)
     lane_sample = trash.clone()
@@ -167,7 +209,7 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
             its = its.index_fill(0, ridx, 0)
             next_sample += m
             if refill is not None:
-                refill(ridx, new)
+                refill(ridx, new, ray)
         if n_dead - m == n_lanes:  # nothing occupied, nothing left
             break
 
@@ -192,8 +234,10 @@ def _check_regen(cfg):
     """Raise unless the lane pool can render this scene config."""
     if not regen_supported(cfg):
         raise NotImplementedError(
-            f"the lane pool runs path and volpath; {cfg.integrator.kind!r} "
-            "takes the scan driver (render(regen=False))")
+            f"the lane pool runs path, volpath, volpathmis and the aov and "
+            f"moment wrappers over them (duv AOVs aside); "
+            f"{cfg.integrator.kind!r} here takes the scan driver "
+            "(render(regen=False))")
 
 
 def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
@@ -210,15 +254,22 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     the film with film_put (the others add zero rows). Lanes may run in any
     order: a sample's random numbers are keyed by its index.
 
-    Returns (film (ch, cw, 5), rays traced (a 0-d tensor)); with
+    An AOV wrapper's pool bounces its child; its columns come from the
+    wrapper's hooks: ``_refill_aov`` (the camera hit, computed at refill
+    and carried in the lane) and ``_harvest_aov`` (from the harvested
+    lane), and follow the base channels in the slots and the film.
+
+    Returns (film (ch, cw, 5 + n_aov), rays traced (a 0-d tensor)); with
     ``sample_log`` also the sample log (total, nc): row s is sample s's
     integrator ``result`` before the ray weight, written beside its film
     row (the path-replay backward's radiance totals). ``stats``, a dict,
     receives the loop iterations and the samples dropped by the runaway
     cap."""
     cfg = scene.config
-    mod = REGISTRY[cfg.integrator.kind]
+    wrapper = REGISTRY[cfg.integrator.kind]
+    mod = _bounce_module(cfg)
     _check_regen(cfg)
+    extra = n_aov(cfg)
     dev = scene.bsphere_center.device
     cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
                                                   cfg.film_height)
@@ -229,16 +280,25 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
 
     rp = dict(cfg.rfilter_params)
     wide = filter_radius(cfg.rfilter, rp) > 0.5 + 1e-6
+    n_ch = N_BASE_CHANNELS + extra
     # slot `total` is the trash row of lanes that finished nothing
-    slots = (None if wide else
-             torch.zeros(total + 1, N_BASE_CHANNELS, device=dev))
-    film = torch.zeros(ch, cw, N_BASE_CHANNELS, device=dev) if wide else None
+    slots = None if wide else torch.zeros(total + 1, n_ch, device=dev)
+    film = torch.zeros(ch, cw, n_ch, device=dev) if wide else None
     offset = torch.tensor(cfg.crop_offset, dtype=torch.float32, device=dev)
     rlog = (torch.zeros(total + 1, cfg.variant.n_channels, device=dev)
             if sample_log else None)
+    # the camera-hit AOV columns carried per lane (filled at refill)
+    carry = (torch.zeros(n_lanes, extra, device=dev)
+             if hasattr(wrapper, "_refill_aov") else None)
+
+    def refill(ridx, _new, ray):
+        carry.index_copy_(0, ridx, wrapper._refill_aov(scene, ray))
 
     def harvest(vp, rw, pos, slot):
         rows = _film_rows(vp.result * rw, vp.valid_ray)
+        if extra:
+            rows = torch.cat([rows, wrapper._harvest_aov(scene, vp, rw,
+                                                         carry)], -1)
         if wide:
             film_put(film, pos - offset,
                      torch.where((slot < total)[:, None], rows, 0.0),
@@ -250,31 +310,52 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
 
     rays = _run_pool(scene, n_lanes, seed, spp, total, max_iterations,
                      lambda vp, _occ: mod._bounce(scene, vp, **bounce_kwargs),
-                     harvest=harvest, stats=stats)
+                     harvest=harvest, refill=None if carry is None else refill,
+                     stats=stats)
     if not wide:
-        film = slots[:total].reshape(ch * cw, spp, N_BASE_CHANNELS).sum(1)
-        film = film.reshape(ch, cw, N_BASE_CHANNELS)
+        film = slots[:total].reshape(ch * cw, spp, n_ch).sum(1)
+        film = film.reshape(ch, cw, n_ch)
     if sample_log:
         return film, rays, rlog[:total]
     return film, rays
 
 
 def regen_supported(cfg) -> bool:
-    """Whether the lane pool can run this integrator: it needs the bounce
-    hooks (path and volpath have them; direct and depth take the scan
-    driver, as in the reference)."""
-    mod = REGISTRY[cfg.integrator.kind]
-    return all(hasattr(mod, h) for h in ("_init_state", "_bounce", "_knobs"))
+    """Whether the lane pool can run this integrator (reference
+    integrators/__init__.py:552-568): the (possibly wrapped) integrator
+    needs the bounce hooks (path, volpath and volpathmis have them; direct
+    and depth take the scan driver, as in the reference), and an AOV
+    wrapper its harvest hook; duv AOVs need the offset camera rays and
+    keep the scan driver."""
+    bmod = _bounce_module(cfg)
+    if not all(hasattr(bmod, h) for h in ("_init_state", "_bounce",
+                                          "_knobs")):
+        return False
+    if n_aov(cfg):
+        return (hasattr(REGISTRY[cfg.integrator.kind], "_harvest_aov")
+                and not _needs_differentials(cfg))
+    return True
+
+
+def _requires_grad(scene):
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in scene.tensors().values())
 
 
 def render(scene, seed=0, spp=None, samples_per_pass=None,
-           develop_film=True, regen=False):
+           develop_film=True, return_aovs=False, regen=False):
     """Multi-pass wavefront render, or with ``regen`` the lane pool of
     ``samples_per_pass`` lanes. Returns the developed image (H, W, 3), or
-    the raw (H, W, 5) film with ``develop_film=False``. Both drivers are
-    differentiable with respect to the scene's value-class tensors: the
-    scan driver by autograd through its passes, the lane pool through the
-    path-replay backward (integrators/replay.py)."""
+    the raw (H, W, 5 + n_aov) film with ``develop_film=False``; with
+    ``return_aovs`` also a {name: (H, W)} dict of the integrator's
+    weight-normalised AOV channels (aov.cpp and moment.cpp's outputs).
+
+    Both drivers are differentiable with respect to the scene's
+    value-class tensors for path and volpath: the scan driver by autograd
+    through its passes, the lane pool through the path-replay backward
+    (integrators/replay.py). The other integrators have no replay, and the
+    reference cannot differentiate its pool: their gradients go through
+    the scan driver, and ``regen=True`` raises under autograd."""
     cfg = scene.config
     spp = spp or cfg.spp
     cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
@@ -291,18 +372,31 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
             film = replay.render_regen_diff(scene, seed, samples_per_pass,
                                             spp)
         else:
+            if _requires_grad(scene):
+                raise NotImplementedError(
+                    f"render(regen=True) of {cfg.integrator.kind!r} has no "
+                    "backward (the lane pool is not differentiable); take "
+                    "the gradient through the scan driver, "
+                    "render(regen=False)")
             film, _rays = render_wavefront_regen(scene, samples_per_pass,
                                                  seed, spp)
     else:
-        film = torch.zeros(ch, cw, N_BASE_CHANNELS,
+        film = torch.zeros(ch, cw, N_BASE_CHANNELS + n_aov(cfg),
                            device=scene.bsphere_center.device)
         for off in range(0, total, samples_per_pass):
             film += render_wavefront(scene, off, min(samples_per_pass,
                                                      total - off), seed, spp)
     if not develop_film:
         return film
-    return develop(film, cfg.variant.mode, cfg.pixel_format)
+    img = develop(film[..., :N_BASE_CHANNELS], cfg.variant.mode,
+                  cfg.pixel_format)
+    if not return_aovs:
+        return img
+    aov_img = film[..., N_BASE_CHANNELS:] / torch.clamp(film[..., 4:5],
+                                                        min=1e-12)
+    return img, {name: aov_img[..., i]
+                 for i, name in enumerate(aov_names(cfg))}
 
 
-__all__ = ["REGISTRY", "render", "render_wavefront",
+__all__ = ["REGISTRY", "aov_names", "n_aov", "render", "render_wavefront",
            "render_wavefront_regen", "regen_supported"]

@@ -9,8 +9,9 @@ import torch
 from ..render.geometry import ray_intersect
 
 
-def sample(scene, sampler, ray):
-    """-> (depth (N, 3), valid, sampler)."""
+def sample(scene, sampler, ray, active=None):
+    """-> (depth (N, 3), valid, sampler); ``active`` is accepted and
+    unread, as in the reference."""
     si = ray_intersect(scene.geo, ray)
     t = torch.where(si.is_valid, si.t, 0.0)
     return t[:, None].expand(-1, 3), si.is_valid, sampler

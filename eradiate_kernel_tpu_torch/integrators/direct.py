@@ -11,9 +11,12 @@ from ..render.geometry import ray_intersect
 from .common import mis_weight
 
 
-def sample(scene, sampler, ray):
-    """Incident radiance along ``ray`` -> (spec (N, 3), valid, sampler)."""
-    active = torch.ones(ray.o.shape[0], dtype=torch.bool, device=ray.o.device)
+def sample(scene, sampler, ray, active=None):
+    """Incident radiance along ``ray`` (on the ``active`` lanes, default
+    all) -> (spec (N, 3), valid, sampler)."""
+    if active is None:
+        active = torch.ones(ray.o.shape[0], dtype=torch.bool,
+                            device=ray.o.device)
     si = ray_intersect(scene.geo, ray)
     valid = si.is_valid
     result = (emitters.eval_emitter_hit(scene, si, active)

@@ -178,14 +178,14 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
         active=active, n_rays=n_rays)
 
 
-def _trace(scene, sampler: Sampler, ray: Ray):
+def _trace(scene, sampler: Sampler, ray: Ray, active=None):
     """Run up to max_depth bounces; returns (final state, bounces run).
 
     The reference scans a fixed max_depth bounces. Once every lane is dead
     a bounce changes nothing but the sampler's counter, which no later
     draw reads, so the loop stops there."""
     max_iterations, bkw = _knobs(scene)
-    state = _init_state(scene, sampler, ray)
+    state = _init_state(scene, sampler, ray, active)
     bounces = 0
     while bounces < max_iterations and any_lane(state.active):
         state = _bounce(scene, state, **bkw)
@@ -193,7 +193,8 @@ def _trace(scene, sampler: Sampler, ray: Ray):
     return state, bounces
 
 
-def sample(scene, sampler: Sampler, ray: Ray):
-    """Incident radiance along ``ray`` -> (spec (N, 3), valid, sampler)."""
-    final, _ = _trace(scene, sampler, ray)
+def sample(scene, sampler: Sampler, ray: Ray, active=None):
+    """Incident radiance along ``ray`` (on the ``active`` lanes, default
+    all) -> (spec (N, 3), valid, sampler)."""
+    final, _ = _trace(scene, sampler, ray, active)
     return final.result, final.valid_ray, final.sampler

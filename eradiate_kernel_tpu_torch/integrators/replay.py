@@ -145,7 +145,7 @@ def _adjoint_sweep(scene, seed, slog, ct_film, n_lanes, spp, needs):
     lane = {"delta": torch.zeros(n_lanes, nc, device=dev),
             "L": torch.zeros(n_lanes, nc, device=dev)}
 
-    def refill(ridx, new):
+    def refill(ridx, new, _ray):
         lane["delta"] = lane["delta"].index_copy(0, ridx, delta_all[new])
         lane["L"] = lane["L"].index_copy(0, ridx, slog[new])
 

@@ -938,8 +938,11 @@ def _knobs(scene):
                                 rr_depth=cfg.rr_depth)
 
 
-def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
-    """Fresh per-lane path state (the pre-loop part of volpath.cpp:38-77)."""
+def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
+                medium_idx=None):
+    """Fresh per-lane path state (the pre-loop part of volpath.cpp:38-77);
+    ``medium_idx`` (N,) the medium each ray starts in (default the
+    sensor's)."""
     cfg = scene.config
     n = ray.o.shape[0]
     dev = ray.o.device
@@ -960,8 +963,9 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
     return _VolPathState(
         sampler=sampler, ray=ray, si=invalid_si(n, dev),
         needs_intersection=ok.clone(),
-        medium_idx=torch.full((n,), cfg.sensor_medium, dtype=torch.int32,
-                              device=dev),
+        medium_idx=(torch.full((n,), cfg.sensor_medium, dtype=torch.int32,
+                               device=dev) if medium_idx is None
+                    else medium_idx.to(torch.int32)),
         throughput=torch.ones(n, nc, device=dev) + v0[:, None],
         result=torch.zeros(n, nc, device=dev),
         eta=torch.ones(n, device=dev) + v0,
@@ -972,12 +976,12 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
         active=active, n_rays=torch.zeros((), device=dev))
 
 
-def _trace(scene, sampler: Sampler, ray: Ray):
+def _trace(scene, sampler: Sampler, ray: Ray, active=None, medium_idx=None):
     """The scan driver's trace: up to max_iterations bounces over one
     wavefront; stops once every lane is dead (a bounce then changes only
     the sampler's counter, which nothing reads)."""
     max_iterations, bkw = _knobs(scene)
-    state = _init_state(scene, sampler, ray)
+    state = _init_state(scene, sampler, ray, active, medium_idx)
     for _ in range(max_iterations):
         if not any_lane(state.active):
             break
@@ -985,7 +989,9 @@ def _trace(scene, sampler: Sampler, ray: Ray):
     return state
 
 
-def sample(scene, sampler: Sampler, ray: Ray):
-    """Incident radiance along ``ray`` -> (spec (N, 3), valid, sampler)."""
-    final = _trace(scene, sampler, ray)
+def sample(scene, sampler: Sampler, ray: Ray, active=None, medium_idx=None):
+    """Incident radiance along ``ray`` (on the ``active`` lanes, from
+    ``medium_idx``; defaults: all lanes, the sensor's medium) -> (spec
+    (N, 3), valid, sampler)."""
+    final = _trace(scene, sampler, ray, active, medium_idx)
     return final.result, final.valid_ray, final.sampler

@@ -102,6 +102,48 @@ def invalid_si(n, device):
 
 
 @dataclasses.dataclass(frozen=True)
+class RayDifferential:
+    """Offset-ray differentials (ray.h:21-44 RayDifferential3f): the camera
+    ray re-sampled one film pixel over in x and y, pre-scaled by the
+    sample-density factor 1/sqrt(spp) (Ray::scale_differential with
+    integrator.cpp:257-261's diff_scale_factor)."""
+
+    o_x: torch.Tensor  # (N, 3)
+    d_x: torch.Tensor  # (N, 3)
+    o_y: torch.Tensor  # (N, 3)
+    d_y: torch.Tensor  # (N, 3)
+
+
+def compute_uv_partials(si, rd):
+    """SurfaceInteraction::compute_uv_partials (interaction.h:217-249):
+    intersect both offset rays with the hit's tangent plane and solve the
+    2x2 least-squares system projecting dp_dx and dp_dy onto (dp_du,
+    dp_dv). Returns (duv_dx, duv_dy) (N, 2) each, zero where dp_du and
+    dp_dv are degenerate."""
+    d = dot(si.n, si.p)
+    t_x = (d - dot(si.n, rd.o_x)) / dot(si.n, rd.d_x)
+    t_y = (d - dot(si.n, rd.o_y)) / dot(si.n, rd.d_y)
+    dp_dx = rd.o_x + rd.d_x * t_x[..., None] - si.p
+    dp_dy = rd.o_y + rd.d_y * t_y[..., None] - si.p
+
+    a00 = dot(si.dp_du, si.dp_du)
+    a01 = dot(si.dp_du, si.dp_dv)
+    a11 = dot(si.dp_dv, si.dp_dv)
+    inv_det = 1.0 / (a00 * a11 - a01 * a01)
+    inv_det = torch.where(torch.isfinite(inv_det), inv_det, 0.0)
+
+    b0x = dot(si.dp_du, dp_dx)
+    b1x = dot(si.dp_dv, dp_dx)
+    b0y = dot(si.dp_du, dp_dy)
+    b1y = dot(si.dp_dv, dp_dy)
+    duv_dx = torch.stack([a11 * b0x - a01 * b1x,
+                          a00 * b1x - a01 * b0x], -1) * inv_det[..., None]
+    duv_dy = torch.stack([a11 * b0y - a01 * b1y,
+                          a00 * b1y - a01 * b0y], -1) * inv_det[..., None]
+    return duv_dx, duv_dy
+
+
+@dataclasses.dataclass(frozen=True)
 class PositionSample:
     """A point sampled on a shape's surface (area-measure pdf)."""
 

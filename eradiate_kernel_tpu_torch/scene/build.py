@@ -36,13 +36,44 @@ from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
 
 _BSDF_TYPES = (*BSDF_REGISTRY, "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
-_INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath")
+_INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath", "volpathmis",
+                     "aov", "moment")
+# the wrappers: their child integrator's settings are the config's
+_WRAPPER_TYPES = ("aov", "moment")
+# integrators of later slices, refused by name
+_LATER_INTEGRATORS = {"bins": "6c (the spectral variant)",
+                      "nbins": "6c (the spectral variant)",
+                      "stokes": "6e (the polarized variant)"}
 # the integrator's extra properties load_dict keeps (the reference's, and
 # replay_lanes: the lane count of the path-replay adjoint, which the
-# reference reads from the extras but its load_dict drops)
+# reference reads from the extras but its load_dict drops); a wrapper adds
+# ("child", kind) and its own "aovs"
 _INTEGRATOR_EXTRAS = ("max_iterations", "nee_steps", "nee_transmittance",
                       "nee_quad_points", "ff_majorant", "replay_lanes")
 _WRAP_CODES = {"clamp": 0, "repeat": 1, "mirror": 2}
+
+
+def _integrator_config(kind, val):
+    """The IntegratorConfig of an integrator entry. A wrapper (aov,
+    moment) takes its nested child integrator's settings (the first dict
+    entry whose type is an integrator; none: path with the defaults) and
+    adds ("child", its kind) and its "aovs" to the extras (reference
+    scene/build.py:1036-1060)."""
+    props, extra = val, []
+    if kind in _WRAPPER_TYPES:
+        children = [v for v in val.values() if isinstance(v, dict)
+                    and v.get("type") in _INTEGRATOR_TYPES
+                    and v["type"] not in _WRAPPER_TYPES]
+        props = children[0] if children else {}
+        extra.append(("child", props.get("type", "path")))
+        if "aovs" in val:
+            extra.append(("aovs", val["aovs"]))
+    extra += [(k, v) for k, v in props.items() if k in _INTEGRATOR_EXTRAS]
+    return IntegratorConfig(
+        kind=kind, max_depth=int(props.get("max_depth", 8)),
+        rr_depth=int(props.get("rr_depth", 5)),
+        hide_emitters=bool(props.get("hide_emitters", False)),
+        extra=tuple(sorted(extra)))
 
 
 class SceneBuilder:
@@ -800,19 +831,16 @@ def load_dict(d: dict, variant: Variant | None = None,
             if "medium" in val:
                 b.sensor_medium = b.medium(val["medium"])
         elif t in _INTEGRATOR_TYPES:
-            integrator_cfg = IntegratorConfig(
-                kind=t,
-                max_depth=int(val.get("max_depth", 8)),
-                rr_depth=int(val.get("rr_depth", 5)),
-                hide_emitters=bool(val.get("hide_emitters", False)),
-                extra=tuple(sorted((k, v) for k, v in val.items()
-                                   if k in _INTEGRATOR_EXTRAS)))
+            integrator_cfg = _integrator_config(t, val)
+        elif t in _LATER_INTEGRATORS:
+            raise NotImplementedError(
+                f"integrator {t!r}: comes with slice {_LATER_INTEGRATORS[t]}")
         elif t in _MEDIUM_TYPES:
             b.named[key] = ("medium", b.medium(val))
         elif t not in _BSDF_TYPES:
             raise NotImplementedError(
                 f"scene entry {key!r} of type {t!r}: not carried by the "
-                "port; the other integrators come with slice 6")
+                "port")
 
     if pending_sensor is not None:
         # built after every shape (irradiancemeter's shape ref); its film

@@ -44,7 +44,8 @@ SUPPORTED = {
                     "blendphase"},
     "volume_kinds": {"constvolume", "gridvolume", "gridvolume_nearest"},
 }
-INTEGRATORS = ("path", "direct", "depth", "volpath")
+INTEGRATORS = ("path", "direct", "depth", "volpath", "volpathmis", "aov",
+               "moment")
 # volpath's transmittance estimators and free-flight majorants, the default
 # first
 NEE_MODES = {"nee_transmittance": ("residual", "track", "quadrature"),
@@ -110,7 +111,8 @@ class SceneConfig:
         if self.integrator.kind not in INTEGRATORS:
             raise NotImplementedError(
                 f"integrator {self.integrator.kind!r}: the port carries "
-                f"{INTEGRATORS}; volpathmis comes with slice 6")
+                f"{INTEGRATORS}; bins and nbins come with slice 6c, "
+                "stokes with slice 6e")
         extra = dict(self.integrator.extra)
         for key, allowed in NEE_MODES.items():
             if extra.get(key, allowed[0]) not in allowed:

@@ -228,3 +228,29 @@ def sample_ray(scene, sampler, pos_film, time):
         time = params["shutter_open"] + u * params["shutter_span"]
     fn = REGISTRY[scene.config.sensor_kind]
     return fn(scene, params, sampler, pos_film, time)
+
+
+def sample_ray_differential(scene, sampler, pos_film, time, diff_scale=1.0):
+    """Sensor::sample_ray_differential (sensor.cpp:59-84): the main ray and
+    two rays re-sampled one film pixel over in x and y. The offset calls
+    replay the same sampler state as the main ray (the reference passes
+    the same samples to all three sample_ray calls), so their aperture,
+    wavelength and shutter draws match; only the main call's advanced
+    sampler is kept. The differentials are scaled by ``diff_scale``
+    (1/sqrt(spp) in the drivers: Ray::scale_differential and
+    integrator.cpp:257-261). Returns (ray, RayDifferential, weight,
+    sampler)."""
+    from ..render.records import RayDifferential
+
+    cfg = scene.config
+    ray, weight, sampler_out = sample_ray(scene, sampler, pos_film, time)
+    dx = torch.tensor([1.0 / cfg.film_width, 0.0], device=pos_film.device)
+    dy = torch.tensor([0.0, 1.0 / cfg.film_height], device=pos_film.device)
+    ray_x, _, _ = sample_ray(scene, sampler, pos_film + dx, time)
+    ray_y, _, _ = sample_ray(scene, sampler, pos_film + dy, time)
+    rd = RayDifferential(
+        o_x=ray.o + (ray_x.o - ray.o) * diff_scale,
+        d_x=ray.d + (ray_x.d - ray.d) * diff_scale,
+        o_y=ray.o + (ray_y.o - ray.o) * diff_scale,
+        d_y=ray.d + (ray_y.d - ray.d) * diff_scale)
+    return ray, rd, weight, sampler_out

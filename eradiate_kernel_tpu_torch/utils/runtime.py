@@ -90,7 +90,8 @@ def render(scene, seed=0, spp=None, samples_per_pass=None, progress=False,
     n_passes = -(-total // samples_per_pass)
 
     reporter = ProgressReporter() if progress else None
-    film = torch.zeros(ch, cw, N_BASE_CHANNELS, device=dev)
+    film = torch.zeros(ch, cw, N_BASE_CHANNELS + integrators.n_aov(cfg),
+                       device=dev)
     start_pass = 0
 
     ident = np.asarray([seed, spp, cw, ch, samples_per_pass], np.int64)
@@ -125,7 +126,8 @@ def render(scene, seed=0, spp=None, samples_per_pass=None, progress=False,
         os.remove(checkpoint_path)  # completed: checkpoint no longer needed
     if not develop_film:
         return film
-    return develop(film, cfg.variant.mode, cfg.pixel_format)
+    return develop(film[..., :N_BASE_CHANNELS], cfg.variant.mode,
+                   cfg.pixel_format)
 
 
 # =============================================================================

@@ -759,3 +759,66 @@ def test_atmosphere_from_xml_and_vol_on_the_card(cuda_device, tmp_path):
     film_d = integrators.render(ref, seed=3, regen=True,
                                 samples_per_pass=512, develop_film=False)
     films_equivalent(film_d.cpu().numpy(), film.cpu().numpy(), max_flips=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_res", [64, (17, 16, 16)])
+def test_volpathmis_atmosphere_matches_cpu(cuda_device, grid_res):
+    """A 16x16 spp 4 volpathmis atmosphere (max_depth 6) on the lane pool
+    of the card against the same render on the CPU: tile_sweep launched
+    once a closest-hit query (and grid_gather once a lookup on the 17 x
+    16 x 16 grid), the films within 1e-4 but 8 pixels (torch's
+    transcendentals differ by an ulp between the devices, and a free
+    flight's null/real decision can flip on one: tests/conftest.py::
+    assert_driver_equivalent's reason). The ground is lowered by 1e-3."""
+    from chip_smoke import counted_pool, films_equivalent
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(16, 16, 4, 6, grid_res=grid_res)
+    # the ground lowered by 1e-3 off the cube's floor (the coplanar tie,
+    # ROADMAP Queue 3), as the CPU tests do
+    d["surface"]["to_world"][1]["value"] = [0.5, 0.5, -1e-3]
+    d["integrator"]["type"] = "volpathmis"
+    film, _, launches, counts = counted_pool(load_dict(d), 512, seed=3)
+    assert launches["tile_sweep"] == counts["queries"] > 0
+    assert launches["grid_gather"] == counts["lookups"]
+    assert (counts["lookups"] > 0) == (grid_res != 64)
+    cpu = integrators.render(load_dict(d, device="cpu"), seed=3, regen=True,
+                             samples_per_pass=512, develop_film=False)
+    assert float(film[..., 4].sum()) == 16 * 16 * 4
+    films_equivalent(cpu.numpy(), film.cpu().numpy(), max_flips=8)
+
+
+@pytest.mark.cuda
+def test_terrain_aov_channels_match_cpu(cuda_device):
+    """aov (depth, position, uv, both normals, prim and shape index) over
+    path on a 16x16 spp 4 terrain(33), on the card's lane pool and the
+    CPU's: the radiance film within 1e-4 but 2 pixels, every AOV channel
+    within 1e-5 of max(|value|, 1) but 2 pixels (both on the pool: a
+    sample lands in its own pixel)."""
+    from chip_smoke import films_equivalent, terrain_scene
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    V, F = terrain(33)
+    d = terrain_scene(V, F, 16, 16, 4, 3)
+    d["integrator"] = {"type": "aov", "aovs": (
+        "dd:depth,pp:position,uv:uv,nn:geo_normal,sn:sh_normal,"
+        "pi:prim_index,si:shape_index"), "child": d["integrator"]}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = intersect.launches["tile_sweep"]
+        img, aovs = integrators.render(load_dict(d, device=dev), seed=3,
+                                       regen=True, samples_per_pass=256,
+                                       return_aovs=True)
+        assert (intersect.launches["tile_sweep"] > before) == (dev == "cuda")
+        out[dev] = (img.cpu().numpy(), {k: v.cpu().numpy()
+                                        for k, v in aovs.items()})
+    films_equivalent(out["cpu"][0], out["cuda"][0], max_flips=2)
+    assert list(out["cpu"][1]) == list(out["cuda"][1])
+    for k, v in out["cpu"][1].items():
+        films_equivalent(v[..., None], out["cuda"][1][k][..., None],
+                         max_flips=2, tol=1e-5)
+    assert (out["cuda"][1]["si"] >= 0).any()

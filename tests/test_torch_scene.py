@@ -110,9 +110,9 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
                 "sigma_t": {"type": "gridvolume_spectral",
                             "data": np.ones((2, 2, 2, 4), np.float32)}}),
     ("bsdf", {"type": "measured_polarized"}),
-    ("integrator", {"type": "volpathmis"}),
-    ("integrator", {"type": "moment"}),
-    ("integrator", {"type": "aov", "aovs": "dd.y:depth"}),
+    ("integrator", {"type": "bins", "bins": "lo:400:550"}),
+    ("integrator", {"type": "nbins", "bins": "l550:550"}),
+    ("integrator", {"type": "stokes"}),
     ("bsdf", {"type": "pplastic"}),
 ])
 def test_types_outside_the_slice_raise(entry):
