@@ -205,7 +205,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      next_2d; spp 6, so the strata's divisions are not by powers of 2)
      bit-equal to the same calls on the CPU, ms a draw;
  33. slice 6a: bench.py's large3d (256x256, the 64^3 grid, 32,768 lanes,
-     max_depth 12; spp 4, bench.py: 64) under its ablations:
+     max_depth 12; spp 2, bench.py: 64) under its ablations:
      nee_transmittance "track", "quadrature" with 8 nodes, and
      ff_majorant "segment" with the residual walk; each render's time,
      launches (tile_sweep == queries, grid_gather == lookups), walk steps,
@@ -214,12 +214,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      through the kernels against the plain gather and the plain sweep
      (budget 2); the 64^3 density written to a .vol file
      (smoke_out/vol/) and read back nearest-filtered through
-     use_grid_bbox: grid_gather's gather entry launched once a lookup,
+     use_grid_bbox (spp 2): grid_gather's gather entry launched once a
+     lookup,
      the 64x64 films against the plain versions, and the gather entry on
      the render's table timed beside index_select; the flagship's
      atmosphere with an aerosol (a blendphase of Rayleigh and a 181-node
      tabphase of HG g = 0.7), an irregular ground reflectance and a
-     5800 K blackbody sun (spp 4), its 64x64 film against the plain
+     5800 K blackbody sun (spp 2), its 64x64 film against the plain
      sweep; value+grad at spp 2 of the quadrature render and the nearest
      grid (d(mean)/d(grid, albedo); forward and backward launches, the
      film bit-equal to the primal's) and their 64x64 spp4 gradients
@@ -248,12 +249,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      pass and resumed: launches == queries, within 2 pixels of an
      uninterrupted render. The time of every write, read, load and render
      is printed;
- 35. slice 6b: volpathmis and the AOV wrappers. (a) the flagship (spp 4,
+ 35. slice 6b: volpathmis and the AOV wrappers. (a) the flagship (spp 2,
      seed 1; bench.py: 64) under volpathmis and under volpath on the lane
      pool of 32,768 lanes: time, Msamples/s, iterations, host syncs, walk
      steps, peak memory, tile_sweep launches == queries (a sample and an
      iteration), the volpathmis film within 3 standard errors of phase
-     9's volpath film (same_estimand); (b) large3d (spp 4, seed 1) the
+     9's volpath film (same_estimand); (b) large3d (spp 2, seed 1) the
      same, grid_gather launches == lookups > 0, its film against phase
      10's, and a 64x64 spp4 volpathmis film through the kernels against
      the plain gather and the plain sweep (budget 2); (c) aov (depth,
@@ -271,14 +272,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      bit-equal where the prim index is; (d) duv_dx and duv_dy at 64x64
      spp4 through the scan driver's offset camera rays: finite, non-zero
      on every hit pixel; (e) moment over volpath on the flagship pool
-     (spp 4, seed 1): its base film equal to (a)'s volpath film (the
+     (spp 2, seed 1): its base film equal to (a)'s volpath film (the
      wrapper draws nothing), m2 >= mean^2 in every pixel; (f) films.save
      of (c)'s pool film with its AOVs to EXR, read back bit-equal under
      the reference's channel names;
+ 36. slice 6c-1: the spectral variant. (a) bench.py's spectral load
+     (BENCH_SCENE=spectral: the flagship atmosphere under a 1x1 distant
+     sensor, 262,144 samples, max_depth 12, residual NEE, seed 1, 32,768
+     lanes) in spectral and in rgb: time, Msamples/s, iterations, host
+     syncs, peak memory, tile_sweep launches == queries; the grey scene's
+     Y the same in both within 3 standard errors (the per-sample variances
+     from 8 batches of 16,384 samples each); spp 16,384 through the kernel
+     against the plain sweep within 1e-5 relative; (b) bins over volpath
+     (five bins over 360-830 nm) at spp 65,536: the base film bit-equal
+     to volpath's alone, the bins' sum / 470 the base film's Y within 3
+     standard errors; an nbins line (550 nm, tolerance 25) finite and > 0;
+     (c) a flat 360-830 nm srf (the estimand of (a)) and a triangular
+     640-690 nm srf at spp 65,536; (d) a chromatic 64^3 atmosphere
+     (large3d at spp 4 in spectral with a seeded 32^3 rgb albedo grid in
+     [0.5, 0.95], packed at load as gridvolume_srgb): the rgb2spec fit's
+     host seconds, fused-entry launches == trilinear lookups and
+     gather-entry launches == srgb lookups (each volume_eval sweeps both
+     grid kinds, as the reference's), 64x64 spp4 films through the
+     kernels against the plain gather and the plain sweep (budget 2), and
+     the gather entry on the packed 32-float rows beside index_select;
  12. (last) print the kernels line (every kernel and entry, the backward
-     included, with their launches on phases 21-35), the value+grad,
-     measurement, materials, slice 5c-2, slice 6a, slice 7a and slice 6b
-     records,
+     included, with their launches on phases 21-36), the value+grad,
+     measurement, materials, slice 5c-2, slice 6a, slice 7a, slice 6b and
+     slice 6c-1 records,
      the card's name and power limit, and the final ``{"ok": true, ...}``
      line.
 
@@ -490,11 +511,15 @@ _T0 = time.perf_counter()
 REF_FILMS = {}
 
 
+# the seconds since the script started at which each phase began
+PHASE_STARTS = {}
+
+
 def phase_clock(phase):
     """Print the seconds since the script started as phase ``phase``
-    begins (where the run's time goes)."""
-    print(f"# phase {phase} starts at {time.perf_counter() - _T0:.1f} s",
-          flush=True)
+    begins (where the run's time goes); the report prints them all."""
+    PHASE_STARTS[phase] = round(time.perf_counter() - _T0, 1)
+    print(f"# phase {phase} starts at {PHASE_STARTS[phase]} s", flush=True)
 
 
 def cuda_ms(fn, reps):
@@ -745,7 +770,9 @@ def counting():
     """Inside the block, count the closest-hit queries (calls of the
     intersect functions in PREPARES), the gridvolume lookups (calls of
     volumes._trilinear_gather), the nearest-filter lookups (calls of
-    volumes._nearest_gather) and the points both looked up. Every kernel's
+    volumes._nearest_gather), the points both looked up, and the srgb-packed
+    lookups of the spectral variant (calls of volumes._srgb_corners, one
+    gather-entry launch each). Every kernel's
     launch count, the host-sync
     counts and the replay's iteration counts are set to 0 on entry.
     Yields ``read()``: launches (kernel -> count), queries, lookups,
@@ -756,16 +783,18 @@ def counting():
     from eradiate_kernel_tpu_torch.textures import volumes
 
     counts = {"queries": 0, "lookups": 0, "nearest_lookups": 0,
-              "lookup_points": 0}
+              "srgb_lookups": 0, "lookup_points": 0}
     sites = [(intersect, name, "queries") for name in PREPARES] + [
         (volumes, "_trilinear_gather", "lookups"),
-        (volumes, "_nearest_gather", "nearest_lookups")]
+        (volumes, "_nearest_gather", "nearest_lookups"),
+        (volumes, "_srgb_corners", "srgb_lookups")]
     originals = [getattr(mod, name) for mod, name, _ in sites]
 
     def counted(fn, what):
         def wrapper(*a, **kw):
             counts[what] += 1
-            if what != "queries":  # the lookup's points: pl is (..., 3)
+            if what in ("lookups", "nearest_lookups"):
+                # the lookup's points: pl is (..., 3), the last argument
                 counts["lookup_points"] += a[-1].numel() // 3
             return fn(*a, **kw)
         return wrapper
@@ -865,6 +894,7 @@ def check_atmosphere(label, scene, film, seconds, launches, counts):
                pool_syncs=counts["pool_syncs"], image_mean=mean,
                queries=counts["queries"], lookups=counts["lookups"],
                nearest_lookups=counts["nearest_lookups"],
+               srgb_lookups=counts["srgb_lookups"],
                lookup_points=counts["lookup_points"], launches=launches)
     print(f"# {label}: {rec['render_ms']:.1f} ms, "
           f"{rec['msamples_per_s']:.3f} Msamples/s, "
@@ -872,17 +902,20 @@ def check_atmosphere(label, scene, film, seconds, launches, counts):
           f"loop iterations {counts['iterations']}, host syncs (any_lane) "
           f"{counts['gate_syncs']} (+ the pool's {counts['pool_syncs']}), "
           f"closest-hit queries {counts['queries']}, gridvolume gathers "
-          f"{counts['lookups']} (nearest {counts['nearest_lookups']}; "
-          f"{counts['lookup_points']} points), launches {launches}, "
+          f"{counts['lookups']} (nearest {counts['nearest_lookups']}, srgb "
+          f"{counts['srgb_lookups']}; {counts['lookup_points']} points), "
+          f"launches {launches}, "
           f"image mean {mean:.5f}", flush=True)
     assert 0.01 < mean < 2.0, f"{label}: image mean {mean}"
     # the atmosphere cube is one 12-triangle tile: every mesh query of the
     # render was one launch of the fused sweep, every large-grid lookup one
-    # launch of the fused trilinear lookup, every nearest-filter lookup one
-    # launch of the gather entry, and nothing else was launched
+    # launch of the fused trilinear lookup, every nearest-filter and
+    # srgb-packed lookup one launch of the gather entry, and nothing else
+    # was launched
     assert launches["tile_sweep"] == counts["queries"] > 0, \
         f"{label}: {launches['tile_sweep']} sweeps, {counts['queries']} queries"
-    lookups = counts["lookups"] + counts["nearest_lookups"]
+    lookups = (counts["lookups"] + counts["nearest_lookups"]
+               + counts["srgb_lookups"])
     assert launches["grid_gather"] == lookups, \
         f"{label}: {launches['grid_gather']} gathers, {lookups} lookups"
     assert launches["tile_bvh"] == launches["tile_bvh8"] == 0, launches
@@ -1395,6 +1428,7 @@ def counted_pool(scene, n_lanes, seed=0, spp=None):
         integrators._run_pool = run_pool
     counts = dict(queries=got["queries"], lookups=got["lookups"],
                   nearest_lookups=got["nearest_lookups"],
+                  srgb_lookups=got["srgb_lookups"],
                   lookup_points=got["lookup_points"], **pool,
                   gate_syncs=got["host_syncs"], pool_syncs=got["pool_syncs"])
     counts["host_syncs"] = counts["gate_syncs"] + counts["pool_syncs"]
@@ -2899,8 +2933,9 @@ def slice_6a_phases(lanes, large_film, large_rec):
         print(f"# {label}: walk steps {steps['n']}", flush=True)
         return film, r
 
-    # (a) large3d (spp 4, bench.py 64: the time limit) under each ablation;
-    # films of 64x64 spp4 through the kernels and the plain versions
+    # (a) large3d (spp 2, bench.py 64: the time limit; cut from 4 when phase
+    # 36 was added) under each ablation; films of 64x64 spp4 through the
+    # kernels and the plain versions
     ablations = {"track": {"nee_transmittance": "track"},
                  "quadrature": {"nee_transmittance": "quadrature",
                                 "nee_quad_points": 8},
@@ -2914,8 +2949,8 @@ def slice_6a_phases(lanes, large_film, large_rec):
 
     for name, extra in ablations.items():
         phase_clock(f"33a {name}")
-        scene = load_dict(large3d(256, 4, extra))
-        film, r = render(f"atmosphere 256x256 spp4 max_depth 12 grid 64^3, "
+        scene = load_dict(large3d(256, 2, extra))
+        film, r = render(f"atmosphere 256x256 spp2 max_depth 12 grid 64^3, "
                          f"{name}", scene)
         assert r["lookups"] > 0 and r["nearest_lookups"] == 0, r
         r["vs_residual"] = same_estimand(film, large_film)
@@ -2947,10 +2982,11 @@ def slice_6a_phases(lanes, large_film, large_rec):
                     filter_type="nearest")
         return d
 
-    scene_b = load_dict(nearest(256, 4))
+    # spp 2 (bench.py: 64; cut from 4 when phase 36 was added)
+    scene_b = load_dict(nearest(256, 2))
     assert scene_b.config.volume_kinds == ("gridvolume_nearest",
                                            "constvolume")
-    film, r = render("atmosphere 256x256 spp4 max_depth 12 nearest 64^3 "
+    film, r = render("atmosphere 256x256 spp2 max_depth 12 nearest 64^3 "
                      "from a .vol file", scene_b)
     assert r["nearest_lookups"] > 0 and r["lookups"] == 0, r
     assert r["launches"]["grid_gather"] == r["nearest_lookups"], r
@@ -2999,9 +3035,9 @@ def slice_6a_phases(lanes, large_film, large_rec):
                                   "scale": 1e-4}
         return d
 
-    scene_c = load_dict(aerosol(256, 4))
+    scene_c = load_dict(aerosol(256, 2))  # spp 4 -> 2 with phase 36
     assert scene_c.config.het_profile1d
-    _film, r = render("atmosphere 256x256 spp4 max_depth 12 grid 64, "
+    _film, r = render("atmosphere 256x256 spp2 max_depth 12 grid 64, "
                       "aerosol blendphase, blackbody sun", scene_c)
     r["vs_plain_64"] = films_vs_plain(load_dict(aerosol(64, 4)), lanes,
                                       legs=("tile_sweep",))
@@ -3390,11 +3426,11 @@ def slice_6b_launches(rec, kernel):
 
 def slice_6b_phases(V, F, lanes, refs):
     """Phase 35 (slice 6b): volpathmis and the AOV wrappers at full width.
-    (a) the flagship under volpathmis on the lane pool (spp 4, seed 1),
+    (a) the flagship under volpathmis on the lane pool (spp 2, seed 1),
     beside volpath's render of the same spp and seed: time, Msamples/s,
     iterations, host syncs, walk steps, peak memory, tile_sweep launches ==
     queries; its film the same estimand as phase 9's. (b) large3d under
-    volpathmis (spp 4, seed 1), beside volpath's: grid_gather launches ==
+    volpathmis (spp 2, seed 1), beside volpath's: grid_gather launches ==
     lookups > 0, its film the same estimand as phase 10's, a 64x64 spp4
     film through the kernels against the plain gather and the plain sweep.
     (c) aov (seven camera-hit types) over path on phase 3's terrain(256)
@@ -3405,7 +3441,7 @@ def slice_6b_phases(V, F, lanes, refs):
     kernel and the plain sweep: depth bit-equal, every AOV bit-equal where
     the prim index is. (d) duv_dx and duv_dy on the terrain, 64x64 spp4,
     scan driver: finite, non-zero on hit pixels. (e) moment over volpath
-    on the flagship pool (spp 4, seed 1): its base film bit-equal to (a)'s
+    on the flagship pool (spp 2, seed 1): its base film bit-equal to (a)'s
     volpath film, the second moment >= the squared mean. (f) films.save
     of (c)'s pool film and AOVs to EXR, read back bit for bit under the
     reference's names. ``refs``: phase 3's terrain image and queries,
@@ -3423,14 +3459,17 @@ def slice_6b_phases(V, F, lanes, refs):
     rec = {"renders": {}}
     pool_lanes = 1 << 18
 
+    # spp 2 (bench.py: 64; cut from 4 when phase 36 was added)
+    spp = 2
+
     def atmo_dict(grid_res, kind="volpath"):
-        d = atmosphere(256, 256, 4, 12, grid_res=grid_res)
+        d = atmosphere(256, 256, spp, 12, grid_res=grid_res)
         d["integrator"]["nee_transmittance"] = "residual"
         d["integrator"]["type"] = kind
         return d
 
     def atmo_pair(label, grid_res, ref_film):
-        """volpath and volpathmis renders of one atmosphere at spp 4, seed
+        """volpath and volpathmis renders of one atmosphere at spp 2, seed
         1: each one's record, volpathmis's against ``ref_film``."""
         out = {}
         for kind in ("volpath", "volpathmis"):
@@ -3440,12 +3479,12 @@ def slice_6b_phases(V, F, lanes, refs):
                 film, secs, launches, counts = counted_pool(scene, lanes,
                                                             seed=1)
             r = rec["renders"][f"{label} {kind}"] = check_atmosphere(
-                f"{label} 256x256 spp4 max_depth 12 {kind} (seed 1)", scene,
-                film, secs, launches, counts)
+                f"{label} 256x256 spp{spp} max_depth 12 {kind} (seed 1)",
+                scene, film, secs, launches, counts)
             r.update(walk_steps=steps["n"],
                      peak_bytes=torch.cuda.max_memory_allocated(),
                      launches_per_sample=launches["tile_sweep"]
-                     / (256 * 256 * 4),
+                     / (256 * 256 * spp),
                      queries_per_iteration=counts["queries"]
                      / counts["iterations"])
             out[kind] = (scene, film)
@@ -3610,7 +3649,8 @@ def slice_6b_phases(V, F, lanes, refs):
     mscene = load_dict(dm)
     film_m, secs_m, launches, counts = counted_pool(mscene, lanes, seed=1)
     mr = rec["renders"]["flagship moment over volpath"] = check_atmosphere(
-        "flagship moment over volpath 256x256 spp4 max_depth 12 (seed 1)",
+        f"flagship moment over volpath 256x256 spp{spp} max_depth 12 "
+        "(seed 1)",
         mscene, film_m, secs_m, launches, counts)
     base = flag["volpath"][1]
     # the wrapper draws nothing: the child's samples are the same, so the
@@ -3650,6 +3690,310 @@ def slice_6b_phases(V, F, lanes, refs):
     rec["exr_channels"] = got_names
     print(f"# 35f films.save: {len(got_names)} channels {got_names} read "
           f"back bit-equal", flush=True)
+    return rec
+
+
+# phase 36's batch size: the batches that estimate per-sample variances,
+# and the kernel-vs-plain film of (a)
+S36_BATCH = 1 << 14
+
+
+def slice_6c1_launches(rec, kernel):
+    """``kernel``'s launches in each render of phase 36."""
+    return {k: v["launches"][kernel] for k, v in rec["renders"].items()}
+
+
+def y_of(film):
+    """Y of a raw 1x1 film: its Y channel over its weight."""
+    return float(film[..., 1].sum() / film[..., 4].sum())
+
+
+def y_batches(scene, lanes, spp, n=8, seed0=1000, column=None):
+    """n independent lane-pool renders of ``scene`` at ``spp`` (seeds
+    seed0 .. seed0 + n - 1) -> the per-sample variance of Y (or, with
+    ``column``, of column(film)) estimated from the spread of the batch
+    values: var = var(batch values) x spp."""
+    from eradiate_kernel_tpu_torch import integrators
+
+    vals = []
+    for k in range(n):
+        film = integrators.render(scene, seed=seed0 + k, spp=spp, regen=True,
+                                  samples_per_pass=lanes, develop_film=False)
+        vals.append(column(film) if column else y_of(film))
+    return float(np.var(vals, ddof=1)) * spp
+
+
+def z_of(a, b, var_a, n_a, var_b, n_b):
+    """(z, standard error) of a - b for independent estimates of per-sample
+    variances var_a, var_b over n_a, n_b samples."""
+    se = float(np.sqrt(var_a / n_a + var_b / n_b))
+    return (a - b) / se, se
+
+
+def srgb_albedo_grid(n, seed=1):
+    """An aerosol's chromatic single-scattering albedo: an n^3 rgb grid in
+    [0.5, 0.95] from numpy's seed ``seed``, bluish (more scattering at short
+    wavelengths), smooth in z."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.5, 0.95, (n, n, n, 3))
+    tint = np.asarray([0.85, 0.9, 1.0])
+    z = (np.arange(n) + 0.5) / n
+    grid = 0.5 + (base * tint - 0.5) * (1.0 - 0.3 * z)[:, None, None, None]
+    return np.clip(grid, 0.5, 0.95).astype(np.float32)
+
+
+@contextlib.contextmanager
+def entry_counts():
+    """Inside the block, count the launches of grid_gather's two forward
+    entries apart: ``trilinear`` (grid_trilinear) and ``gather``
+    (_gather_cuda). Yields the counts."""
+    from eradiate_kernel_tpu_torch.ops import gather
+
+    n = {"trilinear": 0, "gather": 0}
+    fns = (gather.grid_trilinear, gather._gather_cuda)
+
+    def tri(*a, **kw):
+        n["trilinear"] += 1
+        return fns[0](*a, **kw)
+
+    def rows(*a, **kw):
+        n["gather"] += 1
+        return fns[1](*a, **kw)
+
+    gather.grid_trilinear, gather._gather_cuda = tri, rows
+    try:
+        yield n
+    finally:
+        gather.grid_trilinear, gather._gather_cuda = fns
+
+
+def slice_6c1_phases(lanes, large_rec):
+    """Phase 36 (slice 6c-1): the spectral variant at full size. (a)
+    bench.py's spectral load (BENCH_SCENE=spectral: the flagship atmosphere
+    under a 1x1 distant sensor, 262,144 samples, max_depth 12, residual
+    NEE, seed 1, 32,768 lanes) in spectral and in rgb: time, Msamples/s,
+    iterations, host syncs, peak memory, tile_sweep launches == queries;
+    the grey scene's Y the same in both within 3 standard errors; spp
+    16,384 through the kernel and the plain sweep within 1e-5. (b) bins
+    over volpath (five bins over 360-830 nm) at spp 65,536: the base film
+    bit-equal to volpath's, the bins' sum / 470 the base film's Y within 3
+    standard errors; one nbins line finite and > 0. (c) srf sensors at spp
+    65,536: a flat 360-830 nm srf the estimand of (a), a narrow triangular
+    one finite and > 0. (d) a chromatic 64^3 atmosphere (large3d at spp 4
+    with a 32^3 srgb albedo grid, packed at load as gridvolume_srgb): the
+    rgb2spec fit's host time, fused-entry launches == trilinear lookups,
+    gather-entry launches == srgb lookups (a volume_eval, of sigma_t or of
+    the albedo, sweeps both grid kinds), 64x64 spp4 films through the
+    kernels against the plain gather and the plain sweep, and the gather
+    entry on the 32-float packed rows beside index_select. ``large_rec``:
+    phase 10's large3d record. Returns the records."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    rec = {"renders": {}}
+    dev = torch.device("cuda")
+    n_load = 1 << 18  # bench.py :90-93 at its 256x256x64 budget
+    n_batch = S36_BATCH  # the batches that estimate the variances
+
+    def load(variant, spp=n_load, integrator=None, sensor=None):
+        d = atmosphere(spp=spp, max_depth=12, grid_res=64, sensor="distant")
+        d["integrator"]["nee_transmittance"] = "residual"
+        if integrator is not None:
+            d["integrator"] = dict(integrator, child=d["integrator"])
+        if sensor is not None:
+            d["sensor"].update(sensor)
+        return load_dict(d, Variant(variant))
+
+    def timed(label, scene, seed=1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        film, secs, launches, counts = counted_pool(scene, lanes, seed=seed)
+        cfg = scene.config
+        r = rec["renders"][label] = check_pool(
+            f"{label} spp {cfg.spp} max_depth 12 grid 64 (seed {seed})",
+            scene, film[..., :5], secs, launches, counts, "tile_sweep",
+            (1e-4, 2.0))
+        r.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                 launches_per_sample=launches["tile_sweep"] / cfg.spp,
+                 y=y_of(film))
+        return film
+
+    # ---- 36a. bench.py's spectral load, and rgb -------------------------
+    phase_clock("36a")
+    spectral, rgb = load("spectral"), load("rgb")
+    assert spectral.config.variant.is_spectral
+    integrators.render(spectral, seed=0, spp=1 << 12, regen=True,
+                       samples_per_pass=lanes)  # warm-up
+    film_s = timed("spectral distant 1x1", spectral)
+    film_r = timed("rgb distant 1x1", rgb)
+    var_s = y_batches(spectral, lanes, n_batch)
+    var_r = y_batches(rgb, lanes, n_batch)
+    rs = rec["renders"]["spectral distant 1x1"]
+    rr = rec["renders"]["rgb distant 1x1"]
+    n_s, n_r = spectral.config.spp, rgb.config.spp
+    z, se = z_of(rs["y"], rr["y"], var_s, n_s, var_r, n_r)
+    rs["same_estimand_as_rgb"] = dict(y=rs["y"], rgb_y=rr["y"], std_err=se,
+                                      z=z, var_spectral=var_s, var_rgb=var_r)
+    assert abs(z) <= 3, rs["same_estimand_as_rgb"]
+    # spp 16,384 through the kernel and the plain sweep
+    film_k, _ = integrators.render_wavefront_regen(spectral, lanes, 3,
+                                                   n_batch)
+    with intersect.use_plain():
+        film_p, _ = integrators.render_wavefront_regen(spectral, lanes, 3,
+                                                       n_batch)
+    rel = float(((film_k - film_p).abs() / film_p.abs().clamp(min=1e-12))
+                .max())
+    assert rel <= 1e-5, rel
+    rs["vs_plain_sweep"] = dict(max_rel=rel,
+                                bit_equal=bool(torch.equal(film_k, film_p)))
+    print(f"# 36a bench.py's spectral load (distant 1x1, 262,144 samples): "
+          f"spectral {rs['render_ms']:.1f} ms ({rs['msamples_per_s']:.3f} "
+          f"Msamples/s, {rs['iterations']} iterations, host syncs "
+          f"{rs['host_syncs']}, tile_sweep launches a sample "
+          f"{rs['launches_per_sample']:.5f}, peak memory "
+          f"{rs['peak_bytes'] / 2**20:.1f} MiB) against rgb "
+          f"{rr['render_ms']:.1f} ms ({rr['msamples_per_s']:.3f} Msamples/s,"
+          f" {rr['iterations']} iterations, host syncs {rr['host_syncs']}, "
+          f"launches a sample {rr['launches_per_sample']:.5f}, peak memory "
+          f"{rr['peak_bytes'] / 2**20:.1f} MiB); Y {rs['y']:.6f} against "
+          f"{rr['y']:.6f}: z = {z:.2f} (standard error {se:.2e}); spp 16,384 "
+          f"kernel vs plain sweep: max rel {rel:.1e}, bit-equal "
+          f"{rs['vs_plain_sweep']['bit_equal']}", flush=True)
+
+    # ---- 36b. bins and nbins over volpath ---------------------------------
+    phase_clock("36b")
+    n_b = 1 << 16
+    bins_spec = {"type": "bins",
+                 "bins": "b1:360:455,b2:455:550,b3:550:645,b4:645:740,"
+                         "b5:740:830"}
+    bscene = load("spectral", spp=n_b, integrator=bins_spec)
+    names = integrators.aov_names(bscene.config)
+    film_b = timed("bins over volpath", bscene)
+    plain = load("spectral", spp=n_b)
+    film_v, _secs, _l, _c = counted_pool(plain, lanes, seed=1)
+    rb = rec["renders"]["bins over volpath"]
+    rb["base_bit_equal_to_volpath"] = bool(torch.equal(film_b[..., :5],
+                                                       film_v))
+    assert rb["base_bit_equal_to_volpath"]
+
+    def bins_gap(film):
+        w = float(film[..., 4].sum())
+        return float(film[..., 5:].sum()) / w / 470.0 - y_of(film)
+
+    gap = bins_gap(film_b)
+    var_gap = y_batches(bscene, lanes, n_batch // 2, column=bins_gap)
+    se = float(np.sqrt(var_gap / bscene.config.spp))
+    rb["bins_sum_vs_y"] = dict(gap=gap, std_err=se, z=gap / se,
+                               bins={n: float(film_b[..., 5 + i].sum()
+                                              / film_b[..., 4].sum())
+                                     for i, n in enumerate(names)})
+    assert abs(gap) <= 3 * se, rb["bins_sum_vs_y"]
+    nscene = load("spectral", spp=n_b, integrator={
+        "type": "nbins", "bins": "l550:550", "tolerance": 25.0})
+    film_n = timed("nbins over volpath", nscene)
+    line = float(film_n[..., 5].sum() / film_n[..., 4].sum())
+    assert np.isfinite(line) and line > 0, line
+    rec["renders"]["nbins over volpath"]["l550"] = line
+    print(f"# 36b bins over volpath spp 65,536: {rb['render_ms']:.1f} ms; "
+          f"base film bit-equal to volpath's: True; bins "
+          f"{rb['bins_sum_vs_y']['bins']}: sum / 470 - Y = {gap:.2e} (z = "
+          f"{gap / se:.2f}); nbins l550 (tolerance 25) {line:.5f}",
+          flush=True)
+
+    # ---- 36c. srf sensors --------------------------------------------------
+    phase_clock("36c")
+    flat = load("spectral", spp=n_b, sensor={"srf": {
+        "type": "regular", "lambda_min": 360.0, "lambda_max": 830.0,
+        "values": [1.0, 1.0]}})
+    film_f = timed("flat srf", flat)
+    rf = rec["renders"]["flat srf"]
+    z, se = z_of(rf["y"], rs["y"], var_s, flat.config.spp, var_s, n_s)
+    rf["same_estimand_as_36a"] = dict(y=rf["y"], ref_y=rs["y"], z=z,
+                                      std_err=se)
+    assert abs(z) <= 3, rf["same_estimand_as_36a"]
+    tri = load("spectral", spp=n_b, sensor={"srf": {
+        "type": "regular", "lambda_min": 640.0, "lambda_max": 690.0,
+        "values": [0.0, 1.0, 0.0]}})
+    film_t = timed("triangular srf 640-690", tri)
+    rt = rec["renders"]["triangular srf 640-690"]
+    assert np.isfinite(rt["y"]) and rt["y"] > 0, rt["y"]
+    print(f"# 36c srf sensors spp 65,536: flat 360-830 {rf['render_ms']:.1f}"
+          f" ms, Y {rf['y']:.6f} against 36a's {rs['y']:.6f} (z = {z:.2f});"
+          f" triangular 640-690 {rt['render_ms']:.1f} ms, Y {rt['y']:.6f}",
+          flush=True)
+    del film_f, film_t, film_n, film_b, film_v
+
+    # ---- 36d. a chromatic 64^3 atmosphere --------------------------------
+    phase_clock("36d")
+    albedo = srgb_albedo_grid(32)
+    n_alb = albedo.shape[0]
+
+    def chromatic(*args):
+        d = atmosphere(*args, grid_res=(64, 64, 64))
+        d["integrator"]["nee_transmittance"] = "residual"
+        med = d["atmo"]["interior"]
+        med["albedo"] = {"type": "gridvolume", "data": albedo,
+                         "to_world": med["sigma_t"]["to_world"]}
+        return d
+
+    t0 = time.perf_counter()
+    cscene = load_dict(chromatic(256, 256, 4, 12), Variant("spectral"))
+    load_s = time.perf_counter() - t0
+    assert "gridvolume_srgb" in cscene.config.volume_kinds
+    packed = cscene.vol_packed_spectral["gridvolume_srgb"]
+    assert packed.shape == (n_alb ** 3, 32), packed.shape
+    # the rgb2spec fit alone, on the host (load_dict's share of load_s)
+    from eradiate_kernel_tpu_torch.utils.rgb2spec import fit_srgb_coeff_batch
+    scale = np.maximum(2.0 * albedo.max(-1), 1e-8)
+    t0 = time.perf_counter()
+    fit_srgb_coeff_batch((albedo / scale[..., None]).reshape(-1, 3))
+    fit_s = time.perf_counter() - t0
+    integrators.render(cscene, seed=0, spp=1, regen=True,
+                       samples_per_pass=lanes)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    with entry_counts() as entries:
+        film_c, secs, launches, counts = counted_pool(cscene, lanes)
+    rc = rec["renders"]["chromatic 64^3"] = check_atmosphere(
+        "chromatic 64^3 atmosphere 256x256 spp4 max_depth 12 (spectral, "
+        "32^3 srgb albedo)", cscene, film_c, secs, launches, counts)
+    rc.update(entries=dict(entries), load_s=load_s, fit_s=fit_s,
+              albedo_voxels=n_alb ** 3,
+              peak_bytes=torch.cuda.max_memory_allocated(),
+              vs_rgb_large3d_ms=large_rec["render_ms"])
+    # one fused launch a trilinear lookup, one gather launch an srgb
+    # lookup; a volume_eval (of sigma_t or of the albedo) runs the lookup
+    # of each grid kind of the scene over its lanes (the reference's
+    # masked sweep over kinds), so both count every volume_eval
+    assert entries["trilinear"] == counts["lookups"] > 0, (entries, counts)
+    assert entries["gather"] == counts["srgb_lookups"] > 0, (entries, counts)
+    assert launches["grid_gather"] == sum(entries.values()), launches
+    small = load_dict(chromatic(64, 64, 4, 12), Variant("spectral"))
+    rc["flips_vs_plain_64"] = films_vs_plain(small, lanes)
+    # the gather entry on the packed srgb rows (32 floats) beside
+    # index_select, at the pool's lane count
+    gen = torch.Generator().manual_seed(36)
+    idx = torch.randint(0, packed.shape[0], (lanes,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    rc["gather_entry_32f"] = gather_load(packed, idx)
+    g = rc["gather_entry_32f"]
+    print(f"# 36d chromatic 64^3 spp4: {rc['render_ms']:.1f} ms against "
+          f"phase 10's rgb large3d {large_rec['render_ms']:.1f} ms; fused "
+          f"launches {entries['trilinear']} (= trilinear lookups), "
+          f"gather-entry launches {entries['gather']} (= srgb lookups: each "
+          f"volume_eval, of sigma_t or of the albedo, sweeps both grid "
+          f"kinds); load_dict "
+          f"{load_s:.2f} s, of it the rgb2spec fit of {n_alb ** 3} voxels "
+          f"{fit_s:.2f} s; peak memory {rc['peak_bytes'] / 2**20:.1f} MiB; "
+          f"64x64 spp4 kernels vs plain {rc['flips_vs_plain_64']} (budget 2);"
+          f" gather entry on {g['rows']} rows x {g['row_floats']} f32, "
+          f"{g['lanes']} lanes: {g['ms']:.4f} ms, plain {g['plain_ms']:.4f} "
+          f"ms (bit-equal), index_select {g['library_ms']:.4f} ms, bound "
+          f"{g['bound_ms']:.5f} ms ({g['bound_by']}); device us a call "
+          f"{g['device_us']}", flush=True)
+    del film_s, film_r, film_k, film_p, film_c
     return rec
 
 
@@ -4091,6 +4435,7 @@ def main():
     s6a = slice_6a_phases(lanes, large_film, atmo["large3d"])
     s7a = slice_7a_phases(V, F, lanes, large_film)
     s6b = slice_6b_phases(V, F, lanes, REF_FILMS)
+    s6c1 = slice_6c1_phases(lanes, atmo["large3d"])
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -4178,6 +4523,7 @@ def main():
         "launches_slice_6a": slice_6a_launches(s6a, "tile_sweep"),
         "launches_slice_7a": slice_7a_launches(s7a, "tile_sweep"),
         "launches_slice_6b": slice_6b_launches(s6b, "tile_sweep"),
+        "launches_slice_6c1": slice_6c1_launches(s6c1, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -4243,7 +4589,15 @@ def main():
         "launches_slice_6a": slice_6a_launches(s6a, "grid_gather"),
         "launches_slice_7a": slice_7a_launches(s7a, "grid_gather"),
         "launches_slice_6b": slice_6b_launches(s6b, "grid_gather"),
+        # slice 6c-1: the chromatic 64^3's lookups, one launch each of the
+        # fused entry (sigma_t) and of the gather entry (the srgb albedo's
+        # 32-float packed rows)
+        "launches_slice_6c1": slice_6c1_launches(s6c1, "grid_gather"),
+        "entries_slice_6c1_chromatic_64^3": s6c1["renders"][
+            "chromatic 64^3"]["entries"],
         "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
+        "gather_srgb_32f": s6c1["renders"]["chromatic 64^3"][
+            "gather_entry_32f"],
     })
     bwd1 = bwd_loads["C=1"]
     kernels.append({
@@ -4272,6 +4626,7 @@ def main():
                 "gaussian_value_grad"]["backward"]["launches"][
                 "grid_trilinear_bwd"]},
         "launches_slice_6a": slice_6a_launches(s6a, "grid_trilinear_bwd"),
+        "launches_slice_6c1": slice_6c1_launches(s6c1, "grid_trilinear_bwd"),
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"value_grad": grads}))
@@ -4286,6 +4641,8 @@ def main():
     print(json.dumps({"slice_6a": s6a}))
     print(json.dumps({"slice_7a": s7a}))
     print(json.dumps({"slice_6b": s6b}))
+    print(json.dumps({"slice_6c1": s6c1}))
+    print(json.dumps({"phase_starts_s": PHASE_STARTS}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

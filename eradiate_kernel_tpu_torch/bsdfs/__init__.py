@@ -52,9 +52,8 @@ def _kinds(scene, nested):
 def _sample(scene, bsdf_index, si, s1, s2, active, nested):
     kind_id = scene.bsdf_kind[bsdf_index]
     slot = scene.bsdf_slot[bsdf_index]
-    bs, weight = zero_bsdf_sample(si.t.shape[0],
-                                  scene.config.variant.n_channels,
-                                  si.t.device)
+    nc = scene.config.variant.channels(si.wavelengths)
+    bs, weight = zero_bsdf_sample(si.t.shape[0], nc, si.t.device)
     for k, kind in _kinds(scene, nested):
         m = active & (kind_id == k)
         b, w = REGISTRY[kind].sample(scene, scene.bsdfs[kind],
@@ -72,8 +71,8 @@ def _sample(scene, bsdf_index, si, s1, s2, active, nested):
 def _eval_pdf(scene, bsdf_index, si, wo, active, nested):
     kind_id = scene.bsdf_kind[bsdf_index]
     slot = scene.bsdf_slot[bsdf_index]
-    value = torch.zeros(si.t.shape[0], scene.config.variant.n_channels,
-                        device=si.t.device)
+    nc = scene.config.variant.channels(si.wavelengths)
+    value = torch.zeros(si.t.shape[0], nc, device=si.t.device)
     pdf = torch.zeros_like(si.t)
     for k, kind in _kinds(scene, nested):
         m = active & (kind_id == k)
@@ -109,8 +108,8 @@ def eval_null_transmission(scene, bsdf_index, si, active):
     that have one (bsdf.h eval_null_transmission)."""
     kind_id = scene.bsdf_kind[bsdf_index]
     slot = scene.bsdf_slot[bsdf_index]
-    out = torch.zeros(si.t.shape[0], scene.config.variant.n_channels,
-                      device=si.t.device)
+    nc = scene.config.variant.channels(si.wavelengths)
+    out = torch.zeros(si.t.shape[0], nc, device=si.t.device)
     for k, kind in enumerate(scene.config.bsdf_kinds):
         fn = getattr(REGISTRY[kind], "eval_null_transmission", None)
         if fn is not None:

@@ -42,7 +42,8 @@ def _frame(scene, params, slot, si):
     scale = params["scale"][slot]
 
     def height(uv):  # no prim_index: the reference reads none here
-        return channel_mean(texture_eval(scene, index, uv))
+        return channel_mean(texture_eval(scene, index, uv,
+                                         wavelengths=si.wavelengths))
 
     h0 = height(si.uv)
     step = lambda i: torch.tensor([_EPS, 0.0] if i == 0 else [0.0, _EPS],

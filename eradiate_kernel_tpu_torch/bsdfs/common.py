@@ -70,11 +70,13 @@ def twosided_frame(twosided, wi):
 
 
 def tex(scene, index, si, mesh_attributes=False):
-    """Texture ``index`` (N,) at the lanes' uv. Only the diffuse BSDF hands
+    """Texture ``index`` (N,) at the lanes' uv and wavelengths. Only the
+    diffuse BSDF hands
     a mesh_attribute texture its primitive (``mesh_attributes``), as in the
     reference; elsewhere that texture reads 0 there too."""
     from ..render.texture import texture_eval
 
     if mesh_attributes:
-        return texture_eval(scene, index, si.uv, si.prim_index, si.prim_uv)
-    return texture_eval(scene, index, si.uv)
+        return texture_eval(scene, index, si.uv, si.prim_index, si.prim_uv,
+                            wavelengths=si.wavelengths)
+    return texture_eval(scene, index, si.uv, wavelengths=si.wavelengths)

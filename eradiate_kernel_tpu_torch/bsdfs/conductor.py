@@ -6,22 +6,33 @@ index), twosided."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..render import fresnel as fr
+from ..render.texture import scene_spectrum_eval
 from . import common
 
 FLAGS = common.DeltaReflection | common.FrontSide
 
 
 def _eta_k(props, builder):
-    """(eta, k) spectrum indices of a conductor's props."""
+    """(eta, k) spectrum indices of a conductor's props. eta and k exceed
+    1, which the spectral variant's rgb upsampling would clip: there an
+    rgb triple becomes the uniform spectrum of its mean, as in the
+    reference."""
+    def unbounded(v):
+        if builder.variant.is_spectral and isinstance(v, (list, tuple)):
+            return builder.spectrum({"type": "uniform",
+                                     "value": float(np.mean(v))})
+        return builder.spectrum(v)
+
     if "eta" in props or "k" in props:
-        return (builder.spectrum(props.get("eta", 0.0)),
-                builder.spectrum(props.get("k", 1.0)))
+        return (unbounded(props.get("eta", 0.0)),
+                unbounded(props.get("k", 1.0)))
     eta_rgb, k_rgb = fr.CONDUCTOR_PRESETS[props.get("material",
                                                     "none").lower()]
-    return builder.spectrum(list(eta_rgb)), builder.spectrum(list(k_rgb))
+    return unbounded(list(eta_rgb)), unbounded(list(k_rgb))
 
 
 def build(props, builder):
@@ -34,17 +45,17 @@ def build(props, builder):
     }
 
 
-def spectrum(scene, index):
-    """(N, nc) values of the spectra ``index`` (N,): eta and k are not
-    spatially varying."""
-    return scene.spectra["baked"]["value"][scene.spec_slot[index]]
+def spectrum(scene, index, si):
+    """(N, nc) values of the spectra ``index`` (N,) at the lanes'
+    wavelengths: eta and k are not spatially varying."""
+    return scene_spectrum_eval(scene, index, si.wavelengths)
 
 
 def fresnel_term(scene, params, slot, si, cos_i):
     """(N, nc) conductor Fresnel term at ``cos_i`` times the specular
     reflectance."""
-    f = fr.fresnel_conductor(cos_i, spectrum(scene, params["eta"][slot]),
-                             spectrum(scene, params["k"][slot]))
+    f = fr.fresnel_conductor(cos_i, spectrum(scene, params["eta"][slot], si),
+                             spectrum(scene, params["k"][slot], si))
     return f * common.tex(scene, params["specular_reflectance"][slot], si)
 
 
@@ -63,6 +74,6 @@ def sample(scene, params, slot, si, s1, s2, active):
 
 def eval_pdf(scene, params, slot, si, wo, active):
     n = si.t.shape[0]
-    return (torch.zeros(n, scene.config.variant.n_channels,
+    return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
                         device=si.t.device),
             torch.zeros(n, device=si.t.device))

@@ -57,7 +57,7 @@ def sample(scene, params, slot, si, s1, s2, active):
 
 def eval_pdf(scene, params, slot, si, wo, active):
     n = si.t.shape[0]
-    return (torch.zeros(n, scene.config.variant.n_channels,
+    return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
                         device=si.t.device),
             torch.zeros(n, device=si.t.device))
 
@@ -65,5 +65,5 @@ def eval_pdf(scene, params, slot, si, wo, active):
 def eval_null_transmission(scene, params, slot, si, active):
     """No unscattered transmission (bsdf.h's default for a non-null
     BSDF)."""
-    return torch.zeros(si.t.shape[0], scene.config.variant.n_channels,
-                       device=si.t.device)
+    nc = scene.config.variant.channels(si.wavelengths)
+    return torch.zeros(si.t.shape[0], nc, device=si.t.device)

@@ -68,4 +68,4 @@ def eval_pdf(scene, params, slot, si, wo, active):
 def eval_null_transmission(scene, params, slot, si, active):
     op = _opacity(scene, params, slot, si)
     return torch.where(active[..., None], (1.0 - op)[..., None].expand(
-        -1, scene.config.variant.n_channels), 0.0)
+        -1, scene.config.variant.channels(si.wavelengths)), 0.0)

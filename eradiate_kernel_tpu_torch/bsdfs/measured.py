@@ -35,6 +35,10 @@ _RGB_REP_WAVELENGTHS = (612.0, 549.0, 465.0)
 
 
 def build(props, builder):
+    if builder.variant.is_spectral:
+        raise NotImplementedError(
+            "bsdf 'measured' in the spectral variant (its spectral lookup) "
+            "comes with slice 6c-2")
     fields = (props["fields"] if "fields" in props
               else read_tensor_file(props["filename"]))
     theta_i = np.asarray(fields["theta_i"], np.float32)

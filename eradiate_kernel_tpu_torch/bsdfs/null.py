@@ -22,12 +22,13 @@ def sample(scene, params, slot, si, s1, s2, active):
         eta=torch.ones(n, device=si.t.device),
         sampled_type=torch.full((n,), FLAGS, dtype=torch.int32,
                                 device=si.t.device))
-    return bs, torch.where(active[..., None], torch.ones(
-        n, scene.config.variant.n_channels, device=si.t.device), 0.0)
+    nc = scene.config.variant.channels(si.wavelengths)
+    return bs, torch.where(active[..., None],
+                           torch.ones(n, nc, device=si.t.device), 0.0)
 
 
 def eval_pdf(scene, params, slot, si, wo, active):
     n = si.t.shape[0]
-    return (torch.zeros(n, scene.config.variant.n_channels,
+    return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
                         device=si.t.device),
             torch.zeros(n, device=si.t.device))

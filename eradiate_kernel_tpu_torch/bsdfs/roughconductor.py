@@ -48,8 +48,9 @@ def dist_sweep(params, slot, fn):
 
 
 def _conductor_f(scene, params, slot, si, cos):
-    return fr.fresnel_conductor(cos, spectrum(scene, params["eta"][slot]),
-                                spectrum(scene, params["k"][slot]))
+    return fr.fresnel_conductor(cos,
+                                spectrum(scene, params["eta"][slot], si),
+                                spectrum(scene, params["k"][slot], si))
 
 
 def sample(scene, params, slot, si, s1, s2, active):

@@ -53,7 +53,7 @@ def sample(scene, params, slot, si, s1, s2, active):
 
 def eval_pdf(scene, params, slot, si, wo, active):
     n = si.t.shape[0]
-    return (torch.zeros(n, scene.config.variant.n_channels,
+    return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
                         device=si.t.device),
             torch.zeros(n, device=si.t.device))
 

@@ -1,5 +1,8 @@
 """The CIE 1931 colour-matching table, Planck's law, sRGB <-> XYZ
-conversion and luminance (the rgb and mono part of core/spectrum.py).
+conversion, luminance and hero-wavelength sampling (core/spectrum.py
+counterpart). The wavelength range is the Eradiate kernel's, 280-2400 nm
+(spectrum.h:15-20); the spectral variant carries ``N_HERO`` = 4 hero
+wavelengths a ray.
 
 The CIE table is the 2-degree standard observer (CIE 15:2004, public-domain
 standard data; 95 samples at 5 nm over 360-830 nm), normalised so that a
@@ -12,9 +15,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .math import channel_mean
+
+WAVELENGTH_MIN = 280.0
+WAVELENGTH_MAX = 2400.0
 CIE_MIN = 360.0
 CIE_MAX = 830.0
 CIE_SAMPLES = 95
+N_HERO = 4  # hero wavelengths per ray in spectral mode
 
 # (xbar, ybar, zbar) per row, 360-830 nm at 5 nm
 _CIE_1931_TABLE = np.array([
@@ -179,7 +187,77 @@ def xyz_to_srgb(xyz):
     return _apply(XYZ_TO_SRGB_M, xyz)
 
 
-def luminance(value):
-    """Y of linear sRGB values (..., 3) -> (...)."""
+def cie1931_y(wavelength):
+    return cie1931_xyz(wavelength)[..., 1]
+
+
+def spectrum_to_xyz(value, wavelengths):
+    """Hero-wavelength estimator of XYZ, the mean over the wavelength axis
+    (spectrum.h:210-217) as a sum times 1 / nw, jnp.mean's lowering: value
+    and wavelengths (..., nw) -> (..., 3)."""
+    xyz = cie1931_xyz(wavelengths) * value[..., None]  # (..., nw, 3)
+    return channel_mean(xyz.transpose(-1, -2))
+
+
+def luminance(value, wavelengths=None):
+    """Y of linear sRGB values (..., 3) -> (...); with ``wavelengths``,
+    the hero-wavelength estimate of Y of spectral values (..., nw)."""
+    if wavelengths is not None:
+        return channel_mean(cie1931_y(wavelengths) * value)
     return (value[..., 0] * 0.212671 + value[..., 1] * 0.715160
             + value[..., 2] * 0.072169)
+
+
+def sample_shifted(sample, n=N_HERO):
+    """One uniform sample (...,) -> n stratified-shifted samples (..., n)
+    in [0, 1) (math.h:419-440)."""
+    shift = torch.arange(n, dtype=torch.float32, device=sample.device) / n
+    v = sample[..., None] + shift
+    return torch.where(v > 1.0, v - 1.0, v)
+
+
+def sample_uniform_spectrum(sample):
+    """Uniform wavelengths over the CIE range, weight = the range's width
+    (spectrum.h:250-253) -> (wavelength, weight)."""
+    lam = sample * (CIE_MAX - CIE_MIN) + CIE_MIN
+    return lam, torch.full_like(lam, CIE_MAX - CIE_MIN)
+
+
+def pdf_uniform_spectrum(wavelength):
+    """The density of sample_uniform_spectrum (the reference keeps it
+    consistent with its sampler over the CIE range)."""
+    return pdf_uniform_spectrum_cie(wavelength)
+
+
+def pdf_uniform_spectrum_cie(wavelength):
+    ok = (wavelength >= CIE_MIN) & (wavelength <= CIE_MAX)
+    return torch.where(ok, 1.0 / (CIE_MAX - CIE_MIN), 0.0)
+
+
+def sample_rgb_spectrum(sample):
+    """Radziszewski's visible importance spectrum, valid only when the
+    wavelength range is 360-830 nm; over Eradiate's 280-2400 nm it falls
+    back to uniform sampling (spectrum.h:271-285). -> (wavelength,
+    weight = 1 / pdf)."""
+    if (WAVELENGTH_MIN, WAVELENGTH_MAX) == (360.0, 830.0):
+        lam = 538.0 - torch.atanh(
+            0.8569106254698279 - 1.8275019724092267 * sample) \
+            * 138.88888888888889
+        tmp = torch.cosh(0.0072 * (lam - 538.0))
+        return lam, 253.82 * tmp * tmp
+    return sample_uniform_spectrum(sample)
+
+
+def pdf_rgb_spectrum(wavelength):
+    if (WAVELENGTH_MIN, WAVELENGTH_MAX) == (360.0, 830.0):
+        tmp = 1.0 / torch.cosh(0.0072 * (wavelength - 538.0))
+        ok = (wavelength >= WAVELENGTH_MIN) & (wavelength <= WAVELENGTH_MAX)
+        return torch.where(ok, 0.003939804229326285 * tmp * tmp, 0.0)
+    return pdf_uniform_spectrum(wavelength)
+
+
+def sample_wavelength(sample):
+    """A sensor's default wavelengths: stratified hero wavelengths
+    (sample_shifted) through sample_rgb_spectrum (spectrum.h:305-313).
+    sample (...,) -> (wavelengths (..., 4), weights (..., 4))."""
+    return sample_rgb_spectrum(sample_shifted(sample))

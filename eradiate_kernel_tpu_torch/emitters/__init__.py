@@ -4,7 +4,9 @@ emitters on shapes, the constant and envmap environments, point, spot,
 projector and directional lights. Each kind's ``*_sample_direction``
 returns (DirectionSample, value) with the value already divided by the
 kind's pdf where it has one (the area kind's division happens in
-sample_emitter_direction, as in the reference). ``sample_emitter_ray``
+sample_emitter_direction, as in the reference). Values are evaluated at
+the lanes' ``wavelengths`` (N, nw) in spectral (nc = nw); mono and rgb
+lanes carry (N, 0). ``sample_emitter_ray``
 draws rays leaving the emitters (Endpoint::sample_ray; no integrator of
 either package traces them)."""
 
@@ -24,7 +26,7 @@ from ..core.transform import Transform
 from ..render import shape_sampling
 from ..render.geometry import ray_test
 from ..render.records import DirectionSample, merge
-from ..render.texture import texture_eval
+from ..render.texture import srgb_model_eval, texture_eval
 
 
 def _zeros_like_batch(x, *shape, dtype=torch.float32):
@@ -34,11 +36,12 @@ def _zeros_like_batch(x, *shape, dtype=torch.float32):
 def area_eval(scene, params, slot, si, active):
     """Radiance of an area emitter seen along si.wi (front side only)."""
     front = si.wi[:, 2] > 0.0
-    v = texture_eval(scene, params["radiance"][slot], si.uv)
+    v = texture_eval(scene, params["radiance"][slot], si.uv,
+                     wavelengths=si.wavelengths)
     return torch.where((active & front)[:, None], v, 0.0)
 
 
-def area_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+def area_sample_direction(scene, params, slot, ref_p, wl, s1, s2, active):
     """A point on the emitter's shape, seen from ``ref_p``: solid-angle
     pdf dist^2 / (area cos), zero from behind."""
     ps = shape_sampling.sample_position(scene, params["shape"][slot], s1, s2)
@@ -49,7 +52,8 @@ def area_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     cos_em = dot(ps.n, -d)
     front = cos_em > 1e-7
     pdf_sa = ps.pdf * dist2 / torch.clamp(torch.abs(cos_em), min=1e-20)
-    value = texture_eval(scene, params["radiance"][slot], ps.uv)
+    value = texture_eval(scene, params["radiance"][slot], ps.uv,
+                         wavelengths=wl)
     value = torch.where((active & front)[:, None], value, 0.0)
     ds = DirectionSample(
         p=ps.p, n=ps.n, uv=ps.uv, d=d, dist=dist,
@@ -70,18 +74,19 @@ def area_pdf_direction(scene, params, slot, ref_p, ds_p, ds_n, active):
     return torch.where(active & (cos_em > 1e-7), pdf, 0.0)
 
 
-def constant_eval(scene, params, slot, active):
-    return torch.where(active[:, None],
-                       texture_eval(scene, params["radiance"][slot]), 0.0)
+def constant_eval(scene, params, slot, wl, active):
+    return torch.where(active[:, None], texture_eval(
+        scene, params["radiance"][slot], wavelengths=wl), 0.0)
 
 
-def constant_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+def constant_sample_direction(scene, params, slot, ref_p, wl, s1, s2,
+                              active):
     """A uniform direction on the sphere, from a point two bounding radii
     away; value / pdf."""
     d = warp.square_to_uniform_sphere(s2)
     pdf = warp.square_to_uniform_sphere_pdf(d)
     r = 2.0 * scene.bsphere_radius
-    value = texture_eval(scene, params["radiance"][slot], s2)
+    value = texture_eval(scene, params["radiance"][slot], s2, wavelengths=wl)
     ds = DirectionSample(
         p=ref_p + d * r, n=-d, uv=s2, d=d, dist=r.expand(pdf.shape[0]),
         pdf=pdf, delta=torch.zeros_like(active),
@@ -89,14 +94,15 @@ def constant_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     return ds, value / pdf[:, None]
 
 
-def point_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+def point_sample_direction(scene, params, slot, ref_p, wl, s1, s2, active):
     """point.cpp: the delta position, intensity over dist^2."""
     p = params["position"][slot]
     delta = p - ref_p
     dist2 = torch.clamp(torch.sum(delta * delta, dim=-1), min=1e-20)
     dist = torch.sqrt(dist2)
     d = delta / dist[:, None]
-    value = texture_eval(scene, params["intensity"][slot]) / dist2[:, None]
+    value = texture_eval(scene, params["intensity"][slot],
+                         wavelengths=wl) / dist2[:, None]
     ds = DirectionSample(
         p=p, n=-d, uv=_zeros_like_batch(dist, 2), d=d, dist=dist,
         pdf=torch.ones_like(dist), delta=torch.ones_like(active),
@@ -104,13 +110,14 @@ def point_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     return ds, value
 
 
-def directional_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+def directional_sample_direction(scene, params, slot, ref_p, wl, s1, s2,
+                                 active):
     """directional.cpp:64-132: delta direction against the travel
     direction, from a point two bounding radii away."""
     d_emit = normalize(params["direction"][slot])
     d = -d_emit
     r = 2.0 * scene.bsphere_radius
-    value = texture_eval(scene, params["irradiance"][slot])
+    value = texture_eval(scene, params["irradiance"][slot], wavelengths=wl)
     ds = DirectionSample(
         p=ref_p + d * r, n=d_emit, uv=_zeros_like_batch(d, 2), d=d,
         dist=r.expand(d.shape[0]), pdf=torch.ones_like(d[:, 0]),
@@ -135,7 +142,7 @@ def _delta_sample(p, d, dist, uv):
         emitter_index=_zeros_like_batch(dist, dtype=torch.int32))
 
 
-def spot_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+def spot_sample_direction(scene, params, slot, ref_p, wl, s1, s2, active):
     """spot.cpp: a cone light with a linear falloff between the beam and
     cutoff angles; a delta position."""
     p, d, dist, dist2 = _toward(params, slot, ref_p)
@@ -144,7 +151,7 @@ def spot_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     cbeam = params["cos_beam"][slot]
     falloff = torch.clamp((cos_a - ccut) / torch.clamp(cbeam - ccut,
                                                        min=1e-6), 0.0, 1.0)
-    value = (texture_eval(scene, params["intensity"][slot])
+    value = (texture_eval(scene, params["intensity"][slot], wavelengths=wl)
              * (falloff / dist2)[:, None])
     return _delta_sample(p, d, dist, _zeros_like_batch(dist, 2)), value
 
@@ -153,7 +160,8 @@ def _w2l(params, slot):
     return Transform(m=params["w2l_m"][slot], inv_t=params["w2l_it"][slot])
 
 
-def projector_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+def projector_sample_direction(scene, params, slot, ref_p, wl, s1, s2,
+                               active):
     """projector.cpp: an image projected from a delta position; its uv is
     the direction through the projector's frustum (the perspective
     sensor's mapping, x mirrored)."""
@@ -166,7 +174,8 @@ def projector_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     v = 0.5 * (1.0 - d_loc[:, 1] / (z * tan_x * aspect))
     inside = (d_loc[:, 2] > 0) & (u >= 0) & (u < 1) & (v >= 0) & (v < 1)
     uv = torch.stack([u, v], dim=-1)
-    value = texture_eval(scene, params["irradiance"][slot], uv)
+    value = texture_eval(scene, params["irradiance"][slot], uv,
+                         wavelengths=wl)
     value = torch.where((active & inside)[:, None], value / dist2[:, None],
                         0.0)
     return _delta_sample(p, d, dist, uv), value
@@ -196,9 +205,11 @@ def _envmap_uv_to_dir(params, slot, uv):
             theta)
 
 
-def _envmap_bilinear(scene, params, slot, uv):
+def _envmap_bilinear(scene, params, slot, uv, wl):
     """The image's vertex-aligned bilinear value at uv, times its scale;
-    the channel mean in mono."""
+    the channel mean in mono; in spectral the texels' rgb2spec
+    coefficients and scales lerped and evaluated at the wavelengths ``wl``
+    (envmap.cpp:69-89)."""
     img = params["image"]  # (S, H, W+1, 3)
     H, W = img.shape[1], img.shape[2]
     u = torch.clamp(uv[:, 0], 0.0, 1.0) * (W - 1)
@@ -209,6 +220,19 @@ def _envmap_bilinear(scene, params, slot, uv):
     y1 = y0 + 1
     fx = torch.clamp(u - x0, 0.0, 1.0)[:, None]
     fy = torch.clamp(v - y0, 0.0, 1.0)[:, None]
+    if scene.config.variant.is_spectral:
+        cf, sc = params["spec_coeff"], params["spec_scale"]
+        coeff = (cf[slot, y0, x0] * (1 - fx) * (1 - fy)
+                 + cf[slot, y0, x1] * fx * (1 - fy)
+                 + cf[slot, y1, x0] * (1 - fx) * fy
+                 + cf[slot, y1, x1] * fx * fy)
+        fx1, fy1 = fx[:, 0], fy[:, 0]
+        s = (sc[slot, y0, x0] * (1 - fx1) * (1 - fy1)
+             + sc[slot, y0, x1] * fx1 * (1 - fy1)
+             + sc[slot, y1, x0] * (1 - fx1) * fy1
+             + sc[slot, y1, x1] * fx1 * fy1)
+        return (srgb_model_eval(coeff, wl)
+                * (s * params["scale"][slot])[:, None])
     c = (img[slot, y0, x0] * (1 - fx) * (1 - fy)
          + img[slot, y0, x1] * fx * (1 - fy)
          + img[slot, y1, x0] * (1 - fx) * fy + img[slot, y1, x1] * fx * fy)
@@ -218,10 +242,10 @@ def _envmap_bilinear(scene, params, slot, uv):
     return channel_mean(rgb, keepdim=True)
 
 
-def envmap_eval(scene, params, slot, d, active):
+def envmap_eval(scene, params, slot, d, wl, active):
     uv, _theta = _envmap_dir_to_uv(params, slot, d)
     return torch.where(active[:, None],
-                       _envmap_bilinear(scene, params, slot, uv), 0.0)
+                       _envmap_bilinear(scene, params, slot, uv, wl), 0.0)
 
 
 def envmap_pdf_direction(scene, params, slot, d, active):
@@ -233,7 +257,7 @@ def envmap_pdf_direction(scene, params, slot, d, active):
     return torch.where(active, p / (2.0 * math.pi * math.pi * st), 0.0)
 
 
-def envmap_sample_direction(scene, params, slot, ref_p, s1, s2, active):
+def envmap_sample_direction(scene, params, slot, ref_p, wl, s1, s2, active):
     """uv by the Hierarchical2D warp of the sin-weighted luminance, so
     value / pdf is the colour-to-luminance ratio, bounded even for a
     one-texel sun."""
@@ -242,7 +266,7 @@ def envmap_sample_direction(scene, params, slot, ref_p, s1, s2, active):
     st = torch.clamp(torch.sin(theta), min=1e-6)
     pdf = torch.where(p2 > 0, p2 / (2.0 * math.pi * math.pi * st), 0.0)
     pdf = torch.where(active, pdf, 0.0)
-    value = _envmap_bilinear(scene, params, slot, uv)
+    value = _envmap_bilinear(scene, params, slot, uv, wl)
     value = torch.where((active & (pdf > 0))[:, None],
                         value / torch.clamp(pdf, min=1e-20)[:, None], 0.0)
     r = 2.0 * scene.bsphere_radius
@@ -278,7 +302,7 @@ def sample_emitter_direction(scene, si, s_pick, s1, s2, active,
         p=z3, n=z3, uv=_zeros_like_batch(si.t, 2), d=z3, dist=z, pdf=z,
         delta=torch.zeros_like(active),
         emitter_index=torch.full_like(si.t, -1, dtype=torch.int32))
-    zc = _zeros_like_batch(si.t, cfg.variant.n_channels)
+    zc = _zeros_like_batch(si.t, scene.config.variant.channels(si.wavelengths))
     if n_em == 0:
         return ds, zc
 
@@ -291,7 +315,7 @@ def sample_emitter_direction(scene, si, s_pick, s1, s2, active,
         # other kinds' lanes read slot 0 (the reference's gathers clamp)
         d_k, v_k = KIND_SAMPLERS[kind](scene, scene.emitters[kind],
                                        torch.where(kind_id == k, slot, 0),
-                                       si.p, s1, s2, m)
+                                       si.p, si.wavelengths, s1, s2, m)
         if kind == "area":  # weight = value / pdf
             v_k = torch.where(d_k.pdf[:, None] > 0,
                               v_k / torch.clamp(d_k.pdf[:, None], min=1e-20),
@@ -341,7 +365,8 @@ def pdf_emitter_direction(scene, ref_p, si_hit, escaped, active, d=None):
 def eval_emitter_hit(scene, si, active):
     """Radiance emitted toward the viewer at a surface hit (area
     emitters)."""
-    out = _zeros_like_batch(si.t, scene.config.variant.n_channels)
+    nc = scene.config.variant.channels(si.wavelengths)
+    out = _zeros_like_batch(si.t, nc)
     if "area" not in scene.config.emitter_kinds:
         return out
     em_idx = scene.shape_emitter[torch.clamp(si.shape_index, min=0)]
@@ -355,15 +380,17 @@ def eval_emitter_hit(scene, si, active):
 def eval_environment(scene, ray, escaped, active):
     """Radiance of escaped rays (the constant or envmap environment)."""
     cfg = scene.config
-    out = _zeros_like_batch(ray.o, cfg.variant.n_channels)
+    out = _zeros_like_batch(ray.o, cfg.variant.channels(ray.wavelengths))
     if cfg.env_emitter < 0:
         return out
     slot = scene.emitter_slot[cfg.env_emitter].expand(ray.o.shape[0])
     m = active & escaped
     if "envmap" in cfg.emitter_kinds:
-        v = envmap_eval(scene, scene.emitters["envmap"], slot, ray.d, m)
+        v = envmap_eval(scene, scene.emitters["envmap"], slot, ray.d,
+                        ray.wavelengths, m)
     else:
-        v = constant_eval(scene, scene.emitters["constant"], slot, m)
+        v = constant_eval(scene, scene.emitters["constant"], slot,
+                          ray.wavelengths, m)
     return torch.where(m[:, None], v, out)
 
 
@@ -469,6 +496,10 @@ def sample_emitter_ray(scene, sampler, time, active=None):
     weight (N, nc), emitter index, sampler). An envmap raises, as the
     reference's does (envmap.cpp:149-154)."""
     cfg = scene.config
+    if cfg.variant.is_spectral:
+        raise NotImplementedError(
+            "sample_emitter_ray in the spectral variant (its wavelength "
+            "sampling) comes with slice 6c-2")
     n_em = cfg.n_emitters
     if n_em == 0:
         raise ValueError("sample_emitter_ray: the scene has no emitters")

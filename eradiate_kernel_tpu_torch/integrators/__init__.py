@@ -10,7 +10,9 @@ fixed number of lanes busy, refilling each lane whose path ended with the
 next unstarted sample. Both draw every sample from the same RNG stream, so
 they render the same film up to the order of the film sums. A mono film
 holds the one radiance channel in each of X, Y and Z (the reference's
-layout); rgb converts to XYZ.
+layout); rgb converts to XYZ; spectral takes the hero-wavelength
+estimator of XYZ at the camera ray's wavelengths (the lane pool carries
+them in the lane's ray).
 """
 
 from __future__ import annotations
@@ -25,10 +27,11 @@ from ..core.rng import Sampler
 from ..films import N_BASE_CHANNELS, develop, film_put
 from ..rfilters import filter_radius
 from . import aov, common, depth, direct, moment, path, volpath, volpathmis
+from .bins import bins, nbins
 
 REGISTRY = {"path": path, "direct": direct, "depth": depth,
             "volpath": volpath, "volpathmis": volpathmis, "aov": aov,
-            "moment": moment}
+            "moment": moment, "bins": bins, "nbins": nbins}
 
 
 def n_aov(cfg):
@@ -83,11 +86,12 @@ def _camera_lanes(scene, seed, spp, sample, differentials=False):
     return sampler, ray, ray_weight, pos
 
 
-def _film_rows(spec, valid):
-    """[X, Y, Z, A, W] rows of finished samples: rgb (N, 3) converts to
+def _film_rows(spec, valid, wavelengths=None):
+    """[X, Y, Z, A, W] rows of finished samples: spectral (N, nw) by the
+    hero-wavelength estimator at ``wavelengths``, rgb (N, 3) converts to
     XYZ, mono (N, 1) repeats into X, Y and Z."""
     one = torch.ones_like(spec[:, :1])
-    return torch.cat([common.spec_to_xyz(spec),
+    return torch.cat([common.spec_to_xyz(spec, wavelengths),
                       torch.where(valid, 1.0, 0.0)[:, None], one], dim=-1)
 
 
@@ -97,6 +101,7 @@ def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
     beyond the film's sample count are masked out. An AOV integrator's
     columns follow the base channels; only duv AOVs pay for the offset
     camera rays."""
+    _refuse_spectral_grad(scene)
     cfg = scene.config
     dev = scene.bsphere_center.device
     H, W = cfg.film_height, cfg.film_width
@@ -115,10 +120,11 @@ def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
         kw = {"ray_diff": rd[0]} if diff else {}
         spec, valid, sampler, aovs = mod.sample_aov(scene, sampler, ray,
                                                     ray_weight, **kw)
-        rows = torch.cat([_film_rows(spec * ray_weight, valid), aovs], -1)
+        rows = torch.cat([_film_rows(spec * ray_weight, valid,
+                                     ray.wavelengths), aovs], -1)
     else:
         spec, valid, sampler = mod.sample(scene, sampler, ray)
-        rows = _film_rows(spec * ray_weight, valid)
+        rows = _film_rows(spec * ray_weight, valid, ray.wavelengths)
     values = torch.where(lane_ok[:, None], rows, 0.0)
     image = torch.zeros(ch, cw, N_BASE_CHANNELS + extra, device=dev)
     offset = torch.tensor([cx, cy], dtype=torch.float32, device=dev)
@@ -257,7 +263,9 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     An AOV wrapper's pool bounces its child; its columns come from the
     wrapper's hooks: ``_refill_aov`` (the camera hit, computed at refill
     and carried in the lane) and ``_harvest_aov`` (from the harvested
-    lane), and follow the base channels in the slots and the film.
+    lane), and follow the base channels in the film. They have a slot
+    buffer of their own, so that the base channels' spp sum is the child's
+    alone, bit for bit.
 
     Returns (film (ch, cw, 5 + n_aov), rays traced (a 0-d tensor)); with
     ``sample_log`` also the sample log (total, nc): row s is sample s's
@@ -269,6 +277,7 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     wrapper = REGISTRY[cfg.integrator.kind]
     mod = _bounce_module(cfg)
     _check_regen(cfg)
+    _refuse_spectral_grad(scene)
     extra = n_aov(cfg)
     dev = scene.bsphere_center.device
     cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
@@ -282,9 +291,16 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     wide = filter_radius(cfg.rfilter, rp) > 0.5 + 1e-6
     n_ch = N_BASE_CHANNELS + extra
     # slot `total` is the trash row of lanes that finished nothing
-    slots = None if wide else torch.zeros(total + 1, n_ch, device=dev)
+    slots = None if wide else torch.zeros(total + 1, N_BASE_CHANNELS,
+                                          device=dev)
+    aov_slots = (torch.zeros(total + 1, extra, device=dev)
+                 if extra and not wide else None)
     film = torch.zeros(ch, cw, n_ch, device=dev) if wide else None
     offset = torch.tensor(cfg.crop_offset, dtype=torch.float32, device=dev)
+    if sample_log and cfg.variant.is_spectral:
+        raise NotImplementedError(
+            "the sample log of the spectral variant (the path replay's "
+            "gradient) comes with slice 6c-2")
     rlog = (torch.zeros(total + 1, cfg.variant.n_channels, device=dev)
             if sample_log else None)
     # the camera-hit AOV columns carried per lane (filled at refill)
@@ -295,16 +311,19 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
         carry.index_copy_(0, ridx, wrapper._refill_aov(scene, ray))
 
     def harvest(vp, rw, pos, slot):
-        rows = _film_rows(vp.result * rw, vp.valid_ray)
-        if extra:
-            rows = torch.cat([rows, wrapper._harvest_aov(scene, vp, rw,
-                                                         carry)], -1)
+        rows = _film_rows(vp.result * rw, vp.valid_ray, vp.ray.wavelengths)
+        aovs = (wrapper._harvest_aov(scene, vp, rw, carry) if extra
+                else None)
         if wide:
+            if extra:
+                rows = torch.cat([rows, aovs], -1)
             film_put(film, pos - offset,
                      torch.where((slot < total)[:, None], rows, 0.0),
                      cfg.rfilter, rp)
         else:
             slots.index_copy_(0, slot, rows)
+            if extra:
+                aov_slots.index_copy_(0, slot, aovs)
         if rlog is not None:
             rlog.index_copy_(0, slot, vp.result)
 
@@ -313,7 +332,8 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
                      harvest=harvest, refill=None if carry is None else refill,
                      stats=stats)
     if not wide:
-        film = slots[:total].reshape(ch * cw, spp, n_ch).sum(1)
+        film = torch.cat([b[:total].reshape(ch * cw, spp, -1).sum(1)
+                          for b in (slots, aov_slots) if b is not None], -1)
         film = film.reshape(ch, cw, n_ch)
     if sample_log:
         return film, rays, rlog[:total]
@@ -342,6 +362,16 @@ def _requires_grad(scene):
         t.requires_grad for t in scene.tensors().values())
 
 
+def _refuse_spectral_grad(scene):
+    """Both drivers raise on a spectral render whose scene tensors require
+    a gradient: the spectral variant's gradients come with slice 6c-2."""
+    if scene.config.variant.is_spectral and _requires_grad(scene):
+        raise NotImplementedError(
+            "gradients of the spectral variant (either driver) come with "
+            "slice 6c-2; render under torch.no_grad() or with no scene "
+            "tensor requiring a gradient")
+
+
 def render(scene, seed=0, spp=None, samples_per_pass=None,
            develop_film=True, return_aovs=False, regen=False):
     """Multi-pass wavefront render, or with ``regen`` the lane pool of
@@ -351,7 +381,8 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
     weight-normalised AOV channels (aov.cpp and moment.cpp's outputs).
 
     Both drivers are differentiable with respect to the scene's
-    value-class tensors for path and volpath: the scan driver by autograd
+    value-class tensors for path and volpath in mono and rgb (the spectral
+    variant's gradients raise until slice 6c-2): the scan driver by autograd
     through its passes, the lane pool through the path-replay backward
     (integrators/replay.py). The other integrators have no replay, and the
     reference cannot differentiate its pool: their gradients go through

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.spectrum import srgb_to_xyz
+from ..core.spectrum import spectrum_to_xyz, srgb_to_xyz
 
 
 def mis_weight(pdf_a, pdf_b):
@@ -15,9 +15,13 @@ def mis_weight(pdf_a, pdf_b):
                        pdf_a / torch.clamp(pdf_a + pdf_b, min=1e-30), 0.0)
 
 
-def spec_to_xyz(spec):
-    """The film's X, Y, Z of splatted values: rgb (N, 3) converts to XYZ,
-    mono (N, 1) repeats into all three (the reference's layout)."""
+def spec_to_xyz(spec, wavelengths=None):
+    """The film's X, Y, Z of splatted values: spectral (N, nw) by the
+    hero-wavelength estimator at ``wavelengths`` (N, nw), rgb (N, 3)
+    converts to XYZ, mono (N, 1) repeats into all three (the reference's
+    layout)."""
+    if wavelengths is not None and wavelengths.shape[-1]:
+        return spectrum_to_xyz(spec, wavelengths)
     return spec.expand(-1, 3) if spec.shape[1] == 1 else srgb_to_xyz(spec)
 
 

@@ -13,7 +13,7 @@ from .common import mis_weight
 
 def sample(scene, sampler, ray, active=None):
     """Incident radiance along ``ray`` (on the ``active`` lanes, default
-    all) -> (spec (N, 3), valid, sampler)."""
+    all) -> (spec (N, nc), valid, sampler)."""
     if active is None:
         active = torch.ones(ray.o.shape[0], dtype=torch.bool,
                             device=ray.o.device)

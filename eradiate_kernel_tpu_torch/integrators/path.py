@@ -67,9 +67,9 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dev)
     ok = (0.0 * ray.o[:, 0]) == 0.0
-    nc = scene.config.variant.n_channels
+    nc = scene.config.variant.channels(ray.wavelengths)
     return _PathState(
-        sampler=sampler, ray=ray, si=invalid_si(n, dev),
+        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths),
         needs_intersection=ok.clone(),
         throughput=torch.ones(n, nc, device=dev),
         result=torch.zeros(n, nc, device=dev), eta=ones,
@@ -154,7 +154,8 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
         bs, bsdf_weight = bsdfs.bsdf_sample(scene, bsdf_idx, si, sb1, sb2,
                                             active)
     else:
-        bs, bsdf_weight = bsdf_flags.zero_bsdf_sample(n, 3, dev)
+        bs, bsdf_weight = bsdf_flags.zero_bsdf_sample(
+            n, s.throughput.shape[-1], dev)
     throughput = throughput * torch.where(active[:, None], bsdf_weight, 1.0)
     eta = torch.where(active, s.eta * bs.eta, s.eta)
     active = active & torch.any(throughput > 0, dim=-1) & (bs.pdf > 0)
@@ -164,7 +165,8 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
     keep = lambda new, old: merge(new, old, active)
     ray_out = Ray(o=keep(new_ray.o, s.ray.o), d=keep(new_ray.d, s.ray.d),
                   mint=keep(new_ray.mint, s.ray.mint),
-                  maxt=keep(new_ray.maxt, s.ray.maxt), time=s.ray.time)
+                  maxt=keep(new_ray.maxt, s.ray.maxt), time=s.ray.time,
+                  wavelengths=s.ray.wavelengths)
     return _PathState(
         sampler=smp, ray=ray_out, si=si,
         needs_intersection=needs_intersection | active,

@@ -171,7 +171,7 @@ def _walk_step(scene, s, ds, channel, ca):
     active_surface = active_surface | escaped_medium
     total_dist = torch.where(active_surface, total_dist + si.t, total_dist)
     active_surface = active_surface & si.is_valid & active & ~active_medium
-    null_tr = _eval_null_transmission(scene, si, active_surface)
+    null_tr = _eval_null_transmission(scene, si, active_surface, nc)
     pf_nee = _update(pf_nee, torch.ones_like(null_tr), null_tr,
                      active_surface)
     pf_uni = _update(pf_uni, torch.ones_like(null_tr), null_tr,
@@ -206,8 +206,9 @@ def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
     sampler, s1 = sampler.next_1d()
     sampler, s2 = sampler.next_2d()
     ds, emitter_val = emitters.sample_emitter_direction(
-        scene, _RefPoint(p=ref_p, t=torch.zeros(n, device=dev)), s_pick, s1,
-        s2, active, test_visibility=False)
+        scene, _RefPoint(p=ref_p, t=torch.zeros(n, device=dev),
+                         wavelengths=ref_p.new_zeros(n, 0)),
+        s_pick, s1, s2, active, test_visibility=False)
     active = active & (ds.pdf > 0)
     # the samplers return value / pdf; the pdf enters through the weight
     # matrix instead (volpathmis.cpp:340)
@@ -224,7 +225,8 @@ def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
     ray = Ray(o=o, d=ds.d, mint=torch.zeros(n, device=dev),
               maxt=torch.full((n,), INVALID_T, device=dev), time=time)
     state = _WalkState(
-        sampler=sampler, ray=ray, si=_invalid_walk_hit(n, dev),
+        sampler=sampler, ray=ray,
+        si=_invalid_walk_hit(n, dev, ray.wavelengths),
         needs_intersection=torch.ones(n, dtype=torch.bool, device=dev),
         medium_idx=medium_idx, pf_nee=pf_nee, pf_uni=pf,
         total_dist=torch.zeros(n, device=dev), active=active,

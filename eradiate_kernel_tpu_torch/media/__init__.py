@@ -6,7 +6,10 @@ Free flight samples against the LOCAL z-profile majorant of the segment
 (``_flight_profile_setup``/``_flight_sample``: piecewise constant along
 the ray, inverse-transform sampled in closed form); ``eval_tr_and_pdf``
 rebuilds its optical depth from the parametrization stored on the
-interaction. The majorants and rates are sampling parameters: the segment
+interaction. Each function that returns a value per channel takes the
+lanes' ``wavelengths`` (N, nw): the spectral variant evaluates its spectra
+and volumes there (nc = nw); mono and rgb rays carry (N, 0) and nc is the
+variant's. The majorants and rates are sampling parameters: the segment
 majorant (``medium_majorant_segment``) and the rate profile and constant
 rate of ``_flight_profile_setup`` are detached, as the reference detaches
 them (volpath.cpp:83), so the residual walk's collision rate, which is
@@ -25,6 +28,7 @@ import torch
 
 from ..core.math import INVALID_T
 from ..core.transform import Transform
+from ..render.texture import scene_spectrum_eval
 from ..scene.build_spectra import AXPROF_BINS
 from ..textures.volumes import volume_eval
 
@@ -81,15 +85,10 @@ def _w2l(params, slot):
     return Transform(m=params["w2l_m"][slot], inv_t=params["w2l_it"][slot])
 
 
-def _spec(scene, spec_idx):
-    """rgb: every spectrum is a baked (3,) constant."""
-    return scene.spectra["baked"]["value"][scene.spec_slot[spec_idx]]
-
-
-def _homogeneous_sigma_t(scene, slot):
+def _homogeneous_sigma_t(scene, slot, wavelengths):
     params = scene.media["homogeneous"]
-    return _spec(scene, params["sigma_t"][slot]) * params["scale"][slot][
-        ..., None]
+    return scene_spectrum_eval(scene, params["sigma_t"][slot], wavelengths) \
+        * params["scale"][slot][..., None]
 
 
 def ray_intersect_aabb(bb_min, bb_max, o, d_rcp, mint, maxt):
@@ -124,13 +123,14 @@ def medium_intersect_bounds(scene, medium_idx, ray, active):
     return ok & active, mint, maxt
 
 
-def medium_combined_extinction(scene, medium_idx, nc):
+def medium_combined_extinction(scene, medium_idx, wavelengths):
     """Global majorant (per channel) of each lane's medium."""
+    nc = scene.config.variant.channels(wavelengths)
     out = torch.ones(medium_idx.shape + (nc,), device=medium_idx.device)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         if kind == "homogeneous":
-            v = _homogeneous_sigma_t(scene, slot)
+            v = _homogeneous_sigma_t(scene, slot, wavelengths)
         else:
             v = scene.media[kind]["majorant"][slot][..., None].expand(
                 medium_idx.shape + (nc,))
@@ -152,11 +152,12 @@ def _axis_range_max(prof3, p0, p1):
     return torch.amin(per_axis, dim=-1)
 
 
-def medium_majorant_segment(scene, medium_idx, ray, mint, maxt, nc):
+def medium_majorant_segment(scene, medium_idx, ray, mint, maxt,
+                            wavelengths):
     """Per-lane majorant valid on the ray segment [mint, maxt]:
     heterogeneous media take the min over axes of their profiles' range-max
     over the segment, times the 'majorant' magnitude."""
-    out = medium_combined_extinction(scene, medium_idx, nc)
+    out = medium_combined_extinction(scene, medium_idx, wavelengths)
     if "heterogeneous" not in scene.config.medium_kinds:
         return out
     m, slot = _kind_slot(scene, medium_idx, "heterogeneous")
@@ -257,24 +258,29 @@ def _flight_tau(mq, qa, qb, adlz, a, t):
     return torch.sum(mq * ov, dim=-1) / adlz
 
 
-def medium_scattering_coefficients(scene, medium_idx, p, nc, majorant=None):
+def medium_scattering_coefficients(scene, medium_idx, p, wavelengths,
+                                   majorant=None):
     """(sigma_s, sigma_n, sigma_t) at world point p; ``majorant`` overrides
     the global combined extinction."""
     dev = p.device
+    nc = scene.config.variant.channels(wavelengths)
     sigma_s = torch.zeros(medium_idx.shape + (nc,), device=dev)
     sigma_t = torch.zeros_like(sigma_s)
     if majorant is None:
-        majorant = medium_combined_extinction(scene, medium_idx, nc)
+        majorant = medium_combined_extinction(scene, medium_idx,
+                                              wavelengths)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         params = scene.media[kind]
         if kind == "homogeneous":
-            st = _homogeneous_sigma_t(scene, slot)
-            al = _spec(scene, params["albedo"][slot])
+            st = _homogeneous_sigma_t(scene, slot, wavelengths)
+            al = scene_spectrum_eval(scene, params["albedo"][slot],
+                                     wavelengths)
         else:
-            st = volume_eval(scene, params["sigma_t_vol"][slot], p) \
-                * params["scale"][slot][..., None]
-            al = volume_eval(scene, params["albedo_vol"][slot], p)
+            st = volume_eval(scene, params["sigma_t_vol"][slot], p,
+                             wavelengths) * params["scale"][slot][..., None]
+            al = volume_eval(scene, params["albedo_vol"][slot], p,
+                             wavelengths)
         sigma_t = torch.where(m[..., None], st, sigma_t)
         sigma_s = torch.where(m[..., None], st * al, sigma_s)
     sigma_n = torch.clamp(majorant - sigma_t, min=0.0)
@@ -330,16 +336,18 @@ def _het_profile_tau(scene, slot, ray, a, b, prof, cum, D):
         * params["scale"][slot]
 
 
-def medium_ctrl_tau_segment(scene, medium_idx, ray, a, b, nc):
+def medium_ctrl_tau_segment(scene, medium_idx, ray, a, b, wavelengths):
     """CONTROL optical depth over [a, b] -> (N, nc): the exact integral of
     the control field sigma_c (homogeneous: sigma_t; heterogeneous: the
     horizontal-mean vertical profile)."""
+    nc = scene.config.variant.channels(wavelengths)
     tau = torch.zeros(a.shape + (nc,), device=a.device)
     seg = torch.clamp(b - a, min=0.0)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         if kind == "homogeneous":
-            v = _homogeneous_sigma_t(scene, slot) * seg[..., None]
+            v = _homogeneous_sigma_t(scene, slot, wavelengths) \
+                * seg[..., None]
         else:
             v = _het_profile_tau(scene, slot, ray, a, b, "cprof", "ccum",
                                  "cD")[..., None].expand(a.shape + (nc,))
@@ -400,14 +408,15 @@ def medium_residual_sample(scene, medium_idx, ray, a, b, xi):
     return h, torch.where(h, t_s, 0.0), torch.where(h, r_s, 0.0)
 
 
-def medium_ctrl_sigma(scene, medium_idx, p, nc):
+def medium_ctrl_sigma(scene, medium_idx, p, wavelengths):
     """Control field sigma_c at world point p -> (N, nc), scale included."""
+    nc = scene.config.variant.channels(wavelengths)
     out = torch.zeros(medium_idx.shape + (nc,), device=p.device)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         params = scene.media[kind]
         if kind == "homogeneous":
-            v = _homogeneous_sigma_t(scene, slot)
+            v = _homogeneous_sigma_t(scene, slot, wavelengths)
         else:
             z = _w2l(params, slot).transform_affine_point(p)[..., 2]
             _i, f, p0, p1 = _profile_lerp_setup(params["cprof"][slot],
@@ -419,23 +428,25 @@ def medium_ctrl_sigma(scene, medium_idx, p, nc):
     return out
 
 
-def medium_sigma_t(scene, medium_idx, p, nc):
+def medium_sigma_t(scene, medium_idx, p, wavelengths):
     """sigma_t alone at world point p -> (N, nc) (the residual-collision
     integrand; no albedo lookup)."""
+    nc = scene.config.variant.channels(wavelengths)
     out = torch.zeros(medium_idx.shape + (nc,), device=p.device)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         params = scene.media[kind]
         if kind == "homogeneous":
-            v = _homogeneous_sigma_t(scene, slot)
+            v = _homogeneous_sigma_t(scene, slot, wavelengths)
         else:
-            v = volume_eval(scene, params["sigma_t_vol"][slot], p) \
-                * params["scale"][slot][..., None]
+            v = volume_eval(scene, params["sigma_t_vol"][slot], p,
+                            wavelengths) * params["scale"][slot][..., None]
         out = torch.where(m[..., None], v, out)
     return out
 
 
-def _gauss_legendre_tau(scene, medium_idx, ray, a, b, nc, quad_points):
+def _gauss_legendre_tau(scene, medium_idx, ray, a, b, wavelengths,
+                        quad_points):
     """Gauss-Legendre quadrature of sigma_t over [a, b] with
     ``quad_points`` nodes -> (N, nc): the (N, K) node positions go through
     one sigma_t lookup, flattened (one gridvolume lookup for all K)."""
@@ -446,31 +457,37 @@ def _gauss_legendre_tau(scene, medium_idx, ray, a, b, nc, quad_points):
           + b[..., None] * 0.5 * (1.0 + nodes))               # (N, K)
     p_k = ray.o[..., None, :] + ray.d[..., None, :] * ts[..., None]
     n, K = ts.shape
-    sigma_t = medium_sigma_t(scene, medium_idx[:, None].expand(n, K)
-                             .reshape(-1), p_k.reshape(-1, 3), nc)
-    sigma_t = sigma_t.reshape(n, K, nc)
+    nw = wavelengths.shape[-1]
+    sigma_t = medium_sigma_t(
+        scene, medium_idx[:, None].expand(n, K).reshape(-1),
+        p_k.reshape(-1, 3),
+        wavelengths[:, None, :].expand(n, K, nw).reshape(n * K, nw))
+    sigma_t = sigma_t.reshape(n, K, sigma_t.shape[-1])
     return 0.5 * torch.clamp(b - a, min=0.0)[..., None] * torch.sum(
         w[..., None] * sigma_t, dim=-2)
 
 
-def medium_tau_segment(scene, medium_idx, ray, a, b, nc, quad_points=8):
+def medium_tau_segment(scene, medium_idx, ray, a, b, wavelengths,
+                       quad_points=8):
     """Optical depth of sigma_t over [a, b] -> (N, nc): homogeneous media
     sigma_t * (b - a); plane-parallel heterogeneous media
     (config.het_profile1d) the exact closed form of their vertical
     profile; general 3D grids Gauss-Legendre quadrature with
     ``quad_points`` nodes (consistent, not unbiased)."""
+    nc = scene.config.variant.channels(wavelengths)
     tau = torch.zeros(a.shape + (nc,), device=a.device)
     seg = torch.clamp(b - a, min=0.0)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         if kind == "homogeneous":
-            v = _homogeneous_sigma_t(scene, slot) * seg[..., None]
+            v = _homogeneous_sigma_t(scene, slot, wavelengths) \
+                * seg[..., None]
         elif scene.config.het_profile1d:
             v = _het_profile_tau(scene, slot, ray, a, b, "zprof", "zcum",
                                  "zD")[..., None].expand(a.shape + (nc,))
         else:
-            v = _gauss_legendre_tau(scene, medium_idx, ray, a, b, nc,
-                                    quad_points)
+            v = _gauss_legendre_tau(scene, medium_idx, ray, a, b,
+                                    wavelengths, quad_points)
         tau = torch.where(m[..., None], v, tau)
     return torch.clamp(tau, 0.0, 60.0)
 
@@ -482,7 +499,7 @@ def sample_interaction(scene, medium_idx, ray, sample, channel, active):
     their local z-profile majorant; under "segment" every lane flies
     against its segment's one majorant (medium_majorant_segment)."""
     cfg = scene.config
-    nc = cfg.variant.n_channels
+    nc = cfg.variant.channels(ray.wavelengths)
     profile = ff_majorant_mode(scene) == "profile"
     seg_ok, mint, maxt = medium_intersect_bounds(scene, medium_idx, ray,
                                                  active)
@@ -497,7 +514,7 @@ def sample_interaction(scene, medium_idx, ray, sample, channel, active):
         m = torch.ones(n, device=dev)
     else:
         combined = medium_majorant_segment(scene, medium_idx, ray, mint,
-                                           maxt, nc)
+                                           maxt, ray.wavelengths)
         m = torch.gather(combined, -1,
                          torch.clamp(channel, 0, nc - 1)[:, None].long())[:, 0]
 
@@ -534,7 +551,7 @@ def sample_interaction(scene, medium_idx, ray, sample, channel, active):
     t = torch.where(valid_mi, sampled_t, INVALID_T)
     p = ray.at(torch.where(valid_mi, sampled_t, 0.0))
     sigma_s, sigma_n, sigma_t = medium_scattering_coefficients(
-        scene, medium_idx, p, nc, majorant=combined)
+        scene, medium_idx, p, ray.wavelengths, majorant=combined)
     return MediumInteraction(
         t=t, p=p, mint=mint, sigma_s=sigma_s, sigma_n=sigma_n,
         sigma_t=sigma_t, combined_extinction=combined, maxt=maxt,

@@ -565,7 +565,7 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
         t=t, p=p, n=n, sh_frame=sh_frame, uv=uv, prim_uv=pi.prim_uv,
         dp_du=dp_du, dp_dv=dp_dv, wi=sh_frame.to_local(-ray.d),
         time=ray.time, prim_index=pi.prim_index,
-        shape_index=pi.shape_index)
+        shape_index=pi.shape_index, wavelengths=ray.wavelengths)
 
 
 def ray_intersect(geo: Geometry, ray: Ray, active=None):

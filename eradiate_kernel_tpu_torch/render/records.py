@@ -53,6 +53,12 @@ class SurfaceInteraction:
     time: torch.Tensor         # (N,)
     prim_index: torch.Tensor   # (N,) i32
     shape_index: torch.Tensor  # (N,) i32, -1 if invalid
+    wavelengths: torch.Tensor = None  # (N, nw) the ray's; None: (N, 0)
+
+    def __post_init__(self):
+        if self.wavelengths is None:
+            object.__setattr__(self, "wavelengths",
+                               self.t.new_zeros(self.t.shape + (0,)))
 
     @property
     def is_valid(self):
@@ -73,7 +79,8 @@ class SurfaceInteraction:
         """Ray leaving along d, offset along the geometric normal."""
         o = self._offset_origin(d)
         return Ray(o=o, d=d, mint=torch.zeros_like(self.t),
-                   maxt=torch.full_like(self.t, INVALID_T), time=self.time)
+                   maxt=torch.full_like(self.t, INVALID_T), time=self.time,
+                   wavelengths=self.wavelengths)
 
     def spawn_ray_to(self, target):
         """Shadow ray toward ``target`` with an epsilon gap at both ends;
@@ -84,10 +91,13 @@ class SurfaceInteraction:
                                       min=1e-30))
         d = delta / dist[..., None]
         return Ray(o=o, d=d, mint=torch.zeros_like(dist),
-                   maxt=dist * (1.0 - ShadowEpsilon), time=self.time), dist
+                   maxt=dist * (1.0 - ShadowEpsilon), time=self.time,
+                   wavelengths=self.wavelengths), dist
 
 
-def invalid_si(n, device):
+def invalid_si(n, device, wavelengths=None):
+    """An invalid interaction (shape -1) carrying ``wavelengths`` (N, nw;
+    None: (N, 0))."""
     z3 = torch.zeros(n, 3, device=device)
     unit = lambda i: torch.nn.functional.one_hot(
         torch.full((n,), i, device=device), 3).to(torch.float32)
@@ -98,7 +108,8 @@ def invalid_si(n, device):
         prim_uv=torch.zeros(n, 2, device=device), dp_du=z3, dp_dv=z3,
         wi=unit(2), time=torch.zeros(n, device=device),
         prim_index=torch.zeros(n, dtype=torch.int32, device=device),
-        shape_index=torch.full((n,), -1, dtype=torch.int32, device=device))
+        shape_index=torch.full((n,), -1, dtype=torch.int32, device=device),
+        wavelengths=wavelengths)
 
 
 @dataclasses.dataclass(frozen=True)

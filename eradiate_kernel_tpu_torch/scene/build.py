@@ -23,6 +23,7 @@ from ..render.geometry import (FAMILY_CONE, FAMILY_CYLINDER, FAMILY_DISK,
                                FAMILY_IMESH, FAMILY_MESH, FAMILY_RECT,
                                FAMILY_SPHERE)
 from ..render.texture import d65_approx
+from ..utils.rgb2spec import fit_srgb_coeff, fit_srgb_coeff_batch
 from ..utils.volfile import read_vol
 from .build_emitters import (_EMITTER_SCENE_TYPES, _build_bsdf,
                              _build_scene_emitter)
@@ -30,20 +31,19 @@ from .build_sensors import _SENSOR_TYPES, _build_sensor
 from .build_shapes import (_SHAPE_TYPES, _build_shape, shape_children,
                            triangle_areas)
 from .build_spectra import (_axis_majorant_profiles, _cie_rgb_of_spectrum,
-                            _control_and_residual_profiles, _image_data)
+                            _control_and_residual_profiles, _image_data,
+                            _spectrum_sampling_table)
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
 
 _BSDF_TYPES = (*BSDF_REGISTRY, "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
 _INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath", "volpathmis",
-                     "aov", "moment")
+                     "aov", "moment", "bins", "nbins")
 # the wrappers: their child integrator's settings are the config's
-_WRAPPER_TYPES = ("aov", "moment")
+_WRAPPER_TYPES = ("aov", "moment", "bins", "nbins")
 # integrators of later slices, refused by name
-_LATER_INTEGRATORS = {"bins": "6c (the spectral variant)",
-                      "nbins": "6c (the spectral variant)",
-                      "stokes": "6e (the polarized variant)"}
+_LATER_INTEGRATORS = {"stokes": "6e (the polarized variant)"}
 # the integrator's extra properties load_dict keeps (the reference's, and
 # replay_lanes: the lane count of the path-replay adjoint, which the
 # reference reads from the extras but its load_dict drops); a wrapper adds
@@ -55,10 +55,10 @@ _WRAP_CODES = {"clamp": 0, "repeat": 1, "mirror": 2}
 
 def _integrator_config(kind, val):
     """The IntegratorConfig of an integrator entry. A wrapper (aov,
-    moment) takes its nested child integrator's settings (the first dict
-    entry whose type is an integrator; none: path with the defaults) and
-    adds ("child", its kind) and its "aovs" to the extras (reference
-    scene/build.py:1036-1060)."""
+    moment, bins, nbins) takes its nested child integrator's settings (the
+    first dict entry whose type is an integrator; none: path with the
+    defaults) and adds ("child", its kind) and its "aovs", "bins" and
+    "tolerance" to the extras (reference scene/build.py:1036-1060)."""
     props, extra = val, []
     if kind in _WRAPPER_TYPES:
         children = [v for v in val.values() if isinstance(v, dict)
@@ -66,8 +66,8 @@ def _integrator_config(kind, val):
                     and v["type"] not in _WRAPPER_TYPES]
         props = children[0] if children else {}
         extra.append(("child", props.get("type", "path")))
-        if "aovs" in val:
-            extra.append(("aovs", val["aovs"]))
+        extra += [(k, val[k]) for k in ("aovs", "bins", "tolerance")
+                  if k in val]
     extra += [(k, v) for k, v in props.items() if k in _INTEGRATOR_EXTRAS]
     return IntegratorConfig(
         kind=kind, max_depth=int(props.get("max_depth", 8)),
@@ -199,10 +199,24 @@ class SceneBuilder:
         if t == "constvolume":
             val = np.atleast_1d(np.asarray(v.get("value", 1.0), np.float32))
             return self.add_volume_row("constvolume", {"value": val})
+        if t == "gridvolume_spectral":
+            # a wavelength-indexed grid (gridvolume_spectral.cpp): data
+            # (D, H, W, S) sampled at S wavelengths over [lambda_min,
+            # lambda_max]
+            data = (np.asarray(v["data"], np.float32) if "data" in v
+                    else read_vol(v["filename"])[0])
+            if data.ndim != 4:
+                raise ValueError("gridvolume_spectral wants (D, H, W, S)")
+            w2l = as_transform(v.get("to_world")).inverse()
+            return self.add_volume_row("gridvolume_spectral", {
+                "grid": data,
+                "wl_lo": np.float32(v.get("lambda_min", 360.0)),
+                "wl_hi": np.float32(v.get("lambda_max", 830.0)),
+                "w2l_m": np.asarray(w2l.m, np.float32),
+                "w2l_it": np.asarray(w2l.inv_t, np.float32),
+                "vmax": np.float32(data.max())})
         if t != "gridvolume":
-            raise NotImplementedError(
-                f"volume {t!r}: the port carries constvolume and gridvolume; "
-                "gridvolume_spectral comes with slice 6c (spectral)")
+            raise ValueError(f"unknown volume type {t!r}")
         data, w2l = self._grid_data(v)
         wrap = v.get("wrap_mode", "clamp")
         if wrap not in _WRAP_CODES:
@@ -215,14 +229,37 @@ class SceneBuilder:
         if filt not in ("trilinear", "nearest"):
             raise ValueError(f"gridvolume filter_type {filt!r}: 'trilinear' "
                              "or 'nearest'")
+        grid, vmax = self._maybe_srgb_pack(data, v)
         # nearest filtering (grid3d.cpp FilterType::Nearest) is a kind of
-        # its own, so trilinear grids never pay for its branch
-        kind = "gridvolume_nearest" if filt == "nearest" else "gridvolume"
+        # its own, so trilinear grids never pay for its branch; a packed
+        # trilinear grid is 'gridvolume_srgb' (a nearest one is marked by
+        # its 4 channels)
+        if filt == "nearest":
+            kind = "gridvolume_nearest"
+        else:
+            kind = "gridvolume_srgb" if grid.shape[-1] == 4 else "gridvolume"
         return self.add_volume_row(kind, {
             "wrap": np.int32(_WRAP_CODES[wrap]),
             "w2l_m": np.asarray(w2l.m, np.float32),
             "w2l_it": np.asarray(w2l.inv_t, np.float32),
-            "grid": data, "vmax": np.float32(float(data.max()))})
+            "grid": grid, "vmax": np.float32(vmax)})
+
+    def _maybe_srgb_pack(self, data, v):
+        """The spectral variant's rgb grids (grid3d.cpp:69-89): each voxel
+        becomes [rgb2spec coeff (3), scale] with scale = 2 max(rgb); the
+        grid's max (the majorant's source) is the max scale, since the
+        sigmoid is below 1. ``raw=True`` keeps the rgb data. Returns (grid,
+        vmax)."""
+        if (self.variant.is_spectral and data.shape[-1] == 3
+                and not v.get("raw", False)):
+            scale = np.maximum(2.0 * data.max(-1), 1e-8)  # (D, H, W)
+            coeff = fit_srgb_coeff_batch(
+                (data / scale[..., None]).reshape(-1, 3)
+            ).reshape(data.shape).astype(np.float32)
+            packed = np.concatenate(
+                [coeff, scale[..., None].astype(np.float32)], axis=-1)
+            return packed, float(scale.max())
+        return data, float(data.max())
 
     def _grid_data(self, v):
         """Grid data (D, H, W, C) from inline ``data`` or a ``.vol``
@@ -271,7 +308,7 @@ class SceneBuilder:
         vmax = (float(rows["vmax"]) if "vmax" in rows
                 else float(np.max(rows["value"])))
         # bounds: the sigma_t grid's unit cube; a constvolume's own to_world
-        if kind in ("gridvolume", "gridvolume_nearest"):
+        if kind != "constvolume":
             w2l_m, w2l_it = rows["w2l_m"], rows["w2l_it"]
         else:
             w2l = as_transform(d.get("to_world")).inverse()
@@ -295,73 +332,133 @@ class SceneBuilder:
             ).astype(np.float32)
         else:
             zcum = np.zeros(1, np.float32)
-        cprof, ccum, resprof = _control_and_residual_profiles(kind, rows,
-                                                              vmax)
+        # an srgb-packed grid's profiles bound its value, sigmoid x scale
+        # < scale: they read the scale channel, never the coefficients
+        prof_rows = rows
+        if (kind in ("gridvolume_srgb", "gridvolume_nearest")
+                and rows["grid"].shape[-1] == 4 and self.variant.is_spectral):
+            prof_rows = {"grid": rows["grid"][..., 3:4]}
+        cprof, ccum, resprof = _control_and_residual_profiles(
+            kind, prof_rows, vmax)
         return self.add_medium_row("heterogeneous", {
             "sigma_t_vol": np.int32(st_vol), "albedo_vol": np.int32(al_vol),
             "scale": np.float32(scale),
             "majorant": np.float32(scale * vmax),
-            "axprof": _axis_majorant_profiles(rows, vmax),
+            "axprof": _axis_majorant_profiles(prof_rows, vmax),
             "w2l_m": w2l_m, "w2l_it": w2l_it,
             "zok": np.bool_(zok), "zprof": zprof, "zcum": zcum,
             "zD": np.int32(D), "cprof": cprof, "ccum": ccum,
             "cD": np.int32(len(cprof)), "resprof": resprof}, phase_idx)
 
+    def add_spectrum_row(self, kind, row):
+        """A spectrum row; in spectral every continuous kind carries its
+        wavelength sampling table."""
+        if self.variant.is_spectral and kind not in ("baked", "discrete"):
+            row = dict(row, **_spectrum_sampling_table(kind, row))
+        return self._add(self.spectra, self.spec_table, kind, row)
+
     def spectrum(self, value, emitter=False):
-        """A python value / plugin dict -> spectrum index; every spectrum
-        bakes into a constant: (3,) rgb, or in mono (1,) its luminance.
-        Measured and analytic spectra bake by CIE integration
+        """A python value / plugin dict -> spectrum index. In rgb and mono
+        every spectrum bakes into a constant: (3,) rgb, or in mono (1,) its
+        luminance; measured and analytic spectra bake by CIE integration
         (build_spectra._cie_rgb_of_spectrum): an ``emitter`` spectrum as
-        radiance, any other as a reflectance under D65."""
+        radiance, any other as a reflectance under D65. In spectral the
+        kind survives, evaluated at the hero wavelengths: numbers become
+        'uniform', rgb triples 'srgb' through the rgb2spec fit (an
+        emitter's 'srgb_d65', scaled by its luminance)."""
+        spectral = self.variant.is_spectral
+
         def baked(rgb):
             rgb = np.asarray(rgb, np.float32)
             if self.variant.is_monochromatic:
                 rgb = np.asarray([float(luminance(torch.as_tensor(rgb)))],
                                  np.float32)
-            return self._add(self.spectra, self.spec_table, "baked",
-                             {"value": rgb})
+            return self.add_spectrum_row("baked", {"value": rgb})
 
         def d65_rgb():
             return np.asarray(_cie_rgb_of_spectrum(
                 lambda lam: d65_approx(torch.as_tensor(
                     lam, dtype=torch.float32)).numpy(), True))
 
+        def srgb_row(arr, emitter, scale=None):
+            coeff = np.asarray(fit_srgb_coeff(*map(float, arr)), np.float32)
+            if not emitter:
+                return self.add_spectrum_row("srgb", {"coeff": coeff})
+            if scale is None:
+                scale = max(float(luminance(torch.as_tensor(arr))), 1e-6)
+            return self.add_spectrum_row("srgb_d65", {
+                "coeff": coeff, "scale": np.float32(scale)})
+
         if isinstance(value, (int, float)):
+            if spectral:
+                return self.add_spectrum_row("uniform",
+                                             {"value": np.float32(value)})
             return baked([value] * 3)
         if isinstance(value, (list, tuple, np.ndarray)):
-            return baked(np.asarray(value, np.float32))
+            arr = np.asarray(value, np.float32)
+            return srgb_row(arr, emitter) if spectral else baked(arr)
         t = value["type"]
         if t in ("rgb", "srgb"):
-            return self.spectrum(np.asarray(value["value"], np.float32))
+            # an 'srgb' dict is a reflectance even on an emitter
+            return self.spectrum(np.asarray(value["value"], np.float32),
+                                 emitter and t == "rgb")
         if t == "uniform":
-            return baked([float(value.get("value", 1.0))] * 3)
+            val = float(value.get("value", 1.0))
+            if spectral:
+                return self.add_spectrum_row("uniform",
+                                             {"value": np.float32(val)})
+            return baked([val] * 3)
         if t == "d65":
-            return baked(d65_rgb() * float(value.get("scale", 1.0)))
+            scale = float(value.get("scale", 1.0))
+            if spectral:
+                return self.add_spectrum_row("d65",
+                                             {"scale": np.float32(scale)})
+            return baked(d65_rgb() * scale)
         if t == "regular":
             lo, hi = value["lambda_min"], value["lambda_max"]
             vals = np.asarray(value["values"], np.float32)
+            if spectral:
+                return self.add_spectrum_row("regular", {
+                    "values": vals, "lo": np.float32(lo),
+                    "hi": np.float32(hi), "count": np.int32(len(vals))})
             return baked(_cie_rgb_of_spectrum(
                 lambda lam: np.interp(lam, np.linspace(lo, hi, len(vals)),
                                       vals, left=0, right=0), emitter))
         if t == "irregular":
             nodes = np.asarray(value["wavelengths"], np.float32)
             vals = np.asarray(value["values"], np.float32)
+            if spectral:
+                return self.add_spectrum_row("irregular", {
+                    "nodes": nodes, "values": vals,
+                    "count": np.int32(len(vals))})
             return baked(_cie_rgb_of_spectrum(
                 lambda lam: np.interp(lam, nodes, vals, left=0, right=0),
                 emitter))
         if t == "blackbody":
             T = float(value["temperature"])
             scale = float(value.get("scale", 1.0))
+            if spectral:
+                return self.add_spectrum_row("blackbody", {
+                    "temperature": np.float32(T), "scale": np.float32(scale)})
             return baked(_cie_rgb_of_spectrum(
                 lambda lam: blackbody_radiance(torch.as_tensor(
                     lam, dtype=torch.float32), T).numpy() * scale, True))
         if t == "srgb_d65":
-            return baked(np.asarray(value["value"], np.float32) * d65_rgb())
+            arr = np.asarray(value["value"], np.float32)
+            if spectral:
+                return srgb_row(arr, True, value.get("scale"))
+            return baked(arr * d65_rgb())
         if t == "discrete":
-            # a line spectrum: its rgb/mono bake is the sum of its values
+            # a line spectrum (discrete.cpp:39-84): read only through
+            # sampling (an srf, nbins); its rgb/mono bake is the sum of its
+            # values
             wav = np.asarray(value["wavelengths"], np.float32)
             vals = np.asarray(value.get("values", np.ones_like(wav)),
                               np.float32)
+            if spectral:
+                return self.add_spectrum_row("discrete", {
+                    "wavelengths": wav, "values": vals,
+                    "count": np.int32(len(wav))})
             return baked([float(vals.sum())] * 3)
         raise ValueError(f"unknown spectrum type {t!r}")
 
@@ -597,8 +694,13 @@ class SceneBuilder:
                  integrator_cfg, spp):
         """-> (arrays by dotted name, SceneConfig)."""
         if not self.spec_table:
-            self._add(self.spectra, self.spec_table, "baked",
-                      {"value": np.full(self.nc, 0.5, np.float32)})
+            # a default spectrum slot 0, so texture and bsdf fallbacks
+            # resolve
+            if self.variant.is_spectral:
+                self.add_spectrum_row("uniform", {"value": np.float32(0.5)})
+            else:
+                self.add_spectrum_row("baked", {
+                    "value": np.full(self.nc, 0.5, np.float32)})
         if not self.tex_table:
             self._add(self.textures, self.tex_table, "constant",
                       {"spec": np.int32(0)})
@@ -722,8 +824,20 @@ class SceneBuilder:
         geo.update(self._accel_arrays(V, F, FS))
         geo.update(self._instancing_arrays())
         arrays.update({f"geo.{k}": v for k, v in geo.items()})
-        arrays["bitmap_data"] = (np.stack(self.bitmaps) if self.bitmaps
-                                 else np.zeros((1, 1, 1, 3), np.float32))
+        bitmaps = (np.stack(self.bitmaps) if self.bitmaps
+                   else np.zeros((1, 1, 1, 3), np.float32))
+        arrays["bitmap_data"] = bitmaps
+        # spectral: every texel's rgb2spec coefficients and brightness scale
+        # (the envmap.cpp:69-89 scheme), evaluated at the hero wavelengths
+        if self.variant.is_spectral and self.bitmaps:
+            bm_scale = np.maximum(2.0 * bitmaps.max(-1), 1e-8)
+            arrays["bitmap_coeff"] = fit_srgb_coeff_batch(
+                (bitmaps / bm_scale[..., None]).reshape(-1, 3)
+            ).reshape(bitmaps.shape)
+            arrays["bitmap_scale"] = bm_scale.astype(np.float32)
+        else:
+            arrays["bitmap_coeff"] = np.zeros((1, 1, 1, 3), np.float32)
+            arrays["bitmap_scale"] = np.ones((1, 1, 1), np.float32)
         arrays["mesh_attr_data"] = self._mesh_attr_data(len(V))
 
         pts = [V] if len(V) else []
@@ -806,11 +920,10 @@ def load_dict(d: dict, variant: Variant | None = None,
         elif t in _SENSOR_TYPES:
             sensor_kind = t
             pending_sensor = val
+            # the film's size, format and filter, whatever its type (the
+            # reference reads any film dict so; a specfilm renders as an
+            # hdrfilm)
             film = val.get("film", {})
-            if film.get("type", "hdrfilm") != "hdrfilm":
-                raise NotImplementedError(
-                    f"film {film['type']!r}: the port carries 'hdrfilm'; "
-                    "specfilm comes with slice 6")
             film_cfg["width"] = int(film.get("width", 64))
             film_cfg["height"] = int(film.get("height", 64))
             film_cfg["pixel_format"] = str(film.get("pixel_format", "rgb"))

@@ -6,6 +6,7 @@ import numpy as np
 
 from ..core.hierarchical2d import build_hierarchical2d
 from ..core.transform import as_transform
+from ..utils.rgb2spec import fit_srgb_coeff_batch
 from .build_spectra import _image_data
 
 _EMITTER_SCENE_TYPES = ("constant", "point", "directional", "spot",
@@ -109,7 +110,8 @@ def _build_scene_emitter(builder, d):
 def _build_envmap(builder, d):
     """A lat-long image with its Hierarchical2D sampling tables. Texels are
     bilinear vertex samples (rows 0 and H-1 the poles) and the stored image
-    repeats its first column after the last to close the azimuth seam."""
+    repeats its first column after the last to close the azimuth seam. In
+    spectral the texels' rgb2spec coefficients and scales come too."""
     data = _image_data(d)
     if data.ndim == 2:
         data = data[..., None].repeat(3, -1)
@@ -124,6 +126,13 @@ def _build_envmap(builder, d):
            "w2l_m": np.asarray(w2l.m, np.float32),
            "w2l_it": np.asarray(w2l.inv_t, np.float32)}
     row.update({f"h2d_{k}": v[0] for k, v in h2d.items()})
+    if builder.variant.is_spectral:
+        # every texel's rgb2spec fit (envmap.cpp:69-89): the fit reproduces
+        # rgb / spec_scale, and eval multiplies the scale back
+        sscale = np.maximum(2.0 * img_p.max(-1), 1e-8)
+        row["spec_coeff"] = fit_srgb_coeff_batch(
+            (img_p / sscale[..., None]).reshape(-1, 3)).reshape(img_p.shape)
+        row["spec_scale"] = sscale.astype(np.float32)
     idx = builder.add_emitter_row("envmap", row)
     builder.env_emitter = idx
     return idx

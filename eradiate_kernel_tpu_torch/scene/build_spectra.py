@@ -49,6 +49,56 @@ def _image_data(d):
 
 AXPROF_BINS = 64  # fixed per-axis majorant profile resolution (media)
 
+SMP_TABLE_N = 96  # spectrum sampling-table resolution (spectrum_sample)
+
+
+def _spectrum_sampling_table(kind, row):
+    """The piecewise-linear wavelength sampling table of a spectral row
+    (Texture::sample_spectrum / pdf_spectrum, texture.h:23-201): the
+    spectrum at SMP_TABLE_N nodes, normalised into a density, and its
+    trapezoid CDF. Sampling draws from this density and reports it as the
+    pdf, so eval / pdf stays unbiased where the table under-resolves the
+    spectrum. Returns smp_nodes, smp_pdf, smp_cdf (SMP_TABLE_N,) each."""
+    from ..render.texture import d65_approx, srgb_model_eval
+
+    P = SMP_TABLE_N
+    wmin, wmax = sp.WAVELENGTH_MIN, sp.WAVELENGTH_MAX
+    if kind == "uniform":
+        nodes = np.linspace(wmin, wmax, P)
+        f = np.full(P, float(row["value"]))
+    elif kind == "regular":
+        lo, hi = float(row["lo"]), float(row["hi"])
+        vals = np.asarray(row["values"], np.float64)
+        nodes = np.linspace(lo, hi, P)
+        f = np.interp(nodes, np.linspace(lo, hi, len(vals)), vals)
+    elif kind == "irregular":
+        nd = np.asarray(row["nodes"], np.float64)
+        vals = np.asarray(row["values"], np.float64)
+        nodes = np.linspace(nd[0], nd[-1], P)
+        f = np.interp(nodes, nd, vals)
+    elif kind in ("srgb", "srgb_d65", "blackbody", "d65"):
+        nodes = np.linspace(wmin, wmax, P)
+        lam = torch.as_tensor(nodes, dtype=torch.float32)
+        if kind == "blackbody":
+            f = sp.blackbody_radiance(lam, float(row["temperature"])).numpy() \
+                * float(row["scale"])
+        else:
+            f = np.ones(P)
+            if kind in ("srgb", "srgb_d65"):
+                f = f * srgb_model_eval(torch.as_tensor(
+                    row["coeff"], dtype=torch.float32)[None], lam)[0].numpy()
+            if kind in ("d65", "srgb_d65"):
+                f = f * d65_approx(lam).numpy() * float(row["scale"])
+    else:
+        raise ValueError(kind)
+    f = np.maximum(np.asarray(f, np.float64), 1e-12)
+    seg = 0.5 * (f[1:] + f[:-1]) * np.diff(nodes)
+    integral = seg.sum()
+    cdf = np.concatenate([[0.0], np.cumsum(seg)]) / integral
+    return {"smp_nodes": nodes.astype(np.float32),
+            "smp_pdf": (f / integral).astype(np.float32),
+            "smp_cdf": cdf.astype(np.float32)}
+
 
 def _axis_range_profiles(values, P):
     """(3, P) per-axis slab-max profiles of a (D, H, W) node field: row a

@@ -23,7 +23,7 @@ from ..core.rng import SAMPLER_KINDS
 from ..core.transform import AnimatedTransform, Transform
 from ..core.types import Variant, resolve_device
 from ..render.geometry import Geometry
-from ..textures.volumes import packed_corners_of
+from ..textures.volumes import packed_corners_of, spectral_packed_of
 
 # what the port carries
 SUPPORTED = {
@@ -32,7 +32,8 @@ SUPPORTED = {
                       "projector", "envmap"},
     "texture_kinds": {"constant", "checkerboard", "bitmap",
                       "mesh_attribute"},
-    "spectrum_kinds": {"baked"},
+    "spectrum_kinds": {"baked", "uniform", "regular", "irregular", "srgb",
+                       "blackbody", "d65", "srgb_d65", "discrete"},
     "sensor_kind": {"perspective", "thinlens", "radiancemeter",
                     "mradiancemeter", "distant", "mdistant", "distantflux",
                     "irradiancemeter"},
@@ -42,17 +43,19 @@ SUPPORTED = {
     "medium_kinds": {"homogeneous", "heterogeneous"},
     "phase_kinds": {"isotropic", "hg", "rayleigh", "tabphase",
                     "blendphase"},
-    "volume_kinds": {"constvolume", "gridvolume", "gridvolume_nearest"},
+    "volume_kinds": {"constvolume", "gridvolume", "gridvolume_nearest",
+                     "gridvolume_srgb", "gridvolume_spectral"},
 }
 INTEGRATORS = ("path", "direct", "depth", "volpath", "volpathmis", "aov",
-               "moment")
+               "moment", "bins", "nbins")
+# what the spectral variant refuses until slice 6c-2
+SPECTRAL_LATER = ("volpathmis", "aov", "moment")
 # volpath's transmittance estimators and free-flight majorants, the default
 # first
 NEE_MODES = {"nee_transmittance": ("residual", "track", "quadrature"),
              "ff_majorant": ("profile", "segment")}
 # the slice that brings the kinds SUPPORTED does not have yet
-_LATER = {"bsdf_kinds": "6e", "spectrum_kinds": "6c", "medium_kinds": "6",
-          "phase_kinds": "7b", "volume_kinds": "6c"}
+_LATER = {"bsdf_kinds": "6e", "medium_kinds": "6", "phase_kinds": "7b"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,11 +111,23 @@ class SceneConfig:
                 raise NotImplementedError(
                     f"{name} {bad}: the port carries {sorted(allowed)}; "
                     f"the others come with slice {_LATER.get(name, '6')}")
-        if self.integrator.kind not in INTEGRATORS:
+        kind = self.integrator.kind
+        if kind not in INTEGRATORS:
             raise NotImplementedError(
-                f"integrator {self.integrator.kind!r}: the port carries "
-                f"{INTEGRATORS}; bins and nbins come with slice 6c, "
-                "stokes with slice 6e")
+                f"integrator {kind!r}: the port carries {INTEGRATORS}; "
+                "stokes comes with slice 6e")
+        spectral = self.variant.is_spectral
+        child = dict(self.integrator.extra).get("child")
+        if kind in ("bins", "nbins") and not spectral:
+            raise NotImplementedError(
+                f"integrator {kind!r} runs in the spectral variant only, as "
+                "in the reference (bins.cpp throws elsewhere; the port "
+                "carries it there since slice 6c-1)")
+        if spectral and (kind in SPECTRAL_LATER or child in SPECTRAL_LATER):
+            raise NotImplementedError(
+                f"integrator {kind!r}"
+                f"{f' over {child!r}' if child else ''} in the spectral "
+                "variant: comes with slice 6c-2")
         extra = dict(self.integrator.extra)
         for key, allowed in NEE_MODES.items():
             if extra.get(key, allowed[0]) not in allowed:
@@ -164,6 +179,8 @@ class Scene:
     vol_kind: torch.Tensor
     vol_slot: torch.Tensor
     bitmap_data: torch.Tensor     # (n, H, W, 3) images of bitmap textures
+    bitmap_coeff: torch.Tensor    # (n, H, W, 3) their rgb2spec fits
+    bitmap_scale: torch.Tensor    # (n, H, W) (spectral; else 1-texel)
     mesh_attr_data: torch.Tensor  # (A, V, 3) per-vertex mesh attributes
     sensor: dict                  # the sensor's params (build_sensors)
     bsphere_center: torch.Tensor  # (3,)
@@ -173,6 +190,10 @@ class Scene:
     # packed_corners), built once at load for grids on the gather path;
     # derived from volumes.gridvolume.grid, so not one of arrays()
     vol_packed: torch.Tensor | None = None
+    # the same for the spectral grids on the gather path: {kind: table} of
+    # gridvolume_srgb (always) and gridvolume_spectral (above
+    # EINSUM_MAX_VOXELS)
+    vol_packed_spectral: dict = dataclasses.field(default_factory=dict)
 
     def arrays(self) -> dict:
         """Every array of the scene as numpy, by dotted name."""
@@ -226,14 +247,20 @@ class Scene:
         if "volumes.gridvolume.grid" in values:
             scene = dataclasses.replace(
                 scene, vol_packed=packed_corners_of(scene.volumes))
+        if any(k.startswith(("volumes.gridvolume_srgb.",
+                             "volumes.gridvolume_spectral."))
+               for k in values):
+            scene = dataclasses.replace(
+                scene, vol_packed_spectral=spectral_packed_of(scene.volumes))
         return scene
 
 
 def _fields(obj):
     """The fields of a scene record that hold tensors (a Scene's config and
-    its derived vol_packed do not)."""
+    its derived packed tables do not)."""
     return [f for f in dataclasses.fields(obj)
-            if f.name not in ("config", "vol_packed")]
+            if f.name not in ("config", "vol_packed",
+                              "vol_packed_spectral")]
 
 
 def _tensor(a, device):
@@ -305,7 +332,10 @@ def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
         volumes=volumes,
         vol_kind=top("vol_kind"), vol_slot=top("vol_slot"),
         vol_packed=packed_corners_of(volumes),
-        bitmap_data=top("bitmap_data"), mesh_attr_data=top("mesh_attr_data"),
+        vol_packed_spectral=spectral_packed_of(volumes),
+        bitmap_data=top("bitmap_data"), bitmap_coeff=top("bitmap_coeff"),
+        bitmap_scale=top("bitmap_scale"),
+        mesh_attr_data=top("mesh_attr_data"),
         sensor={k: sensor_param(k, v) for k, v in tree["sensor"].items()},
         bsphere_center=top("bsphere_center"),
         bsphere_radius=top("bsphere_radius"),

@@ -5,11 +5,14 @@ positions in [0,1)^2 to a ray and its weight (sensor.cpp:30-80).
 
 The Eradiate sensors (distant, mdistant, mradiancemeter, distantflux)
 record the radiance leaving the scene: their rays start outside the
-bounding sphere and travel along fixed directions. The spectral response
-function of a sensor is stored by the scene builder but read only by the
-spectral variant (slice 6): in mono and rgb a sensor's spectral weight is
-1, and its wavelength draw still happens so that the sample streams stay
-aligned with the reference's.
+bounding sphere and travel along fixed directions. Every sensor draws
+one wavelength sample. In spectral it becomes the ray's 4 hero
+wavelengths: stratified over the default range (``sample_wavelength``),
+or importance-sampled from the sensor's spectral response function
+(``srf``; perspective.cpp:106-180), whose integral is then the spectral
+weight, so that the film records the srf-convolved radiance. In mono and
+rgb the weight is 1 and the draw keeps the sample streams aligned with
+the reference's.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 
 import torch
 
+from ..core import spectrum as sp
 from ..core import warp
 from ..core.frame import Frame
 from ..core.math import coordinate_system, normalize
@@ -25,12 +29,48 @@ from ..core.ray import Ray
 from ..render import shape_sampling
 
 
-def _wavelengths(scene, sampler, n):
-    """(weight (n, nc) of ones, sampler): the wavelength draw of the
-    reference, unused by mono and rgb."""
-    sampler, _ = sampler.next_1d()
-    return torch.ones(n, scene.config.variant.n_channels,
-                      device=sampler.k0.device), sampler
+def _sample_srf(params, s):
+    """Hero wavelengths importance-sampled from a tabulated srf: the
+    inverse of its piecewise-linear CDF at the 4 stratified samples.
+    Returns (wavelengths (n, 4), weight (n, 4) = the srf's integral)."""
+    nodes = params["srf_nodes"]      # (K,)
+    cdf = params["srf_cdf"]          # (K,) normalised, 0 ... 1
+    ws = sp.sample_shifted(s)
+    idx = torch.clamp(torch.searchsorted(cdf, ws, right=True) - 1,
+                      0, nodes.shape[0] - 2)
+    c0, c1 = cdf[idx], cdf[idx + 1]
+    f = (ws - c0) / torch.clamp(c1 - c0, min=1e-12)
+    lam = nodes[idx] * (1.0 - f) + nodes[idx + 1] * f
+    return lam, params["srf_integral"].expand(lam.shape)
+
+
+def _sample_srf_lines(params, s):
+    """A discrete srf: the hero wavelengths land on its lines (the pmf of
+    discrete.cpp); the weight is the sum of the line weights."""
+    lines = params["srf_lines"]
+    cdf = params["srf_line_cdf"]
+    ws = sp.sample_shifted(s)
+    idx = torch.clamp(torch.searchsorted(cdf, ws, right=True) - 1,
+                      0, lines.shape[0] - 1)
+    lam = lines[idx]
+    return lam, params["srf_integral"].expand(lam.shape)
+
+
+def _wavelengths(scene, params, sampler, n):
+    """The wavelength draw -> (wavelengths (n, 4) in spectral, else (n, 0);
+    weight (n, nc); sampler)."""
+    sampler, s = sampler.next_1d()
+    if scene.config.variant.is_spectral:
+        if "srf_lines" in params:
+            wl, weight = _sample_srf_lines(params, s)
+        elif "srf_nodes" in params:
+            wl, weight = _sample_srf(params, s)
+        else:
+            wl, weight = sp.sample_wavelength(s)
+        return wl, weight, sampler
+    return (s.new_zeros(n, 0),
+            torch.ones(n, scene.config.variant.n_channels, device=s.device),
+            sampler)
 
 
 def _static(scene, key, default=None):
@@ -65,8 +105,8 @@ def perspective_sample_ray(scene, params, sampler, pos_film, time):
     d = _unit(tw.transform_vector(normalize(
         _film_pinhole(scene, params["tan_half_fov"], pos_film))))
     o = tw.translation.expand(n, 3)
-    weight, sampler = _wavelengths(scene, sampler, n)
-    return Ray.make(o, d, time=time), weight, sampler
+    wl, weight, sampler = _wavelengths(scene, params, sampler, n)
+    return Ray.make(o, d, time=time, wavelengths=wl), weight, sampler
 
 
 def thinlens_sample_ray(scene, params, sampler, pos_film, time):
@@ -82,8 +122,8 @@ def thinlens_sample_ray(scene, params, sampler, pos_film, time):
     o_cam = torch.cat([ap, torch.zeros(n, 1, device=ap.device)], dim=-1)
     o = tw.transform_affine_point(o_cam)
     d = _unit(tw.transform_vector(normalize(p_focus - o_cam)))
-    weight, sampler = _wavelengths(scene, sampler, n)
-    return Ray.make(o, d, time=time), weight, sampler
+    wl, weight, sampler = _wavelengths(scene, params, sampler, n)
+    return Ray.make(o, d, time=time, wavelengths=wl), weight, sampler
 
 
 def radiancemeter_sample_ray(scene, params, sampler, pos_film, time):
@@ -93,8 +133,8 @@ def radiancemeter_sample_ray(scene, params, sampler, pos_film, time):
     o = tw.translation.expand(n, 3)
     z = torch.tensor([0.0, 0.0, 1.0], device=pos_film.device)
     d = normalize(tw.transform_vector(z)).expand(n, 3)
-    weight, sampler = _wavelengths(scene, sampler, n)
-    return Ray.make(o, d, time=time), weight, sampler
+    wl, weight, sampler = _wavelengths(scene, params, sampler, n)
+    return Ray.make(o, d, time=time, wavelengths=wl), weight, sampler
 
 
 def _film_column(scene, pos_film):
@@ -108,8 +148,9 @@ def mradiancemeter_sample_ray(scene, params, sampler, pos_film, time):
     idx = _film_column(scene, pos_film)
     o = params["origins"][idx]
     d = normalize(params["directions"][idx])
-    weight, sampler = _wavelengths(scene, sampler, pos_film.shape[0])
-    return Ray.make(o, d, time=time), weight, sampler
+    wl, weight, sampler = _wavelengths(scene, params, sampler,
+                                       pos_film.shape[0])
+    return Ray.make(o, d, time=time, wavelengths=wl), weight, sampler
 
 
 def _distant_origin(scene, sampler, d, params):
@@ -149,12 +190,12 @@ def distant_sample_ray(scene, params, sampler, pos_film, time):
         v0 = warp.square_to_uniform_hemisphere(pos_film)
     d = normalize(params["to_world"].transform_vector(v0)) * sgn
     o, sampler = _distant_origin(scene, sampler, d, params)
-    weight, sampler = _wavelengths(scene, sampler, n)
+    wl, weight, sampler = _wavelengths(scene, params, sampler, n)
     if _static(scene, "target_mode", "none") == "none":
         den = -d[:, 2:3]
         weight = torch.where(den > 1e-6,
                              weight / torch.clamp(den, min=1e-6), 0.0)
-    return Ray.make(o, d, time=time), weight, sampler
+    return Ray.make(o, d, time=time, wavelengths=wl), weight, sampler
 
 
 def mdistant_sample_ray(scene, params, sampler, pos_film, time):
@@ -162,8 +203,9 @@ def mdistant_sample_ray(scene, params, sampler, pos_film, time):
     directions[x] (mdistant.cpp:69-279)."""
     d = normalize(params["directions"][_film_column(scene, pos_film)])
     o, sampler = _distant_origin(scene, sampler, d, params)
-    weight, sampler = _wavelengths(scene, sampler, pos_film.shape[0])
-    return Ray.make(o, d, time=time), weight, sampler
+    wl, weight, sampler = _wavelengths(scene, params, sampler,
+                                       pos_film.shape[0])
+    return Ray.make(o, d, time=time, wavelengths=wl), weight, sampler
 
 
 def distantflux_sample_ray(scene, params, sampler, pos_film, time):
@@ -177,10 +219,11 @@ def distantflux_sample_ray(scene, params, sampler, pos_film, time):
     nrm = normalize(tw.transform_vector(
         torch.tensor([0.0, 0.0, 1.0], device=pos_film.device)))
     o, sampler = _distant_origin(scene, sampler, d, params)
-    weight, sampler = _wavelengths(scene, sampler, pos_film.shape[0])
+    wl, weight, sampler = _wavelengths(scene, params, sampler,
+                                       pos_film.shape[0])
     n_pix = scene.config.film_width * scene.config.film_height
     cos_n = torch.sum(-d * nrm, dim=-1)
-    return (Ray.make(o, d, time=time),
+    return (Ray.make(o, d, time=time, wavelengths=wl),
             weight * (cos_n * 2.0 * math.pi / n_pix)[:, None], sampler)
 
 
@@ -195,8 +238,9 @@ def irradiancemeter_sample_ray(scene, params, sampler, pos_film, time):
     ps = shape_sampling.sample_position(scene, shape_idx, s_face, s_pos)
     d = Frame.from_normal(ps.n).to_world(
         warp.square_to_cosine_hemisphere(s_dir))
-    weight, sampler = _wavelengths(scene, sampler, n)
-    return Ray.make(ps.p + ps.n * 1e-4, d, time=time), weight * math.pi, \
+    wl, weight, sampler = _wavelengths(scene, params, sampler, n)
+    return Ray.make(ps.p + ps.n * 1e-4, d, time=time,
+                    wavelengths=wl), weight * math.pi, \
         sampler
 
 

@@ -1,5 +1,8 @@
 """3D volume textures (textures/volumes.py counterpart): constvolume,
-trilinear gridvolume and nearest-filter gridvolume (``gridvolume_nearest``).
+trilinear gridvolume, nearest-filter gridvolume (``gridvolume_nearest``)
+and the spectral variant's ``gridvolume_srgb`` (an rgb grid packed at
+scene build as [rgb2spec coefficients, scale] a voxel) and
+``gridvolume_spectral`` (S channels at S wavelengths).
 
 Two trilinear paths, chosen by the grid's voxel count as the reference
 chooses them:
@@ -28,7 +31,18 @@ A nearest-filter grid is read one voxel a lane: the flat voxel index of
 entry (ops/gather.py::gather_rows) on the (S*D*H*W, C) view of the grid
 for CUDA tensors, ``gather_rows_plain`` for CPU tensors, at any grid size.
 ``NearestGather`` gives the grid its gradient: the scatter-add of each
-lane's cotangent into the voxel it read (``index_add_``).
+lane's cotangent into the voxel it read (``index_add_``). In spectral a
+nearest grid of 4 channels is srgb-packed: the sigmoid at the one voxel.
+
+``gridvolume_srgb`` reads its packed 8-corner table (32 floats a lane)
+through ``gather_rows`` (the kernel's gather entry, one launch a lookup),
+evaluates the sigmoid at each corner for the lane's wavelengths and lerps
+the corner spectra and, apart, the corner scales (grid3d.cpp:300-341;
+lerping the coefficients would bend the sigmoid between voxels).
+``gridvolume_spectral`` looks its S channels up trilinearly as a
+gridvolume does (above EINSUM_MAX_VOXELS one launch of the fused
+trilinear entry) and lerps them along the wavelength axis. The spectral
+variant takes no gradient (slice 6c-2), so neither kind has a backward.
 """
 
 from __future__ import annotations
@@ -103,18 +117,30 @@ def packed_corners(grid):
     return torch.stack(corners, -2).reshape(S * D * H * W, 8 * C).contiguous()
 
 
-def packed_corners_of(volumes):
-    """The packed table of a scene's gridvolume rows when they take the
-    gather path, else None: a table derived from the grid, built with
-    autograd off (the grid's gradient comes through GridTrilinear)."""
-    params = volumes.get("gridvolume")
+def packed_corners_of(volumes, kind="gridvolume"):
+    """The packed table of a scene's ``kind`` rows when they take the
+    gather path (gridvolume_srgb always does), else None: a table derived
+    from the grid, built with autograd off (the grid's gradient comes
+    through GridTrilinear)."""
+    params = volumes.get(kind)
     if params is None:
         return None
     S, D, H, W, C = params["grid"].shape
-    if D * H * W <= EINSUM_MAX_VOXELS:
+    if kind != "gridvolume_srgb" and D * H * W <= EINSUM_MAX_VOXELS:
         return None
     with torch.no_grad():
         return packed_corners(params["grid"])
+
+
+def spectral_packed_of(volumes):
+    """{kind: packed table} of the spectral variant's grids that take the
+    gather path."""
+    out = {}
+    for kind in ("gridvolume_srgb", "gridvolume_spectral"):
+        packed = packed_corners_of(volumes, kind)
+        if packed is not None:
+            out[kind] = packed
+    return out
 
 
 def trilinear_gather_plain(packed, grid_shape, vslot, pl):
@@ -297,10 +323,59 @@ def _apply_wrap(params, vslot, pl):
     return pl_w, inside
 
 
-def volume_eval(scene, vol_idx, p):
-    """Evaluate volumes per lane at world position p -> (..., nc)."""
+def _local(params, slot, p):
+    return Transform(m=params["w2l_m"][slot],
+                     inv_t=params["w2l_it"][slot]).transform_affine_point(p)
+
+
+def _trilinear(grid, packed, slot, pl):
+    """The trilinear lookup of ``grid``: the einsum path up to
+    EINSUM_MAX_VOXELS voxels, else the packed table."""
+    S, D, H, W, C = grid.shape
+    if D * H * W > EINSUM_MAX_VOXELS:
+        return _trilinear_gather(grid, packed, slot, pl)
+    return _trilinear_einsum(grid, slot, pl)
+
+
+def _srgb_corners(packed, grid_shape, slot, pl, wavelengths):
+    """The srgb-packed trilinear lookup: the lanes' 8-corner rows (8 x 4
+    floats: coeff (3), scale) in one gather_rows, the sigmoid at each
+    corner for the lane's wavelengths, then the corner spectra and the
+    corner scales lerped apart (grid3d.cpp:300-341)."""
+    from ..render.texture import srgb_model_eval
+
+    S, D, H, W, C = grid_shape
+    idx, fx, fy, fz = _corner0((S, D, H, W), slot, pl)
+    rows = gather.gather_rows(packed, idx.reshape(-1).contiguous())
+    rows = rows.reshape(idx.shape + (8 * C,))
+    corners = [rows[..., k * C:(k + 1) * C] for k in range(8)]
+    spectra = [srgb_model_eval(c[..., :3], wavelengths) for c in corners]
+    scales = [c[..., 3:4] for c in corners]
+    return _lerp8(spectra, fx, fy, fz) * _lerp8(scales, fx, fy, fz)
+
+
+def _wavelength_lerp(params, slot, spec, wavelengths):
+    """gridvolume_spectral's S channels (..., S) at the hero wavelengths:
+    linear in the wavelength over [wl_lo, wl_hi], clamped."""
+    S = spec.shape[-1]
+    lo = params["wl_lo"][slot][..., None]
+    hi = params["wl_hi"][slot][..., None]
+    t = torch.clamp((wavelengths - lo) / torch.clamp(hi - lo, min=1e-9),
+                    0.0, 1.0) * (S - 1)
+    i0 = torch.clamp(t.to(torch.int32), 0, max(S - 2, 0))
+    f = t - i0
+    v0 = torch.gather(spec, -1, i0.long())
+    v1 = torch.gather(spec, -1, torch.clamp(i0 + 1, max=S - 1).long())
+    return v0 * (1 - f) + v1 * f
+
+
+def volume_eval(scene, vol_idx, p, wavelengths=None):
+    """Evaluate volumes per lane at world position p -> (..., nc);
+    ``wavelengths`` (..., nw), the spectral variant's hero wavelengths."""
     cfg = scene.config
-    nc = cfg.variant.n_channels
+    spectral = cfg.variant.is_spectral
+    nc = (cfg.variant.channels(wavelengths) if spectral
+          else cfg.variant.n_channels)
     vkind = scene.vol_kind[vol_idx]
     vslot = scene.vol_slot[vol_idx]
     out = torch.zeros(vkind.shape + (nc,), device=p.device)
@@ -316,29 +391,44 @@ def volume_eval(scene, vol_idx, p):
                 v = torch.mean(v, -1, keepdim=True).expand(
                     v.shape[:-1] + (nc,))
         elif kind in ("gridvolume", "gridvolume_nearest"):
-            tw = Transform(m=params["w2l_m"][slot],
-                           inv_t=params["w2l_it"][slot])
-            pl, inside = _apply_wrap(params, slot,
-                                     tw.transform_affine_point(p))
+            pl, inside = _apply_wrap(params, slot, _local(params, slot, p))
             grid = params["grid"]
-            S, D, H, W, C = grid.shape
+            C = grid.shape[-1]
             if kind == "gridvolume_nearest":
                 c = _nearest_gather(grid, slot, pl)
-            elif D * H * W > EINSUM_MAX_VOXELS:
-                c = _trilinear_gather(grid, scene.vol_packed, slot, pl)
             else:
-                c = _trilinear_einsum(grid, slot, pl)
+                c = _trilinear(grid, scene.vol_packed, slot, pl)
             c = torch.where(inside[..., None], c, 0.0)
-            if C == 1:
+            if spectral and C == 4:
+                # srgb-packed (nearest): the sigmoid at the one voxel
+                from ..render.texture import srgb_model_eval
+                v = srgb_model_eval(c[..., :3], wavelengths) * c[..., 3:4]
+            elif C == 1:
                 v = c.expand(c.shape[:-1] + (nc,))
             elif C == nc:
                 v = c
             else:
                 v = torch.mean(c, -1, keepdim=True).expand(
                     c.shape[:-1] + (nc,))
+        elif kind == "gridvolume_srgb":
+            pl, inside = _apply_wrap(params, slot, _local(params, slot, p))
+            v = _srgb_corners(scene.vol_packed_spectral[kind],
+                              params["grid"].shape, slot, pl, wavelengths)
+            v = torch.where(inside[..., None], v, 0.0)
+        elif kind == "gridvolume_spectral":
+            pl = _local(params, slot, p)
+            grid = params["grid"]
+            spec = _trilinear(grid, scene.vol_packed_spectral.get(kind),
+                              slot, pl)
+            inside = torch.all((pl >= 0.0) & (pl <= 1.0), dim=-1)
+            spec = torch.where(inside[..., None], spec, 0.0)
+            if spectral:
+                v = _wavelength_lerp(params, slot, spec, wavelengths)
+            else:
+                # colour modes: the spectral mean
+                v = torch.mean(spec, -1, keepdim=True).expand(
+                    spec.shape[:-1] + (nc,))
         else:
-            raise NotImplementedError(
-                f"volume {kind!r}: comes with slice 6c (spectral)")
+            raise ValueError(f"unknown volume kind {kind}")
         out = torch.where(m[..., None], v, out)
     return out
-

@@ -684,7 +684,7 @@ def test_gauss_legendre_tau_matches_cpu(cuda_device):
         before = gather.launches["grid_gather"]
         tau = media.medium_tau_segment(
             scene, torch.zeros(n, dtype=torch.int32, device=dev), ray, t(a),
-            t(b), 3, quad_points=8)
+            t(b), ray.wavelengths, quad_points=8)
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert gather.launches["grid_gather"] == before + 1
@@ -822,3 +822,83 @@ def test_terrain_aov_channels_match_cpu(cuda_device):
         films_equivalent(v[..., None], out["cuda"][1][k][..., None],
                          max_flips=2, tol=1e-5)
     assert (out["cuda"][1]["si"] >= 0).any()
+
+
+@pytest.mark.cuda
+def test_spectral_distant_atmosphere_matches_cpu(cuda_device):
+    """The 1x1 spectral distant atmosphere (grid 16, max_depth 8), 256
+    samples on the card's lane pool against the CPU's: tile_sweep launched
+    once a closest-hit query, the films within 1e-4 (a 1x1 film: no flip
+    budget; torch's transcendentals differ by an ulp between the devices,
+    so a sample can take another path only if a decision flips on one).
+    The ground is lowered by 1e-3."""
+    from chip_smoke import counted_pool, films_equivalent
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(spp=256, max_depth=8, grid_res=16, sensor="distant")
+    d["surface"]["to_world"][1]["value"] = [0.5, 0.5, -1e-3]
+    film, _, launches, counts = counted_pool(
+        load_dict(d, Variant("spectral")), 64, seed=5)
+    assert launches["tile_sweep"] == counts["queries"] > 0
+    assert launches["grid_gather"] == 0  # 256 voxels: the einsum path
+    cpu = integrators.render(load_dict(d, Variant("spectral"), device="cpu"),
+                             seed=5, regen=True, samples_per_pass=64,
+                             develop_film=False)
+    assert float(film[..., 4].sum()) == 256
+    films_equivalent(cpu.numpy(), film.cpu().numpy(), max_flips=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 4, 5), (17, 16, 16)])
+def test_gridvolume_srgb_lookups_match_cpu(cuda_device, shape):
+    """gridvolume_srgb lookups (the packed 8-corner rows of 4 floats a
+    corner through grid_gather's gather entry, then the sigmoid at each
+    corner) on the card against the CPU's, at seeded points and
+    wavelengths, within 1e-6; and a gridvolume_spectral grid of 6
+    wavelengths above 4,096 voxels through the fused trilinear entry. A
+    volume_eval runs the lookup of every grid kind of the scene over its
+    lanes (the reference's masked sweep): one launch of each entry."""
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    rng = np.random.default_rng(47)
+    srgb = rng.uniform(0.05, 2.5, shape + (3,)).astype(np.float32)
+    spec = rng.uniform(0.1, 2.0, (17, 16, 16, 6)).astype(np.float32)
+    cube = lambda vol: {
+        "type": "cube", "bsdf": {"type": "null"},
+        "to_world": [{"type": "scale", "value": 0.5},
+                     {"type": "translate", "value": [0.5, 0.5, 0.5]}],
+        "interior": {"type": "heterogeneous", "sigma_t": vol,
+                     "albedo": 0.5}}
+    d = {"type": "scene",
+         "sensor": {"type": "perspective", "film": {"width": 2,
+                                                    "height": 2}},
+         "a": cube({"type": "gridvolume", "data": srgb}),
+         "b": cube({"type": "gridvolume_spectral", "data": spec,
+                    "lambda_min": 400.0, "lambda_max": 800.0})}
+    n = 4096
+    p = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    lam = rng.uniform(350, 850, (n, 4)).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = load_dict(d, Variant("spectral"), device=str(dev))
+        kinds = scene.config.volume_kinds
+        for kind in ("gridvolume_srgb", "gridvolume_spectral"):
+            vi = [i for i, k in enumerate(scene.vol_kind.tolist())
+                  if kinds[k] == kind][0]
+            before = gather.launches["grid_gather"]
+            v = volumes.volume_eval(
+                scene, torch.full((n,), vi, dtype=torch.int32, device=dev),
+                torch.as_tensor(p, device=dev),
+                torch.as_tensor(lam, device=dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                assert gather.launches["grid_gather"] == before + 2, kind
+            out[(kind, dev.type)] = v.cpu()
+    for kind in ("gridvolume_srgb", "gridvolume_spectral"):
+        assert bool(out[(kind, "cpu")].abs().sum() > 0)
+        torch.testing.assert_close(out[(kind, "cuda")], out[(kind, "cpu")],
+                                   rtol=1e-6, atol=1e-6)

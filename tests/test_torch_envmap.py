@@ -154,8 +154,8 @@ def test_kind_sample_direction_matches_reference(kind):
         jnp.asarray(active))
     ds, v = emitters.KIND_SAMPLERS[kind](
         scene, scene.emitters[kind], torch.as_tensor(slot),
-        torch.as_tensor(ref_p), torch.as_tensor(s1), torch.as_tensor(s2),
-        torch.as_tensor(active))
+        torch.as_tensor(ref_p), torch.zeros(N, 0), torch.as_tensor(s1),
+        torch.as_tensor(s2), torch.as_tensor(active))
     same = np.isclose(ds.d.numpy(), np.asarray(jds.d), rtol=RTOL,
                       atol=1e-5).all(-1)
     assert same.mean() >= 0.995
@@ -201,7 +201,7 @@ def test_envmap_eval_and_mis_pdf_match_reference():
           "pdf_emitter_direction")
     slot = torch.full((N,), slot_of(scene, "envmap"), dtype=torch.int32)
     close(emitters.envmap_eval(scene, scene.emitters["envmap"], slot, ray.d,
-                               act),
+                               torch.zeros(N, 0), act),
           jemitters.envmap_eval(jscene, jscene.emitters["envmap"],
                                 jnp.asarray(slot.numpy()), jray.d,
                                 jnp.zeros((N, 0)), jact), "envmap_eval")

@@ -127,8 +127,8 @@ def test_kind_sample_direction_matches_reference(kind):
         jnp.asarray(active))
     ds, v = emitters.KIND_SAMPLERS[kind](
         scene, scene.emitters[kind], torch.as_tensor(slot),
-        torch.as_tensor(ref_p), torch.as_tensor(s1), torch.as_tensor(s2),
-        torch.as_tensor(active))
+        torch.as_tensor(ref_p), torch.zeros(N, 0), torch.as_tensor(s1),
+        torch.as_tensor(s2), torch.as_tensor(active))
     # an area sample picks a mesh face by a searchsorted: an ulp at a
     # cumsum edge may pick the neighbour
     same = np.isclose(ds.p.numpy(), np.asarray(jds.p), rtol=RTOL,

@@ -175,7 +175,8 @@ def test_medium_tau_segment_closed_form():
                                     jnp.asarray(a), jnp.asarray(b),
                                     jray.wavelengths)
     out = media.medium_tau_segment(scene, torch.as_tensor(med), pray,
-                                   torch.as_tensor(a), torch.as_tensor(b), 3)
+                                   torch.as_tensor(a), torch.as_tensor(b),
+                                   pray.wavelengths)
     assert np.asarray(ref).max() > 0.01
     _close(out, ref, "tau")
 
@@ -200,7 +201,7 @@ def test_residual_walk_pieces(grid_res):
     for k, name in ((1, "dt"), (2, "rate")):
         _close(out[k], ref[k], name)
     tau = media.medium_ctrl_tau_segment(scene, pm, pray, torch.as_tensor(a),
-                                        torch.as_tensor(b), 3)
+                                        torch.as_tensor(b), pray.wavelengths)
     jtau = jmedia.medium_ctrl_tau_segment(jscene, jm, jray, jnp.asarray(a),
                                           jnp.asarray(b), jray.wavelengths)
     _close(tau, jtau, "ctrl tau")
@@ -208,7 +209,7 @@ def test_residual_walk_pieces(grid_res):
     for fn in ("medium_ctrl_sigma", "medium_sigma_t"):
         ref_v = getattr(jmedia, fn)(jscene, jm, p, jray.wavelengths)
         out_v = getattr(media, fn)(scene, pm, torch.as_tensor(np.array(p)),
-                                   3)
+                                   pray.wavelengths)
         _close(out_v, ref_v, fn)
 
 

@@ -80,7 +80,12 @@ def test_mono_film_matches_reference(mono_case, regen):
 
 @pytest.mark.parametrize("mode", ["spectral", "mono_double", "rgb_double"])
 def test_variants_outside_the_port_raise(mode):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Variant(mode)
+    if mode == "spectral":  # carried since slice 6c-1, unpolarized only
+        assert Variant(mode).n_channels == 4 and Variant(mode).is_spectral
+        with pytest.raises(NotImplementedError, match="slice 6e"):
+            Variant(mode, polarized=True)
+    else:
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            Variant(mode)
     with pytest.raises(NotImplementedError, match="slice 6"):
         Variant("rgb", polarized=True)

@@ -222,7 +222,7 @@ def test_gauss_legendre_tau_of_a_3d_grid():
             jray.wavelengths, quad_points=k))
         out = media.medium_tau_segment(
             scene, torch.as_tensor(med), pray, torch.as_tensor(a),
-            torch.as_tensor(b), 3, quad_points=k).numpy()
+            torch.as_tensor(b), pray.wavelengths, quad_points=k).numpy()
         assert ref.max() > 0.01
         np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-7)
 

@@ -269,9 +269,19 @@ def test_cli_renders_an_xml_scene(tmp_path):
 
 def test_cli_refusals(tmp_path):
     path = xml_terrain(tmp_path)
-    res = run_cli(path, "-m", "spectral", "--device", "cpu")
+    # the spectral variant renders since slice 6c-1; volpathmis in it is
+    # refused until slice 6c-2
+    with open(path) as f:
+        text = f.read()
+    assert '<integrator type="path"' in text
+    mis = str(tmp_path / "terrain_mis.xml")
+    with open(mis, "w") as f:
+        f.write(text.replace('<integrator type="path"',
+                             '<integrator type="volpathmis"'))
+    res = run_cli(mis, "-m", "spectral", "--device", "cpu")
     assert res.returncode != 0
     assert "NotImplementedError" in res.stderr and "spectral" in res.stderr
+    assert "6c-2" in res.stderr
     if not torch.cuda.is_available():  # never quietly on the CPU
         res = run_cli(path, "-o", str(tmp_path / "x.exr"))
         assert res.returncode != 0 and "device='cpu'" in res.stderr

@@ -105,10 +105,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", [
-    ("film", {"type": "specfilm", "width": 4, "height": 4}),
-    ("medium", {"type": "heterogeneous",
-                "sigma_t": {"type": "gridvolume_spectral",
-                            "data": np.ones((2, 2, 2, 4), np.float32)}}),
+    ("bsdf", {"type": "polarizer"}),
+    ("bsdf", {"type": "circular"}),
     ("bsdf", {"type": "measured_polarized"}),
     ("integrator", {"type": "bins", "bins": "lo:400:550"}),
     ("integrator", {"type": "nbins", "bins": "l550:550"}),
