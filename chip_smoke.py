@@ -57,7 +57,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the plain gather and through the plain sweep, and compare the films;
  13. hold the trilinear lookup's backward entry (grid_trilinear_bwd)
      against its plain version on phase 8's 64^3 load (32,768 lanes of
-     random points, C = 1 and C = 3) within rtol 1e-5 and atol 1e-7 (its
+     random points, C = 1, 3 and 8) within rtol 1e-5 and atol 1e-7 (its
      atomics add in an order that changes from run to run), and bit for
      bit on 32,768 lanes whose corners no two lanes share; timed beside
      the plain index_add_ chain and the backward of grid_sample;
@@ -76,8 +76,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the 64x64 spp4 value+grad of the 64^3 atmosphere through the kernels
      and through the plain gather and the plain sweep, gradients within
      phase 13's tolerance;
- 15. render the Cornell box (utils/scenes.cornell_box(256, 256, spp=64,
-     max_depth=6): 4,194,304 samples, as the flagship) on the lane pool of
+ 15. render the Cornell box (utils/scenes.cornell_box(256, 256, spp=32,
+     max_depth=6): 2,097,152 samples; spp 64, as the flagship, until phase
+     37 was added) on the lane pool of
      32,768 lanes through render(regen=True): time, Msamples/s, loop
      iterations and host syncs (the pool's own, counted where it syncs,
      and the path tracer's bounce gates); its six rectangles launch no
@@ -103,7 +104,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      are NaN in the reference too), forward and adjoint launches (one a
      closest-hit query), iterations, host syncs, peak memory, value+grad
      time against the primal's, the film bit-equal to the primal's; then
-     at 64x64 spp4 max_depth 3 (depth cut for the plain walks' time) the
+     at 64x64 spp2 max_depth 2 (depth cut for the plain walks' time; spp
+     4 and max_depth 3 until phase 37 was added) the
      gradients through the sweep, tile_bvh and tile_bvh8 against their
      plain versions (rtol 1e-5, atol 1e-7), the kernel legs launching
      their kernel once a query and the plain legs nothing;
@@ -122,7 +124,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      tile_sweep launches == closest-hit queries;
  22. the single-scattering closed form (tests/test_single_scattering_
      oracle.py's four cases, its formula copied here) through a 1x1
-     distant at max_depth 2, 4 seeds of 262,144 samples, gated at
+     distant at max_depth 2, 4 seeds of 65,536 samples (262,144 until
+     phase 37 was added), gated at
      |mean - closed form| < 4 sigma + 0.005 expected;
  23. the sensors' analytic gates under a constant environment (spp
      4,096): distant single, plane and hemisphere, mdistant and
@@ -144,19 +147,21 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      call on the CPU (rtol 1e-5), timed beside the bound and an
      index_put_ splat;
  26. the materials Cornell box (slice 5c-1): utils.scenes.cornell_box at
-     256x256, spp 8 (phase 15's box takes 64; cut for the time limit,
-     from 16 when phase 35 was added),
+     256x256, spp 4 (phase 15's box takes 32; cut for the time limit,
+     from 16 when phase 35 was added, from 8 when phase 37 was),
      max_depth 6, with a dielectric, a rough gold and a rough dielectric
      sphere, a 12-triangle cube mesh (one tile: the fused query) under a
      Beckmann rough plastic with a checkerboard, the back wall under a
      bump map and the floor under a normal map (inline 64x64 bitmaps), on
      the lane pool of 32,768 lanes: time, Msamples/s, iterations, host
-     syncs, tile_sweep launches == closest-hit queries; a 64x64 spp4 film
-     through the kernel against the plain sweep (budget 2); value+grad at
-     256x256 spp 2 through the path replay (the checkerboard's colours,
+     syncs, tile_sweep launches == closest-hit queries; a 64x64 spp2 film
+     (spp 4 until phase 37 was added) through the kernel against the
+     plain sweep (budget 2); value+grad at
+     256x256 spp 1 (2 until phase 37 was added) through the path replay
+     (the checkerboard's colours,
      the gold's eta and k and the walls' reflectances finite and not
      zero, the film bit-equal to the primal's, forward and adjoint
-     launches == queries, peak memory); the 64x64 spp4 gradient through
+     launches == queries, peak memory); the 64x64 spp2 gradient through
      the kernel against the plain sweep (rtol 1e-5, atol 1e-7);
  27. the materials terrain(256) (the sorted sweep): uvs, a per-vertex
      colour and a blendbsdf (checkerboard weight) over a plastic and an
@@ -184,15 +189,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      under a measured BRDF (fields in the layout of tests/test_measured.py's
      synth_fields, T = 6, L = 16, res = 32, from the seed), a 256 x 512
      envmap (a smooth sky and a one-texel sun 10^4 times it) and the
-     multijitter sampler; 256x256 spp16 max_depth 6 on the scan driver
+     multijitter sampler; 256x256 spp8 (16 until phase 37 was added)
+     max_depth 6 on the scan driver
      and a pool of 2^18 lanes (launches == queries, films within 64
      pixels); a 64x64 spp4 film through the kernel against the plain
-     sweep (budget 2); value+grad at spp 4 with respect to the envmap's
+     sweep (budget 2); value+grad at spp 2 (4 until phase 37 was added)
+     with respect to the envmap's
      image and the measured spectra (finite, not zero; launches ==
      queries), and at 64x64 spp4 max_depth 3 (depth cut for the plain
      sweep's time, as phase 19) through the kernel against the plain
      sweep (rtol 1e-5, atol 1e-7);
- 31. the lights-and-quadrics box: cornell_box(256, 256, 16, 6) with its
+ 31. the lights-and-quadrics box: cornell_box(256, 256, 8, 6) (spp 16
+     until phase 37 was added) with its
      area light replaced by a spot and a projector (an inline 64x64
      bitmap), a cylinder, a cone and a 12-triangle cube (the fused
      query), the ldsampler sampler, on the lane pool of 32,768 lanes
@@ -221,11 +229,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      atmosphere with an aerosol (a blendphase of Rayleigh and a 181-node
      tabphase of HG g = 0.7), an irregular ground reflectance and a
      5800 K blackbody sun (spp 2), its 64x64 film against the plain
-     sweep; value+grad at spp 2 of the quadrature render and the nearest
+     sweep; value+grad at 128x128 (256x256 until phase 37 was added) spp
+     2 of the quadrature render and the nearest
      grid (d(mean)/d(grid, albedo); forward and backward launches, the
-     film bit-equal to the primal's) and their 64x64 spp4 gradients
-     through the kernels against the plain versions (rtol 1e-5, atol
-     1e-7);
+     film bit-equal to the primal's) and their 64x64 spp2 gradients (spp
+     4 until phase 37 was added) through the kernels against the plain
+     versions (rtol 1e-5, atol 1e-7);
  34. slice 7a: scenes from files, written under a temporary directory.
      (a) terrain(256) as a PLY, a seeded 1024x1024 f32 albedo map as a
      ZIP EXR feeding a diffuse bitmap (on the terrain, which has no uvs
@@ -296,10 +305,37 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      grid kinds, as the reference's), 64x64 spp4 films through the
      kernels against the plain gather and the plain sweep (budget 2), and
      the gather entry on the packed 32-float rows beside index_select;
+ 37. slice 6c-2: the spectral variant's gradients, volpathmis, the AOV
+     wrappers, the measured BSDF and emitter rays in spectral. (a)
+     bench.py's spectral load (phase 36a's): value+grad of the image
+     mean with respect to sigma_t on the lane pool (the path replay; its
+     film bit-equal to the primal's) and on the scan driver (autograd
+     through passes as wide as the pool: the einsum lookup's rows round
+     differently at another batch width, which is recorded), the two
+     gradients within tests/test_autodiff.py:348's rtol 5e-3, atol 1e-7;
+     times, host syncs, peak memory, the ratio to the primal; (b) phase
+     36d's chromatic 64^3 at 64x64 spp 2: value+grad of the 64^3 sigma_t
+     and the 32^3 srgb albedo through the kernels against the plain
+     gather and the plain sweep (rtol 1e-5, atol 1e-7), fused-entry
+     launches == trilinear lookups, gather-entry launches == srgb
+     lookups, grid_trilinear_bwd launches == the adjoint's trilinear
+     lookups; (c) the same with sigma_t a gridvolume_spectral of 8 bands
+     against the plain gather (grid_trilinear_bwd at C = 8; phase 13 times
+     it); (d) moment over
+     volpath on (a)'s load, its base film bit-equal to phase 36a's, and
+     moment over volpathmis: volpathmis's Y within 3 standard errors of
+     volpath's (the per-sample variances from m2.y); aov (depth, shading
+     normal) over volpath on terrain(256) at 256x256 spp 4 on a pool of
+     2^18 lanes (launches == queries, the refills' included; a depth
+     where the alpha is); (e) phase 30's measured terrain in spectral at
+     64x64 spp 4 max_depth 3 (a 128x256 sky) through the kernel against
+     the plain sweep (budget 2); sample_emitter_ray in spectral over 2^16
+     lanes against the same call on the CPU (o, d within 1e-4,
+     wavelengths 1e-5, weights 1e-4 relative);
  12. (last) print the kernels line (every kernel and entry, the backward
-     included, with their launches on phases 21-36), the value+grad,
-     measurement, materials, slice 5c-2, slice 6a, slice 7a, slice 6b and
-     slice 6c-1 records,
+     included, with their launches on phases 21-37), the value+grad,
+     measurement, materials, slice 5c-2, slice 6a, slice 7a, slice 6b,
+     slice 6c-1 and slice 6c-2 records,
      the card's name and power limit, and the final ``{"ok": true, ...}``
      line.
 
@@ -1169,7 +1205,8 @@ def value_grad(scene, n_lanes, keys, threefry=False, with_primal=True):
     rec = dict(value_grad_ms=total_s * 1e3, forward_ms=forward_s * 1e3,
                backward_ms=(total_s - forward_s) * 1e3,
                forward=fwd, backward=bwd, peak_bytes=peak,
-               loss=float(loss.detach()))
+               loss=float(loss.detach()),
+               film_sums=film.detach().sum((0, 1)).tolist())
     if with_primal:
         if films._single_pixel(scene.config.rfilter,
                                dict(scene.config.rfilter_params)):
@@ -1535,14 +1572,15 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
 
     # ---- 15. the Cornell box at full width on the lane pool --------------------
     phase_clock("15")
-    # cornell_box(256, 256, spp=64, max_depth=6): 4,194,304 samples, as the
-    # flagship; six analytic rectangles: no kernel runs
-    cbox = load_dict(cornell_box(256, 256, 64, 6))
+    # cornell_box(256, 256, spp=32, max_depth=6): 2,097,152 samples (spp 64
+    # until phase 37 was added: the time limit); six analytic rectangles:
+    # no kernel runs
+    cbox = load_dict(cornell_box(256, 256, 32, 6))
     integrators.render(cbox, seed=0, spp=1, regen=True,
                        samples_per_pass=lanes)  # warm-up
     film, secs_c, launches, counts = counted_pool(cbox, lanes)
     pools = {"cornell box": check_pool(
-        "cornell box 256x256 spp64 max_depth 6 (lane pool)", cbox, film,
+        "cornell box 256x256 spp32 max_depth 6 (lane pool)", cbox, film,
         secs_c, launches, counts, None, (0.05, 0.5))}
     small_cbox = load_dict(cornell_box(64, 64, 4, 6))
     scan = integrators.render(small_cbox, seed=3, develop_film=False)
@@ -1657,14 +1695,14 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
             surface_vg[label] = surface_value_grad(
                 f"{label} 256x256 spp2 max_depth 6", sc, pool_lanes, kernel,
                 rows)
-    # at 64x64 spp4 the gradients through each kernel and through its plain
-    # version; max_depth 3 (the value+grads above take 6): the plain walks'
-    # time, one host sync a walk step (the RPV rows are NaN in both:
-    # ROADMAP Queue 3)
+    # at 64x64 spp2 max_depth 2 (spp 4 and max_depth 3 until phase 37 was
+    # added; the value+grads above take 6) the gradients through each
+    # kernel and through its plain version: the plain walks' time, one host
+    # sync a walk step (the RPV rows are NaN in both: ROADMAP Queue 3)
     for label, d_small, wide, kernel in (
-            ("terrain", terrain_scene(V, F, 64, 64, 4, 3), "0", "tile_sweep"),
-            ("forest", forest_scene(64, 64, 4, 3), "0", "tile_bvh"),
-            ("forest", forest_scene(64, 64, 4, 3), "1", "tile_bvh8")):
+            ("terrain", terrain_scene(V, F, 64, 64, 2, 2), "0", "tile_sweep"),
+            ("forest", forest_scene(64, 64, 2, 2), "0", "tile_bvh"),
+            ("forest", forest_scene(64, 64, 2, 2), "1", "tile_bvh8")):
         sc = load_dict(d_small)
         grads_64 = {}
         t0 = time.perf_counter()
@@ -1685,7 +1723,7 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
         ok = torch.isfinite(ref)
         assert torch.equal(ok, torch.isfinite(g)), label
         torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
-        print(f"# {label} 64x64 spp4 max_depth 3 value+grad: {kernel} vs "
+        print(f"# {label} 64x64 spp2 max_depth 2 value+grad: {kernel} vs "
               f"plain gradients agree (rtol 1e-5, atol 1e-7; max abs err "
               f"{float((g[ok] - ref[ok]).abs().max()):.2e}; both legs "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1909,8 +1947,10 @@ def measurement_phases(V, F, lanes, box_ms):
     for kind, albedo, rho, phase, d_sun, d_view in SS_CASES:
         profile = ss_profile(kind)
         expected = ss_closed_form(profile, albedo, rho, phase, d_sun, d_view)
+        # 65,536 samples a seed (262,144 until phase 37 was added: the
+        # time limit; the gate follows the standard error)
         sc = load_dict(ss_slab_scene(profile, albedo, rho, phase, d_sun,
-                                     d_view, 1 << 18))
+                                     d_view, 1 << 16))
         t0 = time.perf_counter()
         vals = np.asarray([float(integrators.render(
             sc, seed=100 + s, regen=True, samples_per_pass=lanes).mean())
@@ -1925,7 +1965,7 @@ def measurement_phases(V, F, lanes, box_ms):
             ms=secs * 1e3)
         print(f"# single scattering {label}: {mean:.6f} vs closed form "
               f"{expected:.6f} (stderr {stderr:.2e}, gate {tol:.2e}; 4 seeds "
-              f"x 262,144 samples in {secs * 1e3:.0f} ms)", flush=True)
+              f"x 65,536 samples in {secs * 1e3:.0f} ms)", flush=True)
         assert abs(mean - expected) < tol, (label, mean, expected, tol)
 
     # ---- 23. the sensors' analytic gates and a bilambertian furnace ------------
@@ -2261,33 +2301,35 @@ def materials_phases(V, F, lanes):
 
     # ---- 26. the materials Cornell box --------------------------------------
     phase_clock("26")
-    # 256x256 spp 8 (phase 15's box takes 64; cut from 16 when phase 35 was
-    # added): the time limit; the cube is one tile: one fused tile_sweep
-    # launch a query
-    box = load_dict(materials_cornell(256, 256, 8, 6))
+    # 256x256 spp 4 (phase 15's box takes 32; cut from 16 when phase 35 was
+    # added, from 8 when phase 37 was): the time limit; the cube is one
+    # tile: one fused tile_sweep launch a query
+    box = load_dict(materials_cornell(256, 256, 4, 6))
     integrators.render(box, seed=0, spp=1, regen=True,
                        samples_per_pass=lanes)  # warm-up
     film, secs, launches, counts = counted_pool(box, lanes)
     rec["cornell"] = check_pool(
-        "materials cornell box 256x256 spp8 max_depth 6 (lane pool)", box,
+        "materials cornell box 256x256 spp4 max_depth 6 (lane pool)", box,
         film, secs, launches, counts, "tile_sweep", (0.05, 0.5))
-    small = load_dict(materials_cornell(64, 64, 4, 6))
-    film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+    # 64x64 spp 2 (4 until phase 37 was added)
+    small = load_dict(materials_cornell(64, 64, 2, 6))
+    film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 2)
     with intersect.use_plain():
-        film_p, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
+        film_p, _ = integrators.render_wavefront_regen(small, lanes, 3, 2)
     flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
                              max_flips=2)
     rec["cornell"]["flips_vs_plain_64"] = flips
-    print(f"# materials cornell box 64x64 spp4: tile_sweep kernel vs plain "
+    print(f"# materials cornell box 64x64 spp2: tile_sweep kernel vs plain "
           f"films agree ({flips} pixels over tolerance, budget 2)",
           flush=True)
-    # value+grad at spp 2: d(mean image)/d(spectra.baked.value)
-    vg = load_dict(materials_cornell(256, 256, 2, 6))
+    # value+grad at spp 1 (2 until phase 37 was added): d(mean
+    # image)/d(spectra.baked.value)
+    vg = load_dict(materials_cornell(256, 256, 1, 6))
     rows = materials_rows(vg)
     rec["cornell_value_grad"] = surface_value_grad(
-        "materials cornell box 256x256 spp2 max_depth 6", vg, lanes,
+        "materials cornell box 256x256 spp1 max_depth 6", vg, lanes,
         "tile_sweep", rows)
-    sc = load_dict(materials_cornell(64, 64, 4, 6))
+    sc = load_dict(materials_cornell(64, 64, 2, 6))  # spp 4 until phase 37
     grads = {}
     t0 = time.perf_counter()
     for how, ctx in (("kernels", contextlib.nullcontext),
@@ -2307,7 +2349,7 @@ def materials_phases(V, F, lanes):
     torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
     rec["cornell_value_grad"]["grad_max_abs_err_vs_plain_64"] = float(
         (g[ok] - ref[ok]).abs().max())
-    print(f"# materials cornell box 64x64 spp4 value+grad: tile_sweep vs "
+    print(f"# materials cornell box 64x64 spp2 value+grad: tile_sweep vs "
           f"plain gradients agree (rtol 1e-5, atol 1e-7; max abs err "
           f"{rec['cornell_value_grad']['grad_max_abs_err_vs_plain_64']:.2e};"
           f" both legs {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2627,18 +2669,19 @@ def slice_5c2_phases(V, F, scene, img, lanes):
     phase_clock("30")
     fields = synth_measured_fields(6, 16, 32, seed=5)
     sky = sky_image(256, 512, seed=6)
-    mt = load_dict(measured_terrain(paths["ply"], fields, sky, 256, 256, 16,
+    # spp 8 (16 until phase 37 was added): the time limit
+    mt = load_dict(measured_terrain(paths["ply"], fields, sky, 256, 256, 8,
                                     6))
     integrators.render(mt, seed=0, spp=1)  # warm-up
     film, scan_s, launches, bounces, queries, traced = counted_render(mt)
-    check_render("measured terrain under an envmap 256x256 spp16 max_depth "
+    check_render("measured terrain under an envmap 256x256 spp8 max_depth "
                  "6 (scan)", mt, film, scan_s, launches, bounces, queries,
                  traced, "tile_sweep", (1e-3, 5.0))
     integrators.render(mt, seed=0, spp=1, regen=True,
                        samples_per_pass=pool_lanes)  # warm-up
     pfilm, pool_s, plaunches, counts = counted_pool(mt, pool_lanes)
     rec["measured"] = check_pool(
-        "measured terrain under an envmap 256x256 spp16 max_depth 6 (lane "
+        "measured terrain under an envmap 256x256 spp8 max_depth 6 (lane "
         "pool)", mt, pfilm, pool_s, plaunches, counts, "tile_sweep",
         (1e-3, 5.0))
     scan = integrators.render(mt, seed=0, develop_film=False)
@@ -2658,7 +2701,8 @@ def slice_5c2_phases(V, F, scene, img, lanes):
           f"tolerance, budget 64); 64x64 spp4 kernel vs plain films agree "
           f"({flips_plain} pixels, budget 2)", flush=True)
     keys = ["emitters.envmap.image", "bsdfs.measured.spectra"]
-    vg = load_dict(measured_terrain(paths["ply"], fields, sky, 256, 256, 4,
+    # spp 2 (4 until phase 37 was added)
+    vg = load_dict(measured_terrain(paths["ply"], fields, sky, 256, 256, 2,
                                     6))
     r, params = value_grad(vg, pool_lanes, keys)
     for k, p in params.items():
@@ -2676,7 +2720,7 @@ def slice_5c2_phases(V, F, scene, img, lanes):
         load_dict(measured_terrain(paths["ply"], fields, sky, 64, 64, 4, 3)),
         lanes, keys, ("tile_sweep",))
     rec["measured_value_grad"] = r
-    print(f"# measured terrain under an envmap 256x256 spp4 value+grad: "
+    print(f"# measured terrain under an envmap 256x256 spp2 value+grad: "
           f"primal {r['primal_ms']:.1f} ms, value+grad "
           f"{r['value_grad_ms']:.1f} ms ({r['value_grad_over_primal']:.2f}x"
           f"), launches forward {r['forward']['launches']['tile_sweep']} "
@@ -2688,12 +2732,12 @@ def slice_5c2_phases(V, F, scene, img, lanes):
 
     # ---- 31. the lights-and-quadrics box ---------------------------------------
     phase_clock("31")
-    box = load_dict(quadrics_box(256, 256, 16, 6))
+    box = load_dict(quadrics_box(256, 256, 8, 6))  # spp 16 until phase 37
     integrators.render(box, seed=0, spp=1, regen=True,
                        samples_per_pass=lanes)  # warm-up
     bfilm, box_s, blaunches, counts = counted_pool(box, lanes)
     rec["box"] = check_pool(
-        "lights-and-quadrics box 256x256 spp16 max_depth 6 (lane pool)",
+        "lights-and-quadrics box 256x256 spp8 max_depth 6 (lane pool)",
         box, bfilm, box_s, blaunches, counts, "tile_sweep", (0.01, 2.0))
     with stage_timers({"threefry": (rng, "threefry2x32"),
                        "sobol": (rng, "_sobol_2")}) as spent:
@@ -2722,7 +2766,7 @@ def slice_5c2_phases(V, F, scene, img, lanes):
     # emission rays of the box's spot and projector, card against CPU
     n = 1 << 20
     dev = box.bsphere_center.device
-    cpu_box = load_dict(quadrics_box(256, 256, 16, 6), device="cpu")
+    cpu_box = load_dict(quadrics_box(256, 256, 8, 6), device="cpu")
     got = emitters.sample_emitter_ray(
         box, rng.Sampler.seed(7, torch.arange(n, device=dev)),
         torch.zeros(n, device=dev))
@@ -2842,22 +2886,28 @@ def films_vs_plain(scene, lanes, legs=("grid_gather", "tile_sweep")):
     return flips
 
 
-def grads_vs_plain(scene, lanes, keys):
-    """value_grad of ``scene`` through the kernels and through the plain
-    gather and the plain sweep: gradients within rtol 1e-5, atol 1e-7
-    (phase 14's tolerance). Returns the largest absolute difference a
-    leg."""
+def grads_vs_plain(scene, lanes, keys,
+                   legs=("grid_gather plain", "tile_sweep plain")):
+    """value_grad of ``scene`` through the kernels (grid_gather's two
+    forward entries counted apart, entry_counts) and through the plain
+    versions of ``legs`` (the plain gather, the plain sweep): gradients
+    within rtol 1e-5, atol 1e-7 (phase 14's tolerance), not all zero.
+    Returns the kernel leg's record with "entries",
+    "grad_max_abs_err_vs_plain" (a leg) and "grad_abs_sums"."""
     from eradiate_kernel_tpu_torch.ops import gather, intersect
 
+    plains = {"grid_gather plain": gather.use_plain,
+              "tile_sweep plain": intersect.use_plain}
     grads = {}
-    for name, plain in (("kernels", contextlib.nullcontext),
-                        ("grid_gather plain", gather.use_plain),
-                        ("tile_sweep plain", intersect.use_plain)):
-        with plain():
-            _rec, params = value_grad(scene, lanes, keys, with_primal=False)
+    for name, ctx in (("kernels", entry_counts),
+                      *((leg, plains[leg]) for leg in legs)):
+        with ctx() as entries:
+            rec, params = value_grad(scene, lanes, keys, with_primal=False)
+        if name == "kernels":
+            kernel_rec = dict(rec, entries=dict(entries))
         grads[name] = {k: p.grad for k, p in params.items()}
     worst = {}
-    for name in ("grid_gather plain", "tile_sweep plain"):
+    for name in legs:
         worst[name] = 0.0
         for k, g in grads["kernels"].items():
             ref = grads[name][k]
@@ -2867,7 +2917,10 @@ def grads_vs_plain(scene, lanes, keys):
             torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
             worst[name] = max(worst[name],
                               float((g[ok] - ref[ok]).abs().max()))
-    return worst
+    kernel_rec["grad_max_abs_err_vs_plain"] = worst
+    kernel_rec["grad_abs_sums"] = {k: float(g.abs().sum())
+                                   for k, g in grads["kernels"].items()}
+    return kernel_rec
 
 
 def nearest_bwd_load(grid, idx, gen):
@@ -3049,22 +3102,22 @@ def slice_6a_phases(lanes, large_film, large_rec):
     phase_clock("33d")
     vg = {}
     for name, d_full, d_small, key in (
-            ("quadrature", large3d(256, 2, ablations["quadrature"]),
-             large3d(64, 4, ablations["quadrature"]),
+            ("quadrature", large3d(128, 2, ablations["quadrature"]),
+             large3d(64, 2, ablations["quadrature"]),
              "volumes.gridvolume.grid"),
-            ("nearest", nearest(256, 2), nearest(64, 4),
+            ("nearest", nearest(128, 2), nearest(64, 2),
              "volumes.gridvolume_nearest.grid")):
         keys = [key, "volumes.constvolume.value"]
         scene = load_dict(d_full)
         r, params = value_grad(scene, lanes, keys)
         vg[name] = check_value_grad(
-            f"atmosphere 256x256 spp2 max_depth 12 64^3 {name}", scene, r,
+            f"atmosphere 128x128 spp2 max_depth 12 64^3 {name}", scene, r,
             params)
         bwd = r["backward"]["launches"]
         assert (bwd["grid_trilinear_bwd"] > 0) == (name == "quadrature"), r
-        vg[name]["vs_plain_64"] = grads_vs_plain(load_dict(d_small), lanes,
-                                                 keys)
-        print(f"# {name} 64x64 spp4 value+grad: kernels vs plain gradients "
+        vg[name]["vs_plain_64"] = grads_vs_plain(
+            load_dict(d_small), lanes, keys)["grad_max_abs_err_vs_plain"]
+        print(f"# {name} 64x64 spp2 value+grad: kernels vs plain gradients "
               f"agree (rtol 1e-5, atol 1e-7; max abs err "
               f"{vg[name]['vs_plain_64']})", flush=True)
     rec["value_grad"] = vg
@@ -3828,6 +3881,7 @@ def slice_6c1_phases(lanes, large_rec):
     integrators.render(spectral, seed=0, spp=1 << 12, regen=True,
                        samples_per_pass=lanes)  # warm-up
     film_s = timed("spectral distant 1x1", spectral)
+    REF_FILMS["spectral distant film"] = film_s  # phase 37 holds to it
     film_r = timed("rgb distant 1x1", rgb)
     var_s = y_batches(spectral, lanes, n_batch)
     var_r = y_batches(rgb, lanes, n_batch)
@@ -3930,17 +3984,8 @@ def slice_6c1_phases(lanes, large_rec):
     phase_clock("36d")
     albedo = srgb_albedo_grid(32)
     n_alb = albedo.shape[0]
-
-    def chromatic(*args):
-        d = atmosphere(*args, grid_res=(64, 64, 64))
-        d["integrator"]["nee_transmittance"] = "residual"
-        med = d["atmo"]["interior"]
-        med["albedo"] = {"type": "gridvolume", "data": albedo,
-                         "to_world": med["sigma_t"]["to_world"]}
-        return d
-
     t0 = time.perf_counter()
-    cscene = load_dict(chromatic(256, 256, 4, 12), Variant("spectral"))
+    cscene = load_dict(chromatic_atmosphere(256, 256, 4), Variant("spectral"))
     load_s = time.perf_counter() - t0
     assert "gridvolume_srgb" in cscene.config.volume_kinds
     packed = cscene.vol_packed_spectral["gridvolume_srgb"]
@@ -3970,7 +4015,7 @@ def slice_6c1_phases(lanes, large_rec):
     assert entries["trilinear"] == counts["lookups"] > 0, (entries, counts)
     assert entries["gather"] == counts["srgb_lookups"] > 0, (entries, counts)
     assert launches["grid_gather"] == sum(entries.values()), launches
-    small = load_dict(chromatic(64, 64, 4, 12), Variant("spectral"))
+    small = load_dict(chromatic_atmosphere(64, 64, 4), Variant("spectral"))
     rc["flips_vs_plain_64"] = films_vs_plain(small, lanes)
     # the gather entry on the packed srgb rows (32 floats) beside
     # index_select, at the pool's lane count
@@ -3994,6 +4039,382 @@ def slice_6c1_phases(lanes, large_rec):
           f"{g['bound_ms']:.5f} ms ({g['bound_by']}); device us a call "
           f"{g['device_us']}", flush=True)
     del film_s, film_r, film_k, film_p, film_c
+    return rec
+
+
+# phase 37's spectral grid: S bands over [S37_LAMBDA]
+S37_BANDS = 8
+S37_LAMBDA = (400.0, 800.0)
+
+
+def slice_6c2_launches(rec, kernel):
+    """``kernel``'s launches in each render and value+grad of phase 37
+    (a value+grad's forward and adjoint apart)."""
+    out = {k: v["launches"][kernel] for k, v in rec["renders"].items()}
+    for k, v in rec["value_grads"].items():
+        for part in ("forward", "backward"):
+            out[f"{k} {part}"] = v[part]["launches"][kernel]
+    return out
+
+
+def chromatic_atmosphere(width, height, spp, spectral_sigma=False):
+    """Phase 36d's chromatic 64^3 atmosphere (large3d, max_depth 12,
+    residual NEE, the seeded 32^3 rgb albedo); with ``spectral_sigma`` its
+    sigma_t a gridvolume_spectral of S37_BANDS bands over S37_LAMBDA: the
+    64^3 density times (550 / lambda)^2, Rayleigh-like."""
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(width, height, spp, 12, grid_res=(64, 64, 64))
+    d["integrator"]["nee_transmittance"] = "residual"
+    med = d["atmo"]["interior"]
+    tw = med["sigma_t"]["to_world"]
+    med["albedo"] = {"type": "gridvolume", "data": srgb_albedo_grid(32),
+                     "to_world": tw}
+    if spectral_sigma:
+        lam = np.linspace(*S37_LAMBDA, S37_BANDS)
+        med["sigma_t"] = {
+            "type": "gridvolume_spectral", "to_world": tw,
+            "data": (med["sigma_t"]["data"][..., None]
+                     * (550.0 / lam) ** 2).astype(np.float32),
+            "lambda_min": S37_LAMBDA[0], "lambda_max": S37_LAMBDA[1]}
+    return d
+
+
+def check_grid_launches(label, rec):
+    """Hold a value+grad of grid lookups to its counts: forward and
+    adjoint, one tile_sweep launch a closest-hit query and one grid_gather
+    launch a lookup (the fused entry a trilinear lookup, the gather entry
+    an srgb lookup); one grid_trilinear_bwd launch a trilinear lookup of
+    the adjoint and none in the forward; no BVH kernel."""
+    fwd, bwd, ent = rec["forward"], rec["backward"], rec["entries"]
+    for part in (fwd, bwd):
+        la = part["launches"]
+        assert la["tile_sweep"] == part["queries"] > 0, (label, part)
+        assert la["grid_gather"] == part["lookups"] + part[
+            "srgb_lookups"] + part["nearest_lookups"], (label, part)
+        assert la["tile_bvh"] == la["tile_bvh8"] == 0, (label, part)
+    assert fwd["launches"]["grid_trilinear_bwd"] == 0, (label, fwd)
+    assert bwd["launches"]["grid_trilinear_bwd"] == bwd["lookups"] > 0, \
+        (label, bwd)
+    assert ent["trilinear"] == fwd["lookups"] + bwd["lookups"], (label, ent)
+    assert ent["gather"] == fwd["srgb_lookups"] + bwd["srgb_lookups"] > 0, \
+        (label, ent)
+
+
+def slice_6c2_phases(V, F, lanes, s6c1):
+    """Phase 37 (slice 6c-2): the spectral variant's gradients, volpathmis,
+    the AOV wrappers, the measured BSDF and emitter rays in spectral, at
+    full size. (a) bench.py's spectral load (phase 36a's: 1x1 distant,
+    262,144 samples; the value+grad at seed 0): value+grad of the image
+    mean with respect to the atmosphere's sigma_t on the lane pool (the
+    path replay; its film bit-equal to the primal's) and on the scan
+    driver (autograd through passes as wide as the pool), the two
+    gradients within rtol 5e-3, atol 1e-7 (the reference's
+    tests/test_autodiff.py:348 figure); times, host syncs, peak memory.
+    (b) phase 36d's chromatic 64^3 at 64x64 spp 2: value+grad with respect
+    to the 64^3 sigma_t and the 32^3 srgb albedo through the kernels and
+    through the plain gather and the plain sweep (rtol 1e-5, atol 1e-7);
+    fused-entry launches == trilinear lookups, gather-entry launches ==
+    srgb lookups, grid_trilinear_bwd launches == the adjoint's trilinear
+    lookups (C = 1). (c) the same with sigma_t a gridvolume_spectral of
+    S37_BANDS bands, through the kernels and the plain gather:
+    grid_trilinear_bwd at C = S37_BANDS on the path (its time a call:
+    phase 13). (d) on (a)'s load, moment over volpath (its
+    base film bit-equal to phase 36a's film; its m2.y the per-sample
+    variance of Y) and moment over volpathmis: volpathmis's Y within 3
+    standard errors of volpath's; aov (depth, shading normal) over
+    volpath on terrain(256) at 256x256 spp 4 on the pool (tile_sweep
+    launches == queries, the refills' AOV queries included). (e) phase
+    30's measured terrain (the PLY of phase 29, a 128x256 sky) in
+    spectral at 64x64 spp 4 max_depth 3 through the kernel against the
+    plain sweep (budget 2); sample_emitter_ray in spectral over 2^16
+    lanes (an area
+    light of a uniform spectrum, a blackbody sun, an srgb point light and
+    a d65 sky) against the same call on the CPU: the picks equal, o and
+    d within 1e-4, wavelengths 1e-5 and weights 1e-4 relative (the card's
+    sin, cos and exp are ulps from the CPU's; each kind's largest
+    difference is printed). ``s6c1``: phase 36's
+    records. Returns the records."""
+    from eradiate_kernel_tpu_torch import emitters, integrators
+    from eradiate_kernel_tpu_torch.core import rng
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.films import develop
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.textures import volumes
+    from eradiate_kernel_tpu_torch.utils import autodiff
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    rec = {"renders": {}, "value_grads": {}}
+    spectral = Variant("spectral")
+    n_load = 1 << 18
+    primal = s6c1["renders"]["spectral distant 1x1"]
+
+    def distant(integrator=None):
+        d = atmosphere(spp=n_load, max_depth=12, grid_res=64,
+                       sensor="distant")
+        d["integrator"]["nee_transmittance"] = "residual"
+        if integrator is not None:
+            d["integrator"] = integrator
+        return load_dict(d, spectral)
+
+    # ---- 37a. value+grad on bench.py's spectral load ---------------------
+    phase_clock("37a")
+    key = "volumes.gridvolume.grid"
+    scene = distant()
+    r, params = value_grad(scene, lanes, [key])
+    g_pool = params[key].grad
+    rec["value_grads"]["spectral distant pool"] = r
+    # the scan driver: autograd through its passes, each as wide as the
+    # pool. A sample's float operations are the same on both drivers only
+    # at one batch width: cuBLAS picks its kernel by the shape, and the
+    # einsum lookup's rows round differently at another width (recorded
+    # below), which flips a free-flight decision now and then
+    gen = torch.Generator().manual_seed(37)
+    pts = torch.rand(2 * lanes, 3, generator=gen).to(scene.geo.tiles_v0.device)
+    slot = torch.zeros(2 * lanes, dtype=torch.int32, device=pts.device)
+    grid = scene.volumes["gridvolume"]["grid"]
+    rec["einsum_rows_batch_invariant"] = bool(torch.equal(
+        volumes._trilinear_einsum(grid, slot, pts)[:lanes],
+        volumes._trilinear_einsum(grid, slot[:lanes], pts[:lanes])))
+    pm = autodiff.traverse(scene).keep([key])
+    p_scan = pm.trainable()
+    with counting() as read:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        film = integrators.render(pm.with_trainable(p_scan), seed=0,
+                                  samples_per_pass=lanes,
+                                  develop_film=False)
+        loss = develop(film).mean()
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd = read()
+        loss.backward()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        end = read()
+    bwd = {k: ({kk: vv - fwd[k][kk] for kk, vv in v.items()}
+               if isinstance(v, dict) else v - fwd[k])
+           for k, v in end.items()}
+    g_scan = p_scan[key].grad
+    for g in (g_pool, g_scan):
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
+    rec["voxels_off_tolerance"] = int(
+        (~torch.isclose(g_pool, g_scan, rtol=5e-3, atol=1e-7)).sum())
+    rec["scan_vs_pool_film_sums"] = [
+        a - b for a, b in zip(film.detach().sum((0, 1)).tolist(),
+                              r["film_sums"])]
+    print(f"# 37a diagnostics: einsum rows batch-invariant "
+          f"{rec['einsum_rows_batch_invariant']}; scan - pool film sums "
+          f"{rec['scan_vs_pool_film_sums']}; gradient |max| "
+          f"{float(g_pool.abs().max()):.3e}, voxels off rtol 5e-3 / atol "
+          f"1e-7: {rec['voxels_off_tolerance']}, max abs diff "
+          f"{float((g_pool - g_scan).abs().max()):.3e}", flush=True)
+    torch.testing.assert_close(g_pool, g_scan, rtol=5e-3, atol=1e-7)
+    rs = rec["value_grads"]["spectral distant scan"] = dict(
+        value_grad_ms=total_s * 1e3, forward_ms=fwd_s * 1e3,
+        backward_ms=(total_s - fwd_s) * 1e3, forward=fwd, backward=bwd,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        loss=float(loss.detach()),
+        pool_vs_scan_max_abs_err=float((g_pool - g_scan).abs().max()),
+        grad_abs_sum=float(g_pool.abs().sum()))
+    r["over_phase_36a_primal"] = r["value_grad_ms"] / primal["render_ms"]
+    # autograd's backward of the scan replays nothing: no query, no launch
+    # (the einsum lookup's backward is a matmul)
+    assert fwd["launches"]["tile_sweep"] == fwd["queries"] > 0, fwd
+    assert sum(bwd["launches"].values()) == bwd["queries"] == 0, bwd
+    print(f"# 37a value+grad of bench.py's spectral load (262,144 "
+          f"samples) with respect to sigma_t: pool (path replay) "
+          f"{r['value_grad_ms']:.1f} ms (forward {r['forward_ms']:.1f}, "
+          f"backward {r['backward_ms']:.1f}; "
+          f"{r['value_grad_over_primal']:.2f}x its primal "
+          f"{r['primal_ms']:.1f} ms, {r['over_phase_36a_primal']:.2f}x "
+          f"phase 36a's; film bit-equal to the primal's), iterations "
+          f"{r['forward']['forward_iterations']} + "
+          f"{r['backward']['adjoint_iterations']}, host syncs "
+          f"{r['forward']['host_syncs']} + {r['backward']['host_syncs']} "
+          f"(+ the pool's {r['forward']['pool_syncs']} + "
+          f"{r['backward']['pool_syncs']}), peak memory "
+          f"{r['peak_bytes'] / 2**20:.1f} MiB; scan driver "
+          f"{rs['value_grad_ms']:.1f} ms (forward {rs['forward_ms']:.1f}, "
+          f"backward {rs['backward_ms']:.1f}), host syncs "
+          f"{fwd['host_syncs']} + {bwd['host_syncs']}, peak memory "
+          f"{rs['peak_bytes'] / 2**20:.1f} MiB; gradients agree (rtol "
+          f"5e-3, atol 1e-7; max abs err {rs['pool_vs_scan_max_abs_err']:.2e}"
+          f" of |grad| sum {rs['grad_abs_sum']:.3e})", flush=True)
+    del film, loss, pm, p_scan, params
+
+    # ---- 37b-c. the chromatic 64^3: value+grad of both grids --------------
+    # (c) holds the gather against its plain version (its point: the
+    # backward at C = S37_BANDS); the cube's sweep is (b)'s
+    for tag, spectral_sigma, sigma_key, C, legs in (
+            ("37b", False, "volumes.gridvolume.grid", 1,
+             ("grid_gather plain", "tile_sweep plain")),
+            ("37c", True, "volumes.gridvolume_spectral.grid", S37_BANDS,
+             ("grid_gather plain",))):
+        phase_clock(tag)
+        t0 = time.perf_counter()
+        sc = load_dict(chromatic_atmosphere(64, 64, 2, spectral_sigma),
+                       spectral)
+        assert tuple(sc.volumes[sigma_key.split(".")[1]]["grid"].shape[
+            -1:]) == (C,)
+        sigma_kind = (f"gridvolume_spectral C = {C}" if spectral_sigma
+                      else "gridvolume")
+        label = f"chromatic 64^3 64x64 spp2 (sigma_t {sigma_kind})"
+        vr = grads_vs_plain(sc, lanes, [sigma_key,
+                                        "volumes.gridvolume_srgb.grid"], legs)
+        check_grid_launches(label, vr)
+        vr["phase_s"] = time.perf_counter() - t0
+        vr["channels"] = C
+        rec["value_grads"][label] = vr
+        fwd, bwd = vr["forward"], vr["backward"]
+        print(f"# {tag} {label} value+grad through the kernels "
+              f"{vr['value_grad_ms']:.1f} ms (forward "
+              f"{vr['forward_ms']:.1f}, backward {vr['backward_ms']:.1f}); "
+              f"grid_gather entries {vr['entries']} (fused = trilinear "
+              f"lookups {fwd['lookups']} + {bwd['lookups']}, gather = srgb "
+              f"lookups {fwd['srgb_lookups']} + {bwd['srgb_lookups']}), "
+              f"grid_trilinear_bwd (C = {C}) "
+              f"{bwd['launches']['grid_trilinear_bwd']} (= the adjoint's "
+              f"trilinear lookups), tile_sweep {fwd['launches']['tile_sweep']}"
+              f" + {bwd['launches']['tile_sweep']} (= queries); gradients "
+              f"against the plain versions (rtol 1e-5, atol 1e-7) max abs "
+              f"err {vr['grad_max_abs_err_vs_plain']}; |grad| sums "
+              f"{vr['grad_abs_sums']}; {1 + len(legs)} legs "
+              f"{vr['phase_s']:.1f} s", flush=True)
+
+    # ---- 37d. volpathmis, moment and aov in spectral ----------------------
+    phase_clock("37d")
+
+    def moment_pool(label, child, seed):
+        sc = distant({"type": "moment", "child": child})
+        film, secs, launches, counts = counted_pool(sc, lanes, seed=seed)
+        r = rec["renders"][label] = check_atmosphere(
+            f"{label} spp {n_load} (seed {seed})", sc, film[..., :5], secs,
+            launches, counts)
+        w = float(film[..., 4].sum())
+        r["y"] = float(film[..., 1].sum()) / w
+        # the second moment of the splatted Y: a per-sample variance
+        r["var_y"] = float(film[..., 6].sum()) / w - r["y"] ** 2
+        assert r["var_y"] > 0, r
+        return film, r
+
+    film_m, rm = moment_pool("moment over volpath",
+                             {"type": "volpath", "max_depth": 12,
+                              "nee_transmittance": "residual"}, 1)
+    rm["base_bit_equal_to_36a"] = bool(torch.equal(
+        film_m[..., :5], REF_FILMS["spectral distant film"]))
+    assert rm["base_bit_equal_to_36a"]
+    film_v, rv = moment_pool("moment over volpathmis",
+                             {"type": "volpathmis", "max_depth": 12}, 2)
+    z, se = z_of(rv["y"], rm["y"], rv["var_y"], n_load, rm["var_y"], n_load)
+    rv["same_estimand_as_volpath"] = dict(y=rv["y"], volpath_y=rm["y"],
+                                          z=z, std_err=se)
+    assert abs(z) <= 3, rv["same_estimand_as_volpath"]
+    print(f"# 37d volpathmis in spectral on bench.py's spectral load: "
+          f"{rv['render_ms']:.1f} ms ({rv['host_syncs']} host syncs) "
+          f"against volpath's {rm['render_ms']:.1f} ms ({rm['host_syncs']});"
+          f" Y {rv['y']:.6f} against {rm['y']:.6f}: z = {z:.2f} (standard "
+          f"error {se:.2e}; per-sample variances from moment's m2.y, "
+          f"{rv['var_y']:.3e} and {rm['var_y']:.3e}); moment over volpath's "
+          f"base film bit-equal to phase 36a's", flush=True)
+    td = terrain_scene(V, F, 256, 256, 4, 6)
+    td["integrator"] = {"type": "aov", "aovs": "dd:depth,nn:sh_normal",
+                        "child": {"type": "volpath", "max_depth": 6}}
+    tsc = load_dict(td, spectral)
+    integrators.render(tsc, seed=0, spp=1, regen=True,
+                       samples_per_pass=1 << 18)  # warm-up
+    film_a, secs, launches, counts = counted_pool(tsc, 1 << 18)
+    ra = rec["renders"]["aov over volpath terrain"] = check_pool(
+        "aov (depth, sh_normal) over volpath, terrain(256) 256x256 spp4 "
+        "max_depth 6, spectral (lane pool)", tsc, film_a[..., :5], secs,
+        launches, counts, "tile_sweep", (1e-3, 5.0))
+    w = film_a[..., 4:5].clamp(min=1e-12)
+    depth = film_a[..., 5] / w[..., 0]
+    normal = film_a[..., 6:9] / w
+    ra["depth_hit_share"] = float((depth > 0).float().mean())
+    assert bool(torch.isfinite(film_a).all()), "aov film not finite"
+    # a depth where a camera ray hit the terrain: where the alpha is
+    assert ra["depth_hit_share"] > 0.1, ra["depth_hit_share"]
+    assert torch.equal(depth > 0, film_a[..., 3] > 0)
+    # a pixel's mean of unit normals
+    assert bool((normal.norm(dim=-1) <= 1.0 + 1e-4).all())
+    print(f"# 37d aov over volpath in spectral, terrain(256): "
+          f"{ra['render_ms']:.1f} ms, depth > 0 on "
+          f"{ra['depth_hit_share']:.3f} of the pixels", flush=True)
+    del film_m, film_v, film_a
+
+    # ---- 37e. the measured terrain and emitter rays in spectral -------------
+    phase_clock("37e")
+    t0 = time.perf_counter()
+    ply = os.path.join("smoke_out", "mesh_files", "terrain.ply")
+    fields = synth_measured_fields(6, 16, 32, seed=5)
+    # max_depth 3: the plain sweep's time (phase 30's gradient legs)
+    msc = load_dict(measured_terrain(ply, fields, sky_image(128, 256, seed=6),
+                                     64, 64, 4, 3), spectral)
+    film_k, secs, launches, counts = counted_pool(msc, lanes, seed=3)
+    rmt = rec["renders"]["measured terrain 64x64"] = check_pool(
+        "measured terrain under an envmap 64x64 spp4 max_depth 3, spectral "
+        "(lane pool)", msc, film_k, secs, launches, counts, "tile_sweep",
+        (1e-3, 5.0))
+    rmt["flips_vs_plain"] = films_vs_plain(msc, lanes, legs=("tile_sweep",))
+    rmt["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = 1 << 16
+    ed = {"type": "scene",
+          "sensor": {"type": "perspective", "film": {"width": 4,
+                                                     "height": 4}},
+          "rect": {"type": "rectangle", "emitter": {
+              "type": "area", "radiance": {"type": "uniform",
+                                           "value": 0.5}}},
+          "sun": {"type": "directional", "direction": [0.2, 0.1, -1.0],
+                  "irradiance": {"type": "blackbody",
+                                 "temperature": 5800.0}},
+          "lamp": {"type": "point", "position": [0.0, 0.0, 1.0],
+                   "intensity": [0.2, 0.5, 0.8]},
+          "sky": {"type": "constant", "radiance": {"type": "d65"}}}
+    esc = load_dict(ed, spectral)
+    dev = esc.bsphere_center.device
+    got = emitters.sample_emitter_ray(
+        esc, rng.Sampler.seed(7, torch.arange(n, device=dev)),
+        torch.zeros(n, device=dev))
+    want = emitters.sample_emitter_ray(
+        load_dict(ed, spectral, device="cpu"),
+        rng.Sampler.seed(7, torch.arange(n)), torch.zeros(n))
+    assert torch.equal(got[2].cpu(), want[2]), "emitter picks differ"
+    assert len(torch.unique(want[2])) == 4
+    # each emitter kind's largest differences (o, d absolute; wavelengths,
+    # weights relative), all recorded before any is held to its tolerance
+    kind_of = esc.emitter_kind[got[2]].cpu()
+    errs = {}
+    for k, kind in enumerate(esc.config.emitter_kinds):
+        m = kind_of == k
+        errs[kind] = {name: float(((a_.cpu()[m] - b_[m]).abs() / (
+            1.0 if name in ("o", "d") else b_[m].abs().clamp(min=1e-6)))
+            .max()) for name, a_, b_ in (
+                ("o", got[0].o, want[0].o), ("d", got[0].d, want[0].d),
+                ("wavelengths", got[0].wavelengths, want[0].wavelengths),
+                ("weight", got[1], want[1]))}
+    rec["emitter_rays_max_err"] = errs
+    rec["emitter_rays_s"] = time.perf_counter() - t0
+    print(f"# 37e sample_emitter_ray in spectral, card against CPU, the "
+          f"largest difference by kind: {errs}", flush=True)
+    for name, a_, b_, rtol, atol in (
+            ("o", got[0].o, want[0].o, 1e-6, 1e-4),
+            ("d", got[0].d, want[0].d, 1e-6, 1e-4),
+            ("wavelengths", got[0].wavelengths, want[0].wavelengths, 1e-5,
+             1e-5),
+            ("weight", got[1], want[1], 1e-4, 1e-6)):
+        torch.testing.assert_close(a_.cpu(), b_, rtol=rtol, atol=atol,
+                                   msg=name)
+    print(f"# 37e measured terrain in spectral 64x64 spp4 max_depth 3: "
+          f"{rmt['render_ms']:.1f} ms ({rmt['phase_s']:.1f} s with the "
+          f"load and the plain leg), tile_sweep launches "
+          f"{launches['tile_sweep']} (= queries), kernel vs plain sweep "
+          f"films {rmt['flips_vs_plain']} pixels over tolerance (budget 2); "
+          f"sample_emitter_ray in spectral on 2^16 lanes against the CPU "
+          f"({rec['emitter_rays_s']:.1f} s): picks equal, o and d within "
+          f"1e-4, wavelengths 1e-5 and weights 1e-4 relative", flush=True)
     return rec
 
 
@@ -4365,8 +4786,10 @@ def main():
     phase_clock("13")
     gen13 = torch.Generator().manual_seed(13)
     grid64_c3 = torch.rand(1, 64, 64, 64, 3, generator=gen13).to(dev)
+    # C = S37_BANDS: phase 37c's gridvolume_spectral takes the same backward
+    grid64_cs = torch.rand(1, 64, 64, 64, S37_BANDS, generator=gen13).to(dev)
     bwd_loads = {}
-    for g64 in (grid64, grid64_c3):
+    for g64 in (grid64, grid64_c3, grid64_cs):
         C = g64.shape[-1]
         ct = torch.randn(pl.shape[0], C, generator=gen13).to(dev)
         rec = bwd_loads[f"C={C}"] = trilinear_bwd_load(g64, slot0, pl, ct)
@@ -4436,6 +4859,7 @@ def main():
     s7a = slice_7a_phases(V, F, lanes, large_film)
     s6b = slice_6b_phases(V, F, lanes, REF_FILMS)
     s6c1 = slice_6c1_phases(lanes, atmo["large3d"])
+    s6c2 = slice_6c2_phases(V, F, lanes, s6c1)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -4524,6 +4948,7 @@ def main():
         "launches_slice_7a": slice_7a_launches(s7a, "tile_sweep"),
         "launches_slice_6b": slice_6b_launches(s6b, "tile_sweep"),
         "launches_slice_6c1": slice_6c1_launches(s6c1, "tile_sweep"),
+        "launches_slice_6c2": slice_6c2_launches(s6c2, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -4595,6 +5020,11 @@ def main():
         "launches_slice_6c1": slice_6c1_launches(s6c1, "grid_gather"),
         "entries_slice_6c1_chromatic_64^3": s6c1["renders"][
             "chromatic 64^3"]["entries"],
+        # slice 6c-2: the chromatic 64^3's value+grads (forward and
+        # adjoint), each entry = its lookups
+        "launches_slice_6c2": slice_6c2_launches(s6c2, "grid_gather"),
+        "entries_slice_6c2": {k: v["entries"] for k, v in s6c2[
+            "value_grads"].items() if "entries" in v},
         "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
         "gather_srgb_32f": s6c1["renders"]["chromatic 64^3"][
             "gather_entry_32f"],
@@ -4619,6 +5049,7 @@ def main():
                         "unpacked grid",
         "load": "64^3 grid, C = 1, 32,768 lanes of random points",
         "C=3": bwd_loads["C=3"],
+        f"C={S37_BANDS}": bwd_loads[f"C={S37_BANDS}"],
         # the measurement path's gradient (terrain under the gaussian film)
         # looks up no gridvolume
         "launches_measurement": {
@@ -4627,6 +5058,9 @@ def main():
                 "grid_trilinear_bwd"]},
         "launches_slice_6a": slice_6a_launches(s6a, "grid_trilinear_bwd"),
         "launches_slice_6c1": slice_6c1_launches(s6c1, "grid_trilinear_bwd"),
+        # slice 6c-2: the chromatic 64^3's adjoint at C = 1 (sigma_t a
+        # gridvolume) and C = S37_BANDS (a gridvolume_spectral)
+        "launches_slice_6c2": slice_6c2_launches(s6c2, "grid_trilinear_bwd"),
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"value_grad": grads}))
@@ -4642,6 +5076,7 @@ def main():
     print(json.dumps({"slice_7a": s7a}))
     print(json.dumps({"slice_6b": s6b}))
     print(json.dumps({"slice_6c1": s6c1}))
+    print(json.dumps({"slice_6c2": s6c2}))
     print(json.dumps({"phase_starts_s": PHASE_STARTS}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

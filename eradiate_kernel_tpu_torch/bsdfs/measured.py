@@ -11,9 +11,9 @@ pdf invert the same chain.
 The five Marginal2D interpolants are ``core.marginal2d`` tables. Each
 slot's tables have resolutions of their own (the config's
 ``bsdf_static``), so the dispatch loops over slots and slices each slot's
-padded registry rows back to their true shapes. Spectra are read at fixed
-wavelengths in rgb (612, 549 and 465 nm) and at 612 nm in mono, as the
-reference reads them outside its spectral variants.
+padded registry rows back to their true shapes. Spectra are read at the
+lane's hero wavelengths in spectral, and at fixed wavelengths in rgb (612,
+549 and 465 nm) and at 612 nm in mono, as the reference reads them.
 """
 
 from __future__ import annotations
@@ -35,10 +35,6 @@ _RGB_REP_WAVELENGTHS = (612.0, 549.0, 465.0)
 
 
 def build(props, builder):
-    if builder.variant.is_spectral:
-        raise NotImplementedError(
-            "bsdf 'measured' in the spectral variant (its spectral lookup) "
-            "comes with slice 6c-2")
     fields = (props["fields"] if "fields" in props
               else read_tensor_file(props["filename"]))
     theta_i = np.asarray(fields["theta_i"], np.float32)
@@ -129,10 +125,13 @@ def _mulsign_neg(a, b):
     return torch.where(b >= 0, -a, a)
 
 
-def _lane_wavelengths(n, nc, device):
-    """(n, nc) wavelengths: the rgb primaries' (mono reads the first)."""
+def _lane_wavelengths(si, nc):
+    """(N, nc) wavelengths: the lane's own in spectral, else the rgb
+    primaries' (mono reads the first)."""
+    if si.wavelengths.shape[-1]:
+        return si.wavelengths
     return torch.tensor(_RGB_REP_WAVELENGTHS[:nc], dtype=torch.float32,
-                        device=device).expand(n, nc)
+                        device=si.t.device).expand(si.t.shape[0], nc)
 
 
 def _reduce_in(tabs, wi, wo=None):
@@ -187,12 +186,11 @@ def _sample_jacobian(u_m_x, sin_theta_m, wi, m):
             * 4.0 * torch.sum(wi * m, dim=-1))
 
 
-def _eval_pdf_slot(tabs, wi_in, wo_in, active, nc):
+def _eval_pdf_slot(tabs, wi_in, wo_in, active, wl):
     wi0, wo0, _, _ = _reduce_in(tabs, wi_in, wo_in)
     act = active & (wi0[..., 2] > 0) & (wo0[..., 2] > 0)
     pos, vndf_pdf, u_m, u_wi, phi_i, theta_i, m = _invert_chain(
         tabs, wi0, wo0, act)
-    wl = _lane_wavelengths(wi0.shape[0], nc, wi0.device)
     spec = _spectra_eval(tabs, pos, phi_i, theta_i, wl, act)
     if tabs["jac"]:
         spec = spec * _jacobian_factor(tabs, u_m, u_wi, act)
@@ -204,7 +202,7 @@ def _eval_pdf_slot(tabs, wi_in, wo_in, active, nc):
             torch.where(act & (pdf > 0), pdf, 0.0))
 
 
-def _sample_slot(tabs, wi_in, s2, active, nc):
+def _sample_slot(tabs, wi_in, s2, active, wl):
     wi0, _, sx, sy = _reduce_in(tabs, wi_in)
     act = active & (wi0[..., 2] > 0)
     theta_i = _elevation(wi0)
@@ -225,7 +223,6 @@ def _sample_slot(tabs, wi_in, s2, active, nc):
                      cos_t], dim=-1)
     wo = 2.0 * torch.sum(m * wi0, dim=-1, keepdim=True) * m - wi0
     pdf = vndf_pdf * lum_pdf / _sample_jacobian(u_m[..., 0], sin_t, wi0, m)
-    wl = _lane_wavelengths(wi0.shape[0], nc, wi0.device)
     spec = _spectra_eval(tabs, smp, phi_i, theta_i, wl, act)
     if tabs["jac"]:
         spec = spec * _jacobian_factor(tabs, u_m, u_wi, act)
@@ -244,26 +241,28 @@ def _twosided(params, s, si):
 
 
 def eval_pdf(scene, params, slot, si, wo, active):
-    nc = scene.config.variant.n_channels
+    nc = scene.config.variant.channels(si.wavelengths)
+    wl = _lane_wavelengths(si, nc)
     value = torch.zeros(si.t.shape[0], nc, device=si.t.device)
     pdf = torch.zeros_like(si.t)
     for s, st in enumerate(_statics(scene)):
         m = active & (slot == s)
         wi, flip = _twosided(params, s, si)
         wo_s = torch.where(flip[..., None], common.flip_z(wo), wo)
-        v, p = _eval_pdf_slot(_slot_tables(params, st, s), wi, wo_s, m, nc)
+        v, p = _eval_pdf_slot(_slot_tables(params, st, s), wi, wo_s, m, wl)
         value = torch.where(m[..., None], v, value)
         pdf = torch.where(m, p, pdf)
     return value, pdf
 
 
 def sample(scene, params, slot, si, s1, s2, active):
-    nc = scene.config.variant.n_channels
+    nc = scene.config.variant.channels(si.wavelengths)
+    wl = _lane_wavelengths(si, nc)
     bs, weight = common.zero_bsdf_sample(si.t.shape[0], nc, si.t.device)
     for s, st in enumerate(_statics(scene)):
         m = active & (slot == s)
         wi, flip = _twosided(params, s, si)
-        wo, pdf, w = _sample_slot(_slot_tables(params, st, s), wi, s2, m, nc)
+        wo, pdf, w = _sample_slot(_slot_tables(params, st, s), wi, s2, m, wl)
         wo = torch.where(flip[..., None], common.flip_z(wo), wo)
         bs = dataclasses.replace(
             bs, wo=torch.where(m[..., None], wo, bs.wo),

@@ -101,7 +101,6 @@ def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
     beyond the film's sample count are masked out. An AOV integrator's
     columns follow the base channels; only duv AOVs pay for the offset
     camera rays."""
-    _refuse_spectral_grad(scene)
     cfg = scene.config
     dev = scene.bsphere_center.device
     H, W = cfg.film_height, cfg.film_width
@@ -269,15 +268,14 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
 
     Returns (film (ch, cw, 5 + n_aov), rays traced (a 0-d tensor)); with
     ``sample_log`` also the sample log (total, nc): row s is sample s's
-    integrator ``result`` before the ray weight, written beside its film
-    row (the path-replay backward's radiance totals). ``stats``, a dict,
-    receives the loop iterations and the samples dropped by the runaway
-    cap."""
+    integrator ``result`` before the ray weight (in spectral its 4 hero
+    channels), written beside its film row (the path-replay backward's
+    radiance totals). ``stats``, a dict, receives the loop iterations and
+    the samples dropped by the runaway cap."""
     cfg = scene.config
     wrapper = REGISTRY[cfg.integrator.kind]
     mod = _bounce_module(cfg)
     _check_regen(cfg)
-    _refuse_spectral_grad(scene)
     extra = n_aov(cfg)
     dev = scene.bsphere_center.device
     cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
@@ -297,10 +295,6 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
                  if extra and not wide else None)
     film = torch.zeros(ch, cw, n_ch, device=dev) if wide else None
     offset = torch.tensor(cfg.crop_offset, dtype=torch.float32, device=dev)
-    if sample_log and cfg.variant.is_spectral:
-        raise NotImplementedError(
-            "the sample log of the spectral variant (the path replay's "
-            "gradient) comes with slice 6c-2")
     rlog = (torch.zeros(total + 1, cfg.variant.n_channels, device=dev)
             if sample_log else None)
     # the camera-hit AOV columns carried per lane (filled at refill)
@@ -362,16 +356,6 @@ def _requires_grad(scene):
         t.requires_grad for t in scene.tensors().values())
 
 
-def _refuse_spectral_grad(scene):
-    """Both drivers raise on a spectral render whose scene tensors require
-    a gradient: the spectral variant's gradients come with slice 6c-2."""
-    if scene.config.variant.is_spectral and _requires_grad(scene):
-        raise NotImplementedError(
-            "gradients of the spectral variant (either driver) come with "
-            "slice 6c-2; render under torch.no_grad() or with no scene "
-            "tensor requiring a gradient")
-
-
 def render(scene, seed=0, spp=None, samples_per_pass=None,
            develop_film=True, return_aovs=False, regen=False):
     """Multi-pass wavefront render, or with ``regen`` the lane pool of
@@ -381,12 +365,12 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
     weight-normalised AOV channels (aov.cpp and moment.cpp's outputs).
 
     Both drivers are differentiable with respect to the scene's
-    value-class tensors for path and volpath in mono and rgb (the spectral
-    variant's gradients raise until slice 6c-2): the scan driver by autograd
-    through its passes, the lane pool through the path-replay backward
-    (integrators/replay.py). The other integrators have no replay, and the
-    reference cannot differentiate its pool: their gradients go through
-    the scan driver, and ``regen=True`` raises under autograd."""
+    value-class tensors for path and volpath in every variant: the scan
+    driver by autograd through its passes, the lane pool through the
+    path-replay backward (integrators/replay.py). The other integrators
+    have no replay, and the reference cannot differentiate its pool: their
+    gradients go through the scan driver, and ``regen=True`` raises under
+    autograd."""
     cfg = scene.config
     spp = spp or cfg.spp
     cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,

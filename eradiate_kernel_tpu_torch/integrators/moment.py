@@ -1,6 +1,7 @@
 """The second-moment wrapper integrator (integrators/moment.py
 counterpart; moment.cpp:28-46): a child integrator's radiance plus the
-per-channel second moment of its splatted XYZ value as the AOV channels
+per-channel second moment of its splatted XYZ value (in spectral the
+hero-wavelength estimate at the ray's wavelengths) as the AOV channels
 m2.x, m2.y and m2.z, from which a per-pixel variance follows (the z-test
 render regression harness reads them)."""
 
@@ -32,7 +33,7 @@ def sample_aov(scene, sampler, ray, ray_weight, active=None):
     sensor's weight included, as it lands in the film)."""
     spec, valid, sampler = _child(scene.config).sample(scene, sampler, ray,
                                                        active)
-    xyz = spec_to_xyz(spec * ray_weight)
+    xyz = spec_to_xyz(spec * ray_weight, ray.wavelengths)
     return spec, valid, sampler, xyz * xyz
 
 
@@ -45,5 +46,5 @@ def _regen_module(cfg):
 def _harvest_aov(scene, vp, rw, aov_carry):
     """The second moment of the splatted value, from the harvested lane's
     state."""
-    xyz = spec_to_xyz(vp.result * rw)
+    xyz = spec_to_xyz(vp.result * rw, vp.ray.wavelengths)
     return xyz * xyz

@@ -97,9 +97,11 @@ def _adjoint_sweep(scene, seed, slog, ct_film, n_lanes, spp, needs):
 
     Everything per sample is hoisted out of the loop into one vectorised
     pass over all samples (in chunks of HOISTED_CHUNK): the film cotangent
-    through film_gather, _film_rows and the ray weight to the per-sample
-    result cotangent delta, and the sensor-parameter adjoint. The loop then
-    reads two rows a refilled lane (delta and the logged total)."""
+    through film_gather, _film_rows (in spectral the XYZ estimator at the
+    hero wavelengths the sensor redraws from the seed; they are not
+    logged) and the ray weight to the per-sample result cotangent delta,
+    and the sensor-parameter adjoint. The loop then reads two rows a
+    refilled lane (delta and the logged total)."""
     cfg = scene.config
     mod = REGISTRY[cfg.integrator.kind]
     _check_regen(cfg)
@@ -129,12 +131,13 @@ def _adjoint_sweep(scene, seed, slog, ct_film, n_lanes, spp, needs):
         idx = torch.arange(s0, min(s0 + HOISTED_CHUNK, total),
                            dtype=torch.int64, device=dev)
         with torch.enable_grad():
-            _smp, _ray, rw, pos = _camera_lanes(scene_g, seed, spp, idx)
+            _smp, ray, rw, pos = _camera_lanes(scene_g, seed, spp, idx)
             ct_rows = film_gather(ct_film, pos.detach() - offset,
                                   cfg.rfilter, dict(cfg.rfilter_params))
             L = slog[idx].requires_grad_()
             valid = torch.ones(idx.shape[0], dtype=torch.bool, device=dev)
-            value = torch.sum(_film_rows(L * rw, valid) * ct_rows)
+            value = torch.sum(_film_rows(L * rw, valid, ray.wavelengths)
+                              * ct_rows)
             g = torch.autograd.grad(value, wanted + [L], allow_unused=True)
         grads = _add(grads, g[:-1])
         deltas.append(g[-1])

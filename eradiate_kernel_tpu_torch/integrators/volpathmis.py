@@ -27,6 +27,9 @@ The events update it as the reference does:
                        uni' *= (p_competing, f); contribution
                        mis(nee', uni') * emitted      (:229-233, :289-295)
 
+In spectral the matrix is over the 4 hero wavelengths of the lane's ray
+(volpathmis.cpp's spectral weights), which every ray of the path carries.
+
 The NEE walk is a fixed trip of ``nee_steps`` ratio-tracking steps, each
 one closest-hit query (the reference's two masked intersections of a
 step serve disjoint lanes on the same rays, so one query answers both)
@@ -180,7 +183,7 @@ def _walk_step(scene, s, ds, channel, ca):
     ray = Ray(o=torch.where(active_surface[..., None],
                             si.offset_origin(ray.d), ray.o),
               d=ray.d, mint=torch.where(active_surface, 0.0, ray.mint),
-              maxt=remaining, time=ray.time)
+              maxt=remaining, time=ray.time, wavelengths=ray.wavelengths)
     alive = (torch.any(_mis1(pf_uni) != 0, dim=-1)
              | torch.any(torch.sum(pf_nee, dim=-1) != 0, dim=-1))
     has_trans = active_surface & _is_medium_transition(scene, si)
@@ -193,9 +196,9 @@ def _walk_step(scene, s, ds, channel, ca):
         active=(active_medium | active_surface) & alive, n_rays=n_rays)
 
 
-def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
-                        channel, sampler, pf, active, nee_steps, use_while,
-                        ca):
+def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
+                        medium_idx, channel, sampler, pf, active, nee_steps,
+                        use_while, ca):
     """Emitter sampling with the matrix-carrying walk -> (pf_nee at the
     walk's end, pf_uni at the walk's end, the raw emitted radiance (N, nc),
     ds, sampler, rays traced)."""
@@ -207,7 +210,7 @@ def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
     sampler, s2 = sampler.next_2d()
     ds, emitter_val = emitters.sample_emitter_direction(
         scene, _RefPoint(p=ref_p, t=torch.zeros(n, device=dev),
-                         wavelengths=ref_p.new_zeros(n, 0)),
+                         wavelengths=wavelengths),
         s_pick, s1, s2, active, test_visibility=False)
     active = active & (ds.pdf > 0)
     # the samplers return value / pdf; the pdf enters through the weight
@@ -223,7 +226,8 @@ def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, time, medium_idx,
     sgn = torch.where(dot(ref_n, ds.d) >= 0, 1.0, -1.0)
     o = ref_p + eps_n * (RayEpsilon * scale * sgn)[..., None] * ref_n
     ray = Ray(o=o, d=ds.d, mint=torch.zeros(n, device=dev),
-              maxt=torch.full((n,), INVALID_T, device=dev), time=time)
+              maxt=torch.full((n,), INVALID_T, device=dev), time=time,
+              wavelengths=wavelengths)
     state = _WalkState(
         sampler=sampler, ray=ray,
         si=_invalid_walk_hit(n, dev, ray.wavelengths),
@@ -352,9 +356,9 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
     def medium_nee():
         """The medium NEE (:226-233) -> (contribution, sampler, rays)."""
         pf_n, pf_u, emitted, ds, smp2, nr = _sample_emitter_mis(
-            scene, mi.p, -ray.d, torch.ones_like(act_scatter), ray.time,
-            s.medium_idx, s.channel, smp, pf, act_scatter, nee_steps,
-            while_walks, ca_walk)
+            scene, mi.p, -ray.d, torch.ones_like(act_scatter),
+            ray.wavelengths, ray.time, s.medium_idx, s.channel, smp, pf,
+            act_scatter, nee_steps, while_walks, ca_walk)
         pv = _bcast(phase.phase_eval(scene, phase_idx, -ray.d, ds.d,
                                      act_scatter), nc)
         pf_n = _update(pf_n, torch.ones_like(pv), pv, act_scatter)
@@ -388,7 +392,7 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
               d=torch.where(act_scatter[..., None], wo_m, ray.d),
               mint=torch.where(act_scatter, 0.0, ray.mint),
               maxt=torch.where(act_scatter, INVALID_T, ray.maxt),
-              time=ray.time)
+              time=ray.time, wavelengths=ray.wavelengths)
     needs_intersection = needs_intersection | act_scatter
 
     # --- surfaces (:255-330; si fresh from the merged query) -----------------
@@ -429,9 +433,9 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
 
     def surface_nee():
         pf_n, pf_u, emitted, ds, smp2, nr = _sample_emitter_mis(
-            scene, si.p, si.n, torch.zeros_like(active_ne), ray.time,
-            s.medium_idx, s.channel, smp, pf, active_ne, nee_steps,
-            while_walks, ca_walk)
+            scene, si.p, si.n, torch.zeros_like(active_ne),
+            ray.wavelengths, ray.time, s.medium_idx, s.channel, smp, pf,
+            active_ne, nee_steps, while_walks, ca_walk)
         bsdf_val, bsdf_pdf = bsdfs.bsdf_eval_pdf(scene, bsdf_idx, si,
                                                  si.to_local(ds.d), active_ne)
         pf_n = _update(pf_n, torch.ones_like(bsdf_val), bsdf_val, active_ne)
@@ -473,7 +477,7 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
               d=torch.where(active_surface[..., None], new_ray.d, ray.d),
               mint=torch.where(active_surface, new_ray.mint, ray.mint),
               maxt=torch.where(active_surface, INVALID_T, ray.maxt),
-              time=ray.time)
+              time=ray.time, wavelengths=ray.wavelengths)
     needs_intersection = needs_intersection | active_surface
     eta = torch.where(active_surface, s.eta * bs.eta, s.eta)
 
@@ -514,7 +518,7 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
     cfg = scene.config
     n = ray.o.shape[0]
     dev = ray.o.device
-    nc = cfg.variant.n_channels
+    nc = cfg.variant.channels(ray.wavelengths)
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dev)
     v0 = 0.0 * ray.o[:, 0]
@@ -522,7 +526,8 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
     active = active & ok
     # the balance heuristic over the channel strategies assumes the
     # driving channel is drawn uniformly (one-sample MIS): rgb draws it,
-    # mono has one channel and draws nothing
+    # mono has one channel and draws nothing, and spectral keeps channel 0
+    # (hero wavelengths are already exchangeable)
     if cfg.variant.mode == "rgb":
         sampler, cs = sampler.next_1d()
         channel = torch.clamp((cs * 3).to(torch.int32), max=2)
@@ -531,7 +536,7 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
     hide = cfg.integrator.hide_emitters
     ones = torch.ones(n, nc, nc, device=dev) + v0[:, None, None]
     return _State(
-        sampler=sampler, ray=ray, si=invalid_si(n, dev),
+        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths),
         needs_intersection=ok.clone(),
         medium_idx=(torch.full((n,), cfg.sensor_medium, dtype=torch.int32,
                                device=dev) if medium_idx is None

@@ -48,8 +48,6 @@ SUPPORTED = {
 }
 INTEGRATORS = ("path", "direct", "depth", "volpath", "volpathmis", "aov",
                "moment", "bins", "nbins")
-# what the spectral variant refuses until slice 6c-2
-SPECTRAL_LATER = ("volpathmis", "aov", "moment")
 # volpath's transmittance estimators and free-flight majorants, the default
 # first
 NEE_MODES = {"nee_transmittance": ("residual", "track", "quadrature"),
@@ -116,18 +114,11 @@ class SceneConfig:
             raise NotImplementedError(
                 f"integrator {kind!r}: the port carries {INTEGRATORS}; "
                 "stokes comes with slice 6e")
-        spectral = self.variant.is_spectral
-        child = dict(self.integrator.extra).get("child")
-        if kind in ("bins", "nbins") and not spectral:
+        if kind in ("bins", "nbins") and not self.variant.is_spectral:
             raise NotImplementedError(
                 f"integrator {kind!r} runs in the spectral variant only, as "
                 "in the reference (bins.cpp throws elsewhere; the port "
                 "carries it there since slice 6c-1)")
-        if spectral and (kind in SPECTRAL_LATER or child in SPECTRAL_LATER):
-            raise NotImplementedError(
-                f"integrator {kind!r}"
-                f"{f' over {child!r}' if child else ''} in the spectral "
-                "variant: comes with slice 6c-2")
         extra = dict(self.integrator.extra)
         for key, allowed in NEE_MODES.items():
             if extra.get(key, allowed[0]) not in allowed:

@@ -31,6 +31,7 @@ import torch
 from eradiate_kernel_tpu import films as jfilms
 from eradiate_kernel_tpu.utils import bitmap as rb
 from eradiate_kernel_tpu_torch import films, integrators
+from eradiate_kernel_tpu_torch.core.types import Variant
 from eradiate_kernel_tpu_torch.scene import load_dict, load_file
 from eradiate_kernel_tpu_torch.scene import xml as pxml
 from eradiate_kernel_tpu_torch.utils import bitmap as pb
@@ -269,8 +270,9 @@ def test_cli_renders_an_xml_scene(tmp_path):
 
 def test_cli_refusals(tmp_path):
     path = xml_terrain(tmp_path)
-    # the spectral variant renders since slice 6c-1; volpathmis in it is
-    # refused until slice 6c-2
+    # volpathmis in the spectral variant renders since slice 6c-2 (slice
+    # 6c-1 refused it): the command line writes its EXR, the film of the
+    # same scene loaded in Python
     with open(path) as f:
         text = f.read()
     assert '<integrator type="path"' in text
@@ -278,10 +280,17 @@ def test_cli_refusals(tmp_path):
     with open(mis, "w") as f:
         f.write(text.replace('<integrator type="path"',
                              '<integrator type="volpathmis"'))
-    res = run_cli(mis, "-m", "spectral", "--device", "cpu")
-    assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr and "spectral" in res.stderr
-    assert "6c-2" in res.stderr
+    out = str(tmp_path / "mis.exr")
+    res = run_cli(mis, "-m", "spectral", "-o", out, "--device", "cpu",
+                  "--seed", "3")
+    assert res.returncode == 0, res.stderr
+    assert f"wrote {out}" in res.stderr
+    scene = load_file(mis, variant=Variant("spectral"), device="cpu")
+    assert scene.config.integrator.kind == "volpathmis"
+    film = runtime.render(scene, seed=3, develop_film=False)
+    img, names = pb.read_exr(out)
+    assert names == ["R", "G", "B"] and float(film[..., 1].sum()) > 0
+    np.testing.assert_array_equal(img, films.develop(film).numpy())
     if not torch.cuda.is_available():  # never quietly on the CPU
         res = run_cli(path, "-o", str(tmp_path / "x.exr"))
         assert res.returncode != 0 and "device='cpu'" in res.stderr

@@ -3,7 +3,8 @@ package on the same seeded numpy inputs: hero-wavelength sampling and the
 CIE estimators, the rgb2spec fits, the spectrum registry (every kind,
 out-of-support wavelengths included) and its importance sampling, the
 sensors' srf sampling, the spectral volume lookups, the spectral scene
-build, the refusals of slice 6c-2 and the film-type repair.
+build, what slice 6c-2 ported (each once refused) and the film-type
+repair.
 
 Tolerances. The sampling and estimator functions are bit-equal. The
 rgb2spec fits are not: torch's ``exp`` is 1 ulp from XLA's at some of the
@@ -401,7 +402,7 @@ def test_spectral_volume_lookups(case):
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
 
 
-# --- refusals of slice 6c-2 and the film repair ----------------------------
+# --- what slice 6c-2 ported (once refused) and the film repair ------------
 
 def _atmo(**kw):
     d = atmosphere(spp=4, max_depth=4, grid_res=8, sensor="distant")
@@ -412,30 +413,49 @@ def _atmo(**kw):
 @pytest.mark.parametrize("case", ["volpathmis", "aov", "moment", "measured",
                                   "emitter_ray", "grad_scan", "grad_pool"])
 def test_spectral_refusals_name_6c2(case):
+    """Each case slice 6c-1 refused naming slice 6c-2 now runs in spectral:
+    volpathmis, aov and moment render finite films with their AOV columns
+    on the lane pool, a measured ground loads and renders, emission rays
+    carry 4 wavelengths and a weight a wavelength, and the twin of
+    tests/test_autodiff.py:348 (a grid that requires a gradient) takes a
+    finite, non-zero gradient on either driver."""
+    from test_measured import synth_fields
+
     d = _atmo()
+    d["sensor"]["sampler"]["sample_count"] = 16
+    # off the ground's tie with the cube's floor, where the distant sensor
+    # aims (ROADMAP Queue 3)
+    d["surface"]["to_world"][1]["value"] = [0.5, 0.5, -1e-3]
     if case == "volpathmis":
         d["integrator"] = {"type": "volpathmis", "max_depth": 4}
     elif case in ("aov", "moment"):
         d["integrator"] = {"type": case, "aovs": "dd:depth",
                            "child": {"type": "volpath", "max_depth": 4}}
     elif case == "measured":
-        d["surface"]["bsdf"] = {"type": "measured", "fields": {}}
-    if case in ("volpathmis", "aov", "moment", "measured"):
-        with pytest.raises(NotImplementedError, match="6c-2"):
-            load_dict(d, SPECTRAL, device="cpu")
-        return
+        d["surface"]["bsdf"] = {"type": "measured", "fields": synth_fields(
+            T=4, L=3, res=9, seed=1)}
     scene = load_dict(d, SPECTRAL, device="cpu")
+    if case in ("volpathmis", "aov", "moment", "measured"):
+        # the lane pool (both drivers against the reference:
+        # tests/test_torch_spectral_wrappers.py)
+        film = integrators.render(scene, seed=1, develop_film=False,
+                                  regen=True, samples_per_pass=16)
+        assert film.shape == (1, 1, 5 + integrators.n_aov(scene.config))
+        assert bool(torch.isfinite(film).all()) and float(film[..., 1]) > 0
+        return
     if case == "emitter_ray":
-        with pytest.raises(NotImplementedError, match="6c-2"):
-            emitters.sample_emitter_ray(
-                scene, Sampler.seed(0, torch.arange(8)), 0.0)
+        ray, w, idx, _ = emitters.sample_emitter_ray(
+            scene, Sampler.seed(0, torch.arange(8)), 0.0)
+        assert ray.wavelengths.shape == w.shape == (8, 4)
+        assert bool((w > 0).all()) and bool((idx == 0).all())
         return
     # the twin of tests/test_autodiff.py:348 (the reference differentiates)
     grid = scene.volumes["gridvolume"]["grid"].clone().requires_grad_(True)
     sc = scene.with_tensors({"volumes.gridvolume.grid": grid})
-    with pytest.raises(NotImplementedError, match="6c-2"):
-        integrators.render(sc, spp=4, regen=case == "grad_pool",
-                           samples_per_pass=16)
+    integrators.render(sc, regen=case == "grad_pool",
+                       samples_per_pass=16).mean().backward()
+    assert bool(torch.isfinite(grid.grad).all())
+    assert float(grid.grad.abs().sum()) > 0
 
 
 def test_bins_outside_spectral_raise():
