@@ -53,7 +53,8 @@ def _sample(scene, bsdf_index, si, s1, s2, active, nested):
     kind_id = scene.bsdf_kind[bsdf_index]
     slot = scene.bsdf_slot[bsdf_index]
     nc = scene.config.variant.channels(si.wavelengths)
-    bs, weight = zero_bsdf_sample(si.t.shape[0], nc, si.t.device)
+    bs, weight = zero_bsdf_sample(si.t.shape[0], nc, si.t.device,
+                                  si.t.dtype)
     for k, kind in _kinds(scene, nested):
         m = active & (kind_id == k)
         b, w = REGISTRY[kind].sample(scene, scene.bsdfs[kind],
@@ -72,7 +73,7 @@ def _eval_pdf(scene, bsdf_index, si, wo, active, nested):
     kind_id = scene.bsdf_kind[bsdf_index]
     slot = scene.bsdf_slot[bsdf_index]
     nc = scene.config.variant.channels(si.wavelengths)
-    value = torch.zeros(si.t.shape[0], nc, device=si.t.device)
+    value = si.t.new_zeros(si.t.shape[0], nc)
     pdf = torch.zeros_like(si.t)
     for k, kind in _kinds(scene, nested):
         m = active & (kind_id == k)

@@ -48,14 +48,14 @@ class BSDFSample:
     sampled_type: torch.Tensor  # (N,) i32 lobe flags
 
 
-def zero_bsdf_sample(n, nc, device):
-    wo = torch.zeros(n, 3, device=device)
+def zero_bsdf_sample(n, nc, device, dtype=torch.float32):
+    wo = torch.zeros(n, 3, dtype=dtype, device=device)
     wo[:, 2] = 1.0
     return BSDFSample(
-        wo=wo, pdf=torch.zeros(n, device=device),
-        eta=torch.ones(n, device=device),
+        wo=wo, pdf=torch.zeros(n, dtype=dtype, device=device),
+        eta=torch.ones(n, dtype=dtype, device=device),
         sampled_type=torch.zeros(n, dtype=torch.int32, device=device),
-    ), torch.zeros(n, nc, device=device)
+    ), torch.zeros(n, nc, dtype=dtype, device=device)
 
 
 def flip_z(v):

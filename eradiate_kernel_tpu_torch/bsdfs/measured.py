@@ -258,7 +258,8 @@ def eval_pdf(scene, params, slot, si, wo, active):
 def sample(scene, params, slot, si, s1, s2, active):
     nc = scene.config.variant.channels(si.wavelengths)
     wl = _lane_wavelengths(si, nc)
-    bs, weight = common.zero_bsdf_sample(si.t.shape[0], nc, si.t.device)
+    bs, weight = common.zero_bsdf_sample(si.t.shape[0], nc, si.t.device,
+                                         si.t.dtype)
     for s, st in enumerate(_statics(scene)):
         m = active & (slot == s)
         wi, flip = _twosided(params, s, si)

@@ -19,16 +19,15 @@ def sample(scene, params, slot, si, s1, s2, active):
     n = si.t.shape[0]
     bs = common.BSDFSample(
         wo=-si.wi, pdf=torch.where(active, 1.0, 0.0),
-        eta=torch.ones(n, device=si.t.device),
+        eta=si.t.new_ones(n),
         sampled_type=torch.full((n,), FLAGS, dtype=torch.int32,
                                 device=si.t.device))
     nc = scene.config.variant.channels(si.wavelengths)
     return bs, torch.where(active[..., None],
-                           torch.ones(n, nc, device=si.t.device), 0.0)
+                           si.t.new_ones(n, nc), 0.0)
 
 
 def eval_pdf(scene, params, slot, si, wo, active):
     n = si.t.shape[0]
-    return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
-                        device=si.t.device),
-            torch.zeros(n, device=si.t.device))
+    return (si.t.new_zeros(n, scene.config.variant.channels(si.wavelengths)),
+            si.t.new_zeros(n))

@@ -17,6 +17,17 @@ INVALID_T = 1e18
 _TINY = torch.finfo(torch.float32).tiny
 
 
+def widen(x, *others):
+    """``x`` in the widest floating dtype of it and ``others`` (tensors):
+    the reference's promotion, where a float32 array meeting a float64
+    value becomes float64. Torch keeps a float32 tensor float32 against a
+    0-d float64 tensor; in float32 variants this is ``x`` itself."""
+    dtype = x.dtype
+    for o in others:
+        dtype = torch.promote_types(dtype, o.dtype)
+    return x.to(dtype)
+
+
 def safe_sqrt(x):
     return torch.sqrt(torch.clamp(x, min=0.0))
 

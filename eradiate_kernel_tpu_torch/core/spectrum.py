@@ -176,7 +176,10 @@ XYZ_TO_SRGB_M = np.asarray(
 
 
 def _apply(m, v):
-    return torch.matmul(v, torch.as_tensor(m.T, device=v.device))
+    """v @ m.T with the float32 matrix widened to v's dtype (the
+    reference's promotion in a double variant)."""
+    return torch.matmul(v, torch.as_tensor(m.T, dtype=v.dtype,
+                                           device=v.device))
 
 
 def srgb_to_xyz(rgb):

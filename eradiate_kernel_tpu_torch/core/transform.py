@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .math import widen
+
 
 @dataclasses.dataclass(frozen=True)
 class Transform:
@@ -76,15 +78,20 @@ class Transform:
         return Transform(m=self.m @ other.m, inv_t=self.inv_t @ other.inv_t)
 
     # -- application (tensors) ------------------------------------------------
+    # a float32 point under a float64 transform is widened first, as the
+    # reference's promotion widens it
     def transform_affine_point(self, p):
-        return (torch.matmul(self.m[..., :3, :3], p[..., None])[..., 0]
-                + self.m[..., :3, 3])
+        m = self.m
+        return (torch.matmul(m[..., :3, :3], widen(p, m)[..., None])[..., 0]
+                + m[..., :3, 3])
 
     def transform_vector(self, v):
-        return torch.matmul(self.m[..., :3, :3], v[..., None])[..., 0]
+        return torch.matmul(self.m[..., :3, :3],
+                            widen(v, self.m)[..., None])[..., 0]
 
     def transform_normal(self, n):
-        return torch.matmul(self.inv_t[..., :3, :3], n[..., None])[..., 0]
+        return torch.matmul(self.inv_t[..., :3, :3],
+                            widen(n, self.inv_t)[..., None])[..., 0]
 
     def inverse(self):
         # swapaxes: numpy arrays (scene building) and tensors alike

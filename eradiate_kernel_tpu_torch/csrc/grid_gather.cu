@@ -71,18 +71,30 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename Idx, int kVec>
+// a row's 16-byte chunk: 4 floats or 2 doubles
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <> struct Vec<double> {
+  using type = double2;
+  static constexpr int n = 2;
+};
+
+template <typename T, typename Idx, bool kVec>
 __global__ void __launch_bounds__(kThreads) grid_gather_kernel(
-    const float *__restrict__ table, const Idx *__restrict__ idx,
-    float *__restrict__ out, int64_t n_rows, int chunks, int64_t n_lanes) {
+    const T *__restrict__ table, const Idx *__restrict__ idx,
+    T *__restrict__ out, int64_t n_rows, int chunks, int64_t n_lanes) {
   const int64_t lane = blockIdx.x * static_cast<int64_t>(kThreads) +
                        threadIdx.x;
   if (lane >= n_lanes) return;
   int64_t r = static_cast<int64_t>(idx[lane]);
   r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
-  if constexpr (kVec == 4) {
-    const float4 *src = reinterpret_cast<const float4 *>(table) + r * chunks;
-    float4 *dst = reinterpret_cast<float4 *>(out) + lane * chunks;
+  if constexpr (kVec) {
+    using V = typename Vec<T>::type;
+    const V *src = reinterpret_cast<const V *>(table) + r * chunks;
+    V *dst = reinterpret_cast<V *>(out) + lane * chunks;
     for (int c = 0; c < chunks; ++c) dst[c] = __ldg(src + c);
   } else {
     for (int c = 0; c < chunks; ++c)
@@ -90,53 +102,64 @@ __global__ void __launch_bounds__(kThreads) grid_gather_kernel(
   }
 }
 
-template <typename Idx>
-void launch(const float *table, const Idx *idx, float *out, int64_t n_rows,
-            int n_cols, int64_t n_lanes, bool vec4, cudaStream_t stream) {
+template <typename T, typename Idx>
+void launch(const T *table, const Idx *idx, T *out, int64_t n_rows,
+            int n_cols, int64_t n_lanes, bool vec, cudaStream_t stream) {
   const int64_t blocks = (n_lanes + kThreads - 1) / kThreads;
-  if (vec4) {
-    grid_gather_kernel<Idx, 4><<<blocks, kThreads, 0, stream>>>(
-        table, idx, out, n_rows, n_cols / 4, n_lanes);
+  if (vec) {
+    grid_gather_kernel<T, Idx, true><<<blocks, kThreads, 0, stream>>>(
+        table, idx, out, n_rows, n_cols / Vec<T>::n, n_lanes);
   } else {
-    grid_gather_kernel<Idx, 1><<<blocks, kThreads, 0, stream>>>(
+    grid_gather_kernel<T, Idx, false><<<blocks, kThreads, 0, stream>>>(
         table, idx, out, n_rows, n_cols, n_lanes);
   }
 }
 
+__device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double tmin(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double tmax(double a, double b) {
+  return fmax(a, b);
+}
+
 // torch.clamp(x, 0, 1): NaN stays NaN
-__device__ __forceinline__ float clamp01(float x) {
-  return x != x ? x : fminf(fmaxf(x, 0.0f), 1.0f);
+template <typename T>
+__device__ __forceinline__ T clamp01(T x) {
+  return x != x ? x : tmin(tmax(x, T(0)), T(1));
 }
 
 // _corner0 along one axis: (c000's index, fractional weight)
-__device__ __forceinline__ int32_t corner0(float p, int n, float &f) {
-  const float g = clamp01(p) * static_cast<float>(n - 1);
+template <typename T>
+__device__ __forceinline__ int32_t corner0(T p, int n, T &f) {
+  const T g = clamp01(p) * static_cast<T>(n - 1);
   int32_t i = static_cast<int32_t>(g);
   const int32_t hi = n - 2 > 0 ? n - 2 : 0;
   i = i < 0 ? 0 : (i > hi ? hi : i);
-  f = g - static_cast<float>(i);
+  f = g - static_cast<T>(i);
   return i;
 }
 
 // _lerp8 of the 8 corners of one channel, c[k] = row[k * C]
-__device__ __forceinline__ float lerp8(const float *c, int C, float fx,
-                                       float fy, float fz) {
-  const float c00 = c[0] * (1.0f - fx) + c[C] * fx;
-  const float c01 = c[2 * C] * (1.0f - fx) + c[3 * C] * fx;
-  const float c10 = c[4 * C] * (1.0f - fx) + c[5 * C] * fx;
-  const float c11 = c[6 * C] * (1.0f - fx) + c[7 * C] * fx;
-  const float c0 = c00 * (1.0f - fy) + c01 * fy;
-  const float c1 = c10 * (1.0f - fy) + c11 * fy;
-  return c0 * (1.0f - fz) + c1 * fz;
+template <typename T>
+__device__ __forceinline__ T lerp8(const T *c, int C, T fx, T fy, T fz) {
+  const T c00 = c[0] * (T(1) - fx) + c[C] * fx;
+  const T c01 = c[2 * C] * (T(1) - fx) + c[3 * C] * fx;
+  const T c10 = c[4 * C] * (T(1) - fx) + c[5 * C] * fx;
+  const T c11 = c[6 * C] * (T(1) - fx) + c[7 * C] * fx;
+  const T c0 = c00 * (T(1) - fy) + c01 * fy;
+  const T c1 = c10 * (T(1) - fy) + c11 * fy;
+  return c0 * (T(1) - fz) + c1 * fz;
 }
 
 // corner c000's packed row of lane j, clamped as the gather clamps it,
 // and the three fractions: the lookup and its backward share it
-__device__ __forceinline__ int64_t corner_row(const float *pl,
+template <typename T>
+__device__ __forceinline__ int64_t corner_row(const T *pl,
                                               const int32_t *slot, int64_t j,
                                               int64_t n_rows, int D, int H,
-                                              int W, float &fx, float &fy,
-                                              float &fz) {
+                                              int W, T &fx, T &fy, T &fz) {
   const int32_t x0 = corner0(pl[3 * j], W, fx);
   const int32_t y0 = corner0(pl[3 * j + 1], H, fy);
   const int32_t z0 = corner0(pl[3 * j + 2], D, fz);
@@ -148,33 +171,52 @@ __device__ __forceinline__ int64_t corner_row(const float *pl,
   return r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);
 }
 
+// the 8 corners of a C = 1 row: two float4 or four double2 loads
+__device__ __forceinline__ void load8(const float *packed, int64_t r,
+                                      float (&c)[8]) {
+  const float4 *row = reinterpret_cast<const float4 *>(packed) + 2 * r;
+  const float4 a = __ldg(row), b = __ldg(row + 1);
+  c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+  c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+}
+__device__ __forceinline__ void load8(const double *packed, int64_t r,
+                                      double (&c)[8]) {
+  const double2 *row = reinterpret_cast<const double2 *>(packed) + 4 * r;
+  for (int k = 0; k < 4; ++k) {
+    const double2 a = __ldg(row + k);
+    c[2 * k] = a.x;
+    c[2 * k + 1] = a.y;
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads) grid_trilinear_kernel(
-    const float *__restrict__ packed, const float *__restrict__ pl,
+    const T *__restrict__ packed, const T *__restrict__ pl,
     const int32_t *__restrict__ slot, int64_t n_rows, int D, int H, int W,
-    int C, int64_t n_lanes, float *__restrict__ out) {
+    int C, int64_t n_lanes, T *__restrict__ out) {
   const int64_t j = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (j >= n_lanes) return;
-  float fx, fy, fz;
+  T fx, fy, fz;
   const int64_t r = corner_row(pl, slot, j, n_rows, D, H, W, fx, fy, fz);
   if (C == 1) {
-    const float4 *row = reinterpret_cast<const float4 *>(packed) + 2 * r;
-    const float4 a = __ldg(row), b = __ldg(row + 1);
-    const float c[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    T c[8];
+    load8(packed, r, c);
     out[j] = lerp8(c, 1, fx, fy, fz);
   } else {
-    const float *row = packed + r * 8 * C;
+    const T *row = packed + r * 8 * C;
     for (int ch = 0; ch < C; ++ch)
       out[j * C + ch] = lerp8(row + ch, C, fx, fy, fz);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) grid_trilinear_bwd_kernel(
-    const float *__restrict__ ct, const float *__restrict__ pl,
+    const T *__restrict__ ct, const T *__restrict__ pl,
     const int32_t *__restrict__ slot, int64_t n_rows, int D, int H, int W,
-    int C, int64_t n_lanes, float *__restrict__ d_grid) {
+    int C, int64_t n_lanes, T *__restrict__ d_grid) {
   const int64_t j = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (j >= n_lanes) return;
-  float fx, fy, fz;
+  T fx, fy, fz;
   const int64_t r = corner_row(pl, slot, j, n_rows, D, H, W, fx, fy, fz);
   // the row's voxel and its +1 neighbours, edge-clamped as packed_corners
   // builds them; base = s * D * H * W
@@ -183,14 +225,14 @@ __global__ void __launch_bounds__(kThreads) grid_trilinear_bwd_kernel(
   const int64_t xs[2] = {x, x + 1 < W ? x + 1 : W - 1};
   const int64_t ys[2] = {y, y + 1 < H ? y + 1 : H - 1};
   const int64_t zs[2] = {z, z + 1 < D ? z + 1 : D - 1};
-  const float wx[2] = {1.0f - fx, fx}, wy[2] = {1.0f - fy, fy},
-              wz[2] = {1.0f - fz, fz};
+  const T wx[2] = {T(1) - fx, fx}, wy[2] = {T(1) - fy, fy},
+          wz[2] = {T(1) - fz, fz};
   for (int c = 0; c < C; ++c) {
-    const float g = ct[j * C + c];
+    const T g = ct[j * C + c];
     for (int dz = 0; dz < 2; ++dz) {
-      const float gz = g * wz[dz];
+      const T gz = g * wz[dz];
       for (int dy = 0; dy < 2; ++dy) {
-        const float gzy = gz * wy[dy];
+        const T gzy = gz * wy[dy];
         for (int dx = 0; dx < 2; ++dx) {
           const int64_t v = base + (zs[dz] * H + ys[dy]) * W + xs[dx];
           atomicAdd(d_grid + v * C + c, gzy * wx[dx]);
@@ -200,25 +242,72 @@ __global__ void __launch_bounds__(kThreads) grid_trilinear_bwd_kernel(
   }
 }
 
+template <typename T>
+int gather(const void *table, const void *idx, void *out, long long n_rows,
+           int n_cols, long long n_lanes, int idx_is_64, int vec,
+           void *stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto *tab = static_cast<const T *>(table);
+  auto *o = static_cast<T *>(out);
+  if (idx_is_64) {
+    launch(tab, static_cast<const int64_t *>(idx), o, n_rows, n_cols,
+           n_lanes, vec != 0, s);
+  } else {
+    launch(tab, static_cast<const int32_t *>(idx), o, n_rows, n_cols,
+           n_lanes, vec != 0, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int trilinear(const void *packed, const void *pl, const void *slot,
+              void *out, long long n_rows, int D, int H, int W, int C,
+              long long n_lanes, void *stream) {
+  if (n_lanes > 0) {
+    const long long blocks = (n_lanes + kThreads - 1) / kThreads;
+    grid_trilinear_kernel<T><<<blocks, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T *>(packed), static_cast<const T *>(pl),
+        static_cast<const int32_t *>(slot), n_rows, D, H, W, C, n_lanes,
+        static_cast<T *>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int trilinear_bwd(const void *ct, const void *pl, const void *slot,
+                  void *d_grid, long long n_rows, int D, int H, int W, int C,
+                  long long n_lanes, void *stream) {
+  if (n_lanes > 0) {
+    const long long blocks = (n_lanes + kThreads - 1) / kThreads;
+    grid_trilinear_bwd_kernel<T><<<blocks, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T *>(ct), static_cast<const T *>(pl),
+        static_cast<const int32_t *>(slot), n_rows, D, H, W, C, n_lanes,
+        static_cast<T *>(d_grid));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launch on `stream` (no sync). vec4 needs n_cols % 4 == 0 and 16-byte
-// aligned table and out. Returns cudaGetLastError() after the launch.
+// Launch on `stream` (no sync). vec needs n_cols a multiple of 4 floats
+// (2 doubles) and 16-byte aligned table and out. Returns
+// cudaGetLastError() after the launch.
 extern "C" int grid_gather_launch(const void *table, const void *idx,
                                   void *out, long long n_rows, int n_cols,
                                   long long n_lanes, int idx_is_64, int vec4,
                                   void *stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto *tab = static_cast<const float *>(table);
-  auto *o = static_cast<float *>(out);
-  if (idx_is_64) {
-    launch(tab, static_cast<const int64_t *>(idx), o, n_rows, n_cols,
-           n_lanes, vec4 != 0, s);
-  } else {
-    launch(tab, static_cast<const int32_t *>(idx), o, n_rows, n_cols,
-           n_lanes, vec4 != 0, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return gather<float>(table, idx, out, n_rows, n_cols, n_lanes, idx_is_64,
+                       vec4, stream);
+}
+
+extern "C" int grid_gather_launch_f64(const void *table, const void *idx,
+                                      void *out, long long n_rows,
+                                      int n_cols, long long n_lanes,
+                                      int idx_is_64, int vec, void *stream) {
+  return gather<double>(table, idx, out, n_rows, n_cols, n_lanes, idx_is_64,
+                        vec, stream);
 }
 
 // Launch the trilinear lookup on `stream` (no sync): packed (n_rows, 8C),
@@ -228,15 +317,17 @@ extern "C" int grid_trilinear_launch(const void *packed, const void *pl,
                                      const void *slot, void *out,
                                      long long n_rows, int D, int H, int W,
                                      int C, long long n_lanes, void *stream) {
-  if (n_lanes > 0) {
-    const long long blocks = (n_lanes + kThreads - 1) / kThreads;
-    grid_trilinear_kernel<<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float *>(packed), static_cast<const float *>(pl),
-        static_cast<const int32_t *>(slot), n_rows, D, H, W, C, n_lanes,
-        static_cast<float *>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return trilinear<float>(packed, pl, slot, out, n_rows, D, H, W, C,
+                          n_lanes, stream);
+}
+
+extern "C" int grid_trilinear_launch_f64(const void *packed, const void *pl,
+                                         const void *slot, void *out,
+                                         long long n_rows, int D, int H,
+                                         int W, int C, long long n_lanes,
+                                         void *stream) {
+  return trilinear<double>(packed, pl, slot, out, n_rows, D, H, W, C,
+                           n_lanes, stream);
 }
 
 // Launch the lookup's backward on `stream` (no sync): ct (n_lanes, C), pl
@@ -248,13 +339,15 @@ extern "C" int grid_trilinear_bwd_launch(const void *ct, const void *pl,
                                          long long n_rows, int D, int H,
                                          int W, int C, long long n_lanes,
                                          void *stream) {
-  if (n_lanes > 0) {
-    const long long blocks = (n_lanes + kThreads - 1) / kThreads;
-    grid_trilinear_bwd_kernel<<<blocks, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float *>(ct), static_cast<const float *>(pl),
-        static_cast<const int32_t *>(slot), n_rows, D, H, W, C, n_lanes,
-        static_cast<float *>(d_grid));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return trilinear_bwd<float>(ct, pl, slot, d_grid, n_rows, D, H, W, C,
+                              n_lanes, stream);
+}
+
+extern "C" int grid_trilinear_bwd_launch_f64(const void *ct, const void *pl,
+                                             const void *slot, void *d_grid,
+                                             long long n_rows, int D, int H,
+                                             int W, int C, long long n_lanes,
+                                             void *stream) {
+  return trilinear_bwd<double>(ct, pl, slot, d_grid, n_rows, D, H, W, C,
+                               n_lanes, stream);
 }

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel `_bvh_kernel` in
 // eradiate_kernel_tpu/ops/pallas_intersect.py:206, launched through
-// `_run_bvh` (:377). Contract (see ops/intersect.py):
+// `_run_bvh` (:377). Contract (see ops/intersect.py; every f32
+// below is f64 in the float64 entry `_launch_f64` of the double variants):
 //   rays  (nb*256, 8) f32 [ox oy oz dx dy dz mint maxt], maxt capped at the
 //                         root box
 //   nbox  (N, 1, 8) f32   node AABBs [lo.xyz, hi.xyz, 0, 0]
@@ -48,11 +49,12 @@ namespace {
 using walk::kFull;
 using walk::kStack;
 
+template <typename T>
 __global__ void __launch_bounds__(walk::kThreads) tile_bvh_kernel(
-    const float *__restrict__ rays, const float *__restrict__ nbox,
-    const int32_t *__restrict__ nmeta, const float *__restrict__ xf,
-    const int32_t *__restrict__ sbase, const float *__restrict__ rows,
-    float *__restrict__ t_out, float *__restrict__ uv_out,
+    const T *__restrict__ rays, const T *__restrict__ nbox,
+    const int32_t *__restrict__ nmeta, const T *__restrict__ xf,
+    const int32_t *__restrict__ sbase, const T *__restrict__ rows,
+    T *__restrict__ t_out, T *__restrict__ uv_out,
     int32_t *__restrict__ prim_out, int32_t *__restrict__ shape_out,
     int32_t *__restrict__ stats_out) {
     __shared__ int32_t s_stack[walk::kWarps][kStack];
@@ -61,14 +63,14 @@ __global__ void __launch_bounds__(walk::kThreads) tile_bvh_kernel(
 
     const int64_t r =
         static_cast<int64_t>(blockIdx.x) * walk::kThreads + threadIdx.x;
-    const float *ray = rays + r * 8;
-    const float ox = ray[0], oy = ray[1], oz = ray[2];
-    const float dx = ray[3], dy = ray[4], dz = ray[5];
-    const float mint = ray[6], maxt = ray[7];
-    const float ix = tile::rcp(dx), iy = tile::rcp(dy), iz = tile::rcp(dz);
+    const T *ray = rays + r * 8;
+    const T ox = ray[0], oy = ray[1], oz = ray[2];
+    const T dx = ray[3], dy = ray[4], dz = ray[5];
+    const T mint = ray[6], maxt = ray[7];
+    const T ix = tile::rcp(dx), iy = tile::rcp(dy), iz = tile::rcp(dz);
 
-    tile::Hit h{maxt, 0.0f, 0.0f, 0, -1};
-    float bt_ub = walk::warp_max(maxt);   // the warp's largest best t
+    tile::Hit<T> h{maxt, T(0), T(0), 0, -1};
+    T bt_ub = walk::warp_max(maxt);   // the warp's largest best t
     if (lane == 0) stack[0] = 0;          // the root
     __syncwarp();
     // sp, the stack and every decision below are warp-uniform
@@ -85,18 +87,18 @@ __global__ void __launch_bounds__(walk::kThreads) tile_bvh_kernel(
         }
         ++n_inner;
         const int left = meta.x, right = meta.y;
-        float near_l, near_r;
+        T near_l, near_r;
         const bool ok_l = tile::slab(nbox + 8 * left, ox, oy, oz, ix, iy,
                                      iz, mint, maxt, near_l);
         const bool ok_r = tile::slab(nbox + 8 * right, ox, oy, oz, ix, iy,
                                      iz, mint, maxt, near_r);
-        const float m_l = walk::warp_min(ok_l ? near_l : INFINITY);
-        const float m_r = walk::warp_min(ok_r ? near_r : INFINITY);
+        const T m_l = walk::warp_min(ok_l ? near_l : T(INFINITY));
+        const T m_r = walk::warp_min(ok_r ? near_r : T(INFINITY));
         // the warp's bound on best t, applied to the minima
         const bool hit_l = __ballot_sync(kFull, ok_l) && m_l <= bt_ub;
         const bool hit_r = __ballot_sync(kFull, ok_r) && m_r <= bt_ub;
-        near_l = hit_l ? m_l : INFINITY;
-        near_r = hit_r ? m_r : INFINITY;
+        near_l = hit_l ? m_l : T(INFINITY);
+        near_r = hit_r ? m_r : T(INFINITY);
         // the near child on top (popped first); both missed: left first
         const bool l_first = near_l <= near_r;
         const int first = l_first ? left : right;
@@ -123,25 +125,48 @@ __global__ void __launch_bounds__(walk::kThreads) tile_bvh_kernel(
 
 }  // namespace
 
+namespace {
+
+template <typename T>
+int launch(const void *rays, const void *nbox, const void *nmeta,
+           const void *xf, const void *sbase, const void *rows, int n_blocks,
+           void *t_out, void *uv_out, void *prim_out, void *shape_out,
+           void *stats_out, void *stream) {
+    if (n_blocks > 0)
+        tile_bvh_kernel<T><<<n_blocks * (walk::kRayBlock / walk::kThreads),
+                          walk::kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T *>(rays), static_cast<const T *>(nbox),
+            static_cast<const int32_t *>(nmeta),
+            static_cast<const T *>(xf), static_cast<const int32_t *>(sbase),
+            static_cast<const T *>(rows), static_cast<T *>(t_out),
+            static_cast<T *>(uv_out), static_cast<int32_t *>(prim_out),
+            static_cast<int32_t *>(shape_out),
+            static_cast<int32_t *>(stats_out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Launch on `stream` (a cudaStream_t) for n_blocks blocks of 256 rays;
-// returns cudaGetLastError().
+// returns cudaGetLastError(). The _f64 entry takes float64 rays, boxes,
+// xf and rows (the double variants) and float64 t and uv.
 extern "C" int tile_bvh_launch(
     const void *rays, const void *nbox, const void *nmeta, const void *xf,
     const void *sbase, const void *rows, int n_blocks, void *t_out,
     void *uv_out, void *prim_out, void *shape_out, void *stats_out,
     void *stream) {
-    if (n_blocks > 0)
-        tile_bvh_kernel<<<n_blocks * (walk::kRayBlock / walk::kThreads),
-                          walk::kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float *>(rays),
-            static_cast<const float *>(nbox),
-            static_cast<const int32_t *>(nmeta),
-            static_cast<const float *>(xf),
-            static_cast<const int32_t *>(sbase),
-            static_cast<const float *>(rows), static_cast<float *>(t_out),
-            static_cast<float *>(uv_out), static_cast<int32_t *>(prim_out),
-            static_cast<int32_t *>(shape_out),
-            static_cast<int32_t *>(stats_out));
-    return static_cast<int>(cudaGetLastError());
+    return launch<float>(rays, nbox, nmeta, xf, sbase, rows, n_blocks,
+                         t_out, uv_out, prim_out, shape_out, stats_out,
+                         stream);
+}
+
+extern "C" int tile_bvh_launch_f64(
+    const void *rays, const void *nbox, const void *nmeta, const void *xf,
+    const void *sbase, const void *rows, int n_blocks, void *t_out,
+    void *uv_out, void *prim_out, void *shape_out, void *stats_out,
+    void *stream) {
+    return launch<double>(rays, nbox, nmeta, xf, sbase, rows, n_blocks,
+                          t_out, uv_out, prim_out, shape_out, stats_out,
+                          stream);
 }

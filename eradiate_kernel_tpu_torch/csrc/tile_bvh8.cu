@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel `_bvh8_kernel` in
 // eradiate_kernel_tpu/ops/pallas_intersect.py:718, launched through
-// `_run_bvh8` (:863). Contract (see ops/intersect.py):
+// `_run_bvh8` (:863). Contract (see ops/intersect.py; every f32
+// below is f64 in the float64 entry `_launch_f64` of the double variants):
 //   rays  (nb*256, 8) f32 [ox oy oz dx dy dz mint maxt] (maxt not capped)
 //   cbox  (N8, 8, 8) f32  per child slot [lo.xyz, hi.xyz, 0, 0]; empty
 //                         slots hold inverted boxes (lo 1e30, hi -1e30)
@@ -46,11 +47,12 @@ using walk::kStack;
 
 constexpr int kInstBits = 12;   // pallas_intersect.py:715
 
+template <typename T>
 __global__ void __launch_bounds__(walk::kThreads) tile_bvh8_kernel(
-    const float *__restrict__ rays, const float *__restrict__ cbox,
-    const int32_t *__restrict__ cmeta, const float *__restrict__ xf,
-    const int32_t *__restrict__ sbase, const float *__restrict__ rows,
-    float *__restrict__ t_out, float *__restrict__ uv_out,
+    const T *__restrict__ rays, const T *__restrict__ cbox,
+    const int32_t *__restrict__ cmeta, const T *__restrict__ xf,
+    const int32_t *__restrict__ sbase, const T *__restrict__ rows,
+    T *__restrict__ t_out, T *__restrict__ uv_out,
     int32_t *__restrict__ prim_out, int32_t *__restrict__ shape_out,
     int32_t *__restrict__ stats_out) {
     __shared__ int32_t s_stack[walk::kWarps][kStack];
@@ -59,14 +61,14 @@ __global__ void __launch_bounds__(walk::kThreads) tile_bvh8_kernel(
 
     const int64_t r =
         static_cast<int64_t>(blockIdx.x) * walk::kThreads + threadIdx.x;
-    const float *ray = rays + r * 8;
-    const float ox = ray[0], oy = ray[1], oz = ray[2];
-    const float dx = ray[3], dy = ray[4], dz = ray[5];
-    const float mint = ray[6], maxt = ray[7];
-    const float ix = tile::rcp(dx), iy = tile::rcp(dy), iz = tile::rcp(dz);
+    const T *ray = rays + r * 8;
+    const T ox = ray[0], oy = ray[1], oz = ray[2];
+    const T dx = ray[3], dy = ray[4], dz = ray[5];
+    const T mint = ray[6], maxt = ray[7];
+    const T ix = tile::rcp(dx), iy = tile::rcp(dy), iz = tile::rcp(dz);
 
-    tile::Hit h{maxt, 0.0f, 0.0f, 0, -1};
-    float bt_ub = walk::warp_max(maxt);   // the warp's largest best t
+    tile::Hit<T> h{maxt, T(0), T(0), 0, -1};
+    T bt_ub = walk::warp_max(maxt);   // the warp's largest best t
     if (lane == 0) stack[0] = 0;          // the root (an inner node)
     __syncwarp();
     // sp, the stack and every decision below are warp-uniform
@@ -83,15 +85,15 @@ __global__ void __launch_bounds__(walk::kThreads) tile_bvh8_kernel(
             continue;
         }
         ++n_inner;
-        const float *box8 = cbox + 64 * static_cast<int64_t>(enc);
+        const T *box8 = cbox + 64 * static_cast<int64_t>(enc);
         unsigned enter = 0;        // bit c: some ray of the warp enters c
-        float mine = INFINITY;     // lane c < 8: child c's minimum entry
+        T mine = T(INFINITY);      // lane c < 8: child c's minimum entry
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
-            float near;
+            T near;
             const bool ok = tile::slab(box8 + 8 * c, ox, oy, oz, ix, iy, iz,
                                        mint, maxt, near);
-            const float m = walk::warp_min(ok ? near : INFINITY);
+            const T m = walk::warp_min(ok ? near : T(INFINITY));
             if (__ballot_sync(kFull, ok)) enter |= 1u << c;
             if (lane == c) mine = m;
         }
@@ -111,7 +113,7 @@ __global__ void __launch_bounds__(walk::kThreads) tile_bvh8_kernel(
         int pos = 0;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-            const float nj = __shfl_sync(kFull, mine, j);
+            const T nj = __shfl_sync(kFull, mine, j);
             pos += ((hits >> j) & 1u) &&
                    (nj > mine || (nj == mine && j > lane));
         }
@@ -132,24 +134,48 @@ __global__ void __launch_bounds__(walk::kThreads) tile_bvh8_kernel(
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t); arguments as tile_bvh_launch.
+namespace {
+
+template <typename T>
+int launch(const void *rays, const void *cbox, const void *cmeta,
+           const void *xf, const void *sbase, const void *rows, int n_blocks,
+           void *t_out, void *uv_out, void *prim_out, void *shape_out,
+           void *stats_out, void *stream) {
+    if (n_blocks > 0)
+        tile_bvh8_kernel<T><<<n_blocks * (walk::kRayBlock / walk::kThreads),
+                          walk::kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T *>(rays), static_cast<const T *>(cbox),
+            static_cast<const int32_t *>(cmeta),
+            static_cast<const T *>(xf), static_cast<const int32_t *>(sbase),
+            static_cast<const T *>(rows), static_cast<T *>(t_out),
+            static_cast<T *>(uv_out), static_cast<int32_t *>(prim_out),
+            static_cast<int32_t *>(shape_out),
+            static_cast<int32_t *>(stats_out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on `stream` (a cudaStream_t) for n_blocks blocks of 256 rays;
+// returns cudaGetLastError(). The _f64 entry takes float64 rays, boxes,
+// xf and rows (the double variants) and float64 t and uv.
 extern "C" int tile_bvh8_launch(
     const void *rays, const void *cbox, const void *cmeta, const void *xf,
     const void *sbase, const void *rows, int n_blocks, void *t_out,
     void *uv_out, void *prim_out, void *shape_out, void *stats_out,
     void *stream) {
-    if (n_blocks > 0)
-        tile_bvh8_kernel<<<n_blocks * (walk::kRayBlock / walk::kThreads),
-                           walk::kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float *>(rays),
-            static_cast<const float *>(cbox),
-            static_cast<const int32_t *>(cmeta),
-            static_cast<const float *>(xf),
-            static_cast<const int32_t *>(sbase),
-            static_cast<const float *>(rows), static_cast<float *>(t_out),
-            static_cast<float *>(uv_out), static_cast<int32_t *>(prim_out),
-            static_cast<int32_t *>(shape_out),
-            static_cast<int32_t *>(stats_out));
-    return static_cast<int>(cudaGetLastError());
+    return launch<float>(rays, cbox, cmeta, xf, sbase, rows, n_blocks,
+                         t_out, uv_out, prim_out, shape_out, stats_out,
+                         stream);
+}
+
+extern "C" int tile_bvh8_launch_f64(
+    const void *rays, const void *cbox, const void *cmeta, const void *xf,
+    const void *sbase, const void *rows, int n_blocks, void *t_out,
+    void *uv_out, void *prim_out, void *shape_out, void *stats_out,
+    void *stream) {
+    return launch<double>(rays, cbox, cmeta, xf, sbase, rows, n_blocks,
+                          t_out, uv_out, prim_out, shape_out, stats_out,
+                          stream);
 }

@@ -12,13 +12,20 @@
 // kernels and plain versions agree bit for bit. The determinant guard keeps
 // padding triangles (v0 = 1e30, e1 = e2 = 0, det = 0) from dividing by zero.
 //
-// Packed rows (ops/intersect.py::tile_rows): a tile is (128, 12) f32,
-// [v0x v0y v0z e1x | e1y e1z e2x e2y | e2z prim shape 0] with prim and
-// shape as int32 bits, so one triangle is three 128-bit loads (LDS.128 from
-// the sweep's staged copy, LDG.128 straight from global memory in the BVH
-// walks) instead of eleven
-// scalar ones from three arrays; 1/det is __frcp_rn, the correctly rounded
-// reciprocal, which gives the bits of IEEE 1.0f / det.
+// Packed rows (ops/intersect.py::tile_rows): a tile is (128, 12) of the
+// scene's float type T, [v0x v0y v0z e1x | e1y e1z e2x e2y | e2z prim
+// shape 0]. In float32 prim and shape are int32 bits, so one triangle is
+// three 128-bit loads (LDS.128 from the sweep's staged copy, LDG.128
+// straight from global memory in the BVH walks) instead of eleven scalar
+// ones from three arrays; in float64 (the double variants) they are exact
+// doubles and a triangle is six 128-bit loads. 1/det is __frcp_rn /
+// __drcp_rn, the correctly rounded reciprocal, which gives the bits of IEEE
+// 1 / det.
+//
+// Every piece is a template on T (float or double): the sweep and both
+// walks instantiate it twice, one entry per type. Constants are written
+// T(c), which for float is the float literal c (each one checked to round
+// the same way through double).
 
 #pragma once
 
@@ -31,90 +38,140 @@ namespace tile {
 constexpr int kRayBlock = 256;                   // the sweep's rays a block
 constexpr int kTileK = 128;
 constexpr int kWarps = kRayBlock / 32;
-constexpr int kRowWords = 12;                    // floats per packed triangle
-constexpr int kTileWords = kTileK * kRowWords;   // 1,536 floats, 6 KB
+constexpr int kRowWords = 12;                    // scalars per triangle
+constexpr int kTileWords = kTileK * kRowWords;   // 1,536: 6 KB f32, 12 f64
+
+// fminf / fmaxf / fabsf and their double counterparts
+__device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double tmin(double a, double b) {
+    return fmin(a, b);
+}
+__device__ __forceinline__ float tmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double tmax(double a, double b) {
+    return fmax(a, b);
+}
+__device__ __forceinline__ float tabs(float a) { return fabsf(a); }
+__device__ __forceinline__ double tabs(double a) { return fabs(a); }
+// the correctly rounded reciprocal
+__device__ __forceinline__ float rcp_rn(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double rcp_rn(double a) { return __drcp_rn(a); }
+
+// one packed triangle: its 12 scalars from 16-byte loads
+__device__ __forceinline__ void load_row(const float *__restrict__ s, int q,
+                                         float (&w)[kRowWords]) {
+    const float4 *row = reinterpret_cast<const float4 *>(s) + 3 * q;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        const float4 a = row[k];
+        w[4 * k] = a.x;
+        w[4 * k + 1] = a.y;
+        w[4 * k + 2] = a.z;
+        w[4 * k + 3] = a.w;
+    }
+}
+__device__ __forceinline__ void load_row(const double *__restrict__ s, int q,
+                                         double (&w)[kRowWords]) {
+    const double2 *row = reinterpret_cast<const double2 *>(s) + 6 * q;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+        const double2 a = row[k];
+        w[2 * k] = a.x;
+        w[2 * k + 1] = a.y;
+    }
+}
+
+// a row's id slot: int32 bits in float32 rows, an exact double in float64
+__device__ __forceinline__ int32_t row_id(float v) {
+    return __float_as_int(v);
+}
+__device__ __forceinline__ int32_t row_id(double v) {
+    return static_cast<int32_t>(v);
+}
 
 // the closest hit so far of one ray
+template <typename T>
 struct Hit {
-    float t, u, v;
+    T t, u, v;
     int32_t prim, shape;
 };
 
 // test one tile's packed rows s (shared or global) against one ray
 // (origin o, direction d, in the tile's space); a hit stores the row's
 // shape id plus shape_off
-__device__ __forceinline__ void test_rows(const float *__restrict__ s,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float mint, int32_t shape_off,
-                                          Hit &h) {
-    const float4 *row = reinterpret_cast<const float4 *>(s);
+template <typename T>
+__device__ __forceinline__ void test_rows(const T *__restrict__ s, T ox,
+                                          T oy, T oz, T dx, T dy, T dz,
+                                          T mint, int32_t shape_off,
+                                          Hit<T> &h) {
 #pragma unroll 2
     for (int q = 0; q < kTileK; ++q) {
-        const float4 a = row[3 * q], b = row[3 * q + 1], c = row[3 * q + 2];
-        const float v0x = a.x, v0y = a.y, v0z = a.z, e1x = a.w;
-        const float e1y = b.x, e1z = b.y, e2x = b.z, e2y = b.w;
-        const float e2z = c.x;
-        const int32_t prim = __float_as_int(c.y);
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv_det = __frcp_rn(fabsf(det) < 1e-12f ? 1e-12f : det);
-        const float tx = ox - v0x;
-        const float ty = oy - v0y;
-        const float tz = oz - v0z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool ok = fabsf(det) >= 1e-12f && u >= 0.0f && v >= 0.0f &&
-                        u + v <= 1.0f && prim >= 0 && t >= mint && t < h.t;
+        T w[kRowWords];
+        load_row(s, q, w);
+        const T v0x = w[0], v0y = w[1], v0z = w[2], e1x = w[3];
+        const T e1y = w[4], e1z = w[5], e2x = w[6], e2y = w[7];
+        const T e2z = w[8];
+        const int32_t prim = row_id(w[9]);
+        const T px = dy * e2z - dz * e2y;
+        const T py = dz * e2x - dx * e2z;
+        const T pz = dx * e2y - dy * e2x;
+        const T det = e1x * px + e1y * py + e1z * pz;
+        const T inv_det = rcp_rn(tabs(det) < T(1e-12) ? T(1e-12) : det);
+        const T tx = ox - v0x;
+        const T ty = oy - v0y;
+        const T tz = oz - v0z;
+        const T u = (tx * px + ty * py + tz * pz) * inv_det;
+        const T qx = ty * e1z - tz * e1y;
+        const T qy = tz * e1x - tx * e1z;
+        const T qz = tx * e1y - ty * e1x;
+        const T v = (dx * qx + dy * qy + dz * qz) * inv_det;
+        const T t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+        const bool ok = tabs(det) >= T(1e-12) && u >= T(0) && v >= T(0) &&
+                        u + v <= T(1) && prim >= 0 && t >= mint && t < h.t;
         if (ok) {
             h.t = t;
             h.u = u;
             h.v = v;
             h.prim = prim;
-            h.shape = __float_as_int(c.z) + shape_off;
+            h.shape = row_id(w[10]) + shape_off;
         }
     }
 }
 
 // per-ray reciprocal direction, finite for zero components
 // (pallas_intersect.py:256-259)
-__device__ __forceinline__ float rcp(float d) {
-    return (d < 0.0f ? -1.0f : 1.0f) / fmaxf(fabsf(d), 1e-30f);
+template <typename T>
+__device__ __forceinline__ T rcp(T d) {
+    return (d < T(0) ? T(-1) : T(1)) / tmax(tabs(d), T(1e-30));
 }
 
 // slab test of one ray against box [lo.xyz, hi.xyz] (pallas_intersect.py
 // :267-280) with the far end capped at far_cap
-__device__ __forceinline__ bool slab(const float *__restrict__ box, float ox,
-                                     float oy, float oz, float ix, float iy,
-                                     float iz, float mint, float far_cap,
-                                     float &near) {
-    const float t0x = (box[0] - ox) * ix;
-    const float t1x = (box[3] - ox) * ix;
-    const float t0y = (box[1] - oy) * iy;
-    const float t1y = (box[4] - oy) * iy;
-    const float t0z = (box[2] - oz) * iz;
-    const float t1z = (box[5] - oz) * iz;
-    near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                 fmaxf(fminf(t0z, t1z), mint));
-    const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                            fminf(fmaxf(t0z, t1z), far_cap));
+template <typename T>
+__device__ __forceinline__ bool slab(const T *__restrict__ box, T ox, T oy,
+                                     T oz, T ix, T iy, T iz, T mint,
+                                     T far_cap, T &near) {
+    const T t0x = (box[0] - ox) * ix;
+    const T t1x = (box[3] - ox) * ix;
+    const T t0y = (box[1] - oy) * iy;
+    const T t1y = (box[4] - oy) * iy;
+    const T t0z = (box[2] - oz) * iz;
+    const T t1z = (box[5] - oz) * iz;
+    near = tmax(tmax(tmin(t0x, t1x), tmin(t0y, t1y)),
+                tmax(tmin(t0z, t1z), mint));
+    const T far = tmin(tmin(tmax(t0x, t1x), tmax(t0y, t1y)),
+                       tmin(tmax(t0z, t1z), far_cap));
     return near <= far;
 }
 
 // the kernels' common output: t = inf and shape = -1 where nothing was hit
 // below maxt
+template <typename T>
 __device__ __forceinline__ void write_hit(
-    const Hit &h, float maxt, int64_t r, float *__restrict__ t_out,
-    float *__restrict__ uv_out, int32_t *__restrict__ prim_out,
+    const Hit<T> &h, T maxt, int64_t r, T *__restrict__ t_out,
+    T *__restrict__ uv_out, int32_t *__restrict__ prim_out,
     int32_t *__restrict__ shape_out) {
     const bool no_hit = h.t >= maxt;
-    t_out[r] = no_hit ? INFINITY : h.t;
+    t_out[r] = no_hit ? T(INFINITY) : h.t;
     uv_out[2 * r] = h.u;
     uv_out[2 * r + 1] = h.v;
     prim_out[r] = h.prim;

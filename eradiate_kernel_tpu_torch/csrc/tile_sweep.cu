@@ -51,9 +51,14 @@
 //     the bits of IEEE 1.0f / det.
 // Built with -fmad=false, every product and sum rounds as in the plain
 // PyTorch versions, and the fused entry's pre-pass arithmetic repeats the
-// eager pre-passes' float32 expressions (NaN-propagating min and max as in
+// eager pre-passes' expressions (NaN-propagating min and max as in
 // torch.minimum/amax/clamp), so both entries agree with their plain
 // versions bit for bit, visit counts included.
+//
+// Both entries are templates on the scene's float type T and have a
+// float64 twin, `_launch_f64`, for the double variants: every f32 of the
+// contracts above is then f64, and a tile's rows take 12 KB, so the double
+// buffer holds 24 KB of the block's 48 KB of static shared memory.
 //
 // Bound on an H100: operations. Each visit is 256 x 128 tests of 46 FP32
 // operations against 6 KB of tile data, so the bound is tests x 46 over 67
@@ -69,8 +74,12 @@ using tile::Hit;
 using tile::kRayBlock;
 using tile::kTileWords;
 using tile::kWarps;
+using tile::tabs;
+using tile::tmax;
 
-constexpr int kTileChunks = kTileWords / 4;      // 16-byte copies per tile
+// 16-byte copies per tile: 384 in float32, 768 in float64
+template <typename T>
+constexpr int kTileChunks = kTileWords * static_cast<int>(sizeof(T)) / 16;
 
 // the fused entry's capacity: one warp ranks the tile list, a lane a tile
 // (tile_sweep_small_launch refuses more; ops/intersect.py's
@@ -78,27 +87,32 @@ constexpr int kTileChunks = kTileWords / 4;      // 16-byte copies per tile
 constexpr int kFusedMaxTiles = 32;
 
 // torch.minimum / torch.maximum / torch.clamp: a NaN operand gives NaN
-__device__ __forceinline__ float nan_min(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
     return (a != a || a < b) ? a : b;
 }
-__device__ __forceinline__ float nan_max(float a, float b) {
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
     return (a != a || a > b) ? a : b;
 }
-__device__ __forceinline__ float clamp_min0(float a) {
-    return a != a ? a : fmaxf(a, 0.0f);
+template <typename T>
+__device__ __forceinline__ T clamp_min0(T a) {
+    return a != a ? a : tmax(a, T(0));
 }
 
 // start copying tile j's packed rows into dst (a shared buffer of
-// kTileWords floats, 16-byte aligned); wait_staged() ends the copy
-__device__ __forceinline__ void stage_async(float *dst,
-                                            const float *__restrict__ rows,
+// kTileWords scalars, 16-byte aligned); wait_staged() ends the copy
+template <typename T>
+__device__ __forceinline__ void stage_async(T *dst,
+                                            const T *__restrict__ rows,
                                             int64_t j) {
-    const float *src = rows + j * kTileWords;
-    for (int c = threadIdx.x; c < kTileChunks; c += kRayBlock) {
+    const char *src = reinterpret_cast<const char *>(rows + j * kTileWords);
+    char *d = reinterpret_cast<char *>(dst);
+    for (int c = threadIdx.x; c < kTileChunks<T>; c += kRayBlock) {
         const unsigned s =
-            static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * c));
+            static_cast<unsigned>(__cvta_generic_to_shared(d + 16 * c));
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                     :: "r"(s), "l"(src + 4 * c) : "memory");
+                     :: "r"(s), "l"(src + 16 * c) : "memory");
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -110,13 +124,12 @@ __device__ __forceinline__ void wait_staged() {
 // Sweep a block's list: tile id(k) with entry bound key(k) for k < cnt,
 // near to far, until no thread's best t exceeds the next key. Returns the
 // number of tiles visited. Every thread of the block calls it.
-template <typename Id, typename Key>
-__device__ __forceinline__ int sweep_list(float (*s_rows)[kTileWords], Id id,
+template <typename T, typename Id, typename Key>
+__device__ __forceinline__ int sweep_list(T (*s_rows)[kTileWords], Id id,
                                           Key key, int cnt, bool nan_block,
-                                          const float *__restrict__ rows,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float mint, Hit &h) {
+                                          const T *__restrict__ rows, T ox,
+                                          T oy, T oz, T dx, T dy, T dz,
+                                          T mint, Hit<T> &h) {
     if (cnt > 0 && !nan_block) stage_async(s_rows[0], rows, id(0));
     int k = 0;
     for (;; ++k) {
@@ -130,25 +143,26 @@ __device__ __forceinline__ int sweep_list(float (*s_rows)[kTileWords], Id id,
     return k;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kRayBlock) tile_sweep_kernel(
-    const float *__restrict__ rays, const int32_t *__restrict__ ids,
-    const int32_t *__restrict__ count, const float *__restrict__ tnear,
-    const float *__restrict__ rows, int n_tiles, float *__restrict__ t_out,
-    float *__restrict__ uv_out, int32_t *__restrict__ prim_out,
+    const T *__restrict__ rays, const int32_t *__restrict__ ids,
+    const int32_t *__restrict__ count, const T *__restrict__ tnear,
+    const T *__restrict__ rows, int n_tiles, T *__restrict__ t_out,
+    T *__restrict__ uv_out, int32_t *__restrict__ prim_out,
     int32_t *__restrict__ shape_out, int32_t *__restrict__ visited_out) {
-    __shared__ __align__(16) float s_rows[2][kTileWords];
+    __shared__ __align__(16) T s_rows[2][kTileWords];
 
     const int64_t b = blockIdx.x;
     const int64_t r = b * kRayBlock + threadIdx.x;
-    const float *ray = rays + r * 8;
-    const float ox = ray[0], oy = ray[1], oz = ray[2];
-    const float dx = ray[3], dy = ray[4], dz = ray[5];
-    const float mint = ray[6], maxt = ray[7];
+    const T *ray = rays + r * 8;
+    const T ox = ray[0], oy = ray[1], oz = ray[2];
+    const T dx = ray[3], dy = ray[4], dz = ray[5];
+    const T mint = ray[6], maxt = ray[7];
 
-    Hit h{maxt, 0.0f, 0.0f, 0, -1};
+    Hit<T> h{maxt, T(0), T(0), 0, -1};
     const bool nan_block = __syncthreads_or(maxt != maxt);
     const int32_t *b_ids = ids + b * n_tiles;
-    const float *b_tnear = tnear + b * n_tiles;
+    const T *b_tnear = tnear + b * n_tiles;
     const int k = sweep_list(
         s_rows, [&](int i) { return b_ids[i]; },
         [&](int i) { return b_tnear[i]; }, count[b], nan_block, rows, ox,
@@ -160,17 +174,18 @@ __global__ void __launch_bounds__(kRayBlock) tile_sweep_kernel(
 // the block bounds of the fused entry, in s_part order
 enum { kOLo = 0, kOHi = 3, kDLo = 6, kDHi = 9, kMaxt = 12, kBounds = 13 };
 
+template <typename T>
 __global__ void __launch_bounds__(kRayBlock) tile_sweep_small_kernel(
-    const float *__restrict__ o, const float *__restrict__ d,
-    const float *__restrict__ mint_in, const float *__restrict__ maxt_in,
-    int64_t n_rays, const float *__restrict__ root,
-    const float *__restrict__ lo, const float *__restrict__ hi, int n_tiles,
-    const float *__restrict__ rows, float *__restrict__ t_out,
-    float *__restrict__ uv_out, int32_t *__restrict__ prim_out,
-    int32_t *__restrict__ shape_out, int32_t *__restrict__ visited_out) {
-    __shared__ __align__(16) float s_rows[2][kTileWords];
-    __shared__ float s_part[kBounds][kWarps];
-    __shared__ float s_key[kFusedMaxTiles];
+    const T *__restrict__ o, const T *__restrict__ d,
+    const T *__restrict__ mint_in, const T *__restrict__ maxt_in,
+    int64_t n_rays, const T *__restrict__ root, const T *__restrict__ lo,
+    const T *__restrict__ hi, int n_tiles, const T *__restrict__ rows,
+    T *__restrict__ t_out, T *__restrict__ uv_out,
+    int32_t *__restrict__ prim_out, int32_t *__restrict__ shape_out,
+    int32_t *__restrict__ visited_out) {
+    __shared__ __align__(16) T s_rows[2][kTileWords];
+    __shared__ T s_part[kBounds][kWarps];
+    __shared__ T s_key[kFusedMaxTiles];
     __shared__ int32_t s_ids[kFusedMaxTiles];
     __shared__ int s_cnt, s_nan;
 
@@ -181,8 +196,8 @@ __global__ void __launch_bounds__(kRayBlock) tile_sweep_small_kernel(
 
     // the ray, or the filler ray of _pad_blocks (o = 0, d = +z, mint =
     // maxt = 0, not capped)
-    float ov[3] = {0.0f, 0.0f, 0.0f}, dv[3] = {0.0f, 0.0f, 1.0f};
-    float mint = 0.0f, maxt = 0.0f;
+    T ov[3] = {T(0), T(0), T(0)}, dv[3] = {T(0), T(0), T(1)};
+    T mint = T(0), maxt = T(0);
     if (real) {
         for (int a = 0; a < 3; ++a) {
             ov[a] = o[3 * r + a];
@@ -190,23 +205,23 @@ __global__ void __launch_bounds__(kRayBlock) tile_sweep_small_kernel(
         }
         mint = mint_in[r];
         // _cap_maxt_to_root: maxt clamped to the exit from the root box
-        float near = 0.0f, far = 0.0f;
+        T near = T(0), far = T(0);
         for (int a = 0; a < 3; ++a) {
-            const float inv = (dv[a] < 0.0f ? -1.0f : 1.0f) /
-                              nan_max(fabsf(dv[a]), 1e-30f);
-            const float t0 = (root[a] - ov[a]) * inv;
-            const float t1 = (root[3 + a] - ov[a]) * inv;
-            const float mn = nan_min(t0, t1), mx = nan_max(t0, t1);
+            const T inv = (dv[a] < T(0) ? T(-1) : T(1)) /
+                          nan_max(tabs(dv[a]), T(1e-30));
+            const T t0 = (root[a] - ov[a]) * inv;
+            const T t1 = (root[3 + a] - ov[a]) * inv;
+            const T mn = nan_min(t0, t1), mx = nan_max(t0, t1);
             near = a == 0 ? mn : nan_max(near, mn);
             far = a == 0 ? mx : nan_min(far, mx);
         }
         const bool hit = near <= far && far >= mint;
-        const float cap = hit ? far * 1.0001f + 1e-4f : mint;
+        const T cap = hit ? far * T(1.0001) + T(1e-4) : mint;
         maxt = nan_min(maxt_in[r], nan_max(cap, mint));
     }
 
     // _block_tile_mask's block bounds: min and max of o and d, max of maxt
-    float v[kBounds];
+    T v[kBounds];
     for (int a = 0; a < 3; ++a) {
         v[kOLo + a] = v[kOHi + a] = ov[a];
         v[kDLo + a] = v[kDHi + a] = dv[a];
@@ -214,7 +229,7 @@ __global__ void __launch_bounds__(kRayBlock) tile_sweep_small_kernel(
     v[kMaxt] = maxt;
     for (int off = 16; off > 0; off >>= 1) {
         for (int i = 0; i < kBounds; ++i) {
-            const float w = __shfl_xor_sync(0xffffffffu, v[i], off);
+            const T w = __shfl_xor_sync(0xffffffffu, v[i], off);
             v[i] = (i < kOHi || (i >= kDLo && i < kDHi)) ? nan_min(v[i], w)
                                                          : nan_max(v[i], w);
         }
@@ -224,67 +239,66 @@ __global__ void __launch_bounds__(kRayBlock) tile_sweep_small_kernel(
     __syncthreads();
 
     if (warp == 0) {
-        float bnd[kBounds];
+        T bnd[kBounds];
         for (int i = 0; i < kBounds; ++i) {
             const bool is_min = i < kOHi || (i >= kDLo && i < kDHi);
-            float m = s_part[i][0];
+            T m = s_part[i][0];
             for (int w = 1; w < kWarps; ++w)
                 m = is_min ? nan_min(m, s_part[i][w])
                            : nan_max(m, s_part[i][w]);
             bnd[i] = m;
         }
-        const float maxt_ub = bnd[kMaxt];
+        const T maxt_ub = bnd[kMaxt];
         // lane i tests tile i: interval slab test of the block's bounds
         // plus the reach bound on sign-mixed axes, the tile's entry lower
         // bound as its key (inf if not admitted)
         const int i = lane;
         bool ok = false;
-        float key = INFINITY;
+        T key = T(INFINITY);
         if (i < n_tiles) {
-            const float big = 3.4e38f;
-            float tnear = 0.0f, tfar = 0.0f;
+            const T big = T(3.4e38);
+            T tnear = T(0), tfar = T(0);
             bool reach = true;
-            const float maxt_c = nan_min(maxt_ub, 1e30f);
+            const T maxt_c = nan_min(maxt_ub, T(1e30));
             for (int a = 0; a < 3; ++a) {
-                const float olo = bnd[kOLo + a], ohi = bnd[kOHi + a];
-                const float dlo = bnd[kDLo + a], dhi = bnd[kDHi + a];
-                const bool mixed = dlo <= 0.0f && dhi >= 0.0f;
-                const float i1 = 1.0f / (mixed ? 1.0f : dlo);
-                const float i2 = 1.0f / (mixed ? 1.0f : dhi);
-                const float il = mixed ? -big : nan_min(i1, i2);
-                const float ih = mixed ? big : nan_max(i1, i2);
-                const float tlo = lo[3 * i + a], thi = hi[3 * i + a];
-                const float a_lo = tlo - ohi, a_hi = tlo - olo;
-                const float b_lo = thi - ohi, b_hi = thi - olo;
-                const float c0 = a_lo * il, c1 = a_lo * ih, c2 = a_hi * il,
-                            c3 = a_hi * ih;
-                const float c4 = b_lo * il, c5 = b_lo * ih, c6 = b_hi * il,
-                            c7 = b_hi * ih;
-                const float t0_lo = nan_min(nan_min(c0, c1), nan_min(c2, c3));
-                const float t0_hi = nan_max(nan_max(c0, c1), nan_max(c2, c3));
-                const float t1_lo = nan_min(nan_min(c4, c5), nan_min(c6, c7));
-                const float t1_hi = nan_max(nan_max(c4, c5), nan_max(c6, c7));
-                const float n_a = nan_min(t0_lo, t1_lo);
-                const float f_a = nan_max(t0_hi, t1_hi);
+                const T olo = bnd[kOLo + a], ohi = bnd[kOHi + a];
+                const T dlo = bnd[kDLo + a], dhi = bnd[kDHi + a];
+                const bool mixed = dlo <= T(0) && dhi >= T(0);
+                const T i1 = T(1) / (mixed ? T(1) : dlo);
+                const T i2 = T(1) / (mixed ? T(1) : dhi);
+                const T il = mixed ? -big : nan_min(i1, i2);
+                const T ih = mixed ? big : nan_max(i1, i2);
+                const T tlo = lo[3 * i + a], thi = hi[3 * i + a];
+                const T a_lo = tlo - ohi, a_hi = tlo - olo;
+                const T b_lo = thi - ohi, b_hi = thi - olo;
+                const T c0 = a_lo * il, c1 = a_lo * ih, c2 = a_hi * il,
+                        c3 = a_hi * ih;
+                const T c4 = b_lo * il, c5 = b_lo * ih, c6 = b_hi * il,
+                        c7 = b_hi * ih;
+                const T t0_lo = nan_min(nan_min(c0, c1), nan_min(c2, c3));
+                const T t0_hi = nan_max(nan_max(c0, c1), nan_max(c2, c3));
+                const T t1_lo = nan_min(nan_min(c4, c5), nan_min(c6, c7));
+                const T t1_hi = nan_max(nan_max(c4, c5), nan_max(c6, c7));
+                const T n_a = nan_min(t0_lo, t1_lo);
+                const T f_a = nan_max(t0_hi, t1_hi);
                 tnear = a == 0 ? n_a : nan_max(tnear, n_a);
                 tfar = a == 0 ? f_a : nan_min(tfar, f_a);
                 if (mixed) {
-                    const float dist = clamp_min0(nan_max(tlo - ohi,
-                                                          olo - thi));
-                    const float speed = nan_max(fabsf(dlo), fabsf(dhi));
-                    reach = reach && dist <= maxt_c * speed + 1e-6f;
+                    const T dist = clamp_min0(nan_max(tlo - ohi, olo - thi));
+                    const T speed = nan_max(tabs(dlo), tabs(dhi));
+                    reach = reach && dist <= maxt_c * speed + T(1e-6);
                 }
             }
             tnear = clamp_min0(tnear);
             tfar = nan_min(tfar, maxt_ub);
             ok = tnear <= tfar && reach;
-            key = ok ? tnear : INFINITY;
+            key = ok ? tnear : T(INFINITY);
         }
         // stable near-to-far order: rank by (key, tile index); keys are
         // never NaN (a NaN bound fails the test and keys to inf)
         int rank = 0;
         for (int j = 0; j < n_tiles; ++j) {
-            const float kj = __shfl_sync(0xffffffffu, key, j);
+            const T kj = __shfl_sync(0xffffffffu, key, j);
             rank += (kj < key || (kj == key && j < i)) ? 1 : 0;
         }
         if (i < n_tiles) {
@@ -299,7 +313,7 @@ __global__ void __launch_bounds__(kRayBlock) tile_sweep_small_kernel(
     }
     __syncthreads();
 
-    Hit h{maxt, 0.0f, 0.0f, 0, -1};
+    Hit<T> h{maxt, T(0), T(0), 0, -1};
     const int k = sweep_list(
         s_rows, [&](int i) { return s_ids[i]; },
         [&](int i) { return s_key[i]; }, s_cnt, s_nan != 0, rows, ov[0],
@@ -310,25 +324,69 @@ __global__ void __launch_bounds__(kRayBlock) tile_sweep_small_kernel(
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t); returns cudaGetLastError().
-extern "C" int tile_sweep_launch(
-    const void *rays, const void *ids, const void *count, const void *tnear,
-    const void *rows, int n_blocks, int n_tiles, void *t_out, void *uv_out,
-    void *prim_out, void *shape_out, void *visited_out, void *stream) {
+namespace {
+
+template <typename T>
+int sweep_launch(const void *rays, const void *ids, const void *count,
+                 const void *tnear, const void *rows, int n_blocks,
+                 int n_tiles, void *t_out, void *uv_out, void *prim_out,
+                 void *shape_out, void *visited_out, void *stream) {
     if (n_blocks > 0) {
-        tile_sweep_kernel<<<n_blocks, kRayBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float *>(rays),
-            static_cast<const int32_t *>(ids),
+        tile_sweep_kernel<T><<<n_blocks, kRayBlock, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T *>(rays), static_cast<const int32_t *>(ids),
             static_cast<const int32_t *>(count),
-            static_cast<const float *>(tnear),
-            static_cast<const float *>(rows), n_tiles,
-            static_cast<float *>(t_out), static_cast<float *>(uv_out),
+            static_cast<const T *>(tnear), static_cast<const T *>(rows),
+            n_tiles, static_cast<T *>(t_out), static_cast<T *>(uv_out),
             static_cast<int32_t *>(prim_out),
             static_cast<int32_t *>(shape_out),
             static_cast<int32_t *>(visited_out));
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int sweep_small_launch(const void *o, const void *d, const void *mint,
+                       const void *maxt, long long n_rays, const void *root,
+                       const void *lo, const void *hi, int n_tiles,
+                       const void *rows, void *t_out, void *uv_out,
+                       void *prim_out, void *shape_out, void *visited_out,
+                       void *stream) {
+    if (n_tiles < 1 || n_tiles > kFusedMaxTiles || n_rays < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long n_blocks = (n_rays + kRayBlock - 1) / kRayBlock;
+    tile_sweep_small_kernel<T><<<n_blocks, kRayBlock, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T *>(o), static_cast<const T *>(d),
+        static_cast<const T *>(mint), static_cast<const T *>(maxt), n_rays,
+        static_cast<const T *>(root), static_cast<const T *>(lo),
+        static_cast<const T *>(hi), n_tiles, static_cast<const T *>(rows),
+        static_cast<T *>(t_out), static_cast<T *>(uv_out),
+        static_cast<int32_t *>(prim_out), static_cast<int32_t *>(shape_out),
+        static_cast<int32_t *>(visited_out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch on `stream` (a cudaStream_t); returns cudaGetLastError(). The
+// _f64 entries take and give float64 where these take float32.
+extern "C" int tile_sweep_launch(
+    const void *rays, const void *ids, const void *count, const void *tnear,
+    const void *rows, int n_blocks, int n_tiles, void *t_out, void *uv_out,
+    void *prim_out, void *shape_out, void *visited_out, void *stream) {
+    return sweep_launch<float>(rays, ids, count, tnear, rows, n_blocks,
+                               n_tiles, t_out, uv_out, prim_out, shape_out,
+                               visited_out, stream);
+}
+
+extern "C" int tile_sweep_launch_f64(
+    const void *rays, const void *ids, const void *count, const void *tnear,
+    const void *rows, int n_blocks, int n_tiles, void *t_out, void *uv_out,
+    void *prim_out, void *shape_out, void *visited_out, void *stream) {
+    return sweep_launch<double>(rays, ids, count, tnear, rows, n_blocks,
+                                n_tiles, t_out, uv_out, prim_out, shape_out,
+                                visited_out, stream);
 }
 
 // The fused query for 1 <= n_tiles <= 32 tiles; n_rays > 0. Launch on
@@ -339,18 +397,18 @@ extern "C" int tile_sweep_small_launch(
     long long n_rays, const void *root, const void *lo, const void *hi,
     int n_tiles, const void *rows, void *t_out, void *uv_out, void *prim_out,
     void *shape_out, void *visited_out, void *stream) {
-    if (n_tiles < 1 || n_tiles > kFusedMaxTiles || n_rays < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const long long n_blocks = (n_rays + kRayBlock - 1) / kRayBlock;
-    tile_sweep_small_kernel<<<n_blocks, kRayBlock, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float *>(o), static_cast<const float *>(d),
-        static_cast<const float *>(mint), static_cast<const float *>(maxt),
-        n_rays, static_cast<const float *>(root),
-        static_cast<const float *>(lo), static_cast<const float *>(hi),
-        n_tiles, static_cast<const float *>(rows),
-        static_cast<float *>(t_out), static_cast<float *>(uv_out),
-        static_cast<int32_t *>(prim_out), static_cast<int32_t *>(shape_out),
-        static_cast<int32_t *>(visited_out));
-    return static_cast<int>(cudaGetLastError());
+    return sweep_small_launch<float>(o, d, mint, maxt, n_rays, root, lo, hi,
+                                     n_tiles, rows, t_out, uv_out, prim_out,
+                                     shape_out, visited_out, stream);
+}
+
+extern "C" int tile_sweep_small_launch_f64(
+    const void *o, const void *d, const void *mint, const void *maxt,
+    long long n_rays, const void *root, const void *lo, const void *hi,
+    int n_tiles, const void *rows, void *t_out, void *uv_out, void *prim_out,
+    void *shape_out, void *visited_out, void *stream) {
+    return sweep_small_launch<double>(o, d, mint, maxt, n_rays, root, lo,
+                                      hi, n_tiles, rows, t_out, uv_out,
+                                      prim_out, shape_out, visited_out,
+                                      stream);
 }

@@ -12,7 +12,8 @@
 // Leaves read packed rows (tile_common.cuh) straight from global memory:
 // all 32 lanes load the same triangle at once, a broadcast LDG.128 through
 // L1, so the block holds no shared rows (staging per warp was measured no
-// faster: PERF.md).
+// faster: PERF.md). The walk is a template on the scene's float type, as
+// the leaf is.
 
 #pragma once
 
@@ -29,35 +30,37 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStack = 64;       // pallas_intersect.py:203
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_min(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
     for (int off = 16; off > 0; off >>= 1)
-        v = fminf(v, __shfl_xor_sync(kFull, v, off));
+        v = tile::tmin(v, __shfl_xor_sync(kFull, v, off));
     return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
     for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+        v = tile::tmax(v, __shfl_xor_sync(kFull, v, off));
     return v;
 }
 
 // a leaf: tile `tile_id` under instance row k (inst + 1) tested from its
 // global rows; returns the warp's new culling bound (largest best t)
-__device__ __forceinline__ float leaf(const float *__restrict__ rows,
-                                      int64_t tile_id, int k,
-                                      const float *__restrict__ xf,
-                                      const int32_t *__restrict__ sbase,
-                                      float ox, float oy, float oz, float dx,
-                                      float dy, float dz, float mint,
-                                      tile::Hit &h) {
+template <typename T>
+__device__ __forceinline__ T leaf(const T *__restrict__ rows,
+                                  int64_t tile_id, int k,
+                                  const T *__restrict__ xf,
+                                  const int32_t *__restrict__ sbase, T ox,
+                                  T oy, T oz, T dx, T dy, T dz, T mint,
+                                  tile::Hit<T> &h) {
     // the ray in the instance's space (an affine map keeps t)
-    const float *m = xf + 12 * k;
-    const float lox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
-    const float loy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
-    const float loz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
-    const float ldx = m[0] * dx + m[1] * dy + m[2] * dz;
-    const float ldy = m[4] * dx + m[5] * dy + m[6] * dz;
-    const float ldz = m[8] * dx + m[9] * dy + m[10] * dz;
+    const T *m = xf + 12 * k;
+    const T lox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+    const T loy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+    const T loz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+    const T ldx = m[0] * dx + m[1] * dy + m[2] * dz;
+    const T ldy = m[4] * dx + m[5] * dy + m[6] * dz;
+    const T ldz = m[8] * dx + m[9] * dy + m[10] * dz;
     tile::test_rows(rows + tile_id * tile::kTileWords, lox, loy, loz, ldx,
                     ldy, ldz, mint, sbase[k], h);
     return warp_max(h.t);

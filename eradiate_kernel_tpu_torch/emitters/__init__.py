@@ -31,8 +31,10 @@ from ..render.texture import (srgb_model_eval, texture_eval,
                               texture_sample_spectrum)
 
 
-def _zeros_like_batch(x, *shape, dtype=torch.float32):
-    return torch.zeros(x.shape[0], *shape, dtype=dtype, device=x.device)
+def _zeros_like_batch(x, *shape, dtype=None):
+    """Zeros (len(x), *shape) of ``dtype``, by default x's."""
+    return torch.zeros(x.shape[0], *shape, dtype=dtype or x.dtype,
+                       device=x.device)
 
 
 def area_eval(scene, params, slot, si, active):
@@ -342,7 +344,7 @@ def pdf_emitter_direction(scene, ref_p, si_hit, escaped, active, d=None):
     Without ``d`` an envmap's escaped lanes take the uniform sphere's pdf,
     as in the reference."""
     cfg = scene.config
-    pdf = torch.zeros(ref_p.shape[0], device=ref_p.device)
+    pdf = ref_p.new_zeros(ref_p.shape[0])
     if cfg.n_emitters == 0:
         return pdf
     if "area" in cfg.emitter_kinds:

@@ -76,7 +76,8 @@ def _camera_lanes(scene, seed, spp, sample, differentials=False):
     pos = torch.stack([px, py], dim=-1) + jitter
     pos_film = pos / torch.tensor([W, H], dtype=torch.float32,
                                   device=pos.device)
-    time = torch.zeros(sample.shape[0], device=pos.device)
+    time = torch.zeros(sample.shape[0], dtype=cfg.variant.dtype,
+                       device=pos.device)
     if differentials:
         ray, rd, ray_weight, sampler = sensors.sample_ray_differential(
             scene, sampler, pos_film, time, diff_scale=1.0 / math.sqrt(spp))
@@ -125,7 +126,8 @@ def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
         spec, valid, sampler = mod.sample(scene, sampler, ray)
         rows = _film_rows(spec * ray_weight, valid, ray.wavelengths)
     values = torch.where(lane_ok[:, None], rows, 0.0)
-    image = torch.zeros(ch, cw, N_BASE_CHANNELS + extra, device=dev)
+    image = torch.zeros(ch, cw, N_BASE_CHANNELS + extra,
+                        dtype=cfg.variant.dtype, device=dev)
     offset = torch.tensor([cx, cy], dtype=torch.float32, device=dev)
     return film_put(image, pos - offset, values, cfg.rfilter,
                     dict(cfg.rfilter_params))
@@ -340,7 +342,19 @@ def regen_supported(cfg) -> bool:
     needs the bounce hooks (path, volpath and volpathmis have them; direct
     and depth take the scan driver, as in the reference), and an AOV
     wrapper its harvest hook; duv AOVs need the offset camera rays and
-    keep the scan driver."""
+    keep the scan driver.
+
+    Raises NotImplementedError for a double variant: the reference's pool
+    fails there (its film placement, integrators/__init__.py:494-495, mixes
+    int32 and int64 indices in dynamic_update_slice under x64), so its
+    double variants render, and differentiate, on the scan driver alone;
+    so does the port's (render(regen=False))."""
+    if cfg.variant.is_double:
+        raise NotImplementedError(
+            f"the lane pool in {cfg.variant.mode}_double: the reference's "
+            "fails in double precision (integrators/__init__.py:494-495: "
+            "dynamic_update_slice of int32 and int64 indices under x64); "
+            "render with regen=False, the scan driver")
     bmod = _bounce_module(cfg)
     if not all(hasattr(bmod, h) for h in ("_init_state", "_bounce",
                                           "_knobs")):
@@ -397,6 +411,7 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
                                                  seed, spp)
     else:
         film = torch.zeros(ch, cw, N_BASE_CHANNELS + n_aov(cfg),
+                           dtype=cfg.variant.dtype,
                            device=scene.bsphere_center.device)
         for off in range(0, total, samples_per_pass):
             film += render_wavefront(scene, off, min(samples_per_pass,

@@ -63,22 +63,23 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
     dead."""
     n = ray.o.shape[0]
     dev = ray.o.device
-    ones = torch.ones(n, device=dev)
+    ones = ray.o.new_ones(n)
     if active is None:
         active = torch.ones(n, dtype=torch.bool, device=dev)
     ok = (0.0 * ray.o[:, 0]) == 0.0
     nc = scene.config.variant.channels(ray.wavelengths)
     return _PathState(
-        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths),
+        sampler=sampler, ray=ray,
+        si=invalid_si(n, dev, ray.wavelengths, ray.o.dtype),
         needs_intersection=ok.clone(),
-        throughput=torch.ones(n, nc, device=dev),
-        result=torch.zeros(n, nc, device=dev), eta=ones,
+        throughput=ray.o.new_ones(n, nc),
+        result=ray.o.new_zeros(n, nc), eta=ones,
         # prev_delta=True gives em_pdf=0 at the first hit -> weight 1
-        prev_bsdf_pdf=ones, prev_p=torch.zeros(n, 3, device=dev),
+        prev_bsdf_pdf=ones, prev_p=ray.o.new_zeros(n, 3),
         prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
         valid_ray=torch.zeros(n, dtype=torch.bool, device=dev),
         depth=torch.zeros(n, dtype=torch.int32, device=dev),
-        active=active & ok, n_rays=torch.zeros((), device=dev))
+        active=active & ok, n_rays=ray.o.new_zeros(()))
 
 
 def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
@@ -100,7 +101,7 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
     # ---- emitter hit / environment with the carried MIS weight --------------
     escaped = ~si.is_valid
     mis_lanes = active & ~s.prev_delta
-    em_pdf = torch.zeros(n, device=dev)
+    em_pdf = si.t.new_zeros(n)
     if any_lane(mis_lanes):
         em_pdf = emitters.pdf_emitter_direction(scene, s.prev_p, si, escaped,
                                                 mis_lanes, d=s.ray.d)
@@ -155,7 +156,7 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
                                             active)
     else:
         bs, bsdf_weight = bsdf_flags.zero_bsdf_sample(
-            n, s.throughput.shape[-1], dev)
+            n, s.throughput.shape[-1], dev, si.t.dtype)
     throughput = throughput * torch.where(active[:, None], bsdf_weight, 1.0)
     eta = torch.where(active, s.eta * bs.eta, s.eta)
     active = active & torch.any(throughput > 0, dim=-1) & (bs.pdf > 0)

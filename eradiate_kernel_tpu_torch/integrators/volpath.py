@@ -102,7 +102,7 @@ def _is_medium_transition(scene, si):
 def _eval_null_transmission(scene, si, active, nc):
     """Only 'null' BSDFs pass light through (bsdf.h:408) -> (N, nc)."""
     kind_id = scene.bsdf_kind[scene.shape_bsdf[_shape_of(si)]]
-    out = torch.zeros(si.t.shape[0], nc, device=si.t.device)
+    out = si.t.new_zeros(si.t.shape[0], nc)
     for k, kind in enumerate(scene.config.bsdf_kinds):
         if kind == "null":
             out = torch.where((active & (kind_id == k))[..., None], 1.0, out)
@@ -141,14 +141,14 @@ def _walk_hit(si):
                     uv=si.uv, wi=si.wi, wavelengths=si.wavelengths)
 
 
-def _invalid_walk_hit(n, dev, wavelengths):
-    up = torch.zeros(n, 3, device=dev)
+def _invalid_walk_hit(n, dev, wavelengths, dtype):
+    up = torch.zeros(n, 3, dtype=dtype, device=dev)
     up[:, 2] = 1.0
-    return _WalkHit(t=torch.full((n,), INVALID_T, device=dev),
-                    p=torch.zeros(n, 3, device=dev), n=up,
+    return _WalkHit(t=torch.full((n,), INVALID_T, dtype=dtype, device=dev),
+                    p=torch.zeros(n, 3, dtype=dtype, device=dev), n=up,
                     shape_index=torch.full((n,), -1, dtype=torch.int32,
                                            device=dev),
-                    uv=torch.zeros(n, 2, device=dev), wi=up,
+                    uv=torch.zeros(n, 2, dtype=dtype, device=dev), wi=up,
                     wavelengths=wavelengths)
 
 
@@ -290,7 +290,7 @@ def _tracked_segment(scene, s, ray, active, remaining, channel, ca):
     mi = ca(active_medium,
             lambda: media.sample_interaction(scene, med, ray, xi, channel,
                                              active_medium),
-            lambda: media.invalid_mi(n, nc, ray.o.device))
+            lambda: media.invalid_mi(n, nc, ray.o.device, ray.o.dtype))
     do_isect = s.needs_intersection & (active_medium | active_surface)
     si = ca(do_isect,
             lambda: merge(_walk_hit(ray_intersect(scene.geo, ray, do_isect)),
@@ -449,7 +449,7 @@ def _sample_emitter(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
     sampler, s1 = sampler.next_1d()
     sampler, s2 = sampler.next_2d()
     ds, emitter_val = emitters.sample_emitter_direction(
-        scene, _RefPoint(p=ref_p, t=torch.zeros(n, device=dev),
+        scene, _RefPoint(p=ref_p, t=ref_p.new_zeros(n),
                          wavelengths=wavelengths),
         s_pick, s1, s2, active, test_visibility=False)
     active = active & (ds.pdf > 0)
@@ -460,17 +460,18 @@ def _sample_emitter(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
     scale = 1.0 + torch.amax(torch.abs(ref_p), dim=-1)
     sgn = torch.where(dot(ref_n, ds.d) >= 0, 1.0, -1.0)
     o = ref_p + eps_n * (RayEpsilon * scale * sgn)[..., None] * ref_n
-    ray = Ray(o=o, d=ds.d, mint=torch.zeros(n, device=dev),
-              maxt=torch.full((n,), INVALID_T, device=dev), time=time,
+    ray = Ray(o=o, d=ds.d, mint=o.new_zeros(n),
+              maxt=o.new_full((n,), INVALID_T), time=time,
               wavelengths=wavelengths)
     state = _WalkState(
-        sampler=sampler, ray=ray, si=_invalid_walk_hit(n, dev, wavelengths),
+        sampler=sampler, ray=ray,
+        si=_invalid_walk_hit(n, dev, wavelengths, o.dtype),
         needs_intersection=torch.ones(n, dtype=torch.bool, device=dev),
         medium_idx=medium_idx,
-        transmittance=torch.where(active[..., None], torch.ones(
-            n, scene.config.variant.channels(wavelengths), device=dev), 0.0),
-        total_dist=torch.zeros(n, device=dev), active=active,
-        n_rays=torch.zeros((), device=dev))
+        transmittance=torch.where(active[..., None], o.new_ones(
+            n, scene.config.variant.channels(wavelengths)), 0.0),
+        total_dist=o.new_zeros(n), active=active,
+        n_rays=o.new_zeros(()))
     mode = _nee_mode(scene)
     if mode == "track":
         step = lambda s: _walk_step_tracked(scene, s, ds, channel, ca)
@@ -638,11 +639,11 @@ def _evaluate_direct_light(scene, ref_p, ray, si_ray, medium_idx, channel,
         sampler=sampler, ray=ray, si=_walk_hit(si_ray),
         needs_intersection=torch.zeros(n, dtype=torch.bool, device=dev),
         medium_idx=medium_idx,
-        transmittance=torch.where(active[..., None], torch.ones(
-            n, nc, device=dev), 0.0),
-        emitter_val=torch.zeros(n, nc, device=dev),
-        emitter_pdf=torch.zeros(n, device=dev), active=active,
-        n_rays=torch.zeros((), device=dev))
+        transmittance=torch.where(active[..., None], ref_p.new_ones(
+            n, nc), 0.0),
+        emitter_val=ref_p.new_zeros(n, nc),
+        emitter_pdf=ref_p.new_zeros(n), active=active,
+        n_rays=ref_p.new_zeros(()))
     if _nee_mode(scene) == "residual":
         step = lambda s: _direct_step_residual(scene, s, ref_p, ca)
     else:
@@ -706,7 +707,7 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     mi = ca(active_medium,
             lambda: media.sample_interaction(scene, med, ray, xi_m, s.channel,
                                              active_medium),
-            lambda: media.invalid_mi(n, nc, dev))
+            lambda: media.invalid_mi(n, nc, dev, ray.o.dtype))
     # ONE intersection serves the (disjoint) medium and surface lanes
     do_isect = s.needs_intersection & (active_medium | active_surface)
     si = ca(do_isect,
@@ -774,7 +775,7 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     wo_m, _ppdf = ca(act_scatter,
                      lambda: phase.phase_sample(scene, phase_idx, ray.d,
                                                 xi_p1, xi_p2, act_scatter),
-                     lambda: (ray.d, torch.zeros(n, device=dev)))
+                     lambda: (ray.d, ray.d.new_zeros(n)))
     ray = Ray(o=torch.where(act_scatter[..., None], mi.p, ray.o),
               d=torch.where(act_scatter[..., None], wo_m, ray.d),
               mint=torch.where(act_scatter, 0.0, ray.mint),
@@ -794,7 +795,7 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
                                                  use_emit & hit_area)
                + emitters.eval_environment(scene, ray, ~si.is_valid,
                                            use_emit & hit_env),
-               lambda: torch.zeros(n, nc, device=dev))
+               lambda: ray.o.new_zeros(n, nc))
     result = s.result + torch.where(use_emit[..., None], throughput * e_val,
                                     0.0)
 
@@ -831,9 +832,9 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
     def nee_skip():
         # keep the stream aligned with the taken branch: the walk consumes
         # exactly 3 + nee_steps dimensions (pick, s1, s2, one per step)
-        return (torch.zeros(n, nc, device=dev),
+        return (ray.o.new_zeros(n, nc),
                 dataclasses.replace(smp, dim=smp.dim + 3 + nee_steps),
-                torch.zeros((), device=dev))
+                ray.o.new_zeros(()))
 
     nee_delta, smp, nr_s = ca(nee_active, nee_block, nee_skip)
     result = result + nee_delta
@@ -846,7 +847,7 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
         active_surface,
         lambda: bsdfs.bsdf_sample(scene, bsdf_idx, si, xb1, xb2,
                                   active_surface),
-        lambda: bsdf_flags.zero_bsdf_sample(n, nc, dev))
+        lambda: bsdf_flags.zero_bsdf_sample(n, nc, dev, si.t.dtype))
     throughput = torch.where(active_surface[..., None],
                              throughput * bsdf_weight, throughput)
     eta = torch.where(active_surface, s.eta * bs.eta, s.eta)
@@ -886,10 +887,9 @@ def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
         # the MIS walk of the BSDF-sampled ray; the skipped branch advances
         # the sampler as the walk does: nee_steps dimensions
         def direct_skip():
-            return (torch.zeros(n, nc, device=dev),
-                    torch.zeros(n, device=dev),
+            return (ray.o.new_zeros(n, nc), ray.o.new_zeros(n),
                     dataclasses.replace(smp, dim=smp.dim + nee_steps),
-                    torch.zeros((), device=dev))
+                    ray.o.new_zeros(()))
 
         emitted_d, emitter_pdf, smp, nr_d = ca(
             add_emitter,
@@ -968,19 +968,20 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
         channel = torch.zeros(n, dtype=torch.int32, device=dev)
     hide = cfg.integrator.hide_emitters
     return _VolPathState(
-        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths),
+        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths,
+                                                ray.o.dtype),
         needs_intersection=ok.clone(),
         medium_idx=(torch.full((n,), cfg.sensor_medium, dtype=torch.int32,
                                device=dev) if medium_idx is None
                     else medium_idx.to(torch.int32)),
-        throughput=torch.ones(n, nc, device=dev) + v0[:, None],
-        result=torch.zeros(n, nc, device=dev),
-        eta=torch.ones(n, device=dev) + v0,
+        throughput=ray.o.new_ones(n, nc) + v0[:, None],
+        result=ray.o.new_zeros(n, nc),
+        eta=ray.o.new_ones(n) + v0,
         depth=torch.zeros(n, dtype=torch.int32, device=dev),
         channel=channel, specular_chain=active & (not hide),
         valid_ray=torch.full((n,), (not hide) and cfg.env_emitter >= 0,
                              dtype=torch.bool, device=dev),
-        active=active, n_rays=torch.zeros((), device=dev))
+        active=active, n_rays=ray.o.new_zeros(()))
 
 
 def _trace(scene, sampler: Sampler, ray: Ray, active=None, medium_idx=None):

@@ -133,7 +133,7 @@ def _walk_step(scene, s, ds, channel, ca):
     mi = ca(active_medium,
             lambda: media.sample_interaction(scene, med, ray, xi, channel,
                                              active_medium),
-            lambda: media.invalid_mi(n, nc, ray.o.device))
+            lambda: media.invalid_mi(n, nc, ray.o.device, ray.o.dtype))
     # the medium lanes' and the surface lanes' queries of the reference are
     # on the same (unmoved) rays: one query serves both
     do_isect = s.needs_intersection & active
@@ -209,7 +209,7 @@ def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
     sampler, s1 = sampler.next_1d()
     sampler, s2 = sampler.next_2d()
     ds, emitter_val = emitters.sample_emitter_direction(
-        scene, _RefPoint(p=ref_p, t=torch.zeros(n, device=dev),
+        scene, _RefPoint(p=ref_p, t=ref_p.new_zeros(n),
                          wavelengths=wavelengths),
         s_pick, s1, s2, active, test_visibility=False)
     active = active & (ds.pdf > 0)
@@ -217,7 +217,7 @@ def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
     # matrix instead (volpathmis.cpp:340)
     emitter_val = torch.where(active[..., None],
                               emitter_val * ds.pdf[..., None], 0.0)
-    ones = torch.ones(n, nc, device=dev)
+    ones = ref_p.new_ones(n, nc)
     pf_nee = _update(pf, _bcast(ds.pdf, nc), ones, active)
 
     # connection ray; a medium reference starts in the medium
@@ -225,16 +225,16 @@ def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
     scale = 1.0 + torch.amax(torch.abs(ref_p), dim=-1)
     sgn = torch.where(dot(ref_n, ds.d) >= 0, 1.0, -1.0)
     o = ref_p + eps_n * (RayEpsilon * scale * sgn)[..., None] * ref_n
-    ray = Ray(o=o, d=ds.d, mint=torch.zeros(n, device=dev),
-              maxt=torch.full((n,), INVALID_T, device=dev), time=time,
+    ray = Ray(o=o, d=ds.d, mint=o.new_zeros(n),
+              maxt=o.new_full((n,), INVALID_T), time=time,
               wavelengths=wavelengths)
     state = _WalkState(
         sampler=sampler, ray=ray,
-        si=_invalid_walk_hit(n, dev, ray.wavelengths),
+        si=_invalid_walk_hit(n, dev, ray.wavelengths, o.dtype),
         needs_intersection=torch.ones(n, dtype=torch.bool, device=dev),
         medium_idx=medium_idx, pf_nee=pf_nee, pf_uni=pf,
-        total_dist=torch.zeros(n, device=dev), active=active,
-        n_rays=torch.zeros((), device=dev))
+        total_dist=o.new_zeros(n), active=active,
+        n_rays=o.new_zeros(()))
     final = _run_walk(lambda st: _walk_step(scene, st, ds, channel, ca),
                       state, nee_steps, use_while)
     # lanes still walking after the cap contribute nothing
@@ -277,7 +277,7 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
     nc = s.result.shape[-1]
     ca = _gate(gate_sites)
     ca_walk = _gate(gate_sites if gate_walks is None else gate_walks)
-    ones = torch.ones(n, nc, device=dev)
+    ones = s.ray.o.new_ones(n, nc)
     smp = s.sampler
     active = s.active
     ray = s.ray
@@ -304,7 +304,7 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
     mi = ca(active_medium,
             lambda: media.sample_interaction(scene, med, ray, xi_m, s.channel,
                                              active_medium),
-            lambda: media.invalid_mi(n, nc, dev))
+            lambda: media.invalid_mi(n, nc, dev, ray.o.dtype))
     do_isect = s.needs_intersection & (active_medium | active_surface)
     si = ca(do_isect,
             lambda: merge(ray_intersect(scene.geo, ray, do_isect), si,
@@ -369,10 +369,10 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
 
     def nee_skip(smp0):
         # the walk draws 3 + nee_steps dimensions (pick, s1, s2, one a step)
-        return lambda: (torch.zeros(n, nc, device=dev),
+        return lambda: (ray.o.new_zeros(n, nc),
                         dataclasses.replace(smp0, dim=smp0.dim + 3
                                             + nee_steps),
-                        torch.zeros((), device=dev))
+                        ray.o.new_zeros(()))
 
     delta, smp, nr = ca(act_scatter, medium_nee, nee_skip(smp))
     result = s.result + delta
@@ -384,7 +384,7 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
     wo_m, ppdf = ca(act_scatter,
                     lambda: phase.phase_sample(scene, phase_idx, ray.d, xi_p1,
                                                xi_p2, act_scatter),
-                    lambda: (ray.d, torch.zeros(n, device=dev)))
+                    lambda: (ray.d, ray.d.new_zeros(n)))
     pp = _bcast(ppdf, nc)
     pf = _update(pf, pp, pp, act_scatter)
     pf_nee = _update(pf_nee, torch.ones_like(pp), pp, act_scatter)
@@ -421,7 +421,7 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
         return torch.where(active_e[..., None], contrib, 0.0)
 
     result = result + ca(active_e, emitter_hit,
-                         lambda: torch.zeros(n, nc, device=dev))
+                         lambda: ray.o.new_zeros(n, nc))
 
     active_surface = active_surface & si.is_valid
     bsdf_idx = scene.shape_bsdf[_shape_of(si)]
@@ -456,7 +456,7 @@ def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
         active_surface,
         lambda: bsdfs.bsdf_sample(scene, bsdf_idx, si, xb1, xb2,
                                   active_surface),
-        lambda: bsdf_flags.zero_bsdf_sample(n, nc, dev))
+        lambda: bsdf_flags.zero_bsdf_sample(n, nc, dev, si.t.dtype))
     f_bsdf = bsdf_weight * torch.clamp(bs.pdf[..., None], min=1e-20)
 
     sampled_null = (bs.sampled_type & bsdf_flags.Null) != 0
@@ -534,21 +534,22 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
     else:
         channel = torch.zeros(n, dtype=torch.int32, device=dev)
     hide = cfg.integrator.hide_emitters
-    ones = torch.ones(n, nc, nc, device=dev) + v0[:, None, None]
+    ones = ray.o.new_ones(n, nc, nc) + v0[:, None, None]
     return _State(
-        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths),
+        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths,
+                                                ray.o.dtype),
         needs_intersection=ok.clone(),
         medium_idx=(torch.full((n,), cfg.sensor_medium, dtype=torch.int32,
                                device=dev) if medium_idx is None
                     else medium_idx.to(torch.int32)),
-        pf=ones, pf_nee=ones.clone(), result=torch.zeros(n, nc, device=dev),
-        eta=torch.ones(n, device=dev) + v0,
+        pf=ones, pf_nee=ones.clone(), result=ray.o.new_zeros(n, nc),
+        eta=ray.o.new_ones(n) + v0,
         depth=torch.zeros(n, dtype=torch.int32, device=dev), channel=channel,
         specular_chain=active & (not hide),
         last_scatter_p=ray.o,
         valid_ray=torch.full((n,), (not hide) and cfg.env_emitter >= 0,
                              dtype=torch.bool, device=dev) & ok,
-        active=active, n_rays=torch.zeros((), device=dev))
+        active=active, n_rays=ray.o.new_zeros(()))
 
 
 def _trace(scene, sampler: Sampler, ray: Ray, active=None, medium_idx=None):

@@ -58,18 +58,16 @@ class MediumInteraction:
         return self.t < 0.5 * INVALID_T
 
 
-def invalid_mi(n, nc, device):
-    """An invalid interaction with zero coefficients (every consumer of a
-    skipped sampling site is masked)."""
-    z = torch.zeros(n, nc, device=device)
-    zn = torch.zeros(n, device=device)
+def invalid_mi(n, nc, device, dtype=torch.float32):
+    """An invalid interaction in ``dtype`` with zero coefficients (every
+    consumer of a skipped sampling site is masked)."""
+    f = lambda *shape, v=0.0: torch.full(shape, v, dtype=dtype,
+                                         device=device)
+    z, zn = f(n, nc), f(n)
     return MediumInteraction(
-        t=torch.full((n,), INVALID_T, device=device),
-        p=torch.zeros(n, 3, device=device), mint=zn, sigma_s=z, sigma_n=z,
-        sigma_t=z, combined_extinction=z,
-        maxt=torch.full((n,), INVALID_T, device=device),
-        ff_mq=torch.zeros(n, AXPROF_BINS, device=device), ff_qa=zn, ff_qb=zn,
-        ff_adlz=torch.ones(n, device=device),
+        t=f(n, v=INVALID_T), p=f(n, 3), mint=zn, sigma_s=z, sigma_n=z,
+        sigma_t=z, combined_extinction=z, maxt=f(n, v=INVALID_T),
+        ff_mq=f(n, AXPROF_BINS), ff_qa=zn, ff_qb=zn, ff_adlz=f(n, v=1.0),
         ff_on=torch.zeros(n, dtype=torch.bool, device=device))
 
 
@@ -126,7 +124,9 @@ def medium_intersect_bounds(scene, medium_idx, ray, active):
 def medium_combined_extinction(scene, medium_idx, wavelengths):
     """Global majorant (per channel) of each lane's medium."""
     nc = scene.config.variant.channels(wavelengths)
-    out = torch.ones(medium_idx.shape + (nc,), device=medium_idx.device)
+    out = torch.ones(medium_idx.shape + (nc,),
+                     dtype=scene.config.variant.dtype,
+                     device=medium_idx.device)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         if kind == "homogeneous":
@@ -212,9 +212,12 @@ def _flight_profile_setup(prof3, mag, w2l, ray, a, b):
             m_at_a.detach(), is_const)
 
 
-def _bin_edges(P, device):
-    ar = torch.arange(P, device=device)
-    return ar, ar / P, (ar + 1.0) / P
+def _bin_edges(P, like):
+    """The P bins' indices and their lower and upper edges in [0, 1], in
+    ``like``'s dtype (the reference divides in its default float dtype)."""
+    ar = torch.arange(P, device=like.device)
+    arf = ar.to(like.dtype)
+    return ar, arf / P, (arf + 1.0) / P
 
 
 def _flight_sample(mq, qa, qb, adlz, a, xi):
@@ -222,7 +225,7 @@ def _flight_sample(mq, qa, qb, adlz, a, xi):
     Lambda(t) = int_a^t mq(q(s)) ds with q(s) = qa + adlz (s - a). Returns
     (t, m_local, lam_total); an escape (t > b) gives t = INVALID_T."""
     P = mq.shape[-1]
-    ar, e_lo, e_hi = _bin_edges(P, mq.device)
+    ar, e_lo, e_hi = _bin_edges(P, mq)
     ov = torch.clamp(torch.minimum(qb[..., None], e_hi)
                      - torch.maximum(qa[..., None], e_lo), min=0.0)
     lam_bins = mq * ov
@@ -240,7 +243,7 @@ def _flight_sample(mq, qa, qb, adlz, a, xi):
     lam_k = pick(lam_bins)
     m_k = pick(mq)
     cum_prev = cum_k - lam_k
-    q_k0 = torch.maximum(qa, kc / P)
+    q_k0 = torch.maximum(qa, kc.to(mq.dtype) / P)
     dq = (target_z - cum_prev) / torch.clamp(m_k, min=1e-20)
     t = a + (q_k0 + dq - qa) / adlz
     t = torch.where(escaped, INVALID_T, t)
@@ -251,7 +254,7 @@ def _flight_tau(mq, qa, qb, adlz, a, t):
     """Lambda(t): optical depth of the profile rate from a to t (flat
     beyond the segment end qb)."""
     P = mq.shape[-1]
-    _ar, e_lo, e_hi = _bin_edges(P, mq.device)
+    _ar, e_lo, e_hi = _bin_edges(P, mq)
     q_t = torch.minimum(qa + adlz * torch.clamp(t - a, 0.0, INVALID_T), qb)
     ov = torch.clamp(torch.minimum(q_t[..., None], e_hi)
                      - torch.maximum(qa[..., None], e_lo), min=0.0)
@@ -264,7 +267,8 @@ def medium_scattering_coefficients(scene, medium_idx, p, wavelengths,
     the global combined extinction."""
     dev = p.device
     nc = scene.config.variant.channels(wavelengths)
-    sigma_s = torch.zeros(medium_idx.shape + (nc,), device=dev)
+    sigma_s = torch.zeros(medium_idx.shape + (nc,), dtype=p.dtype,
+                          device=dev)
     sigma_t = torch.zeros_like(sigma_s)
     if majorant is None:
         majorant = medium_combined_extinction(scene, medium_idx,
@@ -310,7 +314,7 @@ def _tau_1d_profile(prof, cum, Dn, o_z, dlz, a, b):
     def T(z):
         i0, f, p0, p1 = _profile_lerp_setup(prof, Dn, z)
         c0 = torch.gather(cum, -1, i0[..., None].long())[..., 0]
-        dz = 1.0 / torch.clamp(Dn - 1, min=1)
+        dz = 1.0 / torch.clamp(Dn - 1, min=1).to(prof.dtype)
         t_multi = c0 + dz * (p0 * f + 0.5 * (p1 - p0) * f * f)
         # D == 1: constant profile, T(z) = p0 * z
         return torch.where(Dn > 1, t_multi, p0 * torch.clamp(z, 0.0, 1.0))
@@ -341,7 +345,7 @@ def medium_ctrl_tau_segment(scene, medium_idx, ray, a, b, wavelengths):
     the control field sigma_c (homogeneous: sigma_t; heterogeneous: the
     horizontal-mean vertical profile)."""
     nc = scene.config.variant.channels(wavelengths)
-    tau = torch.zeros(a.shape + (nc,), device=a.device)
+    tau = a.new_zeros(a.shape + (nc,))
     seg = torch.clamp(b - a, min=0.0)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
@@ -411,7 +415,7 @@ def medium_residual_sample(scene, medium_idx, ray, a, b, xi):
 def medium_ctrl_sigma(scene, medium_idx, p, wavelengths):
     """Control field sigma_c at world point p -> (N, nc), scale included."""
     nc = scene.config.variant.channels(wavelengths)
-    out = torch.zeros(medium_idx.shape + (nc,), device=p.device)
+    out = p.new_zeros(medium_idx.shape + (nc,))
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         params = scene.media[kind]
@@ -432,7 +436,7 @@ def medium_sigma_t(scene, medium_idx, p, wavelengths):
     """sigma_t alone at world point p -> (N, nc) (the residual-collision
     integrand; no albedo lookup)."""
     nc = scene.config.variant.channels(wavelengths)
-    out = torch.zeros(medium_idx.shape + (nc,), device=p.device)
+    out = p.new_zeros(medium_idx.shape + (nc,))
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
         params = scene.media[kind]
@@ -475,7 +479,7 @@ def medium_tau_segment(scene, medium_idx, ray, a, b, wavelengths,
     profile; general 3D grids Gauss-Legendre quadrature with
     ``quad_points`` nodes (consistent, not unbiased)."""
     nc = scene.config.variant.channels(wavelengths)
-    tau = torch.zeros(a.shape + (nc,), device=a.device)
+    tau = a.new_zeros(a.shape + (nc,))
     seg = torch.clamp(b - a, min=0.0)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
@@ -510,8 +514,8 @@ def sample_interaction(scene, medium_idx, ray, sample, channel, active):
     dev = mint.device
     if profile and tuple(cfg.medium_kinds) == ("heterogeneous",):
         # every lane takes the profile path below: no segment majorant
-        combined = torch.ones(n, nc, device=dev)
-        m = torch.ones(n, device=dev)
+        combined = mint.new_ones(n, nc)
+        m = mint.new_ones(n)
     else:
         combined = medium_majorant_segment(scene, medium_idx, ray, mint,
                                            maxt, ray.wavelengths)
@@ -519,7 +523,7 @@ def sample_interaction(scene, medium_idx, ray, sample, channel, active):
                          torch.clamp(channel, 0, nc - 1)[:, None].long())[:, 0]
 
     sampled_t = mint - torch.log1p(-sample) / m
-    inv = invalid_mi(n, nc, dev)
+    inv = invalid_mi(n, nc, dev, mint.dtype)
     ff_mq, ff_qa, ff_qb, ff_adlz, ff_on = (inv.ff_mq, inv.ff_qa, inv.ff_qb,
                                            inv.ff_adlz, inv.ff_on)
     if profile and "heterogeneous" in cfg.medium_kinds:

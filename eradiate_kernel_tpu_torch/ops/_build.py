@@ -4,7 +4,9 @@ shared library with a plain C entry point, loaded with ctypes).
 Each kernel ``<name>`` is one source ``csrc/<name>.cu`` (plus the shared
 headers it names) exporting one or more ``int <entry>(...)`` functions,
 each of which launches on the stream it is given and returns
-``cudaGetLastError()``. The modules that own kernels register them here;
+``cudaGetLastError()``. Every entry takes float32 tensors and has a twin
+``<entry>_f64`` with the same arguments that takes float64 ones (the
+double variants); ``FLOAT_SUFFIX`` maps a tensor's dtype to its entry. The modules that own kernels register them here;
 ``build_kernels()`` compiles every registered kernel for sm_90a at first
 use, one nvcc per source, all started together, into the package's
 ``build/`` directory, keyed by the hash of the sources. Nothing is built
@@ -28,6 +30,9 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "build")
 
 PTR, INT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# the suffix of each float type's entries
+FLOAT_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
+
 # name -> (shared headers, {entry: ctypes argument types})
 _SPECS = {}
 _libs = {}
@@ -35,10 +40,13 @@ _libs = {}
 
 def register(name, entries, headers=()):
     """Declare kernel ``name``: csrc/<name>.cu and the launch signature of
-    each of its C entries (entry name -> argument types). Pointers and the
-    stream are PTR, ints INT, 64-bit ints LONG (ctypes would otherwise pass
-    a Python int as a 32-bit int and cut a pointer)."""
-    _SPECS[name] = (tuple(headers), {e: list(a) for e, a in entries.items()})
+    each of its float32 C entries (entry name -> argument types), which
+    declares their float64 twins too. Pointers and the stream are PTR,
+    ints INT, 64-bit ints LONG (ctypes would otherwise pass a Python int
+    as a 32-bit int and cut a pointer)."""
+    _SPECS[name] = (tuple(headers), {
+        e + sfx: list(a) for e, a in entries.items()
+        for sfx in FLOAT_SUFFIX.values()})
 
 
 def _so_path(name):

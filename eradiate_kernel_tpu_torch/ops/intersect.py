@@ -74,8 +74,10 @@ BVH_GROUP = 32
 LEAF_INST_BITS = 12          # BVH8 leaf entries: -((tile << 12) | (inst+1)) - 1
 
 # launches of each CUDA kernel in this process (its wrapper adds one per
-# launch); chip_smoke.py reads them to show the main path ran the kernels
-launches = {"tile_sweep": 0, "tile_bvh": 0, "tile_bvh8": 0}
+# launch), the float64 entries of the double variants under "<name>_f64";
+# chip_smoke.py reads them to show the main path ran the kernels
+launches = {"tile_sweep": 0, "tile_bvh": 0, "tile_bvh8": 0,
+            "tile_sweep_f64": 0, "tile_bvh_f64": 0, "tile_bvh8_f64": 0}
 
 # test hook: run the plain versions on CUDA tensors too (chip_smoke.py
 # renders the same scene through both); see use_plain
@@ -168,19 +170,28 @@ def root_box(lo, hi):
 
 
 def tile_rows(v0, e1, e2, prim, shape):
-    """(T, K, 12) f32 packed triangles, the layout every tile kernel reads:
-    [v0x v0y v0z e1x | e1y e1z e2x e2y | e2z prim shape 0] with prim and
-    shape as int32 bits, three 16-byte loads a triangle."""
+    """(T, K, 12) packed triangles of v0's dtype, the layout every tile
+    kernel reads: [v0x v0y v0z e1x | e1y e1z e2x e2y | e2z prim shape 0].
+    In float32 prim and shape are int32 bits (three 16-byte loads a
+    triangle); in float64 they are exact doubles (six 16-byte loads), which
+    the kernels and row_views read back as the same integers."""
     ids = torch.stack([prim, shape, torch.zeros_like(prim)], dim=-1)
-    return torch.cat([v0, e1, e2, ids.view(torch.float32)], dim=-1
-                     ).contiguous()
+    ids = (ids.view(torch.float32) if v0.dtype == torch.float32
+           else ids.to(v0.dtype))
+    return torch.cat([v0, e1, e2, ids], dim=-1).contiguous()
 
 
 def row_views(rows):
-    """(v0, e1, e2, prim, shape) as views of packed rows (no copy): the
-    pack_tiles arrays that tile_rows packed."""
-    return (rows[..., 0:3], rows[..., 3:6], rows[..., 6:9],
-            rows[..., 9].view(torch.int32), rows[..., 10].view(torch.int32))
+    """(v0, e1, e2, prim, shape) of packed rows: the pack_tiles arrays that
+    tile_rows packed, views (no copy) in float32; in float64 the ids are
+    int32 copies."""
+    if rows.dtype == torch.float32:
+        prim, shape = rows[..., 9].view(torch.int32), rows[..., 10].view(
+            torch.int32)
+    else:
+        prim, shape = (rows[..., 9].to(torch.int32),
+                       rows[..., 10].to(torch.int32))
+    return rows[..., 0:3], rows[..., 3:6], rows[..., 6:9], prim, shape
 
 
 def packed_rows(tiles):
@@ -424,32 +435,47 @@ def _sweep_small_plain(o, d, mint, maxt, root, lo, hi, rows):
     return t[:n], uv[:n], prim_o[:n], shape_o[:n], visited
 
 
-def _hit_outputs(n, dev):
-    return (torch.empty(n, dtype=torch.float32, device=dev),
-            torch.empty(n, 2, dtype=torch.float32, device=dev),
+def _hit_outputs(n, dev, dtype):
+    return (torch.empty(n, dtype=dtype, device=dev),
+            torch.empty(n, 2, dtype=dtype, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev))
+
+
+_SUFFIX = _build.FLOAT_SUFFIX
+
+
+def _entry(name, fn, rows):
+    """The ctypes entry ``fn`` of kernel ``name`` for the rows' float type
+    (its _f64 twin for float64 rows); raises for another type."""
+    if rows.dtype not in _SUFFIX:
+        raise ValueError(f"{name}: rows must be float32 or float64, got "
+                         f"{rows.dtype}")
+    return _build.entry(name, fn + _SUFFIX[rows.dtype])
 
 
 def _rows_spec(rows, T, name):
     """The packed rows' check; the kernels read them 16 bytes at a time."""
     if rows.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be 16-byte aligned")
-    return {"rows": (rows, torch.float32, (T, TILE_K, 12))}
+    return {"rows": (rows, rows.dtype, (T, TILE_K, 12))}
 
 
 def _sweep_cuda(rays, ids, count, tnear, rows):
-    """Launch csrc/tile_sweep.cu's sweep on the current stream (no sync)."""
-    fn = _build.entry("tile_sweep", "tile_sweep_launch")
+    """Launch csrc/tile_sweep.cu's sweep on the current stream (no sync);
+    every float argument of the rows' type (float32, or float64 through the
+    _f64 entry)."""
+    fn = _entry("tile_sweep", "tile_sweep_launch", rows)
     nb, T = ids.shape
     dev = rays.device
+    f = rows.dtype
     _build.check("tile_sweep", {
-        "rays": (rays, torch.float32, (nb * RAY_BLOCK, 8)),
+        "rays": (rays, f, (nb * RAY_BLOCK, 8)),
         "ids": (ids, torch.int32, (nb, T)),
         "count": (count, torch.int32, (nb,)),
-        "tnear": (tnear, torch.float32, (nb, T)),
+        "tnear": (tnear, f, (nb, T)),
         **_rows_spec(rows, T, "tile_sweep")}, dev)
-    t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
+    t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev, f)
     visited = torch.empty(nb, dtype=torch.int32, device=dev)
     err = fn(rays.data_ptr(), ids.data_ptr(), count.data_ptr(),
              tnear.data_ptr(), rows.data_ptr(), nb, T, t.data_ptr(),
@@ -457,25 +483,25 @@ def _sweep_cuda(rays, ids, count, tnear, rows):
              visited.data_ptr(), _build.stream(dev.index))
     if err != 0:
         raise RuntimeError(f"tile_sweep launch failed: cudaError {err}")
-    launches["tile_sweep"] += 1
+    launches["tile_sweep" + _SUFFIX[f]] += 1
     return t, uv, prim_o, shape_o, visited
 
 
 def _sweep_small_cuda(o, d, mint, maxt, root, lo, hi, rows):
     """Launch csrc/tile_sweep.cu's fused query on the current stream (no
-    sync); counted as a tile_sweep launch."""
-    fn = _build.entry("tile_sweep", "tile_sweep_small_launch")
+    sync); counted as a tile_sweep launch. Float arguments of the rows'
+    type, as for _sweep_cuda."""
+    fn = _entry("tile_sweep", "tile_sweep_small_launch", rows)
     n, T = o.shape[0], lo.shape[0]
     dev = o.device
+    f = rows.dtype
     _build.check("tile_sweep", {
-        "o": (o, torch.float32, (n, 3)), "d": (d, torch.float32, (n, 3)),
-        "mint": (mint, torch.float32, (n,)),
-        "maxt": (maxt, torch.float32, (n,)),
-        "root": (root, torch.float32, (2, 3)),
-        "lo": (lo, torch.float32, (T, 3)), "hi": (hi, torch.float32, (T, 3)),
+        "o": (o, f, (n, 3)), "d": (d, f, (n, 3)), "mint": (mint, f, (n,)),
+        "maxt": (maxt, f, (n,)), "root": (root, f, (2, 3)),
+        "lo": (lo, f, (T, 3)), "hi": (hi, f, (T, 3)),
         **_rows_spec(rows, T, "tile_sweep")}, dev)
     nb = -(-n // RAY_BLOCK)
-    t, uv, prim_o, shape_o = _hit_outputs(n, dev)
+    t, uv, prim_o, shape_o = _hit_outputs(n, dev, f)
     visited = torch.empty(nb, dtype=torch.int32, device=dev)
     if n == 0:
         return t, uv, prim_o, shape_o, visited
@@ -487,7 +513,7 @@ def _sweep_small_cuda(o, d, mint, maxt, root, lo, hi, rows):
         # the entry range-checks the tile count (cudaErrorInvalidValue)
         raise RuntimeError(f"tile_sweep fused query on {T} tiles failed: "
                            f"cudaError {err}")
-    launches["tile_sweep"] += 1
+    launches["tile_sweep" + _SUFFIX[f]] += 1
     return t, uv, prim_o, shape_o, visited
 
 
@@ -510,10 +536,11 @@ def sweep_small(o, d, mint, maxt, root, lo, hi, rows):
     return _sweep_small_cuda(*args)
 
 
-def _ray_rows(ray):
-    """(N, 8) f32 rows [o, d, mint, maxt] of a Ray."""
+def _ray_rows(ray, dtype=torch.float32):
+    """(N, 8) rows [o, d, mint, maxt] of a Ray in ``dtype`` (the tile
+    set's)."""
     return torch.cat([ray.o, ray.d, ray.mint[:, None], ray.maxt[:, None]],
-                     dim=-1).to(torch.float32)
+                     dim=-1).to(dtype)
 
 
 def _pad_blocks(rays):
@@ -537,7 +564,7 @@ def prepare_sweep(tiles, ray):
     unsort index or None, number of real rays)."""
     n = ray.o.shape[0]
     root, rows = sweep_tables(tiles)
-    rays = _cap_maxt_to_root(_ray_rows(ray), root[0], root[1])
+    rays = _cap_maxt_to_root(_ray_rows(ray, rows.dtype), root[0], root[1])
     rays, unsort = _maybe_sorted(rays, root[0], root[1])
     rays = _pad_blocks(rays)
     ids, tnear, count = _admitted_tiles(rays, tiles["lo"], tiles["hi"])
@@ -548,9 +575,9 @@ def prepare_sweep(tiles, ray):
 def prepare_small(tiles, ray):
     """The fused query's arguments (no eager pre-pass: the ray fields as
     the Ray holds them, the tile set's tables)."""
-    f32 = lambda a: a.to(torch.float32).contiguous()
     root, rows = sweep_tables(tiles)
-    return (f32(ray.o), f32(ray.d), f32(ray.mint), f32(ray.maxt), root,
+    cast = lambda a: a.to(rows.dtype).contiguous()
+    return (cast(ray.o), cast(ray.d), cast(ray.mint), cast(ray.maxt), root,
             tiles["lo"], tiles["hi"], rows)
 
 
@@ -796,23 +823,25 @@ def _bvh8_plain(rays, cbox, cmeta, xf, sbase, rows):
 
 def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, rows):
     """Launch csrc/<name>.cu (tile_bvh or tile_bvh8) on the current stream
-    (no sync)."""
-    fn = _build.entry(name, f"{name}_launch")
+    (no sync); float arguments of the rows' type (float32, or float64
+    through the _f64 entry)."""
+    fn = _entry(name, f"{name}_launch", rows)
     nb = rays.shape[0] // RAY_BLOCK
     dev = rays.device
+    f = rows.dtype
     N, I1 = tree_box.shape[0], xf.shape[0]
     box_shape, meta_shape = (((N, 1, 8), (N, 4)) if name == "tile_bvh"
                              else ((N, 8, 8), (N, 8, 4)))
     _build.check(name, {
-        "rays": (rays, torch.float32, (nb * RAY_BLOCK, 8)),
-        "box": (tree_box, torch.float32, box_shape),
+        "rays": (rays, f, (nb * RAY_BLOCK, 8)),
+        "box": (tree_box, f, box_shape),
         "meta": (tree_meta, torch.int32, meta_shape),
-        "xf": (xf, torch.float32, (I1, 12)),
+        "xf": (xf, f, (I1, 12)),
         "sbase": (sbase, torch.int32, (I1,)),
         **_rows_spec(rows, rows.shape[0], name)}, dev)
     if tree_meta.data_ptr() % 16:
         raise ValueError(f"{name}: meta must be 16-byte aligned")
-    t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev)
+    t, uv, prim_o, shape_o = _hit_outputs(nb * RAY_BLOCK, dev, f)
     stats = torch.empty(nb * RAY_BLOCK // BVH_GROUP, 3, dtype=torch.int32,
                         device=dev)
     err = fn(
@@ -821,7 +850,7 @@ def _traverse_cuda(name, rays, tree_box, tree_meta, xf, sbase, rows):
         stats.data_ptr(), _build.stream(dev.index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1
+    launches[name + _SUFFIX[f]] += 1
     return t, uv, prim_o, shape_o, stats
 
 
@@ -846,11 +875,11 @@ def traverse(name, rays, tree_box, tree_meta, xf, sbase, rows):
     return out
 
 
-def _identity_xf(dev):
+def _identity_xf(dev, dtype=torch.float32):
     """The instancing rows of a scene without instances: the identity
     (pallas_intersect.py:434-438) and shape base 0."""
     return (torch.tensor([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]],
-                         dtype=torch.float32, device=dev),
+                         dtype=dtype, device=dev),
             torch.zeros(1, dtype=torch.int32, device=dev))
 
 
@@ -862,7 +891,7 @@ def prepare_bvh(tiles, ray, wide=False):
     one does not, and takes its sort bounds from the root's 8 slots, where
     empty slots' inverted boxes drop out of the min/max."""
     n = ray.o.shape[0]
-    rays = _ray_rows(ray)
+    rays = _ray_rows(ray, tiles["lo"].dtype)
     if wide:
         root = tiles["cbox"][0]
         lo = torch.amin(root[:, 0:3], dim=0)
@@ -874,7 +903,7 @@ def prepare_bvh(tiles, ray, wide=False):
     rays, unsort = _maybe_sorted(rays, lo, hi)
     rays = _pad_blocks(rays)
     if tiles.get("xf") is None:
-        xf, sbase = _identity_xf(rays.device)
+        xf, sbase = _identity_xf(rays.device, rays.dtype)
     else:
         xf, sbase = tiles["xf"], tiles["sbase"]
     tree = ((tiles["cbox"], tiles["cmeta"]) if wide

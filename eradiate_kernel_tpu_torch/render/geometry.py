@@ -328,8 +328,8 @@ def ray_intersect_preliminary(geo: Geometry, ray: Ray,
     One tile kernel serves every mesh leaf, instanced or not."""
     n = ray.o.shape[0]
     dev = ray.o.device
-    t = torch.full((n,), float("inf"), device=dev)
-    uv = torch.zeros(n, 2, device=dev)
+    t = torch.full((n,), float("inf"), dtype=ray.o.dtype, device=dev)
+    uv = ray.o.new_zeros(n, 2)
     prim = torch.zeros(n, dtype=torch.int32, device=dev)
     shape = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
@@ -382,7 +382,7 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
     t = torch.where(valid, pit, INVALID_T)
     p = ray.at(pit)
     axis = lambda i: torch.nn.functional.one_hot(
-        torch.full((n_lanes,), i, device=dev), 3).to(torch.float32)
+        torch.full((n_lanes,), i, device=dev), 3).to(ray.o.dtype)
     n = axis(2)
     sh_n = n
     uv = pi.prim_uv
@@ -561,11 +561,24 @@ def compute_surface_interaction(geo: Geometry, ray: Ray,
         dp_dv = sel(m, cross(nq, du), dp_dv)
 
     sh_frame = Frame.from_normal(sh_n)
-    return SurfaceInteraction(
+    si = SurfaceInteraction(
         t=t, p=p, n=n, sh_frame=sh_frame, uv=uv, prim_uv=pi.prim_uv,
         dp_du=dp_du, dp_dv=dp_dv, wi=sh_frame.to_local(-ray.d),
         time=ray.time, prim_index=pi.prim_index,
         shape_index=pi.shape_index, wavelengths=ray.wavelengths)
+    # every float field in the ray's precision, as the reference pins them
+    # (render/geometry.py:830-832): a double variant's float32 hero
+    # wavelengths become float64 at the hit
+    return _pinned(si, ray.o.dtype)
+
+
+def _pinned(rec, dtype):
+    """A record (nested dataclasses of tensors) with its floating tensors
+    in ``dtype`` (the same tensors where they are already)."""
+    if dataclasses.is_dataclass(rec):
+        return type(rec)(**{f.name: _pinned(getattr(rec, f.name), dtype)
+                            for f in dataclasses.fields(rec)})
+    return rec.to(dtype) if rec.is_floating_point() else rec
 
 
 def ray_intersect(geo: Geometry, ray: Ray, active=None):

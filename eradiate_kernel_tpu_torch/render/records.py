@@ -95,18 +95,17 @@ class SurfaceInteraction:
                    wavelengths=self.wavelengths), dist
 
 
-def invalid_si(n, device, wavelengths=None):
-    """An invalid interaction (shape -1) carrying ``wavelengths`` (N, nw;
-    None: (N, 0))."""
-    z3 = torch.zeros(n, 3, device=device)
+def invalid_si(n, device, wavelengths=None, dtype=torch.float32):
+    """An invalid interaction (shape -1) in ``dtype`` carrying
+    ``wavelengths`` (N, nw; None: (N, 0))."""
+    z3 = torch.zeros(n, 3, dtype=dtype, device=device)
     unit = lambda i: torch.nn.functional.one_hot(
-        torch.full((n,), i, device=device), 3).to(torch.float32)
+        torch.full((n,), i, device=device), 3).to(dtype)
+    z = lambda *shape: torch.zeros(n, *shape, dtype=dtype, device=device)
     return SurfaceInteraction(
-        t=torch.full((n,), INVALID_T, device=device), p=z3, n=unit(2),
-        sh_frame=Frame(s=unit(0), t=unit(1), n=unit(2)),
-        uv=torch.zeros(n, 2, device=device),
-        prim_uv=torch.zeros(n, 2, device=device), dp_du=z3, dp_dv=z3,
-        wi=unit(2), time=torch.zeros(n, device=device),
+        t=torch.full((n,), INVALID_T, dtype=dtype, device=device), p=z3,
+        n=unit(2), sh_frame=Frame(s=unit(0), t=unit(1), n=unit(2)),
+        uv=z(2), prim_uv=z(2), dp_du=z3, dp_dv=z3, wi=unit(2), time=z(),
         prim_index=torch.zeros(n, dtype=torch.int32, device=device),
         shape_index=torch.full((n,), -1, dtype=torch.int32, device=device),
         wavelengths=wavelengths)

@@ -58,13 +58,16 @@ def _take(a, i):
     return torch.gather(a, -1, i.long())
 
 
-def spectrum_eval(spectra, spec_kind, spec_slot, kinds, wavelengths):
+def spectrum_eval(spectra, spec_kind, spec_slot, kinds, wavelengths,
+                  dtype=torch.float32):
     """Spectrum objects (spec_kind/spec_slot (N,) i32) per lane -> (N, nc):
     the baked value (rgb/mono), or the value at ``wavelengths`` (N, nw)
-    (spectral). Lanes of another kind read slot 0 of each kind's table."""
+    (spectral), accumulated in ``dtype`` (the scene's). Lanes of another
+    kind read slot 0 of each kind's table."""
     if kinds == ("baked",):
         return spectra["baked"]["value"][spec_slot]
-    out = torch.zeros(wavelengths.shape, device=wavelengths.device)
+    out = torch.zeros(wavelengths.shape, dtype=dtype,
+                      device=wavelengths.device)
     for k, kind in enumerate(kinds):
         m = spec_kind == k
         p = spectra[kind]
@@ -135,7 +138,8 @@ def scene_spectrum_eval(scene, spec_idx, wavelengths=None):
     unused by the baked rgb/mono spectra) -> (N, nc)."""
     return spectrum_eval(scene.spectra, scene.spec_kind[spec_idx],
                          scene.spec_slot[spec_idx],
-                         scene.config.spectrum_kinds, wavelengths)
+                         scene.config.spectrum_kinds, wavelengths,
+                         scene.config.variant.dtype)
 
 
 def texture_eval(scene, tex_index, uv=None, prim_index=None, prim_uv=None,
@@ -300,12 +304,14 @@ def _table_pdf(nodes, pdfv, lam):
     return torch.where(inside, p, 0.0)
 
 
-def _uniform_range(shape, like):
+def _uniform_range(shape, like, dtype=torch.float32):
     lo, hi = sp.WAVELENGTH_MIN, sp.WAVELENGTH_MAX
-    return torch.full(shape, 1.0 / (hi - lo), device=like.device)
+    return torch.full(shape, 1.0 / (hi - lo), dtype=dtype,
+                      device=like.device)
 
 
-def spectrum_sample(spectra, spec_kind, spec_slot, kinds, sample):
+def spectrum_sample(spectra, spec_kind, spec_slot, kinds, sample,
+                    dtype=torch.float32):
     """Hero wavelengths importance-sampled from spectrum objects: sample
     (N,) uniform -> (wavelengths (N, nw), weight (N, nw) = eval / pdf,
     the regular.cpp:87-97 contract). A discrete spectrum returns its lines
@@ -342,16 +348,18 @@ def spectrum_sample(spectra, spec_kind, spec_slot, kinds, sample):
             l_k = _table_invert_cdf(nodes, pdfv, p["smp_cdf"][s], ws)
             lam = torch.where(m, l_k, lam)
             pdf = torch.where(m, _table_pdf(nodes, pdfv, l_k), pdf)
-    val = spectrum_eval(spectra, spec_kind, spec_slot, kinds, lam)
+    val = spectrum_eval(spectra, spec_kind, spec_slot, kinds, lam, dtype)
     weight = torch.where(is_discrete, w_discrete,
                          val / torch.clamp(pdf, min=1e-20))
     return lam, weight
 
 
-def spectrum_pdf(spectra, spec_kind, spec_slot, kinds, wavelengths):
-    """The density of spectrum_sample at ``wavelengths`` (N, nw); 0 for a
-    discrete spectrum, whose measure has atoms."""
-    pdf = _uniform_range(wavelengths.shape, wavelengths)
+def spectrum_pdf(spectra, spec_kind, spec_slot, kinds, wavelengths,
+                 dtype=torch.float32):
+    """The density of spectrum_sample at ``wavelengths`` (N, nw), in
+    ``dtype`` (the scene's); 0 for a discrete spectrum, whose measure has
+    atoms."""
+    pdf = _uniform_range(wavelengths.shape, wavelengths, dtype)
     for k, kind in enumerate(kinds):
         if kind == "baked":
             continue
@@ -370,13 +378,15 @@ def spectrum_pdf(spectra, spec_kind, spec_slot, kinds, wavelengths):
 def scene_spectrum_sample(scene, spec_idx, sample):
     return spectrum_sample(scene.spectra, scene.spec_kind[spec_idx],
                            scene.spec_slot[spec_idx],
-                           scene.config.spectrum_kinds, sample)
+                           scene.config.spectrum_kinds, sample,
+                           scene.config.variant.dtype)
 
 
 def scene_spectrum_pdf(scene, spec_idx, wavelengths):
     return spectrum_pdf(scene.spectra, scene.spec_kind[spec_idx],
                         scene.spec_slot[spec_idx],
-                        scene.config.spectrum_kinds, wavelengths)
+                        scene.config.spectrum_kinds, wavelengths,
+                        scene.config.variant.dtype)
 
 
 def texture_sample_spectrum(scene, tex_index, uv, sample, active=None):
@@ -413,7 +423,7 @@ def texture_pdf_spectrum(scene, tex_index, uv, wavelengths):
     """The density of texture_sample_spectrum at ``wavelengths``."""
     cfg = scene.config
     tex_kind = scene.tex_kind[tex_index]
-    pdf = _uniform_range(wavelengths.shape, wavelengths)
+    pdf = _uniform_range(wavelengths.shape, wavelengths, cfg.variant.dtype)
     if "constant" in cfg.texture_kinds:
         k = cfg.texture_kinds.index("constant")
         spec = scene.textures["constant"]["spec"][torch.where(

@@ -254,18 +254,26 @@ def _fields(obj):
                               "vol_packed_spectral")]
 
 
-def _tensor(a, device):
+def _tensor(a, device, double=False):
+    """A tensor copy of array ``a`` on ``device``; ``double`` widens a
+    floating array to float64 (the reference builds every scene in float32
+    and widens its floating leaves to the variant's dtype, scene/build.py
+    :1081-1095, so a double scene holds float32-rounded values)."""
     a = np.array(a)  # a writable copy (reference arrays may be read-only)
     if a.dtype == np.uint32:  # bsdf flags fit in i32; torch's u32 is thin
         a = a.astype(np.int32)
+    elif double and np.issubdtype(a.dtype, np.floating):
+        a = a.astype(np.float64)
     return torch.as_tensor(a, device=device)
 
 
 def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
     """Build a Scene on ``device`` (cuda by default) from numpy arrays named
     as ``Scene.arrays`` names them. Names the scene does not use are
-    ignored, so the flattened leaves of a reference Scene are accepted."""
+    ignored, so the flattened leaves of a reference Scene are accepted.
+    A double variant's scene holds its floating arrays in float64."""
     device = resolve_device(device)
+    double = config.variant.is_double
     tree = {}
     for name, a in arrays.items():
         node = tree
@@ -275,26 +283,27 @@ def from_numpy(arrays: dict, config: SceneConfig, device=None) -> Scene:
         node[leaf] = a
 
     def tensors(d):
-        return {k: tensors(v) if isinstance(v, dict) else _tensor(v, device)
-                for k, v in d.items()}
+        return {k: tensors(v) if isinstance(v, dict)
+                else _tensor(v, device, double) for k, v in d.items()}
 
     def transform(d):
-        return Transform(m=_tensor(d["m"], device),
-                         inv_t=_tensor(d["inv_t"], device))
+        return Transform(m=_tensor(d["m"], device, double),
+                         inv_t=_tensor(d["inv_t"], device, double))
 
     def sensor_param(name, v):
         if name == "to_world_anim":
-            return AnimatedTransform(**{k: _tensor(a, device)
+            return AnimatedTransform(**{k: _tensor(a, device, double)
                                         for k, a in v.items()})
-        return transform(v) if isinstance(v, dict) else _tensor(v, device)
+        return (transform(v) if isinstance(v, dict)
+                else _tensor(v, device, double))
 
     g = tree["geo"]
     geo = Geometry(**{
         f.name: (transform(g[f.name]) if isinstance(g[f.name], dict)
-                 else _tensor(g[f.name], device))
+                 else _tensor(g[f.name], device, double))
         for f in dataclasses.fields(Geometry)})
     registry = lambda name, kinds: {k: tensors(tree[name][k]) for k in kinds}
-    top = lambda name: _tensor(tree[name], device)
+    top = lambda name: _tensor(tree[name], device, double)
     volumes = registry("volumes", config.volume_kinds)
     return Scene(
         geo=geo, shape_bsdf=top("shape_bsdf"),

@@ -24,7 +24,7 @@ import torch
 from ..core import spectrum as sp
 from ..core import warp
 from ..core.frame import Frame
-from ..core.math import coordinate_system, normalize
+from ..core.math import coordinate_system, normalize, widen
 from ..core.ray import Ray
 from ..render import shape_sampling
 
@@ -69,7 +69,8 @@ def _wavelengths(scene, params, sampler, n):
             wl, weight = sp.sample_wavelength(s)
         return wl, weight, sampler
     return (s.new_zeros(n, 0),
-            torch.ones(n, scene.config.variant.n_channels, device=s.device),
+            torch.ones(n, scene.config.variant.n_channels,
+                       dtype=scene.config.variant.dtype, device=s.device),
             sampler)
 
 
@@ -93,8 +94,8 @@ def _film_pinhole(scene, tan_x, pos_film):
     (the look_at ``left`` axis), v top->bottom maps +y -> -y, the camera
     looks down +z."""
     aspect = scene.config.film_height / scene.config.film_width
-    x = (1.0 - 2.0 * pos_film[:, 0]) * tan_x
-    y = (1.0 - 2.0 * pos_film[:, 1]) * tan_x * aspect
+    x = widen(1.0 - 2.0 * pos_film[:, 0], tan_x) * tan_x
+    y = widen(1.0 - 2.0 * pos_film[:, 1], tan_x) * tan_x * aspect
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
 

@@ -426,7 +426,8 @@ def volume_eval(scene, vol_idx, p, wavelengths=None):
           else cfg.variant.n_channels)
     vkind = scene.vol_kind[vol_idx]
     vslot = scene.vol_slot[vol_idx]
-    out = torch.zeros(vkind.shape + (nc,), device=p.device)
+    out = torch.zeros(vkind.shape + (nc,), dtype=cfg.variant.dtype,
+                      device=p.device)
     for k, kind in enumerate(cfg.volume_kinds):
         m = vkind == k
         slot = torch.where(m, vslot, 0)  # other kinds' lanes read row 0

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from test_torch_replay import LANES, SEED, slab_dict
+from test_torch_sensors import one_torch_thread  # noqa: F401
 from eradiate_kernel_tpu import films as jfilms
 from eradiate_kernel_tpu import integrators as jintegrators
 from eradiate_kernel_tpu.scene import load_dict as jload_dict
@@ -58,7 +59,8 @@ def test_film_gather_matches_reference():
 def large_grid():
     """The slab with 17x17x17 sigma_t and albedo grids (two slots of 4,913
     voxels: the packed gather path) and its grid gradient through both scan
-    drivers."""
+    drivers (the reference's in one pass of its 256 samples: its passes
+    split only the film's sums, and one compiles in half the time)."""
     d = slab_dict(grid_res=(17, 17, 17))
     scene = load_dict(d, device="cpu")
     jscene = jload_dict(d)
@@ -67,7 +69,7 @@ def large_grid():
 
     def loss(tr):
         return jnp.mean(jintegrators.render(pm.with_trainable(tr), seed=SEED,
-                                            samples_per_pass=LANES))
+                                            samples_per_pass=4 * 4 * 16))
 
     ref = np.asarray(jax.grad(loss)(pm.trainable())[GRID])
     ppm = autodiff.traverse(scene).keep([GRID])
@@ -153,14 +155,15 @@ def test_optimizer_steps_match_reference(opt):
 
 def test_unbiased_render_takes_its_gradient_from_another_seed():
     """render(unbiased=True): the image of ``seed``, the gradient of the
-    render of seed + 0x9E3779B9."""
+    render of seed + 0x9E3779B9 (a pool of one lane a sample: the film
+    and the gradient do not depend on the lane count)."""
     scene = load_dict(slab_dict(spp=4), device="cpu")
     pm = autodiff.traverse(scene).keep([GRID])
 
     def grad_of(seed, unbiased):
         params = pm.trainable()
         img = autodiff.render(pm, params, seed=seed, unbiased=unbiased,
-                              regen=True, samples_per_pass=LANES)
+                              regen=True, samples_per_pass=4 * 4 * 4)
         img.mean().backward()
         return img.detach(), params[GRID].grad
 
@@ -174,7 +177,9 @@ def test_unbiased_render_takes_its_gradient_from_another_seed():
 def test_replay_grad_matches_finite_differences():
     """The replay gradient of the albedo grid, all voxels perturbed
     together, against central finite differences of the same-seed render
-    at rel 0.08 (tests/test_autodiff.py's figure): 2x2 film, 128 spp."""
+    at rel 0.08 (tests/test_autodiff.py's figure): 2x2 film, 128 spp, on
+    a pool of one lane a sample (the film and the gradient do not depend
+    on the lane count; 48 lanes took 4x the forward time)."""
     scene = load_dict(slab_dict(width=2, spp=128), device="cpu")
     pm = autodiff.traverse(scene).keep([GRID])
     a = {k: v.numpy() for k, v in scene.tensors().items()}
@@ -183,7 +188,8 @@ def test_replay_grad_matches_finite_differences():
 
     def loss(params):
         return integrators.render(pm.with_trainable(params), seed=5,
-                                  samples_per_pass=LANES, regen=True).mean()
+                                  samples_per_pass=2 * 2 * 128,
+                                  regen=True).mean()
 
     params = pm.trainable()
     loss(params).backward()

@@ -426,6 +426,151 @@ def test_grid_gather_matches_plain(cuda_device, shape):
     assert torch.equal(out, gather.gather_rows_plain(table, idx))
 
 
+def _f64(tiles):
+    """A tile set in float64, as a double variant's scene carries it
+    (chip_smoke.widened: ids in the packed rows as exact doubles)."""
+    from chip_smoke import widened
+
+    return widened(tiles)
+
+
+def _rays64(n, dev):
+    ray = _rays(n, dev)
+    return Ray.make(ray.o.double(), ray.d.double(), maxt=ray.maxt.double())
+
+
+def _f64_load(kind, dev):
+    """(tiles, rays) of a float64 load: terrain(33), a 1,500-triangle soup
+    or chip_smoke.py's forest of 16 instances loaded in rgb_double."""
+    if kind == "terrain":
+        return _f64(_terrain_tiles(dev)), _rays64(8 * intersect.RAY_BLOCK
+                                                  + 17, dev)
+    if kind == "soup":
+        return _f64(_bvh_soup_tiles(dev)), _rays64(3000, dev)
+    from chip_smoke import forest_scene
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    geo = load_dict(forest_scene(8, 8, 1, 2, n_inst=16), Variant("rgb_double"),
+                    device=dev).geo
+    centres = ((geo.inst_lo + geo.inst_hi) / 2).cpu().numpy()
+    rng = np.random.default_rng(9)
+    target = (centres[rng.integers(0, len(centres), 3000)]
+              + rng.uniform(-0.3, 0.3, (3000, 3)))
+    o = target + rng.uniform([-2, -2, 1], [2, 2, 3], (3000, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return geo.tiles(), Ray.make(torch.as_tensor(o, device=dev),
+                                 torch.as_tensor(d, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,load", [
+    ("sweep", "terrain"), ("sweep", "soup"), ("fused", "soup"),
+    ("tile_bvh", "terrain"), ("tile_bvh", "soup"), ("tile_bvh", "forest"),
+    ("tile_bvh8", "terrain"), ("tile_bvh8", "soup"),
+    ("tile_bvh8", "forest")])
+def test_f64_mesh_entries_match_plain(cuda_device, entry, load):
+    """The float64 entries of tile_sweep (the sorted sweep and the fused
+    query), tile_bvh and tile_bvh8 against their plain versions run on the
+    same float64 tensors: hits, visits and stats bit equal, one launch of
+    the _f64 entry and none of the float32 one."""
+    tiles, ray = _f64_load(load, cuda_device)
+    assert tiles["rows"].dtype == ray.o.dtype == torch.float64
+    if entry == "fused":
+        args = intersect.prepare_small(tiles, ray)
+        run, plain, name = (intersect._sweep_small_cuda,
+                            intersect._sweep_small_plain, "tile_sweep")
+    elif entry == "sweep":
+        args, _unsort, _n = intersect.prepare_sweep(tiles, ray)
+        run, plain, name = (intersect._sweep_cuda, intersect._sweep_plain,
+                            "tile_sweep")
+    else:
+        args, _unsort, _n = intersect.prepare_bvh(
+            tiles, ray, wide=entry == "tile_bvh8")
+        run = lambda *a: intersect._traverse_cuda(entry, *a)
+        plain, name = intersect._PLAIN_WALKS[entry], entry
+    before = dict(intersect.launches)
+    out = run(*args)
+    torch.cuda.synchronize()
+    assert intersect.launches[name + "_f64"] == before[name + "_f64"] + 1
+    assert intersect.launches[name] == before[name]
+    ref = plain(*args)
+    assert out[0].dtype == torch.float64
+    assert torch.isfinite(out[0]).float().mean() > 0.05
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@WIDE
+def test_f64_tile_bvh_overflow_mark(cuda_device, wide):
+    """test_tile_bvh_overflow_mark's chain tree in float64: each _f64 entry
+    marks the overflow in every group, bit-equal to its plain walk, and
+    the query raises."""
+    name = "tile_bvh8" if wide else "tile_bvh"
+    tiles = _f64(_soup_tiles(100, cuda_device))
+    box, meta = _deep_tree(wide, cuda_device)
+    ray = _rays64(2 * intersect.RAY_BLOCK, cuda_device)
+    rays = intersect._pad_blocks(intersect._ray_rows(ray, torch.float64))
+    xf, sbase = intersect._identity_xf(cuda_device, torch.float64)
+    args = (rays, box.double(), meta, xf, sbase, tiles["rows"])
+    out = intersect._traverse_cuda(name, *args)
+    torch.cuda.synchronize()
+    ref = intersect._PLAIN_WALKS[name](*args)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert (out[4][:, 2] == intersect.STACK_SIZE + 1).all()
+    with pytest.raises(RuntimeError, match="overflowed"):
+        intersect.traverse(name, *args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_f64_grid_entries_match_plain(cuda_device, C):
+    """grid_gather's float64 entries on a 64^3 table of C channels: the
+    gather (packed-corner rows, clamped indices) and the fused trilinear
+    lookup bit-equal to their plain versions, the backward within rtol
+    1e-12 and atol 1e-15 (the atomics' order) and bit-equal on lanes with
+    distinct corners; each a launch of its _f64 entry."""
+    rng = np.random.default_rng(20 + C)
+    shape = (1, 64, 64, 64, C)
+    grid = torch.as_tensor(rng.random(shape), device=cuda_device)
+    packed = volumes.packed_corners(grid)
+    L = 32768
+    pl = torch.as_tensor(rng.uniform(-0.05, 1.05, (L, 3)), device=cuda_device)
+    slot = torch.zeros(L, dtype=torch.int32, device=cuda_device)
+    idx = torch.as_tensor(rng.integers(-3, packed.shape[0] + 3, L),
+                          device=cuda_device)
+    ct = torch.as_tensor(rng.normal(size=(L, C)), device=cuda_device)
+    before = dict(gather.launches)
+    rows = gather.gather_rows(packed, idx)
+    look = gather.grid_trilinear(packed, shape, slot, pl)
+    bwd = gather.grid_trilinear_bwd(ct, shape, slot, pl)
+    torch.cuda.synchronize()
+    assert gather.launches["grid_gather_f64"] == before["grid_gather_f64"] + 2
+    assert (gather.launches["grid_trilinear_bwd_f64"]
+            == before["grid_trilinear_bwd_f64"] + 1)
+    assert gather.launches["grid_gather"] == before["grid_gather"]
+    assert rows.dtype == look.dtype == bwd.dtype == torch.float64
+    assert torch.equal(rows, gather.gather_rows_plain(packed, idx))
+    assert torch.equal(look, volumes.trilinear_gather_plain(
+        packed, shape, slot, pl))
+    torch.testing.assert_close(bwd, volumes.trilinear_backward_plain(
+        ct, shape, slot, pl), rtol=1e-12, atol=1e-15)
+    ar = torch.arange(0, 63, 2, device=cuda_device)
+    z, y, x = torch.meshgrid(ar, ar, ar, indexing="ij")
+    pl_d = (torch.stack([x.flatten(), y.flatten(), z.flatten()], -1)
+            + torch.as_tensor(rng.uniform(0.1, 0.9, (ar.numel() ** 3, 3)),
+                              device=cuda_device)) / 63
+    ct_d = torch.as_tensor(rng.normal(size=(pl_d.shape[0], C)),
+                           device=cuda_device)
+    slot_d = torch.zeros(pl_d.shape[0], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(gather.grid_trilinear_bwd(ct_d, shape, slot_d, pl_d),
+                       volumes.trilinear_backward_plain(ct_d, shape, slot_d,
+                                                        pl_d))
+
+
 def _surface_scene(name):
     """(scene dict, ERT_BVH_WIDE, the kernel its mesh queries launch, the
     gradient keys) of the pool and replay card tests."""

@@ -16,6 +16,7 @@ draw in volpath, a film developed to its luminance.
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import assert_driver_equivalent
 from eradiate_kernel_tpu import integrators as jintegrators
@@ -82,10 +83,9 @@ def test_mono_film_matches_reference(mono_case, regen):
 def test_variants_outside_the_port_raise(mode):
     if mode == "spectral":  # carried since slice 6c-1, unpolarized only
         assert Variant(mode).n_channels == 4 and Variant(mode).is_spectral
-        with pytest.raises(NotImplementedError, match="slice 6e"):
-            Variant(mode, polarized=True)
-    else:
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            Variant(mode)
+    else:  # carried since slice 6d (tests/test_torch_double.py)
+        assert Variant(mode).dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="slice 6e"):
+        Variant(mode, polarized=True)
     with pytest.raises(NotImplementedError, match="slice 6"):
         Variant("rgb", polarized=True)

@@ -35,6 +35,7 @@ from eradiate_kernel_tpu_torch.integrators import replay
 from eradiate_kernel_tpu_torch.scene import load_dict
 from eradiate_kernel_tpu_torch.utils import autodiff
 from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+from test_torch_sensors import one_torch_thread  # noqa: F401
 
 SEED, SPP, LANES, REPLAY_LANES = 11, 16, 48, 80
 KEYS = ["volumes.gridvolume.grid", "spectra.baked.value",
@@ -88,7 +89,11 @@ def case():
     """The port's scene and its gradients through both drivers, and the
     reference's through both, computed once. The reference's replay runs
     with ERT_REPLAY_KW='{"prb_walks": true}' (tests/test_autodiff.py:391),
-    which off its TPU is also its default (_REPLAY_BOUNCE_KWARGS)."""
+    which off its TPU is also its default (_REPLAY_BOUNCE_KWARGS). The
+    reference's scan driver renders its 256 samples in one pass (its
+    passes split no sample's arithmetic, only the film's sums, and one
+    pass compiles in half the time of six); the lane pool's film and the
+    replay's loop iterations are kept for the tests that read them."""
     d = slab_dict()
     scene = load_dict(d, device="cpu")
     jscene = jload_dict(d)
@@ -99,15 +104,19 @@ def case():
     def ref_grads(regen):
         def loss(tr):
             return jnp.mean(jintegrators.render(
-                pm.with_trainable(tr), seed=SEED, samples_per_pass=LANES,
+                pm.with_trainable(tr), seed=SEED,
+                samples_per_pass=LANES if regen else 4 * 4 * SPP,
                 regen=regen))
         g = jax.grad(loss)(tr0)
         return parts(scene, {k: np.asarray(g[k]) for k in KEYS})
 
     out = {"scene": scene, "jscene": jscene,
-           "ref_scan": ref_grads(False),
-           "scan": port_grads(scene, False), "replay": port_grads(scene,
-                                                                  True)}
+           "ref_scan": ref_grads(False), "scan": port_grads(scene, False)}
+    before = dict(replay.counters)
+    out["replay"] = port_grads(scene, True)
+    out["iterations"] = {k: replay.counters[k] - before[k] for k in before}
+    out["pool_film"] = integrators.render_wavefront_regen(scene, LANES, SEED,
+                                                         SPP)[0]
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("ERT_REPLAY_KW", json.dumps({"prb_walks": True}))
         out["ref_replay"] = ref_grads(True)
@@ -159,8 +168,7 @@ def test_replay_primal_film_is_the_lane_pool_film(case):
     and render(regen=True) develops the same film with autograd on or
     off."""
     scene = case["scene"]
-    film, _rays = integrators.render_wavefront_regen(scene, LANES, SEED,
-                                                     SPP)
+    film = case["pool_film"]  # render_wavefront_regen(scene, LANES, ...)
     pm = autodiff.traverse(scene).keep(KEYS)
     params = pm.trainable()
     diff = replay.render_regen_diff(pm.with_trainable(params), SEED, LANES,
@@ -205,15 +213,13 @@ def test_sample_log_matches_reference(case):
     ref_log = np.asarray(ref_log)[:total]
     assert np.abs(ref_log).sum() > 0
     assert_driver_equivalent(ref_log, log.numpy(), max_flips=2)
-    plain, _ = integrators.render_wavefront_regen(scene, LANES, SEED, SPP)
-    assert torch.equal(film, plain)
+    assert torch.equal(film, case["pool_film"])  # the film without the log
 
 
 def test_replay_lanes_and_refills_are_used(case):
     """The adjoint runs its own pool (the replay_lanes extra), and both
-    pools refill: more loop iterations than a single fill needs."""
-    before = dict(replay.counters)
-    port_grads(case["scene"], True)
-    fwd = replay.counters["forward_iterations"] - before["forward_iterations"]
-    adj = replay.counters["adjoint_iterations"] - before["adjoint_iterations"]
+    pools refill: more loop iterations than a single fill needs (counted
+    over the case's replay gradient)."""
+    fwd = case["iterations"]["forward_iterations"]
+    adj = case["iterations"]["adjoint_iterations"]
     assert fwd > 6 and adj > 6 and fwd != adj, (fwd, adj)

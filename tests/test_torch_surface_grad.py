@@ -39,6 +39,7 @@ from eradiate_kernel_tpu_torch import integrators
 from eradiate_kernel_tpu_torch.scene import load_dict
 from eradiate_kernel_tpu_torch.utils import autodiff, scenes
 from test_torch_skylight import sky_atmosphere
+from test_torch_sensors import one_torch_thread  # noqa: F401
 
 SEED = 3
 RTOL, ATOL = 5e-3, 1e-7
@@ -60,13 +61,18 @@ def port_grads(scene, keys, regen, lanes):
 
 
 def reference_grads(jscene, keys, regen, lanes):
+    """The reference's jax.grad: its lane pool of ``lanes`` lanes, or its
+    scan driver in one pass (its passes split only the film's sums, and
+    one pass compiles in about half the time of several)."""
     pm = jad.traverse(jscene)
     pm.keep(keys)
+    cfg = jscene.config
+    total = cfg.film_width * cfg.film_height * cfg.spp
 
     def loss(tr):
-        return jnp.mean(jintegrators.render(pm.with_trainable(tr), seed=SEED,
-                                            samples_per_pass=lanes,
-                                            regen=regen))
+        return jnp.mean(jintegrators.render(
+            pm.with_trainable(tr), seed=SEED,
+            samples_per_pass=lanes if regen else total, regen=regen))
 
     g = jax.grad(loss)(pm.trainable())
     return {k: np.asarray(g[k]) for k in keys}
@@ -187,9 +193,9 @@ def slab_grads():
     pm = jad.traverse(jload_dict(d))
     pm.keep(SKY_KEYS)
 
-    def loss(tr):
+    def loss(tr):  # one pass of the 4 x 4 x 8 samples: reference_grads
         return jnp.mean(jintegrators.render(pm.with_trainable(tr), seed=SEED,
-                                            samples_per_pass=48))
+                                            samples_per_pass=128))
 
     g = jax.grad(loss)(pm.trainable())
     out["reference"] = parts(scene, {k: np.asarray(g[k]) for k in SKY_KEYS})
