@@ -53,8 +53,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      against the sorted pipeline on 8-, 16- and 32-tile terrains under
      2^15 and 2^20 primary and incoherent rays (where the sort starts to
      pay);
- 11. render a 64x64, 4 spp 64^3 atmosphere through the kernels, through
-     the plain gather and through the plain sweep, and compare the films;
+ 11. render a 64x64, 4 spp, max_depth 6 (12 until phase 39 was added)
+     64^3 atmosphere through the kernels, through the plain gather and
+     through the plain sweep, and compare the films;
  13. hold the trilinear lookup's backward entry (grid_trilinear_bwd)
      against its plain version on phase 8's 64^3 load (32,768 lanes of
      random points, C = 1, 3 and 8) within rtol 1e-5 and atol 1e-7 (its
@@ -64,7 +65,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  14. value+grad (the mean of the developed image with respect to the
      gridvolume grid, the albedo and the spectra, the sun's irradiance
      among them) of the flagship and of the 64^3 atmosphere at 256x256,
-     spp 2 (cut from 4 for the time limit),
+     spp 2, max_depth 6 (cut from spp 4 and max_depth 12 for the time
+     limit),
      through autodiff.traverse, integrators.render(regen=True) and
      loss.backward() (the lane pool's path-replay backward): primal and
      value+grad times, forward and adjoint loop iterations, host syncs,
@@ -73,7 +75,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      adjoint > 0 on the 64^3 scene), threefry's share of a synchronised
      flagship value+grad, and the peak device memory; the film bit-equal
      to the primal render's, the gradients finite and not all zero; then
-     the 64x64 spp4 value+grad of the 64^3 atmosphere through the kernels
+     the 64x64 spp4 max_depth 6 value+grad of the 64^3 atmosphere
+     through the kernels
      and through the plain gather and the plain sweep, gradients within
      phase 13's tolerance;
  15. render the Cornell box (utils/scenes.cornell_box(256, 256, spp=32,
@@ -104,28 +107,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      are NaN in the reference too), forward and adjoint launches (one a
      closest-hit query), iterations, host syncs, peak memory, value+grad
      time against the primal's, the film bit-equal to the primal's; then
-     at 64x64 spp2 max_depth 2 (depth cut for the plain walks' time; spp
-     4 and max_depth 3 until phase 37 was added) the
+     at 32x32 spp2 max_depth 2 (depth cut for the plain walks' time; 64x64
+     until phase 39 was added, spp 4 and max_depth 3 until phase 37 was)
+     the
      gradients through the sweep, tile_bvh and tile_bvh8 against their
      plain versions (rtol 1e-5, atol 1e-7), the kernel legs launching
      their kernel once a query and the plain legs nothing;
- 20. the flagship atmosphere at 256x256, spp 4, under a constant sky
+ 20. the flagship atmosphere at 128x128 (256x256 until phase 39 was
+     added), spp 4, under a constant sky
      (radiance 0.1, added to the dict here), which runs volpath's MIS
      emitter walk, on the lane pool of 32,768 lanes: tile_sweep launches
      == closest-hit queries; then a 64x64 spp4 film through the kernel
      against the plain sweep's;
  21. Eradiate's 1D atmosphere under distant sensors (slice 5b): the
      flagship's atmosphere (grid 64, max_depth 12, residual NEE) under
-     utils.scenes.atmosphere(sensor="distant"), a 1x1 film of 262,144
-     samples (bench.py's distant load) in the mono variant, then under an
-     mdistant of 128 view zeniths in [-75, 75] degrees in the sun's
-     principal plane (2,048 spp each), then the 1x1 film in rgb, all on
+     utils.scenes.atmosphere(sensor="distant"), a 1x1 film of 65,536
+     samples (a quarter of bench.py's distant load since phase 39 was
+     added) in the mono variant, then under an mdistant of 128 view
+     zeniths in [-75, 75] degrees in the sun's principal plane (512 spp
+     each), then the 1x1 film in rgb, all on
      the lane pool of 32,768 lanes: time, Msamples/s, iterations, syncs,
      tile_sweep launches == closest-hit queries;
  22. the single-scattering closed form (tests/test_single_scattering_
      oracle.py's four cases, its formula copied here) through a 1x1
-     distant at max_depth 2, 4 seeds of 65,536 samples (262,144 until
-     phase 37 was added), gated at
+     distant at max_depth 2, 4 seeds of 16,384 samples (65,536 until
+     phase 39 was added, 262,144 until phase 37 was), gated at
      |mean - closed form| < 4 sigma + 0.005 expected;
  23. the sensors' analytic gates under a constant environment (spp
      4,096): distant single, plane and hemisphere, mdistant and
@@ -147,27 +153,32 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      call on the CPU (rtol 1e-5), timed beside the bound and an
      index_put_ splat;
  26. the materials Cornell box (slice 5c-1): utils.scenes.cornell_box at
-     256x256, spp 4 (phase 15's box takes 32; cut for the time limit,
-     from 16 when phase 35 was added, from 8 when phase 37 was),
+     256x256, spp 2 (phase 15's box takes 32; cut for the time limit,
+     from 16 when phase 35 was added, from 8 when phase 37 was, from 4
+     when phase 39 was),
      max_depth 6, with a dielectric, a rough gold and a rough dielectric
      sphere, a 12-triangle cube mesh (one tile: the fused query) under a
      Beckmann rough plastic with a checkerboard, the back wall under a
      bump map and the floor under a normal map (inline 64x64 bitmaps), on
      the lane pool of 32,768 lanes: time, Msamples/s, iterations, host
-     syncs, tile_sweep launches == closest-hit queries; a 64x64 spp2 film
-     (spp 4 until phase 37 was added) through the kernel against the
+     syncs, tile_sweep launches == closest-hit queries; a 64x64 spp2
+     max_depth 3 film (spp 4 until phase 37 was added, max_depth 6 until
+     phase 39 was) through the kernel against the
      plain sweep (budget 2); value+grad at
-     256x256 spp 1 (2 until phase 37 was added) through the path replay
+     128x128 spp 1 (256x256 until phase 39 was added, spp 2 until phase
+     37 was) through the path replay
      (the checkerboard's colours,
      the gold's eta and k and the walls' reflectances finite and not
      zero, the film bit-equal to the primal's, forward and adjoint
-     launches == queries, peak memory); the 64x64 spp2 gradient through
-     the kernel against the plain sweep (rtol 1e-5, atol 1e-7);
+     launches == queries, peak memory); the 64x64 spp2 max_depth 3
+     gradient through the kernel against the plain sweep (rtol 1e-5,
+     atol 1e-7);
  27. the materials terrain(256) (the sorted sweep): uvs, a per-vertex
      colour and a blendbsdf (checkerboard weight) over a plastic and an
      anisotropic Beckmann rough conductor, 256x256 spp16 max_depth 6
      through the scan driver and a pool of 2^18 lanes (launches ==
-     queries, films within phase 17's 64 pixels), and a 64x64 spp4 film
+     queries, films within phase 17's 64 pixels), and a 64x64 spp4
+     max_depth 3 film (6 until phase 39 was added)
      through the kernel against the plain sweep (budget 2);
  28. tests/test_bsdfs.py's furnace gates (the conductor mirror, the
      dielectric, the thin dielectric, the rough dielectric at alpha 0.02,
@@ -192,15 +203,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      multijitter sampler; 256x256 spp8 (16 until phase 37 was added)
      max_depth 6 on the scan driver
      and a pool of 2^18 lanes (launches == queries, films within 64
-     pixels); a 64x64 spp4 film through the kernel against the plain
-     sweep (budget 2); value+grad at spp 2 (4 until phase 37 was added)
+     pixels); a 64x64 spp4 max_depth 3 film (6 until phase 39 was added)
+     through the kernel against the plain sweep (budget 2); value+grad at
+     spp 2 (4 until phase 37 was added)
      with respect to the envmap's
      image and the measured spectra (finite, not zero; launches ==
-     queries), and at 64x64 spp4 max_depth 3 (depth cut for the plain
-     sweep's time, as phase 19) through the kernel against the plain
+     queries), and at 64x64 spp4 max_depth 2 (depth cut for the plain
+     sweep's time, as phase 19; 3 until phase 39 was added) through the
+     kernel against the plain
      sweep (rtol 1e-5, atol 1e-7);
- 31. the lights-and-quadrics box: cornell_box(256, 256, 8, 6) (spp 16
-     until phase 37 was added) with its
+ 31. the lights-and-quadrics box: cornell_box(256, 256, 2, 6) (spp 16
+     until phase 37 was added, 8 until phase 39 was) with its
      area light replaced by a spot and a projector (an inline 64x64
      bitmap), a cylinder, a cone and a 12-triangle cube (the fused
      query), the ldsampler sampler, on the lane pool of 32,768 lanes
@@ -230,7 +243,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      tabphase of HG g = 0.7), an irregular ground reflectance and a
      5800 K blackbody sun (spp 2), its 64x64 film against the plain
      sweep; value+grad at 128x128 (256x256 until phase 37 was added) spp
-     2 of the quadrature render and the nearest
+     2, max_depth 6 (12 until phase 39 was), of the quadrature render and
+     the nearest
      grid (d(mean)/d(grid, albedo); forward and backward launches, the
      film bit-equal to the primal's) and their 64x64 spp2 gradients (spp
      4 until phase 37 was added) through the kernels against the plain
@@ -298,7 +312,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      standard errors; an nbins line (550 nm, tolerance 25) finite and > 0;
      (c) a flat 360-830 nm srf (the estimand of (a)) and a triangular
      640-690 nm srf at spp 65,536; (d) a chromatic 64^3 atmosphere
-     (large3d at spp 4 in spectral with a seeded 32^3 rgb albedo grid in
+     (large3d at spp 2 in spectral, 4 until phase 39 was added, with a
+     seeded 32^3 rgb albedo grid in
      [0.5, 0.95], packed at load as gridvolume_srgb): the rgb2spec fit's
      host seconds, fused-entry launches == trilinear lookups and
      gather-entry launches == srgb lookups (each volume_eval sweeps both
@@ -314,7 +329,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      differently at another batch width, which is recorded), the two
      gradients within tests/test_autodiff.py:348's rtol 5e-3, atol 1e-7;
      times, host syncs, peak memory, the ratio to the primal; (b) phase
-     36d's chromatic 64^3 at 64x64 spp 2: value+grad of the 64^3 sigma_t
+     36d's chromatic 64^3 at 64x64 spp 2 max_depth 6 (12 until phase 39
+     was added): value+grad of the 64^3 sigma_t
      and the 32^3 srgb albedo through the kernels against the plain
      gather and the plain sweep (rtol 1e-5, atol 1e-7), fused-entry
      launches == trilinear lookups, gather-entry launches == srgb
@@ -324,7 +340,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      it); (d) moment over
      volpath on (a)'s load, its base film bit-equal to phase 36a's, and
      moment over volpathmis: volpathmis's Y within 3 standard errors of
-     volpath's (the per-sample variances from m2.y); aov (depth, shading
+     volpath's (the per-sample variances from m2.y; volpathmis at a
+     quarter of the load since phase 39 was added); aov (depth, shading
      normal) over volpath on terrain(256) at 256x256 spp 4 on a pool of
      2^18 lanes (launches == queries, the refills' included; a depth
      where the alpha is); (e) phase 30's measured terrain in spectral at
@@ -348,16 +365,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the as-built z recorded); (d) large3d's 64x64 spp 2 value+grad in
      rgb_double through the kernels and the plain versions (launches ==
      lookups, the film the primal's bit for bit); (e) terrain(256) in
-     rgb_double at 256x256 spp 4 against the plain sweep (budget 2) and
+     rgb_double at 256x256 spp 2 max_depth 3 against the plain sweep
+     (budget 2) and
      the forest through each BVH kernel's float64 entry; (f) bench.py's
-     spectral load in spectral_double beside spectral (65,536 samples each,
-     within 3 standard errors) and render(regen=True) raising in double;
+     spectral load at max_depth 6 in spectral_double beside spectral
+     (32,768 samples each, within 3 standard errors) and
+     render(regen=True) raising in double;
      (g) phase 37e's emitter rays in spectral and spectral_double against
      the CPU, each kind's worst direction lane recorded;
+ 39. the polarized variant (slice 6e, Variant("rgb", polarized=True)):
+     (a) bench.py's polarized load (64x64 spp 16, stokes(volpath)
+     max_depth 8, residual NEE) on its lane pool of 4,096 lanes and on
+     32,768 (fused tile_sweep launches == queries, S3 exactly 0, linear
+     polarization made, each pixel's Y and S1..S3 within 3 standard errors
+     of the scan driver's same samples); (b) an isotropic phase: the
+     Mueller volpath's S0 against volpath's sample for sample, S1..S3 0;
+     (c) the 64^3 grid under stokes(volpath) at 64x64 spp 2 (grid_gather
+     launches == fused lookups); (d) terrain(256) with a pplastic ground
+     under stokes(path) at 256x256 spp 2 max_depth 3, S0 bit for bit the
+     plain sweep's; (e) Malus's law, crossed polarizers and a half-wave
+     plate on the optical bench (no kernel);
  12. (last) print the kernels line (every kernel and entry, the backward
      and the float64 entries included, with their launches on phases
-     21-38), the value+grad, measurement, materials, slice 5c-2, slice 6a,
-     slice 7a, slice 6b, slice 6c-1, slice 6c-2 and slice 6d records,
+     21-39), the value+grad, measurement, materials, slice 5c-2, slice 6a,
+     slice 7a, slice 6b, slice 6c-1, slice 6c-2, slice 6d and slice 6e
+     records,
      the card's name and power limit, and the final ``{"ok": true, ...}``
      line.
 
@@ -1722,14 +1754,15 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
             surface_vg[label] = surface_value_grad(
                 f"{label} 256x256 spp2 max_depth 6", sc, pool_lanes, kernel,
                 rows)
-    # at 64x64 spp2 max_depth 2 (spp 4 and max_depth 3 until phase 37 was
-    # added; the value+grads above take 6) the gradients through each
+    # at 32x32 spp2 max_depth 2 (64x64 until phase 39 was added; spp 4 and
+    # max_depth 3 until phase 37 was; the value+grads above take 6) the
+    # gradients through each
     # kernel and through its plain version: the plain walks' time, one host
     # sync a walk step (the RPV rows are NaN in both: ROADMAP Queue 3)
     for label, d_small, wide, kernel in (
-            ("terrain", terrain_scene(V, F, 64, 64, 2, 2), "0", "tile_sweep"),
-            ("forest", forest_scene(64, 64, 2, 2), "0", "tile_bvh"),
-            ("forest", forest_scene(64, 64, 2, 2), "1", "tile_bvh8")):
+            ("terrain", terrain_scene(V, F, 32, 32, 2, 2), "0", "tile_sweep"),
+            ("forest", forest_scene(32, 32, 2, 2), "0", "tile_bvh"),
+            ("forest", forest_scene(32, 32, 2, 2), "1", "tile_bvh8")):
         sc = load_dict(d_small)
         grads_64 = {}
         t0 = time.perf_counter()
@@ -1750,7 +1783,7 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
         ok = torch.isfinite(ref)
         assert torch.equal(ok, torch.isfinite(g)), label
         torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
-        print(f"# {label} 64x64 spp2 max_depth 2 value+grad: {kernel} vs "
+        print(f"# {label} 32x32 spp2 max_depth 2 value+grad: {kernel} vs "
               f"plain gradients agree (rtol 1e-5, atol 1e-7; max abs err "
               f"{float((g[ok] - ref[ok]).abs().max()):.2e}; both legs "
               f"{time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1763,11 +1796,12 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
         d["sky"] = {"type": "constant", "radiance": 0.1}
         return load_dict(d)
 
-    sky = sky_atmosphere(256, 256, 4, 12, grid_res=64)
+    # 128x128 (256x256 until phase 39 was added): the time limit
+    sky = sky_atmosphere(128, 128, 4, 12, grid_res=64)
     assert sky.config.env_emitter >= 0
     film, secs_s, launches, counts = counted_pool(sky, lanes)
     atmo["sky"] = check_atmosphere(
-        "sky-lit atmosphere 256x256 spp4 max_depth 12 grid 64", sky, film,
+        "sky-lit atmosphere 128x128 spp4 max_depth 12 grid 64", sky, film,
         secs_s, launches, counts)
     small_sky = sky_atmosphere(64, 64, 4, 12, grid_res=64)
     film_k, _ = integrators.render_wavefront_regen(small_sky, lanes, 3, 4)
@@ -1920,10 +1954,10 @@ def measurement_phases(V, F, lanes, box_ms):
 
     # ---- 21. Eradiate's 1D atmosphere under distant sensors ------------------
     phase_clock("21")
-    # bench.py's distant load: 262,144 samples a call (W*H*spp // 16 at
-    # 256x256, spp 64) on the flagship's atmosphere (grid 64, max_depth
-    # 12, residual NEE)
-    n_distant = 1 << 18
+    # a quarter of bench.py's distant load (262,144 samples a call, W*H*spp
+    # // 16 at 256x256, spp 64, until phase 39 was added: the time limit)
+    # on the flagship's atmosphere (grid 64, max_depth 12, residual NEE)
+    n_distant = 1 << 16
     sun = np.asarray([0.3, 0.0, -0.94])
 
     def distant_atmosphere(variant, sensor=None):
@@ -1974,10 +2008,11 @@ def measurement_phases(V, F, lanes, box_ms):
     for kind, albedo, rho, phase, d_sun, d_view in SS_CASES:
         profile = ss_profile(kind)
         expected = ss_closed_form(profile, albedo, rho, phase, d_sun, d_view)
-        # 65,536 samples a seed (262,144 until phase 37 was added: the
-        # time limit; the gate follows the standard error)
+        # 16,384 samples a seed (65,536 until phase 39 was added, 262,144
+        # until phase 37 was: the time limit; the gate follows the
+        # standard error)
         sc = load_dict(ss_slab_scene(profile, albedo, rho, phase, d_sun,
-                                     d_view, 1 << 16))
+                                     d_view, 1 << 14))
         t0 = time.perf_counter()
         vals = np.asarray([float(integrators.render(
             sc, seed=100 + s, regen=True, samples_per_pass=lanes).mean())
@@ -1992,7 +2027,7 @@ def measurement_phases(V, F, lanes, box_ms):
             ms=secs * 1e3)
         print(f"# single scattering {label}: {mean:.6f} vs closed form "
               f"{expected:.6f} (stderr {stderr:.2e}, gate {tol:.2e}; 4 seeds "
-              f"x 65,536 samples in {secs * 1e3:.0f} ms)", flush=True)
+              f"x 16,384 samples in {secs * 1e3:.0f} ms)", flush=True)
         assert abs(mean - expected) < tol, (label, mean, expected, tol)
 
     # ---- 23. the sensors' analytic gates and a bilambertian furnace ------------
@@ -2328,35 +2363,38 @@ def materials_phases(V, F, lanes):
 
     # ---- 26. the materials Cornell box --------------------------------------
     phase_clock("26")
-    # 256x256 spp 4 (phase 15's box takes 32; cut from 16 when phase 35 was
-    # added, from 8 when phase 37 was): the time limit; the cube is one
-    # tile: one fused tile_sweep launch a query
-    box = load_dict(materials_cornell(256, 256, 4, 6))
+    # 256x256 spp 2 (phase 15's box takes 32; cut from 16 when phase 35 was
+    # added, from 8 when phase 37 was, from 4 when phase 39 was): the time
+    # limit; the cube is one tile: one fused tile_sweep launch a query
+    box = load_dict(materials_cornell(256, 256, 2, 6))
     integrators.render(box, seed=0, spp=1, regen=True,
                        samples_per_pass=lanes)  # warm-up
     film, secs, launches, counts = counted_pool(box, lanes)
     rec["cornell"] = check_pool(
-        "materials cornell box 256x256 spp4 max_depth 6 (lane pool)", box,
+        "materials cornell box 256x256 spp2 max_depth 6 (lane pool)", box,
         film, secs, launches, counts, "tile_sweep", (0.05, 0.5))
-    # 64x64 spp 2 (4 until phase 37 was added)
-    small = load_dict(materials_cornell(64, 64, 2, 6))
+    # 64x64 spp 2 max_depth 3 (spp 4 until phase 37 was added, max_depth 6
+    # until phase 39 was)
+    small = load_dict(materials_cornell(64, 64, 2, 3))
     film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 2)
     with intersect.use_plain():
         film_p, _ = integrators.render_wavefront_regen(small, lanes, 3, 2)
     flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
                              max_flips=2)
     rec["cornell"]["flips_vs_plain_64"] = flips
-    print(f"# materials cornell box 64x64 spp2: tile_sweep kernel vs plain "
+    print(f"# materials cornell box 64x64 spp2 max_depth 3: tile_sweep "
+          f"kernel vs plain "
           f"films agree ({flips} pixels over tolerance, budget 2)",
           flush=True)
-    # value+grad at spp 1 (2 until phase 37 was added): d(mean
-    # image)/d(spectra.baked.value)
-    vg = load_dict(materials_cornell(256, 256, 1, 6))
+    # value+grad at 128x128 spp 1 (256x256 until phase 39 was added, spp 2
+    # until phase 37 was): d(mean image)/d(spectra.baked.value)
+    vg = load_dict(materials_cornell(128, 128, 1, 6))
     rows = materials_rows(vg)
     rec["cornell_value_grad"] = surface_value_grad(
-        "materials cornell box 256x256 spp1 max_depth 6", vg, lanes,
+        "materials cornell box 128x128 spp1 max_depth 6", vg, lanes,
         "tile_sweep", rows)
-    sc = load_dict(materials_cornell(64, 64, 2, 6))  # spp 4 until phase 37
+    # spp 4 until phase 37 was added, max_depth 6 until phase 39 was
+    sc = load_dict(materials_cornell(64, 64, 2, 3))
     grads = {}
     t0 = time.perf_counter()
     for how, ctx in (("kernels", contextlib.nullcontext),
@@ -2376,7 +2414,8 @@ def materials_phases(V, F, lanes):
     torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
     rec["cornell_value_grad"]["grad_max_abs_err_vs_plain_64"] = float(
         (g[ok] - ref[ok]).abs().max())
-    print(f"# materials cornell box 64x64 spp2 value+grad: tile_sweep vs "
+    print(f"# materials cornell box 64x64 spp2 max_depth 3 value+grad: "
+          f"tile_sweep vs "
           f"plain gradients agree (rtol 1e-5, atol 1e-7; max abs err "
           f"{rec['cornell_value_grad']['grad_max_abs_err_vs_plain_64']:.2e};"
           f" both legs {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2400,7 +2439,8 @@ def materials_phases(V, F, lanes):
     # phase 17's budget: the scan splats a few samples into the next pixel
     flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
                              max_flips=64)
-    small = load_dict(materials_terrain(V, F, 64, 64, 4, 6))
+    # max_depth 3 (6 until phase 39 was added): the plain sweep's time
+    small = load_dict(materials_terrain(V, F, 64, 64, 4, 3))
     film_k = integrators.render(small, seed=3, develop_film=False)
     with intersect.use_plain():
         film_p = integrators.render(small, seed=3, develop_film=False)
@@ -2410,8 +2450,8 @@ def materials_phases(V, F, lanes):
         "tile_sweep"], flips_vs_scan=flips, flips_vs_plain_64=flips_plain)
     print(f"# materials terrain 256x256 spp16: scan {scan_s * 1e3:.1f} ms, "
           f"lane pool {pool_s * 1e3:.1f} ms, films agree ({flips} pixels "
-          f"over tolerance, budget 64); 64x64 spp4 kernel vs plain films "
-          f"agree ({flips_plain} pixels, budget 2)", flush=True)
+          f"over tolerance, budget 64); 64x64 spp4 max_depth 3 kernel vs "
+          f"plain films agree ({flips_plain} pixels, budget 2)", flush=True)
 
     # ---- 28. the BSDF furnace gates -----------------------------------------
     phase_clock("28")
@@ -2714,8 +2754,9 @@ def slice_5c2_phases(V, F, scene, img, lanes):
     scan = integrators.render(mt, seed=0, develop_film=False)
     flips = films_equivalent(scan.cpu().numpy(), pfilm.cpu().numpy(),
                              max_flips=64)
+    # max_depth 3 (6 until phase 39 was added): the plain sweep's time
     small = load_dict(measured_terrain(paths["ply"], fields, sky, 64, 64, 4,
-                                       6))
+                                       3))
     film_k = integrators.render(small, seed=3, develop_film=False)
     with intersect.use_plain():
         film_p = integrators.render(small, seed=3, develop_film=False)
@@ -2725,8 +2766,8 @@ def slice_5c2_phases(V, F, scene, img, lanes):
         "tile_sweep"], flips_vs_scan=flips, flips_vs_plain_64=flips_plain)
     print(f"# measured terrain: scan {scan_s * 1e3:.1f} ms, lane pool "
           f"{pool_s * 1e3:.1f} ms, films agree ({flips} pixels over "
-          f"tolerance, budget 64); 64x64 spp4 kernel vs plain films agree "
-          f"({flips_plain} pixels, budget 2)", flush=True)
+          f"tolerance, budget 64); 64x64 spp4 max_depth 3 kernel vs plain "
+          f"films agree ({flips_plain} pixels, budget 2)", flush=True)
     keys = ["emitters.envmap.image", "bsdfs.measured.spectra"]
     # spp 2 (4 until phase 37 was added)
     vg = load_dict(measured_terrain(paths["ply"], fields, sky, 256, 256, 2,
@@ -2741,10 +2782,10 @@ def slice_5c2_phases(V, F, scene, img, lanes):
         assert sum(la.values()) == la["tile_sweep"], part
     r["grad_abs_sums"] = {k: float(p.grad.abs().sum())
                           for k, p in params.items()}
-    # max_depth 3 (the films take 6): phase 19's cut, the plain sweep's
-    # time through both legs
+    # max_depth 2 (the films take 6; 3 until phase 39 was added): phase
+    # 19's cut, the plain sweep's time through both legs
     r["grad_max_abs_err_vs_plain_64"] = kernel_vs_plain_grads(
-        load_dict(measured_terrain(paths["ply"], fields, sky, 64, 64, 4, 3)),
+        load_dict(measured_terrain(paths["ply"], fields, sky, 64, 64, 4, 2)),
         lanes, keys, ("tile_sweep",))
     rec["measured_value_grad"] = r
     print(f"# measured terrain under an envmap 256x256 spp2 value+grad: "
@@ -2753,18 +2794,19 @@ def slice_5c2_phases(V, F, scene, img, lanes):
           f"), launches forward {r['forward']['launches']['tile_sweep']} "
           f"backward {r['backward']['launches']['tile_sweep']} (= queries), "
           f"peak memory {r['peak_bytes'] / 2**20:.1f} MiB, |grad| sums "
-          f"{r['grad_abs_sums']}; 64x64 spp4 max_depth 3 gradients "
+          f"{r['grad_abs_sums']}; 64x64 spp4 max_depth 2 gradients "
           f"through the kernel vs plain (rtol 1e-5, atol 1e-7; max abs err "
           f"{r['grad_max_abs_err_vs_plain_64']:.2e})", flush=True)
 
     # ---- 31. the lights-and-quadrics box ---------------------------------------
     phase_clock("31")
-    box = load_dict(quadrics_box(256, 256, 8, 6))  # spp 16 until phase 37
+    # spp 2 (16 until phase 37 was added, 8 until phase 39 was)
+    box = load_dict(quadrics_box(256, 256, 2, 6))
     integrators.render(box, seed=0, spp=1, regen=True,
                        samples_per_pass=lanes)  # warm-up
     bfilm, box_s, blaunches, counts = counted_pool(box, lanes)
     rec["box"] = check_pool(
-        "lights-and-quadrics box 256x256 spp8 max_depth 6 (lane pool)",
+        "lights-and-quadrics box 256x256 spp2 max_depth 6 (lane pool)",
         box, bfilm, box_s, blaunches, counts, "tile_sweep", (0.01, 2.0))
     with stage_timers({"threefry": (rng, "threefry2x32"),
                        "sobol": (rng, "_sobol_2")}) as spent:
@@ -3022,8 +3064,8 @@ def slice_6a_phases(lanes, large_film, large_rec):
                  "segment": {"nee_transmittance": "residual",
                              "ff_majorant": "segment"}}
 
-    def large3d(width, spp, extra):
-        d = atmosphere(width, width, spp, 12, grid_res=(64, 64, 64))
+    def large3d(width, spp, extra, max_depth=12):
+        d = atmosphere(width, width, spp, max_depth, grid_res=(64, 64, 64))
         d["integrator"].update(extra)
         return d
 
@@ -3052,8 +3094,8 @@ def slice_6a_phases(lanes, large_film, large_rec):
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, "large3d_sigma_t.vol")
 
-    def nearest(width, spp):
-        d = atmosphere(width, width, spp, 12, grid_res=(64, 64, 64))
+    def nearest(width, spp, max_depth=12):
+        d = atmosphere(width, width, spp, max_depth, grid_res=(64, 64, 64))
         grid = d["atmo"]["interior"]["sigma_t"]
         volfile.write_vol(path, grid.pop("data"),
                           bbox=((-19.5, -19.5, 0.0), (20.5, 20.5, 1.0)))
@@ -3128,17 +3170,18 @@ def slice_6a_phases(lanes, large_film, large_rec):
     # (d) value+grad at spp 2 of (a)'s quadrature render and of (b)
     phase_clock("33d")
     vg = {}
+    # max_depth 6 (12 until phase 39 was added): the time limit
     for name, d_full, d_small, key in (
-            ("quadrature", large3d(128, 2, ablations["quadrature"]),
-             large3d(64, 2, ablations["quadrature"]),
+            ("quadrature", large3d(128, 2, ablations["quadrature"], 6),
+             large3d(64, 2, ablations["quadrature"], 6),
              "volumes.gridvolume.grid"),
-            ("nearest", nearest(128, 2), nearest(64, 2),
+            ("nearest", nearest(128, 2, 6), nearest(64, 2, 6),
              "volumes.gridvolume_nearest.grid")):
         keys = [key, "volumes.constvolume.value"]
         scene = load_dict(d_full)
         r, params = value_grad(scene, lanes, keys)
         vg[name] = check_value_grad(
-            f"atmosphere 128x128 spp2 max_depth 12 64^3 {name}", scene, r,
+            f"atmosphere 128x128 spp2 max_depth 6 64^3 {name}", scene, r,
             params)
         bwd = r["backward"]["launches"]
         assert (bwd["grid_trilinear_bwd"] > 0) == (name == "quadrature"), r
@@ -3859,7 +3902,7 @@ def slice_6c1_phases(lanes, large_rec):
     bit-equal to volpath's, the bins' sum / 470 the base film's Y within 3
     standard errors; one nbins line finite and > 0. (c) srf sensors at spp
     65,536: a flat 360-830 nm srf the estimand of (a), a narrow triangular
-    one finite and > 0. (d) a chromatic 64^3 atmosphere (large3d at spp 4
+    one finite and > 0. (d) a chromatic 64^3 atmosphere (large3d at spp 2
     with a 32^3 srgb albedo grid, packed at load as gridvolume_srgb): the
     rgb2spec fit's host time, fused-entry launches == trilinear lookups,
     gather-entry launches == srgb lookups (a volume_eval, of sigma_t or of
@@ -4012,7 +4055,8 @@ def slice_6c1_phases(lanes, large_rec):
     albedo = srgb_albedo_grid(32)
     n_alb = albedo.shape[0]
     t0 = time.perf_counter()
-    cscene = load_dict(chromatic_atmosphere(256, 256, 4), Variant("spectral"))
+    # spp 2 (4 until phase 39 was added; phase 10's rgb large3d takes 4)
+    cscene = load_dict(chromatic_atmosphere(256, 256, 2), Variant("spectral"))
     load_s = time.perf_counter() - t0
     assert "gridvolume_srgb" in cscene.config.volume_kinds
     packed = cscene.vol_packed_spectral["gridvolume_srgb"]
@@ -4029,7 +4073,7 @@ def slice_6c1_phases(lanes, large_rec):
     with entry_counts() as entries:
         film_c, secs, launches, counts = counted_pool(cscene, lanes)
     rc = rec["renders"]["chromatic 64^3"] = check_atmosphere(
-        "chromatic 64^3 atmosphere 256x256 spp4 max_depth 12 (spectral, "
+        "chromatic 64^3 atmosphere 256x256 spp2 max_depth 12 (spectral, "
         "32^3 srgb albedo)", cscene, film_c, secs, launches, counts)
     rc.update(entries=dict(entries), load_s=load_s, fit_s=fit_s,
               albedo_voxels=n_alb ** 3,
@@ -4051,8 +4095,9 @@ def slice_6c1_phases(lanes, large_rec):
                         dtype=torch.int32).to(dev)
     rc["gather_entry_32f"] = gather_load(packed, idx)
     g = rc["gather_entry_32f"]
-    print(f"# 36d chromatic 64^3 spp4: {rc['render_ms']:.1f} ms against "
-          f"phase 10's rgb large3d {large_rec['render_ms']:.1f} ms; fused "
+    print(f"# 36d chromatic 64^3 spp2: {rc['render_ms']:.1f} ms against "
+          f"phase 10's rgb large3d at spp 4 {large_rec['render_ms']:.1f} ms; "
+          f"fused "
           f"launches {entries['trilinear']} (= trilinear lookups), "
           f"gather-entry launches {entries['gather']} (= srgb lookups: each "
           f"volume_eval, of sigma_t or of the albedo, sweeps both grid "
@@ -4084,14 +4129,15 @@ def slice_6c2_launches(rec, kernel):
     return out
 
 
-def chromatic_atmosphere(width, height, spp, spectral_sigma=False):
+def chromatic_atmosphere(width, height, spp, spectral_sigma=False,
+                         max_depth=12):
     """Phase 36d's chromatic 64^3 atmosphere (large3d, max_depth 12,
     residual NEE, the seeded 32^3 rgb albedo); with ``spectral_sigma`` its
     sigma_t a gridvolume_spectral of S37_BANDS bands over S37_LAMBDA: the
     64^3 density times (550 / lambda)^2, Rayleigh-like."""
     from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
 
-    d = atmosphere(width, height, spp, 12, grid_res=(64, 64, 64))
+    d = atmosphere(width, height, spp, max_depth, grid_res=(64, 64, 64))
     d["integrator"]["nee_transmittance"] = "residual"
     med = d["atmo"]["interior"]
     tw = med["sigma_t"]["to_world"]
@@ -4138,8 +4184,9 @@ def slice_6c2_phases(V, F, lanes, s6c1):
     driver (autograd through passes as wide as the pool), the two
     gradients within rtol 5e-3, atol 1e-7 (the reference's
     tests/test_autodiff.py:348 figure); times, host syncs, peak memory.
-    (b) phase 36d's chromatic 64^3 at 64x64 spp 2: value+grad with respect
-    to the 64^3 sigma_t and the 32^3 srgb albedo through the kernels and
+    (b) phase 36d's chromatic 64^3 at 64x64 spp 2 max_depth 6: value+grad
+    with respect to the 64^3 sigma_t and the 32^3 srgb albedo through the
+    kernels and
     through the plain gather and the plain sweep (rtol 1e-5, atol 1e-7);
     fused-entry launches == trilinear lookups, gather-entry launches ==
     srgb lookups, grid_trilinear_bwd launches == the adjoint's trilinear
@@ -4176,8 +4223,8 @@ def slice_6c2_phases(V, F, lanes, s6c1):
     n_load = 1 << 18
     primal = s6c1["renders"]["spectral distant 1x1"]
 
-    def distant(integrator=None):
-        d = atmosphere(spp=n_load, max_depth=12, grid_res=64,
+    def distant(integrator=None, spp=n_load):
+        d = atmosphere(spp=spp, max_depth=12, grid_res=64,
                        sensor="distant")
         d["integrator"]["nee_transmittance"] = "residual"
         if integrator is not None:
@@ -4281,13 +4328,15 @@ def slice_6c2_phases(V, F, lanes, s6c1):
              ("grid_gather plain",))):
         phase_clock(tag)
         t0 = time.perf_counter()
-        sc = load_dict(chromatic_atmosphere(64, 64, 2, spectral_sigma),
+        # max_depth 6 (12 until phase 39 was added): the time limit
+        sc = load_dict(chromatic_atmosphere(64, 64, 2, spectral_sigma, 6),
                        spectral)
         assert tuple(sc.volumes[sigma_key.split(".")[1]]["grid"].shape[
             -1:]) == (C,)
         sigma_kind = (f"gridvolume_spectral C = {C}" if spectral_sigma
                       else "gridvolume")
-        label = f"chromatic 64^3 64x64 spp2 (sigma_t {sigma_kind})"
+        label = (f"chromatic 64^3 64x64 spp2 max_depth 6 (sigma_t "
+                 f"{sigma_kind})")
         vr = grads_vs_plain(sc, lanes, [sigma_key,
                                         "volumes.gridvolume_srgb.grid"], legs)
         check_grid_launches(label, vr)
@@ -4313,11 +4362,11 @@ def slice_6c2_phases(V, F, lanes, s6c1):
     # ---- 37d. volpathmis, moment and aov in spectral ----------------------
     phase_clock("37d")
 
-    def moment_pool(label, child, seed):
-        sc = distant({"type": "moment", "child": child})
+    def moment_pool(label, child, seed, spp=n_load):
+        sc = distant({"type": "moment", "child": child}, spp)
         film, secs, launches, counts = counted_pool(sc, lanes, seed=seed)
         r = rec["renders"][label] = check_atmosphere(
-            f"{label} spp {n_load} (seed {seed})", sc, film[..., :5], secs,
+            f"{label} spp {spp} (seed {seed})", sc, film[..., :5], secs,
             launches, counts)
         w = float(film[..., 4].sum())
         r["y"] = float(film[..., 1].sum()) / w
@@ -4332,9 +4381,13 @@ def slice_6c2_phases(V, F, lanes, s6c1):
     rm["base_bit_equal_to_36a"] = bool(torch.equal(
         film_m[..., :5], REF_FILMS["spectral distant film"]))
     assert rm["base_bit_equal_to_36a"]
+    # a quarter of the load (all of it until phase 39 was added): the time
+    # limit; the z below weighs each side by its own sample count
+    n_mis = n_load // 4
     film_v, rv = moment_pool("moment over volpathmis",
-                             {"type": "volpathmis", "max_depth": 12}, 2)
-    z, se = z_of(rv["y"], rm["y"], rv["var_y"], n_load, rm["var_y"], n_load)
+                             {"type": "volpathmis", "max_depth": 12}, 2,
+                             n_mis)
+    z, se = z_of(rv["y"], rm["y"], rv["var_y"], n_mis, rm["var_y"], n_load)
     rv["same_estimand_as_volpath"] = dict(y=rv["y"], volpath_y=rm["y"],
                                           z=z, std_err=se)
     assert abs(z) <= 3, rv["same_estimand_as_volpath"]
@@ -4449,8 +4502,9 @@ def slice_6c2_phases(V, F, lanes, s6c1):
 
 # H100 SXM FP64 (non-tensor) peak: half the FP32 rate (NVIDIA data sheet)
 FP64_FLOPS = FP32_FLOPS / 2
-# phase 38f's batches: 8 scan renders of 8,192 samples (65,536 in all)
-S38_BATCHES, S38_BATCH = 8, 1 << 13
+# phase 38f's batches: 8 scan renders of 4,096 samples (32,768 in all;
+# 8,192 a batch until phase 39 was added: the time limit)
+S38_BATCHES, S38_BATCH = 8, 1 << 12
 # phase 38's device and 38a's loads: 2^20 terrain rays, 2^19 forest rays,
 # 64^3 tables (a CPU rehearsal of the phase maps and shrinks them)
 S38_DEVICE, S38_RAYS, S38_GRID = "cuda", 1 << 20, 64
@@ -4848,11 +4902,11 @@ def slice_6d_phases(V, F, lanes):
     autodiff.render(regen=False): fused and backward _f64 launches == the
     lookups, the film equal to the primal's bit for bit, the gradient
     within rtol 1e-9, atol 1e-15 of the plain versions' on the card; (e)
-    terrain(256) in rgb_double 256x256 spp 4 on the scan driver: at most 2
+    terrain(256) in rgb_double 256x256 spp 2 on the scan driver: at most 2
     pixels off the float64 plain sweep, and the forest (128x128 spp 4)
     through each BVH kernel's float64 entry, launches == queries; (f)
     spectral_double on bench.py's
-    spectral load (1x1 distant) at 65,536 samples (8 scan batches) within 3
+    spectral load (1x1 distant) at 32,768 samples (8 scan batches) within 3
     standard errors of spectral, and render(regen=True) of a double scene
     raising on the card; (g) phase 37e's emitter rays in spectral_double
     against the CPU (ROADMAP Queue 3's open question). Returns the
@@ -4979,7 +5033,9 @@ def slice_6d_phases(V, F, lanes):
 
     # ---- 38e. terrain(256) in rgb_double against the plain sweep ------------
     phase_clock("38e")
-    terr = load_dict(terrain_scene(V, F, 256, 256, 4, 6),
+    # spp 2 and max_depth 3 (4 and 6 until phase 39 was added): the time
+    # limit, most of it the plain sweep's
+    terr = load_dict(terrain_scene(V, F, 256, 256, 2, 3),
                      Variant("rgb_double"))
     film_k, secs, got = counted_scan(terr, seed=3)
     assert got["launches"]["tile_sweep_f64"] == got["queries"] > 0, got
@@ -4990,7 +5046,7 @@ def slice_6d_phases(V, F, lanes):
     rec["terrain"] = dict(render_ms=secs * 1e3, queries=got["queries"],
                           pixels_over_tolerance=flips,
                           bit_equal=bool(torch.equal(film_k, film_p)))
-    print(f"# 38e terrain(256) 256x256 spp4 in rgb_double: "
+    print(f"# 38e terrain(256) 256x256 spp2 max_depth 3 in rgb_double: "
           f"{secs * 1e3:.1f} ms, tile_sweep_f64 launches "
           f"{got['launches']['tile_sweep_f64']} = queries, kernel vs plain "
           f"sweep {flips} pixels over tolerance (budget 2), bit-equal "
@@ -5015,7 +5071,8 @@ def slice_6d_phases(V, F, lanes):
     phase_clock("38f")
 
     def distant(variant):
-        d = atmosphere(spp=S38_BATCH, max_depth=12, grid_res=64,
+        # max_depth 6 (bench.py: 12; cut when phase 39 was added)
+        d = atmosphere(spp=S38_BATCH, max_depth=6, grid_res=64,
                        sensor="distant")
         d["integrator"]["nee_transmittance"] = "residual"
         # the sensor targets the coplanar tie (0.5, 0.5, 0): lowered as in
@@ -5067,6 +5124,306 @@ def slice_6d_phases(V, F, lanes):
           f"differences by kind and the worst direction's lane: "
           f"{rec['emitter_rays']}", flush=True)
     return rec
+
+
+# ---- phase 39: the polarized variant (slice 6e) ------------------------------
+
+# bench.py's polarized lane pool (its BENCH_LANES default for the load)
+S39_LANES = 4096
+
+
+def polarized_atmosphere(width, spp, grid_res=64, phase=None,
+                         integrator="stokes"):
+    """bench.py's polarized load: atmosphere(width, width, spp, 8,
+    grid_res) under stokes(volpath, max_depth 8) with residual NEE, in
+    Variant("rgb", polarized=True); ``phase`` replaces the Rayleigh phase,
+    ``integrator="volpath"`` drops the stokes wrapper."""
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(width, width, spp, 8, grid_res=grid_res)
+    child = {"type": "volpath", "max_depth": 8,
+             "nee_transmittance": "residual"}
+    d["integrator"] = (child if integrator == "volpath" else
+                       {"type": "stokes", "child": child})
+    if phase is not None:
+        d["atmo"]["interior"]["phase"] = phase
+    return load_dict(d, Variant("rgb", polarized=True))
+
+
+def stokes_samples(scene, seed):
+    """The scan driver's samples of a stokes scene: stokes.sample_aov over
+    one wavefront of every sample, as render_wavefront runs it -> (N, 4)
+    rows [Y (with the ray weight), S1, S2, S3], sample s in pixel s // spp
+    (render_wavefront splats them)."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.integrators import common, stokes
+
+    cfg = scene.config
+    total = cfg.film_height * cfg.film_width * cfg.spp
+    smp, ray, rw, _pos = integrators._camera_lanes(
+        scene, seed, cfg.spp, torch.arange(
+            total, dtype=torch.int64, device=scene.bsphere_center.device))
+    spec, _valid, _smp, aovs = stokes.sample_aov(scene, smp, ray, rw)
+    y = common.spec_to_xyz(spec * rw, ray.wavelengths)[:, 1:2]
+    return torch.cat([y, aovs], -1)
+
+
+def pool_vs_scan(film, rows, spp):
+    """Each pixel's mean of Y and S1..S3 on the lane pool (``film``)
+    against the scan driver's (``rows``, the same samples; a sample
+    differs where an ulp between the two drivers' arithmetic flips one of
+    its decisions). Returns: the pixel-quantities that differ at all; those
+    beyond 3 standard errors of the pixel mean (the samples' spread in the
+    pixel over sqrt(spp); plus 1e-6 of the value where the spread is 0),
+    the largest such z, and the chance rate's budget for them (a 3-sigma
+    gate passes 0.27 % of independent estimates' pixels); and, per
+    quantity, the z of the mean over pixels of the difference (phase
+    38c's pixel_z)."""
+    pool = torch.stack([film[..., 1], film[..., 5], film[..., 6],
+                        film[..., 7]], -1) / film[..., 4:5]
+    pool = pool.reshape(-1, 4).double()
+    per_pixel = rows.double().reshape(-1, spp, 4)
+    mean = per_pixel.mean(1)
+    se = per_pixel.std(1) / np.sqrt(spp)
+    diff = pool - mean
+    tol = 1e-6 * torch.clamp(mean.abs(), min=1.0)
+    over = diff.abs() > 3 * se + tol
+    z = torch.where(se > 0, diff.abs() / se,
+                    torch.where(diff.abs() > tol, np.inf, 0.0))
+    mean_z = {}
+    # the differences beyond the films' float32 rounding (the pool sums a
+    # pixel's samples in float32, here their mean is taken in float64)
+    moved = torch.where(diff.abs() > tol, diff, 0.0)
+    for i, name in enumerate(("Y", "S1", "S2", "S3")):
+        d = moved[:, i]
+        sd = float(d.std())
+        mean_z[name] = float(d.mean()) / (sd / np.sqrt(d.numel())) \
+            if sd > 0 else 0.0
+    return dict(differing=int((diff.abs() > tol).sum()),
+                compared=int(diff.numel()), over_3se=int(over.sum()),
+                budget=int(0.0027 * over.numel()), z_max=float(z.max()),
+                mean_z=mean_z)
+
+
+def slice_6e_phases(V, F):
+    """Phase 39 (slice 6e): the polarized variant on the card. (a)
+    bench.py's polarized load at full size (64x64 spp 16, stokes(volpath)
+    max_depth 8, residual NEE) on bench.py's lane pool of 4,096 lanes, and
+    once more on 32,768 (time only): fused tile_sweep launches == queries,
+    S3 exactly 0 everywhere (Rayleigh over a depolarizing ground), some
+    |S1| + |S2| above 1e-4, and each pixel's Y and S1..S3 within 3
+    standard errors of the scan driver's same samples but for the chance
+    rate of a 3-sigma gate (0.27 % of them; pool_vs_scan), each mean
+    difference over the pixels within 3 of its standard error; (b) the
+    scene with an isotropic phase (64x64 spp 4): polarized_vol's S0
+    against volpath's sample for sample (rtol 1e-5; at most 0.1 % of the
+    samples may take another path where an ulp of the Mueller products'
+    association flips a roulette), S1..S3 exactly 0; (c) the 64^3 grid under stokes(volpath)
+    at 64x64 spp 2 on the pool: grid_gather launches == fused lookups;
+    (d) terrain(256) with pplastic for its RPV under stokes(path) at
+    256x256 spp 2 max_depth 3 on the scan driver: S0 bit for bit the plain
+    sweep's,
+    tile_sweep launches == queries (the sorted pipeline: 1,017 tiles);
+    (e) the optical bench of tests/test_polarization.py on the card (1x1
+    radiancemeter, rectangles, no kernel): Malus's law at 0, 30, 60 and
+    90 degrees, crossed polarizers, and a half-wave plate at 45 degrees
+    between them. Returns the records."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.integrators import polarized_vol, volpath
+    from eradiate_kernel_tpu_torch.ops import intersect
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    rec = {}
+    # ---- 39a. bench.py's polarized load ------------------------------------
+    phase_clock("39a")
+    scene = polarized_atmosphere(64, 16)
+    assert scene.config.variant.polarized
+    assert integrators.regen_supported(scene.config)
+    integrators.render(scene, seed=0, spp=1, regen=True,
+                       samples_per_pass=S39_LANES)  # warm-up
+    runs = {}
+    for lanes in (S39_LANES, 8 * S39_LANES):
+        film, secs, launches, counts = counted_pool(scene, lanes)
+        runs[lanes] = check_atmosphere(
+            f"polarized atmosphere 64x64 spp16 max_depth 8 stokes(volpath) "
+            f"({lanes} lanes)", scene, film[..., :5], secs, launches, counts)
+        runs[lanes]["film"] = film
+    film = runs[S39_LANES].pop("film")
+    runs[8 * S39_LANES].pop("film")
+    s3_max = float(film[..., 7].abs().max())
+    lin_max = float((film[..., 5].abs() + film[..., 6].abs()).max()
+                    / film[..., 4].max())
+    assert s3_max == 0.0, s3_max
+    assert lin_max > 1e-4, lin_max
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = stokes_samples(scene, 0)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    cmp = pool_vs_scan(film, rows, scene.config.spp)
+    assert cmp["over_3se"] <= cmp["budget"], cmp
+    assert all(abs(z) <= 3 for z in cmp["mean_z"].values()), cmp
+    assert float(rows[:, 3].abs().max()) == 0.0
+    rec["bench"] = dict(
+        runs={str(k): v for k, v in runs.items()}, s3_max=s3_max,
+        s1_s2_max=lin_max, scan_ms=scan_s * 1e3, pool_vs_scan=cmp)
+    r = runs[S39_LANES]
+    print(f"# 39a bench.py's polarized load on {S39_LANES} lanes: "
+          f"{r['render_ms']:.1f} ms, {r['msamples_per_s']:.4f} Msamples/s, "
+          f"iterations {r['iterations']}, host syncs {r['host_syncs']} "
+          f"(+ the pool's {r['pool_syncs']}), fused tile_sweep launches "
+          f"{r['launches']['tile_sweep']} = queries {r['queries']}; on "
+          f"{8 * S39_LANES} lanes {runs[8 * S39_LANES]['render_ms']:.1f} ms "
+          f"(iterations {runs[8 * S39_LANES]['iterations']}); S3 max "
+          f"{s3_max}, max (|S1| + |S2|) / spp {lin_max:.4e}; the scan "
+          f"driver's samples {scan_s * 1e3:.1f} ms; pool vs scan pixel "
+          f"means (Y, S1..S3): {cmp['differing']} of {cmp['compared']} "
+          f"differ, {cmp['over_3se']} beyond 3 standard errors (budget "
+          f"{cmp['budget']}, largest z {cmp['z_max']:.2f}), z of the mean "
+          f"difference {cmp['mean_z']}", flush=True)
+
+    # ---- 39b. an isotropic phase: S0 is volpath's sample for sample ---------
+    phase_clock("39b")
+    iso = polarized_atmosphere(64, 4, phase={"type": "isotropic"},
+                               integrator="volpath")
+    cfg = iso.config
+    total = cfg.film_height * cfg.film_width * cfg.spp
+    smp, ray, _rw, _pos = integrators._camera_lanes(
+        iso, 5, cfg.spp, torch.arange(total, dtype=torch.int64,
+                                      device=iso.bsphere_center.device))
+    t0 = time.perf_counter()
+    spec, _v, _s = volpath.sample(iso, smp, ray)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stokes_v, _v2, _s2 = polarized_vol.sample_stokes(iso, smp, ray)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    s0 = stokes_v[..., 0]
+    off = ~torch.isclose(s0, spec, rtol=1e-5, atol=1e-7).all(-1)
+    assert float(spec.abs().max()) > 0.01
+    assert float(stokes_v[..., 1:].abs().max()) == 0.0
+    assert int(off.sum()) <= total // 1000, int(off.sum())
+    rec["isotropic"] = dict(samples=total, off=int(off.sum()),
+                            volpath_ms=(t1 - t0) * 1e3,
+                            stokes_ms=(t2 - t1) * 1e3)
+    print(f"# 39b isotropic phase 64x64 spp4: polarized_vol S0 against "
+          f"volpath, sample for sample: {int(off.sum())} of {total} samples "
+          f"beyond rtol 1e-5 (budget {total // 1000}); S1..S3 exactly 0; "
+          f"volpath {(t1 - t0) * 1e3:.1f} ms, Mueller volpath "
+          f"{(t2 - t1) * 1e3:.1f} ms (scan driver)", flush=True)
+
+    # ---- 39c. the 64^3 grid under stokes(volpath) ---------------------------
+    phase_clock("39c")
+    large = polarized_atmosphere(64, 2, grid_res=(64, 64, 64))
+    assert large.vol_packed is not None
+    film, secs, launches, counts = counted_pool(large, S39_LANES)
+    rec["large3d"] = check_atmosphere(
+        "polarized 64^3 atmosphere 64x64 spp2 stokes(volpath) "
+        f"({S39_LANES} lanes)", large, film[..., :5], secs, launches, counts)
+    assert counts["lookups"] > 0
+    assert float(film[..., 7].abs().max()) == 0.0
+
+    # ---- 39d. pplastic terrain(256) under stokes(path) ----------------------
+    phase_clock("39d")
+    # max_depth 3 (terrain_scene's 6 elsewhere): the plain sweep's time
+    d = terrain_scene(V, F, 256, 256, 2, 3)
+    d["terrain"]["bsdf"] = {"type": "pplastic", "alpha": 0.2,
+                            "diffuse_reflectance": [0.3, 0.4, 0.5]}
+    d["integrator"] = {"type": "stokes", "child": d["integrator"]}
+    terr = load_dict(d, Variant("rgb", polarized=True))
+    integrators.render(terr, seed=3, spp=1)  # warm-up
+    film_k, secs, got = counted_scan(terr, seed=3)
+    la = got["launches"]
+    assert la["tile_sweep"] == got["queries"] > 0, got
+    assert sum(la.values()) == la["tile_sweep"], la
+    t0 = time.perf_counter()
+    with intersect.use_plain():
+        film_p = integrators.render(terr, seed=3, develop_film=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    assert torch.equal(film_k[..., :5], film_p[..., :5])
+    flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
+                             max_flips=2)
+    n = 256 * 256 * 2
+    rec["terrain"] = dict(
+        render_ms=secs * 1e3, msamples_per_s=n / secs / 1e6,
+        plain_sweep_ms=plain_s * 1e3, queries=got["queries"],
+        launches=la["tile_sweep"],
+        host_syncs=got["host_syncs"], s0_bit_equal=True,
+        film_bit_equal=bool(torch.equal(film_k, film_p)),
+        pixels_over_tolerance=flips,
+        s1_s2_max=float((film_k[..., 5:7].abs()
+                         / film_k[..., 4:5]).max()))
+    assert rec["terrain"]["s1_s2_max"] > 1e-3
+    print(f"# 39d pplastic terrain(256) 256x256 spp2 max_depth 3 "
+          f"stokes(path) (scan): "
+          f"{secs * 1e3:.1f} ms, {n / secs / 1e6:.4f} Msamples/s, "
+          f"tile_sweep launches {la['tile_sweep']} = queries, host syncs "
+          f"{got['host_syncs']}; through the plain sweep "
+          f"{plain_s * 1e3:.1f} ms; S0 bit-equal to the plain sweep's, whole "
+          f"film bit-equal {rec['terrain']['film_bit_equal']} "
+          f"({flips} pixels over tolerance, budget 2); max |S1|, |S2| / S0 "
+          f"weight {rec['terrain']['s1_s2_max']:.4f}", flush=True)
+
+    # ---- 39e. the optical bench's gates (analytic shapes, no kernel) --------
+    phase_clock("39e")
+
+    def bench(elements):
+        b = {"type": "scene",
+             "integrator": {"type": "stokes",
+                            "child": {"type": "path", "max_depth": 2}},
+             "sensor": {"type": "radiancemeter",
+                        "to_world": {"type": "look_at",
+                                     "origin": [0, 0, -4],
+                                     "target": [0, 0, 1], "up": [0, 1, 0]},
+                        "film": {"width": 1, "height": 1,
+                                 "rfilter": {"type": "box"}},
+                        "sampler": {"sample_count": 64}},
+             "env": {"type": "constant", "radiance": 1.0}}
+        for i, el in enumerate(elements):
+            b[f"el{i}"] = {"type": "rectangle",
+                           "to_world": {"type": "translate",
+                                        "value": [0, 0, -3.0 + i]},
+                           "bsdf": el}
+        with counting() as read:
+            img = integrators.render(load_dict(b, Variant(
+                "rgb", polarized=True)), seed=1)
+            launched = sum(read()["launches"].values())
+        assert launched == 0, launched
+        return float(img[0, 0, 1])
+
+    pol = lambda theta: {"type": "polarizer", "theta": theta}
+    gates = {}
+    for theta in (0.0, 30.0, 60.0, 90.0):
+        got = bench([pol(0.0), pol(theta)])
+        want = 0.5 * np.cos(np.deg2rad(theta)) ** 2
+        assert abs(got - want) < 1e-4, (theta, got, want)
+        gates[f"malus {theta:g}"] = got
+    gates["crossed"] = bench([pol(0.0), pol(90.0)])
+    assert abs(gates["crossed"]) < 1e-4, gates
+    gates["crossed with a half-wave plate at 45"] = bench([
+        pol(0.0), {"type": "retarder", "theta": 45.0, "delta": 180.0},
+        pol(90.0)])
+    assert abs(gates["crossed with a half-wave plate at 45"] - 0.5) < 1e-4
+    rec["gates"] = gates
+    print(f"# 39e optical bench on the card (no kernel): {gates} "
+          f"(Malus 0.5 cos^2, crossed 0, half-wave 0.5; within 1e-4)",
+          flush=True)
+    return rec
+
+
+def slice_6e_launches(rec, kernel):
+    """``kernel``'s launches in each render of phase 39."""
+    out = {f"bench polarized {k} lanes": v["launches"][kernel]
+           for k, v in rec["bench"]["runs"].items()}
+    out["64^3 stokes(volpath)"] = rec["large3d"]["launches"][kernel]
+    if kernel == "tile_sweep":
+        out["pplastic terrain stokes(path) (sorted)"] = rec["terrain"][
+            "launches"]
+    return out
 
 
 def main():
@@ -5420,7 +5777,8 @@ def main():
 
     # ---- 11. whole path on the 64^3 atmosphere: kernels vs plain -------------
     phase_clock("11")
-    small_atmo = bench_atmosphere(64, 64, 4, 12, grid_res=(64, 64, 64))
+    # max_depth 6 (12 until phase 39 was added): the plain legs' time
+    small_atmo = bench_atmosphere(64, 64, 4, 6, grid_res=(64, 64, 64))
     film_k, _ = integrators.render_wavefront_regen(small_atmo, lanes, 3, 4)
     for name, plain in (("grid_gather", gather.use_plain),
                         ("tile_sweep", intersect.use_plain)):
@@ -5429,7 +5787,8 @@ def main():
                                                            3, 4)
         flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
                                  max_flips=2)
-        print(f"# whole path 64^3 atmosphere 64x64 spp4: {name} kernel vs "
+        print(f"# whole path 64^3 atmosphere 64x64 spp4 max_depth 6: {name} "
+              f"kernel vs "
               f"plain films agree ({flips} pixels over tolerance, budget 2)",
               flush=True)
 
@@ -5466,16 +5825,17 @@ def main():
     grads = {}
     keys = ["volumes.gridvolume.grid", "volumes.constvolume.value",
             "spectra.baked.value"]
-    flagship4 = bench_atmosphere(256, 256, 2, 12, grid_res=64)
+    # max_depth 6 (12 until phase 39 was added)
+    flagship4 = bench_atmosphere(256, 256, 2, 6, grid_res=64)
     rec, params = value_grad(flagship4, lanes, keys, threefry=True)
     grads["flagship"] = check_value_grad(
-        "atmosphere 256x256 spp2 max_depth 12 grid 64", flagship4, rec,
+        "atmosphere 256x256 spp2 max_depth 6 grid 64", flagship4, rec,
         params)
     assert rec["backward"]["launches"]["grid_trilinear_bwd"] == 0  # einsum
-    large4 = bench_atmosphere(256, 256, 2, 12, grid_res=(64, 64, 64))
+    large4 = bench_atmosphere(256, 256, 2, 6, grid_res=(64, 64, 64))
     rec, params = value_grad(large4, lanes, keys)
     grads["large3d"] = check_value_grad(
-        "atmosphere 256x256 spp2 max_depth 12 grid 64^3", large4, rec,
+        "atmosphere 256x256 spp2 max_depth 6 grid 64^3", large4, rec,
         params)
     assert rec["backward"]["launches"]["grid_trilinear_bwd"] > 0
     # the same value+grad at 64x64 through the kernels and through the
@@ -5496,7 +5856,8 @@ def main():
             torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
             assert torch.equal(ok, torch.isfinite(g)), k
             worst = max(worst, float((g[ok] - ref[ok]).abs().max()))
-        print(f"# whole path 64^3 atmosphere 64x64 spp4 value+grad: kernels "
+        print(f"# whole path 64^3 atmosphere 64x64 spp4 max_depth 6 "
+              f"value+grad: kernels "
               f"vs {name} gradients agree (rtol 1e-5, atol 1e-7; max abs "
               f"err {worst:.2e})", flush=True)
 
@@ -5512,6 +5873,7 @@ def main():
     s6c1 = slice_6c1_phases(lanes, atmo["large3d"])
     s6c2 = slice_6c2_phases(V, F, lanes, s6c1)
     s6d = slice_6d_phases(V, F, lanes)
+    s6e = slice_6e_phases(V, F)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -5601,6 +5963,9 @@ def main():
         "launches_slice_6b": slice_6b_launches(s6b, "tile_sweep"),
         "launches_slice_6c1": slice_6c1_launches(s6c1, "tile_sweep"),
         "launches_slice_6c2": slice_6c2_launches(s6c2, "tile_sweep"),
+        # slice 6e: bench.py's polarized load and the 64^3 one (fused), the
+        # pplastic terrain (sorted)
+        "launches_slice_6e": slice_6e_launches(s6e, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -5675,6 +6040,8 @@ def main():
         # slice 6c-2: the chromatic 64^3's value+grads (forward and
         # adjoint), each entry = its lookups
         "launches_slice_6c2": slice_6c2_launches(s6c2, "grid_gather"),
+        # slice 6e: fused lookups of the 64^3 stokes(volpath) only
+        "launches_slice_6e": slice_6e_launches(s6e, "grid_gather"),
         "entries_slice_6c2": {k: v["entries"] for k, v in s6c2[
             "value_grads"].items() if "entries" in v},
         "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
@@ -5767,6 +6134,7 @@ def main():
     print(json.dumps({"slice_6c1": s6c1}))
     print(json.dumps({"slice_6c2": s6c2}))
     print(json.dumps({"slice_6d": s6d}))
+    print(json.dumps({"slice_6e": s6e}))
     print(json.dumps({"phase_starts_s": PHASE_STARTS}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -58,6 +58,25 @@ def zero_bsdf_sample(n, nc, device, dtype=torch.float32):
     ), torch.zeros(n, nc, dtype=dtype, device=device)
 
 
+def zero_eval(scene, si):
+    """A delta BSDF's eval_pdf: zero value (N, nc) and pdf (N,)."""
+    n = si.t.shape[0]
+    return (si.t.new_zeros(n, scene.config.variant.channels(si.wavelengths)),
+            si.t.new_zeros(n))
+
+
+def passthrough_sample(si, active, weight, flags):
+    """The straight-through sample of a null interface or a
+    delta-transmissive element: wo = -wi, pdf 1, ``weight`` (N, nc) on the
+    active lanes."""
+    n = si.t.shape[0]
+    bs = BSDFSample(
+        wo=-si.wi, pdf=torch.where(active, 1.0, 0.0), eta=si.t.new_ones(n),
+        sampled_type=torch.full((n,), flags, dtype=torch.int32,
+                                device=si.t.device))
+    return bs, torch.where(active[..., None], weight, 0.0)
+
+
 def flip_z(v):
     return torch.cat([v[..., :2], -v[..., 2:]], dim=-1)
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import mueller as mu
+from ..core.math import cross
 from ..render import fresnel as fr
 from ..render.texture import scene_spectrum_eval
 from . import common
@@ -73,7 +75,26 @@ def sample(scene, params, slot, si, s1, s2, active):
 
 
 def eval_pdf(scene, params, slot, si, wo, active):
-    n = si.t.shape[0]
-    return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
-                        device=si.t.device),
-            torch.zeros(n, device=si.t.device))
+    return common.zero_eval(scene, si)
+
+
+def sample_mueller_weight(scene, params, slot, si, bs, weight, active):
+    """The polarized specular weight (conductor.cpp:242-264): the complex
+    Fresnel matrix of each channel, rotated from the s/p frame of the
+    plane of incidence into the implicit local Stokes bases of (-bs.wo,
+    si.wi), times the specular reflectance as an absorber (pdf 1)."""
+    wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
+    wo = torch.where(flip[..., None], common.flip_z(bs.wo), bs.wo)
+    act = active & (wi[..., 2] > 0.0)
+    f_m = mu.specular_reflection(wo[..., 2:3],
+                                 spectrum(scene, params["eta"][slot], si),
+                                 spectrum(scene, params["k"][slot], si))
+    # the s axis is perpendicular to the plane of incidence
+    # (conductor.cpp:255-257)
+    n = torch.zeros_like(wo)
+    n[..., 2] = 1.0
+    f_m = mu.to_local_frames(f_m, wo, wi, mu.plane_basis(cross(n, -wo), -wo),
+                             mu.plane_basis(cross(n, wi), wi), channels=True)
+    refl = common.tex(scene, params["specular_reflectance"][slot], si)
+    return torch.where(act[..., None, None, None],
+                       f_m * refl[..., None, None], 0.0)

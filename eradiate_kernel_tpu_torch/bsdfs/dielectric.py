@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import mueller as mu
+from ..core.math import cross
 from ..render import fresnel as fr
 from . import common
 
@@ -56,10 +58,7 @@ def sample(scene, params, slot, si, s1, s2, active):
 
 
 def eval_pdf(scene, params, slot, si, wo, active):
-    n = si.t.shape[0]
-    return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
-                        device=si.t.device),
-            torch.zeros(n, device=si.t.device))
+    return common.zero_eval(scene, si)
 
 
 def eval_null_transmission(scene, params, slot, si, active):
@@ -67,3 +66,40 @@ def eval_null_transmission(scene, params, slot, si, active):
     BSDF)."""
     nc = scene.config.variant.channels(si.wavelengths)
     return torch.zeros(si.t.shape[0], nc, device=si.t.device)
+
+
+def sample_mueller_weight(scene, params, slot, si, bs, weight, active):
+    """The polarized delta-dielectric weight (dielectric.cpp:250-307): the
+    Fresnel reflection or transmission matrix of the sampled lobe over the
+    lobe's pdf, rotated from the s/p frame of the plane of incidence into
+    the implicit local Stokes bases, times the reflectance or the
+    transmittance (with the radiance compression eta_ti^2) as an
+    absorber."""
+    eta = params["eta"][slot]
+    wi = si.wi
+    cos_i = wi[..., 2]
+    act = active & (cos_i != 0.0)
+    wo = bs.wo
+    ci = wo[..., 2]
+    # the reference's fresnel_polarized handles a signed incidence inside;
+    # here a hit from inside flips the relative IOR
+    eta_rel = torch.where(ci >= 0, eta, 1.0 / eta)
+    R = mu.specular_reflection(torch.abs(ci), eta_rel)
+    T = mu.specular_transmission(torch.abs(ci), eta_rel)
+    selected_r = (bs.sampled_type & common.DeltaReflection) != 0
+    r, _cos_t, _eta_it, eta_ti = fr.fresnel(cos_i, eta)
+    pdf = torch.where(selected_r, r, 1.0 - r)
+    m4 = torch.where(selected_r[..., None, None], R, T) \
+        / torch.clamp(pdf, min=1e-12)[..., None, None]
+    # the s axis is perpendicular to the plane of incidence
+    # (dielectric.cpp:272-274)
+    n = torch.zeros_like(wo)
+    n[..., 2] = 1.0
+    m4 = mu.to_local_frames(m4, wo, wi, mu.plane_basis(cross(n, -wo), -wo),
+                            mu.plane_basis(cross(n, wi), wi))
+    refl = common.tex(scene, params["specular_reflectance"][slot], si)
+    trans = common.tex(scene, params["specular_transmittance"][slot], si)
+    ch_scale = torch.where(selected_r[..., None], refl,
+                           trans * torch.square(eta_ti)[..., None])
+    return torch.where(act[..., None, None, None],
+                       m4[..., None, :, :] * ch_scale[..., None, None], 0.0)

@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.math import normalize
+from ..core import mueller as mu
+from ..core.math import cross, normalize
 from ..render import fresnel as fr
 from ..render import microfacet as mf
 from . import common
@@ -104,3 +105,29 @@ def eval_pdf(scene, params, slot, si, wo, active):
              * val_nof[..., None])
     return (torch.where(act[..., None], value, 0.0),
             torch.where(act, pdf, 0.0))
+
+
+def eval_mueller(scene, params, slot, si, wo, active):
+    """The polarized microfacet eval (roughconductor.cpp:315-340): eval
+    with the scalar Fresnel term replaced by the complex Fresnel matrix
+    about the half vector, rotated from the s/p frame of the microfacet
+    reflection into the implicit Stokes bases of (-wo, wi). The
+    per-channel (N, nc, 4, 4) stack, cosine included."""
+    wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
+    wo = torch.where(flip[..., None], common.flip_z(wo), wo)
+    cos_i = wi[..., 2]
+    act = active & (cos_i > 0.0) & (wo[..., 2] > 0.0)
+    au = params["alpha_u"][slot]
+    av = params["alpha_v"][slot]
+    h = normalize(wi + wo)
+    val_nof, = dist_sweep(params, slot, lambda ty: (
+        mf.eval_d(ty, h, au, av) * mf.g_smith(ty, wi, wo, h, au, av)
+        / torch.clamp(4.0 * cos_i, min=1e-12),))
+    f_m = mu.specular_reflection(torch.sum(wo * h, -1)[..., None],
+                                 spectrum(scene, params["eta"][slot], si),
+                                 spectrum(scene, params["k"][slot], si))
+    f_m = mu.to_local_frames(f_m, wo, wi, mu.plane_basis(cross(h, -wo), -wo),
+                             mu.plane_basis(cross(h, wi), wi), channels=True)
+    refl = common.tex(scene, params["specular_reflectance"][slot], si)
+    out = (refl * val_nof[..., None])[..., None, None] * f_m
+    return torch.where(act[..., None, None, None], out, 0.0)

@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.math import normalize, sqr
+from ..core import mueller as mu
+from ..core.math import cross, normalize, sqr
 from ..render import fresnel as fr
 from ..render import microfacet as mf
 from . import common
@@ -144,3 +145,63 @@ def eval_pdf(scene, params, slot, si, wo, active):
         common.tex(scene, params["specular_transmittance"][slot], si))
     return (torch.where(act[..., None], value[..., None] * tex, 0.0),
             torch.where(act, pdf, 0.0))
+
+
+def eval_mueller(scene, params, slot, si, wo, active):
+    """The polarized rough-dielectric eval: the microfacet eval with the
+    Fresnel factor replaced by the specular reflection or transmission
+    matrix about the facet normal m, rotated from the s/p frame of the
+    plane of incidence into the implicit Stokes bases of (-wo, wi), its
+    M00 rescaled to the scalar Fresnel split. The per-channel (N, nc, 4,
+    4) stack, cosine included. Beyond Mitsuba, whose roughdielectric.cpp
+    has no polarized branch, as in the reference."""
+    eta = params["eta"][slot]
+    au = params["alpha_u"][slot]
+    av = params["alpha_v"][slot]
+    wi = si.wi
+    cos_i = wi[..., 2]
+    cos_o = wo[..., 2]
+    reflect = cos_i * cos_o > 0.0
+    act = active & (cos_i != 0.0) & (cos_o != 0.0)
+    eta_e = torch.where(cos_i > 0, eta, 1.0 / eta)
+    m = normalize(wi + wo * torch.where(reflect, 1.0, eta_e)[..., None])
+    m = _mulsign(m, m[..., 2])
+    wi_up = _mulsign(wi, cos_i)
+    wo_up = _mulsign(wo, cos_o)
+    f, _, eta_it, eta_ti = fr.fresnel(torch.sum(wi * m, -1), eta)
+    dg, = dist_sweep(params, slot, lambda ty: (
+        mf.eval_d(ty, m, au, av) * mf.smith_g1(ty, wi_up, m, au, av)
+        * mf.smith_g1(ty, wo_up, m, au, av),))
+    wim = torch.sum(wi * m, -1)
+    wom = torch.sum(wo * m, -1)
+    act = act & (wim * cos_i > 0.0) & (wom * cos_o > 0.0)
+
+    # the eval's magnitudes with f and 1 - f factored out
+    val_r_nof = dg / torch.clamp(4.0 * torch.abs(cos_i), min=1e-12)
+    denom = wim + eta_it * wom
+    common_t = dg * torch.abs(wim * wom) \
+        / torch.clamp(torch.abs(cos_i) * sqr(denom), min=1e-12)
+    val_nof = torch.where(reflect, val_r_nof,
+                          sqr(eta_it) * common_t * sqr(eta_ti))
+
+    # the facet's Fresnel matrix, the IOR oriented by the signed cosine
+    ci_m = torch.sum(wo * m, -1)
+    eta_rel = torch.where(ci_m >= 0, eta, 1.0 / eta)
+    f_m = torch.where(reflect[..., None, None],
+                      mu.specular_reflection(torch.abs(ci_m), eta_rel),
+                      mu.specular_transmission(torch.abs(ci_m), eta_rel))
+    # M00 to the scalar split exactly (f is taken against wi.m as in
+    # eval_pdf; reciprocity makes the orientations agree analytically)
+    m00 = f_m[..., 0, 0]
+    target = torch.where(reflect, f, 1.0 - f)
+    scale = torch.where(m00 > 1e-12, target / torch.clamp(m00, min=1e-12),
+                        0.0)
+    f_m = f_m * scale[..., None, None]
+    f_m = mu.to_local_frames(f_m, wo, wi, mu.plane_basis(cross(m, -wo), -wo),
+                             mu.plane_basis(cross(m, wi), wi))
+    tex = torch.where(
+        reflect[..., None],
+        common.tex(scene, params["specular_reflectance"][slot], si),
+        common.tex(scene, params["specular_transmittance"][slot], si))
+    out = (tex * val_nof[..., None])[..., None, None] * f_m[..., None, :, :]
+    return torch.where(act[..., None, None, None], out, 0.0)

@@ -4,7 +4,7 @@ Counterpart of eradiate_kernel_tpu/core/types.py. The port carries the
 ``mono`` (1 channel, no wavelength sampling), ``rgb`` (3 sRGB channels)
 and ``spectral`` (4 hero wavelengths a ray, ``N_HERO``) variants, each in
 float32 and in float64 (the ``_double`` suffix, mitsuba.conf.template
-:57-63); the polarized ones (slice 6e) raise.
+:57-63), unpolarized or polarized.
 """
 
 from __future__ import annotations
@@ -25,7 +25,12 @@ class Variant:
     The precision suffix parses as in the reference: ``Variant("rgb_double")
     == Variant("rgb", dtype=torch.float64)``. A scene's floating tensors
     take the variant's dtype, and everything a render computes from them
-    follows; the sampler's draws stay float32 in both (core/rng.py)."""
+    follows; the sampler's draws stay float32 in both (core/rng.py).
+
+    ``polarized`` is stored and read nowhere, as in the reference: what
+    carries polarization is the ``stokes`` integrator, whose Mueller
+    transport (integrators/polarized.py, polarized_vol.py) runs in every
+    variant."""
 
     mode: str = "rgb"
     polarized: bool = False
@@ -38,9 +43,6 @@ class Variant:
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"variant dtype {self.dtype}: float32 or "
                              "float64")
-        if self.polarized:
-            raise NotImplementedError(
-                f"variant {self.mode!r} (polarized): comes with slice 6e")
         if self.mode not in _MODE_CHANNELS:
             raise ValueError(f"unknown mode {self.mode!r}")
 

@@ -26,12 +26,14 @@ from .. import sensors
 from ..core.rng import Sampler
 from ..films import N_BASE_CHANNELS, develop, film_put
 from ..rfilters import filter_radius
-from . import aov, common, depth, direct, moment, path, volpath, volpathmis
+from . import (aov, common, depth, direct, moment, path, stokes, volpath,
+               volpathmis)
 from .bins import bins, nbins
 
 REGISTRY = {"path": path, "direct": direct, "depth": depth,
             "volpath": volpath, "volpathmis": volpathmis, "aov": aov,
-            "moment": moment, "bins": bins, "nbins": nbins}
+            "moment": moment, "stokes": stokes, "bins": bins,
+            "nbins": nbins}
 
 
 def n_aov(cfg):
@@ -241,8 +243,8 @@ def _check_regen(cfg):
     """Raise unless the lane pool can render this scene config."""
     if not regen_supported(cfg):
         raise NotImplementedError(
-            f"the lane pool runs path, volpath, volpathmis and the aov and "
-            f"moment wrappers over them (duv AOVs aside); "
+            f"the lane pool runs path, volpath, volpathmis, the aov, moment, "
+            f"bins and nbins wrappers over them (duv AOVs aside) and stokes; "
             f"{cfg.integrator.kind!r} here takes the scan driver "
             "(render(regen=False))")
 
@@ -336,13 +338,48 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     return film, rays
 
 
+def regen_iter_traffic_nbytes(scene, n_lanes, spp) -> int:
+    """The modelled memory traffic of one lane-pool iteration (reference
+    integrators/__init__.py:512): the lane state read and written, the
+    per-lane bookkeeping, and the finished rows' write. The state is a
+    fresh one of ``n_lanes`` lanes, built on the scene's device. A
+    polarized state's channels are read from its ``stokes`` (N, nc, 4)
+    field (the reference reads ``result``, which its shape-only state
+    cannot compute for a polarized integrator, and raises)."""
+    cfg = scene.config
+    mod = _bounce_module(cfg)
+    dev = scene.bsphere_center.device
+    lanes = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
+    smp, ray, _rw, _pos = _camera_lanes(scene, 0, spp, lanes)
+    state = mod._init_state(scene, smp, ray,
+                            torch.zeros(n_lanes, dtype=torch.bool,
+                                        device=dev))
+
+    def nbytes(x):
+        if dataclasses.is_dataclass(x):
+            return sum(nbytes(getattr(x, f.name))
+                       for f in dataclasses.fields(x))
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        return 0
+
+    nc = (state.stokes.shape[-2] if hasattr(state, "stokes")
+          else state.result.shape[-1])
+    # positions, ray weights, occupancy, iteration counts and sample slots
+    # (about 4 bytes each a lane)
+    misc = n_lanes * (2 + nc + 1 + 1 + 1) * 4
+    # the finished rows: X, Y, Z, the AOV channels and the weight
+    append = n_lanes * (3 + n_aov(cfg) + 1) * 4
+    return int(nbytes(state) + misc) * 2 + append
+
+
 def regen_supported(cfg) -> bool:
     """Whether the lane pool can run this integrator (reference
     integrators/__init__.py:552-568): the (possibly wrapped) integrator
-    needs the bounce hooks (path, volpath and volpathmis have them; direct
-    and depth take the scan driver, as in the reference), and an AOV
-    wrapper its harvest hook; duv AOVs need the offset camera rays and
-    keep the scan driver.
+    needs the bounce hooks (path, volpath, volpathmis and stokes's two
+    children have them; direct and depth take the scan driver, as in the
+    reference), and an AOV wrapper its harvest hook; duv AOVs need the
+    offset camera rays and keep the scan driver.
 
     Raises NotImplementedError for a double variant: the reference's pool
     fails there (its film placement, integrators/__init__.py:494-495, mixes
@@ -428,5 +465,6 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
                  for i, name in enumerate(aov_names(cfg))}
 
 
-__all__ = ["REGISTRY", "aov_names", "n_aov", "render", "render_wavefront",
-           "render_wavefront_regen", "regen_supported"]
+__all__ = ["REGISTRY", "aov_names", "n_aov", "regen_iter_traffic_nbytes",
+           "render", "render_wavefront", "render_wavefront_regen",
+           "regen_supported"]

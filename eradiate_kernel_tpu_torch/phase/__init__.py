@@ -12,6 +12,11 @@ over the cosine of the scattering angle, the cumulative trapezoid ``cdf``
 tables are zero-padded to one K). A blendphase row holds its ``weight`` and
 the phase indices ``phase0`` and ``phase1`` of its children, which are not
 blendphases themselves.
+
+``phase_mueller`` and ``phase_sample_mueller`` are the polarized
+counterparts: the scalar value times the identity for every kind but
+``rayleigh``, whose lanes take the Rayleigh scattering matrix rotated
+through the scattering plane.
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ import math
 
 import torch
 
+from ..core import mueller as mu
 from ..core.frame import Frame
-from ..core.math import dot, safe_sqrt
+from ..core.math import cross, dot, safe_sqrt
 
 INV_FOUR_PI = 1.0 / (4.0 * math.pi)
 
@@ -189,3 +195,49 @@ def phase_sample(scene, phase_idx, ray_d, s1, s2, active=True):
     wo_local = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1)
     wo = Frame.from_normal(ray_d).to_world(wo_local)
     return wo, phase_eval(scene, phase_idx, -ray_d, wo, active)
+
+
+def phase_mueller(scene, phase_idx, wi, wo, active=True):
+    """The polarized phase eval: an (N, 4, 4) Mueller matrix in the
+    implicit world-space Stokes bases (the convention of
+    bsdfs.bsdf_eval_mueller) whose M[0, 0] is ``phase_eval``.
+
+    Mitsuba's phase functions are scalar (phase.h:130-225), so its
+    polarized variants scale the Mueller throughput by the phase value.
+    So does every kind here but ``rayleigh``, which takes the Rayleigh
+    scattering matrix rotated through the scattering plane (molecular
+    scattering makes the dominant polarization of Earth atmospheres)."""
+    value = phase_eval(scene, phase_idx, wi, wo, active)
+    out = value[..., None, None] * torch.eye(4, dtype=value.dtype,
+                                             device=value.device)
+    if "rayleigh" not in scene.config.phase_kinds:
+        return out
+    # the light arrives along -wo and leaves along wi
+    in_fwd = -wo
+    out_fwd = wi
+    m_plane = mu.rayleigh_scatter(dot(in_fwd, out_fwd))
+    # the scattering plane's normal; for collinear directions sin^2 = 0
+    # and any basis serves
+    n = cross(in_fwd, out_fwd)
+    n_len = torch.linalg.norm(n, dim=-1, keepdim=True)
+    n = torch.where(n_len > 1e-8, n / torch.clamp(n_len, min=1e-12),
+                    mu.stokes_basis(in_fwd))
+    m_world = mu.rotate_mueller_basis(
+        m_plane, in_fwd, n, mu.stokes_basis(in_fwd),
+        out_fwd, n, mu.stokes_basis(out_fwd))
+    act = torch.as_tensor(active, device=value.device)
+    for k, kind in enumerate(scene.config.phase_kinds):
+        if kind == "rayleigh":
+            m = (scene.phase_kind[phase_idx] == k) & act
+            out = torch.where(m[..., None, None], m_world, out)
+    return out
+
+
+def phase_sample_mueller(scene, phase_idx, ray_d, s1, s2, active=True):
+    """The polarized phase_sample: wo from the scalar sampler, its pdf and
+    the Mueller importance weight (matrix / pdf; the identity for the
+    polarization-preserving kinds, whose sampling is exact)."""
+    wo, pdf = phase_sample(scene, phase_idx, ray_d, s1, s2, active)
+    m = phase_mueller(scene, phase_idx, -ray_d, wo, active)
+    den = torch.clamp(pdf, min=1e-20)[..., None, None]
+    return wo, pdf, torch.where((pdf > 0)[..., None, None], m / den, 0.0)

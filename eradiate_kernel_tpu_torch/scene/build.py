@@ -39,11 +39,9 @@ from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
 _BSDF_TYPES = (*BSDF_REGISTRY, "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
 _INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath", "volpathmis",
-                     "aov", "moment", "bins", "nbins")
+                     "aov", "moment", "bins", "nbins", "stokes")
 # the wrappers: their child integrator's settings are the config's
-_WRAPPER_TYPES = ("aov", "moment", "bins", "nbins")
-# integrators of later slices, refused by name
-_LATER_INTEGRATORS = {"stokes": "6e (the polarized variant)"}
+_WRAPPER_TYPES = ("aov", "moment", "bins", "nbins", "stokes")
 # the integrator's extra properties load_dict keeps (the reference's, and
 # replay_lanes: the lane count of the path-replay adjoint, which the
 # reference reads from the extras but its load_dict drops); a wrapper adds
@@ -55,10 +53,10 @@ _WRAP_CODES = {"clamp": 0, "repeat": 1, "mirror": 2}
 
 def _integrator_config(kind, val):
     """The IntegratorConfig of an integrator entry. A wrapper (aov,
-    moment, bins, nbins) takes its nested child integrator's settings (the
-    first dict entry whose type is an integrator; none: path with the
-    defaults) and adds ("child", its kind) and its "aovs", "bins" and
-    "tolerance" to the extras (reference scene/build.py:1036-1060)."""
+    moment, bins, nbins, stokes) takes its nested child integrator's
+    settings (the first dict entry whose type is an integrator; none: path
+    with the defaults) and adds ("child", its kind) and its "aovs", "bins"
+    and "tolerance" to the extras (reference scene/build.py:1036-1060)."""
     props, extra = val, []
     if kind in _WRAPPER_TYPES:
         children = [v for v in val.values() if isinstance(v, dict)
@@ -945,9 +943,6 @@ def load_dict(d: dict, variant: Variant | None = None,
                 b.sensor_medium = b.medium(val["medium"])
         elif t in _INTEGRATOR_TYPES:
             integrator_cfg = _integrator_config(t, val)
-        elif t in _LATER_INTEGRATORS:
-            raise NotImplementedError(
-                f"integrator {t!r}: comes with slice {_LATER_INTEGRATORS[t]}")
         elif t in _MEDIUM_TYPES:
             b.named[key] = ("medium", b.medium(val))
         elif t not in _BSDF_TYPES:

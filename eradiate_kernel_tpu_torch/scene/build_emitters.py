@@ -11,9 +11,6 @@ from .build_spectra import _image_data
 
 _EMITTER_SCENE_TYPES = ("constant", "point", "directional", "spot",
                         "projector", "envmap")
-# the reference's BSDFs that read core/mueller.py
-_POLARIZED_BSDFS = ("pplastic", "polarizer", "retarder", "circular",
-                    "measured_polarized")
 
 
 def _build_bsdf(builder, d, twosided=False):
@@ -30,10 +27,6 @@ def _build_bsdf(builder, d, twosided=False):
         if len(child) != 1:
             raise ValueError("twosided needs exactly one nested bsdf")
         return _build_bsdf(builder, child[0], twosided=True)
-    if t in _POLARIZED_BSDFS:
-        raise NotImplementedError(
-            f"bsdf {t!r}: the port carries {sorted(bsdf_pkg.REGISTRY)}; "
-            f"{t!r} comes with slice 6 (the polarized variant)")
     if t not in bsdf_pkg.REGISTRY:
         raise ValueError(f"unknown bsdf type {t!r}")
     mod = bsdf_pkg.REGISTRY[t]

@@ -47,13 +47,13 @@ SUPPORTED = {
                      "gridvolume_srgb", "gridvolume_spectral"},
 }
 INTEGRATORS = ("path", "direct", "depth", "volpath", "volpathmis", "aov",
-               "moment", "bins", "nbins")
+               "moment", "bins", "nbins", "stokes")
 # volpath's transmittance estimators and free-flight majorants, the default
 # first
 NEE_MODES = {"nee_transmittance": ("residual", "track", "quadrature"),
              "ff_majorant": ("profile", "segment")}
 # the slice that brings the kinds SUPPORTED does not have yet
-_LATER = {"bsdf_kinds": "6e", "medium_kinds": "6", "phase_kinds": "7b"}
+_LATER = {"medium_kinds": "6", "phase_kinds": "7b"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +112,7 @@ class SceneConfig:
         kind = self.integrator.kind
         if kind not in INTEGRATORS:
             raise NotImplementedError(
-                f"integrator {kind!r}: the port carries {INTEGRATORS}; "
-                "stokes comes with slice 6e")
+                f"integrator {kind!r}: the port carries {INTEGRATORS}")
         if kind in ("bins", "nbins") and not self.variant.is_spectral:
             raise NotImplementedError(
                 f"integrator {kind!r} runs in the spectral variant only, as "

@@ -1109,3 +1109,139 @@ def test_spectral_grid_gradients_match_cpu(cuda_device):
         torch.testing.assert_close(
             grads["cuda"], ref, rtol=1e-5,
             atol=max(1e-6, 1e-5 * float(ref.abs().max())))
+
+
+def _polarized_atmosphere(width, spp, grid_res=64, phase=None,
+                          integrator="stokes", device="cuda"):
+    """chip_smoke.polarized_atmosphere (bench.py's polarized load) at a
+    small size, its ground lowered by 1e-3 (the coplanar tie, ROADMAP
+    Queue 3)."""
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(width, width, spp, 8, grid_res=grid_res)
+    d["surface"]["to_world"][1]["value"] = [0.5, 0.5, -1e-3]
+    child = {"type": "volpath", "max_depth": 8}
+    d["integrator"] = (child if integrator == "volpath" else
+                       {"type": "stokes", "child": child})
+    if phase is not None:
+        d["atmo"]["interior"]["phase"] = phase
+    return load_dict(d, Variant("rgb", polarized=True), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_res", [64, (64, 64, 64)])
+def test_polarized_atmosphere_matches_cpu(cuda_device, grid_res):
+    """stokes(volpath) over bench.py's polarized atmosphere (16x16 spp 2,
+    max_depth 8, Variant("rgb", polarized=True)) on the card's lane pool
+    against the CPU's: tile_sweep launched once a closest-hit query,
+    grid_gather once a lookup of the 64^3 grid, S3 exactly 0, the films
+    (S0 and S1..S3) within 1e-4 but 8 pixels (test_volpathmis_atmosphere_
+    matches_cpu's reason)."""
+    from chip_smoke import counted_pool, films_equivalent
+    from eradiate_kernel_tpu_torch import integrators
+
+    film, _, launches, counts = counted_pool(
+        _polarized_atmosphere(16, 2, grid_res), 256, seed=3)
+    assert launches["tile_sweep"] == counts["queries"] > 0
+    assert launches["grid_gather"] == counts["lookups"]
+    assert (counts["lookups"] > 0) == (grid_res != 64)
+    assert float(film[..., 7].abs().max()) == 0.0
+    assert float(film[..., 5:7].abs().max()) > 0.0
+    cpu = integrators.render(_polarized_atmosphere(16, 2, grid_res,
+                                                   device="cpu"),
+                             seed=3, regen=True, samples_per_pass=256,
+                             develop_film=False)
+    assert float(film[..., 4].sum()) == 16 * 16 * 2
+    films_equivalent(cpu.numpy(), film.cpu().numpy(), max_flips=8)
+
+
+@pytest.mark.cuda
+def test_polarized_volpath_s0_matches_volpath_on_card(cuda_device):
+    """Under an isotropic phase the Mueller volpath's S0 is volpath's
+    sample for sample on the card (rtol 1e-5; at most 0.1 % of the
+    samples, at least 1, may take another path where an ulp of the
+    Mueller products' association flips a roulette), S1..S3 exactly 0."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.integrators import polarized_vol, volpath
+
+    scene = _polarized_atmosphere(16, 4, phase={"type": "isotropic"},
+                                  integrator="volpath")
+    n = 16 * 16 * 4
+    smp, ray, _rw, _pos = integrators._camera_lanes(
+        scene, 5, 4, torch.arange(n, dtype=torch.int64, device=cuda_device))
+    spec, _v, _s = volpath.sample(scene, smp, ray)
+    stokes, _v2, _s2 = polarized_vol.sample_stokes(scene, smp, ray)
+    off = ~torch.isclose(stokes[..., 0], spec, rtol=1e-5,
+                         atol=1e-7).all(-1)
+    assert float(spec.abs().max()) > 0.01
+    assert int(off.sum()) <= max(1, n // 1000)
+    assert float(stokes[..., 1:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_pplastic_terrain_stokes_matches_plain(cuda_device):
+    """terrain(33) with a pplastic ground under stokes(path) (32x32 spp 2,
+    max_depth 4) on the card's scan driver through the sweep and through
+    the plain sweep: the same film bit for bit, tile_sweep launched once a
+    query."""
+    from chip_smoke import counted_scan, terrain_scene
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    V, F = terrain(33)
+    d = terrain_scene(V, F, 32, 32, 2, 4)
+    d["terrain"]["bsdf"] = {"type": "pplastic", "alpha": 0.2,
+                            "diffuse_reflectance": [0.3, 0.4, 0.5]}
+    d["integrator"] = {"type": "stokes", "child": d["integrator"]}
+    scene = load_dict(d, Variant("rgb", polarized=True))
+    film, _secs, got = counted_scan(scene, seed=3)
+    assert got["launches"]["tile_sweep"] == got["queries"] > 0
+    with intersect.use_plain():
+        plain = integrators.render(scene, seed=3, develop_film=False)
+    assert torch.equal(film, plain)
+    assert float(film[..., 5:7].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_optical_bench_gates_on_card(cuda_device):
+    """tests/test_polarization.py's optical bench on the card (rectangles:
+    no kernel): Malus's law, crossed polarizers, and a half-wave plate at
+    45 degrees between them; S0 within 1e-4."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    def s0(elements):
+        d = {"type": "scene",
+             "integrator": {"type": "stokes",
+                            "child": {"type": "path", "max_depth": 2}},
+             "sensor": {"type": "radiancemeter",
+                        "to_world": {"type": "look_at",
+                                     "origin": [0, 0, -4],
+                                     "target": [0, 0, 1], "up": [0, 1, 0]},
+                        "film": {"width": 1, "height": 1,
+                                 "rfilter": {"type": "box"}},
+                        "sampler": {"sample_count": 64}},
+             "env": {"type": "constant", "radiance": 1.0}}
+        for i, el in enumerate(elements):
+            d[f"el{i}"] = {"type": "rectangle",
+                           "to_world": {"type": "translate",
+                                        "value": [0, 0, -3.0 + i]},
+                           "bsdf": el}
+        before = dict(intersect.launches)
+        img = integrators.render(load_dict(d, Variant("rgb",
+                                                      polarized=True)),
+                                 seed=1)
+        assert intersect.launches == before
+        return float(img[0, 0, 1])
+
+    pol = lambda theta: {"type": "polarizer", "theta": theta}
+    for theta in (0.0, 30.0, 60.0, 90.0):
+        assert abs(s0([pol(0.0), pol(theta)])
+                   - 0.5 * np.cos(np.deg2rad(theta)) ** 2) < 1e-4, theta
+    assert abs(s0([pol(0.0), pol(90.0)])) < 1e-4
+    assert abs(s0([pol(0.0), {"type": "retarder", "theta": 45.0,
+                              "delta": 180.0}, pol(90.0)]) - 0.5) < 1e-4

@@ -208,8 +208,9 @@ def test_double_variants_parse(mode):
     assert (v.mode, v.dtype, v.is_double) == (mode, torch.float64, True)
     assert v.n_channels == Variant(mode).n_channels
     assert Variant(mode).dtype == torch.float32 and not Variant(mode).is_double
-    with pytest.raises(NotImplementedError, match="slice 6e"):
-        Variant(mode + "_double", polarized=True)
+    # polarized too since slice 6e: the flag is stored, as in the reference
+    vp = Variant(mode + "_double", polarized=True)
+    assert (vp.mode, vp.dtype, vp.polarized) == (mode, torch.float64, True)
     with pytest.raises(ValueError, match="float32 or float64"):
         Variant(mode, dtype=torch.float16)
 

@@ -81,11 +81,11 @@ def test_mono_film_matches_reference(mono_case, regen):
 
 @pytest.mark.parametrize("mode", ["spectral", "mono_double", "rgb_double"])
 def test_variants_outside_the_port_raise(mode):
-    if mode == "spectral":  # carried since slice 6c-1, unpolarized only
+    if mode == "spectral":  # carried since slice 6c-1
         assert Variant(mode).n_channels == 4 and Variant(mode).is_spectral
     else:  # carried since slice 6d (tests/test_torch_double.py)
         assert Variant(mode).dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="slice 6e"):
-        Variant(mode, polarized=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Variant("rgb", polarized=True)
+    # every variant is carried since slice 6e, the polarized ones too: the
+    # flag is stored and read nowhere, as in the reference
+    assert Variant(mode, polarized=True).polarized
+    assert Variant("rgb", polarized=True) != Variant("rgb")

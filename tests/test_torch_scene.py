@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from bench_mesh import terrain
+from test_measured import synth_pbsdf
 from eradiate_kernel_tpu.scene import load_dict as jload_dict
 from eradiate_kernel_tpu_torch.core.types import Variant
 from eradiate_kernel_tpu_torch.scene import (IntegratorConfig, SceneConfig,
@@ -114,8 +115,23 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     ("bsdf", {"type": "pplastic"}),
 ])
 def test_types_outside_the_slice_raise(entry):
+    """Kinds the port does not carry raise, naming the slice that brings
+    them. The five polarized BSDFs and stokes are carried since slice 6e:
+    they load (measured_polarized with its tables)."""
     kind, val = entry
     d = terrain_scene()
+    if val["type"] in ("polarizer", "circular", "measured_polarized",
+                       "stokes", "pplastic"):
+        if val["type"] == "measured_polarized":
+            val = dict(val, fields=synth_pbsdf())
+        if kind == "bsdf":
+            d["terrain"]["bsdf"] = val
+        else:
+            d["extra"] = val
+        scene = load_dict(d, device="cpu")
+        assert val["type"] in (scene.config.bsdf_kinds
+                               + (scene.config.integrator.kind,))
+        return
     if kind == "bsdf":
         d["terrain"]["bsdf"] = val
     elif kind == "texture":
