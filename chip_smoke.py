@@ -61,7 +61,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      random points, C = 1, 3 and 8) within rtol 1e-5 and atol 1e-7 (its
      atomics add in an order that changes from run to run), and bit for
      bit on 32,768 lanes whose corners no two lanes share; timed beside
-     the plain index_add_ chain and the backward of grid_sample;
+     the plain index_add_ chain and the backward of grid_sample; the
+     share of lanes whose corner row another lane of their warp shares
+     (what the kernel's warp aggregation merges), and the wrapper's host
+     time piece by piece (C = 1);
+ 13b. (after phase 38) the same entry on the adjoint's own lanes: the
+     grid_trilinear_bwd call with the most lanes of phase 14's 64^3
+     value+grad (C = 1) and of phase 37c's (C = 8), captured by wrapping
+     gather.grid_trilinear_bwd for the duration, in float32 and float64
+     against the plain version (rtol 1e-5, atol 1e-7; float64 1e-12,
+     1e-15), with their shares of shared rows and device times;
  14. value+grad (the mean of the developed image with respect to the
      gridvolume grid, the albedo and the spectra, the sun's irradiance
      among them) of the flagship and of the 64^3 atmosphere at 256x256,
@@ -354,7 +363,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      float32 rows' loads (terrain(256) under 2^20 primary and incoherent
      rays, the rgb_double flagship's cube under 32,768 rays, the forest
      under 2^19 rays through both BVH kernels, the gather, trilinear and
-     backward entries on a 64^3 table at C = 1, 3, 8), timed beside the
+     backward entries on a 64^3 table at C = 1, 3, 8; the backward within
+     rtol 1e-12, atol 1e-15, and bit for bit on lanes whose corners no
+     two lanes share), timed beside the
      float32 entry, the plain version and, for the gathers, index_select,
      grid_sample and grid_sample's backward in float64, the bound at the
      FP64 rate; (b) a unit sphere and the cube mesh hit from 1e5 away
@@ -568,8 +579,10 @@ def write_serialized(path, V, F, name="mesh"):
 def sass_counts(name):
     """{kernel function: {opcode: count}} of kernel ``name``'s SASS, for the
     functions of KERNEL_FUNCS (their float64 instantiations as "<function>
-    f64") and the opcodes of SASS_OPS; None where the toolkit has no
-    cuobjdump."""
+    f64", an instantiation's integer template arguments as " <4>") and
+    the opcodes of SASS_OPS, with every reduction and atomic opcode in
+    full under "reductions" (its width, e.g. F32x4, is in the name); None
+    where the toolkit has no cuobjdump."""
     from eradiate_kernel_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -579,16 +592,21 @@ def sass_counts(name):
                           capture_output=True, text=True, check=True).stdout
     counts, cur = {}, None
     op_re = re.compile(
-        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z0-9_.]+)")
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Za-z0-9_.]*)")
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             cur = next((k for k in KERNEL_FUNCS[name] if k in fn), None)
             if cur is not None:
-                # a template's float64 instantiation ("<name>Id..." mangled)
-                # counts apart, as "<name> f64"
-                if fn[fn.index(cur) + len(cur):].startswith("Id"):
+                # a template's instantiation ("<name>I<type><literals>E",
+                # mangled): float64 as "<name> f64", the literals listed
+                rest = fn[fn.index(cur) + len(cur):]
+                lits = re.match(r"I[a-z]*((?:L[a-z]\d+E)*)", rest)
+                if rest.startswith("Id"):
                     cur += " f64"
+                if lits and lits.group(1):
+                    cur += " <" + ",".join(
+                        re.findall(r"L[a-z](\d+)E", lits.group(1))) + ">"
                 counts.setdefault(cur, collections.Counter())
             continue
         m = op_re.search(line)
@@ -596,14 +614,24 @@ def sass_counts(name):
             counts[cur][m.group(1)] += 1
     fam = lambda op, key: op == key or (key != "LDS"
                                          and op.startswith(key + "."))
-    return {fn: {key: sum(n for op, n in c.items() if fam(op, key))
-                 for key in SASS_OPS} for fn, c in counts.items()}
+    out = {}
+    for fn, c in counts.items():
+        out[fn] = {key: sum(n for op, n in c.items() if fam(op, key))
+                   for key in SASS_OPS}
+        red = {op: n for op, n in c.items() if op.startswith(("RED", "ATOM"))}
+        if red:
+            out[fn]["reductions"] = red
+    return out
 
 
 _T0 = time.perf_counter()
 
 # films and counts of earlier phases that phase 35 holds its renders to
 REF_FILMS = {}
+
+# the adjoint's own backward lanes (load B of the backward entry), captured
+# in phases 14 and 37c by capture_bwd, held and timed in phase 13b
+BWD_LOADS = {}
 
 
 # the seconds since the script started at which each phase began
@@ -1098,6 +1126,13 @@ def gather_host_us(table, idx, n=2000, rounds=5):
         "wrapper": lambda: gather._gather_cuda(table, idx),
         "index_select": lambda: torch.index_select(table, 0, idx),
     }
+    return host_us(pieces, n, rounds)
+
+
+def host_us(pieces, n, rounds):
+    """{name: host us a call of pieces[name]()}: time.perf_counter over n
+    back-to-back calls, the median of ``rounds`` rounds that take the
+    pieces in turn, each round's calls synchronised before and after."""
     times = {name: [] for name in pieces}
     for _ in range(rounds):
         for name, f in pieces.items():
@@ -1158,6 +1193,27 @@ def trilinear_load(grid, packed, slot, pl):
             "grid_sample": device_us(library)})
 
 
+def trilinear_bwd_bytes(shape, slot, pl, size):
+    """Bytes the lookup's backward must move on one load: the points, the
+    slots and the cotangent read once (``size`` bytes a value), and a
+    voxel's C values written once for each distinct voxel that the lanes'
+    8 edge-clamped corners touch (the caller zeroes the rest of d_grid)."""
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    S, D, H, W, C = shape
+    L = slot.numel()
+    r = volumes._corner0((S, D, H, W), slot, pl)[0].reshape(-1).clamp(
+        0, S * D * H * W - 1).long()
+    x, y, z = r % W, r // W % H, r // (W * H) % D
+    base = r - (z * H + y) * W - x
+    corners = torch.stack([
+        base + ((z + dz).clamp(max=D - 1) * H + (y + dy).clamp(max=H - 1))
+        * W + (x + dx).clamp(max=W - 1)
+        for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)])
+    return L * (3 * size + 4 + C * size) + (
+        torch.unique(corners).numel() * C * size)
+
+
 def trilinear_bwd_load(grid, slot, pl, ct):
     """The lookup's backward kernel against its plain version on one load:
     rtol 1e-5 and atol 1e-7 on d_grid, since the atomics add in an order
@@ -1190,9 +1246,8 @@ def trilinear_bwd_load(grid, slot, pl, ct):
     # p * 2 - 1 (trilinear_load), so its gradient differs by as much
     lib_err = float((library().permute(0, 2, 3, 4, 1) - out).abs().max())
     assert lib_err < 1e-4, f"grid_sample's gradient differs by {lib_err}"
-    # bytes: the point, the slot and the cotangent read, 8C floats of
-    # atomics; operations: the corner setup (12) and 14 a channel
-    bound_ms, bound_by = bound(L * (12 + 4 + 4 * C) + L * 8 * C * 4,
+    # operations: the corner setup (12) and 14 a channel
+    bound_ms, bound_by = bound(trilinear_bwd_bytes(shape, slot, pl, 4),
                                L * (12 + 14 * C))
     return dict(
         ms=cuda_ms(lambda: gather.grid_trilinear_bwd(ct, shape, slot, pl),
@@ -1207,6 +1262,136 @@ def trilinear_bwd_load(grid, slot, pl, ct):
             "plain": device_us(lambda: volumes.trilinear_backward_plain(
                 ct, shape, slot, pl)),
             "grid_sample backward": device_us(library)})
+
+
+def bwd_host_us(ct, shape, slot, pl, n=2000, rounds=5):
+    """Host time (us a call, host_us) of each piece of a backward launch:
+    the reshapes, the argument check, the zeroed d_grid (new_zeros and
+    torch.zeros), the stream lookup, the ctypes call alone and the whole
+    wrapper."""
+    from eradiate_kernel_tpu_torch.ops import _build, gather
+
+    S, D, H, W, C = shape
+    dev = ct.device
+    L = slot.shape[0]
+    fn = gather._fn("grid_trilinear_bwd_launch", ct.dtype)
+    d_grid = gather.grid_trilinear_bwd(ct, shape, slot, pl)
+    launch = (ct.data_ptr(), pl.data_ptr(), slot.data_ptr(),
+              d_grid.data_ptr(), S * D * H * W, D, H, W, C, L,
+              _build.stream(dev.index))
+    pieces = {
+        "reshapes": lambda: (ct.reshape(-1, C).contiguous(),
+                             slot.reshape(-1).contiguous(),
+                             pl.reshape(-1, 3).contiguous()),
+        "check": lambda: gather._check_bwd(ct, pl, slot),
+        "new_zeros": lambda: ct.new_zeros(shape),
+        "torch.zeros": lambda: torch.zeros(shape, dtype=ct.dtype,
+                                           device=dev),
+        "raw stream": lambda: _build.stream(dev.index),
+        "ctypes launch": lambda: fn(*launch),
+        "wrapper": lambda: gather.grid_trilinear_bwd(ct, shape, slot, pl),
+    }
+    return host_us(pieces, n, rounds)
+
+
+@contextlib.contextmanager
+def capture_bwd(into):
+    """Record the (ct, grid shape, slot, pl) of the grid_trilinear_bwd
+    call with the most lanes made while the context is open (the
+    adjoint's own lanes; ties: the first) into dict ``into``, by wrapping
+    gather.grid_trilinear_bwd for the duration (the wrapped call runs and
+    counts as before)."""
+    from eradiate_kernel_tpu_torch.ops import gather
+
+    orig = gather.grid_trilinear_bwd
+
+    def wrapped(ct, grid_shape, slot, pl):
+        L = slot.numel()
+        if L > into.get("lanes", 0):
+            into.update(lanes=L, shape=tuple(grid_shape),
+                        ct=ct.detach().reshape(L, -1).clone(),
+                        slot=slot.reshape(L).clone(),
+                        pl=pl.detach().reshape(L, 3).clone())
+        return orig(ct, grid_shape, slot, pl)
+
+    gather.grid_trilinear_bwd = wrapped
+    try:
+        yield into
+    finally:
+        gather.grid_trilinear_bwd = orig
+
+
+def bwd_warp_lanes(C, dtype=torch.float32):
+    """Lanes a warp of the backward kernel holds at C channels: a thread
+    takes a chunk of 4, 2 or 1 floats (1 double), the chunk fastest (at C
+    = 3, 10 or 11 lanes; 10 here)."""
+    vec = (1 if dtype == torch.float64 else
+           4 if C % 4 == 0 else 2 if C % 2 == 0 else 1)
+    return max(1, 32 // min(C // vec, 8))
+
+
+def shared_row_share(shape, slot, pl, warp_lanes):
+    """The share of lanes whose corner c000 row another lane of the same
+    warp (consecutive groups of ``warp_lanes`` lanes) shares: the lanes
+    the backward's warp aggregation can merge."""
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    S, D, H, W = shape[:4]
+    r = volumes._corner0((S, D, H, W), slot, pl)[0].reshape(-1).clamp(
+        0, S * D * H * W - 1).long()
+    n = r.numel() // warp_lanes * warp_lanes
+    if n == 0:
+        return 0.0
+    g = r[:n].reshape(-1, warp_lanes)
+    same = (g[:, :, None] == g[:, None, :]).sum(-1) > 1
+    return float(same.float().mean())
+
+
+def adjoint_bwd_loads():
+    """Phase 13b: the backward entry on the adjoint's own lanes (load B):
+    the calls phases 14 (large3d, C = 1) and 37c (the 8-band chromatic
+    64^3, C = S37_BANDS) captured, in float32 as captured and in float64
+    (the same lanes widened) against the plain version (rtol 1e-5, atol
+    1e-7; float64 1e-12, 1e-15), with the share of lanes whose corner row
+    another lane of their warp shares, the kernel's device time a call and
+    the bound. Returns the loads' records."""
+    from eradiate_kernel_tpu_torch.ops import gather
+    from eradiate_kernel_tpu_torch.textures import volumes
+
+    phase_clock("13b")
+    out = {}
+    for name, cap in BWD_LOADS.items():
+        if not cap:
+            continue
+        shape = cap["shape"]
+        L, C = cap["ct"].shape
+        for dtype, tol in ((torch.float32, (1e-5, 1e-7)),
+                           (torch.float64, (1e-12, 1e-15))):
+            ct, pl, slot = cap["ct"].to(dtype), cap["pl"].to(dtype), cap[
+                "slot"]
+            got = gather.grid_trilinear_bwd(ct, shape, slot, pl)
+            ref = volumes.trilinear_backward_plain(ct, shape, slot, pl)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=tol[0], atol=tol[1])
+            bound_ms, bound_by = bound(trilinear_bwd_bytes(
+                shape, slot, pl, ct.element_size()), 0)
+            rec = out[f"{name} C={C} {str(dtype)[6:]}"] = dict(
+                lanes=L, channels=C, grid=list(shape),
+                max_abs_err=float((got - ref).abs().max()),
+                shared_row_share=shared_row_share(
+                    shape, slot, pl, bwd_warp_lanes(C, dtype)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                device_us=device_us(lambda: gather.grid_trilinear_bwd(
+                    ct, shape, slot, pl), ("grid_trilinear_bwd",)))
+            print(f"# 13b grid_trilinear_bwd on {name}'s adjoint lanes "
+                  f"({L} lanes, C={C}, {str(dtype)[6:]}): within "
+                  f"{rec['max_abs_err']:.2e} of the plain version; "
+                  f"{rec['shared_row_share']:.3f} of lanes share their "
+                  f"corner row with another lane of their warp; kernel "
+                  f"{rec['device_us']} us device a call, bound "
+                  f"{bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+    assert len(out) == 4, sorted(out)
+    return out
 
 
 def distinct_corner_lanes(n, dev, gen):
@@ -4337,8 +4522,12 @@ def slice_6c2_phases(V, F, lanes, s6c1):
                       else "gridvolume")
         label = (f"chromatic 64^3 64x64 spp2 max_depth 6 (sigma_t "
                  f"{sigma_kind})")
-        vr = grads_vs_plain(sc, lanes, [sigma_key,
-                                        "volumes.gridvolume_srgb.grid"], legs)
+        # 37c's adjoint lanes are phase 13b's C = S37_BANDS load B (the
+        # plain legs launch no backward entry)
+        with (capture_bwd(BWD_LOADS.setdefault("chromatic 37c", {}))
+              if spectral_sigma else contextlib.nullcontext()):
+            vr = grads_vs_plain(sc, lanes, [
+                sigma_key, "volumes.gridvolume_srgb.grid"], legs)
         check_grid_launches(label, vr)
         vr["phase_s"] = time.perf_counter() - t0
         vr["channels"] = C
@@ -4686,6 +4875,14 @@ def f64_kernel_loads(V, F, lanes):
         bwd_ref = volumes.trilinear_backward_plain(ct, shape, slot, pl)
         # the atomics add in an order that changes from run to run
         torch.testing.assert_close(bwd, bwd_ref, rtol=1e-12, atol=1e-15)
+        # exact where no two lanes share a corner
+        pl_d = distinct_corner_lanes(n, dev, gen).double()
+        ct_d = torch.randn(pl_d.shape[0], C, generator=gen,
+                           dtype=f64).to(dev)
+        slot_d = torch.zeros(pl_d.shape[0], dtype=torch.int32, device=dev)
+        assert torch.equal(
+            gather.grid_trilinear_bwd(ct_d, shape, slot_d, pl_d),
+            volumes.trilinear_backward_plain(ct_d, shape, slot_d, pl_d))
         vol = grid.permute(0, 4, 1, 2, 3).contiguous()
         g = (pl * 2 - 1).view(1, 1, 1, L, 3)
         lib = lambda: torch.nn.functional.grid_sample(
@@ -4725,7 +4922,7 @@ def f64_kernel_loads(V, F, lanes):
                                                            pl32),
                          lambda: volumes.trilinear_backward_plain(
                              ct, shape, slot, pl), lib_bwd,
-                         L * (24 + 4 + 8 * C) + L * 8 * C * 8,
+                         trilinear_bwd_bytes(shape, slot, pl, 8),
                          L * (12 + 14 * C), ("grid_trilinear_bwd",),
                          float((bwd - bwd_ref).abs().max()))}
         for entry, (k64, k32, plain, library, nbytes, ops, funcs,
@@ -5810,6 +6007,10 @@ def main():
         assert torch.equal(
             gather.grid_trilinear_bwd(ct_d, g64.shape, slot_d, pl_d),
             volumes.trilinear_backward_plain(ct_d, g64.shape, slot_d, pl_d))
+        rec["shared_row_share"] = shared_row_share(g64.shape, slot0, pl,
+                                                   bwd_warp_lanes(C))
+        if C == 1:
+            rec["host_us"] = bwd_host_us(ct, tuple(g64.shape), slot0, pl)
         print(f"# grid_trilinear_bwd 64^3 C={C} ({rec['lanes']} lanes): "
               f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
               f"(max abs err {rec['max_abs_err']:.2e}; bit-equal on "
@@ -5817,7 +6018,11 @@ def main():
               f"backward {rec['library_ms']:.4f} ms (max abs err "
               f"{rec['library_max_abs_err']:.2e}), bound "
               f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); device us a "
-              f"call {rec['device_us']}", flush=True)
+              f"call {rec['device_us']}; lanes sharing a warp's corner row "
+              f"{rec['shared_row_share']:.4f}"
+              + ("; host us a call (median of 5 rounds of 2,000 calls): "
+                 + ", ".join(f"{k} {v:.2f}" for k, v in rec[
+                     "host_us"].items()) if C == 1 else ""), flush=True)
 
     # ---- 14. value+grad of the flagship and the 64^3 atmosphere ----------------
     phase_clock("14")
@@ -5833,7 +6038,8 @@ def main():
         params)
     assert rec["backward"]["launches"]["grid_trilinear_bwd"] == 0  # einsum
     large4 = bench_atmosphere(256, 256, 2, 6, grid_res=(64, 64, 64))
-    rec, params = value_grad(large4, lanes, keys)
+    with capture_bwd(BWD_LOADS.setdefault("large3d", {})):
+        rec, params = value_grad(large4, lanes, keys)
     grads["large3d"] = check_value_grad(
         "atmosphere 256x256 spp2 max_depth 6 grid 64^3", large4, rec,
         params)
@@ -5873,6 +6079,7 @@ def main():
     s6c1 = slice_6c1_phases(lanes, atmo["large3d"])
     s6c2 = slice_6c2_phases(V, F, lanes, s6c1)
     s6d = slice_6d_phases(V, F, lanes)
+    bwd_adjoint = adjoint_bwd_loads()
     s6e = slice_6e_phases(V, F)
 
     if "--profile" in sys.argv[1:]:
@@ -6069,6 +6276,8 @@ def main():
         "load": "64^3 grid, C = 1, 32,768 lanes of random points",
         "C=3": bwd_loads["C=3"],
         f"C={S37_BANDS}": bwd_loads[f"C={S37_BANDS}"],
+        # load B: the adjoint's own lanes (phase 13b)
+        "adjoint_loads": bwd_adjoint,
         # the measurement path's gradient (terrain under the gaussian film)
         # looks up no gridvolume
         "launches_measurement": {

@@ -180,6 +180,25 @@ def grid_trilinear(packed, grid_shape, slot, pl):
     return out.reshape(batch + (C,))
 
 
+def _check_bwd(ct, pl, slot):
+    """The backward entry's argument check (ct (L, C), pl (L, 3), slot
+    (L,)): returns the CUDA device index."""
+    L = slot.shape[0]
+    dev = ct.get_device()
+    if (ct.dtype not in _FLOATS or pl.dtype != ct.dtype
+            or slot.dtype != torch.int32
+            or ct.shape[0] != L or pl.shape[0] != L or dev < 0
+            or pl.get_device() != dev or slot.get_device() != dev):
+        raise ValueError(
+            f"grid_gather: the trilinear backward takes a float32 or "
+            f"float64 cotangent (..., C), points (..., 3) of its type and "
+            f"int32 slots (...) on one CUDA device, got {ct.dtype} "
+            f"{tuple(ct.shape)} on "
+            f"{ct.device}, {pl.dtype} {tuple(pl.shape)}, {slot.dtype} "
+            f"{tuple(slot.shape)}")
+    return dev
+
+
 def grid_trilinear_bwd(ct, grid_shape, slot, pl):
     """Launch the backward entry of csrc/grid_gather.cu on the current
     stream (no sync): ct (..., C) f32, the cotangent of grid_trilinear's
@@ -191,20 +210,11 @@ def grid_trilinear_bwd(ct, grid_shape, slot, pl):
     ct = ct.reshape(-1, C).contiguous()
     slot = slot.reshape(-1).contiguous()
     pl = pl.reshape(-1, 3).contiguous()
+    dev = _check_bwd(ct, pl, slot)
+    # zeroed; the caching allocator aligns it to 512 bytes (the kernel's
+    # vector reductions need 16)
+    d_grid = ct.new_zeros(grid_shape)
     L = slot.shape[0]
-    dev = ct.get_device()
-    if (ct.dtype not in _FLOATS or pl.dtype != ct.dtype
-            or slot.dtype != torch.int32
-            or ct.shape[0] != L or pl.shape[0] != L or dev < 0
-            or pl.get_device() != dev or slot.get_device() != dev):
-        raise ValueError(
-            f"grid_gather: the trilinear backward takes a float32 or "
-            f"float64 cotangent (..., {C}), points (..., 3) of its type and "
-            f"int32 slots (...) on one CUDA device, got {ct.dtype} "
-            f"{tuple(ct.shape)} on "
-            f"{ct.device}, {pl.dtype} {tuple(pl.shape)}, {slot.dtype} "
-            f"{tuple(slot.shape)}")
-    d_grid = torch.zeros(grid_shape, dtype=ct.dtype, device=ct.device)
     if L:
         fn = _fn("grid_trilinear_bwd_launch", ct.dtype)
         err = fn(ct.data_ptr(), pl.data_ptr(), slot.data_ptr(),

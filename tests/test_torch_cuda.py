@@ -159,8 +159,13 @@ def test_grid_trilinear_matches_plain(cuda_device, C):
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
+# the backward entry's channel widths: scalar (1, 3), float2 (2) and
+# float4 (4, 8) chunks of its float32 entry
+BWD_WIDTHS = [1, 2, 3, 4, 8]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("C", BWD_WIDTHS)
 def test_grid_trilinear_bwd_matches_plain(cuda_device, C):
     """The lookup's backward kernel against its plain version on a (2, 8,
     32, 32, C) grid: within rtol 1e-5 and atol 1e-7 (the atomics add in an
@@ -196,6 +201,81 @@ def test_grid_trilinear_bwd_matches_plain(cuda_device, C):
     assert torch.equal(gather.grid_trilinear_bwd(ct_d, shape, slot_d, pl_d),
                        volumes.trilinear_backward_plain(ct_d, shape, slot_d,
                                                         pl_d))
+
+
+def _bwd_lanes(kind, shape, rng):
+    """(pl, slot) numpy lanes of one of the backward entry's hard loads on
+    a grid of ``shape`` (S, D, H, W, C):
+
+    contention: runs of 32 lanes (a warp at C = 1) on one row each, runs
+      of 16 (half-warps) on one row each, runs of 32 whose lanes alternate
+      between two rows, and 512 lanes on one point;
+    faces: every lane on a face of [0, 1]^3 or outside it along some axis
+      (pl in {-0.3, 0, 1, 1.3} there), the rest of it random;
+    slots: random points in two slots, with some lanes' slot out of range
+      (-1, S) or so large that slot * D*H*W wraps in int32: their rows
+      are clamped or wrapped, so the kernel splits them."""
+    S, D, H, W, _C = shape
+    n_axis = np.array([W, H, D])
+    if kind == "contention":
+        cells = rng.integers(0, n_axis - 1, (49, 3))
+        pairs = np.repeat(cells[32:48], 16, 0).reshape(8, 2, 16, 3)
+        cell = np.concatenate([
+            np.repeat(cells[:16], 32, 0),      # a warp's 32 lanes on a row
+            np.repeat(cells[16:32], 16, 0),    # half-warps on two rows
+            pairs.transpose(0, 2, 1, 3).reshape(-1, 3),  # rows alternating
+            np.repeat(cells[48:], 512, 0)])    # 512 lanes on one voxel
+        frac = rng.uniform(0.05, 0.95, cell.shape)
+        frac[-512:] = frac[-512]  # one point: one voxel's 8 corners
+        pl = (cell + frac) / (n_axis - 1)
+        slot = np.repeat(rng.integers(0, S, len(pl) // 32), 32)
+    elif kind == "faces":
+        n = 4096
+        pl = rng.uniform(0, 1, (n, 3))
+        axis = rng.integers(0, 3, n)
+        pl[np.arange(n), axis] = rng.choice([-0.3, 0.0, 1.0, 1.3], n)
+        corner = rng.uniform(size=n) < 0.25   # some on an edge or corner
+        pl[corner] = rng.choice([-0.3, 0.0, 1.0, 1.3], (corner.sum(), 3))
+        slot = rng.integers(0, S, n)
+    else:
+        n = 4096
+        pl = rng.uniform(-0.1, 1.1, (n, 3))
+        slot = rng.integers(0, 2, n)
+        odd = rng.uniform(size=n) < 0.1
+        wrap = (1 << 32) // (D * H * W)
+        slot[odd] = rng.choice([-1, S, wrap, wrap + 1], odd.sum())
+    return pl, slot.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", ["contention", "faces", "slots"])
+@pytest.mark.parametrize("C", BWD_WIDTHS)
+def test_grid_trilinear_bwd_hard_lanes(cuda_device, C, kind, dtype):
+    """The backward entry against its plain version on the loads of
+    _bwd_lanes (warps and half-warps on one row and 512 lanes on one
+    voxel: the warp aggregation; faces and points outside [0, 1]: the
+    clamped corners; wrapped and clamped rows: the split of the row) on a
+    (2, 8, 32, 32, C) grid, at rtol 1e-5 and atol 1e-7 in float32 and
+    1e-12 and 1e-15 in float64 (the atomics' order), with cotangents in
+    [0.5, 1.5] so that the crowded sums do not cancel."""
+    rng = np.random.default_rng(30 + C)
+    shape = (2, 8, 32, 32, C)
+    pl, slot = _bwd_lanes(kind, shape, rng)
+    ct = rng.uniform(0.5, 1.5, (len(pl), C))
+    pl, ct = (torch.as_tensor(a, dtype=dtype, device=cuda_device)
+              for a in (pl, ct))
+    slot = torch.as_tensor(slot, device=cuda_device)
+    name = "grid_trilinear_bwd" + ("_f64" if dtype == torch.float64 else "")
+    before = gather.launches[name]
+    out = gather.grid_trilinear_bwd(ct, shape, slot, pl)
+    torch.cuda.synchronize()
+    assert gather.launches[name] == before + 1
+    ref = volumes.trilinear_backward_plain(ct, shape, slot, pl)
+    assert out.dtype == dtype and bool(out.abs().sum() > 0)
+    tol = ((1e-5, 1e-7) if dtype == torch.float32 else (1e-12, 1e-15))
+    torch.testing.assert_close(out, ref, rtol=tol[0], atol=tol[1])
 
 
 @pytest.mark.cuda
@@ -526,7 +606,7 @@ def test_f64_tile_bvh_overflow_mark(cuda_device, wide):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 3, 8])
+@pytest.mark.parametrize("C", BWD_WIDTHS)
 def test_f64_grid_entries_match_plain(cuda_device, C):
     """grid_gather's float64 entries on a 64^3 table of C channels: the
     gather (packed-corner rows, clamped indices) and the fused trilinear

@@ -127,16 +127,47 @@ def _large_lookups(C, n=1024, seed=7):
     return grid, vslot, pl, rng.normal(size=(n, C)).astype(np.float32)
 
 
-@pytest.mark.parametrize("C", [1, 3])
-def test_trilinear_backward_plain_matches_reference_vjp(C):
+def _crowded_lookups(C, seed=8):
+    """Lanes that crowd a few voxels and the faces of a (2, 17, 17, 17, C)
+    grid: runs of 32 lanes in one voxel (the backward kernel's warp
+    aggregation), 256 lanes on one point, and lanes on the faces of [0,
+    1]^3 or outside them; a random cotangent."""
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, 16, (9, 3))
+    cell = np.concatenate([np.repeat(cells[:8], 32, 0),
+                           np.repeat(cells[8:], 256, 0)])
+    frac = rng.uniform(0.05, 0.95, cell.shape)
+    frac[-256:] = frac[-256]
+    pl = np.concatenate([(cell + frac) / 16,
+                         rng.choice([-0.2, 0.0, 1.0, 1.2], (512, 3))])
+    vslot = rng.integers(0, 2, len(pl))
+    vslot[:512] = np.repeat(vslot[:512:32], 32)
+    grid = rng.random((2, 17, 17, 17, C)).astype(np.float32)
+    return (grid, vslot.astype(np.int32), pl.astype(np.float32),
+            rng.normal(size=(len(pl), C)).astype(np.float32))
+
+
+@jax.jit
+def _reference_vjp(grid, vslot, pl, ct):
+    """jax.vjp of the reference's _trilinear_gather with respect to the
+    grid, applied to ct (jitted: one compile a shape, ~5x faster here than
+    the eager vjp, and the same bits on these loads)."""
+    _out, vjp = jax.vjp(lambda g: jvol._trilinear_gather(g, vslot, pl), grid)
+    return vjp(ct)[0]
+
+
+@pytest.mark.parametrize("lanes", ["random", "crowded"])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
+def test_trilinear_backward_plain_matches_reference_vjp(C, lanes):
     """The plain backward (the backward kernel's plain version) equals
     jax.vjp of the reference's _trilinear_gather with respect to the grid,
     at rtol 1e-5 and atol 1e-7: the same products, summed in another
-    order."""
-    grid, vslot, pl, ct = _large_lookups(C)
-    _out, vjp = jax.vjp(lambda g: jvol._trilinear_gather(
-        g, jnp.asarray(vslot), jnp.asarray(pl)), jnp.asarray(grid))
-    (ref,) = vjp(jnp.asarray(ct))
+    order; on random lanes and on lanes crowding a few voxels and the
+    grid's faces, at the widths whose chunks the kernel lays out apart
+    (scalar 1 and 3, float2 2, float4 4 and 8)."""
+    grid, vslot, pl, ct = (_large_lookups(C) if lanes == "random"
+                           else _crowded_lookups(C))
+    ref = _reference_vjp(*(jnp.asarray(a) for a in (grid, vslot, pl, ct)))
     out = volumes.trilinear_backward_plain(
         torch.as_tensor(ct), grid.shape, torch.as_tensor(vslot),
         torch.as_tensor(pl))
