@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. build every CUDA kernel of the port (tile_sweep, tile_bvh, tile_bvh8,
      grid_gather) from the repository's sources, one nvcc per source, in
      parallel, printing each kernel's registers and spills and a few
-     instruction counts of its SASS;
+     instruction counts of its SASS; then the host libraries with g++
+     (the tile and BVH builders, and the OpenEXR bridge where libOpenEXR
+     is installed);
   2. hold the tile-sweep kernel against its plain PyTorch version on the
      bench terrain (terrain(256): 130,050 triangles, 1,017 tiles: the
      sorted pipeline) with 2^20 coherent primary rays and 2^20 incoherent
@@ -17,7 +19,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      tracer with max_depth 6, RPV surface, directional sun) through the
      port's ``load_dict`` and ``integrators.render``, counting kernel
      launches;
-  4. render a 64x64, 4 spp version twice, through the kernel and through
+  4. render a 64x64, 4 spp version (max_depth 3; 6 until phase 40 was
+     added) twice, through the kernel and through
      the plain sweep, and compare the films;
   5. hold each tile-BVH kernel (binary and 8-wide, walking in warps of
      ops/intersect.py's BVH_GROUP = 32 rays) against its plain version,
@@ -187,7 +190,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      anisotropic Beckmann rough conductor, 256x256 spp16 max_depth 6
      through the scan driver and a pool of 2^18 lanes (launches ==
      queries, films within phase 17's 64 pixels), and a 64x64 spp4
-     max_depth 3 film (6 until phase 39 was added)
+     max_depth 2 film (6 until phase 39 was added, 3 until phase 40 was)
      through the kernel against the plain sweep (budget 2);
  28. tests/test_bsdfs.py's furnace gates (the conductor mirror, the
      dielectric, the thin dielectric, the rough dielectric at alpha 0.02,
@@ -212,8 +215,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      multijitter sampler; 256x256 spp8 (16 until phase 37 was added)
      max_depth 6 on the scan driver
      and a pool of 2^18 lanes (launches == queries, films within 64
-     pixels); a 64x64 spp4 max_depth 3 film (6 until phase 39 was added)
-     through the kernel against the plain sweep (budget 2); value+grad at
+     pixels); a 64x64 spp4 max_depth 2 film (6 until phase 39 was added,
+     3 until phase 40 was) through the kernel against the plain sweep
+     (budget 2); value+grad at
      spp 2 (4 until phase 37 was added)
      with respect to the envmap's
      image and the measured spectra (finite, not zero; launches ==
@@ -255,9 +259,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      2, max_depth 6 (12 until phase 39 was), of the quadrature render and
      the nearest
      grid (d(mean)/d(grid, albedo); forward and backward launches, the
-     film bit-equal to the primal's) and their 64x64 spp2 gradients (spp
-     4 until phase 37 was added) through the kernels against the plain
-     versions (rtol 1e-5, atol 1e-7);
+     film bit-equal to the primal's) and their 64x64 spp2 max_depth 4
+     gradients (spp 4 until phase 37 was added, max_depth 6 until phase
+     40 was) through the kernels against the plain versions (rtol 1e-5,
+     atol 1e-7);
  34. slice 7a: scenes from files, written under a temporary directory.
      (a) terrain(256) as a PLY, a seeded 1024x1024 f32 albedo map as a
      ZIP EXR feeding a diffuse bitmap (on the terrain, which has no uvs
@@ -299,7 +304,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      index equal (but in 2 pixels) outside the pixels of the samples the
      scan driver splats into the next pixel (its float32 pixel + jitter
      rounds up; the pool writes a sample to its own pixel), and a 64x64
-     spp4 pool render through the
+     spp4 max_depth 3 (6 until phase 40 was added) pool render through the
      kernel and the plain sweep with depth bit-equal and every AOV
      bit-equal where the prim index is; (d) duv_dx and duv_dy at 64x64
      spp4 through the scan driver's offset camera rays: finite, non-zero
@@ -354,7 +359,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      normal) over volpath on terrain(256) at 256x256 spp 4 on a pool of
      2^18 lanes (launches == queries, the refills' included; a depth
      where the alpha is); (e) phase 30's measured terrain in spectral at
-     64x64 spp 4 max_depth 3 (a 128x256 sky) through the kernel against
+     64x64 spp 4 max_depth 2 (3 until phase 40 was added; a 128x256 sky)
+     through the kernel against
      the plain sweep (budget 2); sample_emitter_ray in spectral over 2^16
      lanes against the same call on the CPU (o, d within 1e-4,
      wavelengths 1e-5, weights 1e-4 relative);
@@ -393,14 +399,31 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      Mueller volpath's S0 against volpath's sample for sample, S1..S3 0;
      (c) the 64^3 grid under stokes(volpath) at 64x64 spp 2 (grid_gather
      launches == fused lookups); (d) terrain(256) with a pplastic ground
-     under stokes(path) at 256x256 spp 2 max_depth 3, S0 bit for bit the
-     plain sweep's; (e) Malus's law, crossed polarizers and a half-wave
+     under stokes(path) at 256x256 spp 2 max_depth 3 (the plain sweep's
+     film: phase 40b); (e) Malus's law, crossed polarizers and a half-wave
      plate on the optical bench (no kernel);
+ 40. slices 6e-2 and 7b (slice_7b_phases): (a) value+grad of the 64^3
+     atmosphere under stokes(volpath) (64x64 spp 2, grid and albedo) on
+     the scan driver through the kernels and the plain gather
+     (grid_gather and grid_trilinear_bwd launches == lookups); (b) the
+     pplastic terrain(256) under stokes(path) (32x32 spp 2 max_depth 2,
+     the rgb spectra) through the sorted sweep and the plain sweep
+     (launches == queries); (c) the native tile and BVH builders (built
+     with g++ in phase 1) bit-equal to their numpy versions on
+     terrain(256) and the forest, with both host times, and the renders
+     over native-built accelerators bit-equal to numpy-built ones'
+     (tile_sweep, tile_bvh, tile_bvh8); (d) registered HG, diffuse,
+     point-emitter and path clones against their built-ins (the HG clone
+     in the 64^3 atmosphere on the lane pool); (e) the chi2 harness for
+     hg, rayleigh, tabphase, rpv, pplastic and the HG clone; (f) the
+     z-test harness on the flagship atmosphere at 32x32, and its
+     detection of a changed albedo; (g) DWAA and DWAB through the OpenEXR
+     bridge (or "exr_bridge: absent" and the refusal);
  12. (last) print the kernels line (every kernel and entry, the backward
      and the float64 entries included, with their launches on phases
-     21-39), the value+grad, measurement, materials, slice 5c-2, slice 6a,
-     slice 7a, slice 6b, slice 6c-1, slice 6c-2, slice 6d and slice 6e
-     records,
+     21-40), the value+grad, measurement, materials, slice 5c-2, slice 6a,
+     slice 7a, slice 6b, slice 6c-1, slice 6c-2, slice 6d, slice 6e and
+     slice 7b records,
      the card's name and power limit, and the final ``{"ok": true, ...}``
      line.
 
@@ -2624,8 +2647,9 @@ def materials_phases(V, F, lanes):
     # phase 17's budget: the scan splats a few samples into the next pixel
     flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
                              max_flips=64)
-    # max_depth 3 (6 until phase 39 was added): the plain sweep's time
-    small = load_dict(materials_terrain(V, F, 64, 64, 4, 3))
+    # max_depth 2 (6 until phase 39 was added, 3 until phase 40 was): the
+    # plain sweep's time
+    small = load_dict(materials_terrain(V, F, 64, 64, 4, 2))
     film_k = integrators.render(small, seed=3, develop_film=False)
     with intersect.use_plain():
         film_p = integrators.render(small, seed=3, develop_film=False)
@@ -2635,7 +2659,7 @@ def materials_phases(V, F, lanes):
         "tile_sweep"], flips_vs_scan=flips, flips_vs_plain_64=flips_plain)
     print(f"# materials terrain 256x256 spp16: scan {scan_s * 1e3:.1f} ms, "
           f"lane pool {pool_s * 1e3:.1f} ms, films agree ({flips} pixels "
-          f"over tolerance, budget 64); 64x64 spp4 max_depth 3 kernel vs "
+          f"over tolerance, budget 64); 64x64 spp4 max_depth 2 kernel vs "
           f"plain films agree ({flips_plain} pixels, budget 2)", flush=True)
 
     # ---- 28. the BSDF furnace gates -----------------------------------------
@@ -2939,9 +2963,10 @@ def slice_5c2_phases(V, F, scene, img, lanes):
     scan = integrators.render(mt, seed=0, develop_film=False)
     flips = films_equivalent(scan.cpu().numpy(), pfilm.cpu().numpy(),
                              max_flips=64)
-    # max_depth 3 (6 until phase 39 was added): the plain sweep's time
+    # max_depth 2 (6 until phase 39 was added, 3 until phase 40 was): the
+    # plain sweep's time
     small = load_dict(measured_terrain(paths["ply"], fields, sky, 64, 64, 4,
-                                       3))
+                                       2))
     film_k = integrators.render(small, seed=3, develop_film=False)
     with intersect.use_plain():
         film_p = integrators.render(small, seed=3, develop_film=False)
@@ -2951,7 +2976,7 @@ def slice_5c2_phases(V, F, scene, img, lanes):
         "tile_sweep"], flips_vs_scan=flips, flips_vs_plain_64=flips_plain)
     print(f"# measured terrain: scan {scan_s * 1e3:.1f} ms, lane pool "
           f"{pool_s * 1e3:.1f} ms, films agree ({flips} pixels over "
-          f"tolerance, budget 64); 64x64 spp4 max_depth 3 kernel vs plain "
+          f"tolerance, budget 64); 64x64 spp4 max_depth 2 kernel vs plain "
           f"films agree ({flips_plain} pixels, budget 2)", flush=True)
     keys = ["emitters.envmap.image", "bsdfs.measured.spectra"]
     # spp 2 (4 until phase 37 was added)
@@ -3357,10 +3382,12 @@ def slice_6a_phases(lanes, large_film, large_rec):
     vg = {}
     # max_depth 6 (12 until phase 39 was added): the time limit
     for name, d_full, d_small, key in (
+            # the 64x64 legs against the plain versions at max_depth 4 (6
+            # until phase 40 was added)
             ("quadrature", large3d(128, 2, ablations["quadrature"], 6),
-             large3d(64, 2, ablations["quadrature"], 6),
+             large3d(64, 2, ablations["quadrature"], 4),
              "volumes.gridvolume.grid"),
-            ("nearest", nearest(128, 2, 6), nearest(64, 2, 6),
+            ("nearest", nearest(128, 2, 6), nearest(64, 2, 4),
              "volumes.gridvolume_nearest.grid")):
         keys = [key, "volumes.constvolume.value"]
         scene = load_dict(d_full)
@@ -3372,7 +3399,8 @@ def slice_6a_phases(lanes, large_film, large_rec):
         assert (bwd["grid_trilinear_bwd"] > 0) == (name == "quadrature"), r
         vg[name]["vs_plain_64"] = grads_vs_plain(
             load_dict(d_small), lanes, keys)["grad_max_abs_err_vs_plain"]
-        print(f"# {name} 64x64 spp2 value+grad: kernels vs plain gradients "
+        print(f"# {name} 64x64 spp2 max_depth 4 value+grad: kernels vs "
+              f"plain gradients "
               f"agree (rtol 1e-5, atol 1e-7; max abs err "
               f"{vg[name]['vs_plain_64']})", flush=True)
     rec["value_grad"] = vg
@@ -3888,8 +3916,9 @@ def slice_6b_phases(V, F, lanes, refs):
     moved, pr["scan_samples_moved"] = scan_moved_pixels(scene, 0, 16)
     pr["scan_moved_pixels"] = int(moved.sum())
     pr["pixels_over_vs_scan"] = aov_drivers_agree(aovs_s, aovs_p, moved)
-    # 64x64 spp4 on the pool: through the kernel and the plain sweep
-    d64 = terrain_scene(V, F, 64, 64, 4, 6)
+    # 64x64 spp4 max_depth 3 (6 until phase 40 was added: the plain
+    # sweep's time) on the pool: through the kernel and the plain sweep
+    d64 = terrain_scene(V, F, 64, 64, 4, 3)
     d64["integrator"] = {"type": "aov", "aovs": AOV_SPEC,
                          "child": d64["integrator"]}
     small = load_dict(d64)
@@ -4618,12 +4647,12 @@ def slice_6c2_phases(V, F, lanes, s6c1):
     t0 = time.perf_counter()
     ply = os.path.join("smoke_out", "mesh_files", "terrain.ply")
     fields = synth_measured_fields(6, 16, 32, seed=5)
-    # max_depth 3: the plain sweep's time (phase 30's gradient legs)
+    # max_depth 2 (3 until phase 40 was added): the plain sweep's time
     msc = load_dict(measured_terrain(ply, fields, sky_image(128, 256, seed=6),
-                                     64, 64, 4, 3), spectral)
+                                     64, 64, 4, 2), spectral)
     film_k, secs, launches, counts = counted_pool(msc, lanes, seed=3)
     rmt = rec["renders"]["measured terrain 64x64"] = check_pool(
-        "measured terrain under an envmap 64x64 spp4 max_depth 3, spectral "
+        "measured terrain under an envmap 64x64 spp4 max_depth 2, spectral "
         "(lane pool)", msc, film_k, secs, launches, counts, "tile_sweep",
         (1e-3, 5.0))
     rmt["flips_vs_plain"] = films_vs_plain(msc, lanes, legs=("tile_sweep",))
@@ -5420,8 +5449,8 @@ def slice_6e_phases(V, F):
     association flips a roulette), S1..S3 exactly 0; (c) the 64^3 grid under stokes(volpath)
     at 64x64 spp 2 on the pool: grid_gather launches == fused lookups;
     (d) terrain(256) with pplastic for its RPV under stokes(path) at
-    256x256 spp 2 max_depth 3 on the scan driver: S0 bit for bit the plain
-    sweep's,
+    256x256 spp 2 max_depth 3 on the scan driver (phase 40b holds the
+    scene's film and gradients to the plain sweep's),
     tile_sweep launches == queries (the sorted pipeline: 1,017 tiles);
     (e) the optical bench of tests/test_polarization.py on the card (1x1
     radiancemeter, rectangles, no kernel): Malus's law at 0, 30, 60 and
@@ -5430,7 +5459,6 @@ def slice_6e_phases(V, F):
     from eradiate_kernel_tpu_torch import integrators
     from eradiate_kernel_tpu_torch.core.types import Variant
     from eradiate_kernel_tpu_torch.integrators import polarized_vol, volpath
-    from eradiate_kernel_tpu_torch.ops import intersect
     from eradiate_kernel_tpu_torch.scene import load_dict
 
     rec = {}
@@ -5525,7 +5553,9 @@ def slice_6e_phases(V, F):
 
     # ---- 39d. pplastic terrain(256) under stokes(path) ----------------------
     phase_clock("39d")
-    # max_depth 3 (terrain_scene's 6 elsewhere): the plain sweep's time
+    # max_depth 3 (terrain_scene's 6 elsewhere); the film through the plain
+    # sweep is phase 40b's (32x32; here at 256x256 until phase 40 was
+    # added): the plain sweep's time
     d = terrain_scene(V, F, 256, 256, 2, 3)
     d["terrain"]["bsdf"] = {"type": "pplastic", "alpha": 0.2,
                             "diffuse_reflectance": [0.3, 0.4, 0.5]}
@@ -5536,22 +5566,11 @@ def slice_6e_phases(V, F):
     la = got["launches"]
     assert la["tile_sweep"] == got["queries"] > 0, got
     assert sum(la.values()) == la["tile_sweep"], la
-    t0 = time.perf_counter()
-    with intersect.use_plain():
-        film_p = integrators.render(terr, seed=3, develop_film=False)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    assert torch.equal(film_k[..., :5], film_p[..., :5])
-    flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
-                             max_flips=2)
     n = 256 * 256 * 2
     rec["terrain"] = dict(
         render_ms=secs * 1e3, msamples_per_s=n / secs / 1e6,
-        plain_sweep_ms=plain_s * 1e3, queries=got["queries"],
-        launches=la["tile_sweep"],
-        host_syncs=got["host_syncs"], s0_bit_equal=True,
-        film_bit_equal=bool(torch.equal(film_k, film_p)),
-        pixels_over_tolerance=flips,
+        queries=got["queries"], launches=la["tile_sweep"],
+        host_syncs=got["host_syncs"],
         s1_s2_max=float((film_k[..., 5:7].abs()
                          / film_k[..., 4:5]).max()))
     assert rec["terrain"]["s1_s2_max"] > 1e-3
@@ -5559,11 +5578,9 @@ def slice_6e_phases(V, F):
           f"stokes(path) (scan): "
           f"{secs * 1e3:.1f} ms, {n / secs / 1e6:.4f} Msamples/s, "
           f"tile_sweep launches {la['tile_sweep']} = queries, host syncs "
-          f"{got['host_syncs']}; through the plain sweep "
-          f"{plain_s * 1e3:.1f} ms; S0 bit-equal to the plain sweep's, whole "
-          f"film bit-equal {rec['terrain']['film_bit_equal']} "
-          f"({flips} pixels over tolerance, budget 2); max |S1|, |S2| / S0 "
-          f"weight {rec['terrain']['s1_s2_max']:.4f}", flush=True)
+          f"{got['host_syncs']}; max |S1|, |S2| / S0 weight "
+          f"{rec['terrain']['s1_s2_max']:.4f} (the plain sweep's film: 40b)",
+          flush=True)
 
     # ---- 39e. the optical bench's gates (analytic shapes, no kernel) --------
     phase_clock("39e")
@@ -5623,16 +5640,517 @@ def slice_6e_launches(rec, kernel):
     return out
 
 
+# ---- phase 40: the stokes gradients, harnesses, hooks, native builders -------
+
+S40_LANES = 1 << 15
+
+
+@contextlib.contextmanager
+def numpy_builders():
+    """Inside the block, scenes build their tiles and binary BVHs with the
+    numpy plain versions of the native builders."""
+    from eradiate_kernel_tpu_torch.ops import accel, bvh
+    from eradiate_kernel_tpu_torch.scene import build
+
+    saved = accel.build_tri_tiles, build.build_tile_bvh
+    accel.build_tri_tiles = accel._build_tiles_numpy
+    build.build_tile_bvh = bvh._build_tile_bvh_numpy
+    try:
+        yield
+    finally:
+        accel.build_tri_tiles, build.build_tile_bvh = saved
+
+
+def user_plugins():
+    """A user's plugins, written as tests/test_custom_plugins.py's: an HG
+    clone whose anisotropy is named ``anisotropy``, a point-emitter clone
+    taking a ``power``, a diffuse clone whose reflectance is named
+    ``albedo`` and an integrator whose sample is path's. Returns name ->
+    (register function, registries to take it out of, module)."""
+    import types
+
+    from eradiate_kernel_tpu_torch import bsdfs, emitters, integrators, phase
+    from eradiate_kernel_tpu_torch.bsdfs import diffuse
+    from eradiate_kernel_tpu_torch.integrators import path
+
+    hg = types.SimpleNamespace()
+    hg.build = lambda props, b: {
+        "aniso": np.float32(props.get("anisotropy", 0.0))}
+
+    def eval_cos(params, slot, ct):
+        g = params["aniso"][slot]
+        temp = 1.0 + g * g + 2.0 * g * ct
+        return (1.0 / (4.0 * np.pi)) * (1.0 - g * g) / torch.clamp(
+            temp * torch.sqrt(torch.clamp(temp, min=0.0)), min=1e-12)
+
+    def sample_cos(params, slot, s1):
+        g = params["aniso"][slot]
+        safe_g = torch.where(torch.abs(g) < 1e-4, 1e-4, g)
+        sqr_term = (1.0 - g * g) / (1.0 - g + 2.0 * g * s1)
+        ct = (1.0 + g * g - sqr_term * sqr_term) / (2.0 * safe_g)
+        return torch.where(torch.abs(g) < 1e-4, 1.0 - 2.0 * s1, ct)
+
+    hg.eval_cos, hg.sample_cos = eval_cos, sample_cos
+    lamp = types.SimpleNamespace(
+        sample_direction=emitters.point_sample_direction,
+        build=lambda props, b: {
+            "position": np.asarray(props.get("position", [0, 0, 0]),
+                                   np.float32),
+            "intensity": np.int32(b.texture(
+                float(props.get("power", 1.0)) / (4.0 * np.pi),
+                emitter=True))})
+    clone = types.SimpleNamespace(
+        FLAGS=diffuse.FLAGS, sample=diffuse.sample,
+        eval_pdf=diffuse.eval_pdf,
+        build=lambda props, b: diffuse.build(
+            {**props, "reflectance": props.get("albedo", 0.5)}, b))
+    return {
+        "user_hg": (phase.register_phasefunction, (phase.CUSTOM,), hg),
+        "user_lamp": (emitters.register_emitter,
+                      (emitters.CUSTOM, emitters.KIND_SAMPLERS), lamp),
+        "user_diffuse": (bsdfs.register_bsdf, (bsdfs.REGISTRY,), clone),
+        "user_path": (integrators.register_integrator,
+                      (integrators.REGISTRY,),
+                      types.SimpleNamespace(sample=path.sample)),
+    }
+
+
+def scan_value_grad(scene, keys, legs):
+    """The scan driver's value+grad of the developed film's mean with
+    respect to ``keys`` (autograd through integrators.render(regen=False),
+    the drivers' only backward for stokes), once under each context of
+    ``legs`` (name -> context manager), each leg's film held bit for bit to
+    the primal render's. Returns ({leg: record}, {leg: {key: grad}})."""
+    from eradiate_kernel_tpu_torch import films, integrators
+    from eradiate_kernel_tpu_torch.utils import autodiff
+
+    primal = integrators.render(scene, seed=0, develop_film=False)
+    recs, grads = {}, {}
+    for leg, ctx in legs.items():
+        pm = autodiff.traverse(scene).keep(keys)
+        params = pm.trainable()
+        with ctx(), counting() as read:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            film = integrators.render(pm.with_trainable(params), seed=0,
+                                      develop_film=False)
+            loss = films.develop(film).mean()
+            torch.cuda.synchronize()
+            fwd = read()
+            loss.backward()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            end = read()
+        assert torch.equal(film.detach(), primal), f"{leg}: film"
+        grads[leg] = {k: p.grad for k, p in params.items()}
+        recs[leg] = dict(
+            value_grad_ms=secs * 1e3, queries=fwd["queries"],
+            lookups=fwd["lookups"], forward=fwd["launches"],
+            backward={k: v - fwd["launches"][k]
+                      for k, v in end["launches"].items()},
+            host_syncs=end["host_syncs"],
+            peak_bytes=torch.cuda.max_memory_allocated())
+    return recs, grads
+
+
+def grads_agree(grads, ref_leg="plain"):
+    """Every key's gradient through the kernels within rtol 1e-5, atol
+    1e-7 of ``ref_leg``'s (phase 14's tolerance) on their finite entries,
+    finite at the same entries, not all zero. Returns the largest
+    difference."""
+    worst = 0.0
+    for k, g in grads["kernels"].items():
+        ref = grads[ref_leg][k]
+        ok = torch.isfinite(ref)
+        assert torch.equal(ok, torch.isfinite(g)), k
+        assert bool(g[ok].abs().sum() > 0), k
+        torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
+        worst = max(worst, float((g[ok] - ref[ok]).abs().max()))
+    return worst
+
+
+def slice_7b_phases(V, F):
+    """Phase 40 (slices 6e-2 and 7b). (a) The 64^3 atmosphere under
+    stokes(volpath) at 64x64 spp 2 max_depth 8: value+grad with respect to
+    the grid and the medium's albedo on the scan driver through the
+    kernels and through the plain gather: grid_gather launches == lookups
+    forward, grid_trilinear_bwd launches == lookups backward, gradients
+    within rtol 1e-5, atol 1e-7. (b) The pplastic terrain(256) under
+    stokes(path) at 32x32 spp 2 max_depth 2: value+grad with respect to
+    the rgb spectra on the scan driver, sorted sweep against the plain
+    sweep, launches == queries. (c) The native builders: terrain(256)'s
+    tiles and the forest's binary and 8-wide BVHs bit-equal to the numpy
+    plain versions (both builds' host times), renders over the native-built
+    accelerators bit-equal to the numpy-built ones' (terrain through
+    tile_sweep, the forest through tile_bvh and tile_bvh8); the native
+    builders must have run. (d) The user hooks: an HG clone in the 64^3
+    atmosphere on the lane pool against the built-in hg (1e-5), a diffuse
+    clone on terrain(256) against diffuse, a point-emitter clone and a
+    path clone against theirs. (e) The chi2 harness on the card: hg,
+    rayleigh, tabphase, rpv, pplastic and the HG clone. (f) The z-test
+    harness on the flagship atmosphere (its 256x256 film cut to 32x32) at
+    the harness's defaults (64 spp against a 512-spp reference) on the
+    lane pool, and its detection of an albedo of 0.45 for 0.9. (g) DWAA and
+    DWAB files through the OpenEXR bridge, or "exr_bridge: absent" and
+    the refusal. Returns the records."""
+    from eradiate_kernel_tpu_torch import integrators
+    from eradiate_kernel_tpu_torch.core.types import Variant
+    from eradiate_kernel_tpu_torch.ops import accel, bvh, gather, intersect
+    from eradiate_kernel_tpu_torch.scene import build, load_dict
+    from eradiate_kernel_tpu_torch.utils import bitmap, chi2, ztest
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    polarized = Variant("rgb", polarized=True)
+    rec = {}
+
+    # ---- 40a. the 64^3 grid under stokes(volpath): value+grad, scan ---------
+    phase_clock("40a")
+    d = atmosphere(64, 64, 2, 8, grid_res=(64, 64, 64))
+    d["integrator"] = {"type": "stokes", "child": {
+        "type": "volpath", "max_depth": 8, "nee_transmittance": "residual"}}
+    large = load_dict(d, polarized)
+    keys = ["volumes.gridvolume.grid", "volumes.constvolume.value"]
+    vg, grads = scan_value_grad(large, keys, {
+        "kernels": contextlib.nullcontext, "plain": gather.use_plain})
+    k, p = vg["kernels"], vg["plain"]
+    assert k["forward"]["grid_gather"] == k["lookups"] > 0, k
+    assert k["backward"]["grid_trilinear_bwd"] == k["lookups"], k
+    assert k["backward"]["grid_gather"] == 0, k
+    assert k["forward"]["tile_sweep"] == k["queries"] > 0, k
+    assert p["forward"]["grid_gather"] == p["backward"][
+        "grid_trilinear_bwd"] == 0, p
+    rec["stokes_volpath_value_grad"] = dict(
+        vg, grad_max_abs_err_vs_plain=grads_agree(grads),
+        grad_abs_sums={kk: float(g.abs().sum())
+                       for kk, g in grads["kernels"].items()})
+    print(f"# 40a 64^3 stokes(volpath) 64x64 spp2 max_depth 8 value+grad "
+          f"(scan): {k['value_grad_ms']:.1f} ms (plain gather "
+          f"{p['value_grad_ms']:.1f} ms), lookups {k['lookups']} = "
+          f"grid_gather launches = grid_trilinear_bwd launches, tile_sweep "
+          f"{k['forward']['tile_sweep']} = queries, peak "
+          f"{k['peak_bytes'] / 2**30:.2f} GiB; grid and albedo gradients "
+          f"within {rec['stokes_volpath_value_grad']['grad_max_abs_err_vs_plain']:.2e}"
+          f" of the plain versions'", flush=True)
+
+    # ---- 40b. pplastic terrain(256) under stokes(path): value+grad, scan ----
+    phase_clock("40b")
+    # 32x32 spp 2 max_depth 2: the plain sweep's time; each leg's film is
+    # the primal's bit for bit, so the plain sweep's is the kernel's (39d's
+    # check, moved here)
+    d = terrain_scene(V, F, 32, 32, 2, 2)
+    d["terrain"]["bsdf"] = {"type": "pplastic", "alpha": 0.2,
+                            "diffuse_reflectance": [0.3, 0.4, 0.5]}
+    d["integrator"] = {"type": "stokes", "child": d["integrator"]}
+    terr = load_dict(d, polarized)
+    vg, grads = scan_value_grad(terr, ["spectra.baked.value"], {
+        "kernels": contextlib.nullcontext, "plain": intersect.use_plain})
+    k, p = vg["kernels"], vg["plain"]
+    assert k["forward"]["tile_sweep"] == k["queries"] > 0, k
+    assert sum(k["forward"].values()) == k["queries"], k
+    assert sum(k["backward"].values()) == 0, k
+    assert sum(p["forward"].values()) == sum(p["backward"].values()) == 0
+    rec["stokes_path_value_grad"] = dict(
+        vg, grad_max_abs_err_vs_plain=grads_agree(grads))
+    print(f"# 40b pplastic terrain(256) 32x32 spp2 max_depth 2 stokes(path) "
+          f"value+grad (scan): {k['value_grad_ms']:.1f} ms (plain sweep "
+          f"{p['value_grad_ms']:.1f} ms), tile_sweep launches "
+          f"{k['forward']['tile_sweep']} = queries (sorted), none in the "
+          f"backward; gradients within "
+          f"{rec['stokes_path_value_grad']['grad_max_abs_err_vs_plain']:.2e}"
+          f" of the plain sweep's", flush=True)
+
+    # ---- 40c. the native tile and BVH builders -------------------------------
+    phase_clock("40c")
+    # a quiet fallback to numpy shows here: None where there is no g++
+    assert accel._builder() is not None and bvh._builder() is not None
+    t0 = time.perf_counter()
+    native = accel.build_tri_tiles(V, F)
+    t1 = time.perf_counter()
+    plain = accel._build_tiles_numpy(V, F)
+    t2 = time.perf_counter()
+    assert len(native[1]) == -(-len(F) // accel.TILE_K)  # 1,017
+    assert all(np.array_equal(a, b) for a, b in zip(native, plain))
+    builds = {"terrain(256) tiles": dict(native_s=t1 - t0,
+                                         numpy_s=t2 - t1)}
+    # the forest's leaves, as its load_dict hands them to the BVH builder
+    leaves = []
+    build_tile_bvh = build.build_tile_bvh
+
+    def recorded(*a, **kw):
+        leaves.append(a)
+        return build_tile_bvh(*a, **kw)
+
+    build.build_tile_bvh = recorded
+    try:
+        forest_n = load_dict(forest_scene(64, 64, 2, 2))
+    finally:
+        build.build_tile_bvh = build_tile_bvh
+    t0 = time.perf_counter()
+    nb = bvh.build_tile_bvh(*leaves[0])
+    t1 = time.perf_counter()
+    pb = bvh._build_tile_bvh_numpy(*leaves[0])
+    t2 = time.perf_counter()
+    assert all(np.array_equal(a, b) for a, b in zip(nb, pb))
+    w8n, w8p = bvh.collapse_to_bvh8(nb[0], nb[1]), bvh.collapse_to_bvh8(
+        pb[0], pb[1])
+    assert all(np.array_equal(a, b) for a, b in zip(w8n, w8p))
+    builds["forest BVH"] = dict(native_s=t1 - t0, numpy_s=t2 - t1,
+                                leaves=len(leaves[0][0]), depth=int(nb[2]),
+                                nodes=len(nb[1]), nodes8=len(w8n[0]))
+    with numpy_builders():
+        forest_p = load_dict(forest_scene(64, 64, 2, 2))
+        terr_p = load_dict(terrain_scene(V, F, 64, 64, 2, 3))
+    terr_n = load_dict(terrain_scene(V, F, 64, 64, 2, 3))
+    for a, b in ((terr_n, terr_p), (forest_n, forest_p)):
+        ta, tb = a.tensors(), b.tensors()
+        assert all(torch.equal(ta[kk], tb[kk]) for kk in ta
+                   if kk.startswith("geo.")), "scene arrays"
+    renders = {}
+    for label, (sn, sp), wide, kernel in (
+            ("terrain", (terr_n, terr_p), "0", "tile_sweep"),
+            ("forest", (forest_n, forest_p), "0", "tile_bvh"),
+            ("forest", (forest_n, forest_p), "1", "tile_bvh8")):
+        with env(ERT_BVH_WIDE=wide):
+            film_n, secs, got = counted_scan(sn, seed=2)
+            film_p, _s, got_p = counted_scan(sp, seed=2)
+        for g in (got, got_p):
+            assert g["launches"][kernel] == g["queries"] > 0, (label, g)
+        assert torch.equal(film_n, film_p), (label, kernel)
+        renders[f"{label} {kernel}"] = dict(render_ms=secs * 1e3,
+                                            launches=got["launches"][kernel],
+                                            queries=got["queries"])
+    rec["native_builders"] = dict(builds=builds, renders=renders)
+    print(f"# 40c native builders: terrain(256) tiles "
+          f"{builds['terrain(256) tiles']['native_s'] * 1e3:.1f} ms native, "
+          f"{builds['terrain(256) tiles']['numpy_s'] * 1e3:.1f} ms numpy; "
+          f"the forest's BVH ({builds['forest BVH']['leaves']} leaves, depth "
+          f"{builds['forest BVH']['depth']}) "
+          f"{builds['forest BVH']['native_s'] * 1e3:.1f} ms native, "
+          f"{builds['forest BVH']['numpy_s'] * 1e3:.1f} ms numpy; tiles, "
+          f"BVH and 8-wide BVH bit-equal; renders over the native-built "
+          f"accelerators bit-equal to the numpy-built ones': "
+          f"{ {kk: v['launches'] for kk, v in renders.items()} } launches "
+          f"(= queries)", flush=True)
+
+    # ---- 40d. the user hooks --------------------------------------------------
+    phase_clock("40d")
+    plugins = user_plugins()
+    for name, (register, _regs, module) in plugins.items():
+        register(name, module)
+    hooks = {}
+    try:
+        def atmo(phase):
+            d = atmosphere(64, 64, 2, 8, grid_res=(64, 64, 64))
+            d["integrator"]["nee_transmittance"] = "residual"
+            d["atmo"]["interior"]["phase"] = phase
+            return load_dict(d)
+
+        films = {}
+        for label, ph in (("hg", {"type": "hg", "g": 0.4}),
+                          ("user_hg", {"type": "user_hg",
+                                       "anisotropy": 0.4})):
+            film, secs, launches, counts = counted_pool(atmo(ph), S40_LANES)
+            assert launches["grid_gather"] == counts["lookups"] > 0, counts
+            films[label] = film
+            hooks[f"64^3 {label} pool"] = dict(
+                render_ms=secs * 1e3, launches=launches["grid_gather"],
+                lookups=counts["lookups"])
+        torch.testing.assert_close(films["user_hg"], films["hg"], rtol=0,
+                                   atol=1e-5)
+        # a diffuse clone on terrain(256), and a path clone
+        surface = {}
+        for label, bsdf, kind in (
+                ("diffuse", {"type": "diffuse", "reflectance": 0.5}, "path"),
+                ("user_diffuse", {"type": "user_diffuse", "albedo": 0.5},
+                 "path"),
+                ("user_path", {"type": "diffuse", "reflectance": 0.5},
+                 "user_path")):
+            d = terrain_scene(V, F, 64, 64, 2, 3)
+            d["terrain"]["bsdf"] = bsdf
+            d["integrator"]["type"] = kind
+            film, secs, got = counted_scan(load_dict(d), seed=4)
+            assert got["launches"]["tile_sweep"] == got["queries"] > 0, got
+            surface[label] = film
+            hooks[f"terrain {label}"] = dict(
+                render_ms=secs * 1e3, launches=got["launches"]["tile_sweep"])
+        assert torch.equal(surface["user_diffuse"], surface["diffuse"])
+        assert torch.equal(surface["user_path"], surface["diffuse"])
+
+        def lamp_scene(lamp):
+            return {"type": "scene",
+                    "integrator": {"type": "path", "max_depth": 3},
+                    "sensor": {"type": "perspective", "fov": 30.0,
+                               "to_world": {"type": "look_at",
+                                            "origin": [0, 0, 4],
+                                            "target": [0, 0, 0],
+                                            "up": [0, 1, 0]},
+                               "film": {"width": 64, "height": 64,
+                                        "rfilter": {"type": "box"}},
+                               "sampler": {"sample_count": 32}},
+                    "surf": {"type": "rectangle",
+                             "bsdf": {"type": "diffuse",
+                                      "reflectance": 0.5}},
+                    "lamp": lamp}
+
+        ref = integrators.render(load_dict(lamp_scene(
+            {"type": "point", "position": [0, 0, 2.5], "intensity": 0.8})),
+            seed=11)
+        got = integrators.render(load_dict(lamp_scene(
+            {"type": "user_lamp", "position": [0, 0, 2.5],
+             "power": 4.0 * np.pi * 0.8})), seed=11)
+        assert float(ref.mean()) > 1e-3
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+        hooks["lamp max abs diff"] = float((got - ref).abs().max())
+        hooks["hg max abs diff"] = float(
+            (films["user_hg"] - films["hg"]).abs().max())
+
+        # ---- 40e. the chi2 harness on the card --------------------------------
+        phase_clock("40e")
+        sphere, upper = chi2.SphericalDomain(), chi2.SphericalDomain((0, 1))
+        tab = {"type": "tabphase",
+               "values": [0.5, 0.6, 0.8, 1.1, 1.6, 2.4, 3.6, 5.0]}
+        cases = {
+            # tests/test_volpath.py's blendphase settings
+            "hg": (chi2.PhaseFunctionAdapter({"type": "hg", "g": 0.6}),
+                   sphere, 200_000, 41),
+            "rayleigh": (chi2.PhaseFunctionAdapter({"type": "rayleigh"}),
+                         sphere, 200_000, 41),
+            "tabphase": (chi2.PhaseFunctionAdapter(tab), sphere, 200_000,
+                         41),
+            # tests/test_eradiate_oracles.py's and tests/test_bsdfs.py's
+            "rpv": (chi2.BSDFAdapter({"type": "rpv", "rho_0": 0.3, "k": 0.7,
+                                      "g": -0.2}), upper, 150_000, 64),
+            "pplastic": (chi2.BSDFAdapter({"type": "pplastic",
+                                           "alpha": 0.2}), upper, 150_000,
+                         64),
+            # tests/test_custom_plugins.py's
+            "user_hg": (chi2.PhaseFunctionAdapter(
+                {"type": "user_hg", "anisotropy": 0.6}), sphere, 120_000,
+                32),
+        }
+        chi = {}
+        for name, (adapter, domain, n, res) in cases.items():
+            t0 = time.perf_counter()
+            test = chi2.ChiSquareTest(domain, *adapter, sample_count=n,
+                                      res=res, ires=9)
+            ok = test.run(0.01)
+            chi[name] = dict(p_value=float(test.p_value), samples=n,
+                             seconds=time.perf_counter() - t0)
+            assert ok, (name, test.messages)
+        rec["chi2"] = chi
+        print(f"# 40e chi2 on the card (samples and pdf on the card, tables "
+              f"on the host): "
+              f"{ {kk: (round(v['p_value'], 4), round(v['seconds'], 2)) for kk, v in chi.items()} }"
+              f" (p-value, s)", flush=True)
+    finally:
+        for name, (_register, regs, _module) in plugins.items():
+            for reg in regs:
+                reg.pop(name, None)
+    rec["hooks"] = hooks
+    print(f"# 40d hooks: HG clone in the 64^3 atmosphere (pool) within "
+          f"{hooks['hg max abs diff']:.1e} of hg, "
+          f"{hooks['64^3 user_hg pool']['launches']} grid_gather launches "
+          f"= lookups; diffuse and path clones on terrain(256) bit-equal to "
+          f"diffuse and path ({hooks['terrain user_diffuse']['launches']} "
+          f"tile_sweep launches); point clone within "
+          f"{hooks['lamp max abs diff']:.1e}", flush=True)
+
+    # ---- 40f. the z-test harness on the flagship atmosphere -----------------
+    phase_clock("40f")
+    out = os.path.join("smoke_out", "ztest")
+    # 32x32 (the flagship's 256x256: the time limit)
+    flag = atmosphere(32, 32, 64, 12, grid_res=64)
+    flag["integrator"]["nee_transmittance"] = "residual"
+    pool_kw = dict(regen=True, samples_per_pass=S40_LANES)
+    t0 = time.perf_counter()
+    ok, frac, _p = ztest.check_scene(flag, out, "flagship", regenerate=True,
+                                     **pool_kw)
+    self_s = time.perf_counter() - t0
+    assert ok, frac
+    bad = atmosphere(32, 32, 64, 12, grid_res=64, albedo=0.45)
+    bad["integrator"]["nee_transmittance"] = "residual"
+    ok_bad, frac_bad, _p = ztest.check_scene(bad, out, "flagship", **pool_kw)
+    assert not ok_bad, frac_bad
+    rec["ztest"] = dict(pass_fraction=frac, seconds=self_s,
+                        changed_albedo_pass_fraction=frac_bad)
+    print(f"# 40f z-test, flagship 32x32 spp 64 against 512 (pool): passes "
+          f"{frac:.4f} of pixel-channels ({self_s:.1f} s with its "
+          f"reference); albedo 0.45 for 0.9 fails, {frac_bad:.4f} pass",
+          flush=True)
+
+    # ---- 40g. the OpenEXR bridge ------------------------------------------------
+    phase_clock("40g")
+    img = np.random.default_rng(7).random((64, 48, 3)).astype(np.float32)
+    missing = bitmap._bridge_missing()
+    os.makedirs(out, exist_ok=True)
+    if missing is None:
+        got = {}
+        for comp, code in (("dwaa", 8), ("dwab", 9)):
+            path = os.path.join(out, f"{comp}.exr")
+            bitmap.write_exr(path, img, compression=comp, pixel_type="f16")
+            with open(path, "rb") as f:
+                head = f.read(4096)
+            key = b"compression\x00compression\x00\x01\x00\x00\x00"
+            assert head[head.index(key) + len(key)] == code, comp
+            back, names = bitmap.read_exr(path)
+            assert names == ["R", "G", "B"] and back.shape == img.shape
+            got[comp] = float(np.abs(back - img).max())
+            assert got[comp] < 0.05, got
+        rec["exr_bridge"] = dict(present=True, max_abs_err=got)
+        print(f"# 40g exr_bridge: present; DWAA and DWAB written and read "
+              f"back (max abs err {got})", flush=True)
+    else:
+        path = os.path.join(out, "zip.exr")
+        bitmap.write_exr(path, img)
+        data = bytearray(open(path, "rb").read())
+        key = b"compression\x00compression\x00\x01\x00\x00\x00"
+        data[data.index(key) + len(key)] = 8
+        with open(path, "wb") as f:
+            f.write(bytes(data))
+        try:
+            bitmap.read_exr(path)
+            raise AssertionError("a DWAA file read without libOpenEXR")
+        except NotImplementedError as e:
+            assert "libOpenEXR" in str(e), e
+        rec["exr_bridge"] = dict(present=False, reason=missing)
+        print(f"exr_bridge: absent ({missing}); DWAA refused, naming "
+              f"libOpenEXR", flush=True)
+    return rec
+
+
+def slice_7b_launches(rec, kernel):
+    """``kernel``'s launches in each render and value+grad of phase 40."""
+    out = {}
+    for leg in ("stokes_volpath_value_grad", "stokes_path_value_grad"):
+        k = rec[leg]["kernels"]
+        out[f"{leg} forward"] = k["forward"].get(kernel, 0)
+        out[f"{leg} backward"] = k["backward"].get(kernel, 0)
+    for label, r in rec["native_builders"]["renders"].items():
+        if label.endswith(" " + kernel):
+            out[f"native-built {label}"] = r["launches"]
+    if kernel == "grid_gather":
+        out["64^3 user_hg pool"] = rec["hooks"]["64^3 user_hg pool"][
+            "launches"]
+    if kernel == "tile_sweep":
+        out["terrain user_diffuse"] = rec["hooks"]["terrain user_diffuse"][
+            "launches"]
+        out["terrain user_path"] = rec["hooks"]["terrain user_path"][
+            "launches"]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from eradiate_kernel_tpu_torch import integrators
     from eradiate_kernel_tpu_torch.core.ray import Ray
-    from eradiate_kernel_tpu_torch.ops import _build, bvh, gather, intersect
+    from eradiate_kernel_tpu_torch.ops import (_build, accel, bvh, gather,
+                                               intersect)
     from eradiate_kernel_tpu_torch.ops.accel import pack_tiles
     from eradiate_kernel_tpu_torch.scene import build, load_dict
     from eradiate_kernel_tpu_torch.textures import volumes
+    from eradiate_kernel_tpu_torch.utils import bitmap
     from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
 
     dev = torch.device("cuda")
@@ -5657,6 +6175,16 @@ def main():
     for name in ("tile_sweep", "tile_bvh", "tile_bvh8", "grid_gather"):
         for fn, ops in (sass_counts(name) or {name: "no cuobjdump"}).items():
             print(f"# SASS {fn}: {ops}", flush=True)
+    # the host libraries, g++ into the same build directory: the tile and
+    # BVH builders (None: no g++, which phase 40c refuses) and the OpenEXR
+    # bridge (None: no libOpenEXR)
+    t0 = time.perf_counter()
+    host = {"tile_builder": accel._builder(), "bvh_builder": bvh._builder(),
+            "exr_bridge": bitmap._load_bridge()}
+    print(f"# build: g++ {', '.join(k for k, v in host.items() if v)} in "
+          f"{time.perf_counter() - t0:.2f} s; missing: "
+          f"{[k for k, v in host.items() if v is None] or 'none'}",
+          flush=True)
 
     # ---- 2. tile sweep vs plain on the bench terrain --------------------------
     phase_clock("2")
@@ -5725,13 +6253,14 @@ def main():
 
     # ---- 4. whole path: kernel vs plain sweep --------------------------------
     phase_clock("4")
-    small = load_dict(terrain_scene(V, F, 64, 64, 4, 6))
+    # max_depth 3 (6 until phase 40 was added): the plain sweep's time
+    small = load_dict(terrain_scene(V, F, 64, 64, 4, 3))
     film_k = integrators.render(small, seed=3, develop_film=False)
     with intersect.use_plain():
         film_p = integrators.render(small, seed=3, develop_film=False)
     flips = films_equivalent(film_p.cpu().numpy(), film_k.cpu().numpy(),
                              max_flips=2)
-    print(f"# whole path 64x64 spp4: kernel vs plain films agree "
+    print(f"# whole path 64x64 spp4 max_depth 3: kernel vs plain films agree "
           f"({flips} pixels over tolerance, budget 2)", flush=True)
 
     # ---- 5. BVH kernels vs plain: terrain(256) and the forest ---------------
@@ -6081,6 +6610,7 @@ def main():
     s6d = slice_6d_phases(V, F, lanes)
     bwd_adjoint = adjoint_bwd_loads()
     s6e = slice_6e_phases(V, F)
+    s7b = slice_7b_phases(V, F)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -6173,6 +6703,9 @@ def main():
         # slice 6e: bench.py's polarized load and the 64^3 one (fused), the
         # pplastic terrain (sorted)
         "launches_slice_6e": slice_6e_launches(s6e, "tile_sweep"),
+        # slices 6e-2 and 7b: the stokes value+grads, the native-built
+        # terrain, the diffuse and path clones
+        "launches_slice_7b": slice_7b_launches(s7b, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -6210,6 +6743,8 @@ def main():
             "launches_slice_5c2": {
                 "forest with an OBJ crown 64x64 spp4": s5c2["forest"][
                     name]["launches"]},
+            # the forest over its native-built BVH
+            "launches_slice_7b": slice_7b_launches(s7b, name),
         })
     # the main path's lookups run the fused trilinear entry (its library
     # call: grid_sample); the gather entry's loads carry index_select
@@ -6249,6 +6784,9 @@ def main():
         "launches_slice_6c2": slice_6c2_launches(s6c2, "grid_gather"),
         # slice 6e: fused lookups of the 64^3 stokes(volpath) only
         "launches_slice_6e": slice_6e_launches(s6e, "grid_gather"),
+        # slice 6e-2: the 64^3 stokes(volpath) value+grad's forward; 7b:
+        # the HG clone's 64^3 render
+        "launches_slice_7b": slice_7b_launches(s7b, "grid_gather"),
         "entries_slice_6c2": {k: v["entries"] for k, v in s6c2[
             "value_grads"].items() if "entries" in v},
         "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
@@ -6289,6 +6827,8 @@ def main():
         # slice 6c-2: the chromatic 64^3's adjoint at C = 1 (sigma_t a
         # gridvolume) and C = S37_BANDS (a gridvolume_spectral)
         "launches_slice_6c2": slice_6c2_launches(s6c2, "grid_trilinear_bwd"),
+        # slice 6e-2: the 64^3 stokes(volpath) value+grad's backward
+        "launches_slice_7b": slice_7b_launches(s7b, "grid_trilinear_bwd"),
     })
     # the float64 entries (slice 6d, phase 38): launches from phase 38's
     # renders in rgb_double (38c, 38d, 38e), the rest from 38a's loads
@@ -6344,6 +6884,7 @@ def main():
     print(json.dumps({"slice_6c2": s6c2}))
     print(json.dumps({"slice_6d": s6d}))
     print(json.dumps({"slice_6e": s6e}))
+    print(json.dumps({"slice_7b": s7b}))
     print(json.dumps({"phase_starts_s": PHASE_STARTS}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

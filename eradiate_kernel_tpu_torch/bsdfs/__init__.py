@@ -63,6 +63,13 @@ WRAPPER_KINDS = tuple(k for k, v in REGISTRY.items()
                       if getattr(v, "IS_WRAPPER", False))
 
 
+def register_bsdf(name, module):
+    """Register a user BSDF kind ``name``: ``module`` is any namespace
+    with a built-in kind's ``build(props, builder) -> row dict``, ``FLAGS``
+    and ``sample`` and ``eval_pdf`` (the signatures of bsdfs/diffuse.py)."""
+    REGISTRY[name] = module
+
+
 def _kinds(scene, nested):
     """(k, kind) of the scene's kinds; the non-wrapper ones if
     ``nested``."""
@@ -230,4 +237,5 @@ def bsdf_sample_mueller(scene, bsdf_index, si, s1, s2, active):
 __all__ = ["REGISTRY", "WRAPPER_KINDS", "POLARIZED_ELEMENT_KINDS",
            "bsdf_sample", "bsdf_eval_pdf", "bsdf_eval_mueller",
            "bsdf_sample_mueller", "dispatch_sample_nested",
-           "dispatch_eval_pdf_nested", "eval_null_transmission", "common"]
+           "dispatch_eval_pdf_nested", "eval_null_transmission",
+           "register_bsdf", "common"]

@@ -289,6 +289,28 @@ KIND_SAMPLERS = {"area": area_sample_direction,
                  "projector": projector_sample_direction,
                  "envmap": envmap_sample_direction}
 
+# user-registered emitter kinds: name -> module (register_emitter)
+CUSTOM = {}
+
+
+def register_emitter(name, module):
+    """Register a user emitter kind ``name`` sampled by next-event
+    estimation (the point, spot and directional family; emitters that a
+    ray hits or escapes to, as area and envmap, are not registrable).
+    ``module`` provides
+
+      build(props, builder) -> row dict    (scene build, numpy; radiometric
+                                            values through builder.texture
+                                            or builder.spectrum)
+      sample_direction(scene, params, slot, ref_p, wavelengths, s1, s2,
+                       active) -> (DirectionSample, value)
+
+    with the value's finite pdf already divided out (the
+    point_sample_direction contract), ``ds.delta`` set on delta directions
+    and ``ds.pdf`` the solid-angle density (0 for a delta)."""
+    CUSTOM[name] = module
+    KIND_SAMPLERS[name] = module.sample_direction
+
 
 def sample_emitter_direction(scene, si, s_pick, s1, s2, active,
                              test_visibility=True):

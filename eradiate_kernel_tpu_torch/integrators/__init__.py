@@ -36,6 +36,14 @@ REGISTRY = {"path": path, "direct": direct, "depth": depth,
             "nbins": nbins}
 
 
+def register_integrator(name, module):
+    """Register a user integrator ``name``: ``module`` is any namespace
+    with ``sample(scene, sampler, ray, active=None) -> (spec (N, nc),
+    valid (N,), sampler)``, which the scan driver runs; the lane pool
+    runs only integrators with the bounce hooks of path.py."""
+    REGISTRY[name] = module
+
+
 def n_aov(cfg):
     """The number of AOV channels the integrator adds after the film's 5."""
     mod = REGISTRY[cfg.integrator.kind]
@@ -465,6 +473,6 @@ def render(scene, seed=0, spp=None, samples_per_pass=None,
                  for i, name in enumerate(aov_names(cfg))}
 
 
-__all__ = ["REGISTRY", "aov_names", "n_aov", "regen_iter_traffic_nbytes",
-           "render", "render_wavefront", "render_wavefront_regen",
-           "regen_supported"]
+__all__ = ["REGISTRY", "aov_names", "n_aov", "register_integrator",
+           "regen_iter_traffic_nbytes", "render", "render_wavefront",
+           "render_wavefront_regen", "regen_supported"]

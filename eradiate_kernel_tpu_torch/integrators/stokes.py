@@ -13,9 +13,11 @@ carried vector.
 
 Mitsuba emits S1..S3 per rgb channel (stokes.cpp:117); the film's AOV
 layer carries scalars, so the AOVs are the channel means, as in the
-reference. The lane pool has no backward for it (the path replay needs
-the ``_REPLAY_OK`` hook, integrators/replay.py), and its gradients through
-the scan driver are not held against the reference yet (slice 6e-2).
+reference. Its gradients go through the scan driver (autograd through
+``render(regen=False)``, held against the reference's jax.grad); the lane
+pool has no backward for it (the path replay needs the ``_REPLAY_OK``
+hook, integrators/replay.py, as the reference's does), so
+``render(regen=True)`` under autograd raises.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ each of which launches on the stream it is given and returns
 double variants); ``FLOAT_SUFFIX`` maps a tensor's dtype to its entry. The modules that own kernels register them here;
 ``build_kernels()`` compiles every registered kernel for sm_90a at first
 use, one nvcc per source, all started together, into the package's
-``build/`` directory, keyed by the hash of the sources. Nothing is built
+``build/`` directory (checked by utils/native_cache.py), keyed by the hash
+of the sources. Nothing is built
 when a module is imported.
 """
 
@@ -24,9 +25,7 @@ import time
 
 import torch
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(CSRC), "build")
+from ..utils.native_cache import CSRC, native_cache_dir
 
 PTR, INT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -55,8 +54,7 @@ def _so_path(name):
     for f in (f"{name}.cu",) + _SPECS[name][0]:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
+    return os.path.join(native_cache_dir(), f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def _nvcc():

@@ -2,14 +2,20 @@
 
 Triangles are sorted along a 30-bit Morton curve of their centroids and cut
 into tiles of K=128 with conservative AABBs. The host-side build is the
-reference's algorithm in numpy (its native csrc/tile_builder.cpp computes
-the same float32 centroid, Morton code and stable order), and the packed
-arrays are bit-equal to the reference's ``pack_tiles``.
+native builder csrc/tile_builder.cpp (the reference's, built with g++ at
+first use by utils/native_cache.py); ``_build_tiles_numpy`` is its plain
+version, which computes the same float32 centroids, Morton codes and
+stable order and which the builder falls back to only where there is no
+g++. The packed arrays are bit-equal to the reference's ``pack_tiles``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
+
+from ..utils.native_cache import host_builder
 
 TILE_K = 128  # triangles per tile
 
@@ -22,8 +28,45 @@ def _expand_bits(v):
     return v
 
 
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+def _builder():
+    lib = host_builder("tile_builder")
+    if lib is not None:
+        lib.build_tri_tiles.restype = ctypes.c_int
+        lib.build_tri_tiles.argtypes = [_F32P, ctypes.c_int64, _I32P,
+                                        ctypes.c_int64, ctypes.c_int, _I32P,
+                                        _F32P, _F32P]
+    return lib
+
+
 def build_tri_tiles(vertices, faces, tile_size=TILE_K):
-    """(perm (T*K,) i32 with -1 padding, tile_lo (T, 3), tile_hi (T, 3))."""
+    """(perm (T*K,) i32 with -1 padding, tile_lo (T, 3), tile_hi (T, 3)),
+    by the native builder (its numpy version where there is no g++)."""
+    vertices = np.ascontiguousarray(vertices, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    lib = _builder()
+    if lib is None:
+        return _build_tiles_numpy(vertices, faces, tile_size)
+    F = len(faces)
+    T = -(-F // tile_size)
+    perm = np.empty(T * tile_size, np.int32)
+    tile_lo = np.empty((T, 3), np.float32)
+    tile_hi = np.empty((T, 3), np.float32)
+    n = lib.build_tri_tiles(vertices.ctypes.data_as(_F32P), len(vertices),
+                            faces.ctypes.data_as(_I32P), F, tile_size,
+                            perm.ctypes.data_as(_I32P),
+                            tile_lo.ctypes.data_as(_F32P),
+                            tile_hi.ctypes.data_as(_F32P))
+    if n != T:
+        raise RuntimeError(f"tile_builder returned {n} tiles, not {T}")
+    return perm, tile_lo, tile_hi
+
+
+def _build_tiles_numpy(vertices, faces, tile_size=TILE_K):
+    """The plain version of csrc/tile_builder.cpp (the same algorithm)."""
     vertices = np.ascontiguousarray(vertices, np.float32)
     faces = np.ascontiguousarray(faces, np.int32)
     tri = vertices[faces]                      # (F, 3, 3)

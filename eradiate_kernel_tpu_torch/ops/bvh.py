@@ -3,9 +3,11 @@
 The leaves are the K=128 triangle tiles of ops/accel.py (one leaf = one
 tile, or one (group tile, instance) pair in an instanced scene); the
 binary tree over their AABBs is built on the host at scene-build time and
-collapsed into 8-wide nodes for the wide traversal. This is the
-reference's NumPy builder, which its tests hold bit-equal to its native
-builder, so the arrays here equal the reference's whichever it used.
+collapsed into 8-wide nodes for the wide traversal. The binary tree comes
+from the native builder csrc/bvh_builder.cpp (the reference's, built with
+g++ at first use by utils/native_cache.py); ``_build_tile_bvh_numpy`` is
+its plain version, bit-equal to it, which the builder takes where there
+is no g++ or ``ERT_NO_NATIVE`` is set (as the reference does).
 
 Layout consumed by ops/intersect.py:
   nbox  (N, 1, 8) f32: [lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, 0, 0]
@@ -20,14 +22,35 @@ Root is node 0; N = 2 * leaves - 1.
 
 from __future__ import annotations
 
+import ctypes
+import os
+
 import numpy as np
+
+from ..utils.native_cache import host_builder
 
 MAX_DEPTH = 48      # median splits near this depth bound the binary stack
 N_BINS = 16
 
 
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+def _builder():
+    if os.environ.get("ERT_NO_NATIVE"):
+        return None
+    lib = host_builder("bvh_builder")
+    if lib is not None:
+        lib.build_tile_bvh.restype = ctypes.c_int
+        lib.build_tile_bvh.argtypes = [_F32P, _F32P, _I32P, _I32P,
+                                       ctypes.c_int64, _F32P, _I32P]
+    return lib
+
+
 def build_tile_bvh(tile_lo, tile_hi, leaf_tile=None, leaf_inst=None):
-    """Build the flattened binary BVH over leaf AABBs tile_lo/hi (T, 3).
+    """Build the flattened binary BVH over leaf AABBs tile_lo/hi (T, 3),
+    by the native builder (its numpy version where there is none).
 
     leaf_tile/leaf_inst: optional per-leaf payloads; leaf i stores
     (leaf_tile[i], leaf_inst[i]) in nmeta[:, 2:4] instead of (i, -1).
@@ -35,6 +58,32 @@ def build_tile_bvh(tile_lo, tile_hi, leaf_tile=None, leaf_inst=None):
     T = len(tile_lo)
     if T < 1:
         raise ValueError("build_tile_bvh needs at least one leaf")
+    lib = _builder()
+    if lib is None:
+        return _build_tile_bvh_numpy(tile_lo, tile_hi, leaf_tile, leaf_inst)
+    lo = np.ascontiguousarray(tile_lo, np.float32)
+    hi = np.ascontiguousarray(tile_hi, np.float32)
+    lt = np.ascontiguousarray(
+        np.arange(T) if leaf_tile is None else leaf_tile, np.int32)
+    li = np.ascontiguousarray(
+        np.full(T, -1) if leaf_inst is None else leaf_inst, np.int32)
+    N = 2 * T - 1
+    nbox = np.empty((N, 8), np.float32)
+    nmeta = np.empty((N, 4), np.int32)
+    depth = lib.build_tile_bvh(lo.ctypes.data_as(_F32P),
+                               hi.ctypes.data_as(_F32P),
+                               lt.ctypes.data_as(_I32P),
+                               li.ctypes.data_as(_I32P), T,
+                               nbox.ctypes.data_as(_F32P),
+                               nmeta.ctypes.data_as(_I32P))
+    if depth <= 0:
+        raise RuntimeError(f"bvh_builder failed ({depth}) on {T} leaves")
+    return nbox.reshape(N, 1, 8), nmeta, depth
+
+
+def _build_tile_bvh_numpy(tile_lo, tile_hi, leaf_tile=None, leaf_inst=None):
+    """The plain version of csrc/bvh_builder.cpp (bit-equal outputs)."""
+    T = len(tile_lo)
     if leaf_tile is None:
         leaf_tile = np.arange(T, dtype=np.int32)
     if leaf_inst is None:

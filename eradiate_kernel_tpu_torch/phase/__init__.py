@@ -13,6 +13,10 @@ tables are zero-padded to one K). A blendphase row holds its ``weight`` and
 the phase indices ``phase0`` and ``phase1`` of its children, which are not
 blendphases themselves.
 
+User phase functions join through ``register_phasefunction``: a
+registered kind's rows come from its ``build`` and its lanes from its
+``eval_cos`` and ``sample_cos``, inside a blendphase too.
+
 ``phase_mueller`` and ``phase_sample_mueller`` are the polarized
 counterparts: the scalar value times the identity for every kind but
 ``rayleigh``, whose lanes take the Rayleigh scattering matrix rotated
@@ -30,6 +34,26 @@ from ..core.frame import Frame
 from ..core.math import cross, dot, safe_sqrt
 
 INV_FOUR_PI = 1.0 / (4.0 * math.pi)
+
+# user-registered phase kinds: name -> module (register_phasefunction)
+CUSTOM = {}
+
+
+def register_phasefunction(name, module):
+    """Register a user azimuthally-symmetric phase function ``name``.
+    ``module`` is any namespace with three functions:
+
+      build(props, builder) -> row dict      (scene build, numpy)
+      eval_cos(params, slot, ct) -> value    (ct = dot(wi, wo), wi = -ray.d;
+                                              the normalised pdf)
+      sample_cos(params, slot, s1) -> cos    (inverse cdf of the cosine to
+                                              +ray.d, the hg convention:
+                                              eval receives -sample's cos)
+
+    ``params`` holds the kind's rows as tensors on the scene's device and
+    ``slot`` the lanes' rows; the rows are scene tensors like a built-in
+    kind's (``phases.<name>.<key>``)."""
+    CUSTOM[name] = module
 
 
 def _hg(cos_theta, g):
@@ -119,6 +143,8 @@ def _sample_cos_theta(kind, params, slot, s1):
         return torch.clamp(_cbrt(z + tmp) + _cbrt(z - tmp), -1.0, 1.0)
     if kind == "tabphase":
         return _sample_tab(params, slot, s1)
+    if kind in CUSTOM:
+        return CUSTOM[kind].sample_cos(params, slot, s1)
     raise ValueError(f"phase {kind!r} samples through its children")
 
 
@@ -136,6 +162,8 @@ def _eval_kind(scene, kind, slot, ct):
         return _hg(ct, scene.phases["hg"]["g"][slot])
     if kind == "rayleigh":
         return _rayleigh(ct)
+    if kind in CUSTOM:
+        return CUSTOM[kind].eval_cos(scene.phases[kind], slot, ct)
     # tabulated over the scattering angle: cos = dot(ray.d, wo) = -ct
     return _tab_eval(scene.phases["tabphase"], slot, -ct)
 

@@ -36,7 +36,6 @@ from .build_spectra import (_axis_majorant_profiles, _cie_rgb_of_spectrum,
 from .scene import (IntegratorConfig, Scene, SceneConfig, bounding_sphere,
                     from_numpy)
 
-_BSDF_TYPES = (*BSDF_REGISTRY, "twosided")
 _MEDIUM_TYPES = ("homogeneous", "heterogeneous")
 _INTEGRATOR_TYPES = ("path", "direct", "depth", "volpath", "volpathmis",
                      "aov", "moment", "bins", "nbins", "stokes")
@@ -181,9 +180,11 @@ class SceneBuilder:
                 "cdf": cdf.astype(np.float32),
                 "integral": np.float32(cdf[-1]),
                 "count": np.int32(len(values))})
-        raise NotImplementedError(
-            f"phase {t!r}: the port carries isotropic, hg, rayleigh, "
-            "tabphase and blendphase; user phase plugins come with slice 7b")
+        from ..phase import CUSTOM
+        if t in CUSTOM:
+            return self.add_phase_row(t, CUSTOM[t].build(d, self))
+        raise ValueError(f"unknown phase type {t!r}: register it with "
+                         "phase.register_phasefunction")
 
     def volume(self, v):
         """A number, a list or a volume dict -> volume index."""
@@ -899,9 +900,17 @@ def load_dict(d: dict, variant: Variant | None = None,
     film_cfg = {"width": 64, "height": 64, "rfilter": "gaussian"}
     spp = 16
 
+    # the registered kinds join the built-in ones (register_bsdf,
+    # register_emitter, register_integrator)
+    from ..emitters import CUSTOM as custom_emitters
+    from ..integrators import REGISTRY as integrator_registry
+
+    def is_bsdf(t):
+        return t in BSDF_REGISTRY or t == "twosided"
+
     # pass 1: named top-level bsdfs (so refs resolve)
     for key, val in d.items():
-        if isinstance(val, dict) and val.get("type") in _BSDF_TYPES:
+        if isinstance(val, dict) and is_bsdf(val.get("type")):
             b.named[key] = ("bsdf", _build_bsdf(b, val))
 
     for key, val in d.items():
@@ -913,7 +922,7 @@ def load_dict(d: dict, variant: Variant | None = None,
             b.named[key] = ("shapegroup", shape_children(val))
         elif t in _SHAPE_TYPES:
             b.named[key] = ("shape", _build_shape(b, val))
-        elif t in _EMITTER_SCENE_TYPES:
+        elif t in _EMITTER_SCENE_TYPES or t in custom_emitters:
             _build_scene_emitter(b, val)
         elif t in _SENSOR_TYPES:
             sensor_kind = t
@@ -941,11 +950,11 @@ def load_dict(d: dict, variant: Variant | None = None,
             b.sampler_kind = sampler.get("type", "independent")
             if "medium" in val:
                 b.sensor_medium = b.medium(val["medium"])
-        elif t in _INTEGRATOR_TYPES:
+        elif t in _INTEGRATOR_TYPES or t in integrator_registry:
             integrator_cfg = _integrator_config(t, val)
         elif t in _MEDIUM_TYPES:
             b.named[key] = ("medium", b.medium(val))
-        elif t not in _BSDF_TYPES:
+        elif not is_bsdf(t):
             raise NotImplementedError(
                 f"scene entry {key!r} of type {t!r}: not carried by the "
                 "port")

@@ -28,7 +28,8 @@ def _build_bsdf(builder, d, twosided=False):
             raise ValueError("twosided needs exactly one nested bsdf")
         return _build_bsdf(builder, child[0], twosided=True)
     if t not in bsdf_pkg.REGISTRY:
-        raise ValueError(f"unknown bsdf type {t!r}")
+        raise ValueError(f"unknown bsdf type {t!r}: register it with "
+                         "bsdfs.register_bsdf")
     mod = bsdf_pkg.REGISTRY[t]
     props = dict(d)
     props["_twosided"] = twosided
@@ -97,7 +98,11 @@ def _build_scene_emitter(builder, d):
             "irradiance": np.int32(builder.texture(irr, emitter=True))})
     if t == "envmap":
         return _build_envmap(builder, d)
-    raise ValueError(f"unknown emitter type {t!r}")
+    from ..emitters import CUSTOM
+    if t in CUSTOM:
+        return builder.add_emitter_row(t, CUSTOM[t].build(d, builder))
+    raise ValueError(f"unknown emitter type {t!r}: register it with "
+                     "emitters.register_emitter")
 
 
 def _build_envmap(builder, d):

@@ -25,7 +25,9 @@ from ..core.types import Variant, resolve_device
 from ..render.geometry import Geometry
 from ..textures.volumes import packed_corners_of, spectral_packed_of
 
-# what the port carries
+# what the port carries: the built-in kinds (the kinds registered by a
+# user's register_bsdf, register_emitter, register_phasefunction and
+# register_integrator join them, _registered)
 SUPPORTED = {
     "bsdf_kinds": set(BSDF_REGISTRY),
     "emitter_kinds": {"directional", "area", "constant", "point", "spot",
@@ -52,8 +54,22 @@ INTEGRATORS = ("path", "direct", "depth", "volpath", "volpathmis", "aov",
 # first
 NEE_MODES = {"nee_transmittance": ("residual", "track", "quadrature"),
              "ff_majorant": ("profile", "segment")}
-# the slice that brings the kinds SUPPORTED does not have yet
-_LATER = {"medium_kinds": "6", "phase_kinds": "7b"}
+
+
+def _registered(name):
+    """The kinds of config field ``name`` that users registered."""
+    if name == "bsdf_kinds":
+        return set(BSDF_REGISTRY)
+    if name == "emitter_kinds":
+        from ..emitters import CUSTOM
+        return set(CUSTOM)
+    if name == "phase_kinds":
+        from ..phase import CUSTOM
+        return set(CUSTOM)
+    if name == "integrator":
+        from ..integrators import REGISTRY
+        return set(REGISTRY)
+    return set()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,17 +118,18 @@ class SceneConfig:
 
     def __post_init__(self):
         for name, allowed in SUPPORTED.items():
+            allowed = allowed | _registered(name)
             value = getattr(self, name)
             bad = [v for v in (value if isinstance(value, tuple)
                                else (value,)) if v not in allowed]
             if bad:
                 raise NotImplementedError(
-                    f"{name} {bad}: the port carries {sorted(allowed)}; "
-                    f"the others come with slice {_LATER.get(name, '6')}")
+                    f"{name} {bad}: the port carries {sorted(allowed)}")
         kind = self.integrator.kind
-        if kind not in INTEGRATORS:
+        if kind not in set(INTEGRATORS) | _registered("integrator"):
             raise NotImplementedError(
-                f"integrator {kind!r}: the port carries {INTEGRATORS}")
+                f"integrator {kind!r}: the port carries {INTEGRATORS} and "
+                "the registered integrators")
         if kind in ("bins", "nbins") and not self.variant.is_spectral:
             raise NotImplementedError(
                 f"integrator {kind!r} runs in the spectral variant only, as "

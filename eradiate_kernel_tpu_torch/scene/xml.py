@@ -353,8 +353,10 @@ _TAG_OF_TYPE = {
 
 
 def _node_to_xml(parent, name, d):
+    from ..bsdfs import REGISTRY
+
     t = d["type"]
-    if t in _BSDF_TAG_TYPES:
+    if t in _BSDF_TAG_TYPES or t in REGISTRY:  # registered kinds too
         tag = "bsdf"
     elif t in _SHAPE_TAG_TYPES:
         tag = "shape"

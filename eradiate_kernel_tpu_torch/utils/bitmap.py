@@ -2,11 +2,14 @@
 src/libcore/bitmap.cpp). Host-side numpy: files are read and written from
 host memory, once at scene build or after a render.
 
-- Scanline OpenEXR, pure Python: NONE/RLE/ZIPS/ZIP/PIZ/PXR24 read and
-  write, B44/B44A read, f32/f16/u32 channels (the wavelet/Huffman, 24-bit
-  float and 4x4-block codecs in exr_piz.py and exr_b44.py, re-derived from
-  the public format). DWAA and DWAB are read only through a native
-  OpenEXR loader, which the port does not have yet: they raise.
+- Scanline OpenEXR through the system libOpenEXR where it exists (the
+  bridge csrc/exr_bridge.cpp, built with g++ at first use by
+  utils/native_cache.py, as the reference's Bitmap links OpenEXR): every
+  compression, DWAA and DWAB included. Without it, pure Python:
+  NONE/RLE/ZIPS/ZIP/PIZ/PXR24 read and write, B44/B44A read, f32/f16/u32
+  channels (the wavelet/Huffman, 24-bit float and 4x4-block codecs in
+  exr_piz.py and exr_b44.py, re-derived from the public format); DWAA and
+  DWAB then raise, naming the missing library.
 - PFM, binary PPM and Radiance RGBE (.hdr) read and write.
 - PNG and other LDR formats through PIL (imported where it is used), with
   the sRGB transfer.
@@ -16,6 +19,9 @@ The writers produce the bytes of the reference's pure-Python writers.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import os
 import struct
 import zlib
 
@@ -30,6 +36,83 @@ _COMPRESSION = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4,
                 "pxr24": 5}
 _LINES_PER_BLOCK = {0: 1, 1: 1, 2: 1, 3: 16, 4: 32, 5: 16, 6: 32, 7: 32}
 _DWA = {8: "DWAA", 9: "DWAB"}
+
+# --- the OpenEXR bridge (csrc/exr_bridge.cpp) ----------------------------------
+
+_OPENEXR_HEADERS = ("/usr/include/OpenEXR", "/usr/include/Imath")
+_OPENEXR_LIBS = ("OpenEXR-3_1", "Iex-3_1", "IlmThread-3_1", "Imath-3_1")
+_BRIDGE_COMPRESSION = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4,
+                       "pxr24": 5, "b44": 6, "b44a": 7, "dwaa": 8, "dwab": 9}
+_bridge = None
+_bridge_tried = False
+
+
+def _bridge_missing():
+    """Why the bridge cannot be built here (None if it can): libOpenEXR
+    3.1 with its headers, and g++."""
+    from .native_cache import have_gxx
+
+    if not os.path.exists(os.path.join(_OPENEXR_HEADERS[0],
+                                       "ImfInputFile.h")):
+        return f"no libOpenEXR headers in {_OPENEXR_HEADERS[0]}"
+    for lib in _OPENEXR_LIBS:
+        if ctypes.util.find_library(lib) is None:
+            return f"no lib{lib}"
+    if not have_gxx():
+        return "no g++ to build the bridge"
+    return None
+
+
+def _load_bridge():
+    """The OpenEXR bridge, built at first use, or None where libOpenEXR
+    (or g++) is missing. Raises if the library is there and the build
+    fails."""
+    global _bridge, _bridge_tried
+    if not _bridge_tried:
+        _bridge_tried = True
+        if not _bridge_missing():
+            from .native_cache import host_library
+
+            lib = host_library(
+                "exr_bridge", ("-O2", *(f"-I{d}" for d in _OPENEXR_HEADERS)),
+                tuple(f"-l{n}" for n in _OPENEXR_LIBS))
+            lib.exr_read.restype = ctypes.c_int
+            lib.exr_write.restype = ctypes.c_int
+            lib.exr_last_error.restype = ctypes.c_char_p
+            _bridge = lib
+    return _bridge
+
+
+def _bridge_read_exr(lib, path):
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    data = ctypes.POINTER(ctypes.c_float)()
+    names_p = ctypes.POINTER(ctypes.c_char_p)()
+    rc = lib.exr_read(path.encode(), ctypes.byref(w), ctypes.byref(h),
+                      ctypes.byref(c), ctypes.byref(data),
+                      ctypes.byref(names_p))
+    if rc != 0:
+        raise ValueError(f"OpenEXR: {lib.exr_last_error().decode()} ({path})")
+    try:
+        img = np.ctypeslib.as_array(
+            data, shape=(h.value, w.value, c.value)).copy()
+        names = [names_p[i].decode() for i in range(c.value)]
+    finally:
+        lib.exr_free(data)
+        lib.exr_free_names(names_p, c.value)
+    return img, names
+
+
+def _bridge_write_exr(lib, path, img, channel_names, compression,
+                      pixel_type):
+    img = np.ascontiguousarray(img, np.float32)
+    H, W, C = img.shape
+    names = (ctypes.c_char_p * C)(*[n.encode() for n in channel_names])
+    rc = lib.exr_write(path.encode(), W, H, C,
+                       img.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                       names, _BRIDGE_COMPRESSION[compression],
+                       1 if pixel_type == "f16" else 2)
+    if rc != 0:
+        raise ValueError(f"OpenEXR: {lib.exr_last_error().decode()} ({path})")
 
 
 def _attr(name: str, type_: str, payload: bytes) -> bytes:
@@ -180,8 +263,9 @@ def write_exr(path: str, img, channel_names=None, compression="zip",
     """Write (H, W) or (H, W, C) float data as a scanline EXR.
 
     compression: 'none' | 'rle' | 'zips' | 'zip' (OpenEXR default) | 'piz'
-    | 'pxr24'. pixel_type: 'f32' | 'f16'. Channels are stored sorted by
-    name within each scanline, as OpenEXR stores them.
+    | 'pxr24', and through libOpenEXR also 'b44' | 'b44a' | 'dwaa' |
+    'dwab'. pixel_type: 'f32' | 'f16'. Channels are stored sorted by name
+    within each scanline, as OpenEXR stores them.
     """
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
@@ -191,15 +275,20 @@ def write_exr(path: str, img, channel_names=None, compression="zip",
         channel_names = {1: ["Y"], 2: ["R", "G"], 3: ["R", "G", "B"],
                          4: ["R", "G", "B", "A"]}.get(C) or \
             [f"ch{i}" for i in range(C)]
-    # b44/dwa requests are written as zip (still a valid EXR, as the
-    # reference's pure writer does)
+    if len(channel_names) != C:
+        raise ValueError(
+            f"{len(channel_names)} channel names for {C} channels")
+    lib = _load_bridge()
+    if lib is not None and compression in _BRIDGE_COMPRESSION:
+        _bridge_write_exr(lib, path, img, channel_names, compression,
+                          pixel_type)
+        return
+    # without the bridge, b44/dwa requests are written as zip (still a
+    # valid EXR, as the reference's pure writer does)
     comp = _COMPRESSION.get(compression, _COMPRESSION["zip"])
     lines_pb = _LINES_PER_BLOCK[comp]
     ptype = _PIXEL_FLOAT if pixel_type == "f32" else _PIXEL_HALF
     dtype = np.float32 if pixel_type == "f32" else np.float16
-    if len(channel_names) != C:
-        raise ValueError(
-            f"{len(channel_names)} channel names for {C} channels")
     # EXR stores channels sorted alphabetically within each scanline
     order = sorted(range(C), key=lambda i: channel_names[i])
 
@@ -247,10 +336,18 @@ def write_exr(path: str, img, channel_names=None, compression="zip",
 
 
 def read_exr(path: str):
-    """Read a scanline EXR -> (img (H, W, C) f32, names): none, rle, zips,
-    zip, piz, pxr24, b44 and b44a; f32, f16 and u32 channels. RGB(A)
-    channels come in R, G, B, A order, others in the file's (sorted)
-    order."""
+    """Read a scanline EXR -> (img (H, W, C) f32, names): every compression
+    through libOpenEXR; without it none, rle, zips, zip, piz, pxr24, b44
+    and b44a; f32, f16 and u32 channels. RGB(A) channels come in R, G, B,
+    A order, others in the file's (sorted) order."""
+    lib = _load_bridge()
+    if lib is not None:
+        img, names = _bridge_read_exr(lib, path)
+        want = [n for n in ("R", "G", "B", "A") if n in names]
+        if len(want) == len(names):
+            img = img[..., [names.index(n) for n in want]]
+            names = want
+        return img, names
     with open(path, "rb") as f:
         data = f.read()
     magic, _version = struct.unpack_from("<ii", data, 0)
@@ -297,10 +394,11 @@ def read_exr(path: str):
         elif name == "dataWindow":
             dw = struct.unpack("<iiii", payload)
     if compression in _DWA:
+        why = _bridge_missing() or "the bridge is not loaded"
         raise NotImplementedError(
-            f"{path}: {_DWA[compression]} compression is read by a native "
-            "OpenEXR loader, which comes with slice 7b; write the file with "
-            "another compression")
+            f"{path}: {_DWA[compression]} compression is read only through "
+            f"libOpenEXR (csrc/exr_bridge.cpp), which is missing here: "
+            f"{why}; write the file with another compression")
     if compression not in (0, 1, 2, 3, 4, 5, 6, 7):
         raise ValueError(
             f"unsupported EXR compression {compression} (supported: "

@@ -8,7 +8,12 @@ the JAX package's, and bitmaps and envmaps read from files.
 - Real OpenEXR files: files that libOpenEXR writes through the
   reference's bridge (ZIP, PIZ, PXR24, B44, B44A) decode exactly as
   libOpenEXR decodes them; skipped where the bridge cannot be built, as
-  tests/test_regression.py does. DWAA and DWAB raise, naming slice 7b.
+  tests/test_regression.py does. Without the port's own bridge, DWAA
+  and DWAB raise, naming libOpenEXR; with it, files of every compression
+  that the port's bridge writes read as the reference's bridge reads
+  them.
+- The codec tests hold the port's pure-Python codec: its bridge is off
+  in every test of this file but the bridge tests (``port_pure``).
 - Scene arrays of a bitmap texture and an envmap read from EXR (ZIP, PIZ,
   one channel), PFM, RGBE and PNG files equal the reference's bit for
   bit.
@@ -27,6 +32,24 @@ from eradiate_kernel_tpu_torch.utils import bitmap as pb
 from test_torch_scene import port_config, reference_arrays
 
 _HAVE_BRIDGE = rb._load_bridge() is not None
+
+
+@pytest.fixture(autouse=True)
+def port_pure(request, monkeypatch):
+    """The port's pure-Python EXR codec (its OpenEXR bridge made absent),
+    except in the tests that ask for the ``bridge`` fixture."""
+    if "bridge" not in request.fixturenames:
+        monkeypatch.setattr(pb, "_load_bridge", lambda: None)
+
+
+@pytest.fixture
+def bridge():
+    """The port's OpenEXR bridge, built here (skip without libOpenEXR)."""
+    if pb._bridge_missing():
+        pytest.skip(f"no OpenEXR bridge: {pb._bridge_missing()}")
+    lib = pb._load_bridge()
+    assert lib is not None
+    return lib
 
 
 @contextlib.contextmanager
@@ -160,7 +183,8 @@ def test_reads_openexr_files_as_openexr_does(tmp_path, compression,
 
 @pytest.mark.parametrize("codec", [8, 9])
 def test_dwa_compression_refuses(tmp_path, codec):
-    """DWAA (8) and DWAB (9) need a native OpenEXR loader (slice 7b)."""
+    """DWAA (8) and DWAB (9) are read only through libOpenEXR: with the
+    port's bridge absent, they raise, naming the library."""
     path = str(tmp_path / "dwa.exr")
     pb.write_exr(path, image(4, 4, 3), compression="zip")
     data = bytearray(read_bytes(path))
@@ -170,14 +194,38 @@ def test_dwa_compression_refuses(tmp_path, codec):
     data[at] = codec
     with open(path, "wb") as f:
         f.write(bytes(data))
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    with pytest.raises(NotImplementedError, match="libOpenEXR"):
         pb.read_exr(path)
     if _HAVE_BRIDGE:  # and a real file from libOpenEXR
         lib = str(tmp_path / "lib_dwa.exr")
         assert rb._bridge_write_exr(lib, image(40, 40, 3), ["R", "G", "B"],
                                     "dwaa" if codec == 8 else "dwab", "f16")
-        with pytest.raises(NotImplementedError, match="slice 7b"):
+        with pytest.raises(NotImplementedError, match="libOpenEXR"):
             pb.read_exr(lib)
+
+
+@pytest.mark.skipif(not _HAVE_BRIDGE, reason="no system libOpenEXR")
+@pytest.mark.parametrize("pixel_type", ["f16", "f32"])
+@pytest.mark.parametrize("compression", sorted(pb._BRIDGE_COMPRESSION))
+def test_bridge_write_read_as_reference(tmp_path, bridge, compression,
+                                        pixel_type):
+    """Through the port's OpenEXR bridge, write_exr writes every
+    compression (DWAA and DWAB too), and read_exr reads the file as the
+    reference's bridge reads it, RGB(A) and other channel sets."""
+    for channels, names in ((1, ["Y"]), (3, ["R", "G", "B"]),
+                            (4, ["R", "G", "B", "A"]), (2, ["Z", "N"])):
+        img = image(37, 21, channels, seed=channels)
+        path = str(tmp_path / f"port{channels}.exr")
+        pb.write_exr(path, img, names, compression=compression,
+                     pixel_type=pixel_type)
+        got, got_names = pb.read_exr(path)
+        want, want_names = rb.read_exr(path)
+        assert got_names == want_names
+        np.testing.assert_array_equal(got, want)
+        if compression in ("none", "rle", "zips", "zip", "piz") and \
+                pixel_type == "f32":  # lossless: the image itself
+            np.testing.assert_array_equal(
+                got, img[..., [names.index(n) for n in got_names]])
 
 
 def file_scene(tex, env):
