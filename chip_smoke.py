@@ -121,9 +121,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      time against the primal's, the film bit-equal to the primal's; then
      at 32x32 spp2 max_depth 2 (depth cut for the plain walks' time; 64x64
      until phase 39 was added, spp 4 and max_depth 3 until phase 37 was)
-     the
-     gradients through the sweep, tile_bvh and tile_bvh8 against their
-     plain versions (rtol 1e-5, atol 1e-7), the kernel legs launching
+     the gradients through the sweep on terrain(64) and through tile_bvh
+     and tile_bvh8 on a forest of 64 instances (terrain(256) and 256
+     instances until phase 41 was added) against their plain versions (rtol 1e-5, atol 1e-7), the kernel legs launching
      their kernel once a query and the plain legs nothing;
  20. the flagship atmosphere at 128x128 (256x256 until phase 39 was
      added), spp 4, under a constant sky
@@ -259,10 +259,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      2, max_depth 6 (12 until phase 39 was), of the quadrature render and
      the nearest
      grid (d(mean)/d(grid, albedo); forward and backward launches, the
-     film bit-equal to the primal's) and their 64x64 spp2 max_depth 4
+     film bit-equal to the primal's) and their 64x64 spp2 max_depth 3
      gradients (spp 4 until phase 37 was added, max_depth 6 until phase
-     40 was) through the kernels against the plain versions (rtol 1e-5,
-     atol 1e-7);
+     40 was, 4 until phase 41 was) through the kernels against the plain
+     versions (rtol 1e-5, atol 1e-7);
  34. slice 7a: scenes from files, written under a temporary directory.
      (a) terrain(256) as a PLY, a seeded 1024x1024 f32 albedo map as a
      ZIP EXR feeding a diffuse bitmap (on the terrain, which has no uvs
@@ -419,11 +419,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      z-test harness on the flagship atmosphere at 32x32, and its
      detection of a changed albedo; (g) DWAA and DWAB through the OpenEXR
      bridge (or "exr_bridge: absent" and the refusal);
+ 41. slice 7c, parallel/ over torch.distributed (slice_7c_phases): (a)
+     an NCCL group of one process a card (on one card the script itself,
+     rank 0 of a world of 1, on a free TCP port), each rank's mesh two
+     shards on its card: render_sharded(regen=True, regen_lanes=32768) of
+     phase 10's large3d bit-equal to phase 10's film, tile_sweep and
+     grid_gather launches == queries and lookups over the shards, the
+     film's all_reduce timed; (b) two child processes sharing the card
+     (gloo, backend="gloo": NCCL refuses two ranks on one GPU), one shard
+     each: the same render split between them, both films bit-equal to
+     phase 10's; sharded_film's value+grad of the 64^3 grid and the albedo
+     at 64x64 spp 2 max_depth 6 (the scan driver) on each rank within rtol
+     1e-5, atol 1e-7 of the script's one-shard value+grad,
+     grid_trilinear_bwd launches == lookups, and one Adam step;
  12. (last) print the kernels line (every kernel and entry, the backward
      and the float64 entries included, with their launches on phases
-     21-40), the value+grad, measurement, materials, slice 5c-2, slice 6a,
-     slice 7a, slice 6b, slice 6c-1, slice 6c-2, slice 6d, slice 6e and
-     slice 7b records,
+     21-41), the value+grad, measurement, materials, slice 5c-2, slice 6a,
+     slice 7a, slice 6b, slice 6c-1, slice 6c-2, slice 6d, slice 6e,
+     slice 7b and slice 7c records,
      the card's name and power limit, and the final ``{"ok": true, ...}``
      line.
 
@@ -1966,11 +1979,19 @@ def surface_phases(scene, forest, V, F, render_s, forest_runs, lanes, atmo):
     # max_depth 3 until phase 37 was; the value+grads above take 6) the
     # gradients through each
     # kernel and through its plain version: the plain walks' time, one host
-    # sync a walk step (the RPV rows are NaN in both: ROADMAP Queue 3)
+    # sync a walk step (the RPV rows are NaN in both: ROADMAP Queue 3). The
+    # terrain is terrain(64) (63 tiles: still the sorted sweep) and the
+    # forest has 64 instances (terrain(256) and 256 until phase 41 was
+    # added): the plain sorted sweep's time grows with the tiles, the plain
+    # walks' with the tree
+    V64, F64 = terrain(64)
     for label, d_small, wide, kernel in (
-            ("terrain", terrain_scene(V, F, 32, 32, 2, 2), "0", "tile_sweep"),
-            ("forest", forest_scene(32, 32, 2, 2), "0", "tile_bvh"),
-            ("forest", forest_scene(32, 32, 2, 2), "1", "tile_bvh8")):
+            ("terrain(64)", terrain_scene(V64, F64, 32, 32, 2, 2), "0",
+             "tile_sweep"),
+            ("forest 64 instances", forest_scene(32, 32, 2, 2, n_inst=64),
+             "0", "tile_bvh"),
+            ("forest 64 instances", forest_scene(32, 32, 2, 2, n_inst=64),
+             "1", "tile_bvh8")):
         sc = load_dict(d_small)
         grads_64 = {}
         t0 = time.perf_counter()
@@ -3382,12 +3403,12 @@ def slice_6a_phases(lanes, large_film, large_rec):
     vg = {}
     # max_depth 6 (12 until phase 39 was added): the time limit
     for name, d_full, d_small, key in (
-            # the 64x64 legs against the plain versions at max_depth 4 (6
-            # until phase 40 was added)
+            # the 64x64 legs against the plain versions at max_depth 3 (4
+            # until phase 41 was added, 6 until phase 40 was)
             ("quadrature", large3d(128, 2, ablations["quadrature"], 6),
-             large3d(64, 2, ablations["quadrature"], 4),
+             large3d(64, 2, ablations["quadrature"], 3),
              "volumes.gridvolume.grid"),
-            ("nearest", nearest(128, 2, 6), nearest(64, 2, 4),
+            ("nearest", nearest(128, 2, 6), nearest(64, 2, 3),
              "volumes.gridvolume_nearest.grid")):
         keys = [key, "volumes.constvolume.value"]
         scene = load_dict(d_full)
@@ -3399,7 +3420,7 @@ def slice_6a_phases(lanes, large_film, large_rec):
         assert (bwd["grid_trilinear_bwd"] > 0) == (name == "quadrature"), r
         vg[name]["vs_plain_64"] = grads_vs_plain(
             load_dict(d_small), lanes, keys)["grad_max_abs_err_vs_plain"]
-        print(f"# {name} 64x64 spp2 max_depth 4 value+grad: kernels vs "
+        print(f"# {name} 64x64 spp2 max_depth 3 value+grad: kernels vs "
               f"plain gradients "
               f"agree (rtol 1e-5, atol 1e-7; max abs err "
               f"{vg[name]['vs_plain_64']})", flush=True)
@@ -6139,10 +6160,314 @@ def slice_7b_launches(rec, kernel):
     return out
 
 
+
+# phase 41's pool width (phase 10's) and the children's time limit
+S41_LANES = 1 << 15
+S41_CHILD_TIMEOUT = 300
+
+
+def large3d_scene(width=256, height=256, spp=4, max_depth=12):
+    """bench.py's large3d as phase 10 loads it: the atmosphere with a 64^3
+    grid and residual NEE transmittance, on the card."""
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(width, height, spp, max_depth, grid_res=(64, 64, 64))
+    d["integrator"]["nee_transmittance"] = "residual"
+    return load_dict(d)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def allreduce_ms(film, reps=20):
+    """Host ms a dist.all_reduce of a tensor shaped as ``film`` (every rank
+    in turn, synchronised before and after), after one warm-up."""
+    import torch.distributed as dist
+
+    buf = torch.zeros_like(film)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def sharded_pool_render(mesh):
+    """render_sharded(regen=True) of large3d over ``mesh`` (pools of
+    S41_LANES lanes) under counting(): (film on the host, record)."""
+    from eradiate_kernel_tpu_torch.parallel import render_sharded
+
+    scene = large3d_scene()
+    with counting() as read:
+        t0 = time.perf_counter()
+        film = render_sharded(scene, mesh, seed=0, regen=True,
+                              regen_lanes=S41_LANES, develop_film=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read()
+    return film.cpu(), dict(
+        render_ms=secs * 1e3, shards=mesh.size,
+        local_shards=len(mesh.devices),
+        queries=got["queries"], lookups=got["lookups"],
+        launches={k: got["launches"][k]
+                  for k in ("tile_sweep", "grid_gather")},
+        allreduce_ms=allreduce_ms(film))
+
+
+def sharded_value_grad(mesh, steps=False):
+    """sharded_film's value+grad of the developed film's mean with respect
+    to the 64^3 grid and the albedo of large3d at 64x64 spp 2 max_depth 6
+    (the scan driver), under counting(); with ``steps`` one Adam step
+    after it. Returns ({key: gradient on the host}, record)."""
+    from eradiate_kernel_tpu_torch import films
+    from eradiate_kernel_tpu_torch.parallel import sharded_film
+    from eradiate_kernel_tpu_torch.utils import autodiff
+
+    pm = autodiff.traverse(large3d_scene(64, 64, 2, 6))
+    pm.keep(["volumes.gridvolume.grid", "volumes.constvolume.value"])
+    opt = autodiff.Adam(pm.trainable(), lr=1e-2)
+    with counting() as read:
+        t0 = time.perf_counter()
+        film = sharded_film(pm.with_trainable(opt.params), mesh, 0, 2)
+        loss = films.develop(film).mean()
+        torch.cuda.synchronize()
+        fwd = read()
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        end = read()
+    grads = {k: p.grad.cpu() for k, p in opt.params.items()}
+    rec = dict(value_grad_ms=secs * 1e3, loss=float(loss.detach()),
+               lookups=fwd["lookups"], queries=fwd["queries"],
+               forward={k: fwd["launches"][k]
+                        for k in ("tile_sweep", "grid_gather")},
+               backward_grid_trilinear_bwd=end["launches"][
+                   "grid_trilinear_bwd"] - fwd["launches"][
+                   "grid_trilinear_bwd"])
+    if steps:
+        before = {k: p.detach().clone() for k, p in opt.params.items()}
+        opt.step()
+        rec["adam_step_finite"] = all(
+            bool(torch.isfinite(p).all()) for p in opt.params.values())
+        rec["adam_step_moved"] = any(
+            not torch.equal(p.detach(), before[k])
+            for k, p in opt.params.items())
+    return grads, rec
+
+
+def s41_nccl_rank(rank, world, address, out_dir):
+    """Phase 41a on one rank of an NCCL group of ``world`` (one process a
+    card): the sharded large3d pool render over two shards on this rank's
+    card. Returns (or with ``out_dir`` saves) its film and record."""
+    import torch.distributed as dist
+
+    from eradiate_kernel_tpu_torch.parallel import (init_distributed,
+                                                    make_mesh)
+
+    init_distributed(address, world, rank)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh([torch.device("cuda", torch.cuda.current_device())]
+                         * 2)
+        film, rec = sharded_pool_render(mesh)
+        rec.update(backend="nccl", world=world, rank=rank)
+    finally:
+        dist.destroy_process_group()
+    if out_dir is None:
+        return film, rec
+    torch.save((film, rec), os.path.join(out_dir, f"nccl{rank}.pt"))
+    return None
+
+
+def s41_child(rank, store, out):
+    """Phase 41b in one of two processes sharing the card (gloo, one shard
+    each; run as ``chip_smoke.py --s41-child RANK STORE OUT``): the sharded
+    large3d pool render, then sharded_film's value+grad at 64x64 and one
+    Adam step; saves the films, gradients and records to ``out``."""
+    import torch.distributed as dist
+
+    from eradiate_kernel_tpu_torch.parallel import (init_distributed,
+                                                    make_mesh)
+
+    torch.set_num_threads(1)
+    init_distributed(f"file://{store}", 2, rank, backend="gloo")
+    try:
+        mesh = make_mesh()  # this rank's card: cuda:LOCAL_RANK
+        assert mesh.devices == (torch.device("cuda", 0),) and mesh.size == 2
+        film, rec = sharded_pool_render(mesh)
+        grads, vg = sharded_value_grad(mesh, steps=True)
+        rec.update(backend=dist.get_backend(), world=2, rank=rank,
+                   value_grad=vg)
+    finally:
+        dist.destroy_process_group()
+    torch.save((film, grads, rec), out)
+    return 0
+
+
+def slice_7c_phases(large_film):
+    """Phase 41 (slice 7c): parallel/ over torch.distributed on the card.
+    (a) NCCL: a process group of one process a card (on one card the
+    script itself, a world of 1), each rank's mesh two shards on its card;
+    render_sharded(regen=True) of phase 10's large3d (256x256 spp 4, pools
+    of 32,768 lanes) bit-equal to phase 10's film (each pixel's samples lie
+    in one shard: the ranges are multiples of spp), tile_sweep launches ==
+    closest-hit queries and grid_gather launches == lookups over the
+    shards, the film's all_reduce timed. (b) Two processes sharing the
+    card (gloo; NCCL refuses two ranks on one GPU), one shard each: the
+    same render split between them, each rank's film bit-equal to the
+    other's and to phase 10's; sharded_film's value+grad of the 64^3 grid
+    and the albedo at 64x64 spp 2 max_depth 6 (the scan driver) on every
+    rank within rtol 1e-5, atol 1e-7 of the script's one-shard value+grad
+    (the scan's index_put_ atomics add in any order on the card),
+    grid_trilinear_bwd launches == the lookups; one Adam step with a
+    finite loss. Returns the records."""
+    import tempfile
+
+    from eradiate_kernel_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    # ---- 41a. NCCL: one process a card ----------------------------------------
+    phase_clock("41a")
+    n_cards = torch.cuda.device_count()
+    address = f"localhost:{free_port()}"
+    if n_cards == 1:
+        films = [s41_nccl_rank(0, 1, address, None)]
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.multiprocessing.spawn(s41_nccl_rank,
+                                        args=(n_cards, address, tmp),
+                                        nprocs=n_cards)
+            films = [torch.load(os.path.join(tmp, f"nccl{r}.pt"))
+                     for r in range(n_cards)]
+    ranks = [r for _f, r in films]
+    for film, _r in films:
+        assert torch.equal(film, large_film.cpu()), "41a film"
+    total = {k: sum(r["launches"][k] for r in ranks)
+             for k in ("tile_sweep", "grid_gather")}
+    queries = sum(r["queries"] for r in ranks)
+    lookups = sum(r["lookups"] for r in ranks)
+    assert total["tile_sweep"] == queries > 0, (total, queries)
+    assert total["grid_gather"] == lookups > 0, (total, lookups)
+    rec["nccl"] = dict(ranks=ranks, launches=total, queries=queries,
+                       lookups=lookups)
+    r0 = ranks[0]
+    print(f"# 41a NCCL, {n_cards} rank(s), {r0['shards']} shards "
+          f"({r0['local_shards']} a card): large3d 256x256 spp4 "
+          f"render_sharded(regen=True) {r0['render_ms']:.1f} ms on rank 0, "
+          f"film bit-equal to phase 10's; tile_sweep {total['tile_sweep']} "
+          f"= queries, grid_gather {total['grid_gather']} = lookups; film "
+          f"all_reduce (256x256x5 float32, 1.3 MB) "
+          f"{', '.join(f'{r['allreduce_ms']:.4f}' for r in ranks)} ms",
+          flush=True)
+
+    # ---- 41b. two processes sharing the card: gloo ---------------------------
+    phase_clock("41b")
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, LOCAL_RANK="0")
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--s41-child",
+             str(r), os.path.join(tmp, "store"), outs[r]], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            # the one-process value+grad while the children start
+            one_grads, one = sharded_value_grad(make_mesh(["cuda:0"]))
+            logs = [p.communicate(timeout=S41_CHILD_TIMEOUT)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        children_s = time.perf_counter() - t0
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, f"41b child failed:\n{log[-4000:]}"
+        got = [torch.load(o) for o in outs]
+    assert one["lookups"] > 0
+    assert one["forward"]["grid_gather"] == one["lookups"], one
+    assert one["backward_grid_trilinear_bwd"] == one["lookups"], one
+    worst = 0.0
+    for film, grads, r in got:
+        assert r["backend"] == "gloo" and r["shards"] == 2, r
+        assert torch.equal(film, got[0][0]), "41b films differ"
+        assert torch.equal(film, large_film.cpu()), "41b film"
+        assert r["launches"]["tile_sweep"] == r["queries"] > 0, r
+        assert r["launches"]["grid_gather"] == r["lookups"] > 0, r
+        vg = r["value_grad"]
+        assert vg["forward"]["grid_gather"] == vg["lookups"] > 0, vg
+        assert vg["backward_grid_trilinear_bwd"] == vg["lookups"], vg
+        assert vg["adam_step_finite"] and vg["adam_step_moved"], vg
+        assert np.isfinite(vg["loss"]) and abs(
+            vg["loss"] - one["loss"]) <= 1e-6 * abs(one["loss"]), vg
+        for k, g in grads.items():
+            ref = one_grads[k]
+            ok = torch.isfinite(ref)
+            assert torch.equal(ok, torch.isfinite(g)), k
+            assert bool(g[ok].abs().sum() > 0), k
+            torch.testing.assert_close(g[ok], ref[ok], rtol=1e-5, atol=1e-7)
+            worst = max(worst, float((g[ok] - ref[ok]).abs().max()))
+    assert torch.equal(got[0][1]["volumes.gridvolume.grid"],
+                       got[1][1]["volumes.gridvolume.grid"])
+    rec["gloo_shared_card"] = dict(
+        ranks=[r for _f, _g, r in got], one_process=one,
+        grad_max_abs_err_vs_one_process=worst, children_s=children_s)
+    rs = [r for _f, _g, r in got]
+    print(f"# 41b two processes sharing the card (gloo, one shard each; "
+          f"NCCL refuses two ranks on one GPU): large3d pool render "
+          f"{', '.join(f'{r['render_ms']:.1f}' for r in rs)} ms, films "
+          f"equal and bit-equal to phase 10's; launches tile_sweep "
+          f"{[r['launches']['tile_sweep'] for r in rs]} = queries, "
+          f"grid_gather {[r['launches']['grid_gather'] for r in rs]} = "
+          f"lookups; film all_reduce "
+          f"{', '.join(f'{r['allreduce_ms']:.3f}' for r in rs)} ms; 64^3 "
+          f"64x64 spp2 sharded_film value+grad "
+          f"{', '.join(f'{r['value_grad']['value_grad_ms']:.1f}' for r in rs)}"
+          f" ms (one process {one['value_grad_ms']:.1f} ms), "
+          f"grid_trilinear_bwd {[r['value_grad']['backward_grid_trilinear_bwd'] for r in rs]}"
+          f" = lookups, gradients within {worst:.2e} of the one-process "
+          f"gradient, Adam step finite; children {children_s:.1f} s",
+          flush=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"# phase 41: {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
+def slice_7c_launches(rec, kernel):
+    """``kernel``'s launches in phase 41's renders and value+grads."""
+    if kernel in ("tile_sweep", "grid_gather"):
+        out = {f"41a NCCL large3d pool, {len(rec['nccl']['ranks'])} rank(s)":
+               rec["nccl"]["launches"][kernel]}
+        for r in rec["gloo_shared_card"]["ranks"]:
+            out[f"41b gloo rank {r['rank']} large3d pool"] = r["launches"][
+                kernel]
+        if kernel == "grid_gather":
+            for r in rec["gloo_shared_card"]["ranks"]:
+                out[f"41b gloo rank {r['rank']} 64^3 value+grad forward"] = \
+                    r["value_grad"]["forward"][kernel]
+        return out
+    return {f"41b gloo rank {r['rank']} 64^3 value+grad backward":
+            r["value_grad"]["backward_grid_trilinear_bwd"]
+            for r in rec["gloo_shared_card"]["ranks"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--s41-child"]:
+        return s41_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from eradiate_kernel_tpu_torch import integrators
     from eradiate_kernel_tpu_torch.core.ray import Ray
     from eradiate_kernel_tpu_torch.ops import (_build, accel, bvh, gather,
@@ -6611,6 +6936,7 @@ def main():
     bwd_adjoint = adjoint_bwd_loads()
     s6e = slice_6e_phases(V, F)
     s7b = slice_7b_phases(V, F)
+    s7c = slice_7c_phases(large_film)
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -6706,6 +7032,8 @@ def main():
         # slices 6e-2 and 7b: the stokes value+grads, the native-built
         # terrain, the diffuse and path clones
         "launches_slice_7b": slice_7b_launches(s7b, "tile_sweep"),
+        # slice 7c: the sharded large3d pool renders (fused), NCCL and gloo
+        "launches_slice_7c": slice_7c_launches(s7c, "tile_sweep"),
         "tiles8_primary": small_loads["terrain(23) primary"],
         "tiles8_incoherent": small_loads["terrain(23) incoherent"],
         "fused_vs_sorted": crossover,
@@ -6787,6 +7115,9 @@ def main():
         # slice 6e-2: the 64^3 stokes(volpath) value+grad's forward; 7b:
         # the HG clone's 64^3 render
         "launches_slice_7b": slice_7b_launches(s7b, "grid_gather"),
+        # slice 7c: the sharded large3d pool renders and the sharded 64^3
+        # value+grads' forwards
+        "launches_slice_7c": slice_7c_launches(s7c, "grid_gather"),
         "entries_slice_6c2": {k: v["entries"] for k, v in s6c2[
             "value_grads"].items() if "entries" in v},
         "gather_nearest_64^3": s6a["nearest"]["gather_entry"],
@@ -6829,6 +7160,8 @@ def main():
         "launches_slice_6c2": slice_6c2_launches(s6c2, "grid_trilinear_bwd"),
         # slice 6e-2: the 64^3 stokes(volpath) value+grad's backward
         "launches_slice_7b": slice_7b_launches(s7b, "grid_trilinear_bwd"),
+        # slice 7c: the sharded 64^3 value+grads' backwards (gloo ranks)
+        "launches_slice_7c": slice_7c_launches(s7c, "grid_trilinear_bwd"),
     })
     # the float64 entries (slice 6d, phase 38): launches from phase 38's
     # renders in rgb_double (38c, 38d, 38e), the rest from 38a's loads
@@ -6885,6 +7218,7 @@ def main():
     print(json.dumps({"slice_6d": s6d}))
     print(json.dumps({"slice_6e": s6e}))
     print(json.dumps({"slice_7b": s7b}))
+    print(json.dumps({"slice_7c": s7c}))
     print(json.dumps({"phase_starts_s": PHASE_STARTS}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -161,35 +161,43 @@ def _put_lanes(pool, fresh, idx):
 
 
 def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
-              harvest=None, refill=None, stats=None):
+              harvest=None, refill=None, stats=None, sample_offset=0):
     """The lane pool's schedule, shared by the render and its path-replay
-    adjoint (integrators/replay.py): a pool of ``n_lanes`` lanes; each lane
+    adjoint (integrators/replay.py): a pool of ``n_lanes`` lanes runs the
+    ``total`` samples from sample index ``sample_offset`` on; each lane
     whose path finished is harvested and refilled with the next unstarted
     sample. Per iteration:
 
     1. ``harvest(vp, rw, pos, slot)`` sees the pool (``rw`` the ray
        weights, ``pos`` the film positions of its lanes); ``slot``
        (n_lanes,) holds the sample index of each lane whose path ended
-       since the last visit and ``total`` (a trash row) for the others;
+       since the last visit and ``sample_offset + total`` (a trash row)
+       for the others;
     2. dead lanes take the next unstarted samples (camera ray, fresh
        integrator state); ``refill(ridx, new, ray)`` is told which lanes
        took which samples, and their camera rays;
     3. ``bounce(vp, occupied)`` runs one bounce over the whole pool (its
        unoccupied lanes inactive) and returns the new state.
 
-    Returns the rays traced (a 0-d tensor). ``stats``, a dict, receives the
-    loop iterations and the samples dropped by the runaway cap."""
-    mod = _bounce_module(scene.config)
+    The runaway cap counts the whole film's samples, whatever the range
+    (reference integrators/__init__.py:317). Returns the rays traced (a
+    0-d tensor). ``stats``, a dict, receives the loop iterations and the
+    samples dropped by the cap."""
+    cfg = scene.config
+    mod = _bounce_module(cfg)
     dev = scene.bsphere_center.device
-    trash = torch.full((n_lanes,), total, dtype=torch.int64, device=dev)
+    cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
+                                                  cfg.film_height)
+    end = sample_offset + total
+    trash = torch.full((n_lanes,), end, dtype=torch.int64, device=dev)
     lane_sample = trash.clone()
     occupied = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
     its = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
     vp = rw = pos = None
     rays = torch.zeros((), device=dev)
-    next_sample = 0
+    next_sample = sample_offset
     it = 0
-    cap = 20 * max_iterations * (1 + total // n_lanes)
+    cap = 20 * max_iterations * (1 + (ch * cw * spp) // n_lanes)
     while it < cap:
         # 1. harvest the lanes whose path ended since the last visit
         if vp is not None:
@@ -202,16 +210,22 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
         # 2. refill dead lanes with the next unstarted samples
         n_dead = n_lanes - int(occupied.sum())  # host sync
         common.counters["pool_syncs"] += 1
-        m = min(n_dead, total - next_sample)
+        m = min(n_dead, end - next_sample)
         if m > 0:
-            ridx = torch.nonzero(~occupied)[:m, 0]  # host sync
-            common.counters["pool_syncs"] += 1
-            new = next_sample + torch.arange(m, dtype=torch.int64,
-                                             device=dev)
+            if vp is None:
+                # the first fill: every lane at once; lanes past a range
+                # shorter than the pool hold its last sample, unoccupied
+                ridx = torch.arange(n_lanes, device=dev)
+                new = torch.clamp(next_sample + ridx, max=end - 1)
+            else:
+                ridx = torch.nonzero(~occupied)[:m, 0]  # host sync
+                common.counters["pool_syncs"] += 1
+                new = next_sample + torch.arange(m, dtype=torch.int64,
+                                                 device=dev)
             smp, ray, fresh_rw, fresh_pos = _camera_lanes(scene, seed, spp,
                                                           new)
             fresh = mod._init_state(scene, smp, ray)
-            if vp is None:  # the first fill: every lane at once
+            if vp is None:
                 vp = dataclasses.replace(fresh, sampler=dataclasses.replace(
                     fresh.sampler, dim=torch.full(
                         (n_lanes,), fresh.sampler.dim, dtype=torch.int64,
@@ -221,8 +235,8 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
                 vp = _put_lanes(vp, fresh, ridx)
                 rw = rw.index_copy(0, ridx, fresh_rw)
                 pos = pos.index_copy(0, ridx, fresh_pos)
-            lane_sample = lane_sample.index_copy(0, ridx, new)
-            occupied = occupied.index_fill(0, ridx, True)
+            lane_sample = lane_sample.index_copy(0, ridx[:m], new[:m])
+            occupied = occupied.index_fill(0, ridx[:m], True)
             its = its.index_fill(0, ridx, 0)
             next_sample += m
             if refill is not None:
@@ -242,7 +256,7 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
         it += 1
     if stats is not None:
         stats["iterations"] = it
-        stats["dropped"] = (total - next_sample) + (
+        stats["dropped"] = (end - next_sample) + (
             int(occupied.sum()) if it >= cap else 0)
     return rays
 
@@ -257,19 +271,26 @@ def _check_regen(cfg):
             "(render(regen=False))")
 
 
-def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
-                           sample_log=False):
+def render_wavefront_regen(scene, n_lanes, seed, spp, sample_offset=0,
+                           total=None, max_total=None, sample_log=False, *,
+                           stats=None):
     """Regenerating wavefront render: the lane pool of ``_run_pool`` with
     ``n_lanes`` lanes keeps occupancy near 100 % whatever the spread of
-    path lengths.
+    path lengths. It renders the ``total`` samples from ``sample_offset``
+    on (the whole film by default) and returns their partial film; a
+    shard of ``parallel.render_sharded`` renders its range so. ``total``
+    must not exceed ``max_total`` (default ``total``), which sizes the
+    buffers.
 
     Under a single-pixel filter the film is built from a per-sample slot
-    buffer: a finished lane writes its [X, Y, Z, A, 1] row at slot
-    ``sample`` (slots are unique, so the writes need no atomics and are
-    deterministic); a reshape-sum over the spp axis gives the film at the
-    end. Under a wider filter each iteration splats its finished lanes into
-    the film with film_put (the others add zero rows). Lanes may run in any
-    order: a sample's random numbers are keyed by its index.
+    buffer over the spp-aligned window of ``max_total / spp + 1`` pixels
+    from the pixel of ``sample_offset``: a finished lane writes its [X, Y,
+    Z, A, 1] row at its sample's slot (slots are unique, so the writes need
+    no atomics and are deterministic); a reshape-sum over the spp axis
+    gives the window's pixels at the end, placed at their pixel in the
+    film. Under a wider filter each iteration splats its finished lanes
+    into the film with film_put (the others add zero rows). Lanes may run
+    in any order: a sample's random numbers are keyed by its index.
 
     An AOV wrapper's pool bounces its child; its columns come from the
     wrapper's hooks: ``_refill_aov`` (the camera hit, computed at refill
@@ -279,11 +300,13 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     alone, bit for bit.
 
     Returns (film (ch, cw, 5 + n_aov), rays traced (a 0-d tensor)); with
-    ``sample_log`` also the sample log (total, nc): row s is sample s's
+    ``sample_log`` also the sample log over the same window, up to the
+    range's end: row i is sample (sample_offset // spp) * spp + i's
     integrator ``result`` before the ray weight (in spectral its 4 hero
     channels), written beside its film row (the path-replay backward's
-    radiance totals). ``stats``, a dict, receives the loop iterations and
-    the samples dropped by the runaway cap."""
+    radiance totals; over the whole film, (total, nc) with row s sample
+    s's). ``stats``, a dict, receives the loop iterations and the samples
+    dropped by the runaway cap."""
     cfg = scene.config
     wrapper = REGISTRY[cfg.integrator.kind]
     mod = _bounce_module(cfg)
@@ -292,22 +315,33 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     dev = scene.bsphere_center.device
     cw, ch = cfg.crop_size if cfg.crop_size else (cfg.film_width,
                                                   cfg.film_height)
-    total = ch * cw * spp
-    n_lanes = min(n_lanes, total)
+    total = ch * cw * spp if total is None else total
+    max_total = total if max_total is None else max_total
+    end = sample_offset + total
+    if not (0 <= total <= max_total and 0 <= sample_offset
+            and end <= ch * cw * spp):
+        raise ValueError(
+            f"samples [{sample_offset}, {end}) with max_total {max_total}: "
+            f"outside the film's {ch * cw * spp} samples or the buffers")
+    # as wide as the largest range: shards of one render share a width
+    n_lanes = max(1, min(n_lanes, max_total))
     max_iterations, bounce_kwargs = mod._knobs(scene)
     bounce_kwargs.update(getattr(mod, "_PRIMAL_BOUNCE_KWARGS", {}))
 
     rp = dict(cfg.rfilter_params)
     wide = filter_radius(cfg.rfilter, rp) > 0.5 + 1e-6
     n_ch = N_BASE_CHANNELS + extra
-    # slot `total` is the trash row of lanes that finished nothing
-    slots = None if wide else torch.zeros(total + 1, N_BASE_CHANNELS,
+    # the slots cover samples [aligned_off, aligned_off + n_buf); slot
+    # n_buf is the trash row of lanes that finished nothing
+    aligned_off = sample_offset // spp * spp
+    n_buf = (-(-max_total // spp) + 1) * spp
+    slots = None if wide else torch.zeros(n_buf + 1, N_BASE_CHANNELS,
                                           device=dev)
-    aov_slots = (torch.zeros(total + 1, extra, device=dev)
+    aov_slots = (torch.zeros(n_buf + 1, extra, device=dev)
                  if extra and not wide else None)
     film = torch.zeros(ch, cw, n_ch, device=dev) if wide else None
     offset = torch.tensor(cfg.crop_offset, dtype=torch.float32, device=dev)
-    rlog = (torch.zeros(total + 1, cfg.variant.n_channels, device=dev)
+    rlog = (torch.zeros(n_buf + 1, cfg.variant.n_channels, device=dev)
             if sample_log else None)
     # the camera-hit AOV columns carried per lane (filled at refill)
     carry = (torch.zeros(n_lanes, extra, device=dev)
@@ -320,11 +354,12 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
         rows = _film_rows(vp.result * rw, vp.valid_ray, vp.ray.wavelengths)
         aovs = (wrapper._harvest_aov(scene, vp, rw, carry) if extra
                 else None)
+        slot = torch.where(slot < end, slot - aligned_off, n_buf)
         if wide:
             if extra:
                 rows = torch.cat([rows, aovs], -1)
             film_put(film, pos - offset,
-                     torch.where((slot < total)[:, None], rows, 0.0),
+                     torch.where((slot < n_buf)[:, None], rows, 0.0),
                      cfg.rfilter, rp)
         else:
             slots.index_copy_(0, slot, rows)
@@ -336,13 +371,17 @@ def render_wavefront_regen(scene, n_lanes, seed, spp, stats=None,
     rays = _run_pool(scene, n_lanes, seed, spp, total, max_iterations,
                      lambda vp, _occ: mod._bounce(scene, vp, **bounce_kwargs),
                      harvest=harvest, refill=None if carry is None else refill,
-                     stats=stats)
+                     stats=stats, sample_offset=sample_offset)
     if not wide:
-        film = torch.cat([b[:total].reshape(ch * cw, spp, -1).sum(1)
+        n_pix = n_buf // spp
+        rows = torch.cat([b[:n_buf].reshape(n_pix, spp, -1).sum(1)
                           for b in (slots, aov_slots) if b is not None], -1)
-        film = film.reshape(ch, cw, n_ch)
+        pix0 = aligned_off // spp
+        film = torch.zeros(ch * cw + n_pix, n_ch, device=dev)
+        film[pix0:pix0 + n_pix] = rows
+        film = film[:ch * cw].reshape(ch, cw, n_ch)
     if sample_log:
-        return film, rays, rlog[:total]
+        return film, rays, rlog[:end - aligned_off]
     return film, rays
 
 

@@ -1325,3 +1325,32 @@ def test_optical_bench_gates_on_card(cuda_device):
     assert abs(s0([pol(0.0), pol(90.0)])) < 1e-4
     assert abs(s0([pol(0.0), {"type": "retarder", "theta": 45.0,
                               "delta": 180.0}, pol(90.0)]) - 0.5) < 1e-4
+
+
+@pytest.mark.cuda
+def test_two_shard_render_matches_one_shard(cuda_device):
+    """parallel.render_sharded over two shards of the card in one process:
+    the lane pools' film (pools of 256 lanes in both) bit-equal to the
+    one-shard film, since each pixel's samples lie in one shard and the
+    card computes every lane alike; the scan driver's within 1e-6 a pixel
+    but 2 (its film_put adds a pixel's samples with atomics, in any order,
+    and its passes are as wide as the shards: a free flight's decision
+    may flip on an ulp, tests/conftest.py::assert_driver_equivalent)."""
+    from chip_smoke import films_equivalent
+    from eradiate_kernel_tpu_torch.parallel import make_mesh, render_sharded
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    d = atmosphere(16, 16, 4, 6, grid_res=(17, 16, 16))
+    d["surface"]["to_world"][1]["value"] = [0.5, 0.5, -1e-3]
+    scene = load_dict(d)
+    one, two = make_mesh([cuda_device]), make_mesh([cuda_device] * 2)
+    assert (one.size, two.size) == (1, 2)
+    films = [render_sharded(scene, m, seed=3, regen=True, regen_lanes=256,
+                            develop_film=False) for m in (one, two)]
+    assert float(films[1][..., 4].sum()) == 16 * 16 * 4
+    assert torch.equal(films[0], films[1])
+    scans = [render_sharded(scene, m, seed=3, develop_film=False)
+             for m in (one, two)]
+    films_equivalent(scans[0].cpu().numpy(), scans[1].cpu().numpy(),
+                     max_flips=2, tol=1e-6)
