@@ -68,7 +68,7 @@ def main():
         "terrain tile_bvh": render_ms(ground, ERT_ACCEL="bvh"),
     }
 
-    t = pack_tiles(V, F, np.zeros(len(F), np.int32))
+    t = pack_tiles(V, None, F, np.zeros(len(F), np.int32))
     nbox, nmeta, _ = bvh.build_tile_bvh(t["lo"], t["hi"])
     cbox, cmeta = bvh.collapse_to_bvh8(nbox, nmeta)
     t.update(nbox=nbox, nmeta=nmeta, cbox=cbox, cmeta=cmeta)

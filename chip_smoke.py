@@ -385,7 +385,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      rgb_double at 256x256 spp 2 max_depth 3 against the plain sweep
      (budget 2) and
      the forest through each BVH kernel's float64 entry; (f) bench.py's
-     spectral load at max_depth 6 in spectral_double beside spectral
+     spectral load at max_depth 3 (6 until phase 42 was added) in
+     spectral_double beside spectral
      (32,768 samples each, within 3 standard errors) and
      render(regen=True) raising in double;
      (g) phase 37e's emitter rays in spectral and spectral_double against
@@ -432,11 +433,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      at 64x64 spp 2 max_depth 6 (the scan driver) on each rank within rtol
      1e-5, atol 1e-7 of the script's one-shard value+grad,
      grid_trilinear_bwd launches == lookups, and one Adam step;
+ 42. slice 7d, the reference's remaining helpers and the BSDFs' transport
+     mode (slice_7d_phases; no new kernel): (a) every warp slice 7d added and
+     its pdf on 2^20 seeded lanes, the card against the CPU within 8
+     float32 ulps of an O(1) value (a direction's x and y near the pole
+     scaled by |cos| / sin); (b) solve_quadratic and legendre_p on 2^20
+     lanes; (c) both transport modes of the six mode-dependent BSDFs on
+     65,536 seeded interactions (sample, eval_pdf, the Mueller entry)
+     within tests/test_torch_measured.py's budget, IMPORTANCE moving the
+     card's rows where it moves the CPU's; (d) volume_eval_gradient at
+     65,536 points of the 64^3 atmosphere through grid_gather against the
+     plain gather, bit for bit;
  12. (last) print the kernels line (every kernel and entry, the backward
      and the float64 entries included, with their launches on phases
      21-41), the value+grad, measurement, materials, slice 5c-2, slice 6a,
      slice 7a, slice 6b, slice 6c-1, slice 6c-2, slice 6d, slice 6e,
-     slice 7b and slice 7c records,
+     slice 7b, slice 7c and slice 7d records,
      the card's name and power limit, and the final ``{"ok": true, ...}``
      line.
 
@@ -4824,7 +4836,7 @@ def f64_kernel_loads(V, F, lanes):
     f64 = torch.float64
     rec = {}
     t32 = {k: torch.as_tensor(v, device=dev) for k, v in
-           pack_tiles(V, F, np.zeros(len(F), np.int32)).items()}
+           pack_tiles(V, None, F, np.zeros(len(F), np.int32)).items()}
     t32["root"], t32["rows"] = intersect.sweep_tables(t32)
     t64 = widened(t32)
     T = t64["lo"].shape[0]
@@ -5318,8 +5330,9 @@ def slice_6d_phases(V, F, lanes):
     phase_clock("38f")
 
     def distant(variant):
-        # max_depth 6 (bench.py: 12; cut when phase 39 was added)
-        d = atmosphere(spp=S38_BATCH, max_depth=6, grid_res=64,
+        # max_depth 3 (bench.py: 12; 6 until phase 42 was added, 12 until
+        # phase 39 was): the time limit
+        d = atmosphere(spp=S38_BATCH, max_depth=3, grid_res=64,
                        sensor="distant")
         d["integrator"]["nee_transmittance"] = "residual"
         # the sensor targets the coplanar tie (0.5, 0.5, 0): lowered as in
@@ -6462,6 +6475,399 @@ def slice_7c_launches(rec, kernel):
             for r in rec["gloo_shared_card"]["ranks"]}
 
 
+# ---- phase 42: the remaining helpers and the transport mode (slice 7d) ------
+
+# phase 42's device, warp lanes and BSDF interactions (a CPU rehearsal
+# maps and shrinks them)
+S42_DEVICE, S42_LANES, S42_BSDF_LANES = "cuda", 1 << 20, 1 << 16
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def synth_pbsdf(P=8, T=6, H=7):
+    """A synthetic KAIST-format pBRDF (tests/test_measured.py's): M00 =
+    (0.2 + 0.5 cos theta_h) wvl / 650, off-diagonals proportional."""
+    phi_d = np.linspace(0, np.pi, P).astype(np.float32)[None, :]
+    theta_d = np.linspace(0, np.pi / 2, T).astype(np.float32)[None, :]
+    theta_h = np.linspace(0, np.pi / 2, H).astype(np.float32)[None, :]
+    wvls = np.asarray([450, 500, 550, 600, 650], np.uint16)
+    m = np.zeros((P, T, H, len(wvls), 4, 4), np.float32)
+    m00 = (0.2 + 0.5 * np.cos(theta_h[0]))[None, None, :, None] \
+        * (wvls.astype(np.float32) / 650.0)[None, None, None, :]
+    for (i, j), f in (((0, 0), 1.0), ((1, 1), 0.3), ((2, 2), -0.2),
+                      ((3, 3), 0.1), ((0, 1), 0.05), ((1, 0), 0.05)):
+        m[..., i, j] = f * m00
+    return {"theta_h": theta_h, "theta_d": theta_d, "phi_d": phi_d,
+            "wvls": wvls, "M": m}
+
+
+def ulps_over(got, want, cond=0.0):
+    """The largest |got - want| / (eps (1 + |want| + cond)) (float64 on
+    the host): the error in float32 ulps of an O(1) value, cond the
+    output's condition number against a 1-ulp change of an
+    intermediate. The same infinities are required."""
+    got = got.detach().cpu().double()
+    want = want.detach().cpu().double()
+    fin = torch.isfinite(want)
+    assert torch.equal(got[~fin], want[~fin])
+    cond = torch.as_tensor(cond, dtype=torch.float64)
+    err = (got - want).abs() / (EPS32 * (1.0 + want.abs() + cond))
+    return float(torch.where(fin, err, 0.0).max())
+
+
+def sphere_cond(d):
+    """|cos| / sin of directions d (N, 3) for their x and y: near the
+    pole sin = sqrt(1 - cos^2) magnifies an ulp of cos."""
+    d = d.detach().cpu().double()
+    c = d[:, 2].abs() / torch.clamp(torch.sqrt(torch.clamp(
+        1.0 - d[:, 2] ** 2, min=0.0)), min=1e-7)
+    return torch.stack([c, c, torch.zeros_like(c)], -1)
+
+
+# phase 42's outputs that are Mueller matrices (their entries are
+# relative to M00, so a row's atol scales with its largest entry)
+S42_MUELLER = ("eval_mueller", "sample_mueller_weight")
+
+
+def rows_shares(got, want, rtol=1e-5, atol=1e-6, loose=5e-3):
+    """The fractions of rows of ``got`` beyond (rtol, atol) and beyond
+    (loose, atol) of ``want``'s, under the plain atol and under atol
+    scaled by the row's largest |entry| where it exceeds 1: {"plain":
+    [tight, wide], "scaled": [...]}."""
+    a = got.detach().cpu().double().reshape(got.shape[0], -1)
+    b = want.detach().cpu().double().reshape(want.shape[0], -1)
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())
+    err = (a - b).abs()
+    out = {}
+    for name, tol in (("plain", atol), ("scaled", atol * torch.clamp(
+            b.abs().amax(-1, keepdim=True), min=1.0))):
+        out[name] = [float((err > r * b.abs() + tol).any(-1).double().mean())
+                     for r in (rtol, loose)]
+    return out
+
+
+def rows_budget(got, want, mueller, miss=0.01, flip=0.001):
+    """rows_shares of the card's ``got`` against the CPU's ``want``;
+    raises past ``miss`` or ``flip`` (tests/test_torch_measured.py's
+    budget), a ``mueller`` output under the scaled atol, every other
+    under the plain one."""
+    out = rows_shares(got, want)
+    tight, wide = out["scaled" if mueller else "plain"]
+    assert tight <= miss and wide <= flip, (tight, wide)
+    return out
+
+
+def slice_7d_warps(dev, n):
+    """42a-b: every warp slice 7d added (and its pdf), solve_quadratic and
+    legendre_p on n seeded lanes, the card against the CPU. Returns
+    {name: worst error in ulps}."""
+    from eradiate_kernel_tpu_torch.core import math as m
+    from eradiate_kernel_tpu_torch.core import warp
+
+    rng = np.random.default_rng(42)
+    s = torch.as_tensor(rng.random((n, 2), dtype=np.float32))
+    v = torch.as_tensor(rng.uniform(0.1, 2.0, (4, n)).astype(np.float32))
+
+    def both(fn, *args):
+        """fn on the card and on the CPU, the card's result on the host."""
+        got = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+        got = (tuple(g.cpu() for g in got) if isinstance(got, tuple)
+               else got.cpu())
+        return got, fn(*args)
+
+    out = {}
+    for name in ("square_to_uniform_disk", "square_to_tent",
+                 "square_to_std_normal"):
+        out[name] = ulps_over(*both(getattr(warp, name), s))
+    out["interval_to_tent"] = ulps_over(*both(warp.interval_to_tent,
+                                              s[:, 0]))
+    out["interval_to_nonuniform_tent"] = ulps_over(*both(
+        warp.interval_to_nonuniform_tent, -1.0, 0.3, 2.0, s[:, 0]))
+    out["uniform_disk_to_square_concentric"] = ulps_over(*both(
+        warp.uniform_disk_to_square_concentric,
+        warp.square_to_uniform_disk_concentric(s)))
+    for name, pts in (
+            ("square_to_uniform_disk_pdf",
+             1.2 * warp.square_to_uniform_disk(s)),
+            ("square_to_uniform_triangle_pdf", 1.2 * s - 0.1),
+            ("square_to_uniform_hemisphere_pdf",
+             warp.square_to_uniform_sphere(s)),
+            ("square_to_tent_pdf", 1.1 * warp.square_to_tent(s)),
+            ("square_to_std_normal_pdf", warp.square_to_std_normal(s))):
+        out[name] = ulps_over(*both(getattr(warp, name), pts))
+    out["square_to_bilinear_pdf"] = ulps_over(*both(
+        warp.square_to_bilinear_pdf, *v, s))
+    for kind, pars in (("beckmann", (0.1, 0.5, 1.0)),
+                       ("von_mises_fisher", (0.5, 10.0, 100.0))):
+        fn = getattr(warp, f"square_to_{kind}")
+        pdf = getattr(warp, f"square_to_{kind}_pdf")
+        for par in pars:
+            got, want = both(fn, s, par)
+            out[f"square_to_{kind} {par}"] = ulps_over(got, want,
+                                                       sphere_cond(want))
+            out[f"square_to_{kind}_pdf {par}"] = ulps_over(*both(
+                pdf, want, par))
+    abc = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32))
+    abc[0, : n // 10] = 0.0  # a tenth linear
+    got, want = both(m.solve_quadratic, *abc)
+    assert torch.equal(got[0], want[0]), "solve_quadratic validity"
+    ok = want[0]
+    out["solve_quadratic"] = max(ulps_over(g[ok], w[ok])
+                                 for g, w in zip(got[1:], want[1:]))
+    c = torch.as_tensor(rng.uniform(-1, 1, n).astype(np.float32))
+    out["legendre_p 0..8"] = max(ulps_over(*both(m.legendre_p, k, c))
+                                 for k in range(9))
+    return out
+
+
+def s42_interactions(n, seed, dev):
+    """A SurfaceInteraction of n seeded lanes (random shading frames and
+    tangents, incident directions in both hemispheres, a fifth along the
+    normal) on ``dev``, and seeded (wo, s1, s2)."""
+    from eradiate_kernel_tpu_torch.core.frame import Frame
+    from eradiate_kernel_tpu_torch.render.records import SurfaceInteraction
+
+    rng = np.random.default_rng(seed)
+
+    def unit():
+        v = rng.normal(size=(n, 3))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    nrm, wi = unit(), unit()
+    wi[: n // 5] = [0.0, 0.0, 1.0]
+    dp_du = np.cross(nrm, unit()).astype(np.float32)
+    arrays = dict(t=np.ones(n, np.float32), p=np.zeros((n, 3), np.float32),
+                  n=nrm, uv=rng.random((n, 2), dtype=np.float32),
+                  prim_uv=np.zeros((n, 2), np.float32), dp_du=dp_du,
+                  dp_dv=np.zeros((n, 3), np.float32), wi=wi,
+                  time=np.zeros(n, np.float32),
+                  prim_index=np.zeros(n, np.int32),
+                  shape_index=np.zeros(n, np.int32),
+                  wavelengths=np.zeros((n, 0), np.float32))
+    t = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+    si = SurfaceInteraction(sh_frame=Frame.from_normal(t["n"]), **t)
+    draws = (unit(), rng.random(n, dtype=np.float32),
+             rng.random((n, 2), dtype=np.float32))
+    return si, [torch.as_tensor(a, device=dev) for a in draws]
+
+
+S42_KINDS = {
+    "conductor": {"type": "conductor", "material": "au"},
+    "dielectric": {"type": "dielectric", "int_ior": 1.5},
+    "roughconductor": {"type": "roughconductor", "material": "cu",
+                       "alpha_u": 0.2, "alpha_v": 0.4},
+    "roughdielectric": {"type": "roughdielectric", "alpha": 0.3,
+                        "distribution": "beckmann", "int_ior": 1.5},
+    "pplastic": {"type": "twosided", "bsdf": {
+        "type": "pplastic", "alpha": 0.25,
+        "diffuse_reflectance": [0.3, 0.4, 0.5]}},
+    "measured_polarized": {"type": "measured_polarized",
+                           "fields": synth_pbsdf(), "alpha_sample": 0.35},
+}
+
+
+def s42_kind_outputs(scene, kind, mode, si, draws, given=None):
+    """{output: tensor} of kind's entries in ``mode``; the Mueller weight
+    of ``given`` (BSDFSample, weight) if given, else of the sample's (a
+    transmission's weight near grazing magnifies the ulps of its wo)."""
+    from eradiate_kernel_tpu_torch import bsdfs
+
+    mod = bsdfs.REGISTRY[kind]
+    n = si.t.shape[0]
+    dev = si.t.device
+    k = scene.config.bsdf_kinds.index(kind)
+    slot = int(scene.bsdf_slot[int(torch.nonzero(
+        scene.bsdf_kind == k)[0, 0])])
+    sl = torch.full((n,), slot, dtype=torch.int32, device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    wo, s1, s2 = draws
+    params = scene.bsdfs[kind]
+    bs, w = mod.sample(scene, params, sl, si, s1, s2, act, mode)
+    v, p = mod.eval_pdf(scene, params, sl, si, wo, act, mode)
+    out = {"sample wo": bs.wo, "sample pdf": bs.pdf, "sample weight": w,
+           "eval value": v, "eval pdf": p,
+           "sampled_type": bs.sampled_type}
+    if hasattr(mod, "eval_mueller"):
+        out["eval_mueller"] = mod.eval_mueller(scene, params, sl, si, wo,
+                                               act, mode)
+    if hasattr(mod, "sample_mueller_weight"):
+        if given is not None:
+            bs, w = given
+        out["sample_mueller_weight"] = mod.sample_mueller_weight(
+            scene, params, sl, si, bs, w, act, mode)
+        out["_given"] = bs, w
+    return out
+
+
+def s42_volume_gradient(dev, n):
+    """42d: volume_eval_gradient at n seeded points of the 64^3 atmosphere
+    (262,144 voxels: the packed lookup, whose positions gradient reads the
+    8-corner rows through the grid_gather kernel's gather entry), lanes
+    alternating between its sigma_t grid and its albedo constvolume,
+    through the kernel and through the plain gather (gather.use_plain) on
+    the same device: bit for bit, the constvolume's lanes zero, and (on
+    the card) grid_gather launches = 1 + the output's channels (the
+    lookup, a positions backward for each) through the kernel and none
+    through the plain version. Raises on a mismatch."""
+    from eradiate_kernel_tpu_torch.ops import gather
+    from eradiate_kernel_tpu_torch.scene import load_dict
+    from eradiate_kernel_tpu_torch.textures import volumes
+    from eradiate_kernel_tpu_torch.utils.scenes import atmosphere
+
+    scene = load_dict(atmosphere(2, 2, 1, 2, grid_res=(64, 64, 64)),
+                      device=dev)
+    assert scene.vol_packed is not None
+    rng = np.random.default_rng(42)
+    p = torch.as_tensor(rng.uniform([-22, -22, -0.2], [23, 23, 1.2], (n, 3))
+                        .astype(np.float32), device=dev)
+    vidx = (torch.arange(n, device=dev) % 2).to(torch.int32)
+    before = gather.launches["grid_gather"]
+    got = volumes.volume_eval_gradient(scene, vidx, p)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = gather.launches["grid_gather"] - before
+    with gather.use_plain():
+        want = volumes.volume_eval_gradient(scene, vidx, p)
+    assert gather.launches["grid_gather"] - before == launches
+    if dev.type == "cuda":
+        assert launches == 1 + got.shape[-2], launches
+    assert got.shape == (n, got.shape[-2], 3)
+    assert bool(torch.isfinite(got).all()) and bool(got[::2].abs().max() > 0)
+    assert not bool(got[1::2].any())
+    err = float((got - want).abs().max())
+    assert torch.equal(got, want), err
+    print(f"# 42d volume_eval_gradient at {n} points of the 64^3 "
+          f"atmosphere, grid_gather kernel against the plain gather: bit "
+          f"for bit (max abs err {err}), {launches} grid_gather launches",
+          flush=True)
+    return {"points": n, "launches": launches, "max_abs_err": err,
+            "max_abs_gradient": float(got.abs().max())}
+
+
+def slice_7d_phases():
+    """Phase 42 (slice 7d; no new kernel): (a) every warp slice 7d added and
+    its pdf on 2^20 seeded lanes, the card against the CPU within 8
+    float32 ulps of an O(1) value (x and y of a direction near the pole
+    scaled by |cos| / sin, which magnifies an ulp of cos); (b)
+    solve_quadratic (validity exact) and legendre_p (n <= 8, 64 ulps) on
+    2^20 lanes; (c) both transport modes of the six mode-dependent BSDFs
+    on 65,536 seeded interactions: sample, eval_pdf and the Mueller entry
+    (a Mueller weight of the CPU's sample on both), the card against the
+    CPU within tests/test_torch_measured.py's budget (rtol 1e-5, atol
+    1e-6, a Mueller output's of the row's largest entry, but for 1 % of
+    the rows, those within 5e-3 but for 0.1 %), sampled lobes equal but
+    for 0.1 %, IMPORTANCE moving the card's results where it moves the
+    CPU's, and a Mueller output that the mode moves on over 1 % of the
+    CPU's rows failing the scaled atol in the wrong mode; (d) volume_eval_gradient on the 64^3 atmosphere, the
+    grid_gather kernel against the plain gather bit for bit
+    (s42_volume_gradient). Raises on a mismatch. Returns the records."""
+    from eradiate_kernel_tpu_torch.bsdfs import common
+    from eradiate_kernel_tpu_torch.scene import load_dict
+
+    t_phase = time.perf_counter()
+    dev = torch.device(S42_DEVICE)
+    rec = {}
+
+    # ---- 42a-b. warps, solve_quadratic, legendre_p --------------------------
+    phase_clock("42a")
+    t0 = time.perf_counter()
+    ulps = slice_7d_warps(dev, S42_LANES)
+    worst = max(ulps, key=ulps.get)
+    rec["warps_ulps"] = ulps
+    assert ulps["legendre_p 0..8"] <= 64.0 and all(
+        v <= 8.0 for k, v in ulps.items() if k != "legendre_p 0..8"), ulps
+    rec["warps_s"] = time.perf_counter() - t0
+    print(f"# 42a-b {len(ulps)} warps, pdfs, solve_quadratic and "
+          f"legendre_p on {S42_LANES} lanes, card against CPU: within "
+          f"{max(v for k, v in ulps.items() if k != 'legendre_p 0..8'):.2f}"
+          f" of the 8-ulp tolerance's ulps (legendre_p "
+          f"{ulps['legendre_p 0..8']:.2f} of 64; worst {worst}); "
+          f"{rec['warps_s']:.2f} s", flush=True)
+
+    # ---- 42c. the six mode-dependent BSDFs in both modes --------------------
+    phase_clock("42c")
+    t0 = time.perf_counter()
+    d = {"type": "scene",
+         "sensor": {"type": "perspective", "film": {"width": 2,
+                                                    "height": 2}}}
+    for i, (kind, bsdf) in enumerate(S42_KINDS.items()):
+        d[f"s_{kind}"] = {"type": "rectangle", "bsdf": bsdf, "to_world": {
+            "type": "translate", "value": [0.0, 0.0, float(i)]}}
+    scenes = {"card": load_dict(d, device=dev),
+              "cpu": load_dict(d, device="cpu")}
+    inputs = {where: s42_interactions(S42_BSDF_LANES, 42, dv)
+              for where, dv in (("card", dev), ("cpu", "cpu"))}
+    rec["bsdfs"] = {}
+    worst = worst_plain = (0.0, 0.0)
+    for kind in S42_KINDS:
+        outs = {}
+        for mode in (common.RADIANCE, common.IMPORTANCE):
+            cpu = s42_kind_outputs(scenes["cpu"], kind, mode,
+                                   *inputs["cpu"])
+            given = cpu.pop("_given", None)
+            if given is not None:  # the CPU's sample, on the card
+                bs, w = given
+                given = (common.BSDFSample(
+                    **{f: getattr(bs, f).to(dev) for f in (
+                        "wo", "pdf", "eta", "sampled_type")}), w.to(dev))
+            card = s42_kind_outputs(scenes["card"], kind, mode,
+                                    *inputs["card"], given=given)
+            card.pop("_given", None)
+            for what in card:
+                if what == "sampled_type":
+                    flips = float((card[what].cpu() != cpu[what])
+                                  .double().mean())
+                    assert flips <= 0.001, (kind, mode, flips)
+                    continue
+                mueller = what in S42_MUELLER
+                r = rows_budget(card[what], cpu[what], mueller)
+                rec["bsdfs"][f"{kind} {mode} {what}"] = r
+                worst = max(worst, tuple(r["scaled" if mueller
+                                           else "plain"]))
+                if mueller:
+                    worst_plain = max(worst_plain, tuple(r["plain"]))
+            outs[mode] = card, cpu
+        # IMPORTANCE moves the card's rows where it moves the CPU's
+        (rc, rp), (ic, ip) = outs[common.RADIANCE], outs[common.IMPORTANCE]
+        for what in rc:
+            if what == "sampled_type":
+                continue
+            moved = [~torch.isclose(a.cpu().double().reshape(len(a), -1),
+                                    b.cpu().double().reshape(len(b), -1),
+                                    rtol=1e-5, atol=1e-6).all(-1)
+                     for a, b in ((rc[what], ic[what]),
+                                  (rp[what], ip[what]))]
+            assert float((moved[0] != moved[1]).double().mean()) <= 0.001, \
+                (kind, what)
+            moved_cpu = float(moved[1].double().mean())
+            if what in S42_MUELLER and moved_cpu > 0.01:
+                # the scaled atol still fails the card's RADIANCE held to
+                # the CPU's IMPORTANCE (a wrong mode)
+                swapped = rows_shares(rc[what], ip[what])["scaled"]
+                assert swapped[0] > 0.01, (kind, what, swapped)
+                rec["bsdfs"][f"{kind} swapped modes {what}"] = {
+                    "cpu_moved": moved_cpu, "scaled": swapped}
+    rec["bsdfs_s"] = time.perf_counter() - t0
+    print(f"# 42c six mode-dependent BSDFs x 2 modes on {S42_BSDF_LANES} "
+          f"interactions, card against CPU: every output within rtol "
+          f"1e-5, atol 1e-6 (a Mueller output's of the row's largest "
+          f"entry, if over 1) but for {worst[0]:.4f} of the rows (budget "
+          f"0.01), within 5e-3 but for {worst[1]:.4f} (budget 0.001); the "
+          f"Mueller outputs under the plain atol {worst_plain[0]:.4f} and "
+          f"{worst_plain[1]:.4f}; IMPORTANCE moves the same rows, and a "
+          f"Mueller output in the wrong mode fails the scaled atol; "
+          f"{rec['bsdfs_s']:.2f} s", flush=True)
+
+    # ---- 42d. volume_eval_gradient through the packed lookup ----------------
+    phase_clock("42d")
+    t0 = time.perf_counter()
+    rec["volume_eval_gradient"] = s42_volume_gradient(dev, S42_BSDF_LANES)
+    rec["volume_eval_gradient"]["s"] = time.perf_counter() - t0
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"# phase 42: {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6514,7 +6920,7 @@ def main():
     # ---- 2. tile sweep vs plain on the bench terrain --------------------------
     phase_clock("2")
     V, F = terrain(256)
-    tiles_np = pack_tiles(V, F, np.zeros(len(F), np.int32))
+    tiles_np = pack_tiles(V, None, F, np.zeros(len(F), np.int32))
     tiles = {k: torch.as_tensor(v, device=dev) for k, v in tiles_np.items()}
     # the tables a scene's Geometry builds once at load
     tiles["root"], tiles["rows"] = intersect.sweep_tables(tiles)
@@ -6783,7 +7189,7 @@ def main():
     small_loads = {"atmosphere cube": (flagship.geo.tiles(), Ray.make(o, d))}
     V8, F8 = terrain(23)
     tiles8 = {k: torch.as_tensor(v, device=dev) for k, v in
-              pack_tiles(V8, F8, np.zeros(len(F8), np.int32)).items()}
+              pack_tiles(V8, None, F8, np.zeros(len(F8), np.int32)).items()}
     assert tiles8["lo"].shape[0] == 8
     tiles8["root"], tiles8["rows"] = intersect.sweep_tables(tiles8)
     for kind in ("primary", "incoherent"):
@@ -6810,7 +7216,7 @@ def main():
     for n_grid in (23, 33, 46):
         Vc, Fc = terrain(n_grid)
         tc = {k: torch.as_tensor(v, device=dev) for k, v in
-              pack_tiles(Vc, Fc, np.zeros(len(Fc), np.int32)).items()}
+              pack_tiles(Vc, None, Fc, np.zeros(len(Fc), np.int32)).items()}
         tc["root"], tc["rows"] = intersect.sweep_tables(tc)
         for kind in ("primary", "incoherent"):
             for log_n in (15, 20):
@@ -6937,6 +7343,7 @@ def main():
     s6e = slice_6e_phases(V, F)
     s7b = slice_7b_phases(V, F)
     s7c = slice_7c_phases(large_film)
+    s7d = slice_7d_phases()
 
     if "--profile" in sys.argv[1:]:
         profile_render(lambda: integrators.render(scene, seed=0), render_s,
@@ -7219,6 +7626,7 @@ def main():
     print(json.dumps({"slice_6e": s6e}))
     print(json.dumps({"slice_7b": s7b}))
     print(json.dumps({"slice_7c": s7c}))
+    print(json.dumps({"slice_7d": s7d}))
     print(json.dumps({"phase_starts_s": PHASE_STARTS}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

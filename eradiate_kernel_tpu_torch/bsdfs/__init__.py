@@ -9,6 +9,12 @@ Wrapper kinds (mask, blendbsdf, normalmap, bumpmap) hold a nested global
 BSDF index and dispatch it over the non-wrapper kinds: one nesting
 level, as in the reference.
 
+Every dispatcher takes the transport ``mode`` (common.RADIANCE by
+default, as every integrator calls them; common.IMPORTANCE) and hands it
+to the kinds, as the reference's do. The polarized sample's wo comes
+from the scalar sampler in RADIANCE, its Mueller weight in ``mode``
+(the reference's bsdf_sample_mueller).
+
 The polarized dispatch (``bsdf_eval_mueller``, ``bsdf_sample_mueller``)
 returns per-channel (N, nc, 4, 4) Mueller stacks in the implicit
 world-space Stokes bases: the kinds with ``eval_mueller`` or
@@ -66,8 +72,14 @@ WRAPPER_KINDS = tuple(k for k, v in REGISTRY.items()
 def register_bsdf(name, module):
     """Register a user BSDF kind ``name``: ``module`` is any namespace
     with a built-in kind's ``build(props, builder) -> row dict``, ``FLAGS``
-    and ``sample`` and ``eval_pdf`` (the signatures of bsdfs/diffuse.py)."""
+    and ``sample`` and ``eval_pdf`` (the signatures of bsdfs/diffuse.py,
+    the transport mode their last argument)."""
     REGISTRY[name] = module
+
+
+def bsdf_flags(scene, bsdf_index):
+    """The lobe flags (N,) of each lane's BSDF."""
+    return scene.bsdf_flags[bsdf_index]
 
 
 def _kinds(scene, nested):
@@ -84,7 +96,7 @@ def _kind_slot(scene, bsdf_index, k):
                                      scene.bsdf_slot[bsdf_index], 0)
 
 
-def _sample(scene, bsdf_index, si, s1, s2, active, nested):
+def _sample(scene, bsdf_index, si, s1, s2, active, mode, nested):
     nc = scene.config.variant.channels(si.wavelengths)
     bs, weight = zero_bsdf_sample(si.t.shape[0], nc, si.t.device,
                                   si.t.dtype)
@@ -92,7 +104,7 @@ def _sample(scene, bsdf_index, si, s1, s2, active, nested):
         is_k, slot = _kind_slot(scene, bsdf_index, k)
         m = active & is_k
         b, w = REGISTRY[kind].sample(scene, scene.bsdfs[kind], slot, si, s1,
-                                     s2, m)
+                                     s2, m, mode)
         bs = BSDFSample(
             wo=torch.where(m[..., None], b.wo, bs.wo),
             pdf=torch.where(m, b.pdf, bs.pdf),
@@ -102,7 +114,7 @@ def _sample(scene, bsdf_index, si, s1, s2, active, nested):
     return bs, weight
 
 
-def _eval_pdf(scene, bsdf_index, si, wo, active, nested):
+def _eval_pdf(scene, bsdf_index, si, wo, active, mode, nested):
     nc = scene.config.variant.channels(si.wavelengths)
     value = si.t.new_zeros(si.t.shape[0], nc)
     pdf = torch.zeros_like(si.t)
@@ -110,29 +122,31 @@ def _eval_pdf(scene, bsdf_index, si, wo, active, nested):
         is_k, slot = _kind_slot(scene, bsdf_index, k)
         m = active & is_k
         v, p = REGISTRY[kind].eval_pdf(scene, scene.bsdfs[kind], slot, si,
-                                       wo, m)
+                                       wo, m, mode)
         value = torch.where(m[..., None], v, value)
         pdf = torch.where(m, p, pdf)
     return value, pdf
 
 
-def bsdf_sample(scene, bsdf_index, si, s1, s2, active):
+def bsdf_sample(scene, bsdf_index, si, s1, s2, active, mode=common.RADIANCE):
     """Dispatch sample() over the kinds present -> (BSDFSample, weight)."""
-    return _sample(scene, bsdf_index, si, s1, s2, active, False)
+    return _sample(scene, bsdf_index, si, s1, s2, active, mode, False)
 
 
-def bsdf_eval_pdf(scene, bsdf_index, si, wo, active):
+def bsdf_eval_pdf(scene, bsdf_index, si, wo, active, mode=common.RADIANCE):
     """Dispatch eval_pdf() -> (value incl. cosine (N, nc), pdf (N,))."""
-    return _eval_pdf(scene, bsdf_index, si, wo, active, False)
+    return _eval_pdf(scene, bsdf_index, si, wo, active, mode, False)
 
 
-def dispatch_sample_nested(scene, bsdf_index, si, s1, s2, active):
+def dispatch_sample_nested(scene, bsdf_index, si, s1, s2, active,
+                           mode=common.RADIANCE):
     """sample() over the non-wrapper kinds: a wrapper's nested BSDF."""
-    return _sample(scene, bsdf_index, si, s1, s2, active, True)
+    return _sample(scene, bsdf_index, si, s1, s2, active, mode, True)
 
 
-def dispatch_eval_pdf_nested(scene, bsdf_index, si, wo, active):
-    return _eval_pdf(scene, bsdf_index, si, wo, active, True)
+def dispatch_eval_pdf_nested(scene, bsdf_index, si, wo, active,
+                             mode=common.RADIANCE):
+    return _eval_pdf(scene, bsdf_index, si, wo, active, mode, True)
 
 
 def eval_null_transmission(scene, bsdf_index, si, active):
@@ -155,7 +169,8 @@ def _depolarizer_stack(value):
     return mu.depolarizer(value)
 
 
-def bsdf_eval_mueller(scene, bsdf_index, si, wo, active):
+def bsdf_eval_mueller(scene, bsdf_index, si, wo, active,
+                      mode=common.RADIANCE):
     """The polarized eval: the (N, nc, 4, 4) stack in the implicit
     world-space Stokes bases (to_world_mueller applied) and the scalar
     pdf, what ``bsdf->eval`` returns in Mitsuba's polarized variants
@@ -167,10 +182,10 @@ def bsdf_eval_mueller(scene, bsdf_index, si, wo, active):
         mod = REGISTRY[kind]
         is_k, slot = _kind_slot(scene, bsdf_index, k)
         m = active & is_k
-        v, p = mod.eval_pdf(scene, scene.bsdfs[kind], slot, si, wo, m)
+        v, p = mod.eval_pdf(scene, scene.bsdfs[kind], slot, si, wo, m, mode)
         if hasattr(mod, "eval_mueller"):
             mm = mu.to_world_mueller(si.sh_frame, mod.eval_mueller(
-                scene, scene.bsdfs[kind], slot, si, wo, m), -wo, si.wi)
+                scene, scene.bsdfs[kind], slot, si, wo, m, mode), -wo, si.wi)
         else:
             mm = _depolarizer_stack(v)
         out = torch.where(m[..., None, None, None], mm, out)
@@ -187,7 +202,7 @@ def _element_weight(mod, scene, params, slot, si, w, m):
     m_elem = mod.mueller(scene, params, slot, si, m)
     f = si.wi
     h = si.sh_frame.to_local(si.dp_du)
-    h = h - f * dot(h, f, keepdim=True)
+    h = h - f * dot(h, f, keepdims=True)
     h_len = torch.linalg.norm(h, dim=-1, keepdim=True)
     basis = mu.stokes_basis(f)
     h = torch.where(h_len > 1e-8, h / torch.clamp(h_len, min=1e-12), basis)
@@ -201,7 +216,8 @@ def _element_weight(mod, scene, params, slot, si, w, m):
     return mu.to_world_mueller(si.sh_frame, mm, si.wi, si.wi)
 
 
-def bsdf_sample_mueller(scene, bsdf_index, si, s1, s2, active):
+def bsdf_sample_mueller(scene, bsdf_index, si, s1, s2, active,
+                        mode=common.RADIANCE):
     """The polarized bsdf_sample: wo from the scalar sampler, and the
     Mueller importance weight (value / pdf as an (N, nc, 4, 4) stack in
     the world Stokes bases)."""
@@ -220,10 +236,10 @@ def bsdf_sample_mueller(scene, bsdf_index, si, s1, s2, active):
             mm = _element_weight(mod, scene, params, slot, si, w, m)
         elif hasattr(mod, "sample_mueller_weight"):
             mm = mu.to_world_mueller(si.sh_frame, mod.sample_mueller_weight(
-                scene, params, slot, si, bs, w, m), -bs.wo, si.wi)
+                scene, params, slot, si, bs, w, m, mode), -bs.wo, si.wi)
         elif hasattr(mod, "eval_mueller"):
             mm = mu.to_world_mueller(si.sh_frame, mod.eval_mueller(
-                scene, params, slot, si, bs.wo, m), -bs.wo, si.wi)
+                scene, params, slot, si, bs.wo, m, mode), -bs.wo, si.wi)
             mm = torch.where(
                 (bs.pdf > 0)[..., None, None, None],
                 mm / torch.clamp(bs.pdf, min=1e-20)[..., None, None, None],
@@ -238,4 +254,4 @@ __all__ = ["REGISTRY", "WRAPPER_KINDS", "POLARIZED_ELEMENT_KINDS",
            "bsdf_sample", "bsdf_eval_pdf", "bsdf_eval_mueller",
            "bsdf_sample_mueller", "dispatch_sample_nested",
            "dispatch_eval_pdf_nested", "eval_null_transmission",
-           "register_bsdf", "common"]
+           "register_bsdf", "bsdf_flags", "common"]

@@ -34,7 +34,7 @@ def _weights(scene, params, slot, si):
     return r, t, w_r
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     cos_i = si.wi[..., 2]
     r, t, w_r = _weights(scene, params, slot, si)
     wo = warp.square_to_cosine_hemisphere(s2)
@@ -54,7 +54,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where((active & (pdf > 0))[..., None], value, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     cos_i = si.wi[..., 2]
     cos_o = wo[..., 2]
     r, t, w_r = _weights(scene, params, slot, si)

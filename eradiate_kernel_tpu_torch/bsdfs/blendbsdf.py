@@ -34,7 +34,7 @@ def _weight(scene, params, slot, si):
     return torch.clamp(channel_mean(w), 0.0, 1.0)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     from . import dispatch_sample_nested
 
     w = _weight(scene, params, slot, si)
@@ -42,9 +42,9 @@ def sample(scene, params, slot, si, s1, s2, active):
     s1n = torch.where(sel1, s1 / torch.clamp(w, min=1e-12),
                       (s1 - w) / torch.clamp(1.0 - w, min=1e-12))
     bs0, w0 = dispatch_sample_nested(scene, params["nested0"][slot], si, s1n,
-                                     s2, active & ~sel1)
+                                     s2, active & ~sel1, mode)
     bs1, w1 = dispatch_sample_nested(scene, params["nested1"][slot], si, s1n,
-                                     s2, active & sel1)
+                                     s2, active & sel1, mode)
     bs = common.BSDFSample(
         wo=torch.where(sel1[..., None], bs1.wo, bs0.wo),
         pdf=torch.where(sel1, bs1.pdf * w, bs0.pdf * (1.0 - w)),
@@ -54,13 +54,13 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where(active[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     from . import dispatch_eval_pdf_nested
 
     w = _weight(scene, params, slot, si)
     v0, p0 = dispatch_eval_pdf_nested(scene, params["nested0"][slot], si, wo,
-                                      active)
+                                      active, mode)
     v1, p1 = dispatch_eval_pdf_nested(scene, params["nested1"][slot], si, wo,
-                                      active)
+                                      active, mode)
     return (v0 * (1.0 - w)[..., None] + v1 * w[..., None],
             p0 * (1.0 - w) + p1 * w)

@@ -54,12 +54,13 @@ def _frame(scene, params, slot, si):
         [-du, -dv, torch.ones_like(du)], dim=-1)))
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     return sample_in_frame(scene, params["nested"][slot],
                            _frame(scene, params, slot, si), si, s1, s2,
-                           active)
+                           active, mode)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     return eval_pdf_in_frame(scene, params["nested"][slot],
-                             _frame(scene, params, slot, si), si, wo, active)
+                             _frame(scene, params, slot, si), si, wo, active,
+                             mode)

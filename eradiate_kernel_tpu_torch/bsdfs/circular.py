@@ -27,11 +27,11 @@ def _halves(scene, si):
                           scene.config.variant.channels(si.wavelengths)), 0.5)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     return common.passthrough_sample(si, active, _halves(scene, si), FLAGS)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     return common.zero_eval(scene, si)
 
 

@@ -1,14 +1,22 @@
-"""BSDF flags, the sample record and shared helpers (bsdfs/common.py
-counterpart). Every kind is a module of wavefront functions:
+"""BSDF flags, the transport modes, the sample record and shared helpers
+(bsdfs/common.py counterpart). Every kind is a module of wavefront
+functions:
 
   build(props, builder) -> row dict          (host side, scene build)
-  sample(scene, params, slot, si, s1, s2, active) -> (BSDFSample, weight)
-  eval_pdf(scene, params, slot, si, wo, active)   -> (value, pdf)
+  sample(scene, params, slot, si, s1, s2, active, mode=RADIANCE)
+      -> (BSDFSample, weight)
+  eval_pdf(scene, params, slot, si, wo, active, mode=RADIANCE)
+      -> (value, pdf)
 
-``weight`` is value * cos / pdf; ``value`` includes the cosine. The port
-carries the reference's RADIANCE transport mode only: its integrators
-never pass IMPORTANCE (a grep of the JAX package finds it only inside
-bsdfs/), so the kinds take no ``mode`` argument."""
+``weight`` is value * cos / pdf; ``value`` includes the cosine. ``mode``
+is the transport mode of Mitsuba's BSDFContext: RADIANCE (what every
+integrator passes, by default) or IMPORTANCE (light traced from the
+emitters). It changes the result of six kinds only, as in the reference:
+an IMPORTANCE refraction drops the eta^2 radiance compression
+(dielectric, roughdielectric), and the Mueller matrices of the polarized
+entries swap their bases (wo_hat = wi, wi_hat = wo: conductor,
+dielectric, roughconductor, roughdielectric, pplastic,
+measured_polarized)."""
 
 from __future__ import annotations
 
@@ -16,7 +24,10 @@ import dataclasses
 
 import torch
 
+from ..core.types import resolve_device
+
 # BSDFFlags (bsdf.h:38-124)
+Empty = 0x0
 DiffuseReflection = 0x2
 DiffuseTransmission = 0x4
 GlossyReflection = 0x8
@@ -25,6 +36,7 @@ DeltaReflection = 0x20
 DeltaTransmission = 0x40
 Null = 0x1
 Anisotropic = 0x1000
+SpatiallyVarying = 0x2000
 NonSymmetric = 0x4000
 FrontSide = 0x8000
 BackSide = 0x10000
@@ -39,6 +51,10 @@ Glossy = GlossyReflection | GlossyTransmission
 Smooth = Diffuse | Glossy
 Delta = DeltaReflection | DeltaTransmission | Null
 
+# transport modes (BSDFContext)
+RADIANCE = "radiance"
+IMPORTANCE = "importance"
+
 
 @dataclasses.dataclass(frozen=True)
 class BSDFSample:
@@ -47,15 +63,39 @@ class BSDFSample:
     eta: torch.Tensor           # (N,) relative ior change
     sampled_type: torch.Tensor  # (N,) i32 lobe flags
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
-def zero_bsdf_sample(n, nc, device, dtype=torch.float32):
-    wo = torch.zeros(n, 3, dtype=dtype, device=device)
-    wo[:, 2] = 1.0
+
+def mode_bases(wo, wi, mode):
+    """(wo_hat, wi_hat): the directions whose implicit Stokes bases a
+    polarized entry's Mueller matrix is expressed in. The light arrives
+    along -wo_hat and leaves along wi_hat: (wo, wi) in RADIANCE, swapped
+    in IMPORTANCE."""
+    return (wo, wi) if mode == RADIANCE else (wi, wo)
+
+
+def radiance_scale(eta_ti, mode):
+    """A refraction's radiance compression eta_ti^2 in RADIANCE; 1 in
+    IMPORTANCE, which carries no such factor (dielectric.cpp:165-170)."""
+    return torch.square(eta_ti) if mode == RADIANCE \
+        else torch.ones_like(eta_ti)
+
+
+def zero_bsdf_sample(batch, nc, device=None, dtype=torch.float32):
+    """The empty sample (wo = +z, pdf 0, eta 1, no lobe) and a zero weight
+    (*batch, nc) over ``batch`` lanes (a count or a shape), on ``device``
+    (resolved as the entry points resolve it: CUDA unless named)."""
+    batch = tuple(batch) if isinstance(batch, (tuple, list)) \
+        else (int(batch),)
+    device = resolve_device(device)
+    wo = torch.zeros(batch + (3,), dtype=dtype, device=device)
+    wo[..., 2] = 1.0
     return BSDFSample(
-        wo=wo, pdf=torch.zeros(n, dtype=dtype, device=device),
-        eta=torch.ones(n, dtype=dtype, device=device),
-        sampled_type=torch.zeros(n, dtype=torch.int32, device=device),
-    ), torch.zeros(n, nc, dtype=dtype, device=device)
+        wo=wo, pdf=torch.zeros(batch, dtype=dtype, device=device),
+        eta=torch.ones(batch, dtype=dtype, device=device),
+        sampled_type=torch.zeros(batch, dtype=torch.int32, device=device),
+    ), torch.zeros(batch + (nc,), dtype=dtype, device=device)
 
 
 def zero_eval(scene, si):
@@ -96,6 +136,7 @@ def tex(scene, index, si, mesh_attributes=False):
     from ..render.texture import texture_eval
 
     if mesh_attributes:
-        return texture_eval(scene, index, si.uv, si.prim_index, si.prim_uv,
-                            wavelengths=si.wavelengths)
+        return texture_eval(scene, index, si.uv, si.wavelengths,
+                            si_extra={"prim_index": si.prim_index,
+                                      "prim_uv": si.prim_uv})
     return texture_eval(scene, index, si.uv, wavelengths=si.wavelengths)

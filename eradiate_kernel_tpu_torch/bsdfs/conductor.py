@@ -61,7 +61,7 @@ def fresnel_term(scene, params, slot, si, cos_i):
     return f * common.tex(scene, params["specular_reflectance"][slot], si)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     cos_i = wi[..., 2]
     act = active & (cos_i > 0.0)
@@ -74,11 +74,12 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where(act[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     return common.zero_eval(scene, si)
 
 
-def sample_mueller_weight(scene, params, slot, si, bs, weight, active):
+def sample_mueller_weight(scene, params, slot, si, bs, weight, active,
+                          mode=common.RADIANCE):
     """The polarized specular weight (conductor.cpp:242-264): the complex
     Fresnel matrix of each channel, rotated from the s/p frame of the
     plane of incidence into the implicit local Stokes bases of (-bs.wo,
@@ -86,15 +87,17 @@ def sample_mueller_weight(scene, params, slot, si, bs, weight, active):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     wo = torch.where(flip[..., None], common.flip_z(bs.wo), bs.wo)
     act = active & (wi[..., 2] > 0.0)
-    f_m = mu.specular_reflection(wo[..., 2:3],
+    wo_hat, wi_hat = common.mode_bases(wo, wi, mode)
+    f_m = mu.specular_reflection(wo_hat[..., 2:3],
                                  spectrum(scene, params["eta"][slot], si),
                                  spectrum(scene, params["k"][slot], si))
     # the s axis is perpendicular to the plane of incidence
     # (conductor.cpp:255-257)
-    n = torch.zeros_like(wo)
+    n = torch.zeros_like(wo_hat)
     n[..., 2] = 1.0
-    f_m = mu.to_local_frames(f_m, wo, wi, mu.plane_basis(cross(n, -wo), -wo),
-                             mu.plane_basis(cross(n, wi), wi), channels=True)
+    f_m = mu.to_local_frames(
+        f_m, wo_hat, wi_hat, mu.plane_basis(cross(n, -wo_hat), -wo_hat),
+        mu.plane_basis(cross(n, wi_hat), wi_hat), channels=True)
     refl = common.tex(scene, params["specular_reflectance"][slot], si)
     return torch.where(act[..., None, None, None],
                        f_m * refl[..., None, None], 0.0)

@@ -38,7 +38,7 @@ def build(props, builder):
     }
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi = si.wi
     cos_i = wi[..., 2]
     r, cos_t, eta_it, eta_ti = fr.fresnel(cos_i, params["eta"][slot])
@@ -48,7 +48,7 @@ def sample(scene, params, slot, si, s1, s2, active):
                      fr.refract(wi, cos_t, eta_ti))
     refl = common.tex(scene, params["specular_reflectance"][slot], si)
     trans = common.tex(scene, params["specular_transmittance"][slot], si)
-    factor = torch.where(select_r, 1.0, torch.square(eta_ti))
+    factor = torch.where(select_r, 1.0, common.radiance_scale(eta_ti, mode))
     weight = torch.where(select_r[..., None], refl, trans) * factor[..., None]
     bs = common.BSDFSample(
         wo=wo, pdf=torch.where(act, torch.where(select_r, r, 1.0 - r), 0.0),
@@ -57,7 +57,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where(act[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     return common.zero_eval(scene, si)
 
 
@@ -68,7 +68,8 @@ def eval_null_transmission(scene, params, slot, si, active):
     return torch.zeros(si.t.shape[0], nc, device=si.t.device)
 
 
-def sample_mueller_weight(scene, params, slot, si, bs, weight, active):
+def sample_mueller_weight(scene, params, slot, si, bs, weight, active,
+                          mode=common.RADIANCE):
     """The polarized delta-dielectric weight (dielectric.cpp:250-307): the
     Fresnel reflection or transmission matrix of the sampled lobe over the
     lobe's pdf, rotated from the s/p frame of the plane of incidence into
@@ -79,8 +80,8 @@ def sample_mueller_weight(scene, params, slot, si, bs, weight, active):
     wi = si.wi
     cos_i = wi[..., 2]
     act = active & (cos_i != 0.0)
-    wo = bs.wo
-    ci = wo[..., 2]
+    wo_hat, wi_hat = common.mode_bases(bs.wo, wi, mode)
+    ci = wo_hat[..., 2]
     # the reference's fresnel_polarized handles a signed incidence inside;
     # here a hit from inside flips the relative IOR
     eta_rel = torch.where(ci >= 0, eta, 1.0 / eta)
@@ -93,13 +94,15 @@ def sample_mueller_weight(scene, params, slot, si, bs, weight, active):
         / torch.clamp(pdf, min=1e-12)[..., None, None]
     # the s axis is perpendicular to the plane of incidence
     # (dielectric.cpp:272-274)
-    n = torch.zeros_like(wo)
+    n = torch.zeros_like(wo_hat)
     n[..., 2] = 1.0
-    m4 = mu.to_local_frames(m4, wo, wi, mu.plane_basis(cross(n, -wo), -wo),
-                            mu.plane_basis(cross(n, wi), wi))
+    m4 = mu.to_local_frames(
+        m4, wo_hat, wi_hat, mu.plane_basis(cross(n, -wo_hat), -wo_hat),
+        mu.plane_basis(cross(n, wi_hat), wi_hat))
     refl = common.tex(scene, params["specular_reflectance"][slot], si)
     trans = common.tex(scene, params["specular_transmittance"][slot], si)
-    ch_scale = torch.where(selected_r[..., None], refl,
-                           trans * torch.square(eta_ti)[..., None])
+    ch_scale = torch.where(
+        selected_r[..., None], refl,
+        trans * common.radiance_scale(eta_ti, mode)[..., None])
     return torch.where(act[..., None, None, None],
                        m4[..., None, :, :] * ch_scale[..., None, None], 0.0)

@@ -20,7 +20,7 @@ def build(props, builder):
     }
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     act = active & (wi[..., 2] > 0.0)
     wo = warp.square_to_cosine_hemisphere(s2)
@@ -35,7 +35,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where(act[..., None], value, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     wo = torch.where(flip[..., None], common.flip_z(wo), wo)
     cos_o = wo[..., 2]

@@ -36,7 +36,7 @@ def _opacity(scene, params, slot, si):
     return torch.clamp(channel_mean(op), 0.0, 1.0)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     from . import dispatch_sample_nested
 
     op = _opacity(scene, params, slot, si)
@@ -45,7 +45,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     s1n = torch.where(sel, s1 / torch.clamp(op, min=1e-12),
                       (s1 - op) / torch.clamp(1.0 - op, min=1e-12))
     bs_n, w_n = dispatch_sample_nested(scene, params["nested"][slot], si,
-                                       s1n, s2, active & sel)
+                                       s1n, s2, active & sel, mode)
     bs = common.BSDFSample(
         wo=torch.where(sel[..., None], bs_n.wo, -si.wi),
         pdf=torch.where(sel, bs_n.pdf * op, 1.0 - op),
@@ -56,12 +56,12 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where(active[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     from . import dispatch_eval_pdf_nested
 
     op = _opacity(scene, params, slot, si)
     v, p = dispatch_eval_pdf_nested(scene, params["nested"][slot], si, wo,
-                                    active)
+                                    active, mode)
     return v * op[..., None], p * op
 
 

@@ -240,7 +240,7 @@ def _twosided(params, s, si):
                                  si.wi)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     nc = scene.config.variant.channels(si.wavelengths)
     wl = _lane_wavelengths(si, nc)
     value = torch.zeros(si.t.shape[0], nc, device=si.t.device)
@@ -255,7 +255,7 @@ def eval_pdf(scene, params, slot, si, wo, active):
     return value, pdf
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     nc = scene.config.variant.channels(si.wavelengths)
     wl = _lane_wavelengths(si, nc)
     bs, weight = common.zero_bsdf_sample(si.t.shape[0], nc, si.t.device,

@@ -41,35 +41,39 @@ def _frame(scene, params, slot, si):
     return Frame.from_normal(normalize(2.0 * rgb[..., :3] - 1.0))
 
 
-def sample_in_frame(scene, nested, frame, si, s1, s2, active):
+def sample_in_frame(scene, nested, frame, si, s1, s2, active,
+                    mode=common.RADIANCE):
     """The nested BSDF sampled in ``frame`` (local to the shading frame);
     a sample leaking through the true surface gets pdf and weight 0."""
     from . import dispatch_sample_nested
 
     si_p = dataclasses.replace(si, wi=frame.to_local(si.wi))
-    bs, weight = dispatch_sample_nested(scene, nested, si_p, s1, s2, active)
+    bs, weight = dispatch_sample_nested(scene, nested, si_p, s1, s2, active,
+                                        mode)
     wo = frame.to_world(bs.wo)
     ok = (wo[..., 2] * bs.wo[..., 2]) > 0.0
     bs = dataclasses.replace(bs, wo=wo, pdf=torch.where(ok, bs.pdf, 0.0))
     return bs, torch.where((active & ok)[..., None], weight, 0.0)
 
 
-def eval_pdf_in_frame(scene, nested, frame, si, wo, active):
+def eval_pdf_in_frame(scene, nested, frame, si, wo, active,
+                      mode=common.RADIANCE):
     from . import dispatch_eval_pdf_nested
 
     si_p = dataclasses.replace(si, wi=frame.to_local(si.wi))
     wo_p = frame.to_local(wo)
     ok = active & ((wo[..., 2] * wo_p[..., 2]) > 0.0)
-    v, p = dispatch_eval_pdf_nested(scene, nested, si_p, wo_p, ok)
+    v, p = dispatch_eval_pdf_nested(scene, nested, si_p, wo_p, ok, mode)
     return torch.where(ok[..., None], v, 0.0), torch.where(ok, p, 0.0)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     return sample_in_frame(scene, params["nested"][slot],
                            _frame(scene, params, slot, si), si, s1, s2,
-                           active)
+                           active, mode)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     return eval_pdf_in_frame(scene, params["nested"][slot],
-                             _frame(scene, params, slot, si), si, wo, active)
+                             _frame(scene, params, slot, si), si, wo, active,
+                             mode)

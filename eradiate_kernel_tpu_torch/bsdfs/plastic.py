@@ -57,7 +57,7 @@ def diffuse_term(scene, params, slot, si, f_i, f_o, cos_o):
                     * (1.0 - f_i) * (1.0 - f_o))[..., None]
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     cos_i = wi[..., 2]
     act = active & (cos_i > 0.0)
@@ -85,7 +85,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where((act & (pdf > 0))[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     wo = torch.where(flip[..., None], common.flip_z(wo), wo)
     cos_i = wi[..., 2]

@@ -29,12 +29,12 @@ def _trans(scene, params, slot, si):
     return common.tex(scene, params["transmittance"][slot], si)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     return common.passthrough_sample(
         si, active, 0.5 * _trans(scene, params, slot, si), FLAGS)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     return common.zero_eval(scene, si)
 
 

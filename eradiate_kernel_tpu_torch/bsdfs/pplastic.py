@@ -100,7 +100,7 @@ def _frame(params, slot, si, wo):
     return wi, wo, (wi[..., 2] > 0.0) & (wo[..., 2] > 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     wi, wo, ok = _frame(params, slot, si, wo)
     act = active & ok
     cos_i = wi[..., 2]
@@ -122,7 +122,7 @@ def eval_pdf(scene, params, slot, si, wo, active):
     return value, _pdf(params, slot, wi, wo, act)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     act = active & (wi[..., 2] > 0.0)
     au = params["alpha_u"][slot]
@@ -134,7 +134,7 @@ def sample(scene, params, slot, si, s1, s2, active):
                      warp.square_to_cosine_hemisphere(s2))
     act_o = act & (wo[..., 2] > 0.0)
     wo_world = torch.where(flip[..., None], common.flip_z(wo), wo)
-    value, pdf = eval_pdf(scene, params, slot, si, wo_world, active)
+    value, pdf = eval_pdf(scene, params, slot, si, wo_world, active, mode)
     weight = torch.where((act_o & (pdf > 0))[..., None],
                          value / torch.clamp(pdf, min=1e-12)[..., None], 0.0)
     bs = common.BSDFSample(
@@ -145,7 +145,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, weight
 
 
-def eval_mueller(scene, params, slot, si, wo, active):
+def eval_mueller(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     """The polarization-aware eval (pplastic.cpp:229-302): the per-channel
     Mueller stack (N, nc, 4, 4) in the implicit Stokes bases of -wo (the
     incident light) and wi (the outgoing light), cosine included."""
@@ -155,28 +155,34 @@ def eval_mueller(scene, params, slot, si, wo, active):
     cos_o = wo[..., 2]
     eta = params["eta"][slot]
 
+    # the light arrives along -wo_hat and leaves along wi_hat
+    # (pplastic.cpp:236)
+    wo_hat, wi_hat = common.mode_bases(wo, wi, mode)
+
     # the specular lobe: the Fresnel matrix about the half vector
     d, g, _g1, h = _spec_terms(params, slot, wi, wo)
-    f_m = mu.specular_reflection(torch.sum(wo * h, -1), eta)
+    f_m = mu.specular_reflection(torch.sum(wo_hat * h, -1), eta)
     f_m = mu.to_local_frames(
-        f_m, wo, wi, mu.plane_basis(cross(h, -wo), -wo, 1e-12),
-        mu.plane_basis(cross(h, wi), wi, 1e-12))
+        f_m, wo_hat, wi_hat,
+        mu.plane_basis(cross(h, -wo_hat), -wo_hat, 1e-12),
+        mu.plane_basis(cross(h, wi_hat), wi_hat, 1e-12))
     spec = common.tex(scene, params["specular_reflectance"][slot], si)
     spec_m = (spec * (d * g / torch.clamp(4.0 * cos_i, min=1e-12))[..., None]
               )[..., None, None] * f_m[..., None, :, :]
 
     # the diffuse base: refract in (t_o), depolarize, refract out (t_i)
-    t_o = mu.specular_transmission(torch.abs(wo[..., 2]), eta)
+    t_o = mu.specular_transmission(torch.abs(wo_hat[..., 2]), eta)
     _, cos_t_i, _, eta_ti = fr.fresnel(cos_i, eta)
-    wi_p = -fr.refract(wi, cos_t_i, eta_ti)
+    wi_p = -fr.refract(wi_hat, cos_t_i, eta_ti)
     t_i = mu.specular_transmission(torch.abs(wi_p[..., 2]), 1.0 / eta)
     diff_m = t_i @ mu.depolarizer(torch.ones((), dtype=t_i.dtype,
                                              device=t_i.device)) @ t_o
-    n = torch.zeros_like(wo)
+    n = torch.zeros_like(wo_hat)
     n[..., 2] = 1.0
     diff_m = mu.to_local_frames(
-        diff_m, wo, wi, mu.plane_basis(cross(n, -wo), -wo, 1e-12),
-        mu.plane_basis(cross(n, wi), wi, 1e-12))
+        diff_m, wo_hat, wi_hat,
+        mu.plane_basis(cross(n, -wo_hat), -wo_hat, 1e-12),
+        mu.plane_basis(cross(n, wi_hat), wi_hat, 1e-12))
     diff = common.tex(scene, params["diffuse_reflectance"][slot], si)
     diff_m = (diff * (cos_o / math.pi)[..., None])[..., None, None] \
         * diff_m[..., None, :, :]

@@ -29,11 +29,11 @@ def _ones(scene, si):
                          scene.config.variant.channels(si.wavelengths))
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     return common.passthrough_sample(si, active, _ones(scene, si), FLAGS)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     return common.zero_eval(scene, si)
 
 

@@ -54,7 +54,7 @@ def _conductor_f(scene, params, slot, si, cos):
                                 spectrum(scene, params["k"][slot], si))
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     act = active & (wi[..., 2] > 0.0)
     au = params["alpha_u"][slot]
@@ -82,7 +82,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where((act & (pdf > 0))[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     wo = torch.where(flip[..., None], common.flip_z(wo), wo)
     cos_i = wi[..., 2]
@@ -107,7 +107,7 @@ def eval_pdf(scene, params, slot, si, wo, active):
             torch.where(act, pdf, 0.0))
 
 
-def eval_mueller(scene, params, slot, si, wo, active):
+def eval_mueller(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     """The polarized microfacet eval (roughconductor.cpp:315-340): eval
     with the scalar Fresnel term replaced by the complex Fresnel matrix
     about the half vector, rotated from the s/p frame of the microfacet
@@ -123,11 +123,13 @@ def eval_mueller(scene, params, slot, si, wo, active):
     val_nof, = dist_sweep(params, slot, lambda ty: (
         mf.eval_d(ty, h, au, av) * mf.g_smith(ty, wi, wo, h, au, av)
         / torch.clamp(4.0 * cos_i, min=1e-12),))
-    f_m = mu.specular_reflection(torch.sum(wo * h, -1)[..., None],
+    wo_hat, wi_hat = common.mode_bases(wo, wi, mode)
+    f_m = mu.specular_reflection(torch.sum(wo_hat * h, -1)[..., None],
                                  spectrum(scene, params["eta"][slot], si),
                                  spectrum(scene, params["k"][slot], si))
-    f_m = mu.to_local_frames(f_m, wo, wi, mu.plane_basis(cross(h, -wo), -wo),
-                             mu.plane_basis(cross(h, wi), wi), channels=True)
+    f_m = mu.to_local_frames(
+        f_m, wo_hat, wi_hat, mu.plane_basis(cross(h, -wo_hat), -wo_hat),
+        mu.plane_basis(cross(h, wi_hat), wi_hat), channels=True)
     refl = common.tex(scene, params["specular_reflectance"][slot], si)
     out = (refl * val_nof[..., None])[..., None, None] * f_m
     return torch.where(act[..., None, None, None], out, 0.0)

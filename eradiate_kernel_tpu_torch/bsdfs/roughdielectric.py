@@ -45,7 +45,7 @@ def _mulsign(v, s):
     return v * torch.sign(s + (s == 0))[..., None]
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     eta = params["eta"][slot]
     au = params["alpha_u"][slot]
     av = params["alpha_v"][slot]
@@ -84,8 +84,10 @@ def sample(scene, params, slot, si, s1, s2, active):
 
     refl = common.tex(scene, params["specular_reflectance"][slot], si)
     trans = common.tex(scene, params["specular_transmittance"][slot], si)
-    weight = torch.where(select_r[..., None], refl,
-                         trans * sqr(eta_ti)[..., None]) * w_nof[..., None]
+    weight = torch.where(
+        select_r[..., None], refl,
+        trans * common.radiance_scale(eta_ti, mode)[..., None]) \
+        * w_nof[..., None]
     bs = common.BSDFSample(
         wo=wo, pdf=torch.where(act, pdf, 0.0),
         eta=torch.where(select_r, 1.0, eta_it),
@@ -93,7 +95,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where((act & (pdf > 0))[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     eta = params["eta"][slot]
     au = params["alpha_u"][slot]
     av = params["alpha_v"][slot]
@@ -132,7 +134,8 @@ def eval_pdf(scene, params, slot, si, wo, active):
     denom = wim + eta_it * wom
     common_t = d * g * torch.abs(wim * wom) \
         / torch.clamp(torch.abs(cos_i) * sqr(denom), min=1e-12)
-    val_t = (1.0 - f) * sqr(eta_it) * common_t * sqr(eta_ti)
+    val_t = ((1.0 - f) * sqr(eta_it) * common_t
+             * common.radiance_scale(eta_ti, mode))
     dwh_dwo_t = sqr(eta_it) * torch.abs(wom) / torch.clamp(sqr(denom),
                                                            min=1e-12)
     pdf_t = pdf_m * (1.0 - f) * dwh_dwo_t
@@ -147,7 +150,7 @@ def eval_pdf(scene, params, slot, si, wo, active):
             torch.where(act, pdf, 0.0))
 
 
-def eval_mueller(scene, params, slot, si, wo, active):
+def eval_mueller(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     """The polarized rough-dielectric eval: the microfacet eval with the
     Fresnel factor replaced by the specular reflection or transmission
     matrix about the facet normal m, rotated from the s/p frame of the
@@ -181,11 +184,13 @@ def eval_mueller(scene, params, slot, si, wo, active):
     denom = wim + eta_it * wom
     common_t = dg * torch.abs(wim * wom) \
         / torch.clamp(torch.abs(cos_i) * sqr(denom), min=1e-12)
-    val_nof = torch.where(reflect, val_r_nof,
-                          sqr(eta_it) * common_t * sqr(eta_ti))
+    val_nof = torch.where(
+        reflect, val_r_nof,
+        sqr(eta_it) * common_t * common.radiance_scale(eta_ti, mode))
 
     # the facet's Fresnel matrix, the IOR oriented by the signed cosine
-    ci_m = torch.sum(wo * m, -1)
+    wo_hat, wi_hat = common.mode_bases(wo, wi, mode)
+    ci_m = torch.sum(wo_hat * m, -1)
     eta_rel = torch.where(ci_m >= 0, eta, 1.0 / eta)
     f_m = torch.where(reflect[..., None, None],
                       mu.specular_reflection(torch.abs(ci_m), eta_rel),
@@ -197,8 +202,9 @@ def eval_mueller(scene, params, slot, si, wo, active):
     scale = torch.where(m00 > 1e-12, target / torch.clamp(m00, min=1e-12),
                         0.0)
     f_m = f_m * scale[..., None, None]
-    f_m = mu.to_local_frames(f_m, wo, wi, mu.plane_basis(cross(m, -wo), -wo),
-                             mu.plane_basis(cross(m, wi), wi))
+    f_m = mu.to_local_frames(
+        f_m, wo_hat, wi_hat, mu.plane_basis(cross(m, -wo_hat), -wo_hat),
+        mu.plane_basis(cross(m, wi_hat), wi_hat))
     tex = torch.where(
         reflect[..., None],
         common.tex(scene, params["specular_reflectance"][slot], si),

@@ -49,7 +49,7 @@ def _specular(scene, params, slot, si, wi, wo):
     return val[..., None] * spec, pdf
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     act = active & (wi[..., 2] > 0.0)
     au = params["alpha_u"][slot]
@@ -63,7 +63,7 @@ def sample(scene, params, slot, si, s1, s2, active):
                      warp.square_to_cosine_hemisphere(s2))
     act_o = act & (wo[..., 2] > 0.0)
     wo = torch.where(flip[..., None], common.flip_z(wo), wo)
-    value, pdf = eval_pdf(scene, params, slot, si, wo, active)
+    value, pdf = eval_pdf(scene, params, slot, si, wo, active, mode)
     weight = torch.where((act_o & (pdf > 0))[..., None],
                          value / torch.clamp(pdf, min=1e-12)[..., None], 0.0)
     bs = common.BSDFSample(
@@ -72,7 +72,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, weight
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     wi, flip = common.twosided_frame(params["twosided"][slot], si.wi)
     wo = torch.where(flip[..., None], common.flip_z(wo), wo)
     cos_i = wi[..., 2]

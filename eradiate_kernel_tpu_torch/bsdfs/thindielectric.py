@@ -34,7 +34,7 @@ def _reflectance(params, slot, si):
     return torch.where(r < 1.0, 2.0 * r / (1.0 + r), 1.0)
 
 
-def sample(scene, params, slot, si, s1, s2, active):
+def sample(scene, params, slot, si, s1, s2, active, mode=common.RADIANCE):
     wi = si.wi
     r = _reflectance(params, slot, si)
     act = active & (wi[..., 2] != 0.0)
@@ -51,7 +51,7 @@ def sample(scene, params, slot, si, s1, s2, active):
     return bs, torch.where(act[..., None], weight, 0.0)
 
 
-def eval_pdf(scene, params, slot, si, wo, active):
+def eval_pdf(scene, params, slot, si, wo, active, mode=common.RADIANCE):
     n = si.t.shape[0]
     return (torch.zeros(n, scene.config.variant.channels(si.wavelengths),
                         device=si.t.device),

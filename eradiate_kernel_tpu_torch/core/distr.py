@@ -20,6 +20,9 @@ class DiscreteDistribution:
     cdf: torch.Tensor    # (n,) inclusive cumsum, unnormalized
     total: torch.Tensor  # ()
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     @staticmethod
     def from_pmf(pmf, device="cpu"):
         pmf = torch.as_tensor(np.asarray(pmf, np.float32), device=device)
@@ -80,6 +83,9 @@ class ContinuousDistribution:
     range_min: float
     range_max: float
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     @staticmethod
     def from_pdf(values, range_min, range_max, device="cpu"):
         v = np.asarray(values, np.float64)
@@ -133,6 +139,9 @@ class IrregularContinuousDistribution:
     pdf_vals: torch.Tensor  # (n,)
     cdf: torch.Tensor       # (n-1,)
     integral: torch.Tensor  # ()
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
     @staticmethod
     def from_pdf(nodes, values, device="cpu"):

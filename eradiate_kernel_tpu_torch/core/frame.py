@@ -28,9 +28,16 @@ class Frame:
         return (self.s * v[..., 0:1] + self.t * v[..., 1:2]
                 + self.n * v[..., 2:3])
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
 
 def cos_theta(v):
     return v[..., 2]
+
+
+def cos_theta_2(v):
+    return sqr(v[..., 2])
 
 
 def sin_theta_2(v):
@@ -45,6 +52,20 @@ def tan_theta(v):
     return sin_theta(v) / v[..., 2]
 
 
+def tan_theta_2(v):
+    return sin_theta_2(v) / torch.clamp(sqr(v[..., 2]), min=1e-20)
+
+
+def sin_phi(v):
+    s = sin_theta(v)
+    return torch.where(s > 1e-9, v[..., 1] / torch.clamp(s, min=1e-9), 0.0)
+
+
+def cos_phi(v):
+    s = sin_theta(v)
+    return torch.where(s > 1e-9, v[..., 0] / torch.clamp(s, min=1e-9), 1.0)
+
+
 def sin_cos_phi_2(v):
     s2 = sin_theta_2(v)
     inv = torch.where(s2 > 1e-18, 1.0 / torch.clamp(s2, min=1e-18), 0.0)
@@ -52,3 +73,7 @@ def sin_cos_phi_2(v):
     cos2 = torch.clamp(sqr(v[..., 0]) * inv, 0.0, 1.0)
     return (torch.where(s2 > 1e-18, sin2, 0.0),
             torch.where(s2 > 1e-18, cos2, 1.0))
+
+
+def same_hemisphere(a, b):
+    return a[..., 2] * b[..., 2] > 0.0

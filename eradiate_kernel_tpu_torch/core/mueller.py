@@ -211,10 +211,10 @@ def plane_basis(v, d, eps=1e-14):
     of a microfacet reflection), or stokes_basis(d) where v degenerates
     (normal incidence, where the Fresnel matrix is rotationally symmetric
     and any frame serves)."""
-    n2 = dot(v, v, keepdim=True)
+    n2 = dot(v, v, keepdims=True)
     ok = n2 > eps
     v = torch.where(ok, v, 1.0)
-    v = v / torch.sqrt(torch.where(ok, dot(v, v, keepdim=True), 1.0))
+    v = v / torch.sqrt(torch.where(ok, dot(v, v, keepdims=True), 1.0))
     return torch.where(ok, v, stokes_basis(d))
 
 

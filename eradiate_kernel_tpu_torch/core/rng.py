@@ -108,6 +108,9 @@ class Sampler:
     kind: str = "independent"
     spp: int = 1
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     @staticmethod
     def seed(seed: int, lane_index: torch.Tensor, kind: str = "independent",
              spp: int = 1) -> "Sampler":

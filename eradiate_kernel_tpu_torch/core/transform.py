@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .math import widen
+from .math import normalize, widen
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +22,9 @@ class Transform:
     inv_t: object    # (..., 4, 4) inverse transpose
 
     # -- host-side constructors ---------------------------------------------
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     @staticmethod
     def from_matrix(m):
         m = np.asarray(m, dtype=np.float32)
@@ -74,6 +77,18 @@ class Transform:
         m[:3, 3] = origin
         return Transform.from_matrix(m)
 
+    @staticmethod
+    def perspective(fov_deg, near, far):
+        """The projective transform taking the view frustum of ``fov_deg``
+        between ``near`` and ``far`` to z in [0, 1] (transform.h
+        perspective)."""
+        recip = 1.0 / (far - near)
+        cot = 1.0 / np.tan(np.deg2rad(float(fov_deg)) / 2.0)
+        return Transform.from_matrix(np.array(
+            [[cot, 0, 0, 0], [0, cot, 0, 0],
+             [0, 0, far * recip, -near * far * recip], [0, 0, 1, 0]],
+            dtype=np.float32))
+
     def __matmul__(self, other):
         return Transform(m=self.m @ other.m, inv_t=self.inv_t @ other.inv_t)
 
@@ -85,6 +100,14 @@ class Transform:
         return (torch.matmul(m[..., :3, :3], widen(p, m)[..., None])[..., 0]
                 + m[..., :3, 3])
 
+    def transform_point(self, p):
+        """The projective image of ``p``: divided by its w."""
+        m = self.m
+        p = widen(p, m)
+        ph = torch.matmul(m[..., :3, :3], p[..., None])[..., 0] + m[..., :3, 3]
+        w = torch.sum(m[..., 3, :3] * p, dim=-1) + m[..., 3, 3]
+        return ph / w[..., None]
+
     def transform_vector(self, v):
         return torch.matmul(self.m[..., :3, :3],
                             widen(v, self.m)[..., None])[..., 0]
@@ -92,6 +115,13 @@ class Transform:
     def transform_normal(self, n):
         return torch.matmul(self.inv_t[..., :3, :3],
                             widen(n, self.inv_t)[..., None])[..., 0]
+
+    def transform_unit_vector(self, v):
+        return normalize(self.transform_vector(v))
+
+    def transform_ray(self, o, d):
+        """(origin, direction) of a ray under the transform."""
+        return self.transform_affine_point(o), self.transform_vector(d)
 
     def inverse(self):
         # swapaxes: numpy arrays (scene building) and tensors alike
@@ -150,6 +180,9 @@ class AnimatedTransform:
     translations: object  # (K, 3)
     quats: object         # (K, 4) (w, x, y, z), sign-aligned
     stretches: object     # (K, 3, 3)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
     @staticmethod
     def from_keyframes(frames):

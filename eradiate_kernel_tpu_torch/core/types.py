@@ -33,8 +33,8 @@ class Variant:
     variant."""
 
     mode: str = "rgb"
-    polarized: bool = False
     dtype: torch.dtype = torch.float32
+    polarized: bool = False
 
     def __post_init__(self):
         if self.mode.endswith("_double"):
@@ -67,6 +67,9 @@ class Variant:
     @property
     def is_monochromatic(self) -> bool:
         return self.mode == "mono"
+
+
+DEFAULT_VARIANT = Variant("rgb")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -85,5 +85,10 @@ class _Bins:
                         vp.ray.wavelengths)
 
 
-bins = _Bins(False)
-nbins = _Bins(True)
+def make(narrow: bool):
+    """The bins (narrow=False) or nbins (narrow=True) wrapper."""
+    return _Bins(narrow)
+
+
+bins = make(False)
+nbins = make(True)

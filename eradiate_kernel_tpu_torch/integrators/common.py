@@ -15,6 +15,12 @@ def mis_weight(pdf_a, pdf_b):
                        pdf_a / torch.clamp(pdf_a + pdf_b, min=1e-30), 0.0)
 
 
+def spec_channels(scene, wavelengths):
+    """The radiance channels of lanes carrying ``wavelengths``
+    (Variant.channels)."""
+    return scene.config.variant.channels(wavelengths)
+
+
 def spec_to_xyz(spec, wavelengths=None):
     """The film's X, Y, Z of splatted values: spectral (N, nw) by the
     hero-wavelength estimator at ``wavelengths`` (N, nw), rgb (N, 3)

@@ -70,7 +70,8 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
     nc = scene.config.variant.channels(ray.wavelengths)
     return _PathState(
         sampler=sampler, ray=ray,
-        si=invalid_si(n, dev, ray.wavelengths, ray.o.dtype),
+        si=invalid_si(n, ray.wavelengths.shape[-1], ray.o.dtype, dev,
+                      ray.wavelengths),
         needs_intersection=ok.clone(),
         throughput=ray.o.new_ones(n, nc),
         result=ray.o.new_zeros(n, nc), eta=ones,
@@ -201,3 +202,10 @@ def sample(scene, sampler: Sampler, ray: Ray, active=None):
     all) -> (spec (N, 3), valid, sampler)."""
     final, _ = _trace(scene, sampler, ray, active)
     return final.result, final.valid_ray, final.sampler
+
+
+def sample_counted(scene, sampler, ray, active=None):
+    """sample() and the number of rays traced, a 0-d tensor (the bench's
+    ray count)."""
+    final, _ = _trace(scene, sampler, ray, active)
+    return final.result, final.valid_ray, final.sampler, final.n_rays

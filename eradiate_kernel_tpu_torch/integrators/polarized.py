@@ -99,7 +99,8 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
         tp0 = torch.eye(4, dtype=ray.o.dtype, device=dev)
     return _PolPathState(
         sampler=sampler, ray=ray,
-        si=invalid_si(n, dev, ray.wavelengths, ray.o.dtype),
+        si=invalid_si(n, ray.wavelengths.shape[-1], ray.o.dtype, dev,
+                      ray.wavelengths),
         needs_intersection=ok.clone(),
         throughput_m=tp0.expand(n, nc, 4, 4) + v0[:, None, None, None],
         stokes=ray.o.new_zeros(n, nc, 4), eta=ray.o.new_ones(n) + v0,

@@ -968,8 +968,9 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
         channel = torch.zeros(n, dtype=torch.int32, device=dev)
     hide = cfg.integrator.hide_emitters
     return _VolPathState(
-        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths,
-                                                ray.o.dtype),
+        sampler=sampler, ray=ray,
+        si=invalid_si(n, ray.wavelengths.shape[-1], ray.o.dtype, dev,
+                      ray.wavelengths),
         needs_intersection=ok.clone(),
         medium_idx=(torch.full((n,), cfg.sensor_medium, dtype=torch.int32,
                                device=dev) if medium_idx is None
@@ -1003,3 +1004,12 @@ def sample(scene, sampler: Sampler, ray: Ray, active=None, medium_idx=None):
     (N, nc), valid, sampler)."""
     final = _trace(scene, sampler, ray, active, medium_idx)
     return final.result, final.valid_ray, final.sampler
+
+
+def sample_counted(scene, sampler: Sampler, ray: Ray, active=None,
+                   medium_idx=None):
+    """sample() and the number of rays traced, a 0-d tensor (the bench's
+    ray count: every closest-hit query a lane issues, the NEE
+    transmittance walks' included)."""
+    final = _trace(scene, sampler, ray, active, medium_idx)
+    return final.result, final.valid_ray, final.sampler, final.n_rays

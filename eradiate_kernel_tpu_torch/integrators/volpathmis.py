@@ -536,8 +536,9 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None,
     hide = cfg.integrator.hide_emitters
     ones = ray.o.new_ones(n, nc, nc) + v0[:, None, None]
     return _State(
-        sampler=sampler, ray=ray, si=invalid_si(n, dev, ray.wavelengths,
-                                                ray.o.dtype),
+        sampler=sampler, ray=ray,
+        si=invalid_si(n, ray.wavelengths.shape[-1], ray.o.dtype, dev,
+                      ray.wavelengths),
         needs_intersection=ok.clone(),
         medium_idx=(torch.full((n,), cfg.sensor_medium, dtype=torch.int32,
                                device=dev) if medium_idx is None

@@ -53,6 +53,9 @@ class MediumInteraction:
     ff_adlz: torch.Tensor  # (N,) |d local z| per world t
     ff_on: torch.Tensor    # (N,) bool: profile-flight lanes
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     @property
     def is_valid(self):
         return self.t < 0.5 * INVALID_T
@@ -121,8 +124,9 @@ def medium_intersect_bounds(scene, medium_idx, ray, active):
     return ok & active, mint, maxt
 
 
-def medium_combined_extinction(scene, medium_idx, wavelengths):
-    """Global majorant (per channel) of each lane's medium."""
+def medium_combined_extinction(scene, medium_idx, p, wavelengths):
+    """Global majorant (per channel) of each lane's medium; ``p`` is
+    unused, as in the reference (the majorant holds everywhere)."""
     nc = scene.config.variant.channels(wavelengths)
     out = torch.ones(medium_idx.shape + (nc,),
                      dtype=scene.config.variant.dtype,
@@ -157,7 +161,7 @@ def medium_majorant_segment(scene, medium_idx, ray, mint, maxt,
     """Per-lane majorant valid on the ray segment [mint, maxt]:
     heterogeneous media take the min over axes of their profiles' range-max
     over the segment, times the 'majorant' magnitude."""
-    out = medium_combined_extinction(scene, medium_idx, wavelengths)
+    out = medium_combined_extinction(scene, medium_idx, ray.o, wavelengths)
     if "heterogeneous" not in scene.config.medium_kinds:
         return out
     m, slot = _kind_slot(scene, medium_idx, "heterogeneous")
@@ -271,7 +275,7 @@ def medium_scattering_coefficients(scene, medium_idx, p, wavelengths,
                           device=dev)
     sigma_t = torch.zeros_like(sigma_s)
     if majorant is None:
-        majorant = medium_combined_extinction(scene, medium_idx,
+        majorant = medium_combined_extinction(scene, medium_idx, p,
                                               wavelengths)
     for kind in scene.config.medium_kinds:
         m, slot = _kind_slot(scene, medium_idx, kind)
@@ -496,15 +500,19 @@ def medium_tau_segment(scene, medium_idx, ray, a, b, wavelengths,
     return torch.clamp(tau, 0.0, 60.0)
 
 
-def sample_interaction(scene, medium_idx, ray, sample, channel, active):
+def sample_interaction(scene, medium_idx, ray, sample, channel, active,
+                       mode=None):
     """Medium::sample_interaction (medium.cpp:36-77). medium_idx: (N,) i32,
     clamped >= 0 by the caller; ``active`` excludes vacuum lanes. Under
-    the default ``ff_majorant="profile"`` heterogeneous lanes fly against
-    their local z-profile majorant; under "segment" every lane flies
-    against its segment's one majorant (medium_majorant_segment)."""
+    ``mode`` "profile" heterogeneous lanes fly against their local
+    z-profile majorant; under any other (the reference's "segment") every
+    lane flies against its segment's one majorant
+    (medium_majorant_segment). The default (None) reads the integrator's
+    ``ff_majorant`` (ff_majorant_mode: "profile" unless set)."""
     cfg = scene.config
     nc = cfg.variant.channels(ray.wavelengths)
-    profile = ff_majorant_mode(scene) == "profile"
+    profile = (ff_majorant_mode(scene) if mode is None else mode) \
+        == "profile"
     seg_ok, mint, maxt = medium_intersect_bounds(scene, medium_idx, ray,
                                                  active)
     mint = torch.where(seg_ok, torch.clamp(mint, min=0.0), 0.0)
@@ -576,3 +584,13 @@ def eval_tr_and_pdf(mi: MediumInteraction, si_t):
     pdf = torch.where((si_t < mi.t)[..., None], tr,
                       tr * mi.combined_extinction)
     return tr, pdf
+
+
+def medium_is_homogeneous(scene, medium_idx):
+    """Whether each lane's medium (N,) is homogeneous."""
+    out = torch.zeros(medium_idx.shape, dtype=torch.bool,
+                      device=medium_idx.device)
+    for k, kind in enumerate(scene.config.medium_kinds):
+        if kind == "homogeneous":
+            out = out | (scene.medium_kind[medium_idx] == k)
+    return out

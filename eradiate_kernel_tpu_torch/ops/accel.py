@@ -90,8 +90,10 @@ def _build_tiles_numpy(vertices, faces, tile_size=TILE_K):
     return perm, tile_lo.astype(np.float32), tile_hi.astype(np.float32)
 
 
-def pack_tiles(vertices, faces, face_shape, tile_size=TILE_K):
-    """The intersector's tile arrays, as a dict of numpy arrays:
+def pack_tiles(vertices, normals_unused, faces, face_shape,
+               tile_size=TILE_K):
+    """The intersector's tile arrays, as a dict of numpy arrays
+    (``normals_unused`` is taken and ignored, as in the reference):
 
       v0/e1/e2: (T, K, 3) pre-gathered triangle data
       prim:     (T, K) i32 original face index (-1 = padding)

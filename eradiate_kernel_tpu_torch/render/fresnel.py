@@ -91,7 +91,7 @@ def reflect(wi):
 
 def reflect_m(wi, m):
     """Mirror about the microfacet normal m."""
-    return 2.0 * dot(wi, m, keepdim=True) * m - wi
+    return 2.0 * dot(wi, m, keepdims=True) * m - wi
 
 
 def refract(wi, cos_theta_t, eta_ti):
@@ -103,7 +103,7 @@ def refract(wi, cos_theta_t, eta_ti):
 
 def refract_m(wi, m, cos_theta_t, eta_ti):
     """Refract about the microfacet normal m."""
-    proj = dot(wi, m, keepdim=True) * eta_ti[..., None] \
+    proj = dot(wi, m, keepdims=True) * eta_ti[..., None] \
         + cos_theta_t[..., None]
     return m * proj - wi * eta_ti[..., None]
 

@@ -25,6 +25,7 @@ from ..core.frame import Frame
 from ..core.math import INVALID_T, cross, dot, normalize, safe_sqrt, sqr
 from ..core.ray import Ray
 from ..core.transform import Transform
+from ..core.types import resolve_device
 from ..ops.intersect import (intersect_bvh, intersect_bvh8, intersect_tiles,
                              root_box, row_views, tile_rows)
 from .records import PreliminaryIntersection, SurfaceInteraction
@@ -106,6 +107,9 @@ class Geometry:
     inst_hi: torch.Tensor       # (I, 3)
     shape_inst: torch.Tensor    # (n_shapes,) i32 instance of a shape, or -1
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     def __post_init__(self):
         # the tile kernels' per-scene tables, built once rather than per
         # query: the root box of all tiles (ops/intersect.py::sweep_tables)
@@ -122,6 +126,10 @@ class Geometry:
                 object.__setattr__(self, name, view)
         object.__setattr__(self, "tiles_root", root)
         object.__setattr__(self, "tiles_rows", rows)
+
+    @property
+    def n_shapes(self):
+        return self.shape_family.shape[0]
 
     @property
     def has_tiles(self):
@@ -144,6 +152,36 @@ class Geometry:
         if self.has_tiles:
             tiles["rows"] = self.tiles_rows
         return tiles
+
+
+def empty_geometry(n_shapes=0, device=None, dtype=torch.float32):
+    """A Geometry of ``n_shapes`` shapes and no primitives, on ``device``
+    (CUDA unless named, as the entry points resolve it)."""
+    device = resolve_device(device)
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+    zi = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+    none = lambda: Transform(m=z(0, 4, 4), inv_t=z(0, 4, 4))
+    return Geometry(
+        vertices=z(0, 3), normals=z(0, 3), uvs=z(0, 2), faces=zi(0, 3),
+        face_shape=zi(0), sph_center=z(0, 3), sph_radius=z(0),
+        sph_shape=zi(0), sph_flip=torch.zeros(0, dtype=torch.bool,
+                                              device=device),
+        rect_to_world=none(), rect_shape=zi(0), disk_to_world=none(),
+        disk_shape=zi(0), cyl_to_world=none(), cyl_length=z(0),
+        cyl_radius=z(0), cyl_shape=zi(0), cone_to_world=none(),
+        cone_length=z(0), cone_radius=z(0), cone_shape=zi(0),
+        shape_family=zi(n_shapes), tiles_v0=z(0, 128, 3),
+        tiles_e1=z(0, 128, 3), tiles_e2=z(0, 128, 3),
+        tiles_prim=zi(0, 128), tiles_shape=zi(0, 128), tiles_lo=z(0, 3),
+        tiles_hi=z(0, 3), bvh_box=z(0, 1, 8), bvh_meta=zi(0, 4),
+        bvh8_box=z(0, 8, 8), bvh8_meta=zi(0, 8, 4),
+        tiles_xf=torch.tensor([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]],
+                              dtype=dtype, device=device),
+        tiles_sbase=zi(1), ig_vertices=z(0, 3), ig_normals=z(0, 3),
+        ig_uvs=z(0, 2), ig_faces=zi(0, 3), ig_face_sub=zi(0),
+        inst_l2w=none(), inst_w2l=none(), inst_f_off=zi(0),
+        inst_f_count=zi(0), inst_shape_base=zi(0), inst_lo=z(0, 3),
+        inst_hi=z(0, 3), shape_inst=zi(0))
 
 
 def _accel_mode(geo: Geometry) -> str:

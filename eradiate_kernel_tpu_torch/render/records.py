@@ -14,6 +14,7 @@ import torch
 from ..core.frame import Frame
 from ..core.math import INVALID_T, RayEpsilon, ShadowEpsilon, dot, normalize
 from ..core.ray import Ray
+from ..core.types import resolve_device
 
 
 def merge(new, old, mask):
@@ -33,6 +34,9 @@ class PreliminaryIntersection:
     prim_uv: torch.Tensor      # (N, 2)
     prim_index: torch.Tensor   # (N,) i32 index into the family's pool
     shape_index: torch.Tensor  # (N,) i32, -1 on a miss
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
     @property
     def is_valid(self):
@@ -55,6 +59,9 @@ class SurfaceInteraction:
     shape_index: torch.Tensor  # (N,) i32, -1 if invalid
     wavelengths: torch.Tensor = None  # (N, nw) the ray's; None: (N, 0)
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     def __post_init__(self):
         if self.wavelengths is None:
             object.__setattr__(self, "wavelengths",
@@ -75,12 +82,13 @@ class SurfaceInteraction:
         sgn = torch.where(dot(self.n, d) >= 0.0, 1.0, -1.0)
         return self.p + (RayEpsilon * scale * sgn)[..., None] * self.n
 
-    def spawn_ray(self, d):
-        """Ray leaving along d, offset along the geometric normal."""
+    def spawn_ray(self, d, maxt=None):
+        """Ray leaving along d, offset along the geometric normal; maxt
+        defaults to INVALID_T."""
         o = self._offset_origin(d)
         return Ray(o=o, d=d, mint=torch.zeros_like(self.t),
-                   maxt=torch.full_like(self.t, INVALID_T), time=self.time,
-                   wavelengths=self.wavelengths)
+                   maxt=torch.full_like(self.t, INVALID_T) if maxt is None
+                   else maxt, time=self.time, wavelengths=self.wavelengths)
 
     def spawn_ray_to(self, target):
         """Shadow ray toward ``target`` with an epsilon gap at both ends;
@@ -95,20 +103,30 @@ class SurfaceInteraction:
                    wavelengths=self.wavelengths), dist
 
 
-def invalid_si(n, device, wavelengths=None, dtype=torch.float32):
-    """An invalid interaction (shape -1) in ``dtype`` carrying
-    ``wavelengths`` (N, nw; None: (N, 0))."""
-    z3 = torch.zeros(n, 3, dtype=dtype, device=device)
+def invalid_si(batch_shape, n_wavelengths, dtype=torch.float32,
+               device=None, wavelengths=None):
+    """An invalid interaction (shape -1) over ``batch_shape`` lanes (a
+    shape or a count) in ``dtype``, carrying zero wavelengths (*batch,
+    n_wavelengths), or the lanes' own ``wavelengths``. ``device``: that of
+    ``wavelengths``, else CUDA unless named (as the entry points resolve
+    it)."""
+    batch = tuple(batch_shape) if isinstance(batch_shape, (tuple, list)) \
+        else (int(batch_shape),)
+    if device is None and wavelengths is not None:
+        device = wavelengths.device
+    device = resolve_device(device)
+    z = lambda *shape: torch.zeros(batch + shape, dtype=dtype, device=device)
+    z3 = z(3)
     unit = lambda i: torch.nn.functional.one_hot(
-        torch.full((n,), i, device=device), 3).to(dtype)
-    z = lambda *shape: torch.zeros(n, *shape, dtype=dtype, device=device)
+        torch.full(batch, i, device=device), 3).to(dtype)
     return SurfaceInteraction(
-        t=torch.full((n,), INVALID_T, dtype=dtype, device=device), p=z3,
+        t=torch.full(batch, INVALID_T, dtype=dtype, device=device), p=z3,
         n=unit(2), sh_frame=Frame(s=unit(0), t=unit(1), n=unit(2)),
         uv=z(2), prim_uv=z(2), dp_du=z3, dp_dv=z3, wi=unit(2), time=z(),
-        prim_index=torch.zeros(n, dtype=torch.int32, device=device),
-        shape_index=torch.full((n,), -1, dtype=torch.int32, device=device),
-        wavelengths=wavelengths)
+        prim_index=torch.zeros(batch, dtype=torch.int32, device=device),
+        shape_index=torch.full(batch, -1, dtype=torch.int32, device=device),
+        wavelengths=z(n_wavelengths) if wavelengths is None
+        else wavelengths)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +140,9 @@ class RayDifferential:
     d_x: torch.Tensor  # (N, 3)
     o_y: torch.Tensor  # (N, 3)
     d_y: torch.Tensor  # (N, 3)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 
 def compute_uv_partials(si, rd):
@@ -163,6 +184,9 @@ class PositionSample:
     pdf: torch.Tensor          # (N,)
     delta: torch.Tensor        # (N,) bool
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class DirectionSample:
@@ -176,3 +200,6 @@ class DirectionSample:
     pdf: torch.Tensor
     delta: torch.Tensor        # bool
     emitter_index: torch.Tensor
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)

@@ -22,11 +22,12 @@ def _unit_z(x):
     return z
 
 
-def sample_position(scene, shape_idx, s1, s2):
+def sample_position(scene, shape_idx, s1, s2, active=True):
     """A point on shape ``shape_idx`` (N,) i32: ``s1`` (N,) picks a mesh's
     face, ``s2`` (N, 2) the point. pdf = 1 / the shape's area. Cylinders
     and cones have no branch, as in the reference: their lanes keep the
-    origin, normal +z and uv 0."""
+    origin, normal +z and uv 0. Every lane is sampled, ``active`` or not,
+    as in the reference."""
     geo = scene.geo
     family = geo.shape_family[shape_idx]
     n_lanes = shape_idx.shape[0]

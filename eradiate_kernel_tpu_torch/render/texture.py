@@ -59,11 +59,12 @@ def _take(a, i):
 
 
 def spectrum_eval(spectra, spec_kind, spec_slot, kinds, wavelengths,
-                  dtype=torch.float32):
+                  n_channels, dtype=torch.float32):
     """Spectrum objects (spec_kind/spec_slot (N,) i32) per lane -> (N, nc):
-    the baked value (rgb/mono), or the value at ``wavelengths`` (N, nw)
-    (spectral), accumulated in ``dtype`` (the scene's). Lanes of another
-    kind read slot 0 of each kind's table."""
+    the baked value (rgb/mono: nc = n_channels, the baked rows' width), or
+    the value at ``wavelengths`` (N, nw) (spectral: nc = nw), accumulated
+    in ``dtype`` (the scene's). Lanes of another kind read slot 0 of each
+    kind's table."""
     if kinds == ("baked",):
         return spectra["baked"]["value"][spec_slot]
     out = torch.zeros(wavelengths.shape, dtype=dtype,
@@ -136,19 +137,25 @@ def srgb_model_eval(coeff, wavelengths):
 def scene_spectrum_eval(scene, spec_idx, wavelengths=None):
     """Spectra ``spec_idx`` (N,) of the scene at ``wavelengths`` (N, nw;
     unused by the baked rgb/mono spectra) -> (N, nc)."""
+    cfg = scene.config
     return spectrum_eval(scene.spectra, scene.spec_kind[spec_idx],
-                         scene.spec_slot[spec_idx],
-                         scene.config.spectrum_kinds, wavelengths,
-                         scene.config.variant.dtype)
+                         scene.spec_slot[spec_idx], cfg.spectrum_kinds,
+                         wavelengths, cfg.variant.n_channels,
+                         cfg.variant.dtype)
 
 
-def texture_eval(scene, tex_index, uv=None, prim_index=None, prim_uv=None,
-                 wavelengths=None):
+def texture_eval(scene, tex_index, si_uv=None, wavelengths=None,
+                 active=True, si_extra=None):
     """(N, nc) value of texture ``tex_index`` (i32 (N,)) at the lanes'
-    ``uv`` (N, 2; None reads uv (0, 0), as the reference's point and
-    directional lights pass); ``prim_index`` and ``prim_uv`` feed
-    mesh_attribute; ``wavelengths`` (N, nw) the spectral variant's hero
-    wavelengths. A scene whose textures are all constant reads no uv."""
+    ``si_uv`` (N, 2; None reads uv (0, 0), as the reference's point and
+    directional lights pass); ``wavelengths`` (N, nw) the spectral
+    variant's hero wavelengths; ``si_extra`` a dict of the lanes'
+    'prim_index' and 'prim_uv', which mesh_attribute reads. Every lane is
+    read, ``active`` or not, as in the reference. A scene whose textures
+    are all constant reads no uv."""
+    uv = si_uv
+    prim_index, prim_uv = ((si_extra["prim_index"], si_extra["prim_uv"])
+                           if si_extra is not None else (None, None))
     kinds = scene.config.texture_kinds
     slot = scene.tex_slot[tex_index]
     spec = lambda i: scene_spectrum_eval(scene, i, wavelengths)
@@ -348,7 +355,8 @@ def spectrum_sample(spectra, spec_kind, spec_slot, kinds, sample,
             l_k = _table_invert_cdf(nodes, pdfv, p["smp_cdf"][s], ws)
             lam = torch.where(m, l_k, lam)
             pdf = torch.where(m, _table_pdf(nodes, pdfv, l_k), pdf)
-    val = spectrum_eval(spectra, spec_kind, spec_slot, kinds, lam, dtype)
+    val = spectrum_eval(spectra, spec_kind, spec_slot, kinds, lam,
+                        lam.shape[-1], dtype)
     weight = torch.where(is_discrete, w_discrete,
                          val / torch.clamp(pdf, min=1e-20))
     return lam, weight
@@ -389,11 +397,12 @@ def scene_spectrum_pdf(scene, spec_idx, wavelengths):
                         scene.config.variant.dtype)
 
 
-def texture_sample_spectrum(scene, tex_index, uv, sample, active=None):
+def texture_sample_spectrum(scene, tex_index, si_uv, sample, active=True):
     """Texture::sample_spectrum: a 'constant' texture importance-samples
     its spectrum; the spatially varying kinds sample uniformly over the
     global range with weight eval x the range's width. Returns
-    (wavelengths (N, nw), weight (N, nw)), zero weight off ``active``."""
+    (wavelengths (N, nw), weight (N, nw)), zero weight off ``active`` (a
+    lane mask, or True for every lane)."""
     cfg = scene.config
     tex_kind = scene.tex_kind[tex_index]
     tex_slot = scene.tex_slot[tex_index]
@@ -409,17 +418,19 @@ def texture_sample_spectrum(scene, tex_index, uv, sample, active=None):
         l_k, w_k = scene_spectrum_sample(scene, spec, sample)
         lam = torch.where(m, l_k, lam)
         weight = torch.where(m, w_k, 0.0)
-    uni = texture_eval(scene, tex_index, uv, wavelengths=lam) * width
+    uni = texture_eval(scene, tex_index, si_uv, lam) * width
     if weight is None:
         weight = uni
     else:
         weight = torch.where((tex_kind == const)[..., None], weight, uni)
-    if active is not None:
+    if torch.is_tensor(active):
         weight = torch.where(active[..., None], weight, 0.0)
+    elif not active:
+        weight = torch.zeros_like(weight)
     return lam, weight
 
 
-def texture_pdf_spectrum(scene, tex_index, uv, wavelengths):
+def texture_pdf_spectrum(scene, tex_index, si_uv, wavelengths):
     """The density of texture_sample_spectrum at ``wavelengths``."""
     cfg = scene.config
     tex_kind = scene.tex_kind[tex_index]

@@ -95,6 +95,7 @@ class SceneBuilder:
         self.volume_table = []
         self.medium_phase_list = []
         self.sensor_medium = -1  # medium the sensor is embedded in
+        self.sensor_static = ()  # the sensor's hashable build-time fields
         self.named = {}
         self.bitmaps = []           # (H, W, 3) f32 images of bitmap textures
         self.mesh_attr_names = []   # attribute name per slot
@@ -461,6 +462,9 @@ class SceneBuilder:
             return baked([float(vals.sum())] * 3)
         raise ValueError(f"unknown spectrum type {t!r}")
 
+    def add_texture_row(self, kind, row):
+        return self._add(self.textures, self.tex_table, kind, row)
+
     def texture(self, value, emitter=False):
         """A value / texture dict -> texture index: constant (a spectrum),
         checkerboard, bitmap (inline ``data`` or an image ``filename``) or
@@ -620,7 +624,7 @@ class SceneBuilder:
         leaf_lo, leaf_hi, leaf_tile, leaf_inst = [], [], [], []
         t_off = 0
         if len(F) > 0:
-            t0 = pack_tiles(V, F, FS)
+            t0 = pack_tiles(V, None, F, FS)
             T0 = len(t0["lo"])
             parts.append(t0)
             leaf_lo.append(t0["lo"])
@@ -637,7 +641,7 @@ class SceneBuilder:
                 if rec["f_count"] == 0:
                     continue
                 fsl = slice(rec["f_off"], rec["f_off"] + rec["f_count"])
-                tg = pack_tiles(IGV, IGF[fsl], IGS[fsl])
+                tg = pack_tiles(IGV, None, IGF[fsl], IGS[fsl])
                 tg["prim"] = np.where(tg["prim"] >= 0,
                                       tg["prim"] + rec["f_off"], tg["prim"])
                 group_tiles[rec["f_off"]] = (t_off, len(tg["lo"]),
@@ -689,8 +693,8 @@ class SceneBuilder:
         return data
 
     # --- finalize ------------------------------------------------------------------
-    def finalize(self, sensor_kind, sensor_params, sensor_static, film_cfg,
-                 integrator_cfg, spp):
+    def finalize(self, sensor_kind, sensor_params, film_cfg, integrator_cfg,
+                 spp):
         """-> (arrays by dotted name, SceneConfig)."""
         if not self.spec_table:
             # a default spectrum slot 0, so texture and bsdf fallbacks
@@ -868,7 +872,7 @@ class SceneBuilder:
             medium_kinds=medium_kinds, phase_kinds=phase_kinds,
             volume_kinds=volume_kinds, het_profile1d=het_profile1d,
             sensor_medium=self.sensor_medium,
-            sensor_kind=sensor_kind, sensor_static=sensor_static,
+            sensor_kind=sensor_kind, sensor_static=self.sensor_static,
             n_emitters=len(self.emitter_table),
             env_emitter=self.env_emitter,
             film_width=film_cfg["width"], film_height=film_cfg["height"],
@@ -962,13 +966,12 @@ def load_dict(d: dict, variant: Variant | None = None,
     if pending_sensor is not None:
         # built after every shape (irradiancemeter's shape ref); its film
         # overrides (mdistant, mradiancemeter) reach finalize in film_cfg
-        sensor_params, sensor_static = _build_sensor(
+        sensor_params, b.sensor_static = _build_sensor(
             b, sensor_kind, pending_sensor, film_cfg)
     else:
         sensor_params = {
             "to_world": Transform.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]),
             "tan_half_fov": np.float32(np.tan(np.deg2rad(34.0) / 2))}
-        sensor_static = ()
-    arrays, cfg = b.finalize(sensor_kind, sensor_params, sensor_static,
-                             film_cfg, integrator_cfg, spp)
+    arrays, cfg = b.finalize(sensor_kind, sensor_params, film_cfg,
+                             integrator_cfg, spp)
     return from_numpy(arrays, cfg, device)

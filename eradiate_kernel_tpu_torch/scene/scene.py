@@ -202,6 +202,9 @@ class Scene:
     # EINSUM_MAX_VOXELS)
     vol_packed_spectral: dict = dataclasses.field(default_factory=dict)
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     def arrays(self) -> dict:
         """Every array of the scene as numpy, by dotted name."""
         return {k: v.detach().cpu().numpy()

@@ -61,6 +61,8 @@ from ..ops import gather
 # voxel-count threshold between the einsum path and the packed-row gather
 # path (the reference's EINSUM_MAX_VOXELS)
 EINSUM_MAX_VOXELS = 4096
+# the reference's name for the same threshold, which it keeps unread
+PACKED_GATHER_MIN_VOXELS = EINSUM_MAX_VOXELS
 
 
 def _axis_weights(g, n_axis):
@@ -243,48 +245,63 @@ def _lookup(packed, grid_shape, vslot, pl):
     return gather.grid_trilinear(packed, grid_shape, vslot, pl)
 
 
+def trilinear_positions_backward(ct, packed, grid_shape, vslot, pl):
+    """The packed lookup's gradient with respect to the positions: ct
+    (..., C), the cotangent of its output -> (..., 3). The lanes' 8-corner
+    rows are read again as the lookup read them (gather.gather_rows: the
+    kernel's gather entry for CUDA tensors), and _lerp8's derivative in
+    the fractional weights, times the clamp's (the axis's extent - 1
+    inside [0, 1], 0 outside), comes from autograd over those rows."""
+    S, D, H, W, C = grid_shape
+    with torch.enable_grad():
+        plg = pl.detach().requires_grad_()
+        idx, fx, fy, fz = _corner0((S, D, H, W), vslot, plg)
+        rows = gather.gather_rows(packed, idx.reshape(-1).contiguous())
+        rows = rows.reshape(idx.shape + (8 * C,))
+        out = _lerp8([rows[..., k * C:(k + 1) * C] for k in range(8)],
+                     fx, fy, fz)
+        (d_pl,) = torch.autograd.grad(out, plg, ct)
+    return d_pl
+
+
 class GridTrilinear(torch.autograd.Function):
-    """The packed lookup as an op differentiable with respect to the grid:
-    the forward reads the packed table (``_lookup``), the backward gives
-    the grid its gradient (one launch of the kernel's backward entry for
-    CUDA tensors, trilinear_backward_plain for CPU tensors). The table,
-    the slots and the positions get none."""
+    """The packed lookup as an op differentiable with respect to the grid
+    and the positions: the forward reads the packed table (``_lookup``);
+    the backward gives the grid its gradient (one launch of the kernel's
+    backward entry for CUDA tensors, trilinear_backward_plain for CPU
+    tensors) and the positions theirs (trilinear_positions_backward). The
+    table and the slots get none."""
 
     @staticmethod
     def forward(ctx, grid, packed, vslot, pl):
-        ctx.save_for_backward(vslot, pl)
+        ctx.save_for_backward(packed, vslot, pl)
         ctx.grid_shape = tuple(grid.shape)
         return _lookup(packed, grid.shape, vslot, pl)
 
     @staticmethod
     def backward(ctx, ct):
-        vslot, pl = ctx.saved_tensors
+        packed, vslot, pl = ctx.saved_tensors
         ct = ct.contiguous()
-        if gather.on_plain(ct):
-            d_grid = trilinear_backward_plain(ct, ctx.grid_shape, vslot, pl)
-        else:
-            d_grid = gather.grid_trilinear_bwd(ct, ctx.grid_shape, vslot, pl)
-        return d_grid, None, None, None
+        d_grid = d_pl = None
+        if ctx.needs_input_grad[0]:
+            if gather.on_plain(ct):
+                d_grid = trilinear_backward_plain(ct, ctx.grid_shape, vslot,
+                                                  pl)
+            else:
+                d_grid = gather.grid_trilinear_bwd(ct, ctx.grid_shape,
+                                                   vslot, pl)
+        if ctx.needs_input_grad[3]:
+            d_pl = trilinear_positions_backward(ct, packed, ctx.grid_shape,
+                                                vslot, pl)
+        return d_grid, None, None, d_pl
 
 
 def _trilinear_gather(grid, packed, vslot, pl):
     """Packed-neighbourhood lookup of ``grid`` through its packed table.
-    With autograd on, a grid that requires a gradient gets it through
-    GridTrilinear. Positions that require a gradient are refused on CUDA
-    (the kernel has no gradient for them); on the CPU the plain chain then
-    runs on a packed table built from the grid, differentiable in both."""
-    if torch.is_grad_enabled():
-        if pl.requires_grad:
-            if not gather.on_plain(packed):
-                raise ValueError(
-                    "grid_gather: the lookup positions require a gradient, "
-                    "which the CUDA lookup does not give; the positions are "
-                    "trajectory-class (make only value-class parameters "
-                    "trainable, or detach them)")
-            return trilinear_gather_plain(packed_corners(grid), grid.shape,
-                                          vslot, pl)
-        if grid.requires_grad:
-            return GridTrilinear.apply(grid, packed, vslot, pl)
+    With autograd on, a grid or positions that require a gradient get it
+    through GridTrilinear."""
+    if torch.is_grad_enabled() and (grid.requires_grad or pl.requires_grad):
+        return GridTrilinear.apply(grid, packed, vslot, pl)
     return _lookup(packed, grid.shape, vslot, pl)
 
 
@@ -417,9 +434,10 @@ def _wavelength_lerp(params, slot, spec, wavelengths):
     return v0 * (1 - f) + v1 * f
 
 
-def volume_eval(scene, vol_idx, p, wavelengths=None):
+def volume_eval(scene, vol_idx, p, wavelengths=None, active=True):
     """Evaluate volumes per lane at world position p -> (..., nc);
-    ``wavelengths`` (..., nw), the spectral variant's hero wavelengths."""
+    ``wavelengths`` (..., nw), the spectral variant's hero wavelengths.
+    Every lane is read, ``active`` or not, as in the reference."""
     cfg = scene.config
     spectral = cfg.variant.is_spectral
     nc = (cfg.variant.channels(wavelengths) if spectral
@@ -482,3 +500,38 @@ def volume_eval(scene, vol_idx, p, wavelengths=None):
             raise ValueError(f"unknown volume kind {kind}")
         out = torch.where(m[..., None], v, out)
     return out
+
+
+def volume_max(scene, vol_idx):
+    """The largest value (N,) of each lane's volume (the majorant source,
+    grid3d.cpp:88)."""
+    vkind = scene.vol_kind[vol_idx]
+    vslot = scene.vol_slot[vol_idx]
+    out = torch.zeros(vkind.shape, dtype=scene.config.variant.dtype,
+                      device=vol_idx.device)
+    for k, kind in enumerate(scene.config.volume_kinds):
+        m = vkind == k
+        slot = torch.where(m, vslot, 0)
+        params = scene.volumes[kind]
+        v = (torch.amax(params["value"][slot], dim=-1)
+             if kind == "constvolume" else params["vmax"][slot])
+        out = torch.where(m, v, out)
+    return out
+
+
+def volume_eval_gradient(scene, vol_idx, p, wavelengths=None, active=True):
+    """The volume's spatial gradient at the world points p -> (N, nc, 3)
+    (Volume::eval_gradient, texture.h:210-263): exact for the trilinear
+    interpolant, zero for a constvolume. A lane's value depends on its own
+    point only, so each channel's gradient is one backward pass of its
+    sum (the packed lookups' through GridTrilinear and PackedRowGather,
+    which read the kernel's gather entry for CUDA tensors)."""
+    with torch.enable_grad():
+        pg = p.detach().requires_grad_()
+        out = volume_eval(scene, vol_idx, pg, wavelengths, active)
+        cols = []
+        for c in range(out.shape[-1]):
+            g, = torch.autograd.grad(out[..., c].sum(), pg,
+                                     retain_graph=True, allow_unused=True)
+            cols.append(torch.zeros_like(pg) if g is None else g)
+    return torch.stack(cols, dim=-2)

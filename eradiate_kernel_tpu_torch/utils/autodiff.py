@@ -21,6 +21,7 @@ autograd; the port is torch already and has no such bridge.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import integrators
@@ -133,6 +134,18 @@ class Optimizer:
                 out[f"state:{k}:{i}"] = leaf.clone()
         out["t"] = torch.tensor(getattr(self, "t", 0))
         return out
+
+    def save(self, path: str):
+        """Checkpoint to an .npz file, in the reference's layout (either
+        package loads the other's)."""
+        np.savez(path, **{k: v.detach().cpu().numpy()
+                          for k, v in self.state_dict().items()})
+
+    def load(self, path: str):
+        dev = next(iter(self.params.values())).device
+        with np.load(path) as data:
+            self.load_state_dict({k: torch.as_tensor(data[k], device=dev)
+                                  for k in data.files})
 
     def load_state_dict(self, data):
         for k in self.params:

@@ -49,7 +49,7 @@ CASES = {
 
 def _leaf_boxes(name):
     V, F = CASES[name]()
-    tiles = accel.pack_tiles(V, F, np.zeros(len(F), np.int32))
+    tiles = accel.pack_tiles(V, None, F, np.zeros(len(F), np.int32))
     return tiles["lo"], tiles["hi"]
 
 
@@ -78,7 +78,7 @@ def test_build_bit_equal(case):
 
 
 def _bvh_tiles(V, F):
-    tiles = accel.pack_tiles(V, F, np.zeros(len(F), np.int32))
+    tiles = accel.pack_tiles(V, None, F, np.zeros(len(F), np.int32))
     nbox, nmeta, _ = bvh.build_tile_bvh(tiles["lo"], tiles["hi"])
     cbox, cmeta = bvh.collapse_to_bvh8(nbox, nmeta)
     return dict(tiles, nbox=nbox, nmeta=nmeta, cbox=cbox, cmeta=cmeta)

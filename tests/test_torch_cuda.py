@@ -38,7 +38,7 @@ def _rays(n, dev):
 
 def _terrain_tiles(dev):
     V, F = terrain(33)
-    tiles = accel.pack_tiles(V, F, np.zeros(len(F), np.int32))
+    tiles = accel.pack_tiles(V, None, F, np.zeros(len(F), np.int32))
     nbox, nmeta, _ = bvh.build_tile_bvh(tiles["lo"], tiles["hi"])
     cbox, cmeta = bvh.collapse_to_bvh8(nbox, nmeta)
     tiles.update(nbox=nbox, nmeta=nmeta, cbox=cbox, cmeta=cmeta)
@@ -69,7 +69,7 @@ def _soup_tiles(F, dev, seed=0):
     rng = np.random.default_rng(seed)
     c = rng.uniform(-1, 1, (F, 3))
     V = (c[:, None, :] + rng.uniform(-0.15, 0.15, (F, 3, 3))).reshape(-1, 3)
-    tiles = accel.pack_tiles(V.astype(np.float32),
+    tiles = accel.pack_tiles(V.astype(np.float32), None,
                              np.arange(3 * F, dtype=np.int32).reshape(F, 3),
                              np.arange(F, dtype=np.int32) % 5)
     return {k: torch.as_tensor(v, device=dev) for k, v in tiles.items()}
@@ -120,7 +120,7 @@ def test_sorted_sweep_matches_plain(cuda_device, n):
     pipeline's sweep kernel against the plain sweep, bit equal."""
     V, F = terrain(65)
     tiles = {k: torch.as_tensor(v, device=cuda_device) for k, v in
-             accel.pack_tiles(V, F, np.zeros(len(F), np.int32)).items()}
+             accel.pack_tiles(V, None, F, np.zeros(len(F), np.int32)).items()}
     assert tiles["lo"].shape[0] > intersect.SWEEP_FUSED_MAX_TILES
     ray = _rays(n, cuda_device)
     args, _unsort, _n = intersect.prepare_sweep(tiles, ray)
@@ -280,17 +280,34 @@ def test_grid_trilinear_bwd_hard_lanes(cuda_device, C, kind, dtype):
 
 @pytest.mark.cuda
 def test_lookup_refuses_positions_that_require_grad(cuda_device):
-    """The CUDA lookup gives the positions no gradient, so it refuses
-    positions that require one (never a silent zero)."""
-    grid = torch.rand(1, 17, 17, 17, 1, device=cuda_device,
-                      requires_grad=True)
+    """The CUDA lookup refuses no positions that require a gradient: it
+    gives them the plain chain's gradient bit for bit (the kernel's gather
+    entry reads the 8-corner rows again, the same _lerp8 derivative), the
+    grid its own within the backward kernel's tolerance (rtol 1e-5, atol
+    1e-7: the order of its atomic sums), and never a silent zero."""
+    rng = np.random.default_rng(11)
+    grid = torch.as_tensor(rng.random((1, 17, 17, 17, 2)).astype(np.float32),
+                           device=cuda_device).requires_grad_()
     packed = volumes.packed_corners(grid.detach())
-    slot = torch.zeros(10, dtype=torch.int32, device=cuda_device)
-    pl = torch.rand(10, 3, device=cuda_device, requires_grad=True)
-    with pytest.raises(ValueError, match="trajectory-class"):
-        volumes._trilinear_gather(grid, packed, slot, pl)
-    out = volumes._trilinear_gather(grid, packed, slot, pl.detach())
-    assert out.requires_grad
+    slot = torch.zeros(1000, dtype=torch.int32, device=cuda_device)
+    pl = torch.as_tensor(rng.uniform(-0.1, 1.1, (1000, 3)).astype(np.float32),
+                         device=cuda_device).requires_grad_()
+    ct = torch.as_tensor(rng.normal(size=(1000, 2)).astype(np.float32),
+                         device=cuda_device)
+    before = dict(gather.launches)
+    out = volumes._trilinear_gather(grid, packed, slot, pl)
+    d_grid, d_pl = torch.autograd.grad(out, (grid, pl), ct)
+    torch.cuda.synchronize()
+    assert gather.launches["grid_gather"] == before["grid_gather"] + 2
+    assert (gather.launches["grid_trilinear_bwd"]
+            == before["grid_trilinear_bwd"] + 1)
+    with gather.use_plain():
+        ref = volumes._trilinear_gather(grid, packed, slot, pl)
+        ref_grid, ref_pl = torch.autograd.grad(ref, (grid, pl), ct)
+    assert gather.launches["grid_gather"] == before["grid_gather"] + 2
+    assert bool(d_pl.abs().sum() > 0)
+    assert torch.equal(d_pl, ref_pl)
+    torch.testing.assert_close(d_grid, ref_grid, rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.cuda

@@ -51,7 +51,7 @@ def _port_si(bsdf, wi):
         "sensor": {"type": "perspective", "film": {"width": 2, "height": 2}},
         "rect": {"type": "rectangle", "bsdf": bsdf}}, device="cpu")
     n = wi.shape[0]
-    si = dataclasses.replace(invalid_si(n, "cpu"), t=torch.ones(n),
+    si = dataclasses.replace(invalid_si(n, 0, device="cpu"), t=torch.ones(n),
                              wi=torch.as_tensor(wi),
                              shape_index=torch.zeros(n, dtype=torch.int32))
     return scene, si

@@ -68,7 +68,7 @@ def _t_condition(V, F, prim, o, d):
 
 def _tiles(name):
     V, F = MESHES[name]()
-    return V, F, accel.pack_tiles(V, F, np.zeros(len(F), np.int32))
+    return V, F, accel.pack_tiles(V, None, F, np.zeros(len(F), np.int32))
 
 
 @pytest.mark.parametrize("name", sorted(MESHES))
@@ -195,7 +195,7 @@ def test_small_tile_sets_match_pallas(name, path):
     against the Pallas kernel; 1,100 rays are past SORT_MIN_RAYS, so the
     sorted pipeline sorts."""
     V, F = SMALL[name]()
-    tiles = accel.pack_tiles(V, F, np.zeros(len(F), np.int32))
+    tiles = accel.pack_tiles(V, None, F, np.zeros(len(F), np.int32))
     assert len(tiles["lo"]) == {"tile1": 1, "tiles8": 8}[name]
     o, d, mint, maxt = _rays(1100, seed=11)
     query = {"fused": intersect.intersect_tiles,
@@ -212,7 +212,7 @@ def test_fused_query_matches_sorted_pipeline(name):
     wherever the hit t is unique."""
     V, F = {**SMALL, **MESHES}[name]()
     tiles = {k: torch.as_tensor(v) for k, v in accel.pack_tiles(
-        V, F, np.arange(len(F), dtype=np.int32) % 3).items()}
+        V, None, F, np.arange(len(F), dtype=np.int32) % 3).items()}
     o, d, mint, maxt = _rays(1100, seed=12)
     ray = _ray(o, d, mint, maxt)
     fused = intersect.intersect_tiles(tiles, ray)

@@ -232,7 +232,7 @@ def _interactions(wi, uv):
               prim_index=jnp.zeros(n, jnp.int32),
               shape_index=jnp.zeros(n, jnp.int32))
     port = dataclasses.replace(
-        invalid_si(n, "cpu"), t=torch.ones(n), uv=t(uv), wi=t(wi),
+        invalid_si(n, 0, device="cpu"), t=torch.ones(n), uv=t(uv), wi=t(wi),
         shape_index=torch.zeros(n, dtype=torch.int32))
     return ref, port
 

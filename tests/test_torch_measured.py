@@ -171,7 +171,7 @@ def directions(n, seed, upper=True):
 
 def interactions(wi):
     n = len(wi)
-    si = invalid_si(n, "cpu")
+    si = invalid_si(n, 0, device="cpu")
     si = dataclasses.replace(si, wi=torch.as_tensor(wi),
                              t=torch.ones(n))
     z3 = jnp.zeros((n, 3))

@@ -51,7 +51,7 @@ def test_tile_builder_bit_equal(mesh):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
     shape = np.arange(len(F), dtype=np.int32) % 3
-    got = accel.pack_tiles(V, F, shape)
+    got = accel.pack_tiles(V, None, F, shape)
     want = jaccel.pack_tiles(V, None, F, shape)
     assert set(got) == set(want)
     for k in got:

@@ -76,7 +76,8 @@ def test_texture_kinds_match_reference(variant):
     prim = rng.integers(0, 6, N).astype(np.int32)  # past the faces: clamped
     prim_uv = rng.dirichlet([1, 1, 1], N)[:, 1:].astype(np.float32)
     got = texture_eval(scene, torch.as_tensor(tex), torch.as_tensor(uv),
-                       torch.as_tensor(prim), torch.as_tensor(prim_uv))
+                       si_extra={"prim_index": torch.as_tensor(prim),
+                                 "prim_uv": torch.as_tensor(prim_uv)})
     ref = jtexture_eval(jscene, jnp.asarray(tex), jnp.asarray(uv),
                         jnp.zeros((N, 0)),
                         si_extra={"prim_index": jnp.asarray(prim),

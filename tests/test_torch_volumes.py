@@ -206,3 +206,50 @@ def test_packed_lookup_grid_gradient_matches_reference():
     assert np.abs(np.asarray(ref)).sum() > 0
     np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-7)
+
+
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_packed_lookup_positions_gradient_matches_reference_vjp(C):
+    """The packed lookup differentiates its positions and its grid at
+    once (GridTrilinear: trilinear_positions_backward and
+    trilinear_backward_plain): jax.vjp of the reference's
+    _trilinear_gather with respect to both, the positions within rtol
+    1e-5, atol 1e-5 of the largest |gradient| (the derivative subtracts
+    corner values), the grid within rtol 1e-5, atol 1e-7."""
+    grid, vslot, pl, ct = _large_lookups(C, seed=9)
+    _o, vjp = jax.vjp(lambda g, q: jvol._trilinear_gather(
+        g, jnp.asarray(vslot), q), jnp.asarray(grid), jnp.asarray(pl))
+    ref_grid, ref_pl = (np.asarray(a) for a in vjp(jnp.asarray(ct)))
+    tgrid = torch.as_tensor(grid).requires_grad_()
+    tpl = torch.as_tensor(pl).requires_grad_()
+    out = volumes._trilinear_gather(tgrid, volumes.packed_corners(
+        tgrid.detach()), torch.as_tensor(vslot), tpl)
+    d_grid, d_pl = torch.autograd.grad(out, (tgrid, tpl),
+                                       torch.as_tensor(ct))
+    assert np.abs(ref_pl).max() > 0
+    np.testing.assert_allclose(d_pl.numpy(), ref_pl, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref_pl).max())
+    np.testing.assert_allclose(d_grid.numpy(), ref_grid, rtol=1e-5,
+                               atol=1e-7)
+
+
+def test_volume_eval_gradient_gather_path_matches_reference():
+    """volume_eval_gradient over the (17, 16, 16) grid (> 4,096 voxels:
+    the packed lookup, GridTrilinear's positions gradient) and its albedo
+    constvolume (a zero gradient) against the reference's, within rtol
+    1e-5, atol 1e-5 of the largest |gradient|."""
+    d = atmosphere(8, 8, 1, 4, grid_res=(17, 16, 16))
+    ref_scene = jload_dict(d)
+    scene = load_dict(d, device="cpu")
+    assert scene.vol_packed is not None
+    n = 1000
+    p = _points(n, 4)
+    vidx = (np.arange(n) % 2).astype(np.int32)
+    want = np.asarray(jvol.volume_eval_gradient(
+        ref_scene, jnp.asarray(vidx), jnp.asarray(p), jnp.zeros((n, 3))))
+    got = volumes.volume_eval_gradient(scene, torch.as_tensor(vidx),
+                                       torch.as_tensor(p)).numpy()
+    assert got.shape == want.shape and np.abs(want[::2]).max() > 0
+    np.testing.assert_array_equal(got[1::2], 0.0)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
