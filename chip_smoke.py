@@ -84,9 +84,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      value+grad times, forward and adjoint loop iterations, host syncs,
      launches of every kernel and entry in the forward and in the
      backward (grid_trilinear_bwd launches == gridvolume lookups of the
-     adjoint > 0 on the 64^3 scene), threefry's share of a synchronised
-     flagship value+grad, and the peak device memory; the film bit-equal
-     to the primal render's, the gradients finite and not all zero; then
+     adjoint > 0 on the 64^3 scene), threefry's share (``ert::rng``) of a
+     profiled flagship value+grad's busy device time, and the peak device
+     memory; the film bit-equal to the primal render's, the gradients
+     finite and not all zero; then
      the 64x64 spp4 max_depth 6 value+grad of the 64^3 atmosphere
      through the kernels
      and through the plain gather and the plain sweep, gradients within
@@ -159,7 +160,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  25. the reference's default filter: terrain(256) at 256x256 spp16
      max_depth 6 with no rfilter (gaussian, radius 2) through the scan
      driver and the pool of 2^18 lanes (films within 64 pixels), the
-     splat's share of a synchronised pool render, value+grad at spp 4
+     splat's share (``ert::film``) of a profiled pool render's busy device
+     time, value+grad at spp 4
      through the path replay (launches == queries), and film_put and
      film_gather on 2^20 random samples into 256x256 against the same
      call on the CPU (rtol 1e-5), timed beside the bound and an
@@ -230,8 +232,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      area light replaced by a spot and a projector (an inline 64x64
      bitmap), a cylinder, a cone and a 12-triangle cube (the fused
      query), the ldsampler sampler, on the lane pool of 32,768 lanes
-     (launches == queries); threefry's and _sobol_2's shares of a
-     synchronised spp4 render; a 64x64 spp4 film through the kernel
+     (launches == queries); threefry's share (``ert::rng``) of a profiled
+     spp4 render's busy device time; a 64x64 spp4 film through the kernel
      against the plain sweep (budget 2); value+grad at spp 2 (the walls'
      reflectance rows finite, not zero); sample_emitter_ray over 2^20
      lanes against the same call on the CPU (1e-6);
@@ -299,9 +301,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      3's terrain(256) (spp 16) through the scan driver and a pool of 2^18
      lanes: the base films within 2 pixels of phase 3's and phase 17's,
      tile_sweep launches == the child's queries (phase 3's, phase 17's)
-     + the AOV queries (one a scan pass, one a pool refill; the refills
-     timed synchronised), the two drivers' AOVs within 1e-5 and the prim
-     index equal (but in 2 pixels) outside the pixels of the samples the
+     + the AOV queries (one a scan pass, one a pool refill; the refill
+     queries' device time from a profiled render), the two drivers' AOVs
+     within 1e-5 and the prim index equal (but in 2 pixels) outside the
+     pixels of the samples the
      scan driver splats into the next pixel (its float32 pixel + jitter
      rounds up; the pool writes a sample to its own pixel), and a 64x64
      spp4 max_depth 3 (6 until phase 40 was added) pool render through the
@@ -455,11 +458,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 ``python3 chip_smoke.py --profile`` adds, before the report, a breakdown of
 the full-width terrain, forest, flagship atmosphere and 64^3 atmosphere
 renders and of the Cornell box, terrain, forest, materials Cornell box
-and materials terrain renders on the lane pool: host time per stage
-(each stage synchronised before and after; the nested BSDF dispatch and
-the BSDFs' texture lookups timed inside the BSDF stages)
-and a torch.profiler pass whose kernel tables go to
-smoke_out/profile_<scene>.txt.
+and materials terrain renders on the lane pool: one torch.profiler pass
+each, whose device time goes to the port's spans (``ert::query`` split by
+its kernels, ``ert::volume_eval``, ``ert::rng``, ...; perfbench/spans.py)
+and whose kernel tables go to smoke_out/profile_<scene>.txt.
 """
 
 import collections
@@ -473,6 +475,8 @@ import time
 
 import numpy as np
 import torch
+
+from perfbench import devtrace, spans
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -783,34 +787,35 @@ def films_equivalent(a, b, max_flips, tol=1e-4):
     return int(bad.sum())
 
 
-@contextlib.contextmanager
-def stage_timers(stages):
-    """Wrap each ``(module, attribute)`` function of ``stages`` (name ->
-    pair; the stages must not call one another) so that it synchronises
-    the card before and after and adds its host time (s) to the dict that
-    is yielded."""
-    spent = dict.fromkeys(stages, 0.0)
-    saved = []
+def span_profile(fn):
+    """``fn()`` under torch.profiler (CPU and CUDA) inside the benchmark's
+    window span -> (seconds, the profiler, the trace's events, the window's
+    devtrace and spans reductions merged). Nothing is synchronised inside
+    ``fn``: each figure is device time put down to the port's spans
+    (perfbench/spans.py)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    def timed(name, fn):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(devtrace.WINDOW):
             t0 = time.perf_counter()
-            out = fn(*a, **kw)
+            fn()
             torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t0
-            return out
-        return wrapper
-
-    for name, (mod, attr) in stages.items():
-        fn = getattr(mod, attr)
-        saved.append((mod, attr, fn))
-        setattr(mod, attr, timed(name, fn))
+            secs = time.perf_counter() - t0
+    os.makedirs("smoke_out", exist_ok=True)
+    path = os.path.join("smoke_out", f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
     try:
-        yield spent
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
     finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+        os.remove(path)
+    summary = {**devtrace.reduce_events(events), **spans.reduce_events(events)}
+    return secs, prof, events, summary
+
+
+def span_ms(summary, name):
+    return summary["span_device_s"].get(name, 0.0) * 1e3
 
 
 @contextlib.contextmanager
@@ -828,60 +833,30 @@ def env(**values):
                 os.environ[k] = v
 
 
+# the render stages the port's spans mark (perfbench/spans.py), and the
+# query's finer stages by the kernels launched inside ert::query (the
+# other kernels there are the pre-passes: Morton keys, sort, masks)
+STAGE_SPANS = ("ert::query", "ert::volume_eval", "ert::free_flight",
+               "ert::rng", "ert::bsdf", "ert::phase", "ert::nee",
+               "ert::film", "ert::pool.refill", "ert::pool.harvest")
+QUERY_KERNELS = {"sweep kernel": ("tile_sweep_kernel",),
+                 "fused sweep query": ("tile_sweep_small_kernel",),
+                 "tile_bvh/tile_bvh8 kernel": ("tile_bvh_kernel",
+                                               "tile_bvh8_kernel")}
+
+
 def profile_render(render, render_s, label, window=None):
     """Where a full-width render's time goes (``render()`` runs it); prints
     '#' lines and writes the profiler's kernel table to
     smoke_out/profile_<label>.txt. The profiler traces ``window()`` (a
     shorter steady run of the same loop) when given, else the render; a
-    window is also timed without the profiler for its busy share."""
-    from eradiate_kernel_tpu_torch import bsdfs, media, phase
-    from eradiate_kernel_tpu_torch.core import rng
-    from eradiate_kernel_tpu_torch.integrators import common
-    from eradiate_kernel_tpu_torch.ops import intersect
-    from eradiate_kernel_tpu_torch.render import geometry, texture
-
-    stages = {
-        "sweep pre-passes": (intersect, "prepare_sweep"),
-        "sweep kernel": (intersect, "sweep"),
-        "fused sweep query": (intersect, "sweep_small"),
-        "bvh pre-passes": (intersect, "prepare_bvh"),
-        "tile_bvh/tile_bvh8 kernel": (intersect, "traverse"),
-        "volume lookups": (media, "volume_eval"),
-        "threefry": (rng, "threefry2x32"),
-        "surface interaction": (geometry, "compute_surface_interaction"),
-        "bsdf sample": (bsdfs, "bsdf_sample"),
-        "bsdf eval": (bsdfs, "bsdf_eval_pdf"),
-        "flight profile setup": (media, "_flight_profile_setup"),
-        "flight sample": (media, "_flight_sample"),
-        "phase sample": (phase, "phase_sample"),
-        "sphere hits": (geometry, "_intersect_spheres"),
-        "rectangle hits": (geometry, "_intersect_rects"),
-        "disk hits": (geometry, "_intersect_disks"),
-    }
-    # stages inside "bsdf sample" and "bsdf eval" (timed, not summed): a
-    # wrapper's nested dispatch, and the BSDFs' texture lookups
-    inner = {
-        "nested bsdf sample": (bsdfs, "dispatch_sample_nested"),
-        "nested bsdf eval": (bsdfs, "dispatch_eval_pdf_nested"),
-        "bsdf textures": (texture, "texture_eval"),
-    }
-    with stage_timers(stages) as spent, stage_timers(inner) as spent_in:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render()
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    rest = total - sum(spent.values())
-    parts = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in spent.items() if v)
-    inside = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in spent_in.items()
-                       if v)
-    print(f"# {label} render stages (synchronised, ms): total "
-          f"{total * 1e3:.1f}: {parts}, other {rest * 1e3:.1f}"
-          + (f"; inside the bsdf stages: {inside}" if inside else ""),
-          flush=True)
-
+    window is also timed without the profiler for its busy share. The
+    stages are the port's spans: device time launched inside each (nested
+    spans count in each), the query's split by its kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from eradiate_kernel_tpu_torch.integrators import common
+
     if window is not None:
         render = window
         torch.cuda.synchronize()
@@ -890,17 +865,28 @@ def profile_render(render, render_s, label, window=None):
         torch.cuda.synchronize()
         render_s = time.perf_counter() - t0
     common.counters.update(host_syncs=0, pool_syncs=0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render()
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
+    prof_s, prof, events, summary = span_profile(render)
+    query = spans.kernels_inside(events, "ert::query")
+    split = {k: sum(v for n, v in query.items() if any(f in n for f in fs))
+             for k, fs in QUERY_KERNELS.items()}
+    split["pre-passes"] = sum(query.values()) - sum(split.values())
+    parts = ", ".join(f"{k} {span_ms(summary, k):.1f}" for k in STAGE_SPANS
+                      if k in summary["span_count"])
+    inside = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in split.items() if v)
+    idle = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(
+        summary["span_idle_s"].items(), key=lambda kv: -kv[1])[:6])
+    print(f"# {label} render spans (device ms of the profiled run, busy "
+          f"{summary['busy_s'] * 1e3:.1f} of {summary['window_s'] * 1e3:.1f}"
+          f"): {parts}" + (f"; inside ert::query: {inside}" if inside
+                           else "") + f"; idle by innermost span: {idle}",
+          flush=True)
     counted_syncs = dict(common.counters)
     avgs = prof.key_averages()
     # device-side rows only: an aten op's row repeats its kernels' time
     kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    # busy: the union of the trace's device intervals (the rows' sum
+    # counts some kernels more than once)
+    busy_us = summary["busy_s"] * 1e6
     ours = {name: sum(e.self_device_time_total for e in kernels
                       if any(f in e.key for f in funcs))
             for name, funcs in KERNEL_FUNCS.items()}
@@ -917,7 +903,7 @@ def profile_render(render, render_s, label, window=None):
         return
     ours_txt = ", ".join(f"{k} {v / 1e3:.1f} ms" for k, v in ours.items())
     what = "window" if window else "render"
-    print(f"# {label} render profile: device kernel time "
+    print(f"# {label} render profile: device busy "
           f"{busy_us / 1e3:.1f} ms ({ours_txt}), busy share "
           f"{busy_us / 1e6 / render_s:.3f} of the unprofiled {what} "
           f"({render_s * 1e3:.1f} ms), {busy_us / 1e6 / prof_s:.3f} of "
@@ -1458,12 +1444,12 @@ def value_grad(scene, n_lanes, keys, threefry=False, with_primal=True):
     points (autodiff.traverse, integrators.render(regen=True),
     loss.backward()), after a primal render of the same scene and seed.
     The counts of counting() are read after the value+grad's forward and
-    after its backward. With ``threefry``, one more value+grad with every
-    threefry call synchronised and timed (its share of that run). Without
-    ``with_primal`` no primal render (and no film check): the value+grad
+    after its backward. With ``threefry``, one more value+grad, profiled:
+    threefry's device time (``ert::rng``) and its share of the run's busy
+    device time. Without ``with_primal`` no primal render (and no film
+    check): the value+grad
     alone. Returns (record, the parameters with their .grad)."""
     from eradiate_kernel_tpu_torch import films, integrators
-    from eradiate_kernel_tpu_torch.core import rng
     from eradiate_kernel_tpu_torch.films import develop
     from eradiate_kernel_tpu_torch.utils import autodiff
 
@@ -1510,16 +1496,14 @@ def value_grad(scene, n_lanes, keys, threefry=False, with_primal=True):
         rec.update(primal_ms=primal_s * 1e3,
                    value_grad_over_primal=total_s / primal_s)
     if threefry:
-        with stage_timers({"threefry": (rng, "threefry2x32")}) as spent:
-            p2 = pm.trainable()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            develop(render(pm.with_trainable(p2))).mean().backward()
-            torch.cuda.synchronize()
-            sync_s = time.perf_counter() - t0
-        rec.update(threefry_ms=spent["threefry"] * 1e3,
-                   synchronised_ms=sync_s * 1e3,
-                   threefry_share=spent["threefry"] / sync_s)
+        p2 = pm.trainable()
+        prof_s, _prof, _events, summary = span_profile(
+            lambda: develop(render(pm.with_trainable(p2))).mean().backward())
+        rec.update(threefry_ms=span_ms(summary, "ert::rng"),
+                   profiled_ms=prof_s * 1e3,
+                   busy_ms=summary["busy_s"] * 1e3,
+                   threefry_share=span_ms(summary, "ert::rng")
+                   / (summary["busy_s"] * 1e3))
     return rec, params
 
 
@@ -1565,9 +1549,9 @@ def check_value_grad(label, scene, rec, params):
           f"peak "
           f"memory {rec['peak_bytes'] / 2**20:.1f} MiB, loss "
           f"{rec['loss']:.6f}, |grad| sums {grads}"
-          + (f", threefry {rec['threefry_ms']:.1f} ms of a synchronised "
-             f"{rec['synchronised_ms']:.1f} ms run (share "
-             f"{rec['threefry_share']:.3f})" if "threefry_ms" in rec
+          + (f", threefry {rec['threefry_ms']:.1f} device ms of a profiled "
+             f"run's {rec['busy_ms']:.1f} busy ({rec['profiled_ms']:.1f} "
+             f"ms; share {rec['threefry_share']:.3f})" if "threefry_ms" in rec
              else ""), flush=True)
     return rec
 
@@ -2392,26 +2376,25 @@ def measurement_phases(V, F, lanes, box_ms):
     scan = integrators.render(gauss, seed=0, develop_film=False)
     flips = films_equivalent(scan.cpu().numpy(), film.cpu().numpy(),
                              max_flips=64)
-    # the splat's share of a synchronised pool render (film_put timed with
-    # the card synchronised before and after each call)
-    with stage_timers({"splat": (integrators, "film_put")}) as spent:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        integrators.render(gauss, seed=0, regen=True,
-                           samples_per_pass=pool_lanes, develop_film=False)
-        torch.cuda.synchronize()
-        sync_s = time.perf_counter() - t0
+    # the splat's share of a profiled pool render: the device time launched
+    # inside film_put (ert::film) over the run's busy device time
+    prof_s, _prof, _events, summary = span_profile(
+        lambda: integrators.render(gauss, seed=0, regen=True,
+                                   samples_per_pass=pool_lanes,
+                                   develop_film=False))
+    busy_ms = summary["busy_s"] * 1e3
     g.update(scan_ms=scan_s * 1e3, flips_vs_scan=flips,
              box_scan_ms=box_ms["scan"], box_pool_ms=box_ms["pool"],
-             splat_ms=spent["splat"] * 1e3, synchronised_ms=sync_s * 1e3,
-             splat_share=spent["splat"] / sync_s)
+             splat_ms=span_ms(summary, "ert::film"), busy_ms=busy_ms,
+             profiled_ms=prof_s * 1e3,
+             splat_share=span_ms(summary, "ert::film") / busy_ms)
     print(f"# terrain gaussian 256x256 spp16: scan {scan_s * 1e3:.1f} ms, "
           f"lane pool {pool_s * 1e3:.1f} ms (the box film's: "
           f"{box_ms['scan']:.1f} and {box_ms['pool']:.1f} ms), films agree "
           f"({flips} pixels over tolerance, budget "
-          f"64); splat {spent['splat'] * 1e3:.1f} ms of a synchronised "
-          f"{sync_s * 1e3:.1f} ms pool render (share "
-          f"{spent['splat'] / sync_s:.3f})", flush=True)
+          f"64); splat {g['splat_ms']:.1f} device ms of a profiled pool "
+          f"render's {busy_ms:.1f} busy ({prof_s * 1e3:.1f} ms; share "
+          f"{g['splat_share']:.3f})", flush=True)
     rec["gaussian"] = g
     d4 = terrain_scene(V, F, 256, 256, 4, 6)
     del d4["camera"]["film"]["rfilter"]
@@ -3051,17 +3034,14 @@ def slice_5c2_phases(V, F, scene, img, lanes):
     rec["box"] = check_pool(
         "lights-and-quadrics box 256x256 spp2 max_depth 6 (lane pool)",
         box, bfilm, box_s, blaunches, counts, "tile_sweep", (0.01, 2.0))
-    with stage_timers({"threefry": (rng, "threefry2x32"),
-                       "sobol": (rng, "_sobol_2")}) as spent:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        integrators.render(box, seed=0, spp=4, regen=True,
-                           samples_per_pass=lanes)
-        torch.cuda.synchronize()
-        sync_s = time.perf_counter() - t0
-    rec["box"].update(synchronised_ms_spp4=sync_s * 1e3,
-                      threefry_share=spent["threefry"] / sync_s,
-                      sobol_share=spent["sobol"] / sync_s)
+    # threefry's share of a profiled spp 4 pool render's busy device time
+    prof_s, _prof, _events, summary = span_profile(
+        lambda: integrators.render(box, seed=0, spp=4, regen=True,
+                                   samples_per_pass=lanes))
+    rec["box"].update(profiled_ms_spp4=prof_s * 1e3,
+                      busy_ms_spp4=summary["busy_s"] * 1e3,
+                      threefry_share=span_ms(summary, "ert::rng")
+                      / (summary["busy_s"] * 1e3))
     small = load_dict(quadrics_box(64, 64, 4, 6))
     film_k, _ = integrators.render_wavefront_regen(small, lanes, 3, 4)
     with intersect.use_plain():
@@ -3093,9 +3073,9 @@ def slice_5c2_phases(V, F, scene, img, lanes):
     rec["box"]["emitter_rays_max_abs_err"] = err
     print(f"# lights-and-quadrics box: 64x64 spp4 kernel vs plain films "
           f"agree ({rec['box']['flips_vs_plain_64']} pixels, budget 2); "
-          f"a synchronised spp4 pool render {sync_s * 1e3:.1f} ms: "
-          f"threefry share {rec['box']['threefry_share']:.3f}, the "
-          f"ldsampler's _sobol_2 share {rec['box']['sobol_share']:.3f}; "
+          f"a profiled spp4 pool render {prof_s * 1e3:.1f} ms: threefry "
+          f"share of its busy device time "
+          f"{rec['box']['threefry_share']:.3f}; "
           f"sample_emitter_ray on 2^20 lanes within 1e-6 of the CPU (max "
           f"abs err {err:.2e})", flush=True)
 
@@ -3937,12 +3917,14 @@ def slice_6b_phases(V, F, lanes, refs):
         pr["flips_vs_phase_17"] = films_equivalent(
             refs["terrain pool film"].cpu().numpy(),
             film_p[..., :5].cpu().numpy(), 2)
-        # the refills' own time: each refill query synchronised and timed
-        with stage_timers({"refill": (aov, "_refill_aov")}) as spent:
-            integrators.render(scene, seed=0, regen=True,
-                               samples_per_pass=pool_lanes,
-                               develop_film=False)
-        pr["refill_ms"] = spent["refill"] * 1e3
+        # the refill queries' device time: kernels launched inside a query
+        # inside the pool's refill (the camera hit of _refill_aov)
+        _s, _prof, events, _summary = span_profile(
+            lambda: integrators.render(scene, seed=0, regen=True,
+                                       samples_per_pass=pool_lanes,
+                                       develop_film=False))
+        pr["refill_ms"] = 1e3 * sum(spans.kernels_inside(
+            events, "ert::pool.refill", "ert::query").values())
     finally:
         aov._refill_aov = refill_aov
     aovs_p = aov_channels(film_p, names)
@@ -3974,8 +3956,8 @@ def slice_6b_phases(V, F, lanes, refs):
           f"budget 2); pool {pool_s * 1e3:.1f} ms (launches "
           f"{counts['queries']} = phase 17's {refs['terrain pool queries']}"
           f" + {pr['refill_queries']} refill queries taking "
-          f"{pr['refill_ms']:.1f} ms "
-          f"synchronised; base film vs phase 17's: "
+          f"{pr['refill_ms']:.1f} device ms "
+          f"(profiled); base film vs phase 17's: "
           f"{pr['flips_vs_phase_17']} pixels, budget 2); AOVs scan vs pool: "
           f"pixels over 1e-5 {pr['pixels_over_vs_scan']} (budget 2 each) "
           f"outside the {pr['scan_moved_pixels']} pixels of the "

@@ -30,6 +30,7 @@ import torch
 
 from ..core import mueller as mu
 from ..core.math import dot
+from ..utils.runtime import scoped_phase
 from . import (bilambertian, blendbsdf, bumpmap, circular, common,
                conductor, dielectric, diffuse, mask, measured,
                measured_polarized, normalmap, null, plastic, polarizer,
@@ -128,11 +129,13 @@ def _eval_pdf(scene, bsdf_index, si, wo, active, mode, nested):
     return value, pdf
 
 
+@scoped_phase("ert::bsdf")
 def bsdf_sample(scene, bsdf_index, si, s1, s2, active, mode=common.RADIANCE):
     """Dispatch sample() over the kinds present -> (BSDFSample, weight)."""
     return _sample(scene, bsdf_index, si, s1, s2, active, mode, False)
 
 
+@scoped_phase("ert::bsdf")
 def bsdf_eval_pdf(scene, bsdf_index, si, wo, active, mode=common.RADIANCE):
     """Dispatch eval_pdf() -> (value incl. cosine (N, nc), pdf (N,))."""
     return _eval_pdf(scene, bsdf_index, si, wo, active, mode, False)

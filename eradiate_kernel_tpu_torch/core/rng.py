@@ -15,11 +15,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.runtime import scoped_phase
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
 
 
+@scoped_phase("ert::rng")
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds on uint32 values held in int64 tensors
     (or Python ints); arguments broadcast. Returns two int64 tensors."""

@@ -15,6 +15,7 @@ import torch
 from ..core.spectrum import xyz_to_srgb
 from ..rfilters import eval_filter, filter_radius
 from ..utils import bitmap
+from ..utils.runtime import scoped_phase
 
 N_BASE_CHANNELS = 5  # X, Y, Z, A, W
 
@@ -53,6 +54,7 @@ def _taps(image, pos, kind, params):
             wy, wx)
 
 
+@scoped_phase("ert::film")
 def film_put(image, pos, values, rfilter_kind: str, rfilter_params=None):
     """Add samples into the film in place and return it. image: (H, W, C);
     pos: (N, 2) continuous pixel coords (x, y); values: (N, C).

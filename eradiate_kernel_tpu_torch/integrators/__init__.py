@@ -26,6 +26,7 @@ from .. import sensors
 from ..core.rng import Sampler
 from ..films import N_BASE_CHANNELS, develop, film_put
 from ..rfilters import filter_radius
+from ..utils.runtime import scoped_phase
 from . import (aov, common, depth, direct, moment, path, stokes, volpath,
                volpathmis)
 from .bins import bins, nbins
@@ -106,6 +107,7 @@ def _film_rows(spec, valid, wavelengths=None):
                       torch.where(valid, 1.0, 0.0)[:, None], one], dim=-1)
 
 
+@scoped_phase("ert::pass")
 def render_wavefront(scene, lane_offset, n_lanes, seed, spp):
     """One pass of ``n_lanes`` samples from global sample index
     ``lane_offset``; returns the partial film (H, W, 5 + n_aov). Lanes
@@ -199,61 +201,67 @@ def _run_pool(scene, n_lanes, seed, spp, total, max_iterations, bounce,
     it = 0
     cap = 20 * max_iterations * (1 + (ch * cw * spp) // n_lanes)
     while it < cap:
-        # 1. harvest the lanes whose path ended since the last visit
-        if vp is not None:
-            finished = occupied & ~vp.active
-            if harvest is not None:
-                harvest(vp, rw, pos,
-                        torch.where(finished, lane_sample, trash))
-            occupied = occupied & vp.active
+        with scoped_phase("ert::pool.iteration"):
+            # 1. harvest the lanes whose path ended since the last visit
+            if vp is not None:
+                with scoped_phase("ert::pool.harvest"):
+                    finished = occupied & ~vp.active
+                    if harvest is not None:
+                        harvest(vp, rw, pos,
+                                torch.where(finished, lane_sample, trash))
+                    occupied = occupied & vp.active
 
-        # 2. refill dead lanes with the next unstarted samples
-        n_dead = n_lanes - int(occupied.sum())  # host sync
-        common.counters["pool_syncs"] += 1
-        m = min(n_dead, end - next_sample)
-        if m > 0:
-            if vp is None:
-                # the first fill: every lane at once; lanes past a range
-                # shorter than the pool hold its last sample, unoccupied
-                ridx = torch.arange(n_lanes, device=dev)
-                new = torch.clamp(next_sample + ridx, max=end - 1)
-            else:
-                ridx = torch.nonzero(~occupied)[:m, 0]  # host sync
+            # 2. refill dead lanes with the next unstarted samples
+            with scoped_phase("ert::pool.refill"):
+                n_dead = n_lanes - int(occupied.sum())  # host sync
                 common.counters["pool_syncs"] += 1
-                new = next_sample + torch.arange(m, dtype=torch.int64,
-                                                 device=dev)
-            smp, ray, fresh_rw, fresh_pos = _camera_lanes(scene, seed, spp,
-                                                          new)
-            fresh = mod._init_state(scene, smp, ray)
-            if vp is None:
-                vp = dataclasses.replace(fresh, sampler=dataclasses.replace(
-                    fresh.sampler, dim=torch.full(
-                        (n_lanes,), fresh.sampler.dim, dtype=torch.int64,
-                        device=dev)))
-                rw, pos = fresh_rw, fresh_pos
-            else:
-                vp = _put_lanes(vp, fresh, ridx)
-                rw = rw.index_copy(0, ridx, fresh_rw)
-                pos = pos.index_copy(0, ridx, fresh_pos)
-            lane_sample = lane_sample.index_copy(0, ridx[:m], new[:m])
-            occupied = occupied.index_fill(0, ridx[:m], True)
-            its = its.index_fill(0, ridx, 0)
-            next_sample += m
-            if refill is not None:
-                refill(ridx, new, ray)
-        if n_dead - m == n_lanes:  # nothing occupied, nothing left
-            break
+                m = min(n_dead, end - next_sample)
+                if m > 0:
+                    if vp is None:
+                        # the first fill: every lane at once; lanes past a
+                        # range shorter than the pool hold its last sample,
+                        # unoccupied
+                        ridx = torch.arange(n_lanes, device=dev)
+                        new = torch.clamp(next_sample + ridx, max=end - 1)
+                    else:
+                        ridx = torch.nonzero(~occupied)[:m, 0]  # host sync
+                        common.counters["pool_syncs"] += 1
+                        new = next_sample + torch.arange(
+                            m, dtype=torch.int64, device=dev)
+                    smp, ray, fresh_rw, fresh_pos = _camera_lanes(
+                        scene, seed, spp, new)
+                    fresh = mod._init_state(scene, smp, ray)
+                    if vp is None:
+                        vp = dataclasses.replace(
+                            fresh, sampler=dataclasses.replace(
+                                fresh.sampler, dim=torch.full(
+                                    (n_lanes,), fresh.sampler.dim,
+                                    dtype=torch.int64, device=dev)))
+                        rw, pos = fresh_rw, fresh_pos
+                    else:
+                        vp = _put_lanes(vp, fresh, ridx)
+                        rw = rw.index_copy(0, ridx, fresh_rw)
+                        pos = pos.index_copy(0, ridx, fresh_pos)
+                    lane_sample = lane_sample.index_copy(0, ridx[:m],
+                                                         new[:m])
+                    occupied = occupied.index_fill(0, ridx[:m], True)
+                    its = its.index_fill(0, ridx, 0)
+                    next_sample += m
+                    if refill is not None:
+                        refill(ridx, new, ray)
+            if n_dead - m == n_lanes:  # nothing occupied, nothing left
+                break
 
-        # 3. one bounce over the whole (nearly full) pool
-        vp = dataclasses.replace(vp, active=vp.active & occupied,
-                                 n_rays=torch.zeros((), device=dev))
-        vp = bounce(vp, occupied)
-        rays = rays + vp.n_rays
-        its = its + 1
-        # the per-lane iteration cap (the scan driver's trip count)
-        vp = dataclasses.replace(vp, active=vp.active
-                                 & (its < max_iterations))
-        it += 1
+            # 3. one bounce over the whole (nearly full) pool
+            vp = dataclasses.replace(vp, active=vp.active & occupied,
+                                     n_rays=torch.zeros((), device=dev))
+            vp = bounce(vp, occupied)
+            rays = rays + vp.n_rays
+            its = its + 1
+            # the per-lane iteration cap (the scan driver's trip count)
+            vp = dataclasses.replace(vp, active=vp.active
+                                     & (its < max_iterations))
+            it += 1
     if stats is not None:
         stats["iterations"] = it
         stats["dropped"] = (end - next_sample) + (
@@ -454,6 +462,7 @@ def _requires_grad(scene):
         t.requires_grad for t in scene.tensors().values())
 
 
+@scoped_phase("ert::render")
 def render(scene, seed=0, spp=None, samples_per_pass=None,
            develop_film=True, return_aovs=False, regen=False):
     """Multi-pass wavefront render, or with ``regen`` the lane pool of

@@ -22,6 +22,7 @@ from ..core.ray import Ray
 from ..core.rng import Sampler
 from ..render.geometry import ray_intersect
 from ..render.records import SurfaceInteraction, invalid_si, merge
+from ..utils.runtime import scoped_phase
 from .common import any_lane, mis_weight
 
 
@@ -83,6 +84,7 @@ def _init_state(scene, sampler: Sampler, ray: Ray, active=None):
         active=active & ok, n_rays=ray.o.new_zeros(()))
 
 
+@scoped_phase("ert::bounce")
 def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
     """One masked wavefront bounce (the loop body of path.cpp:100-227)."""
     n = s.ray.o.shape[0]
@@ -137,16 +139,17 @@ def _bounce(scene, s: _PathState, *, max_depth, rr_depth):
     bsdf_idx = scene.shape_bsdf[torch.clamp(si.shape_index, min=0)]
     is_smooth = (scene.bsdf_flags[bsdf_idx] & bsdf_flags.Smooth) != 0
     nee_active = active & is_smooth & (scene.config.n_emitters > 0)
-    if any_lane(nee_active):
-        ds, emitter_weight = emitters.sample_emitter_direction(
-            scene, si, s_pick, s1, s2, nee_active)
-        bsdf_val, bsdf_pdf = bsdfs.bsdf_eval_pdf(
-            scene, bsdf_idx, si, si.to_local(ds.d), nee_active)
-        mis_pdf = torch.where(ds.delta, 0.0, bsdf_pdf)
-        mis = torch.where(ds.pdf > 0, mis_weight(ds.pdf, mis_pdf), 0.0)
-        result = result + torch.where(
-            nee_active[:, None],
-            mis[:, None] * throughput * bsdf_val * emitter_weight, 0.0)
+    with scoped_phase("ert::nee"):
+        if any_lane(nee_active):
+            ds, emitter_weight = emitters.sample_emitter_direction(
+                scene, si, s_pick, s1, s2, nee_active)
+            bsdf_val, bsdf_pdf = bsdfs.bsdf_eval_pdf(
+                scene, bsdf_idx, si, si.to_local(ds.d), nee_active)
+            mis_pdf = torch.where(ds.delta, 0.0, bsdf_pdf)
+            mis = torch.where(ds.pdf > 0, mis_weight(ds.pdf, mis_pdf), 0.0)
+            result = result + torch.where(
+                nee_active[:, None],
+                mis[:, None] * throughput * bsdf_val * emitter_weight, 0.0)
     n_rays = n_rays + nee_active.sum()
 
     # ---- BSDF sampling (path.cpp:177-205) -----------------------------------

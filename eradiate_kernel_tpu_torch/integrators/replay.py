@@ -41,6 +41,7 @@ import dataclasses
 import torch
 
 from ..films import film_gather
+from ..utils.runtime import scoped_phase
 from . import REGISTRY, _camera_lanes, _check_regen, _film_rows, _run_pool
 from . import render_wavefront_regen
 
@@ -88,6 +89,7 @@ def _add(acc, grads):
             for a, g in zip(acc, grads)]
 
 
+@scoped_phase("ert::adjoint")
 def _adjoint_sweep(scene, seed, slog, ct_film, n_lanes, spp, needs):
     """Replay the lane pool's schedule while accumulating d(loss)/d(the
     scene's float tensors of _partition) for the film cotangent

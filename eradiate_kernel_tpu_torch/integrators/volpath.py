@@ -50,6 +50,7 @@ from ..core.ray import Ray
 from ..core.rng import Sampler
 from ..render.geometry import ray_intersect
 from ..render.records import SurfaceInteraction, invalid_si, merge
+from ..utils.runtime import scoped_phase
 from .common import any_lane, mis_weight
 
 _DELTA_EMITTERS = ("point", "directional", "spot", "projector")
@@ -434,6 +435,7 @@ def _nee_mode(scene):
                                                    "residual")
 
 
+@scoped_phase("ert::nee")
 def _sample_emitter(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
                     medium_idx, channel, sampler, active, nee_steps,
                     use_while, ca):
@@ -623,6 +625,7 @@ def _direct_step_tracked(scene, s, ref_p, channel, ca):
                        lambda t: torch.any(t > 0, dim=-1))
 
 
+@scoped_phase("ert::nee")
 def _evaluate_direct_light(scene, ref_p, ray, si_ray, medium_idx, channel,
                            sampler, active, nee_steps, use_while, ca):
     """The MIS walk of the BSDF-sampled ``ray`` (its first hit ``si_ray``
@@ -674,6 +677,7 @@ class _VolPathState:
     n_rays: torch.Tensor         # () rays traced
 
 
+@scoped_phase("ert::bounce")
 def _bounce(scene, s: _VolPathState, *, nee_steps, max_depth, rr_depth,
             while_walks=False, gate_sites=True, gate_walks=None):
     """One masked wavefront bounce (the loop body of volpath.cpp:38-258),

@@ -60,6 +60,7 @@ from ..core.ray import Ray
 from ..core.rng import Sampler
 from ..render.geometry import ray_intersect
 from ..render.records import SurfaceInteraction, invalid_si, merge
+from ..utils.runtime import scoped_phase
 from .common import any_lane
 from .volpath import (_RefPoint, _WalkHit, _eval_null_transmission, _gate,
                       _index_ch, _invalid_walk_hit, _is_medium_transition,
@@ -196,6 +197,7 @@ def _walk_step(scene, s, ds, channel, ca):
         active=(active_medium | active_surface) & alive, n_rays=n_rays)
 
 
+@scoped_phase("ert::nee")
 def _sample_emitter_mis(scene, ref_p, ref_n, is_medium_ref, wavelengths, time,
                         medium_idx, channel, sampler, pf, active, nee_steps,
                         use_while, ca):
@@ -267,6 +269,7 @@ class _State:
     n_rays: torch.Tensor         # () rays traced
 
 
+@scoped_phase("ert::bounce")
 def _bounce(scene, s: _State, *, nee_steps, max_depth, rr_depth,
             while_walks=False, gate_sites=True, gate_walks=None):
     """One masked wavefront bounce (volpathmis.cpp:134-330), driven by the

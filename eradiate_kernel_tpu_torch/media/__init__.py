@@ -31,6 +31,7 @@ from ..core.transform import Transform
 from ..render.texture import scene_spectrum_eval
 from ..scene.build_spectra import AXPROF_BINS
 from ..textures.volumes import volume_eval
+from ..utils.runtime import scoped_phase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -500,6 +501,7 @@ def medium_tau_segment(scene, medium_idx, ray, a, b, wavelengths,
     return torch.clamp(tau, 0.0, 60.0)
 
 
+@scoped_phase("ert::free_flight")
 def sample_interaction(scene, medium_idx, ray, sample, channel, active,
                        mode=None):
     """Medium::sample_interaction (medium.cpp:36-77). medium_idx: (N,) i32,

@@ -32,6 +32,7 @@ import torch
 from ..core import mueller as mu
 from ..core.frame import Frame
 from ..core.math import cross, dot, safe_sqrt
+from ..utils.runtime import scoped_phase
 
 INV_FOUR_PI = 1.0 / (4.0 * math.pi)
 
@@ -198,6 +199,7 @@ def phase_eval(scene, phase_idx, wi, wo, active=True):
     return torch.where(torch.as_tensor(active, device=ct.device), out, 0.0)
 
 
+@scoped_phase("ert::phase")
 def phase_sample(scene, phase_idx, ray_d, s1, s2, active=True):
     """Sample wo (world); returns (wo, pdf). Frame +z = ray.d. A
     blendphase picks its child by ``s1 < weight`` and hands it s1

@@ -28,6 +28,7 @@ from ..core.transform import Transform
 from ..core.types import resolve_device
 from ..ops.intersect import (intersect_bvh, intersect_bvh8, intersect_tiles,
                              root_box, row_views, tile_rows)
+from ..utils.runtime import scoped_phase
 from .records import PreliminaryIntersection, SurfaceInteraction
 
 FAMILY_MESH = 0
@@ -357,6 +358,7 @@ def _intersect_cones(geo: Geometry, ray: Ray):
                             geo.cone_shape)
 
 
+@scoped_phase("ert::query")
 def ray_intersect_preliminary(geo: Geometry, ray: Ray,
                               active=None) -> PreliminaryIntersection:
     """Closest hit over meshes, instances, spheres, rectangles, disks,

@@ -57,6 +57,7 @@ import torch
 
 from ..core.transform import Transform
 from ..ops import gather
+from ..utils.runtime import scoped_phase
 
 # voxel-count threshold between the einsum path and the packed-row gather
 # path (the reference's EINSUM_MAX_VOXELS)
@@ -434,6 +435,7 @@ def _wavelength_lerp(params, slot, spec, wavelengths):
     return v0 * (1 - f) + v1 * f
 
 
+@scoped_phase("ert::volume_eval")
 def volume_eval(scene, vol_idx, p, wavelengths=None, active=True):
     """Evaluate volumes per lane at world position p -> (..., nc);
     ``wavelengths`` (..., nw), the spectral variant's hero wavelengths.

@@ -7,11 +7,16 @@ and its timeout (integrator.h), the SIGHUP partial develop (mitsuba.cpp)
 and the profiler's scoped phases (profiler.h), mapped onto host callbacks
 between the passes of the scan driver: a pass of ``samples_per_pass``
 samples is the cancellation, progress and checkpoint boundary.
+
+``scoped_phase`` is the port's one span primitive: every layer of the
+render path (core/rng.py up to integrators.render) marks its work with it,
+so this module imports nothing of the port at load time.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 import time
@@ -19,9 +24,6 @@ import zipfile
 
 import numpy as np
 import torch
-
-from .. import integrators
-from ..films import N_BASE_CHANNELS, develop
 
 
 class ProgressReporter:
@@ -79,6 +81,9 @@ def render(scene, seed=0, spp=None, samples_per_pass=None, progress=False,
     ``<path>.tmp`` and renamed atomically to ``<path>``; on start, a
     checkpoint of the same identity resumes from its pass, another one is
     ignored. A render that ran to its end removes its checkpoint."""
+    from .. import integrators
+    from ..films import N_BASE_CHANNELS, develop
+
     cfg = scene.config
     dev = scene.bsphere_center.device
     spp = spp or cfg.spp
@@ -134,18 +139,64 @@ def render(scene, seed=0, spp=None, samples_per_pass=None, progress=False,
 # profiling phases (profiler.h ScopedPhase -> torch.profiler)
 # =============================================================================
 
-@contextlib.contextmanager
-def scoped_phase(name: str):
-    """Annotate a region for torch.profiler (ProfilerPhase analog)."""
-    with torch.profiler.record_function(name):
-        yield
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class scoped_phase:
+    """A named span of the port's work (ProfilerPhase / ScopedPhase
+    analog), as a context manager or, applied to a function, as a
+    decorator that spans each call (``@scoped_phase("ert::bounce")``; the
+    function keeps its name and signature).
+
+    With no profiler active a span costs one flag check: it calls no
+    ``record_function`` and so reaches no dispatcher. Under an active
+    torch.profiler (``trace`` below, or any ``torch.profiler.profile``) it
+    enters ``record_function(name)``: the span lands in the Kineto trace as
+    a user annotation on the launching thread, on the device events' clock,
+    so each kernel and each idle gap of the device can be put down to the
+    innermost span that launched it. A span adds no host sync, no device
+    operation and no allocation. The port names its spans ``ert::<layer>``
+    (PERF.md, "Tracing")."""
+
+    __slots__ = ("name", "_span")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._span = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._span = torch.profiler.record_function(self.name)
+            self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        span, self._span = self._span, None
+        if span is not None:
+            span.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _profiler_enabled():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return spanned
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block (the CPU, and the card where there is one) and
     write a Chrome trace to ``log_dir/trace.json`` (the Profiler report
-    analog; opens in Perfetto or chrome://tracing). Yields the profiler."""
+    analog). Yields the profiler. The trace holds the port's
+    ``scoped_phase`` spans (``ert::render`` down to ``ert::rng``) beside
+    the kernels they launched: open it in Perfetto (ui.perfetto.dev) or
+    chrome://tracing to see which layer used the device and where it idled;
+    ``perfbench/spans.py`` reduces it to device and idle seconds a span."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
